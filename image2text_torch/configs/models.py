@@ -1,0 +1,158 @@
+"""Model configuration for the PyTorch port: plain dataclasses.
+
+Same class and field names as ``image2text_tpu/configs/models.py`` for the
+classes the flagship caption model uses, so a reader can hold one against
+the other.  The machine with the card has neither pydantic nor PyYAML, so
+the flagship configuration (``training_configs/tpu/nano-mini.yaml``) is
+transcribed here as a Python constant; :func:`flagship_config` mirrors the
+JAX package's ``__graft_entry__._flagship_config``, including its tiny form.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from enum import Enum
+from typing import Optional, Tuple
+
+
+@dataclass
+class MoEConfig:
+    num_experts: int
+    proj_features: int
+    ff_mult_factor: float
+    gate_sizes: Optional[Tuple[int, ...]] = None
+    top_k: int = 1
+
+
+class SelfAttentionType(Enum):
+    MULTI_HEAD = "multi_head"
+    MULTI_QUERY = "multi_query"
+
+
+@dataclass
+class SelfAttentionConfig:
+    attn_type: SelfAttentionType
+    attn_dropout: float = 0.1
+    bias: bool = True
+    dropout: float = 0.1
+    n_head: int = 12
+    n_embd: int = 768
+
+
+@dataclass
+class TransformerConfig:
+    rotator_config: MoEConfig
+    attn_config: SelfAttentionConfig
+    is_causal: bool = False
+    is_cross_attn: bool = False
+    max_block_size: Optional[int] = None
+    is_sparse_attn: bool = False
+    sparsity_factor: float = 0.5
+
+
+@dataclass
+class ImageInputSpec:
+    width: int
+    height: int
+    n_channels: int = 3
+
+
+@dataclass
+class VisionTransformerEncoderConfig:
+    n_cls: int
+    transformer_config: TransformerConfig
+    input: ImageInputSpec
+    num_patches: int
+    n_channels: int
+    n_layer: int = 12
+    enable_gradient_checkpointing: bool = False
+    feature_extractor_gate_sizes: Optional[Tuple[int, ...]] = None
+    feature_extractor_kernel_size: Tuple[int, int] = (4, 4)
+
+
+@dataclass
+class TransformerDecoderConfig:
+    vocab_size: int
+    transformer_config: TransformerConfig
+    n_layer: int
+    block_size: int
+    enable_gradient_checkpointing: bool = False
+    use_advanced_pos_emb: bool = False
+    skip_alternate_cross_attn: bool = True
+
+
+@dataclass
+class VisionEncoderDecoderConfig:
+    vision_encoder_config: VisionTransformerEncoderConfig
+    decoder_config: TransformerDecoderConfig
+    use_cross_attn: bool = False
+    use_soft_prompting: bool = True
+    no_repeat_n_grams: Tuple[int, ...] = (2, 3, 4, 5)
+
+
+def _flagship() -> VisionEncoderDecoderConfig:
+    """``training_configs/tpu/nano-mini.yaml``'s ``model`` section."""
+    mq = SelfAttentionType.MULTI_QUERY
+    enc = VisionTransformerEncoderConfig(
+        enable_gradient_checkpointing=True,
+        input=ImageInputSpec(n_channels=3, width=128, height=128),
+        n_layer=12, n_cls=64, num_patches=16, n_channels=32,
+        feature_extractor_gate_sizes=(8, 16),
+        feature_extractor_kernel_size=(6, 6),
+        transformer_config=TransformerConfig(
+            is_sparse_attn=True, max_block_size=320, sparsity_factor=0.5,
+            attn_config=SelfAttentionConfig(
+                attn_dropout=0.1, bias=False, dropout=0.1, n_head=8,
+                n_embd=1024, attn_type=mq),
+            rotator_config=MoEConfig(
+                num_experts=4, proj_features=16, gate_sizes=(32,),
+                ff_mult_factor=2.0, top_k=2)))
+    dec = TransformerDecoderConfig(
+        enable_gradient_checkpointing=True, n_layer=12, block_size=256,
+        vocab_size=50258,
+        transformer_config=TransformerConfig(
+            is_cross_attn=True, is_causal=True, is_sparse_attn=True,
+            max_block_size=320, sparsity_factor=0.5,
+            attn_config=SelfAttentionConfig(
+                attn_dropout=0.1, bias=True, dropout=0.1, n_head=8,
+                n_embd=1024, attn_type=mq),
+            rotator_config=MoEConfig(
+                num_experts=4, proj_features=16, gate_sizes=(32,),
+                ff_mult_factor=4.0)))
+    return VisionEncoderDecoderConfig(
+        vision_encoder_config=enc, decoder_config=dec, use_cross_attn=True,
+        use_soft_prompting=True, no_repeat_n_grams=(2, 3, 4, 5))
+
+
+FLAGSHIP = _flagship()
+
+
+def flagship_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
+    """A fresh copy of the flagship config; ``tiny`` cuts it to test size
+    exactly as ``__graft_entry__._flagship_config`` does."""
+    cfg = copy.deepcopy(FLAGSHIP)
+    if tiny:
+        enc, dec = cfg.vision_encoder_config, cfg.decoder_config
+        enc.n_layer, dec.n_layer = 2, 2
+        enc.n_cls = 8
+        enc.input.width = enc.input.height = 64
+        enc.num_patches = 8
+        enc.transformer_config.attn_config.n_embd = 64
+        enc.transformer_config.attn_config.n_head = 4
+        enc.transformer_config.max_block_size = 80
+        dec.transformer_config.attn_config.n_embd = 64
+        dec.transformer_config.attn_config.n_head = 4
+        dec.block_size = 64
+        dec.transformer_config.max_block_size = 80
+        dec.vocab_size = 512
+        dec.enable_gradient_checkpointing = False
+        enc.enable_gradient_checkpointing = False
+    return cfg
+
+
+__all__ = [
+    "FLAGSHIP", "ImageInputSpec", "MoEConfig", "SelfAttentionConfig",
+    "SelfAttentionType", "TransformerConfig", "TransformerDecoderConfig",
+    "VisionEncoderDecoderConfig", "VisionTransformerEncoderConfig",
+    "flagship_config",
+]

@@ -1,0 +1,156 @@
+"""Scratch causal decoder (counterpart of
+``image2text_tpu/models/decoder.py::TransformerDecoder``): token table
+``wte``, plain positional table ``wpe``, sparse MQA/MoE blocks with
+cross-attention on even depths only, ``ln_f`` and the lm_head tied to
+``wte`` with f32 accumulation and f32 logits.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+from torch import nn
+
+from image2text_torch.configs.models import (TransformerConfig,
+                                             TransformerDecoderConfig)
+from image2text_torch.models.kv_cache import KVCache
+from image2text_torch.models.layers import MoELinear, TransformerBlock
+from image2text_torch.nn.core import normal_init, zeros_init
+from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
+from image2text_torch.ops.static_gather import canonicalize
+
+
+def mutate_transformer_config(config: TransformerConfig, depth: int,
+                              skip_alternate_cross_attn: bool):
+    """Disable cross-attention on odd depths."""
+    if config.is_cross_attn and skip_alternate_cross_attn and depth % 2:
+        config = copy.deepcopy(config)
+        config.is_cross_attn = False
+    return config
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, config: TransformerDecoderConfig,
+                 space_for_prompt: int = 0, device=None):
+        super().__init__()
+        if config.use_advanced_pos_emb:
+            raise NotImplementedError(
+                "the positional MLP (use_advanced_pos_emb) is not ported yet")
+        self.config = config
+        self.skip_alternate_cross_attn = config.skip_alternate_cross_attn
+        self.tied_aliases = {"lm_head.weight": "transformer.wte.weight"}
+        n_embd = config.transformer_config.attn_config.n_embd
+        self.transformer = nn.Module()
+        self.transformer.wte = Embedding(config.vocab_size, n_embd, device)
+        self.transformer.wpe = Embedding(config.block_size, n_embd, device)
+        self.transformer.h = nn.ModuleList([
+            TransformerBlock(
+                mutate_transformer_config(config.transformer_config, depth,
+                                          config.skip_alternate_cross_attn),
+                depth, space_for_prompt, device)
+            for depth in range(config.n_layer)])
+        self.transformer.ln_f = LayerNorm(
+            n_embd, config.transformer_config.attn_config.bias, device=device)
+        self.blocks = self.transformer.h
+        self._gpt2_init_policy()
+
+    def _gpt2_init_policy(self):
+        """GPT-2 initialisation of the JAX decoder: Linear, Embedding and
+        stacked-expert weights N(0, 0.02), their biases zero (no weight
+        of the flagship ends in 'c_proj.weight', so no residual scaling)."""
+        for mod in self.modules():
+            fns = getattr(mod, "_init_fns", {})
+            if isinstance(mod, (Linear, Embedding)):
+                for name in fns:
+                    fns[name] = (normal_init(0.02) if name == "weight"
+                                 else zeros_init())
+            elif isinstance(mod, MoELinear):
+                for name in fns:
+                    fns[name] = (normal_init(0.02) if name.endswith("weight")
+                                 else zeros_init())
+
+    @property
+    def block_size(self) -> int:
+        return self.config.block_size
+
+    @property
+    def n_embd(self) -> int:
+        return self.config.transformer_config.attn_config.n_embd
+
+    @property
+    def is_causal(self) -> bool:
+        return self.config.transformer_config.is_causal
+
+    def get_inputs_embeds(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.transformer.wte(idx)
+
+    def _cross_depth(self, depth: int) -> bool:
+        return not self.skip_alternate_cross_attn or depth % 2 == 0
+
+    def precompute_cross_kv(self, enc: torch.Tensor):
+        """Per-depth split-head cross K/V of the (fixed) encoder output,
+        computed once per generated sequence."""
+        return {depth: blk.cross_attn.project_kv(enc, enc)
+                for depth, blk in enumerate(self.blocks)
+                if blk.is_cross_attn and self._cross_depth(depth)}
+
+    def forward(self, idx=None, inputs_embeds=None, cross_attn_embeds=None,
+                attn_msk=None, kv_cache=None, pos_offset: int = 0,
+                cross_kv=None):
+        """Returns (logits (b, t, V) f32, hidden state).  ``pos_offset``
+        (a host int) places the chunk at global positions
+        pos_offset + arange(t)."""
+        if inputs_embeds is None:
+            inputs_embeds = self.get_inputs_embeds(idx)
+        t = inputs_embeds.shape[-2]
+        if pos_offset + t > self.block_size:
+            raise ValueError(f"Cannot forward positions up to "
+                             f"{pos_offset + t}, block size is only "
+                             f"{self.block_size}")
+        if kv_cache is not None:
+            kv_cache.positions = pos_offset + np.arange(t)
+        pos_emb = self.transformer.wpe.weight[pos_offset:pos_offset + t]
+        x = inputs_embeds + pos_emb.to(inputs_embeds.dtype)
+        lazy = kv_cache is None
+        layout = None
+        for depth, blk in enumerate(self.blocks):
+            cross_inputs = cross_attn_embeds if self._cross_depth(depth) \
+                else None
+            ckv = cross_kv.get(depth) if cross_kv is not None else None
+            new_layout = blk.next_layout(layout, x.shape[1]) if lazy else None
+            x = blk(x, cross_attn_inputs=None if ckv is not None
+                    else cross_inputs, attn_mask=attn_msk, kv_cache=kv_cache,
+                    cross_kv=ckv, layout=layout, want_lazy=lazy)
+            if lazy:
+                x = x[0]
+            layout = new_layout
+        if layout is not None:
+            x = canonicalize(x, layout)
+        x = self.transformer.ln_f(x)
+        logits = torch.matmul(x.float(),
+                              self.transformer.wte.weight.float().t())
+        return logits, x
+
+    # -- cached decoding ------------------------------------------------------
+    def cache_exact_for_window(self, start: int, end: int) -> bool:
+        """Whether cached decode over global positions [start, end) is
+        exact: no sparse layer's selected count crosses 2 inside it."""
+        for blk in self.blocks:
+            c = blk._cum_sel_np
+            at_start = int(c[min(start - 1, len(c) - 1)]) if start > 0 else 0
+            at_end = int(c[min(end - 1, len(c) - 1)]) if end > 0 else 0
+            if at_start < 2 <= at_end:
+                return False
+        return True
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> KVCache:
+        return KVCache.create([blk.cache_shape(batch, max_len)
+                               for blk in self.blocks], dtype, device)
+
+    def ffn_evaluations(self, pos_offset: int, t: int) -> int:
+        """How many blocks run their body (and so their MoE FFN) in a
+        cached forward over positions pos_offset + arange(t)."""
+        positions = pos_offset + np.arange(t)
+        return sum(blk.runs_body_at(positions) for blk in self.blocks)

@@ -1,0 +1,84 @@
+"""From-scratch vision encoder (counterpart of
+``image2text_tpu/models/encoder.py::VisionTransformerEncoder``).
+
+ConvMLP features, then the reference's raw row-major reshape of the NCHW
+feature map into n_patches² tokens of C·pw·ph (not a patchify), projector
++ LayerNormND over the whole (tokens, d) slab, the positional table,
+LayerNormND again, learned CLS tokens in front, and the sparse blocks on
+the lazy layout path; ``ln_f`` of the CLS rows is the output.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from image2text_torch.configs.models import VisionTransformerEncoderConfig
+from image2text_torch.models.layers import ConvMLP, TransformerBlock
+from image2text_torch.nn.core import new_param, normal_init
+from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
+                                         Linear)
+from image2text_torch.ops.static_gather import layout_rows, static_take
+
+
+class VisionTransformerEncoder(nn.Module):
+    def __init__(self, config: VisionTransformerEncoderConfig, device=None):
+        super().__init__()
+        self.config = config
+        n_patches = config.num_patches
+        self.n_patches = n_patches
+        if config.input.width % n_patches or config.input.height % n_patches:
+            raise ValueError("image size must be a multiple of num_patches")
+        patch = (config.input.width // n_patches,
+                 config.input.height // n_patches)
+        self.feature_extractor = ConvMLP(
+            config.input.n_channels, config.n_channels,
+            config.feature_extractor_kernel_size,
+            config.feature_extractor_gate_sizes, device)
+        self.input_d = config.n_channels * patch[0] * patch[1]
+        acfg = config.transformer_config.attn_config
+        self.out_dim = acfg.n_embd
+        self.projector = Linear(self.input_d, self.out_dim, acfg.bias, device)
+        self.ln_input = LayerNormND((n_patches ** 2, self.out_dim), acfg.bias,
+                                    device=device)
+        self.transformer = nn.Module()
+        self.transformer.wpe = Embedding(n_patches ** 2, self.out_dim, device)
+        self.transformer.h = nn.ModuleList([
+            TransformerBlock(config.transformer_config, seed=depth,
+                             device=device)
+            for depth in range(config.n_layer)])
+        self.transformer.ln_f = LayerNorm(self.out_dim, acfg.bias,
+                                          device=device)
+        self.blocks = self.transformer.h
+        new_param(self, "cls_token", (1, config.n_cls, self.out_dim),
+                  normal_init(std=1.0 / math.sqrt(self.out_dim)), device)
+        self.n_cls = config.n_cls
+
+    @property
+    def num_outputs(self) -> int:
+        return self.n_cls
+
+    @property
+    def output_embed_dim(self) -> int:
+        return self.out_dim
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.feature_extractor(images)
+        n = x.shape[0]
+        x = x.reshape(n, self.n_patches ** 2, self.input_d)
+        x = self.ln_input(self.projector(x))
+        y = x + self.transformer.wpe.weight.to(x.dtype)[None]
+        cls = self.cls_token.to(x.dtype).expand(n, self.n_cls, self.out_dim)
+        x = torch.cat([cls, self.ln_input(y)], dim=1)
+        layout = None
+        for blk in self.blocks:
+            new_layout = blk.next_layout(layout, x.shape[1])
+            x = blk(x, layout=layout, want_lazy=True)[0]
+            layout = new_layout
+        if layout is None:
+            cls = x[:, :self.n_cls]
+        else:  # only the CLS rows need canonical reassembly
+            cls = static_take(x, layout_rows(layout, np.arange(self.n_cls)))
+        return self.transformer.ln_f(cls)

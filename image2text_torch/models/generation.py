@@ -1,0 +1,110 @@
+"""Cached autoregressive generation (counterpart of the cached branch of
+``image2text_tpu/models/generation.py``).
+
+Prefill the prompt once at offset ``space_for_prompt`` (the soft-prompt
+prefix is dead for text logits in the scratch decoder, so it is skipped),
+precompute the cross-attention K/V per cross depth, then one
+single-token cached decoder step per new token.  The sampler reads the
+last logits cast to the compute dtype (the encoder output's), as in JAX.
+
+Not yet ported: the bidirectional-decoder branch and the full-reforward
+fallback for windows where a sparse layer's selected count crosses 2.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from image2text_torch.models.kv_cache import CacheRef, KVCache
+from image2text_torch.models.sampling import sample_topk_with_ngram
+from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+
+def decoder_step(model, tok_ids: torch.Tensor, cache: KVCache,
+                 pos_offset: int, cross: Optional[torch.Tensor],
+                 cross_kv=None):
+    """One cached decoder forward on a (B, t) chunk; returns (logits
+    (B, t, V), cache) with the cache advanced in place."""
+    ref = CacheRef(cache)
+    logits, _ = model.decoder(idx=tok_ids,
+                              cross_attn_embeds=None if cross_kv else cross,
+                              kv_cache=ref, pos_offset=pos_offset,
+                              cross_kv=cross_kv)
+    return logits, cache
+
+
+def precompute_cross_kv(model, cross: Optional[torch.Tensor]):
+    if cross is None:
+        return None
+    return model.decoder.precompute_cross_kv(cross)
+
+
+@torch.no_grad()
+def generate(model, images, prompt_ids: torch.Tensor,
+             max_new_tokens: int = 128, temperature: float = 1.0,
+             top_k: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             encoder_output: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample captions: (B, prompt_len + max_new_tokens) ids.  Runs on the
+    model's device; inputs are moved there."""
+    dev = model.device
+    prompt_ids = prompt_ids.to(dev)
+    if prompt_ids.dim() == 1:
+        prompt_ids = prompt_ids[None]
+    t0 = prompt_ids.shape[-1]
+    blk_size = model.decoder.block_size - model.space_for_prompt
+    if max_new_tokens > blk_size - t0:
+        raise ValueError(f"max_new_tokens={max_new_tokens} exceeds the "
+                         f"decoder window ({blk_size} - prompt {t0})")
+    greedy = temperature is None or temperature <= 0
+    if not greedy and top_k is None:
+        raise NotImplementedError("full-vocabulary and nucleus sampling are "
+                                  "not ported yet: pass top_k")
+    if not model.decoder.is_causal:
+        raise NotImplementedError("the bidirectional-decoder branch of "
+                                  "generate is not ported yet")
+    if encoder_output is None:
+        encoder_output = model.encoder(images.to(dev))
+    bs = encoder_output.shape[0]
+    prompt_ids = prompt_ids.expand(bs, t0)
+    total = t0 + max_new_tokens
+    ids_buf = torch.zeros((bs, total), dtype=torch.long, device=dev)
+    ids_buf[:, :t0] = prompt_ids
+    cdt = encoder_output.dtype
+    cross = encoder_output if model.use_cross_attn else None
+    off = model.space_for_prompt
+    if not model.decoder.cache_exact_for_window(off + t0, off + total):
+        raise NotImplementedError(
+            "this window needs the full-reforward fallback (a sparse layer's "
+            "selected count crosses 2), which is not ported yet")
+    cache = model.decoder.init_cache(bs, total, cdt, dev)
+    logits, cache = decoder_step(model, prompt_ids, cache, off, cross)
+    cross_kv = precompute_cross_kv(model, cross)
+    last = logits[:, -1].to(cdt)
+    for i in range(max_new_tokens):
+        cur = t0 + i
+        nxt = sample_topk_with_ngram(last, ids_buf, cur,
+                                     model.no_repeat_n_grams, generator,
+                                     temperature, top_k)
+        ids_buf[:, cur] = nxt
+        logits, cache = decoder_step(model, nxt[:, None], cache, off + cur,
+                                     cross, cross_kv)
+        last = logits[:, -1].to(cdt)
+    return ids_buf
+
+
+@torch.no_grad()
+def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
+            max_new_tokens: int = 32, temperature: float = 0.7,
+            top_k: Optional[int] = 16,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The serving path: raw uint8 frames (B, H, W, 3) → resize/normalize
+    on the model's device in the model's dtype → encoder → generate."""
+    dtype = model.decoder.transformer.wte.weight.dtype
+    size = model.config.vision_encoder_config.input.width
+    images = resize_normalize_on_device(frames_u8.to(model.device), size,
+                                        out_dtype=dtype)
+    return generate(model, images, prompt_ids, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_k=top_k,
+                    generator=generator)

@@ -1,0 +1,400 @@
+"""Layers of the port, the flagship subset of ``image2text_tpu/models/layers.py``:
+MLP, ConvMLP, MoELinear, _MoEMLP, MultiQueryAttention and the sparse
+TransformerBlock with its lazy layout path and its cached decode.
+
+Parameter and buffer names reproduce the JAX package's (torch state-dict
+names), so one exported ``.npz`` feeds both packages.  Eval only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from image2text_torch.configs.models import (MoEConfig, SelfAttentionConfig,
+                                             SelfAttentionType,
+                                             TransformerConfig)
+from image2text_torch.nn.core import new_param, uniform_init
+from image2text_torch.nn.modules import (Conv2d, LayerNorm, Linear,
+                                         MultiheadAttention, gelu_tanh)
+from image2text_torch.ops.attention import sdpa
+from image2text_torch.ops.functions import normalize_gradients
+from image2text_torch.ops.fused_block import SparseBlockWeights, sparse_block
+from image2text_torch.ops.fused_moe import (MoELinearWeights, moe_ffn,
+                                            moe_linear_plain, pack_moe_linear)
+from image2text_torch.ops.static_gather import (canonicalize, layout_rows,
+                                                static_combine, static_take)
+
+
+class _Cached:
+    """Recompute a derived value only when the parameters it reads change
+    (new storage, an in-place write, or another dtype)."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    def get(self, params, extra, make):
+        key = (extra,) + tuple((p.data_ptr(), p._version) for p in params)
+        if key != self._key:
+            self._value, self._key = make(), key
+        return self._value
+
+
+class MLP(nn.Module):
+    """Linears with GELU gates between them; children 'model.0', 'model.2',
+    ... mirror torch Sequential indices (odd slots are the GELUs)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gate_sizes: Optional[Tuple[int, ...]] = None,
+                 bias: bool = True, device=None):
+        super().__init__()
+        sizes = (in_features,) + tuple(gate_sizes or ()) + (out_features,)
+        self.model = nn.ModuleDict({
+            str(2 * i): Linear(sizes[i], sizes[i + 1], bias=bias, device=device)
+            for i in range(len(sizes) - 1)})
+
+    @property
+    def linears(self):
+        return list(self.model.values())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lins = self.linears
+        for i, lin in enumerate(lins):
+            x = lin(x)
+            if i < len(lins) - 1:
+                x = gelu_tanh(x)
+        return x
+
+
+class ConvMLP(nn.Module):
+    """Stack of 'SAME'-padded convs with GELU gates."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: Tuple[int, int],
+                 gate_sizes: Optional[Tuple[int, ...]] = None, device=None):
+        super().__init__()
+        sizes = (in_features,) + tuple(gate_sizes or ()) + (out_features,)
+        self.model = nn.ModuleDict({
+            str(2 * i): Conv2d(sizes[i], sizes[i + 1], kernel_size,
+                               device=device)
+            for i in range(len(sizes) - 1)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = list(self.model.values())
+        for i, conv in enumerate(convs):
+            x = conv(x)
+            if i < len(convs) - 1:
+                x = gelu_tanh(x)
+        return x
+
+
+class MoELinear(nn.Module):
+    """Top-k MoE over low-rank experts, every expert on every token and a
+    dense combine of the *unnormalised* top-k gate values (lowest-index
+    ties).  Experts are stored stacked; the checkpoint bridge splits them
+    into ``experts.{i}.l1/l2.weight/bias`` keys (``split_specs``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 proj_features: int, num_experts: int, bias: bool = True,
+                 top_k: int = 1, gate_sizes: Optional[Tuple[int, ...]] = None,
+                 device=None):
+        super().__init__()
+        if gate_sizes is None or len(gate_sizes) != 1:
+            raise NotImplementedError(
+                "the port's MoELinear takes a gate MLP with one hidden layer "
+                "(the flagship's); other gate depths are not ported yet")
+        self.top_k = top_k
+        self.expert_gates = MLP(in_features, num_experts, gate_sizes, bias,
+                                device)
+        e = num_experts
+        b_in = uniform_init(1.0 / math.sqrt(in_features))
+        b_pr = uniform_init(1.0 / math.sqrt(proj_features))
+        new_param(self, "l1_weight", (e, proj_features, in_features), b_in,
+                  device)
+        new_param(self, "l1_bias", (e, proj_features), b_in, device)
+        new_param(self, "l2_weight", (e, out_features, proj_features), b_pr,
+                  device)
+        new_param(self, "l2_bias", (e, out_features), b_pr, device)
+        self.split_specs = {name: f"experts.{{i}}.{name[:2]}.{name[3:]}"
+                            for name in ("l1_weight", "l1_bias", "l2_weight",
+                                         "l2_bias")}
+        self._packed = _Cached()
+
+    def packed(self, dtype) -> MoELinearWeights:
+        g0, g1 = self.expert_gates.linears
+        return self._packed.get(
+            list(self.parameters()), dtype,
+            lambda: pack_moe_linear(self.l1_weight, self.l1_bias,
+                                    self.l2_weight, self.l2_bias, g0.weight,
+                                    g0.bias, g1.weight, g1.bias, self.top_k,
+                                    dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_linear_plain(x, self.packed(x.dtype))
+
+
+class _MoEMLP(nn.Module):
+    """Transformer-block FFN of two MoELinears around a GELU.  At eval it
+    is one ``ops.fused_moe.moe_ffn`` call: the CUDA kernel on the card."""
+
+    def __init__(self, n_embd: int, bias: bool, config: MoEConfig,
+                 device=None):
+        super().__init__()
+        hidden = int(config.ff_mult_factor * n_embd)
+        kw = dict(proj_features=config.proj_features,
+                  num_experts=config.num_experts, bias=bias,
+                  top_k=config.top_k, gate_sizes=config.gate_sizes,
+                  device=device)
+        self.c_fc = MoELinear(n_embd, hidden, **kw)
+        self.c_proj = MoELinear(hidden, n_embd, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_ffn(x, self.c_fc.packed(x.dtype),
+                       self.c_proj.packed(x.dtype))
+
+
+class MultiQueryAttention(nn.Module):
+    """Multi-query attention: one shared K/V head."""
+
+    def __init__(self, config: SelfAttentionConfig, device=None):
+        super().__init__()
+        if config.attn_type != SelfAttentionType.MULTI_QUERY:
+            raise NotImplementedError(
+                "only multi-query self-attention is ported so far")
+        hd = config.n_embd // config.n_head
+        self.q_proj = Linear(config.n_embd, config.n_embd, config.bias, device)
+        self.kv_proj = Linear(config.n_embd, 2 * hd, config.bias, device)
+        self.out_proj = Linear(config.n_embd, config.n_embd, config.bias,
+                               device)
+        self.n_head = config.n_head
+        self.n_embd = config.n_embd
+
+    def kv_shape(self, batch: int, max_len: int):
+        return (batch, 1, max_len, self.n_embd // self.n_head)
+
+    def forward(self, x: torch.Tensor, mask=None, kv_cache=None,
+                causal: bool = False) -> torch.Tensor:
+        b, t, c = x.shape
+        hd = c // self.n_head
+        q = self.q_proj(x).reshape(b, t, self.n_head, hd).transpose(1, 2)
+        kv = self.kv_proj(x)
+        k = kv[..., :hd].reshape(b, t, 1, hd).transpose(1, 2)
+        v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
+        if kv_cache is not None:
+            k, v, mask = kv_cache.update(k, v, mask)
+        y = sdpa(q, k, v, mask=mask, causal=causal)
+        return self.out_proj(y.transpose(1, 2).reshape(b, t, c))
+
+
+def sparse_attention_indices(max_block_size: int, sparsity_factor: float,
+                             n_cls: int, seed: Optional[int]):
+    """Per-depth random token subset (a copy of the JAX package's): a
+    PCG64(seed) permutation of the non-CLS positions, CLS positions always
+    kept, selections sorted."""
+    n_non_zeros = int(sparsity_factor * max_block_size)
+    gen = np.random.Generator(np.random.PCG64(seed=seed)) \
+        if seed is not None else np.random.default_rng()
+    full_mask = np.concatenate([
+        np.arange(0, n_cls, dtype=np.int64),
+        gen.permutation(max_block_size - n_cls).astype(np.int64) + n_cls,
+    ])
+    idx = np.sort(full_mask[:n_non_zeros])
+    not_idx = np.sort(full_mask[n_non_zeros:])
+    return idx, not_idx
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: self-attention → optional cross-attention → MoE FFN,
+    with static random-sparse token selection and the null-connector
+    bypass for the unselected tokens."""
+
+    def __init__(self, config: TransformerConfig, seed: Optional[int] = None,
+                 n_cls: int = 0, device=None):
+        super().__init__()
+        acfg = config.attn_config
+        self.is_causal = config.is_causal
+        self.ln_1 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
+        self.attn = MultiQueryAttention(acfg, device)
+        self.ln_2 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
+        if not isinstance(config.rotator_config, MoEConfig):
+            raise NotImplementedError("only the MoE FFN is ported so far")
+        self.mlp = _MoEMLP(acfg.n_embd, acfg.bias, config.rotator_config,
+                           device)
+        self.is_cross_attn = config.is_cross_attn
+        if config.is_cross_attn:
+            self.cross_attn = MultiheadAttention(acfg.n_embd, acfg.n_head,
+                                                 device)
+            self.ln_3 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
+        else:
+            self.cross_attn = self.ln_3 = None
+        self.is_sparse = config.is_sparse_attn
+        self.n_cls = n_cls
+        if not self.is_sparse:
+            raise NotImplementedError("only sparse blocks are ported so far")
+        idx, not_idx = sparse_attention_indices(
+            config.max_block_size, config.sparsity_factor, n_cls, seed)
+        self.idx_np, self.not_idx_np = idx, not_idx
+        sel = np.zeros(config.max_block_size, bool)
+        sel[idx] = True
+        self._sel_mask_np = sel
+        # running count of selected positions ≤ i: the bypass rule is
+        # global per forward (all positions take the null path while < 2
+        # are selected)
+        self._cum_sel_np = np.cumsum(sel)
+        self.register_buffer("input_mask_idx", torch.as_tensor(idx, device=device))
+        self.register_buffer("input_mask_not_idx",
+                             torch.as_tensor(not_idx, device=device))
+        self.null_connector = Linear(acfg.n_embd, acfg.n_embd, acfg.bias,
+                                     device)
+        self._rows: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._weights = _Cached()
+
+    def cache_shape(self, batch: int, max_len: int):
+        """Sparse layers hold only their selected TEXT positions within
+        the decode window [n_cls, n_cls + max_len)."""
+        n_sel = int(((self.idx_np >= self.n_cls)
+                     & (self.idx_np < self.n_cls + max_len)).sum())
+        return self.attn.kv_shape(batch, max(n_sel, 1))
+
+    def next_layout(self, layout, t: int):
+        """Row layout the lazy path emits for a ``t``-row stream entering
+        under ``layout`` (None = canonical)."""
+        idx = self.idx_np[self.idx_np < t]
+        if idx.shape[0] <= 1:
+            return layout
+        return np.concatenate([idx, self.not_idx_np[self.not_idx_np < t]])
+
+    def runs_body_at(self, positions: np.ndarray) -> bool:
+        """Whether a cached forward over ``positions`` runs the block body
+        (attention and FFN) — the port's bookkeeping of FFN launches."""
+        return any(p < len(self._sel_mask_np) and self._sel_mask_np[p]
+                   for p in positions)
+
+    # -- kernel operands ----------------------------------------------------
+    def sparse_block_weights(self, dtype) -> SparseBlockWeights:
+        def make():
+            a, dt = self.attn, dtype
+
+            def wt(*lins):      # (in, out) weight of one or more Linears
+                return torch.cat([lin.weight for lin in lins]).t().to(dt) \
+                    .contiguous()
+
+            b_qkv = None if a.q_proj.bias is None else torch.cat(
+                [a.q_proj.bias, a.kv_proj.bias])
+            return SparseBlockWeights(
+                ln1_w=self.ln_1.weight.to(dt), ln1_b=_opt(self.ln_1.bias, dt),
+                w_qkv=wt(a.q_proj, a.kv_proj), b_qkv=_opt(b_qkv, dt),
+                w_o=wt(a.out_proj), b_o=_opt(a.out_proj.bias, dt),
+                ln2_w=self.ln_2.weight.to(dt), ln2_b=_opt(self.ln_2.bias, dt),
+                fc=self.mlp.c_fc.packed(dt), proj=self.mlp.c_proj.packed(dt),
+                w_n=wt(self.null_connector),
+                b_n=_opt(self.null_connector.bias, dt), n_head=a.n_head)
+        return self._weights.get(list(self.parameters()), dtype, make)
+
+    def layout_rows(self, layout, t: int, device):
+        """(rows_sel, rows_byp) int32 on ``device`` for a ``t``-row stream
+        under ``layout``, cached per block."""
+        key = (None if layout is None else np.asarray(layout).tobytes(), t,
+               str(device))
+        rows = self._rows.get(key)
+        if rows is None:
+            idx = self.idx_np[self.idx_np < t]
+            not_idx = self.not_idx_np[self.not_idx_np < t]
+            rows = tuple(torch.as_tensor(layout_rows(layout, i).astype(np.int32),
+                                         device=device)
+                         for i in (idx, not_idx))
+            self._rows[key] = rows
+        return rows
+
+    # -- forward ------------------------------------------------------------
+    def _body(self, x, cross_attn_inputs, cross_kv, mask=None, kv_cache=None,
+              causal=False):
+        x = x + self.attn(self.ln_1(x), mask=mask, kv_cache=kv_cache,
+                          causal=causal)
+        if cross_attn_inputs is not None or cross_kv is not None:
+            if not self.is_cross_attn:
+                raise ValueError("Model not configured for cross attn inputs!!!")
+            x = x + self.cross_attn(self.ln_3(x), cross_attn_inputs,
+                                    cross_attn_inputs, precomputed_kv=cross_kv)
+        x = x + self.mlp(self.ln_2(x))
+        return normalize_gradients(x)
+
+    def _null_path(self, z):
+        return z + self.null_connector(z)
+
+    def forward(self, x_orig: torch.Tensor, cross_attn_inputs=None,
+                attn_mask=None, kv_cache=None, cross_kv=None, layout=None,
+                want_lazy: bool = False):
+        """``layout``/``want_lazy``: a lazy call composes the block's
+        static gathers with the incoming row ``layout`` and returns
+        ``(stream, new_layout)`` without reassembling canonical order.
+        A non-causal, unmasked lazy block without cross-attention — every
+        flagship encoder block — runs as one ``sparse_block`` call."""
+        if kv_cache is not None:
+            if layout is not None or want_lazy:
+                raise ValueError("the lazy layout is a non-cached path")
+            return self._sparse_cached_forward(x_orig, cross_attn_inputs,
+                                               attn_mask, kv_cache, cross_kv)
+        t = x_orig.shape[1]
+        idx = self.idx_np[self.idx_np < t]
+        if idx.shape[0] <= 1:
+            out = self._null_path(x_orig)
+            if want_lazy:
+                return out, layout
+            return out if layout is None else canonicalize(out, layout)
+        not_idx = self.not_idx_np[self.not_idx_np < t]
+        new_layout = np.concatenate([idx, not_idx])
+        if (want_lazy and attn_mask is None and cross_attn_inputs is None
+                and cross_kv is None and not self.is_causal):
+            rows_sel, rows_byp = self.layout_rows(layout, t, x_orig.device)
+            return (sparse_block(x_orig, rows_sel, rows_byp,
+                                 self.sparse_block_weights(x_orig.dtype)),
+                    new_layout)
+        x = static_take(x_orig, layout_rows(layout, idx))
+        if attn_mask is not None:
+            i = torch.as_tensor(idx, device=attn_mask.device)
+            attn_mask = attn_mask.index_select(-2, i).index_select(-1, i)
+        x = self._body(x, cross_attn_inputs, cross_kv, mask=attn_mask,
+                       causal=self.is_causal)
+        bypass = self._null_path(static_take(x_orig, layout_rows(layout,
+                                                                 not_idx)))
+        if want_lazy:
+            return torch.cat([x.to(x_orig.dtype), bypass], dim=1), new_layout
+        return static_combine(x.to(x_orig.dtype), bypass, idx, not_idx)
+
+    def _sparse_cached_forward(self, x_orig, cross_attn_inputs, attn_mask,
+                               kv_cache, cross_kv):
+        """Cached forward at host-known positions (prefill and eager
+        decode alike): cache slots are ranks among the selected text
+        positions.  A chunk with no selected position skips the body and
+        the cache; otherwise the body writes the selected rows' K/V, and
+        the global < 2-selected bypass rule picks the null path for every
+        row — the JAX decode's ``where(active, body, null_path)``."""
+        if attn_mask is not None:
+            raise ValueError("sparse cached decode takes no padding masks")
+        positions = kv_cache.positions
+        t = x_orig.shape[1]
+        local = [i for i in range(t)
+                 if positions[i] < len(self._sel_mask_np)
+                 and self._sel_mask_np[positions[i]]]
+        if not local:
+            kv_cache.skip()
+            return self._null_path(x_orig)
+        not_local = sorted(set(range(t)) - set(local))
+        x = x_orig if len(local) == t else static_take(x_orig, local)
+        x = self._body(x, cross_attn_inputs, cross_kv, kv_cache=kv_cache)
+        last = min(int(positions[-1]), len(self._cum_sel_np) - 1)
+        if int(self._cum_sel_np[last]) < 2:
+            return self._null_path(x_orig)
+        if not not_local:
+            return x.to(x_orig.dtype)
+        bypass = self._null_path(static_take(x_orig, not_local))
+        return static_combine(x.to(x_orig.dtype), bypass, local, not_local)
+
+
+def _opt(t, dtype):
+    return None if t is None else t.to(dtype)

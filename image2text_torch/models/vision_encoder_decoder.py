@@ -1,0 +1,113 @@
+"""Composite vision-encoder → causal-decoder model (counterpart of
+``image2text_tpu/models/vision_encoder_decoder.py``).
+
+Soft prompting prepends the encoder's CLS outputs to the token
+embeddings under the reference's additive bias: prefix query rows attend
+everywhere (subject to the blocks' causality), text → prefix is blocked
+(-inf), and the text block is open.  Cross-attention feeds the encoder
+output to the decoder's even-depth blocks.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from image2text_torch.configs.models import VisionEncoderDecoderConfig
+from image2text_torch.models.decoder import TransformerDecoder
+from image2text_torch.models.encoder import VisionTransformerEncoder
+from image2text_torch.nn.core import init_parameters
+from image2text_torch.nn.modules import Linear
+from image2text_torch.object_models import VisionEncoderDecoderModelOutput
+from image2text_torch.utils.device import resolve_device
+
+
+class _EncoderWithBridge(nn.Module):
+    """nn.Sequential(encoder, Linear) analog: children '0' and '1'."""
+
+    def __init__(self, encoder, bridge):
+        super().__init__()
+        self.add_module("0", encoder)
+        self.add_module("1", bridge)
+
+    def forward(self, images):
+        return self._modules["1"](self._modules["0"](images))
+
+
+class VisionEncoderDecoder(nn.Module):
+    """Caption model.  Built on ``device`` (default: the card; raises
+    without one unless ``device='cpu'``); parameters are f32 and
+    uninitialised until :meth:`init_weights` or a checkpoint load."""
+
+    def __init__(self, config: VisionEncoderDecoderConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        encoder = VisionTransformerEncoder(config.vision_encoder_config, device)
+        self.space_for_prompt = (encoder.num_outputs
+                                 if config.use_soft_prompting else 0)
+        self.decoder = TransformerDecoder(config.decoder_config,
+                                          self.space_for_prompt, device)
+        if encoder.output_embed_dim != self.decoder.n_embd:
+            encoder = _EncoderWithBridge(encoder, Linear(
+                encoder.output_embed_dim, self.decoder.n_embd, bias=False,
+                device=device))
+        self.encoder = encoder
+        self.no_repeat_n_grams = tuple(config.no_repeat_n_grams)
+        self.use_cross_attn = config.use_cross_attn
+        self.use_soft_prompting = config.use_soft_prompting
+        if not (self.use_cross_attn or self.use_soft_prompting):
+            raise ValueError("Misconfigured!!! Need to either use cross attn "
+                             "or soft prompting or both")
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.transformer.wte.weight.device
+
+    def init_weights(self, seed: int = 0) -> "VisionEncoderDecoder":
+        """Random weights from the port's own initialisers, seeded."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        init_parameters(self, gen)
+        return self
+
+    @torch.no_grad()
+    def forward(self, images, ids, encoder_output=None):
+        if encoder_output is None:
+            encoder_output = self.encoder(images)
+        s = ids.shape[-1]
+        block_size = self.decoder.block_size
+        if self.use_soft_prompting:
+            inputs_embeds = torch.cat(
+                [encoder_output,
+                 self.decoder.get_inputs_embeds(ids).to(encoder_output.dtype)],
+                dim=-2)[..., :block_size, :]
+            ncls = encoder_output.shape[-2]
+            total = ncls + s
+            bias = torch.full((1, 1, total, total), float("-inf"),
+                              device=ids.device)
+            bias[..., :ncls, :] = 0.0
+            bias[..., ncls:, ncls:] = 0.0
+            attn_bias = bias[..., :block_size, :block_size]
+            dec_ids, offset = None, ncls
+        else:
+            inputs_embeds, dec_ids, offset, attn_bias = None, ids, 0, None
+        cross = encoder_output if self.use_cross_attn else None
+        logits, hidden = self.decoder(idx=dec_ids, inputs_embeds=inputs_embeds,
+                                      cross_attn_embeds=cross,
+                                      attn_msk=attn_bias)
+        return VisionEncoderDecoderModelOutput(
+            encoder_output=encoder_output, logits=logits[..., offset:, :],
+            hidden_state=hidden)
+
+    def generate(self, images, prompt_ids, max_new_tokens: int = 128,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None, **kwargs):
+        """Cached autoregressive sampling; see models/generation.py."""
+        from image2text_torch.models.generation import generate
+
+        return generate(self, images, prompt_ids,
+                        max_new_tokens=max_new_tokens,
+                        temperature=temperature, top_k=top_k,
+                        generator=generator, **kwargs)

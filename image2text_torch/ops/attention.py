@@ -1,0 +1,60 @@
+"""Scaled-dot-product attention as explicit products (counterpart of
+``image2text_tpu/ops/attention.py``).
+
+Not ``F.scaled_dot_product_attention``: its rounding differs.  The JAX
+chain is kept step for step: scores accumulate in f32 and are scaled in
+f32, then (for a low-precision input) rounded to the storage dtype; the
+softmax runs in f32 and is safe for fully masked rows; probabilities drop
+to the storage dtype before the V product.  Multi-query K/V are read once
+by folding the query heads into the sequence axis.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def causal_bias(s: int, l: int, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """Additive causal mask (1, 1, s, l): 0 on/below the diagonal, -inf
+    above; when s != l the last query row aligns with the last key."""
+    row = torch.arange(s, device=device)[:, None] + (l - s)
+    col = torch.arange(l, device=device)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    neg = torch.full((), float("-inf"), dtype=dtype, device=device)
+    return torch.where(col <= row, zero, neg)[None, None]
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: Optional[torch.Tensor] = None,
+         causal: bool = False) -> torch.Tensor:
+    """Attention with an additive mask; q (b, h, s, d), k/v (b, hk, l, d)
+    with hk ∈ {h, 1}."""
+    if causal:
+        cb = causal_bias(q.shape[-2], k.shape[-2], q.device)
+        mask = cb if mask is None else mask + cb
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    hk = k.shape[1]
+    g = h // hk
+    qf = q.reshape(b, hk, g * s, d) if g > 1 else q
+    scores = torch.matmul(qf.float(), k.float().transpose(-1, -2)) * scale
+    if g > 1:
+        scores = scores.reshape(b, h, s, -1)
+    if q.dtype != torch.float32:
+        scores = scores.to(q.dtype).float()
+    if mask is not None:
+        scores = scores + mask.float()
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - torch.where(torch.isneginf(m),
+                                       torch.zeros_like(m), m))
+    probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    pf = probs.to(q.dtype)
+    if g > 1:
+        pf = pf.reshape(b, hk, g * s, -1)
+    out = torch.matmul(pf, v)
+    if g > 1:
+        out = out.reshape(b, h, s, d)
+    return out

@@ -1,0 +1,104 @@
+"""Weight bridge between the JAX package's flat state dict and the port.
+
+``image2text_tpu/utils/checkpoint.py::export_state_dict`` writes torch
+state-dict names: stacked MoE experts split into
+``experts.{i}.l1/l2.weight/bias`` keys and the tied ``lm_head.weight``
+alias materialised.  :func:`load_jax_state_dict` joins the experts back,
+resolves the alias and fills the port's parameters and buffers;
+:func:`state_dict_numpy` produces the same key set and shapes from the
+port.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _split_specs(model: nn.Module) -> Dict[str, str]:
+    """{stacked parameter path: per-expert key template}."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, template in getattr(mod, "split_specs", {}).items():
+            p = f"{prefix}.{name}" if prefix else name
+            out[p] = f"{prefix}.{template}" if prefix else template
+    return out
+
+
+def _tied_aliases(model: nn.Module) -> Dict[str, str]:
+    """{alias key: source key}."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for alias, source in getattr(mod, "tied_aliases", {}).items():
+            pre = f"{prefix}." if prefix else ""
+            out[pre + alias] = pre + source
+    return out
+
+
+def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    out = dict(model.named_parameters())
+    out.update(model.named_buffers())
+    return out
+
+
+def state_dict_numpy(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The port's weights under the JAX export's keys (float tensors as
+    f32 numpy arrays)."""
+    flat = {}
+    for k, t in _tensors(model).items():
+        t = t.detach().cpu()
+        flat[k] = (t.float() if t.is_floating_point() else t).numpy()
+    for stacked, template in _split_specs(model).items():
+        arr = flat.pop(stacked)
+        for i in range(arr.shape[0]):
+            flat[template.format(i=i)] = arr[i]
+    for alias, source in _tied_aliases(model).items():
+        flat[alias] = flat[source]
+    return flat
+
+
+@torch.no_grad()
+def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
+    """Fill every parameter and buffer of ``model`` from the JAX export
+    ``sd`` ({key: ndarray}).  Unknown keys, shape mismatches and missing
+    keys raise; the sparse-selection buffers must equal the port's own."""
+    tensors = _tensors(model)
+    aliases = _tied_aliases(model)
+    joins = {}
+    for stacked, template in _split_specs(model).items():
+        for i in range(tensors[stacked].shape[0]):
+            joins[template.format(i=i)] = (stacked, i)
+    filled = set()
+    for key, value in sd.items():
+        if key in aliases:
+            if not np.array_equal(value, sd[aliases[key]]):
+                raise ValueError(f"tied alias {key} differs from "
+                                 f"{aliases[key]}")
+            continue
+        if key in joins:
+            stacked, i = joins[key]
+            dst = tensors[stacked][i]
+            filled.add((stacked, i))
+        elif key in tensors:
+            dst = tensors[key]
+            filled.add(key)
+        else:
+            raise KeyError(f"checkpoint key {key!r} not present in the port")
+        if tuple(dst.shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(dst.shape)} "
+                             f"vs {value.shape}")
+        src = torch.from_numpy(np.array(value))
+        if not dst.is_floating_point():
+            if not torch.equal(dst.cpu(), src.to(dst.dtype)):
+                raise ValueError(f"buffer {key} differs from the port's")
+            continue
+        dst.copy_(src.to(dst.dtype))
+    missing = [k for k, t in tensors.items()
+               if k not in filled and k not in _split_specs(model)]
+    missing += [f"{s}[{i}]" for s in _split_specs(model)
+                for i in range(tensors[s].shape[0]) if (s, i) not in filled]
+    if missing:
+        raise KeyError(f"checkpoint lacks {missing[:5]} "
+                       f"({len(missing)} in all)")

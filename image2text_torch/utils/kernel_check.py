@@ -1,0 +1,86 @@
+"""Holding a kernel's output against its plain version, at the output's
+own scale.
+
+A fixed absolute tolerance says nothing about an output far smaller than
+it: the decoder's MoE FFN at random init gives values near 4e-4, so a
+kernel returning zeros would pass a 0.06 bound.  So besides that bound
+(0.06 abs + 0.06 rel per element, the JAX bf16 kernel tests' own) the
+limits scale with what they compare: the largest error against the
+largest plain value, and the relative L2 error.
+
+The MoE kernels report the experts each row took.  A kernel is compared
+with its plain version forced onto those same routes, so every row is
+compared; :func:`check_routes` then holds the routes themselves against
+the top-k of the plain gate values: a route that differs must be a near
+tie (rounding order), and such rows must be few.
+"""
+from __future__ import annotations
+
+import torch
+
+from image2text_torch.ops.fused_moe import topk_mask, unpack_mask
+
+ELEMENT_TOL = 0.06    # per element: |got - want| <= tol + tol * |want|
+MAX_ABS_SHARE = 0.06  # largest error over the largest |plain| value
+REL_L2 = 1e-2         # ||got - want|| / ||want||
+TIE = 1e-3            # gate gap a differing route may cross, over max gate
+MAX_APART = 1e-3      # share of rows whose routes may differ (at least 1)
+
+
+def output_error(got: torch.Tensor, want: torch.Tensor) -> dict:
+    g, w = got.float(), want.float()
+    diff = g - w
+    norm = float(torch.linalg.vector_norm(w))
+    dnorm = float(torch.linalg.vector_norm(diff))
+    return {"max_abs_err": float(diff.abs().max()),
+            "max_plain": float(w.abs().max()),
+            "rel_l2": dnorm / norm if norm > 0 else (0.0 if dnorm == 0
+                                                     else float("inf")),
+            "equal_share": float((diff == 0).float().mean()),
+            "elements_beyond": int((diff.abs() > ELEMENT_TOL
+                                    + ELEMENT_TOL * w.abs()).sum()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def check_output(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Raises AssertionError unless ``got`` is finite, every element is
+    within ELEMENT_TOL, its largest error is within MAX_ABS_SHARE of the
+    largest plain value and its relative L2 error within REL_L2.  Returns
+    the statistics."""
+    st = output_error(got, want)
+    if (not st["finite"] or st["elements_beyond"]
+            or st["max_abs_err"] > MAX_ABS_SHARE * st["max_plain"]
+            or st["rel_l2"] > REL_L2):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: {st} (limits: "
+            f"no element beyond {ELEMENT_TOL} abs + {ELEMENT_TOL} rel, "
+            f"max_abs_err <= {MAX_ABS_SHARE} * max_plain, rel_l2 <= {REL_L2})")
+    return st
+
+
+def check_routes(name: str, routes: torch.Tensor, gates: torch.Tensor,
+                 k: int) -> dict:
+    """Hold a kernel's routes ((n, 2) uint8 expert bit masks per MoELinear)
+    against the plain gate values ((n, 2, e) f32, computed on those
+    routes).  Every row must take min(k, e) experts; a row whose experts
+    are not the top-k of its gates must be a near tie (the gap it crosses
+    within TIE of its largest gate value); at most max(1, MAX_APART · n)
+    rows may differ.  Raises AssertionError; returns the statistics."""
+    n, _, e = gates.shape
+    took = unpack_mask(routes.reshape(n, 2), e)
+    if not bool((took.sum(-1) == min(k, e)).all()):
+        raise AssertionError(f"{name}: a row took other than {min(k, e)} "
+                             "experts")
+    apart = (took != topk_mask(gates, k)).any(-1)            # (n, 2)
+    lowest_taken = torch.where(took, gates, torch.inf).amin(-1)
+    highest_left = torch.where(took, -torch.inf, gates).amax(-1)
+    gap = ((highest_left - lowest_taken).clamp_min(0)
+           / gates.amax(-1)).amax().item() if e > k else 0.0
+    n_apart = int(apart.any(-1).sum())
+    st = {"rows_apart": n_apart, "rows": n, "max_tie_gap": gap}
+    if gap > TIE or n_apart > max(1, MAX_APART * n):
+        raise AssertionError(
+            f"{name}: kernel routes disagree with the plain top-k: {st} "
+            f"(limits: max_tie_gap <= {TIE}, rows_apart <= max(1, "
+            f"{MAX_APART} * rows))")
+    return st

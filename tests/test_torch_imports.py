@@ -1,0 +1,106 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, its flagship config equals the JAX one field by field, and its
+entry points refuse to fall back to the CPU on their own."""
+import dataclasses
+import enum
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import jax  # noqa: F401  (both frameworks in one process, as the suite does)
+
+from __graft_entry__ import _flagship_config
+
+import image2text_torch
+from image2text_torch.configs.models import flagship_config
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        image2text_torch.__path__, "image2text_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for name in {['image2text_torch'] + _submodules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'image2text_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|image2text_tpu)\b",
+                     re.M)
+    files = list((REPO / "image2text_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def _assert_same(mine, ref, path="model"):
+    if dataclasses.is_dataclass(mine):
+        for f in dataclasses.fields(mine):
+            _assert_same(getattr(mine, f.name), getattr(ref, f.name),
+                         f"{path}.{f.name}")
+    elif isinstance(mine, enum.Enum):
+        assert mine.value == ref.value, path
+    elif isinstance(mine, (tuple, list)):
+        assert tuple(mine) == tuple(ref), path
+    else:
+        assert mine == ref and type(mine) is type(ref) or (
+            isinstance(mine, float) and mine == ref), path
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_flagship_config_matches_jax(tiny):
+    _assert_same(flagship_config(tiny=tiny), _flagship_config(tiny=tiny).model)
+
+
+def test_entry_point_without_cuda_raises(monkeypatch):
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VisionEncoderDecoder(flagship_config(tiny=True))
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_kernel_wrappers_take_plain_version_only_on_cpu():
+    """The wrapper runs the plain version for a CPU tensor (launching
+    nothing) and never for another device: there it launches the kernel or
+    raises."""
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+    from image2text_torch.ops.fused_moe import moe_ffn
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True),
+                                 device="cpu").init_weights(0)
+    mlp = model.decoder.blocks[0].mlp
+    x = torch.randn(3, 64)
+    before = moe_ffn.launches
+    y = moe_ffn(x, mlp.c_fc.packed(x.dtype), mlp.c_proj.packed(x.dtype))
+    assert y.shape == x.shape and moe_ffn.launches == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_ffn(torch.empty(3, 64, device="meta"),
+                mlp.c_fc.packed(x.dtype), mlp.c_proj.packed(x.dtype))
+    assert moe_ffn.launches == before
