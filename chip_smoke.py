@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (image2text_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase, flagship at batch 256
+    python3 chip_smoke.py              # every phase, flagship widths
     python3 chip_smoke.py --profile    # also device time by kernel
 
 Phases, each printing its lines:
@@ -12,13 +12,29 @@ Phases, each printing its lines:
             the flagship shapes, the plain version run on the kernel's own
             expert routes and held at the output's scale
             (image2text_torch/utils/kernel_check.py): error, kernel time,
-            plain time, bound.
+            plain time, bound.  The three flash-attention kernels at the
+            training step's encoder shape (batch 48, 8 heads, s 160,
+            d 128, multi-query, dropout 0.1) and a decoder shape (s 136,
+            causal, soft-prompt bias), with the same dropout seed as their
+            plain versions, and F.scaled_dot_product_attention's time as a
+            yardstick the port never calls.
 4. main     the flagship serving path at full width with random weights:
             raw uint8 frames → preprocess → encoder → cached generate
             (32 new tokens, temperature 0.7, top-k 16, n-grams 2–5);
             launch counts of every kernel and captions/s.
 5. parity   at batch 8, first-step logits and greedy tokens of the kernel
             path against the plain-version path.
+6. train    the flagship training step (training_configs/tpu/nano-mini.yaml:
+            batch 48, 256 labels, bf16 compute from f32 masters, dropout
+            0.1, gradient checkpointing; SNRAdam lr 6e-4 and mask
+            fractions 0.15/0.2 as bench_train.py) at full width and depth:
+            launches of every kernel in one step (flash as predicted, the
+            serving kernels none), then 3 windows of 4 steps on one batch:
+            step ms, tokens/s, peak memory, the loss of every step (finite
+            and falling).
+7. train-parity  at batch 8, full width, depth 2 + 2: one training step on
+            the kernels, then on the plain versions, same weights, seeds
+            and batch: loss and gradients.
 
 The second-to-last lines are the ``kernels`` JSON object and the
 nvidia-smi line; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -30,6 +46,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,6 +55,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 0.06       # whole-stack parity: the JAX bf16 kernel tests' tolerance
+TRAIN_LOSS_TOL = 1e-2   # train parity: loss, relative
+TRAIN_GRAD_TOL = 2e-2   # train parity: gradients, relative L2
+DROPOUT = 0.1    # the flagship's attention dropout
+TRAIN_BATCH = 48     # training_configs/tpu/nano-mini.yaml
+TRAIN_SEQ = 256      # bench_train.py's padded caption length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 32
@@ -121,17 +143,23 @@ def run_pair(torch, kernel, plain, args, n_rows, e, **kw):
 @contextlib.contextmanager
 def plain_versions():
     """Run the model's kernel call sites on the plain versions (for the
-    parity phase only)."""
+    parity phases only)."""
     from image2text_torch.models import layers
+    from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.fused_block import sparse_block_plain
     from image2text_torch.ops.fused_moe import moe_ffn_plain
 
-    saved = layers.sparse_block, layers.moe_ffn
+    saved = (layers.sparse_block, layers.moe_ffn, fa.flash_fwd,
+             fa.flash_bwd_dkv, fa.flash_bwd_dq)
     layers.sparse_block, layers.moe_ffn = sparse_block_plain, moe_ffn_plain
+    fa.flash_fwd = fa.flash_forward_plain
+    fa.flash_bwd_dkv = lambda *a: fa.flash_backward_plain(*a)[1:]
+    fa.flash_bwd_dq = lambda *a: fa.flash_backward_plain(*a)[0]
     try:
         yield
     finally:
-        layers.sparse_block, layers.moe_ffn = saved
+        (layers.sparse_block, layers.moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
+         fa.flash_bwd_dq) = saved
 
 
 def moe_flops_bytes(x, fc, proj):
@@ -320,7 +348,13 @@ def phase_main(torch, model, args, results):
 
 def device_profile(torch, fn, top: int = 12) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time.  Only the device's
+    own events (kernels, copies) count: an operator, an autograd node or
+    a ``record_function`` range also reports the device time of the
+    kernels it launched — some as device-side spans under the host
+    event's name (``aten::mm``, ``Optimizer.step#…``) — and adding those
+    in would count that time twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -330,16 +364,28 @@ def device_profile(torch, fn, top: int = 12) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    device = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events = [e for e in device if e.key not in host
+              and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in events) / 1e3  # ms
+    spans = sum(e.self_device_time_total for e in device) / 1e3 - busy
     if not events:
         log("  profiler saw no device time")
         return
     log(f"  wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-        f"(share {busy / (wall * 1e3):.3f}; profiler on)")
+        f"(share {busy / (wall * 1e3):.3f}; profiler on); {spans:.2f} ms "
+        f"more under host events' names, not added")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    ops = [e for e in averages if e.device_type == DeviceType.CPU]
+    log(f"  host time by operator (self, profiler on; "
+        f"{sum(e.count for e in ops)} events):")
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top // 2]:
+        log(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
 
 
@@ -392,6 +438,284 @@ def phase_parity(torch, model):
             or float(err.max()) > TOL * float(want.abs().max())):
         raise AssertionError("parity: kernel path disagrees with the plain "
                              "path beyond tolerance")
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops.fused_block import sparse_block
+    from image2text_torch.ops.fused_moe import moe_ffn
+
+    return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
+            fa.flash_bwd_dq)
+
+
+def soft_prompt_bias(torch, s: int, n_prefix: int, dev):
+    """(1, 1, s, s) f32: 0, but -inf from text rows to the prefix (the
+    decoder's soft-prompt bias)."""
+    bias = torch.zeros(1, 1, s, s, device=dev)
+    bias[..., n_prefix:, :n_prefix] = float("-inf")
+    return bias
+
+
+def flash_work(q, k, bias, causal: bool, kind: str):
+    """(bytes, FLOP) one flash kernel call must move and do: each input
+    read once and each output written once; the products over the
+    (row, col) pairs the causal mask leaves (kind: fwd, dkv or dq)."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    pairs = (sum(min(skv, max(0, r + skv - sq + 1)) for r in range(sq))
+             if causal else sq * skv)
+    qb, kb = nbytes(q), nbytes(k)
+    rows = b * h * sq * 4
+    mm = 2 * b * h * pairs * d
+    ins = nbytes(bias) + 2 * kb + qb
+    if kind == "fwd":                    # q, k, v, bias → out, lse
+        return ins + qb + rows, 2 * mm
+    ins += qb + 2 * rows                 # + dO, lse, D
+    if kind == "dkv":                    # → dk, dv; S, dP, dV, dK
+        return ins + 2 * kb, 4 * mm
+    return ins + qb, 3 * mm              # → dq; S, dP, dQ
+
+
+def phase_flash_kernels(torch, args, results):
+    """The three flash kernels against their plain versions at the train
+    step's two attention shapes, same inputs and dropout seed."""
+    import torch.nn.functional as F
+
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops.attention import causal_bias
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    b, h, d, seed = TRAIN_BATCH, 8, 128, -987654321
+    for label, s, causal, n_prefix in (("encoder", 160, False, None),
+                                       ("decoder", 136, True, 32)):
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
+                                     ).to(bf)
+                         for shape in ((b, h, s, d), (b, 1, s, d),
+                                       (b, 1, s, d), (b, h, s, d)))
+        bias = None if n_prefix is None else soft_prompt_bias(torch, s,
+                                                              n_prefix, dev)
+        a = (q, k, v, bias, causal)
+        out, lse = fa.flash_fwd(*a, DROPOUT, seed)
+        want, want_lse = fa.flash_forward_plain(*a, DROPOUT, seed)
+        dvec = (dout.float() * want.float()).sum(-1)
+        g = (dout, want_lse, dvec, DROPOUT, seed)
+        dk, dv = fa.flash_bwd_dkv(*a, *g)
+        dq = fa.flash_bwd_dq(*a, *g)
+        pq, pk, pv = fa.flash_backward_plain(*a, *g)
+        torch.cuda.synchronize()
+        shape = (f"b={b} h={h} s={s} d={d} MQA causal={causal} "
+                 f"bias={None if bias is None else tuple(bias.shape)} "
+                 f"dropout={DROPOUT}")
+        errs = {"fwd": compare(f"flash_fwd out {label} {shape}", out, want)}
+        compare(f"flash_fwd lse {label}", lse, want_lse)
+        errs["dkv"] = max(compare(f"flash_bwd_dkv dk {label}", dk, pk),
+                          compare(f"flash_bwd_dkv dv {label}", dv, pv))
+        errs["dq"] = compare(f"flash_bwd_dq dq {label}", dq, pq)
+        del out, lse, dk, dv, dq, pq, pk, pv
+        ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, DROPOUT, seed)),
+              "dkv": cuda_ms(torch, lambda: fa.flash_bwd_dkv(*a, *g)),
+              "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq(*a, *g))}
+        plain_fwd = cuda_ms(torch, lambda: fa.flash_forward_plain(
+            *a, DROPOUT, seed))
+        plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g))
+        # the library yardstick: one SDPA call, causal folded into the mask
+        mask = None
+        if bias is not None or causal:
+            mask = (0 if bias is None else bias) + (
+                causal_bias(s, s, dev) if causal else 0)
+            mask = mask.to(bf)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=DROPOUT, enable_gqa=True)
+
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd_bwd():
+            with torch.enable_grad():
+                F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=mask, dropout_p=DROPOUT,
+                    enable_gqa=True).backward(dout)
+
+        lib = {"fwd": cuda_ms(torch, lib_fwd),
+               "fwd_bwd": cuda_ms(torch, lib_fwd_bwd)}
+        log(f"  flash {label}: fwd {ms['fwd']:.4f} ms (plain {plain_fwd:.4f}"
+            f", SDPA {lib['fwd']:.4f}), bwd_dkv {ms['dkv']:.4f} ms, bwd_dq "
+            f"{ms['dq']:.4f} ms (plain backward, dq dk dv together "
+            f"{plain_bwd:.4f}; SDPA forward + backward {lib['fwd_bwd']:.4f})")
+        for kind, line in (("fwd", 181), ("dkv", 362), ("dq", 400)):
+            name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+            n_bytes, flops = flash_work(q, k, bias, causal, kind)
+            bms, by = bound_ms(n_bytes, flops)
+            log(f"    {name} {label}: bound {bms:.5f} ms ({by}; "
+                f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), kernel "
+                f"at {bms / ms[kind]:.3f} of it")
+            row = dict(max_abs_err=errs[kind], ms=ms[kind],
+                       plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
+                       bound_ms=bms, bound_by=by,
+                       library_ms=lib["fwd"] if kind == "fwd"
+                       else lib["fwd_bwd"])
+            if label == "encoder":
+                results[name] = dict(
+                    name=name, route="cuda",
+                    source="image2text_torch/csrc/flash_attention.cu",
+                    replaces=f"image2text_tpu/ops/flash_attention.py:{line}",
+                    **row)
+            else:
+                results[name]["decoder_shape"] = dict(s=s, causal=causal,
+                                                      **row)
+
+
+def train_inputs(torch, cfg, batch: int, seed: int):
+    """Images and eos-padded labels as bench_train.py::_inputs makes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    size = cfg.model.vision_encoder_config.input.width
+    vocab = cfg.model.decoder_config.vocab_size
+    images = rng.standard_normal((batch, 3, size, size)).astype(np.float32)
+    labels = np.zeros((batch, TRAIN_SEQ), np.int64)
+    for i, n in enumerate(rng.integers(8, TRAIN_SEQ - 1, batch)):
+        labels[i, :n] = rng.integers(3, vocab - 1, n)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev))
+
+
+def train_setup(torch, n_layer=None):
+    """The flagship training configuration (as bench_train.py sets it:
+    SNRAdam, mask fractions 0.15 / 0.2) and its Trainer on the card."""
+    from image2text_torch.configs.trainer import flagship_training_config
+    from image2text_torch.training.loop import Trainer
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    cfg = flagship_training_config()
+    if n_layer is not None:
+        cfg.model.vision_encoder_config.n_layer = n_layer
+        cfg.model.decoder_config.n_layer = n_layer
+    cfg.use_snr_optim = True
+    cfg.trainer.mask_fraction, cfg.trainer.random_mask_fraction = 0.15, 0.2
+    tok = TokenizerInfo(eos_token_id=0, bos_token_id=1, mask_token_id=2,
+                        vocab_size=cfg.model.decoder_config.vocab_size)
+    wrapper = ModelTrainerWrapper(cfg.model, tok, cfg.trainer,
+                                  device="cuda").init_weights(SEED)
+    return cfg, wrapper, Trainer(cfg, wrapper)
+
+
+def flash_launches_per_step(cfg, model, seq_len: int):
+    """Launches of each flash kernel in one training step on ``seq_len``
+    labels: one forward, backward and (both stacks checkpointing every
+    block) recomputed forward per self-attention call of the model."""
+    stacks = (cfg.model.vision_encoder_config, cfg.model.decoder_config)
+    if not all(c.enable_gradient_checkpointing for c in stacks):
+        raise ValueError("the launch count assumes full gradient "
+                         "checkpointing in both stacks")
+    calls = model.self_attention_calls(seq_len)
+    return {"flash_fwd": 2 * calls, "flash_bwd_dkv": calls,
+            "flash_bwd_dq": calls}
+
+
+def phase_train(torch, args, results):
+    cfg, wrapper, trainer = train_setup(torch)
+    n_params = sum(p.numel() for p in wrapper.model.parameters())
+    images, labels = train_inputs(torch, cfg, TRAIN_BATCH, SEED + 5)
+    step = trainer._train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = kernel_wrappers()
+    for kern in kernels:
+        kern.launches = 0
+    losses = [step(images, labels, cfg.seed, 0)["train_loss_lm"]]
+    torch.cuda.synchronize()
+    counts = {kern.__name__: kern.launches for kern in kernels}
+    want = {"sparse_block": 0, "moe_ffn": 0,
+            **flash_launches_per_step(cfg, wrapper.model, TRAIN_SEQ)}
+    log(f"  flagship training step ({n_params:,} parameters, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} labels, bf16 compute, f32 masters, "
+        f"dropout {DROPOUT}, gradient checkpointing): launches in one step "
+        f"{counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts} != {want}")
+    for name, n in counts.items():
+        if name.startswith("flash"):
+            results[name]["launches"] = n
+    windows = []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(4):
+            losses.append(step(images, labels, cfg.seed, 1 + 4 * w + i)[
+                "train_loss_lm"])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 4)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    step_s = statistics.median(windows)
+    log(f"  step ms (median of 3 windows of 4 steps): {step_s * 1e3:.2f}; "
+        f"windows {[round(x * 1e3, 2) for x in windows]}; tokens/s "
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}; peak memory "
+        f"{peak:.3f} GiB on {torch.cuda.get_device_name(0)}")
+    log(f"  loss by step: {[round(x, 5) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: loss not finite or not falling "
+                             f"{losses}")
+    if args.profile:
+        log("  device time by kernel, one training step:")
+        device_profile(torch, lambda: step(images, labels, cfg.seed, 99),
+                       top=16)
+    del trainer, wrapper
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(torch):
+    """One training step at depth 2 + 2, on the kernels and then on the
+    plain versions, from the same weights, seeds and batch."""
+    from image2text_torch.training.loop import make_train_step
+    from image2text_torch.training.optimizer import build_optimizer
+
+    cfg, wrapper, trainer = train_setup(torch, n_layer=2)
+    images, labels = train_inputs(torch, cfg, 8, SEED + 6)
+    start = {k: v.clone() for k, v in wrapper.state_dict().items()}
+    kernels = kernel_wrappers()
+    runs = []
+    for plain in (False, True):
+        wrapper.load_state_dict(start)
+        opt, _ = build_optimizer(wrapper, cfg.optimizers, use_snr=True)
+        step = make_train_step(wrapper, opt, precision=cfg.precision)
+        for kern in kernels:
+            kern.launches = 0
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = float(step(images, labels, cfg.seed, 0)["train_loss_lm"])
+        torch.cuda.synchronize()
+        grads = {n: p.grad.float().clone()
+                 for n, p in wrapper.model.named_parameters()
+                 if p.grad is not None}
+        runs.append((loss, grads, sum(k.launches for k in kernels[2:])))
+    (lk, gk, nk), (lp, gp, npl) = runs
+
+    def rel_l2(names):
+        num = sum(float((gk[n] - gp[n]).square().sum()) for n in names)
+        den = sum(float(gp[n].square().sum()) for n in names)
+        return math.sqrt(num / den)
+
+    attn = [n for n in gp if ".attn.q_proj." in n or ".attn.kv_proj." in n]
+    loss_err = abs(lk - lp) / abs(lp)
+    whole, qkv = rel_l2(list(gp)), rel_l2(attn)
+    log(f"  batch 8, depth 2 + 2, full width: loss kernels {lk:.6f} vs plain "
+        f"{lp:.6f} (relative error {loss_err:.3g}, limit {TRAIN_LOSS_TOL}); "
+        f"gradient relative L2 error {whole:.4g} over {len(gp)} tensors, "
+        f"{qkv:.4g} over the {len(attn)} attention q_proj/kv_proj ones "
+        f"(limit {TRAIN_GRAD_TOL}); flash launches {nk} on the kernel path, "
+        f"{npl} on the plain one")
+    if (set(gk) != set(gp) or nk == 0 or npl != 0 or loss_err > TRAIN_LOSS_TOL
+            or whole > TRAIN_GRAD_TOL or qkv > TRAIN_GRAD_TOL):
+        raise AssertionError("train-parity: kernel path disagrees with the "
+                             "plain-version path beyond tolerance")
+    del trainer, wrapper
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -447,15 +771,24 @@ def main() -> int:
     with torch.no_grad():
         log("[kernels] kernel vs plain version (bf16, flagship shapes)")
         phase_kernels(torch, model, args, results)
+        log("  flash-attention kernels vs plain versions, same dropout "
+            "seed (bf16, the training step's attention shapes)")
+        phase_flash_kernels(torch, args, results)
         log("[main] flagship serving path at full width")
         phase_main(torch, model, args, results)
         log("[parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    log("[train] flagship training step at full width and depth")
+    phase_train(torch, args, results)
+    log("[train-parity] training step, kernel path vs plain-version path")
+    phase_train_parity(torch)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} | (
-        {"encoder_shape": r["encoder_shape"]} if "encoder_shape" in r else {})
-        for r in results.values()]
+    kernels = [{k: r[k] for k in keys}
+               | {k: v for k, v in r.items() if k.endswith("_shape")}
+               for r in results.values()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,76 @@
+"""Trainer configuration for the PyTorch port: plain dataclasses.
+
+The fields of ``image2text_tpu/configs/trainer.py`` that the training step
+and loop read, under the same names.  The JAX package's mesh, ZeRO,
+sequence-parallel, dataset and profiling fields are not ported (single
+device; no data pipeline yet), and so are the tokenizer name, the epoch
+count and ``ignore_index``, which only the CLI reads (it hands
+``ignore_index`` to the trainer wrapper).  :data:`FLAGSHIP_TRAINING`
+transcribes ``training_configs/tpu/nano-mini.yaml`` (the card's machine
+has no YAML parser).
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+from image2text_torch.configs.models import (VisionEncoderDecoderConfig,
+                                             flagship_config)
+
+
+@dataclass
+class TrainerWrapperConfig:
+    moco_momentum: Optional[float] = None  # e.g. 0.995
+    moco_alpha: Optional[float] = None  # e.g. 0.4
+    training_temperature: float = 1.0
+    weight_fn: str = "constant"
+    mask_fraction: float = 0.0  # e.g. 0.15
+    random_mask_fraction: float = 0.0  # e.g. 0.2
+    eos_token_weight: Optional[float] = None
+    add_contrastive_loss: bool = False
+    training_contrastive_temperature: float = 1.0
+
+
+@dataclass
+class OptimizerConfig:
+    lr: float
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    target_modules: Optional[List[str]] = None
+
+
+@dataclass
+class TrainingConfig:
+    model: VisionEncoderDecoderConfig
+    batch_size: int
+    trainer: TrainerWrapperConfig
+    optimizers: List[OptimizerConfig]
+    disable_flash: bool = False
+    gradient_accumulation_steps: int = 1
+    num_steps: Optional[int] = None
+    num_val_steps: Optional[int] = None
+    precision: str = "no"
+    reset_moco_after_k_epochs: Optional[List[int]] = None
+    use_snr_optim: bool = False
+    seed: int = 0
+    remat_policy: Optional[str] = None
+
+
+FLAGSHIP_TRAINING = TrainingConfig(
+    model=flagship_config(), trainer=TrainerWrapperConfig(),
+    optimizers=[OptimizerConfig(lr=6e-4)], disable_flash=False,
+    batch_size=48, num_steps=200, num_val_steps=20,
+    gradient_accumulation_steps=1, precision="bf16")
+
+
+def flagship_training_config(tiny: bool = False) -> TrainingConfig:
+    """A fresh copy of :data:`FLAGSHIP_TRAINING`; ``tiny`` cuts the model
+    as ``configs.models.flagship_config(tiny=True)`` does."""
+    cfg = copy.deepcopy(FLAGSHIP_TRAINING)
+    cfg.model = flagship_config(tiny=tiny)
+    return cfg
+
+
+__all__ = ["FLAGSHIP_TRAINING", "OptimizerConfig", "TrainerWrapperConfig",
+           "TrainingConfig", "flagship_training_config"]

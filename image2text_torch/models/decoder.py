@@ -2,7 +2,9 @@
 ``image2text_tpu/models/decoder.py::TransformerDecoder``): token table
 ``wte``, plain positional table ``wpe``, sparse MQA/MoE blocks with
 cross-attention on even depths only, ``ln_f`` and the lm_head tied to
-``wte`` with f32 accumulation and f32 logits.
+``wte`` with f32 accumulation and f32 logits.  In training the positions
+are dropped and, when the config enables gradient checkpointing, each
+block is recomputed in the backward with its bias and cross inputs.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ from image2text_torch.configs.models import (TransformerConfig,
                                              TransformerDecoderConfig)
 from image2text_torch.models.kv_cache import KVCache
 from image2text_torch.models.layers import MoELinear, TransformerBlock
-from image2text_torch.nn.core import normal_init, zeros_init
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, normal_init,
+                                      zeros_init)
 from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
 from image2text_torch.ops.static_gather import canonicalize
+from image2text_torch.training.remat import checkpoint_block
 
 
 def mutate_transformer_config(config: TransformerConfig, depth: int,
@@ -52,7 +56,9 @@ class TransformerDecoder(nn.Module):
             for depth in range(config.n_layer)])
         self.transformer.ln_f = LayerNorm(
             n_embd, config.transformer_config.attn_config.bias, device=device)
-        self.blocks = self.transformer.h
+        self.dropout_rate = config.transformer_config.attn_config.dropout
+        self.enable_gradient_checkpointing = (
+            config.enable_gradient_checkpointing)
         self._gpt2_init_policy()
 
     def _gpt2_init_policy(self):
@@ -69,6 +75,12 @@ class TransformerDecoder(nn.Module):
                 for name in fns:
                     fns[name] = (normal_init(0.02) if name.endswith("weight")
                                  else zeros_init())
+
+    @property
+    def blocks(self) -> nn.ModuleList:
+        """``transformer.h`` (a property, not a second registration: one
+        path per parameter, as ``torch.func.functional_call`` needs)."""
+        return self.transformer.h
 
     @property
     def block_size(self) -> int:
@@ -97,7 +109,7 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, idx=None, inputs_embeds=None, cross_attn_embeds=None,
                 attn_msk=None, kv_cache=None, pos_offset: int = 0,
-                cross_kv=None):
+                cross_kv=None, ctx: Ctx = EVAL_CTX, use_flash: bool = True):
         """Returns (logits (b, t, V) f32, hidden state).  ``pos_offset``
         (a host int) places the chunk at global positions
         pos_offset + arange(t)."""
@@ -112,18 +124,27 @@ class TransformerDecoder(nn.Module):
             kv_cache.positions = pos_offset + np.arange(t)
         pos_emb = self.transformer.wpe.weight[pos_offset:pos_offset + t]
         x = inputs_embeds + pos_emb.to(inputs_embeds.dtype)
+        x, ctx = dropout(x, self.dropout_rate, ctx.fold(2))
         lazy = kv_cache is None
+        remat = (self.enable_gradient_checkpointing and ctx.train
+                 and kv_cache is None)
         layout = None
         for depth, blk in enumerate(self.blocks):
             cross_inputs = cross_attn_embeds if self._cross_depth(depth) \
                 else None
             ckv = cross_kv.get(depth) if cross_kv is not None else None
             new_layout = blk.next_layout(layout, x.shape[1]) if lazy else None
-            x = blk(x, cross_attn_inputs=None if ckv is not None
-                    else cross_inputs, attn_mask=attn_msk, kv_cache=kv_cache,
-                    cross_kv=ckv, layout=layout, want_lazy=lazy)
-            if lazy:
-                x = x[0]
+
+            def run(x_, ci_, am_, blk_=blk, ckv_=ckv, layout_=layout,
+                    ctx_=ctx.fold(100 + depth)):
+                out = blk_(x_, cross_attn_inputs=ci_, attn_mask=am_,
+                           kv_cache=kv_cache, cross_kv=ckv_, layout=layout_,
+                           want_lazy=lazy, ctx=ctx_, use_flash=use_flash)
+                return out[0] if lazy else out
+
+            ci = None if ckv is not None else cross_inputs
+            x = (checkpoint_block(run, x, ci, attn_msk) if remat
+                 else run(x, ci, attn_msk))
             layout = new_layout
         if layout is not None:
             x = canonicalize(x, layout)

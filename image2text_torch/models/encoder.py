@@ -5,7 +5,9 @@ ConvMLP features, then the reference's raw row-major reshape of the NCHW
 feature map into n_patches² tokens of C·pw·ph (not a patchify), projector
 + LayerNormND over the whole (tokens, d) slab, the positional table,
 LayerNormND again, learned CLS tokens in front, and the sparse blocks on
-the lazy layout path; ``ln_f`` of the CLS rows is the output.
+the lazy layout path; ``ln_f`` of the CLS rows is the output.  In
+training the front is dropped and, when the config enables gradient
+checkpointing, each block is recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -17,10 +19,12 @@ from torch import nn
 
 from image2text_torch.configs.models import VisionTransformerEncoderConfig
 from image2text_torch.models.layers import ConvMLP, TransformerBlock
-from image2text_torch.nn.core import new_param, normal_init
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
+                                      normal_init)
 from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
                                          Linear)
 from image2text_torch.ops.static_gather import layout_rows, static_take
+from image2text_torch.training.remat import checkpoint_block
 
 
 class VisionTransformerEncoder(nn.Module):
@@ -51,10 +55,18 @@ class VisionTransformerEncoder(nn.Module):
             for depth in range(config.n_layer)])
         self.transformer.ln_f = LayerNorm(self.out_dim, acfg.bias,
                                           device=device)
-        self.blocks = self.transformer.h
         new_param(self, "cls_token", (1, config.n_cls, self.out_dim),
                   normal_init(std=1.0 / math.sqrt(self.out_dim)), device)
         self.n_cls = config.n_cls
+        self.dropout_rate = acfg.dropout
+        self.enable_gradient_checkpointing = (
+            config.enable_gradient_checkpointing)
+
+    @property
+    def blocks(self) -> nn.ModuleList:
+        """``transformer.h`` (a property, not a second registration: one
+        path per parameter, as ``torch.func.functional_call`` needs)."""
+        return self.transformer.h
 
     @property
     def num_outputs(self) -> int:
@@ -64,7 +76,8 @@ class VisionTransformerEncoder(nn.Module):
     def output_embed_dim(self) -> int:
         return self.out_dim
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, ctx: Ctx = EVAL_CTX,
+                use_flash: bool = True) -> torch.Tensor:
         x = self.feature_extractor(images)
         n = x.shape[0]
         x = x.reshape(n, self.n_patches ** 2, self.input_d)
@@ -72,10 +85,17 @@ class VisionTransformerEncoder(nn.Module):
         y = x + self.transformer.wpe.weight.to(x.dtype)[None]
         cls = self.cls_token.to(x.dtype).expand(n, self.n_cls, self.out_dim)
         x = torch.cat([cls, self.ln_input(y)], dim=1)
+        x, ctx = dropout(x, self.dropout_rate, ctx)
+        remat = self.enable_gradient_checkpointing and ctx.train
         layout = None
-        for blk in self.blocks:
+        for depth, blk in enumerate(self.blocks):
             new_layout = blk.next_layout(layout, x.shape[1])
-            x = blk(x, layout=layout, want_lazy=True)[0]
+
+            def run(x_, blk_=blk, layout_=layout, ctx_=ctx.fold(100 + depth)):
+                return blk_(x_, layout=layout_, want_lazy=True, ctx=ctx_,
+                            use_flash=use_flash)[0]
+
+            x = checkpoint_block(run, x) if remat else run(x)
             layout = new_layout
         if layout is None:
             cls = x[:, :self.n_cls]

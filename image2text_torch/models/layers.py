@@ -3,7 +3,13 @@ MLP, ConvMLP, MoELinear, _MoEMLP, MultiQueryAttention and the sparse
 TransformerBlock with its lazy layout path and its cached decode.
 
 Parameter and buffer names reproduce the JAX package's (torch state-dict
-names), so one exported ``.npz`` feeds both packages.  Eval only.
+names), so one exported ``.npz`` feeds both packages.
+
+At eval (``ctx.train`` False) the flagship blocks run through the serving
+kernels (``sparse_block``, ``moe_ffn``), which have no backward.  In
+training every block computes from its parameters directly, with the
+dropout sites of the JAX package, and its self-attention goes through the
+flash kernels (``ops/attention.py::sdpa``).
 """
 from __future__ import annotations
 
@@ -17,30 +23,47 @@ from torch import nn
 from image2text_torch.configs.models import (MoEConfig, SelfAttentionConfig,
                                              SelfAttentionType,
                                              TransformerConfig)
-from image2text_torch.nn.core import new_param, uniform_init
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
+                                      uniform_init)
 from image2text_torch.nn.modules import (Conv2d, LayerNorm, Linear,
                                          MultiheadAttention, gelu_tanh)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.ops.functions import normalize_gradients
 from image2text_torch.ops.fused_block import SparseBlockWeights, sparse_block
 from image2text_torch.ops.fused_moe import (MoELinearWeights, moe_ffn,
-                                            moe_linear_plain, pack_moe_linear)
+                                            pack_moe_linear, topk_mask)
 from image2text_torch.ops.static_gather import (canonicalize, layout_rows,
                                                 static_combine, static_take)
 
 
 class _Cached:
     """Recompute a derived value only when the parameters it reads change
-    (new storage, an in-place write, or another dtype)."""
+    (another tensor, new storage, an in-place write, or another dtype).
+
+    Only a module's own ``nn.Parameter``s are cached, and the cache holds
+    them and their storages, so no freed tensor's address can alias a
+    key.  Any other tensors — the transient casts that
+    ``torch.func.functional_call`` swaps in (the val step) — are packed on
+    every call.  The value is built without autograd, so no graph outlives
+    the call that built it: it serves the eval kernels, which have no
+    backward."""
 
     def __init__(self):
         self._key = None
+        self._held = None
         self._value = None
 
     def get(self, params, extra, make):
+        if not all(isinstance(p, nn.Parameter) for p in params):
+            with torch.no_grad():
+                return make()
         key = (extra,) + tuple((p.data_ptr(), p._version) for p in params)
-        if key != self._key:
-            self._value, self._key = make(), key
+        held = self._held
+        if (key != self._key or len(held) != len(params)
+                or any(a is not b for (a, _), b in zip(held, params))):
+            with torch.no_grad():
+                self._value, self._key = make(), key
+            self._held = [(p, p.untyped_storage()) for p in params]
         return self._value
 
 
@@ -134,16 +157,32 @@ class MoELinear(nn.Module):
                                     dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return moe_linear_plain(x, self.packed(x.dtype))
+        """From the parameters, as the JAX module: the top-k gate values
+        combine the experts, and gradients reach them through it."""
+        e, r, fin = self.l1_weight.shape
+        dt = x.dtype
+        gv = torch.softmax(self.expert_gates(x).float() / math.sqrt(fin),
+                           dim=-1)
+        combine = torch.where(topk_mask(gv.detach(), self.top_k), gv,
+                              torch.zeros_like(gv))
+        h = torch.matmul(x, self.l1_weight.reshape(e * r, fin).t().to(dt))
+        h = gelu_tanh(h + self.l1_bias.reshape(e * r).to(dt))
+        c = combine.to(dt)
+        hw = h * c.repeat_interleave(r, dim=-1)
+        w2 = self.l2_weight.permute(0, 2, 1).reshape(e * r, -1).to(dt)
+        return torch.matmul(hw, w2) + torch.matmul(c, self.l2_bias.to(dt))
 
 
 class _MoEMLP(nn.Module):
     """Transformer-block FFN of two MoELinears around a GELU.  At eval it
-    is one ``ops.fused_moe.moe_ffn`` call: the CUDA kernel on the card."""
+    is one ``ops.fused_moe.moe_ffn`` call: the CUDA kernel on the card.
+    In training it runs the MoELinears from their parameters and drops
+    its output."""
 
     def __init__(self, n_embd: int, bias: bool, config: MoEConfig,
-                 device=None):
+                 device=None, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         hidden = int(config.ff_mult_factor * n_embd)
         kw = dict(proj_features=config.proj_features,
                   num_experts=config.num_experts, bias=bias,
@@ -152,9 +191,12 @@ class _MoEMLP(nn.Module):
         self.c_fc = MoELinear(n_embd, hidden, **kw)
         self.c_proj = MoELinear(hidden, n_embd, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return moe_ffn(x, self.c_fc.packed(x.dtype),
-                       self.c_proj.packed(x.dtype))
+    def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
+        if not ctx.train:
+            return moe_ffn(x, self.c_fc.packed(x.dtype),
+                           self.c_proj.packed(x.dtype))
+        h = self.c_proj(gelu_tanh(self.c_fc(x)))
+        return dropout(h, self.dropout_rate, ctx)[0]
 
 
 class MultiQueryAttention(nn.Module):
@@ -172,22 +214,39 @@ class MultiQueryAttention(nn.Module):
                                device)
         self.n_head = config.n_head
         self.n_embd = config.n_embd
+        self.attn_dropout = config.attn_dropout
+        self.resid_dropout = config.dropout
 
     def kv_shape(self, batch: int, max_len: int):
         return (batch, 1, max_len, self.n_embd // self.n_head)
 
     def forward(self, x: torch.Tensor, mask=None, kv_cache=None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False, ctx: Ctx = EVAL_CTX,
+                use_flash: bool = True) -> torch.Tensor:
+        """In training: the reference's per-token q/k/v dropout masks
+        (rate ``attn_dropout``), probability dropout inside ``sdpa`` at
+        the *resid* rate (a quirk of the reference, kept) and resid
+        dropout after ``out_proj``."""
         b, t, c = x.shape
         hd = c // self.n_head
         q = self.q_proj(x).reshape(b, t, self.n_head, hd).transpose(1, 2)
         kv = self.kv_proj(x)
         k = kv[..., :hd].reshape(b, t, 1, hd).transpose(1, 2)
         v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
+        if ctx.train and self.attn_dropout > 0.0:
+            ones = torch.ones(b, 1, t, 1, device=x.device)
+            k_do, ctx = dropout(ones, self.attn_dropout, ctx)
+            q_do, ctx = dropout(ones, self.attn_dropout, ctx)
+            v_do, ctx = dropout(ones, self.attn_dropout, ctx)
+            q, k, v = (m.to(x.dtype) * z for m, z in ((q_do, q), (k_do, k),
+                                                     (v_do, v)))
         if kv_cache is not None:
             k, v, mask = kv_cache.update(k, v, mask)
-        y = sdpa(q, k, v, mask=mask, causal=causal)
-        return self.out_proj(y.transpose(1, 2).reshape(b, t, c))
+        y = sdpa(q, k, v, mask=mask, causal=causal,
+                 dropout_rate=self.resid_dropout, ctx=ctx.fold(3),
+                 use_flash=use_flash)
+        y = self.out_proj(y.transpose(1, 2).reshape(b, t, c))
+        return dropout(y, self.resid_dropout, ctx.fold(4))[0]
 
 
 def sparse_attention_indices(max_block_size: int, sparsity_factor: float,
@@ -223,11 +282,11 @@ class TransformerBlock(nn.Module):
         if not isinstance(config.rotator_config, MoEConfig):
             raise NotImplementedError("only the MoE FFN is ported so far")
         self.mlp = _MoEMLP(acfg.n_embd, acfg.bias, config.rotator_config,
-                           device)
+                           device, dropout_rate=acfg.dropout)
         self.is_cross_attn = config.is_cross_attn
         if config.is_cross_attn:
-            self.cross_attn = MultiheadAttention(acfg.n_embd, acfg.n_head,
-                                                 device)
+            self.cross_attn = MultiheadAttention(
+                acfg.n_embd, acfg.n_head, dropout=acfg.dropout, device=device)
             self.ln_3 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
         else:
             self.cross_attn = self.ln_3 = None
@@ -260,13 +319,19 @@ class TransformerBlock(nn.Module):
                      & (self.idx_np < self.n_cls + max_len)).sum())
         return self.attn.kv_shape(batch, max(n_sel, 1))
 
+    def runs_body(self, t: int) -> bool:
+        """Whether a non-cached forward over a ``t``-row stream runs the
+        block body (attention and FFN): its selection keeps more than one
+        row of the stream; otherwise every row takes the null path."""
+        return int((self.idx_np < t).sum()) > 1
+
     def next_layout(self, layout, t: int):
         """Row layout the lazy path emits for a ``t``-row stream entering
         under ``layout`` (None = canonical)."""
-        idx = self.idx_np[self.idx_np < t]
-        if idx.shape[0] <= 1:
+        if not self.runs_body(t):
             return layout
-        return np.concatenate([idx, self.not_idx_np[self.not_idx_np < t]])
+        return np.concatenate([self.idx_np[self.idx_np < t],
+                               self.not_idx_np[self.not_idx_np < t]])
 
     def runs_body_at(self, positions: np.ndarray) -> bool:
         """Whether a cached forward over ``positions`` runs the block body
@@ -312,15 +377,16 @@ class TransformerBlock(nn.Module):
 
     # -- forward ------------------------------------------------------------
     def _body(self, x, cross_attn_inputs, cross_kv, mask=None, kv_cache=None,
-              causal=False):
+              causal=False, ctx: Ctx = EVAL_CTX, use_flash: bool = True):
         x = x + self.attn(self.ln_1(x), mask=mask, kv_cache=kv_cache,
-                          causal=causal)
+                          causal=causal, ctx=ctx.fold(1), use_flash=use_flash)
         if cross_attn_inputs is not None or cross_kv is not None:
             if not self.is_cross_attn:
                 raise ValueError("Model not configured for cross attn inputs!!!")
             x = x + self.cross_attn(self.ln_3(x), cross_attn_inputs,
-                                    cross_attn_inputs, precomputed_kv=cross_kv)
-        x = x + self.mlp(self.ln_2(x))
+                                    cross_attn_inputs, precomputed_kv=cross_kv,
+                                    ctx=ctx.fold(2))
+        x = x + self.mlp(self.ln_2(x), ctx=ctx.fold(3))
         return normalize_gradients(x)
 
     def _null_path(self, z):
@@ -328,40 +394,45 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x_orig: torch.Tensor, cross_attn_inputs=None,
                 attn_mask=None, kv_cache=None, cross_kv=None, layout=None,
-                want_lazy: bool = False):
+                want_lazy: bool = False, ctx: Ctx = EVAL_CTX,
+                use_flash: bool = True):
         """``layout``/``want_lazy``: a lazy call composes the block's
         static gathers with the incoming row ``layout`` and returns
         ``(stream, new_layout)`` without reassembling canonical order.
-        A non-causal, unmasked lazy block without cross-attention — every
-        flagship encoder block — runs as one ``sparse_block`` call."""
+        At eval, a non-causal, unmasked lazy block without cross-attention
+        — every flagship encoder block — runs as one ``sparse_block``
+        call (``use_flash`` False, the parity mode, keeps the plain
+        block, as in the JAX package).  Training never takes it."""
         if kv_cache is not None:
             if layout is not None or want_lazy:
                 raise ValueError("the lazy layout is a non-cached path")
             return self._sparse_cached_forward(x_orig, cross_attn_inputs,
                                                attn_mask, kv_cache, cross_kv)
         t = x_orig.shape[1]
-        idx = self.idx_np[self.idx_np < t]
-        if idx.shape[0] <= 1:
+        if not self.runs_body(t):
             out = self._null_path(x_orig)
             if want_lazy:
                 return out, layout
             return out if layout is None else canonicalize(out, layout)
+        idx = self.idx_np[self.idx_np < t]
         not_idx = self.not_idx_np[self.not_idx_np < t]
         new_layout = np.concatenate([idx, not_idx])
-        if (want_lazy and attn_mask is None and cross_attn_inputs is None
-                and cross_kv is None and not self.is_causal):
-            rows_sel, rows_byp = self.layout_rows(layout, t, x_orig.device)
+        # index tensors cached on the device: a fresh host→device copy
+        # would synchronise the stream at every block
+        rows_sel, rows_byp = self.layout_rows(layout, t, x_orig.device)
+        if (want_lazy and use_flash and not ctx.train and attn_mask is None
+                and cross_attn_inputs is None and cross_kv is None
+                and not self.is_causal):
             return (sparse_block(x_orig, rows_sel, rows_byp,
                                  self.sparse_block_weights(x_orig.dtype)),
                     new_layout)
-        x = static_take(x_orig, layout_rows(layout, idx))
+        x = x_orig.index_select(1, rows_sel)
         if attn_mask is not None:
-            i = torch.as_tensor(idx, device=attn_mask.device)
+            i = self.input_mask_idx[:idx.shape[0]]   # idx is sorted
             attn_mask = attn_mask.index_select(-2, i).index_select(-1, i)
         x = self._body(x, cross_attn_inputs, cross_kv, mask=attn_mask,
-                       causal=self.is_causal)
-        bypass = self._null_path(static_take(x_orig, layout_rows(layout,
-                                                                 not_idx)))
+                       causal=self.is_causal, ctx=ctx, use_flash=use_flash)
+        bypass = self._null_path(x_orig.index_select(1, rows_byp))
         if want_lazy:
             return torch.cat([x.to(x_orig.dtype), bypass], dim=1), new_layout
         return static_combine(x.to(x_orig.dtype), bypass, idx, not_idx)

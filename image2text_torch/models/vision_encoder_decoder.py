@@ -5,7 +5,8 @@ Soft prompting prepends the encoder's CLS outputs to the token
 embeddings under the reference's additive bias: prefix query rows attend
 everywhere (subject to the blocks' causality), text → prefix is blocked
 (-inf), and the text block is open.  Cross-attention feeds the encoder
-output to the decoder's even-depth blocks.
+output to the decoder's even-depth blocks.  ``forward`` is differentiable;
+a training forward passes a train ``Ctx`` (``training/wrapper.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from torch import nn
 from image2text_torch.configs.models import VisionEncoderDecoderConfig
 from image2text_torch.models.decoder import TransformerDecoder
 from image2text_torch.models.encoder import VisionTransformerEncoder
-from image2text_torch.nn.core import init_parameters
+from image2text_torch.nn.core import EVAL_CTX, Ctx, init_parameters
 from image2text_torch.nn.modules import Linear
 from image2text_torch.object_models import VisionEncoderDecoderModelOutput
 from image2text_torch.utils.device import resolve_device
@@ -31,8 +32,8 @@ class _EncoderWithBridge(nn.Module):
         self.add_module("0", encoder)
         self.add_module("1", bridge)
 
-    def forward(self, images):
-        return self._modules["1"](self._modules["0"](images))
+    def forward(self, images, **kw):
+        return self._modules["1"](self._modules["0"](images, **kw))
 
 
 class VisionEncoderDecoder(nn.Module):
@@ -72,10 +73,25 @@ class VisionEncoderDecoder(nn.Module):
         init_parameters(self, gen)
         return self
 
-    @torch.no_grad()
-    def forward(self, images, ids, encoder_output=None):
+    def self_attention_calls(self, seq_len: int) -> int:
+        """Self-attention calls of one non-cached forward over ``seq_len``
+        labels: one for each block that runs its body
+        (``TransformerBlock.runs_body``) at its stream's length — the
+        encoder's CLS and patch rows, the decoder's soft prompt and labels
+        cut at its block size, as :meth:`forward` builds them."""
+        enc = self.encoder
+        if isinstance(enc, _EncoderWithBridge):
+            enc = enc._modules["0"]
+        t_enc = enc.n_cls + enc.n_patches ** 2
+        t_dec = min(self.decoder.block_size, self.space_for_prompt + seq_len)
+        return (sum(blk.runs_body(t_enc) for blk in enc.blocks)
+                + sum(blk.runs_body(t_dec) for blk in self.decoder.blocks))
+
+    def forward(self, images, ids, encoder_output=None, ctx: Ctx = EVAL_CTX,
+                use_flash: bool = True):
         if encoder_output is None:
-            encoder_output = self.encoder(images)
+            encoder_output = self.encoder(images, ctx=ctx.fold(1),
+                                          use_flash=use_flash)
         s = ids.shape[-1]
         block_size = self.decoder.block_size
         if self.use_soft_prompting:
@@ -96,7 +112,8 @@ class VisionEncoderDecoder(nn.Module):
         cross = encoder_output if self.use_cross_attn else None
         logits, hidden = self.decoder(idx=dec_ids, inputs_embeds=inputs_embeds,
                                       cross_attn_embeds=cross,
-                                      attn_msk=attn_bias)
+                                      attn_msk=attn_bias, ctx=ctx.fold(2),
+                                      use_flash=use_flash)
         return VisionEncoderDecoderModelOutput(
             encoder_output=encoder_output, logits=logits[..., offset:, :],
             hidden_state=hidden)

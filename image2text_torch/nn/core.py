@@ -1,16 +1,30 @@
-"""Parameter initialisers of the port (counterparts of
-``image2text_tpu/nn/core.py``'s ``normal_init`` … ``xavier_uniform_init``).
+"""Parameter initialisers, the forward context and dropout of the port
+(counterparts of ``image2text_tpu/nn/core.py``'s ``normal_init`` …
+``xavier_uniform_init``, ``Ctx`` and ``dropout``).
 
 Each initialiser returns ``fn(tensor, generator)`` that fills ``tensor`` in
 place from an explicit ``torch.Generator`` (on the tensor's device), with
 the same distribution as the JAX initialiser of the same name.  The two
 frameworks draw different numbers from the same seed: parity tests carry
 weights across with ``utils.checkpoint.load_jax_state_dict`` instead.
+
+Parameters are created with ``requires_grad=False``: serving builds no
+autograd graphs.  Training turns gradients on for the model it trains
+(``training/wrapper.py``).
+
+:class:`Ctx` carries the train flag and an integer seed instead of a
+``torch.Generator``: ``fold(i)`` and ``split()`` derive child seeds by a
+fixed integer hash on the host, and every dropout seeds its own generator
+from its derived seed.  A forward recomputed under
+``torch.utils.checkpoint`` (which restores only the global RNG state, not
+an explicit generator) therefore draws exactly the masks it drew the
+first time.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -70,3 +84,53 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     for mod in module.modules():
         for name, fn in getattr(mod, "_init_fns", {}).items():
             fn(getattr(mod, name), generator)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix(seed: int, data: int) -> int:
+    """A 63-bit child seed of (seed, data): a splitmix64 finalizer."""
+    x = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return (x ^ (x >> 31)) >> 1
+
+
+@dataclass(frozen=True)
+class Ctx:
+    """Immutable forward-pass context: a seed stream and the train flag."""
+
+    seed: Optional[int] = None
+    train: bool = False
+
+    def split(self) -> Tuple["Ctx", int]:
+        """(the advanced context, a seed to use now)."""
+        if self.seed is None:
+            raise ValueError("Ctx has no seed but randomness was requested")
+        return (Ctx(_mix(self.seed, 1), self.train), _mix(self.seed, 3))
+
+    def fold(self, data: int) -> "Ctx":
+        if self.seed is None:
+            return self
+        return Ctx(_mix(self.seed, 2 * data), self.train)
+
+
+EVAL_CTX = Ctx()
+
+
+def generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float, ctx: Ctx
+            ) -> Tuple[torch.Tensor, Ctx]:
+    """Inverted dropout, the identity at eval or rate 0; returns
+    (y, advanced ctx)."""
+    if not ctx.train or rate <= 0.0:
+        return x, ctx
+    ctx, seed = ctx.split()
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator(seed, x.device),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x)), ctx

@@ -5,7 +5,7 @@ dtype chain: a product accumulates in f32 and is rounded once to the
 activation (storage) dtype, a bias is added in that dtype afterwards, and
 normalisation statistics run in f32.  ``F.linear``'s fused bias would add
 the bias before the rounding, so products and bias adds stay separate.
-Eval only: dropout belongs to the training slice.
+Training dropout takes a ``Ctx`` (``nn/core.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image2text_torch.nn.core import (new_param, normal_init, ones_init,
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
+                                      normal_init, ones_init,
                                       torch_linear_weight_init,
                                       xavier_uniform_init, zeros_init)
 
@@ -144,10 +145,13 @@ class MultiheadAttention(nn.Module):
     used for the decoder's cross-attention: packed ``in_proj`` for q/k/v
     plus ``out_proj``.  Scores stay in f32 (no storage-dtype rounding, as
     in the JAX module) and probabilities drop to the storage dtype before
-    the V product."""
+    the V product; in training they are dropped (plain PyTorch, as the JAX
+    module leaves them to XLA)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, device=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        self.dropout_rate = dropout
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -176,7 +180,7 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None,
-                precomputed_kv=None) -> torch.Tensor:
+                precomputed_kv=None, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
         q = self._split_heads(self._proj(query, 0))
         if precomputed_kv is not None:
             k, v = precomputed_kv
@@ -185,6 +189,7 @@ class MultiheadAttention(nn.Module):
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores / math.sqrt(self.head_dim)
         probs = torch.softmax(scores, dim=-1).to(query.dtype)
+        probs, _ = dropout(probs, self.dropout_rate, ctx)
         y = torch.matmul(probs, v)
         y = y.transpose(-3, -2).reshape(*query.shape[:-1], self.embed_dim)
         return self.out_proj(y)

@@ -7,6 +7,13 @@ f32, then (for a low-precision input) rounded to the storage dtype; the
 softmax runs in f32 and is safe for fully masked rows; probabilities drop
 to the storage dtype before the V product.  Multi-query K/V are read once
 by folding the query heads into the sequence axis.
+
+Training (``ctx.train``) with ``use_flash`` goes through the flash kernels
+(``ops/flash_attention.py``) on every device: on the card their CUDA
+kernels, on the CPU their plain versions, with the in-kernel hash dropout
+on the probabilities.  The explicit-product path below is what
+``disable_flash`` asks for (the JAX package's parity mode); in training it
+drops the probabilities with a seeded generator.
 """
 from __future__ import annotations
 
@@ -14,6 +21,9 @@ import math
 from typing import Optional
 
 import torch
+
+from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
+from image2text_torch.ops.flash_attention import flash_sdpa
 
 
 def causal_bias(s: int, l: int, device=None,
@@ -29,9 +39,16 @@ def causal_bias(s: int, l: int, device=None,
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: Optional[torch.Tensor] = None,
-         causal: bool = False) -> torch.Tensor:
+         causal: bool = False, dropout_rate: float = 0.0,
+         ctx: Ctx = EVAL_CTX, use_flash: bool = False) -> torch.Tensor:
     """Attention with an additive mask; q (b, h, s, d), k/v (b, hk, l, d)
-    with hk ∈ {h, 1}."""
+    with hk ∈ {h, 1}.  ``dropout_rate`` drops probabilities in training."""
+    rate = dropout_rate if ctx.train else 0.0
+    if use_flash and ctx.train:
+        # the seed comes from the ctx stream, as every dropout's does; its
+        # low 32 bits are the flash hash's seed word
+        seed = ctx.split()[1] if rate > 0.0 else None
+        return flash_sdpa(q, k, v, mask, causal, rate, seed)
     if causal:
         cb = causal_bias(q.shape[-2], k.shape[-2], q.device)
         mask = cb if mask is None else mask + cb
@@ -51,6 +68,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.exp(scores - torch.where(torch.isneginf(m),
                                        torch.zeros_like(m), m))
     probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    if rate > 0.0:
+        probs, ctx = dropout(probs, rate, ctx)
     pf = probs.to(q.dtype)
     if g > 1:
         pf = pf.reshape(b, hk, g * s, -1)

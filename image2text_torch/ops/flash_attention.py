@@ -1,0 +1,290 @@
+"""Flash attention for training: CUDA kernels (``csrc/flash_attention.cu``),
+their plain versions, and the autograd function that joins them.
+
+Replaces ``image2text_tpu/ops/flash_attention.py``'s three Pallas kernels:
+``_fwd_kernel`` (FlashAttention-2 forward with online softmax, saving the
+per-row logsumexp), ``_bwd_dkv_kernel`` (dK, dV over a loop of query
+tiles) and ``_bwd_dq_kernel`` (dQ over a loop of key tiles).  The function
+is the Pallas one, not its TPU layout:
+
+* scores ``q·kᵀ·scale`` in f32 plus an additive f32 bias clamped at
+  ``NEG_BIG``, broadcast over (batch | 1, head | 1, query | 1, key);
+  ``causal`` masks ``col > row + skv − sq`` to ``NEG_BIG`` inside the
+  kernel; key columns past ``skv`` take no part at all (the TPU kernel's
+  padded columns join the average of a fully masked row; here such a row
+  gives the uniform average over its real keys);
+* softmax statistics in f32; the denominator sums the probabilities
+  *before* dropout; the probabilities times ``keep / (1 − rate)`` round to
+  the input dtype before the V product;
+* ``lse = max(m, NEG_BIG) + log(max(l, 1e-30))`` per row;
+* backward from ``lse`` and ``D = rowsum(dO ∘ O)``:
+  ``dS = p ∘ (keep·dP/(1 − rate) − D)``, ``dV = p̃ᵀ dO``,
+  ``dK = dSᵀ q · scale``, ``dQ = dS k · scale``; multi-query dK/dV sum
+  over the query heads; the bias gets no gradient (every bias on the
+  path is a constant).
+
+Dropout is a counter hash of (row, col, plane = batch·h + head, seed):
+:func:`dropout_keep_mask` is bit for bit the JAX package's, so the kernels,
+the plain versions and the JAX kernels all drop the same probabilities,
+and the backward regenerates the forward's mask from the seed alone.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises on what the kernel does not take (a head
+dim other than 16, 32, 64 or 128, K/V heads other than 1 or h, a bias
+whose query axis is neither 1 nor sq, a dtype other than bf16).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from image2text_torch.ops import _build
+
+NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_M32 = 0xFFFFFFFF
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    return x & _M32
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold: keep iff hash < threshold (probability 1 − rate
+    to within 2^-32)."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_mask(rows, cols, plane, seed: int, rate: float
+                      ) -> torch.Tensor:
+    """0/1 f32 keep mask over global score coordinates: a murmur3
+    finalizer over ``rows·0x9E3779B1 ^ cols·0x85EBCA77 ^ plane·0xC2B2AE3D
+    ^ seed`` in uint32 arithmetic, done in int64 (the products wrap, their
+    low 32 bits stay right).  ``rows``, ``cols`` and ``plane`` are integer
+    tensors that broadcast together; ``seed`` an int32 (reinterpreted as
+    uint32)."""
+    rows, cols, plane = (torch.as_tensor(t).to(torch.int64)
+                         for t in (rows, cols, plane))
+    x = (_u32(rows * 0x9E3779B1) ^ _u32(cols * 0x85EBCA77)
+         ^ _u32(plane * 0xC2B2AE3D) ^ (int(seed) & _M32))
+    x = x ^ (x >> 16)
+    x = _u32(x * 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _u32(x * 0x846CA68B)
+    x = x ^ (x >> 16)
+    return (x < keep_threshold(rate)).float()
+
+
+def _keep(b, h, sq, skv, seed, rate, device) -> torch.Tensor:
+    """(b, h, sq, skv) keep mask of one attention call."""
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(skv, device=device)[None, :]
+    plane = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    return dropout_keep_mask(rows, cols, plane, seed, rate)
+
+
+def _scores(q, k, bias, causal: bool) -> torch.Tensor:
+    """f32 scores with the bias (clamped) and the causal mask applied."""
+    d = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / d ** 0.5)
+    if bias is not None:
+        s = s + bias.float().clamp_min(NEG_BIG)
+    if causal:
+        sq, skv = q.shape[-2], k.shape[-2]
+        row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        col = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(col <= row, s, torch.full_like(s, NEG_BIG))
+    return s
+
+
+def flash_forward_plain(q, k, v, bias=None, causal: bool = False,
+                        rate: float = 0.0, seed: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (out in q's dtype, lse (b, h,
+    sq) f32).  q (b, h, sq, d); k/v (b, hk, skv, d), hk ∈ {1, h}."""
+    b, h, sq, _ = q.shape
+    s = _scores(q, k, bias, causal)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if rate > 0.0:
+        p = p * _keep(b, h, sq, k.shape[-2], seed, rate, q.device) * (
+            1.0 / (1.0 - rate))
+    out = torch.matmul(p.to(q.dtype).float(), v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_backward_plain(q, k, v, bias, causal: bool, g, lse, dvec,
+                         rate: float = 0.0, seed: int = 0):
+    """Plain version of both backward kernels: (dq, dk, dv) in the inputs'
+    dtypes, from the forward's ``lse`` and ``dvec = rowsum(g ∘ out)``."""
+    b, h, sq, _ = q.shape
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(_scores(q, k, bias, causal) - lse[..., None])
+    gf = g.float()
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    if rate > 0.0:
+        keep = _keep(b, h, sq, k.shape[-2], seed, rate, q.device) * (
+            1.0 / (1.0 - rate))
+        ds = p * (keep * dp - dvec[..., None])
+        p = p * keep
+    else:
+        ds = p * (dp - dvec[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dq = torch.matmul(ds, k.float()) * scale
+    if k.shape[1] == 1 and h > 1:
+        dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _check(kernel: str, q, k, v, bias):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_operand(kernel, name, t, torch.bfloat16)
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel: head dim {d} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if hk not in (1, h) or k.shape != (b, hk, skv, d) or v.shape != k.shape:
+        raise ValueError(f"{kernel} kernel: k/v {tuple(k.shape)} must be "
+                         f"(b, 1 or h, skv, d) for q {tuple(q.shape)}")
+    if bias is None:
+        return None, (0, 0, 0)
+    if (bias.dim() != 4 or bias.shape[-1] != skv or bias.shape[0] not in (1, b)
+            or bias.shape[1] not in (1, h) or bias.shape[2] not in (1, sq)):
+        raise ValueError(f"{kernel} kernel: bias {tuple(bias.shape)} must be "
+                         f"(1|b, 1|h, 1|sq, skv) for q {tuple(q.shape)}")
+    bias = bias.detach().float().contiguous()
+    bb, bh, bs, _ = bias.shape
+    strides = (bh * bs * skv if bb > 1 else 0, bs * skv if bh > 1 else 0,
+               skv if bs > 1 else 0)
+    return bias, strides
+
+
+def _common_args(q, k, bias, strides, causal, rate, seed):
+    b, h, sq, d = q.shape
+    c = ctypes
+    return [_build.ptr(bias), *(c.c_longlong(s) for s in strides),
+            c.c_int(b), c.c_int(h), c.c_int(k.shape[1]), c.c_int(sq),
+            c.c_int(k.shape[2]), c.c_int(d), c.c_int(int(causal)),
+            c.c_float(1.0 / d ** 0.5), c.c_int(int(rate > 0.0)),
+            c.c_uint(int(seed) & _M32), c.c_uint(keep_threshold(rate)),
+            c.c_float(1.0 / (1.0 - rate)),
+            c.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
+
+
+def _launch(name: str, *args):
+    fn = getattr(_build.load("flash_attention"), name)
+    fn.restype = ctypes.c_int
+    _build.check(fn(*args), name)
+
+
+def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
+              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward: (out, lse).  The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, bias, causal, rate, seed)
+    bias, strides = _check("flash_fwd", q, k, v, bias)
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    P = _build.ptr
+    _launch("flash_fwd_launch", P(q), P(k), P(v), P(out), P(lse),
+            *_common_args(q, k, bias, strides, causal, rate, seed))
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dkv(q, k, v, bias, causal: bool, g, lse, dvec,
+                  rate: float = 0.0, seed: int = 0):
+    """dK, dV (multi-query: summed over the query heads inside the
+    kernel)."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
+                                    rate, seed)[1:]
+    bias, strides = _check("flash_bwd_dkv", q, k, v, bias)
+    _build.check_operand("flash_bwd_dkv", "g", g, torch.bfloat16)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    P = _build.ptr
+    _launch("flash_bwd_dkv_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
+            P(dk), P(dv), *_common_args(q, k, bias, strides, causal, rate,
+                                        seed))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, bias, causal: bool, g, lse, dvec,
+                 rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """dQ."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
+                                    rate, seed)[0]
+    bias, strides = _check("flash_bwd_dq", q, k, v, bias)
+    _build.check_operand("flash_bwd_dq", "g", g, torch.bfloat16)
+    dq = torch.empty_like(q)
+    P = _build.ptr
+    _launch("flash_bwd_dq_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
+            P(dq), *_common_args(q, k, bias, strides, causal, rate, seed))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+
+
+def flash_backward(q, k, v, bias, causal, out, lse, g, rate, seed):
+    """(dq, dk, dv): ``D = rowsum(g ∘ out)`` in f32, then both backward
+    wrappers."""
+    g = g.contiguous()
+    dvec = (g.float() * out.float()).sum(-1).contiguous()
+    dk, dv = flash_bwd_dkv(q, k, v, bias, causal, g, lse, dvec, rate, seed)
+    dq = flash_bwd_dq(q, k, v, bias, causal, g, lse, dvec, rate, seed)
+    return dq, dk, dv
+
+
+class FlashSDPA(torch.autograd.Function):
+    """Flash forward and flash backward; the backward regenerates the
+    dropout mask from ``seed``.  No gradient for the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool, rate: float, seed: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_fwd(q, k, v, bias, causal, rate, seed)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (causal, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        causal, rate, seed = ctx.args
+        dq, dk, dv = flash_backward(q, k, v, bias, causal, out, lse, g, rate,
+                                    seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
+               causal: bool = False, rate: float = 0.0,
+               seed: Optional[int] = None) -> torch.Tensor:
+    """Differentiable flash attention; ``seed`` is required when
+    ``rate > 0`` (a fixed seed would drop the same entries every step)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"flash dropout rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("flash dropout needs a seed")
+    if bias is not None:
+        bias = bias.detach()
+    return FlashSDPA.apply(q, k, v, bias, causal, rate,
+                           0 if seed is None else int(seed))
+
+
+__all__ = ["NEG_BIG", "FlashSDPA", "dropout_keep_mask", "flash_bwd_dkv",
+           "flash_bwd_dq", "flash_forward_plain", "flash_backward_plain",
+           "flash_fwd", "flash_sdpa", "keep_threshold"]
+

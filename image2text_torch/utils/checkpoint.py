@@ -6,7 +6,8 @@ state-dict names: stacked MoE experts split into
 alias materialised.  :func:`load_jax_state_dict` joins the experts back,
 resolves the alias and fills the port's parameters and buffers;
 :func:`state_dict_numpy` produces the same key set and shapes from the
-port.
+port, and with ``grads=True`` the parameters' gradients under the same
+keys (to hold them against the JAX gradient tree's export).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 
-def _split_specs(model: nn.Module) -> Dict[str, str]:
+def split_specs(model: nn.Module) -> Dict[str, str]:
     """{stacked parameter path: per-expert key template}."""
     out = {}
     for prefix, mod in model.named_modules():
@@ -43,14 +44,20 @@ def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_numpy(model: nn.Module) -> Dict[str, np.ndarray]:
+def state_dict_numpy(model: nn.Module,
+                     grads: bool = False) -> Dict[str, np.ndarray]:
     """The port's weights under the JAX export's keys (float tensors as
-    f32 numpy arrays)."""
+    f32 numpy arrays); with ``grads``, the parameters' gradients instead
+    (zeros for a parameter without one; no buffers)."""
     flat = {}
-    for k, t in _tensors(model).items():
+    tensors = (dict(model.named_parameters()) if grads
+               else _tensors(model))
+    for k, t in tensors.items():
+        if grads:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
         t = t.detach().cpu()
         flat[k] = (t.float() if t.is_floating_point() else t).numpy()
-    for stacked, template in _split_specs(model).items():
+    for stacked, template in split_specs(model).items():
         arr = flat.pop(stacked)
         for i in range(arr.shape[0]):
             flat[template.format(i=i)] = arr[i]
@@ -67,7 +74,7 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
     tensors = _tensors(model)
     aliases = _tied_aliases(model)
     joins = {}
-    for stacked, template in _split_specs(model).items():
+    for stacked, template in split_specs(model).items():
         for i in range(tensors[stacked].shape[0]):
             joins[template.format(i=i)] = (stacked, i)
     filled = set()
@@ -96,8 +103,8 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
             continue
         dst.copy_(src.to(dst.dtype))
     missing = [k for k, t in tensors.items()
-               if k not in filled and k not in _split_specs(model)]
-    missing += [f"{s}[{i}]" for s in _split_specs(model)
+               if k not in filled and k not in split_specs(model)]
+    missing += [f"{s}[{i}]" for s in split_specs(model)
                 for i in range(tensors[s].shape[0]) if (s, i) not in filled]
     if missing:
         raise KeyError(f"checkpoint lacks {missing[:5]} "

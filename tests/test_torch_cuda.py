@@ -9,7 +9,10 @@ runs where they are absent:
 Inputs are bf16 at small widths, including ragged row counts and a
 selection length that is not a multiple of 16.  The plain version runs on
 the kernel's own expert routes and is compared at the output's scale, and
-the routes against the plain top-k (``utils/kernel_check.py``).
+the routes against the plain top-k (``utils/kernel_check.py``).  The flash
+kernels are compared with their plain versions on the same inputs and
+dropout seed (the keep masks are identical), and one training step of the
+tiny flagship runs on the card.
 """
 import pytest
 import torch
@@ -24,7 +27,10 @@ from image2text_torch.models.vision_encoder_decoder import VisionEncoderDecoder
 from image2text_torch.nn.core import init_parameters
 from image2text_torch.ops.fused_block import sparse_block, sparse_block_plain
 from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
-from image2text_torch.utils.kernel_check import check_output, check_routes
+from image2text_torch.utils.kernel_check import (MAX_ABS_SHARE, REL_L2,
+                                                 check_output, check_routes,
+                                                 output_error)
+from image2text_torch.ops import flash_attention as fa
 
 TOL = 0.06  # whole-stack parity, normwise
 
@@ -156,3 +162,147 @@ def test_tiny_flagship_on_card_kernel_path_vs_plain(dev):
     assert ids.shape == (4, 9) and bool((ids < 512).all())
     want = sum(model.decoder.ffn_evaluations(off + i, 1) for i in range(9))
     assert moe_ffn.launches - before == want > 0
+
+
+def _soft_prompt_bias(s, n_prefix, dev):
+    bias = torch.zeros(1, 1, s, s, device=dev)
+    bias[..., n_prefix:, :n_prefix] = float("-inf")
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,sq,skv,d,bias,causal,rate", [
+    (3, 8, 1, 160, 160, 128, None, False, 0.1),      # encoder-like, MQA
+    (2, 4, 1, 137, 137, 64, "soft_prompt", True, 0.1),  # decoder-like
+    (2, 2, 2, 40, 40, 32, "per_batch", False, 0.0),  # MHA, ragged
+    (1, 2, 1, 40, 137, 16, "per_head", True, 0.1),   # causal sq < skv
+])
+def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
+                                   rate):
+    g = _gen(dev, 11)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
+                                 ).to(torch.bfloat16)
+                     for shape in ((b, h, sq, d), (b, hk, skv, d),
+                                   (b, hk, skv, d), (b, h, sq, d)))
+    if bias == "soft_prompt":
+        bias = _soft_prompt_bias(sq, 9, dev)
+    elif bias == "per_batch":
+        bias = torch.zeros(b, 1, sq, skv, device=dev)
+        bias[0, :, :, 30:] = float("-inf")
+    elif bias == "per_head":
+        bias = torch.randn(1, h, 1, skv, device=dev, generator=g)
+    seed = -987654321
+    counts = fa.flash_fwd.launches, fa.flash_bwd_dkv.launches
+    out, lse = fa.flash_fwd(q, k, v, bias, causal, rate, seed)
+    want, want_lse = fa.flash_forward_plain(q, k, v, bias, causal, rate, seed)
+    dvec = (dout.float() * want.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, causal, dout, want_lse, dvec,
+                              rate, seed)
+    dq = fa.flash_bwd_dq(q, k, v, bias, causal, dout, want_lse, dvec, rate,
+                         seed)
+    pq, pk, pv = fa.flash_backward_plain(q, k, v, bias, causal, dout,
+                                         want_lse, dvec, rate, seed)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    check_output("flash_fwd out", out, want)
+    check_output("flash_fwd lse", lse, want_lse)
+    check_output("flash_bwd_dq", dq, pq)
+    check_output("flash_bwd_dkv dk", dk, pk)
+    check_output("flash_bwd_dkv dv", dv, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,masked_rows", [
+    (200, 128, None),              # causal offset: rows 0..71 see no key
+    (137, 137, (5, 20, 70, 130)),  # the bias masks whole rows in every q tile
+])
+def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
+                                                   masked_rows):
+    """Causal rows that see no key — left so by the causal offset (sq >
+    skv) or masked whole by the bias — take the uniform average over all
+    skv keys, as the plain version does, so their q tiles visit every kv
+    tile (a band-limited skip would average over fewer: the forward check
+    catches it, and the missing rows' terms in dK/dV the relative L2 one).
+    The backward holds to the scale-tied limits only: for such a row lse
+    rounds to NEG_BIG in f32 (log skv is lost), so its recomputed p is 1,
+    its dS terms are O(10), and their bf16 rounding in the kernel's
+    tensor-core products leaves O(0.1) errors on sums that cancel to small
+    values."""
+    b, h, d, rate, seed = 1, 2, 64, 0.1, 12345
+    g = _gen(dev, 12)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
+                                 ).to(torch.bfloat16)
+                     for shape in ((b, h, sq, d), (b, 1, skv, d),
+                                   (b, 1, skv, d), (b, h, sq, d)))
+    bias = None
+    if masked_rows is not None:
+        bias = _soft_prompt_bias(sq, 9, dev)
+        bias[..., list(masked_rows), :] = float("-inf")
+    a = (q, k, v, bias, True)
+    out, _ = fa.flash_fwd(*a, rate, seed)
+    want, lse = fa.flash_forward_plain(*a, rate, seed)
+    check_output("flash_fwd out", out, want)
+    gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
+    got = (fa.flash_bwd_dq(*a, *gr), *fa.flash_bwd_dkv(*a, *gr))
+    for name, mine, ref in zip(("dq", "dk", "dv"), got,
+                               fa.flash_backward_plain(*a, *gr)):
+        st = output_error(mine, ref)
+        assert (st["finite"] and st["rel_l2"] <= REL_L2
+                and st["max_abs_err"] <= MAX_ABS_SHARE * st["max_plain"]), (
+            name, st)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+
+    cases = [(t(1, 2, 8, 256), t(1, 1, 8, 256), None),       # head dim
+             (t(1, 4, 8, 64), t(1, 2, 8, 64), None),          # grouped K/V
+             (t(1, 2, 8, 64), t(1, 1, 8, 64),
+              t(1, 1, 3, 8, dtype=torch.float32)),              # bias rows
+             (t(1, 2, 8, 64, dtype=torch.float32),
+              t(1, 1, 8, 64, dtype=torch.float32), None)]     # dtype
+    before = fa.flash_fwd.launches
+    for q, k, bias in cases:
+        with pytest.raises(ValueError):
+            fa.flash_fwd(q, k, k, bias)
+    assert fa.flash_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_tiny_training_step_on_card(dev, remat):
+    """Three bf16 training steps of the tiny flagship with dropout on:
+    finite, falling loss; per step one flash forward and backward for
+    each self-attention call of the model, plus a recomputed forward
+    under gradient checkpointing; the serving kernels not at all."""
+    from image2text_torch.configs.trainer import flagship_training_config
+    from image2text_torch.training.loop import Trainer
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    cfg = flagship_training_config(tiny=True)
+    cfg.model.vision_encoder_config.enable_gradient_checkpointing = remat
+    cfg.model.decoder_config.enable_gradient_checkpointing = remat
+    cfg.use_snr_optim = True
+    cfg.trainer.mask_fraction, cfg.trainer.random_mask_fraction = 0.15, 0.2
+    w = ModelTrainerWrapper(cfg.model, TokenizerInfo(0, 1, 2, 512),
+                            cfg.trainer, device=dev).init_weights(0)
+    trainer = Trainer(cfg, w)
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 6))
+    labels = torch.randint(3, 511, (4, 48), device=dev, generator=_gen(dev, 7))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq, sparse_block,
+               moe_ffn)
+    for kern in kernels:
+        kern.launches = 0
+    losses = [float(trainer._train_step(images, labels, 0, i)[
+        "train_loss_lm"]) for i in range(3)]
+    torch.cuda.synchronize()
+    calls = 3 * w.model.self_attention_calls(48)
+    got = {kern.__name__: kern.launches for kern in kernels}
+    assert calls > 0 and got == {
+        "flash_fwd": (2 if remat else 1) * calls, "flash_bwd_dkv": calls,
+        "flash_bwd_dq": calls, "sparse_block": 0, "moe_ffn": 0}
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]

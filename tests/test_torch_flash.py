@@ -1,0 +1,134 @@
+"""The port's flash attention (``image2text_torch/ops/flash_attention.py``)
+against the JAX package's Pallas kernels, run in interpret mode on the CPU
+as ``tests/test_flash_attention.py`` runs them.
+
+The keep mask of the in-kernel dropout is a counter hash, so the two
+packages must agree on it bit for bit; with the same seed they then drop
+the same probabilities, and the forward and the gradients agree to f32
+rounding.  Tolerance: 1e-5 absolute and relative, in f32 with JAX at full
+matmul precision (the two sum in different orders; values are O(1)).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from image2text_tpu.ops.flash_attention import (
+    dropout_keep_mask as jax_keep_mask, flash_sdpa as jax_flash_sdpa)
+
+from image2text_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1234567, -1, -2 ** 31, 2 ** 31 - 1])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_keep_mask_bit_equal_to_jax(seed, rate):
+    """Rows, columns and planes past 2^16, negative seeds."""
+    rng = np.random.default_rng(abs(seed) % 1000)
+    rows = np.concatenate([np.arange(70), rng.integers(0, 1 << 20, 60)])
+    cols = np.concatenate([np.arange(50), rng.integers(0, 1 << 20, 40)])
+    planes = np.array([0, 1, 7, 383, 65535, 65536, 1 << 20])
+    r, c, p = rows[None, :, None], cols[None, None, :], planes[:, None, None]
+    want = np.asarray(jax_keep_mask(jnp.asarray(r, jnp.int32),
+                                    jnp.asarray(c, jnp.int32),
+                                    jnp.asarray(p, jnp.int32),
+                                    jnp.asarray(seed, jnp.int32), rate))
+    got = fa.dropout_keep_mask(torch.from_numpy(r), torch.from_numpy(c),
+                               torch.from_numpy(p), seed, rate).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert abs(got.mean() - (1 - rate)) < 0.01
+
+
+def _soft_prompt_bias(s, n_prefix):
+    bias = np.zeros((1, 1, s, s), np.float32)
+    bias[..., n_prefix:, :n_prefix] = -np.inf
+    return bias
+
+
+def _case(name):
+    """(b, h, hk, sq, skv, d, bias, causal, rate) of each case."""
+    rng = np.random.default_rng(7)
+    if name == "mqa_s40":
+        return 2, 4, 1, 40, 40, 16, None, False, 0.0
+    if name == "mha_s137_causal_soft_prompt":
+        return 2, 2, 2, 137, 137, 32, _soft_prompt_bias(137, 9), True, 0.1
+    if name == "mqa_causal_sq_below_skv":
+        return 1, 4, 1, 40, 137, 16, None, True, 0.1
+    if name == "mqa_causal_sq_above_skv_bias":
+        # the first 72 rows see no key: with skv a multiple of the TPU
+        # kernel's 128-column tile, both give them the uniform average
+        bias = np.zeros((1, 1, 1, 128), np.float32)
+        bias[..., 3] = -np.inf
+        return 1, 2, 1, 200, 128, 16, bias, True, 0.0
+    if name == "per_batch_bias":
+        bias = np.zeros((2, 1, 40, 40), np.float32)
+        bias[:, :, 8:, :8] = -np.inf
+        bias[0, :, :, 30:] = -np.inf
+        return 2, 2, 1, 40, 40, 16, bias, False, 0.1
+    if name == "per_head_bias":
+        bias = rng.standard_normal((1, 2, 137, 137)).astype(np.float32)
+        bias[0, 1, :, 100:] = -np.inf
+        return 2, 2, 2, 137, 137, 16, bias, False, 0.0
+    if name == "fully_masked_rows":
+        # skv a multiple of the TPU kernel's 128-column tile: there its
+        # padded columns would join a fully masked row's average
+        bias = np.zeros((1, 1, 128, 128), np.float32)
+        bias[..., 100:, :] = -np.inf
+        return 1, 2, 1, 128, 128, 16, bias, False, 0.1
+    raise KeyError(name)
+
+
+CASES = ["mqa_s40", "mha_s137_causal_soft_prompt", "mqa_causal_sq_below_skv",
+         "mqa_causal_sq_above_skv_bias", "per_batch_bias", "per_head_bias",
+         "fully_masked_rows"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_flash_forward_and_gradients_match_jax(name):
+    b, h, hk, sq, skv, d, bias, causal, rate = _case(name)
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hk, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, skv, d)).astype(np.float32)
+    g = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    seed = -123456789
+    jb = None if bias is None else jnp.asarray(bias)
+    with jax.default_matmul_precision("highest"):
+        out, vjp = jax.vjp(
+            lambda q_, k_, v_: jax_flash_sdpa(q_, k_, v_, jb, causal, rate,
+                                              jnp.int32(seed)),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = [np.asarray(out)] + [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    before = fa.flash_fwd.launches
+    got = fa.flash_sdpa(tq, tk, tv, tb, causal, rate, seed)
+    got.backward(torch.from_numpy(g))
+    assert fa.flash_fwd.launches == before  # CPU: plain versions only
+    for name_, mine, ref in zip(("out", "dq", "dk", "dv"),
+                                (got, tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(mine.detach().numpy(), ref, err_msg=name_,
+                                   **TOL)
+    if name == "fully_masked_rows":   # the uniform average, not zeros
+        keep = fa._keep(b, h, sq, skv, seed, rate, "cpu")[0, 0, 100]
+        uniform = (keep[:, None] / (1 - rate) * torch.from_numpy(v[0, 0])
+                   ).mean(0)
+        np.testing.assert_allclose(got[0, 0, 100].detach().numpy(),
+                                   uniform.numpy(), **TOL)
+
+
+def test_dropout_rate_changes_the_result_and_seed_matters():
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, 16))
+                                .astype(np.float32)) for _ in range(3))
+    base = fa.flash_sdpa(q, k, v)
+    a = fa.flash_sdpa(q, k, v, rate=0.1, seed=5)
+    assert not torch.allclose(a, base)
+    assert torch.equal(a, fa.flash_sdpa(q, k, v, rate=0.1, seed=5))
+    assert not torch.equal(a, fa.flash_sdpa(q, k, v, rate=0.1, seed=6))
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_sdpa(q, k, v, rate=0.1)

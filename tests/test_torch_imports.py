@@ -74,6 +74,25 @@ def test_flagship_config_matches_jax(tiny):
     _assert_same(flagship_config(tiny=tiny), _flagship_config(tiny=tiny).model)
 
 
+@pytest.mark.parametrize("tiny", [False, True])
+def test_flagship_training_config_matches_jax(tiny):
+    """Every field the port's TrainingConfig keeps equals the JAX one read
+    from training_configs/tpu/nano-mini.yaml."""
+    from image2text_torch.configs.trainer import flagship_training_config
+
+    mine, ref = flagship_training_config(tiny), _flagship_config(tiny)
+    for f in dataclasses.fields(mine):
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        if f.name == "model":
+            _assert_same(a, b)
+        elif f.name == "optimizers":
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                _assert_same(x, y, "optimizers")
+        else:
+            _assert_same(a, b, f.name)
+
+
 def test_entry_point_without_cuda_raises(monkeypatch):
     from image2text_torch.models.vision_encoder_decoder import (
         VisionEncoderDecoder)
