@@ -36,6 +36,34 @@ Phases, each printing its lines:
             the kernels, then on the plain versions, same weights, seeds
             and batch: loss and gradients.
 
+Then the int4 + LoRA GPT-2-medium captioner
+(training_configs/tpu/gpt2-medium.yaml) at full width and depth, random
+weights from the seed (int4 weights quantized from N(0, 0.02) matrices,
+LoRA B N(0, 0.02): zero initialisers would make both vanish):
+
+8. kernels  int4_matmul against its plain version at the decoder's four
+            quantized Linear shapes, at 256 decode rows and at the training
+            step's 12 x 112 rows (bf16, bf16 scales), with torch.matmul on
+            the weight dequantised once to bf16 as a yardstick; the sparse
+            block and the MoE FFN at the GPT-2-medium encoder's shapes; the
+            three flash kernels at its training step's attention shapes
+            (encoder MQA s 80, GPT-2 self-attention 16 heads s 112 causal,
+            cross-attention 112 x 64; batch 12, head dim 64).
+9. gpt2m    the serving path, batch 256, 32 new tokens: launches per
+            caption call held to the counts derived from the model, and
+            captions/s.
+10. gpt2m-parity  at batch 8: first-step logits and greedy tokens, kernel
+            path against plain-version path.
+11. gpt2m-train  the kbit + LoRA training step (batch 12 x 48 labels,
+            accumulation 1, bf16 compute from f32 masters, checkpointing,
+            SNRAdam lr 6e-4): launches per step, step ms, peak memory, the
+            loss of every step, frozen tensors bitwise unchanged.
+12. gpt2m-train-parity  depth 2 + 2, full width, batch 8: loss and
+            gradients, kernel path against plain-version path.
+
+Every launch count is read over one run of its path with every count set
+to 0 just before it (``launches_by_path`` in the JSON line).
+
 The second-to-last lines are the ``kernels`` JSON object and the
 nvidia-smi line; the last line is ``{"ok": true, "device": ...}``.  Any
 failed phase exits non-zero without that line; so does a run without a
@@ -64,6 +92,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
+FLAGSHIP_BOS = 1   # the flagship's prompt token
 SEED = 0         # weights, frames and sampling noise derive from it
 
 
@@ -146,20 +175,22 @@ def plain_versions():
     parity phases only)."""
     from image2text_torch.models import layers
     from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops import int4_matmul as i4
     from image2text_torch.ops.fused_block import sparse_block_plain
     from image2text_torch.ops.fused_moe import moe_ffn_plain
 
     saved = (layers.sparse_block, layers.moe_ffn, fa.flash_fwd,
-             fa.flash_bwd_dkv, fa.flash_bwd_dq)
+             fa.flash_bwd_dkv, fa.flash_bwd_dq, i4.int4_matmul)
     layers.sparse_block, layers.moe_ffn = sparse_block_plain, moe_ffn_plain
     fa.flash_fwd = fa.flash_forward_plain
     fa.flash_bwd_dkv = lambda *a: fa.flash_backward_plain(*a)[1:]
     fa.flash_bwd_dq = lambda *a: fa.flash_backward_plain(*a)[0]
+    i4.int4_matmul = i4.int4_matmul_plain
     try:
         yield
     finally:
         (layers.sparse_block, layers.moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
-         fa.flash_bwd_dq) = saved
+         fa.flash_bwd_dq, i4.int4_matmul) = saved
 
 
 def moe_flops_bytes(x, fc, proj):
@@ -172,14 +203,17 @@ def moe_flops_bytes(x, fc, proj):
     return n * per_row, nbytes(x, fc, proj) + nbytes(x)
 
 
-def phase_kernels(torch, model, args, results):
+def phase_kernels(torch, model, args, results, tag=None):
+    """The serving kernels against their plain versions at ``model``'s
+    shapes: the flagship's rows (``tag`` None), or another model's encoder
+    shapes, kept under ``<tag>_shape`` in the rows."""
     from image2text_torch.ops.fused_block import (sparse_block,
                                                   sparse_block_plain)
     from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
 
     dev, bf = model.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    enc = model.encoder
+    enc = model.vision_encoder
     # block 2's input and layout, from a real encoder forward
     captured = {}
 
@@ -197,7 +231,7 @@ def phase_kernels(torch, model, args, results):
     images = resize_normalize_on_device(frames, 128, out_dtype=bf)
     h = enc.blocks[2].register_forward_pre_hook(grab, with_kwargs=True)
     try:
-        enc(images)
+        model.encoder(images)
     except Captured:
         pass
     finally:
@@ -247,18 +281,24 @@ def phase_kernels(torch, model, args, results):
     log(f"  sparse_block: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP), torch.matmul at its "
         f"GEMM shapes {lib:.4f} ms")
-    results["sparse_block"] = dict(
-        name="sparse_block", route="cuda",
-        source="image2text_torch/csrc/fused_block.cu",
-        replaces="image2text_tpu/ops/fused_block.py:118", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+               bound_by=by, library_ms=lib)
+    if tag is None:
+        results["sparse_block"] = dict(
+            name="sparse_block", route="cuda",
+            source="image2text_torch/csrc/fused_block.cu",
+            replaces="image2text_tpu/ops/fused_block.py:118", **row)
+    else:
+        results.setdefault("sparse_block", {"name": "sparse_block"})[
+            f"{tag}_shape"] = dict(b=b, t=t, t_sel=ts, d=d, **row)
 
     # decode: a decoder block's FFN on its 256 rows; encoder: the sparse
     # block's FFN stage (LN2 prologue) on its b·t_sel rows, held at the
     # FFN term's own scale
-    for label, mlp, rows, ln in (
-            ("decode", model.decoder.blocks[0].mlp, BATCH, {}),
-            ("encoder", blk.mlp, b * ts, dict(ln_w=w.ln2_w, ln_b=w.ln2_b))):
+    cases = [("encoder", blk.mlp, b * ts, dict(ln_w=w.ln2_w, ln_b=w.ln2_b))]
+    if tag is None:
+        cases.insert(0, ("decode", model.decoder.blocks[0].mlp, BATCH, {}))
+    for label, mlp, rows, ln in cases:
         fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
         xm = torch.randn(rows, fc.wa.shape[0], device=dev, dtype=bf,
                          generator=gen)
@@ -283,21 +323,46 @@ def phase_kernels(torch, model, args, results):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None)
         else:
-            results["moe_ffn"]["encoder_shape"] = dict(
+            key = "encoder_shape" if tag is None else f"{tag}_encoder_shape"
+            results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = dict(
                 rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def phase_main(torch, model, args, results):
+def serving_launches(model):
+    """Launches of each kernel wrapper in one caption call (a one-token
+    prompt, MAX_NEW_TOKENS new tokens: 1 + MAX_NEW_TOKENS decoder
+    forwards), derived from the model: one sparse_block per encoder block
+    that runs its body (its MoE FFN runs inside), one moe_ffn per cached
+    forward of a scratch-decoder block that runs its body, one int4_matmul
+    per quantized Linear per decoder forward."""
+    from image2text_torch.models.quantization import QuantizedLinear
+
+    enc, dec = model.vision_encoder, model.decoder
+    want = {kern.__name__: 0 for kern in kernel_wrappers()}
+    want["sparse_block"] = sum(blk.runs_body(enc.n_cls + enc.n_patches ** 2)
+                               for blk in enc.blocks)
+    if hasattr(dec, "ffn_evaluations"):
+        want["moe_ffn"] = sum(dec.ffn_evaluations(model.space_for_prompt + i,
+                                                  1)
+                              for i in range(1 + MAX_NEW_TOKENS))
+    n_q = sum(isinstance(m, QuantizedLinear) for m in dec.modules())
+    want["int4_matmul"] = (1 + MAX_NEW_TOKENS) * n_q
+    return want
+
+
+def phase_serve(torch, model, args, results, path: str, bos: int):
+    """A serving path: raw uint8 frames → caption (batch 256, 32 new
+    tokens, temperature 0.7, top-k 16, n-grams 2–5): launches of every
+    kernel in one caption call, held to ``serving_launches``, and
+    captions/s, the median of 3 warm windows."""
     from image2text_torch.models.generation import caption
-    from image2text_torch.ops.fused_block import sparse_block
-    from image2text_torch.ops.fused_moe import moe_ffn
 
     dev, b = model.device, BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     frames = torch.randint(0, 256, (b, 160, 240, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
-    prompt = torch.ones((b, 1), dtype=torch.long, device=dev)
+    prompt = torch.full((b, 1), bos, dtype=torch.long, device=dev)
 
     def run(seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -306,29 +371,18 @@ def phase_main(torch, model, args, results):
 
     run(0)  # warm-up: builds caches and per-block index tensors
     torch.cuda.synchronize()
-    sparse_block.launches = moe_ffn.launches = 0
-    ids = run(1)
-    torch.cuda.synchronize()
-    counts = {"sparse_block": sparse_block.launches,
-              "moe_ffn": moe_ffn.launches}
-    vocab = model.config.decoder_config.vocab_size
-    if tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS):
-        raise AssertionError(f"main path: ids shape {tuple(ids.shape)}")
-    if not bool(((ids >= 0) & (ids < vocab)).all()) or not bool(
-            (ids[:, 0] == 1).all()):
-        raise AssertionError("main path: ids out of range or prompt lost")
-    dec = model.decoder
-    off = model.space_for_prompt
-    want_ffn = dec.ffn_evaluations(off, 1) + sum(
-        dec.ffn_evaluations(off + 1 + i, 1) for i in range(MAX_NEW_TOKENS))
-    want_blocks = len(model.encoder.blocks)
-    log(f"  launches in one caption call: sparse_block {counts['sparse_block']}"
-        f" (want {want_blocks}), moe_ffn {counts['moe_ffn']} (want "
-        f"{want_ffn} of at most {len(dec.blocks) * (1 + MAX_NEW_TOKENS)})")
-    if counts["sparse_block"] != want_blocks or counts["moe_ffn"] != want_ffn:
-        raise AssertionError(f"main path launch counts {counts}")
-    for k, v in counts.items():
-        results.setdefault(k, {"name": k})["launches"] = v
+    counts, ids = launch_counts(lambda: run(1))
+    record_launches(results, path, counts)
+    want = serving_launches(model)
+    log(f"  launches in one caption call: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"{path} launch counts {counts} != {want}")
+    vocab = model.decoder.transformer.wte.weight.shape[0]
+    if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
+            or not bool(((ids >= 0) & (ids < vocab)).all())
+            or not bool((ids[:, 0] == bos).all())):
+        raise AssertionError(f"{path}: ids {tuple(ids.shape)} out of range "
+                             "or prompt lost")
     windows = []
     for w in range(3):
         torch.cuda.synchronize()
@@ -389,8 +443,10 @@ def device_profile(torch, fn, top: int = 12) -> None:
             f"{e.key[:90]}")
 
 
-def phase_parity(torch, model):
-    from image2text_torch.models.generation import decoder_step, generate
+def phase_parity(torch, model, phase: str, bos: int):
+    """At batch 8: the first-step logits (the prefill's last row) and the
+    greedy tokens of the kernel path against the plain-version path."""
+    from image2text_torch.models.generation import generate, prefill
     from image2text_torch.ops.preprocess import resize_normalize_on_device
 
     dev, b = model.device, 8
@@ -398,16 +454,11 @@ def phase_parity(torch, model):
     frames = torch.randint(0, 256, (b, 160, 240, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
     images = resize_normalize_on_device(frames, 128, out_dtype=torch.bfloat16)
-    prompt = torch.ones((b, 1), dtype=torch.long, device=dev)
+    prompt = torch.full((b, 1), bos, dtype=torch.long, device=dev)
 
     def first_logits():
-        with torch.no_grad():
-            enc = model.encoder(images)
-            cache = model.decoder.init_cache(b, 1 + MAX_NEW_TOKENS, enc.dtype,
-                                             dev)
-            logits, _ = decoder_step(model, prompt, cache,
-                                     model.space_for_prompt, enc)
-        return logits[:, -1]
+        return prefill(model, model.encoder(images), prompt,
+                       1 + MAX_NEW_TOKENS)[0][:, -1]
 
     def greedy():
         return generate(model, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
@@ -417,13 +468,14 @@ def phase_parity(torch, model):
     with plain_versions():
         want, ids_p = first_logits(), greedy()
     torch.cuda.synchronize()
+    n_layers = len(model.vision_encoder.blocks) + len(model.decoder.blocks)
     err = (got - want).abs()
     rel_l2 = float(torch.linalg.vector_norm(got - want)
                    / torch.linalg.vector_norm(want))
     beyond = int((err > TOL + TOL * want.abs()).sum())
     agree = float((ids_k[:, 1:] == ids_p[:, 1:]).float().mean())
     first = float((ids_k[:, 1] == ids_p[:, 1]).float().mean())
-    log(f"  first-step logits (batch {b}, f32 from bf16, 24 layers): "
+    log(f"  first-step logits (batch {b}, f32 from bf16, {n_layers} layers): "
         f"relative L2 error {rel_l2:.6g}, max_abs_err {float(err.max()):.6g}"
         f" (max |logit| {float(want.abs().max()):.4g}), mean_abs_err "
         f"{float(err.mean()):.6g}; elements beyond {TOL} abs + {TOL} rel: "
@@ -436,8 +488,8 @@ def phase_parity(torch, model):
     # the bf16 tolerance.  (Phase 3 holds each kernel elementwise.)
     if (not torch.isfinite(got).all() or rel_l2 > TOL
             or float(err.max()) > TOL * float(want.abs().max())):
-        raise AssertionError("parity: kernel path disagrees with the plain "
-                             "path beyond tolerance")
+        raise AssertionError(f"{phase}: kernel path disagrees with the "
+                             "plain path beyond tolerance")
 
 
 def kernel_wrappers():
@@ -445,9 +497,35 @@ def kernel_wrappers():
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.fused_block import sparse_block
     from image2text_torch.ops.fused_moe import moe_ffn
+    from image2text_torch.ops.int4_matmul import int4_matmul
 
     return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
-            fa.flash_bwd_dq)
+            fa.flash_bwd_dq, int4_matmul)
+
+
+def launch_counts(run):
+    """{wrapper name: launches} over ``run()``, every count set to 0 just
+    before it and read just after (the device synchronised)."""
+    import torch
+
+    kernels = kernel_wrappers()
+    for kern in kernels:
+        kern.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return {kern.__name__: kern.launches for kern in kernels}, out
+
+
+def record_launches(results, path: str, counts) -> None:
+    """Keep ``counts`` under each kernel's ``launches_by_path``; its
+    ``launches`` is the count of the first path that launched it (the
+    flagship's caption call, the flagship's step, then the GPT-2-medium
+    caption call, in the order the phases run)."""
+    for name, n in counts.items():
+        entry = results.setdefault(name, {"name": name})
+        entry.setdefault("launches_by_path", {})[path] = n
+        if n and "launches" not in entry:
+            entry["launches"] = n
 
 
 def soft_prompt_bias(torch, s: int, n_prefix: int, dev):
@@ -478,9 +556,21 @@ def flash_work(q, k, bias, causal: bool, kind: str):
     return ins + qb, 3 * mm              # → dq; S, dP, dQ
 
 
-def phase_flash_kernels(torch, args, results):
-    """The three flash kernels against their plain versions at the train
-    step's two attention shapes, same inputs and dropout seed."""
+# Training attention calls: (label, b, h, K/V heads, sq, skv, head dim,
+# causal, soft-prompt prefix length or None, dropout rate).
+FLASH_FLAGSHIP = (
+    ("encoder", TRAIN_BATCH, 8, 1, 160, 160, 128, False, None, DROPOUT),
+    ("decoder", TRAIN_BATCH, 8, 1, 136, 136, 128, True, 32, DROPOUT))
+FLASH_GPT2M = (   # batch 12: the sparse encoder, GPT-2's self and cross
+    ("gpt2m_encoder", 12, 8, 1, 80, 80, 64, False, None, DROPOUT),
+    ("gpt2m_self", 12, 16, 16, 112, 112, 64, True, None, 0.0),
+    ("gpt2m_cross", 12, 16, 16, 112, 64, 64, False, None, 0.0))
+
+
+def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
+    """The three flash kernels against their plain versions at training
+    attention shapes, same inputs and dropout seed.  The first flagship
+    case fills the kernels' rows, every other case a ``<label>_shape``."""
     import torch.nn.functional as F
 
     from image2text_torch.ops import flash_attention as fa
@@ -488,56 +578,55 @@ def phase_flash_kernels(torch, args, results):
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    b, h, d, seed = TRAIN_BATCH, 8, 128, -987654321
-    for label, s, causal, n_prefix in (("encoder", 160, False, None),
-                                       ("decoder", 136, True, 32)):
+    seed = -987654321
+    for label, b, h, hk, sq, s, d, causal, n_prefix, rate in cases:
         q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
                                      ).to(bf)
-                         for shape in ((b, h, s, d), (b, 1, s, d),
-                                       (b, 1, s, d), (b, h, s, d)))
+                         for shape in ((b, h, sq, d), (b, hk, s, d),
+                                       (b, hk, s, d), (b, h, sq, d)))
         bias = None if n_prefix is None else soft_prompt_bias(torch, s,
                                                               n_prefix, dev)
         a = (q, k, v, bias, causal)
-        out, lse = fa.flash_fwd(*a, DROPOUT, seed)
-        want, want_lse = fa.flash_forward_plain(*a, DROPOUT, seed)
+        out, lse = fa.flash_fwd(*a, rate, seed)
+        want, want_lse = fa.flash_forward_plain(*a, rate, seed)
         dvec = (dout.float() * want.float()).sum(-1)
-        g = (dout, want_lse, dvec, DROPOUT, seed)
+        g = (dout, want_lse, dvec, rate, seed)
         dk, dv = fa.flash_bwd_dkv(*a, *g)
         dq = fa.flash_bwd_dq(*a, *g)
         pq, pk, pv = fa.flash_backward_plain(*a, *g)
         torch.cuda.synchronize()
-        shape = (f"b={b} h={h} s={s} d={d} MQA causal={causal} "
+        shape = (f"b={b} h={h} hk={hk} sq={sq} skv={s} d={d} causal={causal} "
                  f"bias={None if bias is None else tuple(bias.shape)} "
-                 f"dropout={DROPOUT}")
+                 f"dropout={rate}")
         errs = {"fwd": compare(f"flash_fwd out {label} {shape}", out, want)}
         compare(f"flash_fwd lse {label}", lse, want_lse)
         errs["dkv"] = max(compare(f"flash_bwd_dkv dk {label}", dk, pk),
                           compare(f"flash_bwd_dkv dv {label}", dv, pv))
         errs["dq"] = compare(f"flash_bwd_dq dq {label}", dq, pq)
         del out, lse, dk, dv, dq, pq, pk, pv
-        ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, DROPOUT, seed)),
+        ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
               "dkv": cuda_ms(torch, lambda: fa.flash_bwd_dkv(*a, *g)),
               "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq(*a, *g))}
         plain_fwd = cuda_ms(torch, lambda: fa.flash_forward_plain(
-            *a, DROPOUT, seed))
+            *a, rate, seed))
         plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g))
         # the library yardstick: one SDPA call, causal folded into the mask
         mask = None
         if bias is not None or causal:
             mask = (0 if bias is None else bias) + (
-                causal_bias(s, s, dev) if causal else 0)
+                causal_bias(sq, s, dev) if causal else 0)
             mask = mask.to(bf)
 
         def lib_fwd():
             return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, dropout_p=DROPOUT, enable_gqa=True)
+                q, k, v, attn_mask=mask, dropout_p=rate, enable_gqa=True)
 
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
         def lib_fwd_bwd():
             with torch.enable_grad():
                 F.scaled_dot_product_attention(
-                    qg, kg, vg, attn_mask=mask, dropout_p=DROPOUT,
+                    qg, kg, vg, attn_mask=mask, dropout_p=rate,
                     enable_gqa=True).backward(dout)
 
         lib = {"fwd": cuda_ms(torch, lib_fwd),
@@ -565,8 +654,9 @@ def phase_flash_kernels(torch, args, results):
                     replaces=f"image2text_tpu/ops/flash_attention.py:{line}",
                     **row)
             else:
-                results[name]["decoder_shape"] = dict(s=s, causal=causal,
-                                                      **row)
+                results.setdefault(name, {"name": name})[
+                    f"{label}_shape"] = dict(b=b, h=h, hk=hk, sq=sq, skv=s,
+                                             d=d, causal=causal, **row)
 
 
 def train_inputs(torch, cfg, batch: int, seed: int):
@@ -613,35 +703,55 @@ def flash_launches_per_step(cfg, model, seq_len: int):
     if not all(c.enable_gradient_checkpointing for c in stacks):
         raise ValueError("the launch count assumes full gradient "
                          "checkpointing in both stacks")
-    calls = model.self_attention_calls(seq_len)
+    calls = model.sdpa_calls(seq_len)
     return {"flash_fwd": 2 * calls, "flash_bwd_dkv": calls,
             "flash_bwd_dq": calls}
 
 
-def phase_train(torch, args, results):
-    cfg, wrapper, trainer = train_setup(torch)
-    n_params = sum(p.numel() for p in wrapper.model.parameters())
-    images, labels = train_inputs(torch, cfg, TRAIN_BATCH, SEED + 5)
+def train_launches(cfg, model, seq_len: int):
+    """Launches of each kernel wrapper in one training step: the flash
+    kernels as ``flash_launches_per_step``, one int4_matmul per quantized
+    Linear in the forward and again in the checkpoint recompute, and no
+    serving kernel."""
+    from image2text_torch.models.quantization import QuantizedLinear
+
+    n_q = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    return {"sparse_block": 0, "moe_ffn": 0, "int4_matmul": 2 * n_q,
+            **flash_launches_per_step(cfg, model, seq_len)}
+
+
+def phase_train(torch, args, results, path: str, setup, inputs):
+    """A training step at full width and depth (``setup()`` gives the
+    config, the wrapper and its Trainer; ``inputs(cfg)`` the batch):
+    launches in one step held to ``train_launches``, then 3 windows of 4
+    steps on the batch: step ms, tokens/s, peak memory, the loss of every
+    step (finite and lower at the end), frozen tensors bitwise unchanged."""
+    from image2text_torch.nn.core import frozen_param_paths
+
+    cfg, wrapper, trainer = setup()
+    model = wrapper.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_trainable = sum(p.numel() for p in model.parameters()
+                      if p.requires_grad)
+    tensors = dict(model.named_parameters()) | dict(model.named_buffers())
+    frozen = {k: tensors[k].detach().clone()
+              for k in frozen_param_paths(model)}
+    images, labels = inputs(cfg)
+    batch, seq = labels.shape
     step = trainer._train_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels = kernel_wrappers()
-    for kern in kernels:
-        kern.launches = 0
-    losses = [step(images, labels, cfg.seed, 0)["train_loss_lm"]]
-    torch.cuda.synchronize()
-    counts = {kern.__name__: kern.launches for kern in kernels}
-    want = {"sparse_block": 0, "moe_ffn": 0,
-            **flash_launches_per_step(cfg, wrapper.model, TRAIN_SEQ)}
-    log(f"  flagship training step ({n_params:,} parameters, batch "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} labels, bf16 compute, f32 masters, "
-        f"dropout {DROPOUT}, gradient checkpointing): launches in one step "
-        f"{counts} (want {want})")
+    counts, metrics = launch_counts(lambda: step(images, labels, cfg.seed,
+                                                 0))
+    losses = [metrics["train_loss_lm"]]
+    record_launches(results, path, counts)
+    want = train_launches(cfg, model, seq)
+    log(f"  training step ({n_params:,} float parameters, {n_trainable:,} "
+        f"trainable, {len(frozen)} frozen tensors; batch {batch} x {seq} "
+        f"labels, bf16 compute from f32 masters, gradient checkpointing): "
+        f"launches in one step {counts} (want {want})")
     if counts != want:
-        raise AssertionError(f"train launch counts {counts} != {want}")
-    for name, n in counts.items():
-        if name.startswith("flash"):
-            results[name]["launches"] = n
+        raise AssertionError(f"{path} launch counts {counts} != {want}")
     windows = []
     for w in range(3):
         torch.cuda.synchronize()
@@ -655,45 +765,52 @@ def phase_train(torch, args, results):
     losses = [float(x) for x in losses]
     step_s = statistics.median(windows)
     log(f"  step ms (median of 3 windows of 4 steps): {step_s * 1e3:.2f}; "
-        f"windows {[round(x * 1e3, 2) for x in windows]}; tokens/s "
-        f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}; peak memory "
+        f"windows {[round(x * 1e3, 2) for x in windows]}; tokens/s (label "
+        f"positions) {batch * seq / step_s:.1f}; peak memory "
         f"{peak:.3f} GiB on {torch.cuda.get_device_name(0)}")
     log(f"  loss by step: {[round(x, 5) for x in losses]}")
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"train: loss not finite or not falling "
-                             f"{losses}")
+    moved = [k for k, v in frozen.items() if not torch.equal(tensors[k], v)]
+    log(f"  frozen tensors changed by the steps: {len(moved)} of "
+        f"{len(frozen)}")
+    if (moved or not all(math.isfinite(x) for x in losses)
+            or losses[-1] >= losses[0]):
+        raise AssertionError(f"{path}: frozen moved {moved[:3]} or loss not "
+                             f"finite or not falling {losses}")
     if args.profile:
         log("  device time by kernel, one training step:")
         device_profile(torch, lambda: step(images, labels, cfg.seed, 99),
                        top=16)
-    del trainer, wrapper
+    del trainer, wrapper, model, tensors, frozen
     torch.cuda.empty_cache()
 
 
-def phase_train_parity(torch):
+def phase_train_parity(torch, phase: str, setup, inputs, focus):
     """One training step at depth 2 + 2, on the kernels and then on the
-    plain versions, from the same weights, seeds and batch."""
+    plain versions, from the same weights, seeds and batch: the loss, the
+    gradients normwise, and on their own the ones ``focus`` (label, name
+    test) picks."""
     from image2text_torch.training.loop import make_train_step
     from image2text_torch.training.optimizer import build_optimizer
 
-    cfg, wrapper, trainer = train_setup(torch, n_layer=2)
-    images, labels = train_inputs(torch, cfg, 8, SEED + 6)
+    cfg, wrapper, trainer = setup()
+    images, labels = inputs(cfg)
     start = {k: v.clone() for k, v in wrapper.state_dict().items()}
-    kernels = kernel_wrappers()
     runs = []
     for plain in (False, True):
         wrapper.load_state_dict(start)
         opt, _ = build_optimizer(wrapper, cfg.optimizers, use_snr=True)
         step = make_train_step(wrapper, opt, precision=cfg.precision)
-        for kern in kernels:
-            kern.launches = 0
-        with plain_versions() if plain else contextlib.nullcontext():
-            loss = float(step(images, labels, cfg.seed, 0)["train_loss_lm"])
-        torch.cuda.synchronize()
+
+        def one_step():   # the kernels' counts are read around the swap
+            with plain_versions() if plain else contextlib.nullcontext():
+                return step(images, labels, cfg.seed, 0)
+
+        counts, metrics = launch_counts(one_step)
         grads = {n: p.grad.float().clone()
                  for n, p in wrapper.model.named_parameters()
                  if p.grad is not None}
-        runs.append((loss, grads, sum(k.launches for k in kernels[2:])))
+        runs.append((float(metrics["train_loss_lm"]), grads,
+                     sum(counts.values())))
     (lk, gk, nk), (lp, gp, npl) = runs
 
     def rel_l2(names):
@@ -701,21 +818,171 @@ def phase_train_parity(torch):
         den = sum(float(gp[n].square().sum()) for n in names)
         return math.sqrt(num / den)
 
-    attn = [n for n in gp if ".attn.q_proj." in n or ".attn.kv_proj." in n]
+    label, picks = focus
+    sub = [n for n in gp if picks(n)]
     loss_err = abs(lk - lp) / abs(lp)
-    whole, qkv = rel_l2(list(gp)), rel_l2(attn)
-    log(f"  batch 8, depth 2 + 2, full width: loss kernels {lk:.6f} vs plain "
-        f"{lp:.6f} (relative error {loss_err:.3g}, limit {TRAIN_LOSS_TOL}); "
-        f"gradient relative L2 error {whole:.4g} over {len(gp)} tensors, "
-        f"{qkv:.4g} over the {len(attn)} attention q_proj/kv_proj ones "
-        f"(limit {TRAIN_GRAD_TOL}); flash launches {nk} on the kernel path, "
-        f"{npl} on the plain one")
+    whole, part = rel_l2(list(gp)), rel_l2(sub)
+    log(f"  batch {labels.shape[0]}, depth 2 + 2, full width: loss kernels "
+        f"{lk:.6f} vs plain {lp:.6f} (relative error {loss_err:.3g}, limit "
+        f"{TRAIN_LOSS_TOL}); gradient relative L2 error {whole:.4g} over "
+        f"{len(gp)} trainable tensors, {part:.4g} over the {len(sub)} "
+        f"{label} ones (limit {TRAIN_GRAD_TOL}); kernel launches {nk} on the "
+        f"kernel path, {npl} on the plain one")
     if (set(gk) != set(gp) or nk == 0 or npl != 0 or loss_err > TRAIN_LOSS_TOL
-            or whole > TRAIN_GRAD_TOL or qkv > TRAIN_GRAD_TOL):
-        raise AssertionError("train-parity: kernel path disagrees with the "
+            or whole > TRAIN_GRAD_TOL or part > TRAIN_GRAD_TOL):
+        raise AssertionError(f"{phase}: kernel path disagrees with the "
                              "plain-version path beyond tolerance")
     del trainer, wrapper
     torch.cuda.empty_cache()
+
+
+ATTN_GRADS = ("attention q_proj/kv_proj",
+              lambda n: ".attn.q_proj." in n or ".attn.kv_proj." in n)
+LORA_GRADS = ("LoRA", lambda n: ".lora_" in n)
+
+
+# -- the int4 + LoRA GPT-2-medium captioner (gpt2-medium.yaml) ---------------
+
+GPT2M_TRAIN_BATCH = 12   # training_configs/tpu/gpt2-medium.yaml
+GPT2M_TRAIN_SEQ = 48     # tools/bench_gpt2_medium_int4.py's label length
+GPT2M_EOS = 50256        # GPT-2's <|endoftext|>: EOS and BOS, as the tool
+
+
+@contextlib.contextmanager
+def gpt2_depth(n_layer):
+    """Build GPT-2-medium decoders ``n_layer`` deep (None: the table's 24)."""
+    from image2text_torch.models.hf_decoders import factory
+
+    saved = factory.GPT2_TABLE["gpt2-medium"]
+    if n_layer is not None:
+        factory.GPT2_TABLE["gpt2-medium"] = dict(saved, n_layer=n_layer)
+    try:
+        yield
+    finally:
+        factory.GPT2_TABLE["gpt2-medium"] = saved
+
+
+def randomize_gpt2m(torch, model, seed):
+    """Random weights that make every stage work: the port's initialisers
+    (as the JAX package's) leave the int4 weights and LoRA B zero, so the
+    int4 weights get the quantized image of N(0, 0.02) matrices (the import
+    path's own step) and LoRA B N(0, 0.02)."""
+    from image2text_torch.models.quantization import fill_random_int4
+
+    gen = torch.Generator(device=model.device).manual_seed(seed + 100)
+    fill_random_int4(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".lora_B." in name:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def int4_work(lin, x):
+    """(bytes, FLOP) of one int4_matmul call on ``x``: x, the packed weight
+    and the scales read once, y written once; 2·rows·out·in_pad
+    operations."""
+    rows = x.numel() // x.shape[-1]
+    out_bytes = rows * lin.out_features * x.element_size()
+    return (nbytes(x, lin.weight, lin.weight_scales) + out_bytes,
+            2 * rows * lin.out_features * lin.in_pad)
+
+
+def phase_int4_kernels(torch, model, results):
+    """int4_matmul against its plain version at the GPT-2-medium decoder's
+    four quantized Linear shapes, at the serving batch (256 decode rows)
+    and at the training step's rows (12 x 112), bf16 x and the bf16 scales
+    the model's cast leaves; beside it torch.matmul on the weight
+    dequantised once to bf16, a yardstick the port never calls."""
+    from image2text_torch.ops.int4_matmul import (dequantize_int4,
+                                                  int4_matmul,
+                                                  int4_matmul_plain)
+
+    dev, bf = model.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    blk = model.decoder.blocks[0]
+    linears = (("c_attn", blk.attn.c_attn), ("attn_c_proj", blk.attn.c_proj),
+               ("c_fc", blk.mlp.c_fc), ("mlp_c_proj", blk.mlp.c_proj))
+    train_rows = GPT2M_TRAIN_BATCH * (model.space_for_prompt
+                                      + GPT2M_TRAIN_SEQ)
+    for phase, rows in (("decode", BATCH), ("train", train_rows)):
+        for label, lin in linears:
+            packed, scales = lin.weight, lin.weight_scales
+            x = torch.randn(rows, lin.in_pad, device=dev, generator=gen).to(bf)
+            got = int4_matmul(x, packed, scales)
+            want = int4_matmul_plain(x, packed, scales)
+            torch.cuda.synchronize()
+            shape = (f"rows={rows} in={lin.in_pad} out={lin.out_features} "
+                     f"scales {scales.dtype}")
+            err = compare(f"int4_matmul {phase} {label} {shape}", got, want)
+            ms = cuda_ms(torch, lambda: int4_matmul(x, packed, scales), 20)
+            plain = cuda_ms(torch, lambda: int4_matmul_plain(x, packed,
+                                                             scales), 20)
+            w16 = dequantize_int4(packed, scales, bf)
+            lib = cuda_ms(torch, lambda: torch.matmul(x, w16.t()), 20)
+            n_bytes, flops = int4_work(lin, x)
+            bms, by = bound_ms(n_bytes, flops)
+            log(f"    {phase} {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
+                f"ms, bound {bms:.5f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+                f"{n_bytes / 1e6:.2f} MB; kernel at {bms / ms:.3f} of it), "
+                f"torch.matmul on the bf16-dequantised weight {lib:.4f} ms")
+            row = dict(rows=rows, in_pad=lin.in_pad, out=lin.out_features,
+                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, library_ms=lib)
+            entry = results.setdefault("int4_matmul",
+                                       {"name": "int4_matmul"})
+            if "source" not in entry:   # the first row: decode c_attn
+                entry.update(
+                    route="cuda", source="image2text_torch/csrc/int4_matmul.cu",
+                    replaces="image2text_tpu/ops/int4_matmul.py:102",
+                    **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")})
+            entry[f"{phase}_{label}_shape"] = row
+
+
+def gpt2m_model(torch):
+    from image2text_torch.configs.models import GPT2_MEDIUM
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+
+    model = VisionEncoderDecoder(GPT2_MEDIUM, device="cuda").init_weights(SEED)
+    return randomize_gpt2m(torch, model, SEED).to(torch.bfloat16).eval()
+
+
+def gpt2m_train_setup(torch, n_layer=None):
+    """gpt2-medium.yaml's training in the form that runs
+    (``gpt2_medium_training_config``: accumulation 1, SNRAdam), the tokens
+    as tools/bench_gpt2_medium_int4.py sets them, and its Trainer."""
+    from image2text_torch.configs.trainer import gpt2_medium_training_config
+    from image2text_torch.training.loop import Trainer
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    cfg = gpt2_medium_training_config()
+    if n_layer is not None:
+        cfg.model.vision_encoder_config.n_layer = n_layer
+    tok = TokenizerInfo(eos_token_id=GPT2M_EOS, bos_token_id=GPT2M_EOS,
+                        mask_token_id=None, vocab_size=50257)
+    with gpt2_depth(n_layer):
+        wrapper = ModelTrainerWrapper(cfg.model, tok, cfg.trainer,
+                                      device="cuda").init_weights(SEED)
+    randomize_gpt2m(torch, wrapper.model, SEED)
+    return cfg, wrapper, Trainer(cfg, wrapper)
+
+
+def gpt2m_train_inputs(torch, batch: int, seed: int):
+    """Images and labels as tools/bench_gpt2_medium_int4.py makes them:
+    8–40 tokens per row, then -100."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch, 3, 128, 128)).astype(np.float32)
+    labels = np.full((batch, GPT2M_TRAIN_SEQ), -100, np.int64)
+    for i, n in enumerate(rng.integers(8, 40, batch)):
+        labels[i, :n] = rng.integers(3, 50000, n)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev))
 
 
 def main() -> int:
@@ -775,17 +1042,58 @@ def main() -> int:
             "seed (bf16, the training step's attention shapes)")
         phase_flash_kernels(torch, args, results)
         log("[main] flagship serving path at full width")
-        phase_main(torch, model, args, results)
+        phase_serve(torch, model, args, results, "flagship_caption",
+                    FLAGSHIP_BOS)
         log("[parity] kernel path vs plain-version path at full width")
-        phase_parity(torch, model)
+        phase_parity(torch, model, "parity", FLAGSHIP_BOS)
     del model
     torch.cuda.empty_cache()
     log("[train] flagship training step at full width and depth")
-    phase_train(torch, args, results)
+    phase_train(torch, args, results, "flagship_train_step",
+                lambda: train_setup(torch),
+                lambda cfg: train_inputs(torch, cfg, TRAIN_BATCH, SEED + 5))
     log("[train-parity] training step, kernel path vs plain-version path")
-    phase_train_parity(torch)
+    phase_train_parity(torch, "train-parity",
+                       lambda: train_setup(torch, n_layer=2),
+                       lambda cfg: train_inputs(torch, cfg, 8, SEED + 6),
+                       ATTN_GRADS)
+
+    t0 = time.perf_counter()
+    model = gpt2m_model(torch)
+    log(f"[gpt2m-model] int4 + LoRA GPT-2-medium captioner "
+        f"(training_configs/tpu/gpt2-medium.yaml: 6-block d-512 sparse "
+        f"encoder, 24-layer d-1024 GPT-2 with cross-attention, vocab "
+        f"{model.decoder.vocab_eff}) with random bf16 weights built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        log("[kernels] int4_matmul vs plain version (bf16, GPT-2-medium "
+            "decoder shapes); the serving kernels at its encoder's shapes")
+        phase_int4_kernels(torch, model, results)
+        phase_kernels(torch, model, args, results, tag="gpt2m")
+        log("  flash-attention kernels at the GPT-2-medium training step's "
+            "attention shapes")
+        phase_flash_kernels(torch, args, results, FLASH_GPT2M)
+        log("[gpt2m] GPT-2-medium serving path at full width and depth")
+        phase_serve(torch, model, args, results, "gpt2m_caption", GPT2M_EOS)
+        log("[gpt2m-parity] kernel path vs plain-version path at full width")
+        phase_parity(torch, model, "gpt2m-parity", GPT2M_EOS)
+    del model
+    torch.cuda.empty_cache()
+    log("[gpt2m-train] int4 + LoRA training step at full width and depth")
+    phase_train(torch, args, results, "gpt2m_train_step",
+                lambda: gpt2m_train_setup(torch),
+                lambda cfg: gpt2m_train_inputs(torch, GPT2M_TRAIN_BATCH,
+                                               SEED + 10))
+    log("[gpt2m-train-parity] training step, kernel path vs plain-version "
+        "path")
+    phase_train_parity(torch, "gpt2m-train-parity",
+                       lambda: gpt2m_train_setup(torch, n_layer=2),
+                       lambda cfg: gpt2m_train_inputs(torch, 8, SEED + 11),
+                       LORA_GRADS)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     kernels = [{k: r[k] for k in keys}
                | {k: v for k, v in r.items() if k.endswith("_shape")}
                for r in results.values()]

@@ -1,18 +1,29 @@
 """Model configuration for the PyTorch port: plain dataclasses.
 
 Same class and field names as ``image2text_tpu/configs/models.py`` for the
-classes the flagship caption model uses, so a reader can hold one against
+classes the ported caption models use, so a reader can hold one against
 the other.  The machine with the card has neither pydantic nor PyYAML, so
-the flagship configuration (``training_configs/tpu/nano-mini.yaml``) is
-transcribed here as a Python constant; :func:`flagship_config` mirrors the
-JAX package's ``__graft_entry__._flagship_config``, including its tiny form.
+the configurations are transcribed here as Python constants: the flagship
+(``training_configs/tpu/nano-mini.yaml``; :func:`flagship_config` mirrors
+the JAX package's ``__graft_entry__._flagship_config``, including its tiny
+form) and the int4 + LoRA GPT-2-medium captioner
+(``training_configs/tpu/gpt2-medium.yaml``, :func:`gpt2_medium_config`).
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
 from enum import Enum
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple, Union
+
+
+@dataclass
+class LoraSpec:
+    r: int = 16
+    lora_alpha: int = 64
+    lora_dropout: float = 0.1
+    target_modules: Optional[List[str]] = None
+    force_enable_update_modules: Optional[List[str]] = None
 
 
 @dataclass
@@ -82,9 +93,23 @@ class TransformerDecoderConfig:
 
 
 @dataclass
+class HuggingfaceDecoderConfig:
+    """A decoder of the HF family by ``model_str`` (only GPT-2 is ported)."""
+
+    use_cross_attn: bool
+    model_str: str
+    extra_tokens: int
+    load_in_4bit: bool
+    prepare_for_kbit_training: bool
+    vocab_size: int
+    lora_spec: Optional[LoraSpec] = None
+    enable_gradient_checkpointing: bool = False
+
+
+@dataclass
 class VisionEncoderDecoderConfig:
     vision_encoder_config: VisionTransformerEncoderConfig
-    decoder_config: TransformerDecoderConfig
+    decoder_config: Union[TransformerDecoderConfig, HuggingfaceDecoderConfig]
     use_cross_attn: bool = False
     use_soft_prompting: bool = True
     no_repeat_n_grams: Tuple[int, ...] = (2, 3, 4, 5)
@@ -150,9 +175,64 @@ def flagship_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
     return cfg
 
 
+def _gpt2_medium() -> VisionEncoderDecoderConfig:
+    """``training_configs/tpu/gpt2-medium.yaml``'s ``model`` section."""
+    enc = VisionTransformerEncoderConfig(
+        enable_gradient_checkpointing=True,
+        input=ImageInputSpec(n_channels=3, width=128, height=128),
+        n_layer=6, n_cls=64, num_patches=16, n_channels=32,
+        feature_extractor_gate_sizes=(8, 16),
+        feature_extractor_kernel_size=(6, 6),
+        transformer_config=TransformerConfig(
+            is_sparse_attn=True, max_block_size=320, sparsity_factor=0.25,
+            attn_config=SelfAttentionConfig(
+                attn_dropout=0.1, bias=False, dropout=0.1, n_head=8,
+                n_embd=512, attn_type=SelfAttentionType.MULTI_QUERY),
+            rotator_config=MoEConfig(
+                num_experts=4, proj_features=16, gate_sizes=(32,),
+                ff_mult_factor=2.0, top_k=2)))
+    dec = HuggingfaceDecoderConfig(
+        model_str="gpt2-medium", use_cross_attn=True, vocab_size=50257,
+        extra_tokens=2, load_in_4bit=True, prepare_for_kbit_training=True,
+        enable_gradient_checkpointing=True,
+        lora_spec=LoraSpec(
+            r=16, lora_alpha=64, lora_dropout=0.1,
+            target_modules=["c_attn", "mlp.c_fc", "mlp.c_proj"],
+            force_enable_update_modules=["*.wpe.*", "*.wte.*",
+                                         "*.crossattention.*",
+                                         "*.ln_cross_attn.*"]))
+    return VisionEncoderDecoderConfig(
+        vision_encoder_config=enc, decoder_config=dec, use_cross_attn=True,
+        use_soft_prompting=True, no_repeat_n_grams=(2, 3, 4, 5))
+
+
+GPT2_MEDIUM = _gpt2_medium()
+
+
+def gpt2_medium_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
+    """A fresh copy of :data:`GPT2_MEDIUM`; ``tiny`` cuts the encoder as
+    :func:`flagship_config` does and turns checkpointing off.  The GPT-2
+    decoder's depth and widths come from ``models/hf_decoders/factory.py``'s
+    ``GPT2_TABLE`` by ``model_str``, as in the JAX package: a test cuts them
+    by patching that table."""
+    cfg = copy.deepcopy(GPT2_MEDIUM)
+    if tiny:
+        enc = cfg.vision_encoder_config
+        enc.n_layer, enc.n_cls = 2, 8
+        enc.input.width = enc.input.height = 64
+        enc.num_patches = 8
+        enc.transformer_config.attn_config.n_embd = 64
+        enc.transformer_config.attn_config.n_head = 4
+        enc.transformer_config.max_block_size = 80
+        enc.enable_gradient_checkpointing = False
+        cfg.decoder_config.enable_gradient_checkpointing = False
+    return cfg
+
+
 __all__ = [
-    "FLAGSHIP", "ImageInputSpec", "MoEConfig", "SelfAttentionConfig",
-    "SelfAttentionType", "TransformerConfig", "TransformerDecoderConfig",
+    "FLAGSHIP", "GPT2_MEDIUM", "HuggingfaceDecoderConfig", "ImageInputSpec",
+    "LoraSpec", "MoEConfig", "SelfAttentionConfig", "SelfAttentionType",
+    "TransformerConfig", "TransformerDecoderConfig",
     "VisionEncoderDecoderConfig", "VisionTransformerEncoderConfig",
-    "flagship_config",
+    "flagship_config", "gpt2_medium_config",
 ]

@@ -7,7 +7,8 @@ device; no data pipeline yet), and so are the tokenizer name, the epoch
 count and ``ignore_index``, which only the CLI reads (it hands
 ``ignore_index`` to the trainer wrapper).  :data:`FLAGSHIP_TRAINING`
 transcribes ``training_configs/tpu/nano-mini.yaml`` (the card's machine
-has no YAML parser).
+has no YAML parser) and :data:`GPT2_MEDIUM_TRAINING`
+``training_configs/tpu/gpt2-medium.yaml``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from image2text_torch.configs.models import (VisionEncoderDecoderConfig,
-                                             flagship_config)
+                                             flagship_config,
+                                             gpt2_medium_config)
 
 
 @dataclass
@@ -72,5 +74,28 @@ def flagship_training_config(tiny: bool = False) -> TrainingConfig:
     return cfg
 
 
-__all__ = ["FLAGSHIP_TRAINING", "OptimizerConfig", "TrainerWrapperConfig",
-           "TrainingConfig", "flagship_training_config"]
+# The YAML as written: gradient_accumulation_steps is its 8, which its
+# batch of 12 does not divide, so the step refuses it (as the JAX step
+# does); gpt2_medium_training_config gives the form that runs.
+GPT2_MEDIUM_TRAINING = TrainingConfig(
+    model=gpt2_medium_config(), trainer=TrainerWrapperConfig(),
+    optimizers=[OptimizerConfig(lr=6e-4)], batch_size=12,
+    gradient_accumulation_steps=8, precision="bf16")
+
+
+def gpt2_medium_training_config(tiny: bool = False) -> TrainingConfig:
+    """A fresh copy of :data:`GPT2_MEDIUM_TRAINING` in the form that runs:
+    gradient accumulation 1 (as ``tools/bench_gpt2_medium_int4.py`` sets
+    it) and SNRAdam (as ``bench_train.py`` sets it for the flagship step).
+    ``tiny`` cuts the model as
+    ``configs.models.gpt2_medium_config(tiny=True)`` does."""
+    cfg = copy.deepcopy(GPT2_MEDIUM_TRAINING)
+    cfg.model = gpt2_medium_config(tiny=tiny)
+    cfg.gradient_accumulation_steps = 1
+    cfg.use_snr_optim = True
+    return cfg
+
+
+__all__ = ["FLAGSHIP_TRAINING", "GPT2_MEDIUM_TRAINING", "OptimizerConfig",
+           "TrainerWrapperConfig", "TrainingConfig",
+           "flagship_training_config", "gpt2_medium_training_config"]

@@ -77,17 +77,6 @@ struct GemmArgs {
   int c_T, c_off, t_g, M, N, K;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Row of the logical m-th row through an optional index list.
 __device__ __forceinline__ size_t map_row(int m, const int* rows, int T, int t_g) {
   return rows != nullptr ? (size_t)(m / t_g) * T + rows[m % t_g] : (size_t)m;

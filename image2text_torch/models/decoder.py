@@ -1,10 +1,14 @@
-"""Scratch causal decoder (counterpart of
-``image2text_tpu/models/decoder.py::TransformerDecoder``): token table
-``wte``, plain positional table ``wpe``, sparse MQA/MoE blocks with
-cross-attention on even depths only, ``ln_f`` and the lm_head tied to
-``wte`` with f32 accumulation and f32 logits.  In training the positions
-are dropped and, when the config enables gradient checkpointing, each
-block is recomputed in the backward with its bias and cross inputs.
+"""Causal decoders (counterpart of ``image2text_tpu/models/decoder.py``).
+
+* :func:`decoder_from_config` dispatches on the config's type, as the JAX
+  ``Decoder.from_config`` does: the scratch decoder, or the HF family
+  (``models/hf_decoders/``; GPT-2 so far).
+* :class:`TransformerDecoder`, the scratch decoder: token table ``wte``,
+  plain positional table ``wpe``, sparse MQA/MoE blocks with
+  cross-attention on even depths only, ``ln_f`` and the lm_head tied to
+  ``wte`` with f32 accumulation and f32 logits.  In training the positions
+  are dropped and, when the config enables gradient checkpointing, each
+  block is recomputed in the backward with its bias and cross inputs.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import (TransformerConfig,
+from image2text_torch.configs.models import (HuggingfaceDecoderConfig,
+                                             TransformerConfig,
                                              TransformerDecoderConfig)
 from image2text_torch.models.kv_cache import KVCache
 from image2text_torch.models.layers import MoELinear, TransformerBlock
@@ -32,6 +37,19 @@ def mutate_transformer_config(config: TransformerConfig, depth: int,
         config = copy.deepcopy(config)
         config.is_cross_attn = False
     return config
+
+
+def decoder_from_config(config, space_for_prompt: int = 0, device=None):
+    """The decoder a config describes (pretrained scratch-decoder weights
+    and LoRA on the scratch decoder are not ported)."""
+    if isinstance(config, TransformerDecoderConfig):
+        return TransformerDecoder(config, space_for_prompt, device)
+    if isinstance(config, HuggingfaceDecoderConfig):
+        from image2text_torch.models.hf_decoders.factory import (
+            build_hf_decoder)
+
+        return build_hf_decoder(config, device)
+    raise ValueError("Unknown config type!!!")
 
 
 class TransformerDecoder(nn.Module):
@@ -93,6 +111,18 @@ class TransformerDecoder(nn.Module):
     @property
     def is_causal(self) -> bool:
         return self.config.transformer_config.is_causal
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the decoder computes in (its embedding table's)."""
+        return self.transformer.wte.weight.dtype
+
+    def sdpa_calls(self, t: int) -> int:
+        """Attention calls (``ops.attention.sdpa``) of one non-cached
+        forward over a ``t``-row stream: one for each block that runs its
+        body (``TransformerBlock.runs_body``); the cross-attention is
+        ``MultiheadAttention``'s own."""
+        return sum(blk.runs_body(t) for blk in self.blocks)
 
     def get_inputs_embeds(self, idx: torch.Tensor) -> torch.Tensor:
         return self.transformer.wte(idx)

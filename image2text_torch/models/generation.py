@@ -1,11 +1,15 @@
 """Cached autoregressive generation (counterpart of the cached branch of
 ``image2text_tpu/models/generation.py``).
 
-Prefill the prompt once at offset ``space_for_prompt`` (the soft-prompt
-prefix is dead for text logits in the scratch decoder, so it is skipped),
-precompute the cross-attention K/V per cross depth, then one
-single-token cached decoder step per new token.  The sampler reads the
-last logits cast to the compute dtype (the encoder output's), as in JAX.
+Precompute the cross-attention K/V per cross depth, prefill the prompt
+once on them, then one single-token cached decoder step per new token.  The
+scratch decoder's prefill skips the soft-prompt prefix (it is dead for
+text logits there) and starts at offset ``space_for_prompt``; a decoder
+with ``prefix_in_decode`` (the plain-causal HF decoders) prefills
+``[encoder output; prompt embeddings]`` at position 0 into a cache of
+``space_for_prompt + total`` slots, as the JAX package's prefix-in-decode
+branch does.  The sampler reads the last logits cast to the compute dtype
+(the encoder output's), as in JAX.
 
 Not yet ported: the bidirectional-decoder branch and the full-reforward
 fallback for windows where a sparse layer's selected count crosses 2.
@@ -21,17 +25,37 @@ from image2text_torch.models.sampling import sample_topk_with_ngram
 from image2text_torch.ops.preprocess import resize_normalize_on_device
 
 
-def decoder_step(model, tok_ids: torch.Tensor, cache: KVCache,
+def decoder_step(model, tok_ids: Optional[torch.Tensor], cache: KVCache,
                  pos_offset: int, cross: Optional[torch.Tensor],
-                 cross_kv=None):
-    """One cached decoder forward on a (B, t) chunk; returns (logits
-    (B, t, V), cache) with the cache advanced in place."""
+                 cross_kv=None, inputs_embeds: Optional[torch.Tensor] = None):
+    """One cached decoder forward on a (B, t) chunk of ids (or directly on
+    embeddings); returns (logits (B, t, V), cache) with the cache advanced
+    in place."""
     ref = CacheRef(cache)
-    logits, _ = model.decoder(idx=tok_ids,
+    logits, _ = model.decoder(idx=tok_ids, inputs_embeds=inputs_embeds,
                               cross_attn_embeds=None if cross_kv else cross,
                               kv_cache=ref, pos_offset=pos_offset,
                               cross_kv=cross_kv)
     return logits, cache
+
+
+def prefill(model, encoder_output: torch.Tensor, prompt_ids: torch.Tensor,
+            total: int, cross_kv=None):
+    """The cache for ``total`` text positions, filled by the prompt:
+    (logits of the prefill (B, t, V), cache).  ``cross_kv``, the
+    precomputed cross K/V, spares the prefill its own projections."""
+    dec, dev = model.decoder, encoder_output.device
+    bs, cdt = encoder_output.shape[0], encoder_output.dtype
+    cross = encoder_output if model.use_cross_attn else None
+    off = model.space_for_prompt
+    if getattr(dec, "prefix_in_decode", False) and model.use_soft_prompting:
+        cache = dec.init_cache(bs, off + total, cdt, dev)
+        embeds = torch.cat([encoder_output,
+                            dec.get_inputs_embeds(prompt_ids).to(cdt)], dim=-2)
+        return decoder_step(model, None, cache, 0, cross, cross_kv,
+                            inputs_embeds=embeds)
+    cache = dec.init_cache(bs, total, cdt, dev)
+    return decoder_step(model, prompt_ids, cache, off, cross, cross_kv)
 
 
 def precompute_cross_kv(model, cross: Optional[torch.Tensor]):
@@ -74,13 +98,14 @@ def generate(model, images, prompt_ids: torch.Tensor,
     cdt = encoder_output.dtype
     cross = encoder_output if model.use_cross_attn else None
     off = model.space_for_prompt
-    if not model.decoder.cache_exact_for_window(off + t0, off + total):
+    exact = getattr(model.decoder, "cache_exact_for_window", None)
+    if exact is not None and not exact(off + t0, off + total):
         raise NotImplementedError(
             "this window needs the full-reforward fallback (a sparse layer's "
             "selected count crosses 2), which is not ported yet")
-    cache = model.decoder.init_cache(bs, total, cdt, dev)
-    logits, cache = decoder_step(model, prompt_ids, cache, off, cross)
     cross_kv = precompute_cross_kv(model, cross)
+    logits, cache = prefill(model, encoder_output, prompt_ids, total,
+                            cross_kv)
     last = logits[:, -1].to(cdt)
     for i in range(max_new_tokens):
         cur = t0 + i
@@ -101,7 +126,7 @@ def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The serving path: raw uint8 frames (B, H, W, 3) → resize/normalize
     on the model's device in the model's dtype → encoder → generate."""
-    dtype = model.decoder.transformer.wte.weight.dtype
+    dtype = model.decoder.dtype
     size = model.config.vision_encoder_config.input.width
     images = resize_normalize_on_device(frames_u8.to(model.device), size,
                                         out_dtype=dtype)

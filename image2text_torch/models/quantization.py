@@ -1,0 +1,143 @@
+"""Blockwise int4 quantization of frozen decoder weights (counterpart of
+``image2text_tpu/models/quantization.py``; the JAX package's replacement
+for the reference's bitsandbytes NF4 ``load_in_4bit`` path).
+
+:class:`QuantizedLinear` stores its weight packed two 4-bit values per
+byte with one scale per 64-column block (``ops/int4_matmul.py`` gives the
+layout) and an f32 bias; its product is the int4 dequant-matmul kernel on
+the card, for every row count (the JAX module's rows < 8 fallback is a TPU
+tiling gate and does not come across).  The packed weight is a uint8
+buffer (torch holds no integer parameters) that counts as a frozen
+parameter (``nn.core.frozen_param_paths``); the scales are a frozen f32
+parameter, so a cast of the model to bf16 turns them into bf16 as the
+JAX bf16 cast does, and the kernel reads them in that dtype.
+
+Not ported yet: ``int8_serving_params`` (the W8A8 serving transform).
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from image2text_torch.nn.core import new_param, zeros_init
+from image2text_torch.nn.modules import Linear
+from image2text_torch.ops import int4_matmul as int4_ops
+from image2text_torch.ops.int4_matmul import (QBLOCK, Int4Matmul,
+                                              dequantize_int4,
+                                              quantize_pack_int4)
+
+
+# (out, in) float → (packed uint8 (out, in_pad/2), f32 scales): the JAX
+# module's name for the packing of ``ops/int4_matmul.py``
+quantize_blockwise = quantize_pack_int4
+
+
+def dequantize_blockwise(packed, scales, in_features: int,
+                         dtype=torch.float32):
+    """Unpack and scale back to the (out, in_features) float weight."""
+    return dequantize_int4(packed, scales, dtype)[:, :in_features]
+
+
+class QuantizedLinear(nn.Module):
+    """Linear with a packed blockwise-int4 frozen weight and an f32 bias."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.in_pad = (in_features + QBLOCK - 1) // QBLOCK * QBLOCK
+        self.register_buffer("weight", torch.zeros(
+            out_features, self.in_pad // 2, dtype=torch.uint8, device=device))
+        self._param_buffers = ("weight",)
+        new_param(self, "weight_scales", (out_features, self.in_pad // QBLOCK),
+                  zeros_init(), device)
+        if bias:
+            new_param(self, "bias", (out_features,), zeros_init(), device)
+        else:
+            self.bias = None
+        self._frozen = {"weight", "weight_scales"}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.in_pad != self.in_features:
+            x = F.pad(x, (0, self.in_pad - self.in_features))
+        if torch.is_grad_enabled():
+            y = Int4Matmul.apply(x, self.weight, self.weight_scales)
+        else:   # serving: the kernel without an autograd node
+            y = int4_ops.int4_matmul(x.contiguous(), self.weight,
+                                     self.weight_scales)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+def quantize_module_structure(module: nn.Module,
+                              skip_paths: Iterable[str] = ()) -> None:
+    """Swap every plain ``Linear`` under ``module`` whose path contains none
+    of ``skip_paths`` for a :class:`QuantizedLinear` (structure only, before
+    the weights are set; run before ``apply_lora`` so adapters wrap the
+    quantized base)."""
+    skip = tuple(skip_paths)
+
+    def walk(parent: nn.Module, prefix: str):
+        for name, child in list(parent.named_children()):
+            path = f"{prefix}.{name}" if prefix else name
+            if any(s in path for s in skip):
+                continue
+            if type(child) is Linear:
+                out_f, in_f = child.weight.shape
+                setattr(parent, name, QuantizedLinear(
+                    in_f, out_f, bias=child.bias is not None,
+                    device=child.weight.device))
+            else:
+                walk(child, path)
+
+    walk(module, "")
+
+
+@torch.no_grad()
+def assign_imported(tensors: Dict[str, torch.Tensor], key: str,
+                    value: np.ndarray) -> bool:
+    """Copy an imported float tensor into ``tensors[key]`` (a module's
+    parameters and buffers by path), quantizing it when the destination is
+    an int4 weight (the checkpoint stores floats).  False on a shape
+    mismatch."""
+    dst = tensors[key]
+    value = torch.as_tensor(np.asarray(value))
+    if dst.dtype == torch.uint8 and key.endswith("weight"):
+        q, s = quantize_blockwise(value)
+        if tuple(q.shape) != tuple(dst.shape):
+            return False
+        dst.copy_(q)
+        scales = tensors[key[: -len("weight")] + "weight_scales"]
+        scales.copy_(s.to(scales.dtype))
+        return True
+    if tuple(dst.shape) == tuple(value.shape):
+        dst.copy_(value.to(dst.dtype))
+        return True
+    return False
+
+
+@torch.no_grad()
+def fill_random_int4(module: nn.Module, generator: torch.Generator) -> None:
+    """Give every :class:`QuantizedLinear` under ``module`` the quantized
+    image of an N(0, 0.02²) float matrix — the import path's own step — so
+    that random weights make the int4 product do real work (the JAX
+    initialiser, like this port's, leaves packed weights and scales zero)."""
+    for mod in module.modules():
+        if isinstance(mod, QuantizedLinear):
+            w = torch.empty(mod.out_features, mod.in_features,
+                            device=mod.weight.device)
+            w.normal_(0.0, 0.02, generator=generator)
+            q, s = quantize_blockwise(w)
+            mod.weight.copy_(q)
+            mod.weight_scales.copy_(s.to(mod.weight_scales.dtype))
+
+
+__all__ = ["QuantizedLinear", "assign_imported", "dequantize_blockwise",
+           "fill_random_int4", "quantize_blockwise",
+           "quantize_module_structure"]

@@ -5,7 +5,11 @@ Soft prompting prepends the encoder's CLS outputs to the token
 embeddings under the reference's additive bias: prefix query rows attend
 everywhere (subject to the blocks' causality), text → prefix is blocked
 (-inf), and the text block is open.  Cross-attention feeds the encoder
-output to the decoder's even-depth blocks.  ``forward`` is differentiable;
+output to the decoder (the scratch decoder's even-depth blocks, every
+GPT-2 block).  The decoder is the one the config's type names
+(``models/decoder.py::decoder_from_config``); a GPT-2 decoder ignores the
+soft-prompt bias and its text rows attend the prefix through its causal
+mask, as the JAX one does.  ``forward`` is differentiable;
 a training forward passes a train ``Ctx`` (``training/wrapper.py``).
 """
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 from torch import nn
 
 from image2text_torch.configs.models import VisionEncoderDecoderConfig
-from image2text_torch.models.decoder import TransformerDecoder
+from image2text_torch.models.decoder import decoder_from_config
 from image2text_torch.models.encoder import VisionTransformerEncoder
 from image2text_torch.nn.core import EVAL_CTX, Ctx, init_parameters
 from image2text_torch.nn.modules import Linear
@@ -48,8 +52,8 @@ class VisionEncoderDecoder(nn.Module):
         encoder = VisionTransformerEncoder(config.vision_encoder_config, device)
         self.space_for_prompt = (encoder.num_outputs
                                  if config.use_soft_prompting else 0)
-        self.decoder = TransformerDecoder(config.decoder_config,
-                                          self.space_for_prompt, device)
+        self.decoder = decoder_from_config(config.decoder_config,
+                                           self.space_for_prompt, device)
         if encoder.output_embed_dim != self.decoder.n_embd:
             encoder = _EncoderWithBridge(encoder, Linear(
                 encoder.output_embed_dim, self.decoder.n_embd, bias=False,
@@ -73,19 +77,25 @@ class VisionEncoderDecoder(nn.Module):
         init_parameters(self, gen)
         return self
 
-    def self_attention_calls(self, seq_len: int) -> int:
-        """Self-attention calls of one non-cached forward over ``seq_len``
-        labels: one for each block that runs its body
-        (``TransformerBlock.runs_body``) at its stream's length — the
-        encoder's CLS and patch rows, the decoder's soft prompt and labels
-        cut at its block size, as :meth:`forward` builds them."""
+    @property
+    def vision_encoder(self) -> VisionTransformerEncoder:
+        """The vision encoder, without the bridge to the decoder's width."""
         enc = self.encoder
-        if isinstance(enc, _EncoderWithBridge):
-            enc = enc._modules["0"]
+        return (enc._modules["0"] if isinstance(enc, _EncoderWithBridge)
+                else enc)
+
+    def sdpa_calls(self, seq_len: int) -> int:
+        """Attention calls (``ops.attention.sdpa``: in training each is one
+        flash forward) of one non-cached forward over ``seq_len`` labels:
+        the encoder's blocks that run their body
+        (``TransformerBlock.runs_body``) over its CLS and patch rows, and
+        the decoder's (``sdpa_calls``) over the soft prompt and labels cut
+        at its block size, as :meth:`forward` builds them."""
+        enc = self.vision_encoder
         t_enc = enc.n_cls + enc.n_patches ** 2
         t_dec = min(self.decoder.block_size, self.space_for_prompt + seq_len)
         return (sum(blk.runs_body(t_enc) for blk in enc.blocks)
-                + sum(blk.runs_body(t_dec) for blk in self.decoder.blocks))
+                + self.decoder.sdpa_calls(t_dec))
 
     def forward(self, images, ids, encoder_output=None, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True):

@@ -19,12 +19,20 @@ from its derived seed.  A forward recomputed under
 ``torch.utils.checkpoint`` (which restores only the global RNG state, not
 an explicit generator) therefore draws exactly the masks it drew the
 first time.
+
+:func:`frozen_param_paths` is the trainable/frozen state of the JAX
+``Module``: a module may name frozen tensors of its own (``_frozen``),
+freeze its whole subtree but the LoRA adapters (``_lora_freeze_all``) and
+re-enable paths by pattern (``_force_enable``).  The packed int4 weights
+are integer tensors, which torch cannot hold as parameters; their module
+registers them as buffers and lists them in ``_param_buffers``, so they
+count among the parameter paths as they do in the JAX tree.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,6 +92,48 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     for mod in module.modules():
         for name, fn in getattr(mod, "_init_fns", {}).items():
             fn(getattr(mod, name), generator)
+
+
+def _join(path: str, name: str) -> str:
+    return f"{path}.{name}" if path else name
+
+
+def _own_param_names(module: nn.Module) -> List[str]:
+    return ([n for n, _ in module.named_parameters(recurse=False)]
+            + list(getattr(module, "_param_buffers", ())))
+
+
+def _param_paths(module: nn.Module, path: str = "") -> List[str]:
+    """Paths of the JAX parameter tree's leaves under ``module``: its
+    parameters and the buffers its modules declare as parameters."""
+    out = [_join(path, n) for n in _own_param_names(module)]
+    for name, child in module.named_children():
+        out += _param_paths(child, _join(path, name))
+    return out
+
+
+def frozen_param_paths(module: nn.Module, path: str = "") -> List[str]:
+    """Paths of the parameters excluded from training, the JAX
+    ``Module.frozen_param_paths``: a ``_lora_freeze_all`` module freezes
+    every path under it but the ``lora_A``/``lora_B`` adapters, others
+    their ``_frozen`` names; a ``_force_enable`` pattern matcher re-enables
+    the paths it matches, whole or relative to its module."""
+    if getattr(module, "_lora_freeze_all", False):
+        out = [p for p in _param_paths(module, path)
+               if ".lora_A." not in p and ".lora_B." not in p]
+    else:
+        frozen = getattr(module, "_frozen", ())
+        out = [_join(path, n) for n in _own_param_names(module)
+               if n in frozen]
+        for name, child in module.named_children():
+            out += frozen_param_paths(child, _join(path, name))
+    enable = getattr(module, "_force_enable", None)
+    if enable is not None:
+        def enabled(p: str) -> bool:
+            rel = p[len(path) + 1:] if path and p.startswith(path + ".") else p
+            return enable.match(p) or enable.match(rel)
+        out = [p for p in out if not enabled(p)]
+    return out
 
 
 _M64 = (1 << 64) - 1

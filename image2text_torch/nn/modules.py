@@ -65,12 +65,14 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Token embedding, torch layout (num_embeddings, dim), init N(0, 1)."""
+    """Token embedding, torch layout (num_embeddings, dim), init
+    N(0, init_std²)."""
 
-    def __init__(self, num_embeddings: int, dim: int, device=None):
+    def __init__(self, num_embeddings: int, dim: int, device=None,
+                 init_std: float = 1.0):
         super().__init__()
-        new_param(self, "weight", (num_embeddings, dim), normal_init(std=1.0),
-                  device)
+        new_param(self, "weight", (num_embeddings, dim),
+                  normal_init(std=init_std), device)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         return F.embedding(idx, self.weight)

@@ -9,7 +9,8 @@ of ``image2text_tpu/training/optimizer.py``).
 * :func:`build_optimizer` assigns every parameter to the first
   ``OptimizerConfig`` whose ``target_modules`` patterns match its path
   with the leading component stripped; the EMA teacher (``model_m.*``),
-  frozen paths and unmatched parameters get no update.  SNRAdam groups
+  the module's frozen paths (``nn.core.frozen_param_paths``) and
+  unmatched parameters get no update (JAX's ``set_to_zero``).  SNRAdam groups
   when ``use_snr``, else AdamW groups (``optax.adamw``'s rule: eps 1e-8,
   decoupled weight decay).
 
@@ -23,6 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from image2text_torch.configs.trainer import OptimizerConfig
+from image2text_torch.nn.core import frozen_param_paths
 from image2text_torch.utils.checkpoint import split_specs
 from image2text_torch.utils.patterns import PatternMatcher
 
@@ -123,8 +125,8 @@ def build_optimizer(module: torch.nn.Module,
     params = dict(module.named_parameters())
     specs = {path: (template, params[path].shape[0])
              for path, template in split_specs(module).items()}
-    labels = assign_param_labels(list(params), optim_configs, extra_frozen,
-                                 specs)
+    frozen = frozen_param_paths(module) + list(extra_frozen)
+    labels = assign_param_labels(list(params), optim_configs, frozen, specs)
     groups: List[dict] = []
     for i, oc in enumerate(optim_configs):
         members = [params[p] for p, lab in labels.items()

@@ -15,8 +15,11 @@ The same loss semantics as the JAX package:
   embeddings, in-batch cross entropy over all positions.
 
 The wrapper owns the student ``model`` and, with MoCo settings, the EMA
-teacher ``model_m`` (no gradients).  The student's parameters have
-gradients on (the port's modules are created without them, for serving).
+teacher ``model_m`` (no gradients).  The student's trainable parameters
+have gradients on (the port's modules are created without them, for
+serving); its frozen ones (``nn.core.frozen_param_paths``: a LoRA-wrapped
+decoder's base, the int4 scales) stay off, so no gradient is computed for
+them — the JAX step computes and discards theirs.
 
 ``forward`` is what the training step calls through
 ``torch.func.functional_call`` on bf16 copies of the f32 parameters
@@ -36,7 +39,8 @@ from torch import nn
 from image2text_torch.configs.models import VisionEncoderDecoderConfig
 from image2text_torch.configs.trainer import TrainerWrapperConfig
 from image2text_torch.models.vision_encoder_decoder import VisionEncoderDecoder
-from image2text_torch.nn.core import EVAL_CTX, Ctx, generator
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, frozen_param_paths,
+                                      generator)
 
 
 class TokenizerInfo:
@@ -59,6 +63,10 @@ class ModelTrainerWrapper(nn.Module):
         super().__init__()
         self.model = VisionEncoderDecoder(model_config, device)
         self.model.requires_grad_(True)
+        params = dict(self.model.named_parameters())
+        for path in frozen_param_paths(self.model):
+            if path in params:
+                params[path].requires_grad_(False)
         self.is_momentum = (trainer_config.moco_momentum is not None
                             and trainer_config.moco_alpha is not None)
         self.model_m = (VisionEncoderDecoder(model_config, device)

@@ -4,10 +4,12 @@
 state-dict names: stacked MoE experts split into
 ``experts.{i}.l1/l2.weight/bias`` keys and the tied ``lm_head.weight``
 alias materialised.  :func:`load_jax_state_dict` joins the experts back,
-resolves the alias and fills the port's parameters and buffers;
-:func:`state_dict_numpy` produces the same key set and shapes from the
-port, and with ``grads=True`` the parameters' gradients under the same
-keys (to hold them against the JAX gradient tree's export).
+resolves the alias and fills the port's parameters and buffers (the
+packed uint8 int4 weights among them); :func:`state_dict_numpy` produces
+the same key set, shapes and dtypes from the port, and with ``grads=True``
+the parameters' gradients under the same keys (to hold them against the
+JAX gradient tree's export).  The sparse-selection index buffers are the
+port's own, derived from the config: they are compared, never copied.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+SELECTION_BUFFERS = ("input_mask_idx", "input_mask_not_idx")
 
 
 def split_specs(model: nn.Module) -> Dict[str, str]:
@@ -47,8 +51,9 @@ def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
 def state_dict_numpy(model: nn.Module,
                      grads: bool = False) -> Dict[str, np.ndarray]:
     """The port's weights under the JAX export's keys (float tensors as
-    f32 numpy arrays); with ``grads``, the parameters' gradients instead
-    (zeros for a parameter without one; no buffers)."""
+    f32 numpy arrays, integer ones unchanged); with ``grads``, the
+    parameters' gradients instead (zeros for a parameter without one, such
+    as a frozen one; no buffers, so no integer tensor)."""
     flat = {}
     tensors = (dict(model.named_parameters()) if grads
                else _tensors(model))
@@ -97,7 +102,7 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
             raise ValueError(f"shape mismatch for {key}: {tuple(dst.shape)} "
                              f"vs {value.shape}")
         src = torch.from_numpy(np.array(value))
-        if not dst.is_floating_point():
+        if key.rsplit(".", 1)[-1] in SELECTION_BUFFERS:
             if not torch.equal(dst.cpu(), src.to(dst.dtype)):
                 raise ValueError(f"buffer {key} differs from the port's")
             continue

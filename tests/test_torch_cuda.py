@@ -7,7 +7,10 @@ runs where they are absent:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Inputs are bf16 at small widths, including ragged row counts and a
-selection length that is not a multiple of 16.  The plain version runs on
+selection length that is not a multiple of 16.  The int4 dequant-matmul
+is held against its plain version at ragged rows and outs, the narrowest
+and widest packed widths and both scale dtypes, and the tiny int4 + LoRA
+GPT-2 captioner serves and trains on the card.  The plain version runs on
 the kernel's own expert routes and is compared at the output's scale, and
 the routes against the plain top-k (``utils/kernel_check.py``).  The flash
 kernels are compared with their plain versions on the same inputs and
@@ -300,9 +303,154 @@ def test_tiny_training_step_on_card(dev, remat):
     losses = [float(trainer._train_step(images, labels, 0, i)[
         "train_loss_lm"]) for i in range(3)]
     torch.cuda.synchronize()
-    calls = 3 * w.model.self_attention_calls(48)
+    calls = 3 * w.model.sdpa_calls(48)
     got = {kern.__name__: kern.launches for kern in kernels}
     assert calls > 0 and got == {
         "flash_fwd": (2 if remat else 1) * calls, "flash_bwd_dkv": calls,
         "flash_bwd_dq": calls, "sparse_block": 0, "moe_ffn": 0}
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
+# -- int4 dequant-matmul ---------------------------------------------------------
+
+TINY_GPT2 = dict(n_layer=2, n_embd=128, n_head=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 256, 1344])
+@pytest.mark.parametrize("in_f", [64, 4096])
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+def test_int4_matmul_kernel_matches_plain(dev, rows, in_f, scale_dtype):
+    """Rows below one tile and ragged, out 1000 (not a tile multiple), the
+    narrowest and the widest packed width, scales in both dtypes."""
+    from image2text_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain,
+                                                  quantize_pack_int4)
+
+    g = _gen(dev, rows + in_f)
+    w = torch.randn(1000, in_f, device=dev, generator=g) * 0.02
+    packed, scales = quantize_pack_int4(w)
+    scales = scales.to(scale_dtype)
+    x = torch.randn(rows, in_f, device=dev, generator=g).to(torch.bfloat16)
+    before = int4_matmul.launches
+    got = int4_matmul(x, packed, scales)
+    want = int4_matmul_plain(x, packed, scales)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert got.shape == (rows, 1000) and got.dtype == torch.bfloat16
+    check_output("int4_matmul", got, want)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_raises_on_what_the_kernel_does_not_take(dev):
+    from image2text_torch.ops.int4_matmul import int4_matmul
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+
+    packed = t(8, 32, dtype=torch.uint8)
+    cases = [(t(4, 64, dtype=torch.float32), packed, t(8, 1)),   # x dtype
+             (t(4, 64), packed, t(8, 1, dtype=torch.float16)),   # scales
+             (t(4, 96), t(8, 48, dtype=torch.uint8), t(8, 1)),   # in_pad % 64
+             (t(4, 64), packed, t(8, 2)),                        # scales shape
+             (t(4, 128), packed, t(8, 1))]                       # x width
+    before = int4_matmul.launches
+    for x, p, s in cases:
+        with pytest.raises(ValueError):
+            int4_matmul(x, p, s)
+    assert int4_matmul.launches == before
+
+
+def _tiny_gpt2m(dev, monkeypatch):
+    from image2text_torch.configs.models import gpt2_medium_config
+    from image2text_torch.models.hf_decoders import factory
+    from image2text_torch.models.quantization import fill_random_int4
+
+    monkeypatch.setitem(factory.GPT2_TABLE, "gpt2-medium", TINY_GPT2)
+    model = VisionEncoderDecoder(gpt2_medium_config(tiny=True), device=dev
+                                 ).init_weights(0)
+    g = _gen(dev, 9)
+    fill_random_int4(model, g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".lora_B." in name:
+                p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_caption_on_card_launches_int4(dev, monkeypatch):
+    """The tiny int4 + LoRA GPT-2 captioner in bf16: every quantized
+    Linear forward of a caption call launches the kernel (prefill and one
+    decoder forward per new token), and the first-step logits agree with
+    the plain-version path normwise."""
+    from image2text_torch.models.generation import prefill
+    from image2text_torch.models.quantization import QuantizedLinear
+    from image2text_torch.ops import int4_matmul as i4
+
+    model = _tiny_gpt2m(dev, monkeypatch).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.full((4, 1), 50256, dtype=torch.long, device=dev)
+    n_q = sum(isinstance(m, QuantizedLinear) for m in model.decoder.modules())
+    before = i4.int4_matmul.launches
+    ids = model.generate(images, prompt, max_new_tokens=8, temperature=0.7,
+                         top_k=16, generator=_gen(dev, 5))
+    torch.cuda.synchronize()
+    assert ids.shape == (4, 9) and bool((ids < 50259).all())
+    assert i4.int4_matmul.launches - before == 9 * n_q > 0
+
+    def first_logits():
+        with torch.no_grad():
+            return prefill(model, model.encoder(images), prompt, 9)[0][:, -1]
+
+    got = first_logits()
+    kernel = i4.int4_matmul
+    monkeypatch.setattr(i4, "int4_matmul", i4.int4_matmul_plain)
+    want = first_logits()
+    monkeypatch.setattr(i4, "int4_matmul", kernel)
+    rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+    assert float(rel) <= TOL
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
+    """Three bf16 kbit + LoRA steps of the tiny captioner: finite, falling
+    loss; per step one int4 launch per quantized Linear, one flash forward
+    and backward per attention call; frozen tensors unchanged."""
+    from image2text_torch.configs.trainer import gpt2_medium_training_config
+    from image2text_torch.models.hf_decoders import factory
+    from image2text_torch.models.quantization import (QuantizedLinear,
+                                                      fill_random_int4)
+    from image2text_torch.nn.core import frozen_param_paths
+    from image2text_torch.ops.int4_matmul import int4_matmul
+    from image2text_torch.training.loop import Trainer
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    monkeypatch.setitem(factory.GPT2_TABLE, "gpt2-medium", TINY_GPT2)
+    cfg = gpt2_medium_training_config(tiny=True)
+    w = ModelTrainerWrapper(cfg.model, TokenizerInfo(50256, 50256, None,
+                                                     50257),
+                            cfg.trainer, device=dev).init_weights(0)
+    fill_random_int4(w.model, _gen(dev, 8))
+    tensors = dict(w.model.named_parameters()) | dict(w.model.named_buffers())
+    frozen = {k: tensors[k].clone() for k in frozen_param_paths(w.model)}
+    trainer = Trainer(cfg, w)
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 6))
+    labels = torch.full((4, 24), -100, dtype=torch.long, device=dev)
+    labels[:, :16] = torch.randint(3, 50000, (4, 16), device=dev,
+                                   generator=_gen(dev, 7))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq, int4_matmul)
+    for kern in kernels:
+        kern.launches = 0
+    losses = [float(trainer._train_step(images, labels, 0, i)[
+        "train_loss_lm"]) for i in range(3)]
+    torch.cuda.synchronize()
+    n_q = sum(isinstance(m, QuantizedLinear) for m in w.model.decoder.modules())
+    calls = 3 * w.model.sdpa_calls(24)
+    assert {kern.__name__: kern.launches for kern in kernels} == {
+        "flash_fwd": calls, "flash_bwd_dkv": calls, "flash_bwd_dq": calls,
+        "int4_matmul": 3 * n_q}
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+    assert all(torch.equal(tensors[k], v) for k, v in frozen.items())

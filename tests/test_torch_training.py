@@ -486,8 +486,8 @@ def test_eval_forward_on_swapped_weights_ignores_reused_addresses():
 
 @pytest.mark.parametrize("seq", [8, 40])
 def test_self_attention_calls_count_the_training_forward(seq, monkeypatch):
-    """``self_attention_calls`` (what the card's launch counts are held to)
-    equals the self-attention calls a training forward makes."""
+    """``sdpa_calls`` (what the card's launch counts are held to) equals
+    the attention calls a training forward makes."""
     from image2text_torch.models import layers
 
     calls = []
@@ -497,7 +497,7 @@ def test_self_attention_calls_count_the_training_forward(seq, monkeypatch):
     _, _, tw = _pair(dropout=0.1)
     images, labels = _train_batch()
     tw(torch.from_numpy(images), torch.from_numpy(labels[:, :seq]), seed=5)
-    assert len(calls) == tw.model.self_attention_calls(seq) > 0
+    assert len(calls) == tw.model.sdpa_calls(seq) > 0
 
 
 def test_trainer_loops_count_steps_and_refuse_unported_remat():
