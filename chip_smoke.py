@@ -18,12 +18,35 @@ Phases, each printing its lines:
             causal, soft-prompt bias), with the same dropout seed as their
             plain versions, and F.scaled_dot_product_attention's time as a
             yardstick the port never calls.
+            The encoder front (fused_frontend) at the serving batch, with
+            the projector's torch.matmul as a yardstick.
 4. main     the flagship serving path at full width with random weights:
             raw uint8 frames → preprocess → encoder → cached generate
             (32 new tokens, temperature 0.7, top-k 16, n-grams 2–5);
-            launch counts of every kernel and captions/s.
+            launch counts of every kernel and captions/s.  Then
+            topk_ban_mask (a kernel no path dispatches, as in the JAX
+            package) bit for bit against its reference on (256, 50258)
+            f32 logits, k 16, with the n-gram bans of the call's id buffer
+            (132 columns), torch.topk as a yardstick.
 5. parity   at batch 8, first-step logits and greedy tokens of the kernel
             path against the plain-version path.
+   beam     the beam-search serving path (bench.py::_bench_beam): raw
+            frames, batch 64 → encoder → beam width 3, expansion 4,
+            temperature 0.7, top-k 16, 32 new tokens, eos 0, n-grams 2–5,
+            consolidation temperature 1.0; launches per call held to the
+            counts derived from the rounds it ran, captions/s; then
+            topk_ban_mask at its 192 decode rows.
+   beam-parity  at batch 8, greedy beam search (temperature 0,
+            consolidation 0), kernel path against plain-version path:
+            where the histories agree, round by round, the last logits
+            (normwise, as parity) and the candidates' log-scores (0.1
+            nats); then the rounds each sample's ids stayed equal and the
+            near-tie margin where they parted.
+   dense    the flagship's dense-encoder twin (FLAGSHIP_DENSE): the eval
+            dense block kernel (fused_block) against its plain version at
+            its encoder's shapes (batch 256, t 320), then its serving path
+            as [main] (12 fused_block launches, no sparse_block) and its
+            parity as [parity] (dense-parity).
 6. train    the flagship training step (training_configs/tpu/nano-mini.yaml:
             batch 48, 256 labels, bf16 compute from f32 masters, dropout
             0.1, gradient checkpointing; SNRAdam lr 6e-4 and mask
@@ -44,8 +67,9 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
 8. kernels  int4_matmul against its plain version at the decoder's four
             quantized Linear shapes, at 256 decode rows and at the training
             step's 12 x 112 rows (bf16, bf16 scales), with torch.matmul on
-            the weight dequantised once to bf16 as a yardstick; the sparse
-            block and the MoE FFN at the GPT-2-medium encoder's shapes; the
+            the weight dequantised once to bf16 as a yardstick; the front,
+            the sparse block and the MoE FFN at the GPT-2-medium encoder's
+            shapes; the
             three flash kernels at its training step's attention shapes
             (encoder MQA s 80, GPT-2 self-attention 16 heads s 112 causal,
             cross-attention 112 x 64; batch 12, head dim 64).
@@ -83,6 +107,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 0.06       # whole-stack parity: the JAX bf16 kernel tests' tolerance
+# greedy beam parity: candidates' log-scores (nats) in one round, an
+# absolute limit over the card's readings (at most 0.062 on an H100)
+BEAM_SCORE_TOL = 0.1
 TRAIN_LOSS_TOL = 1e-2   # train parity: loss, relative
 TRAIN_GRAD_TOL = 2e-2   # train parity: gradients, relative L2
 DROPOUT = 0.1    # the flagship's attention dropout
@@ -90,9 +117,12 @@ TRAIN_BATCH = 48     # training_configs/tpu/nano-mini.yaml
 TRAIN_SEQ = 256      # bench_train.py's padded caption length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
+F32_OP_PER_S = 67e12        # f32 outside the tensor cores
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
+BEAM_BATCH = 64  # bench.py::_bench_beam's batch (3 beams: 192 decode rows)
 FLAGSHIP_BOS = 1   # the flagship's prompt token
+FLAGSHIP_EOS = 0   # bench.py's beam eos_token_id
 SEED = 0         # weights, frames and sampling noise derive from it
 
 
@@ -100,8 +130,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    tb, tf = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
+def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S):
+    tb, tf = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -173,15 +203,20 @@ def run_pair(torch, kernel, plain, args, n_rows, e, **kw):
 def plain_versions():
     """Run the model's kernel call sites on the plain versions (for the
     parity phases only)."""
-    from image2text_torch.models import layers
+    from image2text_torch.models import encoder, layers
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops import int4_matmul as i4
-    from image2text_torch.ops.fused_block import sparse_block_plain
+    from image2text_torch.ops.fused_block import (fused_block_plain,
+                                                  sparse_block_plain)
+    from image2text_torch.ops.fused_frontend import fused_frontend_plain
     from image2text_torch.ops.fused_moe import moe_ffn_plain
 
-    saved = (layers.sparse_block, layers.moe_ffn, fa.flash_fwd,
-             fa.flash_bwd_dkv, fa.flash_bwd_dq, i4.int4_matmul)
+    saved = (layers.sparse_block, layers.fused_block, layers.moe_ffn,
+             encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd_dkv,
+             fa.flash_bwd_dq, i4.int4_matmul)
     layers.sparse_block, layers.moe_ffn = sparse_block_plain, moe_ffn_plain
+    layers.fused_block = fused_block_plain
+    encoder.fused_frontend = fused_frontend_plain
     fa.flash_fwd = fa.flash_forward_plain
     fa.flash_bwd_dkv = lambda *a: fa.flash_backward_plain(*a)[1:]
     fa.flash_bwd_dq = lambda *a: fa.flash_backward_plain(*a)[0]
@@ -189,7 +224,8 @@ def plain_versions():
     try:
         yield
     finally:
-        (layers.sparse_block, layers.moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
+        (layers.sparse_block, layers.fused_block, layers.moe_ffn,
+         encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd_dkv,
          fa.flash_bwd_dq, i4.int4_matmul) = saved
 
 
@@ -203,6 +239,191 @@ def moe_flops_bytes(x, fc, proj):
     return n * per_row, nbytes(x, fc, proj) + nbytes(x)
 
 
+def block_input(torch, model, gen, depth: int = 2):
+    """The serving batch of frames, preprocessed, and encoder block
+    ``depth``'s input stream and row layout from a real encoder forward on
+    them: (images, x, layout)."""
+    from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+    enc, captured = model.vision_encoder, {}
+
+    class Captured(Exception):
+        pass
+
+    def grab(mod, a, kw):
+        captured["x"], captured["layout"] = a[0].clone(), kw["layout"]
+        raise Captured
+
+    frames = torch.randint(0, 256, (BATCH, 160, 240, 3), dtype=torch.uint8,
+                           device=model.device, generator=gen)
+    images = resize_normalize_on_device(
+        frames, model.config.vision_encoder_config.input.width,
+        out_dtype=torch.bfloat16)
+    h = enc.blocks[depth].register_forward_pre_hook(grab, with_kwargs=True)
+    try:
+        model.encoder(images)
+    except Captured:
+        pass
+    finally:
+        h.remove()
+    return images, captured["x"], captured["layout"]
+
+
+def kernel_row(results, name, tag, source, replaces, row, **shape):
+    """Keep a kernel's measurements: its row (``tag`` None) or one of its
+    ``<tag>_shape`` entries."""
+    if tag is None:
+        results[name] = dict(name=name, route="cuda", source=source,
+                             replaces=replaces, **row)
+    else:
+        results.setdefault(name, {"name": name})[f"{tag}_shape"] = dict(
+            **shape, **row)
+
+
+def phase_front_kernel(torch, model, images, results, tag=None):
+    """fused_frontend against its plain version on ``model``'s patch stream
+    of ``images``, and torch.matmul of the projector alone as a
+    yardstick the port never calls."""
+    from image2text_torch.ops.fused_frontend import (fused_frontend,
+                                                     fused_frontend_plain)
+
+    enc = model.vision_encoder
+    x = enc.feature_extractor(images)
+    x = x.reshape(x.shape[0], enc.n_patches ** 2, enc.input_d)
+    w = enc.frontend_weights(x.dtype)
+    b, t, din = x.shape
+    d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    got = fused_frontend(x, w)
+    want = fused_frontend_plain(x, w)
+    torch.cuda.synchronize()
+    err = compare(f"fused_frontend b={b} t={t} din={din} d={d} n_cls={n_cls}",
+                  got, want)
+    if not torch.equal(got[:, :n_cls], want[:, :n_cls]):
+        raise AssertionError("fused_frontend: CLS rows differ")
+    del got, want
+    ms = cuda_ms(torch, lambda: fused_frontend(x, w))
+    plain = cuda_ms(torch, lambda: fused_frontend_plain(x, w))
+    lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p))
+    # the projector's products on the tensor cores; the two slab norms'
+    # few operations per element are far below them
+    flops = 2 * b * t * din * d
+    n_bytes = nbytes(x, *w) + b * (n_cls + t) * d * x.element_size()
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"  fused_frontend: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} "
+        f"MB; kernel at {bms / ms:.3f} of it), torch.matmul of the projector "
+        f"alone {lib:.4f} ms")
+    kernel_row(results, "fused_frontend", tag,
+               "image2text_torch/csrc/fused_frontend.cu",
+               "image2text_tpu/ops/fused_frontend.py:45",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib), b=b, t=t, din=din, d=d)
+
+
+def phase_dense_kernel(torch, model, args, results):
+    """fused_block (the eval dense block) against its plain version, run
+    on the kernel's own expert routes, at block 2 of the dense twin's
+    encoder on the serving batch; the block's two projections and its
+    attention, one PyTorch call each, as a yardstick."""
+    import torch.nn.functional as F
+
+    from image2text_torch.ops.fused_block import fused_block, fused_block_plain
+
+    dev, bf = model.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    _, x, _ = block_input(torch, model, gen)
+    w = model.vision_encoder.blocks[2].block_weights(bf)
+    b, t, d = x.shape
+    n, e, k = b * t, w.fc.e, w.fc.k
+    got, want, rk, gv = run_pair(torch, fused_block, fused_block_plain, (x, w),
+                                 n, e)
+    err = compare(f"fused_block b={b} t={t} d={d}", got, want, rk, gv, k)
+    # the FFN term at the residual's size, as for sparse_block
+    w64 = w._replace(proj=w.proj._replace(l2w=w.proj.l2w * 64,
+                                          l2b=w.proj.l2b * 64))
+    got, want, rk, gv = run_pair(torch, fused_block, fused_block_plain,
+                                 (x, w64), n, e)
+    compare("fused_block, FFN output weights x64", got, want, rk, gv, k)
+    del got, want, w64
+    ms = cuda_ms(torch, lambda: fused_block(x, w))
+    plain = cuda_ms(torch, lambda: fused_block_plain(x, w))
+    hd = d // w.n_head
+    ffn_flops, _ = moe_flops_bytes(x.reshape(n, d), w.fc, w.proj)
+    flops = (2 * n * d * (d + 2 * hd) + 4 * b * w.n_head * t * t * hd
+             + 2 * n * d * d + ffn_flops)
+    wbytes = sum(nbytes(getattr(w, f)) for f in w._fields[:8]) + nbytes(
+        w.fc, w.proj)
+    bms, by = bound_ms(2 * nbytes(x) + wbytes, flops)
+    a = torch.randn(n, d, device=dev, dtype=bf, generator=gen)
+    q = torch.randn(b, w.n_head, t, hd, device=dev, dtype=bf, generator=gen)
+    kv = torch.randn(b, 1, t, hd, device=dev, dtype=bf, generator=gen)
+    lib = cuda_ms(torch, lambda: (
+        torch.matmul(a, w.w_qkv), torch.matmul(a, w.w_o),
+        F.scaled_dot_product_attention(q, kv, kv, enable_gqa=True)))
+    if args.profile:
+        log("  device time by kernel, one fused_block call:")
+        device_profile(torch, lambda: fused_block(x, w), top=6)
+    log(f"  fused_block: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP; kernel at "
+        f"{bms / ms:.3f} of it), torch.matmul at its two projections + "
+        f"SDPA {lib:.4f} ms")
+    kernel_row(results, "fused_block", None,
+               "image2text_torch/csrc/fused_block.cu",
+               "image2text_tpu/ops/fused_block.py:105",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib))
+
+
+def phase_topk_kernel(torch, results, ids, ngrams, vocab: int, tag=None,
+                      k: int = 16):
+    """topk_ban_mask's kernel against its reference, bit for bit, on
+    (rows, vocab) f32 logits drawn from the seed with the n-gram bans of a
+    real decode buffer ``ids`` (rows, L) after its last step (one column
+    per window and n-gram size, -1 where nothing is banned);
+    torch.topk(x, k) as a yardstick."""
+    from image2text_torch.models.sampling import _ngram_bans
+    from image2text_torch.ops.topk_mask import (topk_ban_mask,
+                                                topk_ban_mask_reference)
+
+    rows, cur = ids.shape
+    gen = torch.Generator(device=ids.device).manual_seed(SEED + 8)
+    x = 2 * torch.randn(rows, vocab, device=ids.device, generator=gen)
+    cand, ban = _ngram_bans(ids, cur, ngrams)
+    banned = torch.where(ban, cand, -1).to(torch.int32)
+    got = topk_ban_mask(x, banned, k)
+    want = topk_ban_mask_reference(x, banned, k)
+    torch.cuda.synchronize()
+    live = (banned >= 0).sum(-1)
+    fin = torch.isfinite(want)
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float((got[fin] - want[fin]).abs().max())
+    log(f"  topk_ban_mask rows={rows} V={vocab} k={k} M={banned.shape[1]} "
+        f"(live bans per row: max {int(live.max())}, mean "
+        f"{float(live.float().mean()):.2f}): bit-for-bit equal {same}, "
+        f"-inf patterns equal {torch.equal(torch.isinf(got), ~fin)}, "
+        f"max_abs_err {err}, kept per row {int(fin.sum(-1).min())}.."
+        f"{int(fin.sum(-1).max())}")
+    if not same or err != 0:
+        raise AssertionError("topk_ban_mask: kernel differs from reference")
+    ms = cuda_ms(torch, lambda: topk_ban_mask(x, banned, k), iters=20)
+    plain = cuda_ms(torch, lambda: topk_ban_mask_reference(x, banned, k),
+                    iters=20)
+    lib = cuda_ms(torch, lambda: torch.topk(x, k), iters=20)
+    # each row read and written once; 32 bisection rounds of one compare
+    # per element on the CUDA cores
+    n_bytes = 2 * nbytes(x) + nbytes(banned)
+    bms, by = bound_ms(n_bytes, 32 * rows * vocab, F32_OP_PER_S)
+    log(f"  topk_ban_mask: kernel {ms:.4f} ms, reference {plain:.4f} ms, "
+        f"bound {bms:.5f} ms ({by}; {n_bytes / 1e6:.1f} MB; kernel at "
+        f"{bms / ms:.3f} of it), torch.topk(x, {k}) {lib:.4f} ms")
+    kernel_row(results, "topk_ban_mask", tag,
+               "image2text_torch/csrc/topk_mask.cu",
+               "image2text_tpu/ops/topk_mask.py:91",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib), rows=rows, V=vocab, k=k,
+               M=banned.shape[1])
+
+
 def phase_kernels(torch, model, args, results, tag=None):
     """The serving kernels against their plain versions at ``model``'s
     shapes: the flagship's rows (``tag`` None), or another model's encoder
@@ -214,33 +435,12 @@ def phase_kernels(torch, model, args, results, tag=None):
     dev, bf = model.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     enc = model.vision_encoder
-    # block 2's input and layout, from a real encoder forward
-    captured = {}
-
-    class Captured(Exception):
-        pass
-
-    def grab(mod, a, kw):
-        captured["x"], captured["layout"] = a[0].clone(), kw["layout"]
-        raise Captured
-
-    frames = torch.randint(0, 256, (BATCH, 160, 240, 3),
-                           dtype=torch.uint8, device=dev, generator=gen)
-    from image2text_torch.ops.preprocess import resize_normalize_on_device
-
-    images = resize_normalize_on_device(frames, 128, out_dtype=bf)
-    h = enc.blocks[2].register_forward_pre_hook(grab, with_kwargs=True)
-    try:
-        model.encoder(images)
-    except Captured:
-        pass
-    finally:
-        h.remove()
-    x, layout = captured["x"], captured["layout"]
+    images, x, layout = block_input(torch, model, gen)
+    phase_front_kernel(torch, model, images, results, tag)
     blk = enc.blocks[2]
     b, t, d = x.shape
     rows_sel, rows_byp = blk.layout_rows(layout, t, dev)
-    w = blk.sparse_block_weights(bf)
+    w = blk.block_weights(bf)
     ts, tb = rows_sel.numel(), rows_byp.numel()
     e, k = w.fc.e, w.fc.k
     got, want, rk, gv = run_pair(torch, sparse_block, sparse_block_plain,
@@ -281,16 +481,11 @@ def phase_kernels(torch, model, args, results, tag=None):
     log(f"  sparse_block: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP), torch.matmul at its "
         f"GEMM shapes {lib:.4f} ms")
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-               bound_by=by, library_ms=lib)
-    if tag is None:
-        results["sparse_block"] = dict(
-            name="sparse_block", route="cuda",
-            source="image2text_torch/csrc/fused_block.cu",
-            replaces="image2text_tpu/ops/fused_block.py:118", **row)
-    else:
-        results.setdefault("sparse_block", {"name": "sparse_block"})[
-            f"{tag}_shape"] = dict(b=b, t=t, t_sel=ts, d=d, **row)
+    kernel_row(results, "sparse_block", tag,
+               "image2text_torch/csrc/fused_block.cu",
+               "image2text_tpu/ops/fused_block.py:118",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib), b=b, t=t, t_sel=ts, d=d)
 
     # decode: a decoder block's FFN on its 256 rows; encoder: the sparse
     # block's FFN stage (LN2 prologue) on its b·t_sel rows, held at the
@@ -329,26 +524,42 @@ def phase_kernels(torch, model, args, results, tag=None):
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def serving_launches(model):
-    """Launches of each kernel wrapper in one caption call (a one-token
-    prompt, MAX_NEW_TOKENS new tokens: 1 + MAX_NEW_TOKENS decoder
-    forwards), derived from the model: one sparse_block per encoder block
-    that runs its body (its MoE FFN runs inside), one moe_ffn per cached
-    forward of a scratch-decoder block that runs its body, one int4_matmul
-    per quantized Linear per decoder forward."""
+def serving_launches(model, n_forwards: int = 1 + MAX_NEW_TOKENS):
+    """Launches of each kernel wrapper in one caption call with a one-token
+    prompt and ``n_forwards`` one-token decoder forwards at text positions
+    0, 1, ... (the prefill, then one per decode step: 1 + MAX_NEW_TOKENS
+    for ``generate``, 1 + rounds for beam search), derived from the model:
+    one fused_frontend (the encoder front); one sparse_block per sparse
+    encoder block that runs its body and one fused_block per dense one
+    (the block's MoE FFN runs inside); one moe_ffn per cached forward of a
+    scratch-decoder block that runs its body; one int4_matmul per
+    quantized Linear per decoder forward."""
     from image2text_torch.models.quantization import QuantizedLinear
 
     enc, dec = model.vision_encoder, model.decoder
+    t = enc.n_cls + enc.n_patches ** 2
     want = {kern.__name__: 0 for kern in kernel_wrappers()}
-    want["sparse_block"] = sum(blk.runs_body(enc.n_cls + enc.n_patches ** 2)
+    want["fused_frontend"] = 1
+    want["sparse_block"] = sum(blk.is_sparse and blk.runs_body(t)
                                for blk in enc.blocks)
+    want["fused_block"] = sum(not blk.is_sparse for blk in enc.blocks)
     if hasattr(dec, "ffn_evaluations"):
         want["moe_ffn"] = sum(dec.ffn_evaluations(model.space_for_prompt + i,
                                                   1)
-                              for i in range(1 + MAX_NEW_TOKENS))
+                              for i in range(n_forwards))
     n_q = sum(isinstance(m, QuantizedLinear) for m in dec.modules())
-    want["int4_matmul"] = (1 + MAX_NEW_TOKENS) * n_q
+    want["int4_matmul"] = n_forwards * n_q
     return want
+
+
+def serving_inputs(torch, model, b: int, seed: int, bos: int):
+    """Raw uint8 frames (b, 160, 240, 3) from ``seed`` and the one-token
+    prompt ``bos``."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    frames = torch.randint(0, 256, (b, 160, 240, 3), dtype=torch.uint8,
+                           device=model.device, generator=gen)
+    return frames, torch.full((b, 1), bos, dtype=torch.long,
+                              device=model.device)
 
 
 def phase_serve(torch, model, args, results, path: str, bos: int):
@@ -359,30 +570,42 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
     from image2text_torch.models.generation import caption
 
     dev, b = model.device, BATCH
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    frames = torch.randint(0, 256, (b, 160, 240, 3), dtype=torch.uint8,
-                           device=dev, generator=gen)
-    prompt = torch.full((b, 1), bos, dtype=torch.long, device=dev)
+    frames, prompt = serving_inputs(torch, model, b, SEED + 2, bos)
 
     def run(seed):
         g = torch.Generator(device=dev).manual_seed(seed)
         return caption(model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
                        temperature=0.7, top_k=16, generator=g)
 
-    run(0)  # warm-up: builds caches and per-block index tensors
-    torch.cuda.synchronize()
-    counts, ids = launch_counts(lambda: run(1))
-    record_launches(results, path, counts)
-    want = serving_launches(model)
-    log(f"  launches in one caption call: {counts} (want {want})")
-    if counts != want:
-        raise AssertionError(f"{path} launch counts {counts} != {want}")
+    ids = drive_serving(torch, args, results, path, run, b,
+                        lambda: serving_launches(model), "one caption call")
     vocab = model.decoder.transformer.wte.weight.shape[0]
     if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
             or not bool(((ids >= 0) & (ids < vocab)).all())
             or not bool((ids[:, 0] == bos).all())):
         raise AssertionError(f"{path}: ids {tuple(ids.shape)} out of range "
                              "or prompt lost")
+    log(f"  sample ids: {ids[0, :12].tolist()}")
+    return ids
+
+
+def drive_serving(torch, args, results, path: str, run, b: int, want,
+                  what: str):
+    """What every serving phase does with its ``run(seed)``: a warm-up
+    call (it builds caches and per-block index tensors), one call with
+    every launch count set to 0 just before it, kept under ``path`` and
+    held to ``want()`` (read just after it), then captions/s over 3 warm
+    windows of one call on ``b`` images each (the median reported) and,
+    with ``--profile``, device time by kernel of one more call.  Returns
+    the counted call's output."""
+    run(0)
+    torch.cuda.synchronize()
+    counts, out = launch_counts(lambda: run(1))
+    record_launches(results, path, counts)
+    want = want()
+    log(f"  launches in {what}: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"{path} launch counts {counts} != {want}")
     windows = []
     for w in range(3):
         torch.cuda.synchronize()
@@ -394,10 +617,10 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
         f"windows): {statistics.median(windows):.2f} on "
         f"{torch.cuda.get_device_name(0)}; windows "
         f"{[round(x, 2) for x in windows]}")
-    log(f"  sample ids: {ids[0, :12].tolist()}")
     if args.profile:
-        log("  device time by kernel, one caption call:")
+        log(f"  device time by kernel, {what}:")
         device_profile(torch, lambda: run(20))
+    return out
 
 
 def device_profile(torch, fn, top: int = 12) -> None:
@@ -449,12 +672,11 @@ def phase_parity(torch, model, phase: str, bos: int):
     from image2text_torch.models.generation import generate, prefill
     from image2text_torch.ops.preprocess import resize_normalize_on_device
 
-    dev, b = model.device, 8
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    frames = torch.randint(0, 256, (b, 160, 240, 3), dtype=torch.uint8,
-                           device=dev, generator=gen)
-    images = resize_normalize_on_device(frames, 128, out_dtype=torch.bfloat16)
-    prompt = torch.full((b, 1), bos, dtype=torch.long, device=dev)
+    b = 8
+    frames, prompt = serving_inputs(torch, model, b, SEED + 3, bos)
+    images = resize_normalize_on_device(
+        frames, model.config.vision_encoder_config.input.width,
+        out_dtype=torch.bfloat16)
 
     def first_logits():
         return prefill(model, model.encoder(images), prompt,
@@ -469,38 +691,190 @@ def phase_parity(torch, model, phase: str, bos: int):
         want, ids_p = first_logits(), greedy()
     torch.cuda.synchronize()
     n_layers = len(model.vision_encoder.blocks) + len(model.decoder.blocks)
-    err = (got - want).abs()
-    rel_l2 = float(torch.linalg.vector_norm(got - want)
-                   / torch.linalg.vector_norm(want))
-    beyond = int((err > TOL + TOL * want.abs()).sum())
+    rel_l2, err, scale, ok = logits_error(torch, got, want)
+    beyond = int(((got - want).abs() > TOL + TOL * want.abs()).sum())
     agree = float((ids_k[:, 1:] == ids_p[:, 1:]).float().mean())
     first = float((ids_k[:, 1] == ids_p[:, 1]).float().mean())
     log(f"  first-step logits (batch {b}, f32 from bf16, {n_layers} layers): "
-        f"relative L2 error {rel_l2:.6g}, max_abs_err {float(err.max()):.6g}"
-        f" (max |logit| {float(want.abs().max()):.4g}), mean_abs_err "
-        f"{float(err.mean()):.6g}; elements beyond {TOL} abs + {TOL} rel: "
-        f"{beyond} of {err.numel()}")
+        f"relative L2 error {rel_l2:.6g}, max_abs_err {err:.6g} (max "
+        f"|logit| {scale:.4g}), mean_abs_err "
+        f"{float((got - want).abs().mean()):.6g}; elements beyond {TOL} abs"
+        f" + {TOL} rel: {beyond} of {got.numel()}")
     log(f"  greedy tokens agreeing: first step {first:.4f}, over "
         f"{MAX_NEW_TOKENS} steps {agree:.4f}")
-    # Through 24 bf16 layers, rounding-order differences and near-tied MoE
-    # gates compound, so the whole-stack check is normwise: the relative L2
-    # error and the largest error against the largest logit, both within
-    # the bf16 tolerance.  (Phase 3 holds each kernel elementwise.)
-    if (not torch.isfinite(got).all() or rel_l2 > TOL
-            or float(err.max()) > TOL * float(want.abs().max())):
+    if not ok:
         raise AssertionError(f"{phase}: kernel path disagrees with the "
                              "plain path beyond tolerance")
+
+
+def logits_error(torch, got, want):
+    """(relative L2 error, max abs error, max |want|, within the limits) of
+    whole-stack logits.  Through 24 bf16 layers, rounding-order differences
+    and near-tied MoE gates compound, so the whole-stack check is normwise:
+    the relative L2 error and the largest error against the largest logit,
+    both within the bf16 tolerance TOL.  (The kernel rows hold each kernel
+    elementwise.)"""
+    rel_l2 = float(torch.linalg.vector_norm(got - want)
+                   / torch.linalg.vector_norm(want))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and rel_l2 <= TOL and (
+        err <= TOL * scale)
+    return rel_l2, err, scale, ok
+
+
+def beam_generator(model, **kw):
+    """bench.py::_bench_beam's generator: beam width 3, expansion 4,
+    temperature 0.7, top-k 16, MAX_NEW_TOKENS new tokens, eos 0, the
+    model's n-gram sizes, consolidation temperature 1.0 (the class
+    default); ``kw`` overrides."""
+    from image2text_torch.models.generation_utils import (
+        BeamSearchTokenGenerator)
+
+    args = dict(beam_width=3, beam_expansion_factor=4, temperature=0.7,
+                top_k=16, max_new_tokens=MAX_NEW_TOKENS,
+                eos_token_id=FLAGSHIP_EOS,
+                no_repeat_n_grams=tuple(model.no_repeat_n_grams))
+    return BeamSearchTokenGenerator(model, **(args | kw))
+
+
+def phase_beam(torch, model, args, results):
+    """The beam-search serving path (bench.py::_bench_beam at batch 64):
+    raw uint8 frames → caption; launches in one call held to
+    ``serving_launches`` over the rounds it ran, and captions/s, the
+    median of 3 warm windows.  Returns the ids (b, beams, T)."""
+    dev, b = model.device, BEAM_BATCH
+    frames, prompt = serving_inputs(torch, model, b, SEED + 12,
+                                    FLAGSHIP_BOS)
+    beam = beam_generator(model)
+    bw = beam.beam_width
+
+    def run(seed):
+        return beam.caption(frames, prompt,
+                            torch.Generator(device=dev).manual_seed(seed))
+
+    rounds = []
+
+    def want():     # the prefill and one decoder forward per round
+        rounds.append(beam.rounds)
+        return serving_launches(model, 1 + beam.rounds)
+
+    ids, scores = drive_serving(
+        torch, args, results, "flagship_beam", run, b, want,
+        f"one beam-search call (width {bw} x expansion "
+        f"{beam.beam_expansion_factor}: {bw * b} decode rows)")
+    vocab = model.decoder.transformer.wte.weight.shape[0]
+    if (tuple(ids.shape) != (b, bw, MAX_NEW_TOKENS)
+            or tuple(scores.shape) != (b, bw)
+            or not bool(((ids >= 0) & (ids < vocab)).all())
+            or not bool((ids[:, :, 0] == FLAGSHIP_BOS).all())
+            or not bool(torch.isfinite(scores).all())):
+        raise AssertionError(f"beam: ids {tuple(ids.shape)} or scores "
+                             f"{tuple(scores.shape)} malformed")
+    log(f"  rounds in the counted call: {rounds[0]}; sample beams: "
+        f"{ids[0, :, :10].tolist()}, scores "
+        f"{[round(float(s), 4) for s in scores[0]]}")
+    return ids
+
+
+def phase_beam_parity(torch, model):
+    """At batch 8, greedy beam search (temperature 0, consolidation 0) on
+    the kernel path and on the plain-version path, every round's scorer
+    input recorded.  A greedy beam keeps its beams identical: it is greedy
+    decoding scored by the beam scorer.  Wherever a row's history is the
+    same on both paths (every row in round 0), its last logits are held as
+    ``phase_parity`` holds the first-step logits, the log-scores of the
+    candidate ids both paths propose differ by at most BEAM_SCORE_TOL, and
+    each path's best candidate is among the other's.  Then, as a report,
+    the rounds each sample's ids stayed equal, and where they parted the
+    near-tie margin: how far the plain logits put the plain choice ahead
+    of the kernel path's, beside the two paths' logit differences at
+    those two ids (with identical beams, greedy choices part only where
+    the margin lies within them)."""
+    frames, prompt = serving_inputs(torch, model, 8, SEED + 13,
+                                    FLAGSHIP_BOS)
+    runs = []
+    for plain in (False, True):
+        beam = beam_generator(model, temperature=0.0,
+                              consolidation_temperature=0.0)
+        rounds, candidates = [], beam._candidates
+
+        def record(last, ids_flat, cur_len, generator, rounds=rounds,
+                   candidates=candidates):
+            out = candidates(last, ids_flat, cur_len, generator)
+            rounds.append((ids_flat[:, :cur_len].clone(), last.float(),
+                           *out))
+            return out
+
+        beam._candidates = record
+        with plain_versions() if plain else contextlib.nullcontext():
+            counts, (ids, scores) = launch_counts(
+                lambda: beam.caption(frames, prompt))
+        runs.append((ids, scores, rounds, sum(counts.values())))
+    (ik, sk, rk, nk), (ip, _, rp, npl) = runs
+    bs, t0 = ik.shape[0], prompt.shape[-1]
+    ok, rows, rel_max, err_max, gap_max, first = True, 0, 0.0, 0.0, 0.0, None
+    for r, ((hk, lk, idk, lsk), (hp, lp, idp, lsp)) in enumerate(zip(rk, rp)):
+        same = (hk == hp).all(-1)
+        if r == 0:
+            ok &= bool(same.all())
+        if not bool(same.any()):
+            continue
+        rel, err, scale, within = logits_error(torch, lk[same], lp[same])
+        first = first or (rel, err, scale)
+        ok &= within
+        idk, lsk, idp, lsp = idk[same], lsk[same], idp[same], lsp[same]
+        both = idk[:, :, None] == idp[:, None, :]
+        gap = float((lsk[:, :, None] - lsp[:, None, :]).abs()[both].max())
+        ok &= gap <= BEAM_SCORE_TOL
+        ok &= bool((idk[:, :1] == idp).any(-1).all()
+                   and (idp[:, :1] == idk).any(-1).all())
+        rel_max, err_max = max(rel_max, rel), max(err_max, err)
+        gap_max, rows = max(gap_max, gap), rows + int(same.sum())
+    equal_rounds, partings = [], []
+    for s in range(bs):
+        differ = (ik[s] != ip[s]).any(0).nonzero()
+        equal_rounds.append(int(differ[0]) - t0 if len(differ) else len(rk))
+        if not len(differ):
+            continue
+        pos = int(differ[0])
+        ck, cp = int(ik[s, 0, pos]), int(ip[s, 0, pos])
+        lk, lp = rk[pos - t0][1][s], rp[pos - t0][1][s]
+        partings.append((s, pos - t0, round(float(lp[cp] - lp[ck]), 6),
+                         round(float((lk[cp] - lp[cp]).abs()
+                                     + (lk[ck] - lp[ck]).abs()), 6)))
+    identical = all(bool((i == i[:, :1]).all()) for i in (ik, ip))
+    log(f"  greedy beam (batch {bs}, width 3, expansion 4, top-k 16, "
+        f"{MAX_NEW_TOKENS} new tokens): {len(rk)} / {len(rp)} rounds; round "
+        f"0 last logits: relative L2 error {first[0]:.6g}, max_abs_err "
+        f"{first[1]:.6g} (max |logit| {first[2]:.4g}); over {rows} "
+        f"beam-rounds with the same history: logits relative L2 at most "
+        f"{rel_max:.6g}, max_abs_err at most {err_max:.6g} (limits {TOL}, "
+        f"{TOL} x max |logit|), candidate log-scores within {gap_max:.6g} "
+        f"(limit {BEAM_SCORE_TOL} per round); kernel launches {nk} on the "
+        f"kernel path, {npl} on the plain one")
+    log(f"  beams identical within each path: {identical}; rounds with "
+        f"equal ids per sample: {equal_rounds}; partings (sample, round, "
+        f"plain logit of the plain choice minus that of the kernel path's, "
+        f"the paths' logit differences at the two ids summed): {partings}")
+    if (not ok or nk == 0 or npl != 0 or rows == 0
+            or not bool(torch.isfinite(sk).all())):
+        raise AssertionError("beam-parity: kernel path disagrees with the "
+                             "plain-version path beyond tolerance")
 
 
 def kernel_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from image2text_torch.ops import flash_attention as fa
-    from image2text_torch.ops.fused_block import sparse_block
+    from image2text_torch.ops.fused_block import fused_block, sparse_block
+    from image2text_torch.ops.fused_frontend import fused_frontend
     from image2text_torch.ops.fused_moe import moe_ffn
     from image2text_torch.ops.int4_matmul import int4_matmul
+    from image2text_torch.ops.topk_mask import topk_ban_mask
 
     return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
-            fa.flash_bwd_dq, int4_matmul)
+            fa.flash_bwd_dq, int4_matmul, fused_frontend, fused_block,
+            topk_ban_mask)
 
 
 def launch_counts(run):
@@ -716,8 +1090,10 @@ def train_launches(cfg, model, seq_len: int):
     from image2text_torch.models.quantization import QuantizedLinear
 
     n_q = sum(isinstance(m, QuantizedLinear) for m in model.modules())
-    return {"sparse_block": 0, "moe_ffn": 0, "int4_matmul": 2 * n_q,
-            **flash_launches_per_step(cfg, model, seq_len)}
+    want = {kern.__name__: 0 for kern in kernel_wrappers()}
+    want.update(int4_matmul=2 * n_q,
+                **flash_launches_per_step(cfg, model, seq_len))
+    return want
 
 
 def phase_train(torch, args, results, path: str, setup, inputs):
@@ -1001,7 +1377,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from image2text_torch.configs.models import FLAGSHIP
+    from image2text_torch.configs.models import FLAGSHIP, FLAGSHIP_DENSE
     from image2text_torch.models.vision_encoder_decoder import (
         VisionEncoderDecoder)
     from image2text_torch.ops import _build
@@ -1042,10 +1418,45 @@ def main() -> int:
             "seed (bf16, the training step's attention shapes)")
         phase_flash_kernels(torch, args, results)
         log("[main] flagship serving path at full width")
-        phase_serve(torch, model, args, results, "flagship_caption",
-                    FLAGSHIP_BOS)
+        ids = phase_serve(torch, model, args, results, "flagship_caption",
+                          FLAGSHIP_BOS)
+        vocab = FLAGSHIP.decoder_config.vocab_size
+        ngrams = tuple(model.no_repeat_n_grams)
+        log("[kernels] topk_ban_mask vs its reference, bans from the caption "
+            "call's id buffer")
+        phase_topk_kernel(torch, results, ids, ngrams, vocab)
         log("[parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model, "parity", FLAGSHIP_BOS)
+        log("[beam] flagship beam-search serving path at full width and "
+            "depth")
+        ids = phase_beam(torch, model, args, results)
+        log("[kernels] topk_ban_mask at the beam's decode rows, bans from "
+            "its id buffer")
+        phase_topk_kernel(torch, results,
+                          ids.transpose(0, 1).reshape(-1, ids.shape[-1]),
+                          ngrams, vocab, tag="beam")
+        log("[beam-parity] greedy beam search, kernel path vs plain-version "
+            "path at full width")
+        phase_beam_parity(torch, model)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = VisionEncoderDecoder(FLAGSHIP_DENSE, device="cuda").init_weights(
+        SEED).to(torch.bfloat16)
+    model.eval()
+    log(f"[dense-model] the flagship's dense-encoder twin (every encoder "
+        f"block dense, the decoder the flagship's) with random bf16 weights "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        log("[kernels] fused_block (the dense eval block) vs plain version "
+            "(bf16, the twin's encoder shapes)")
+        phase_dense_kernel(torch, model, args, results)
+        log("[dense] dense-twin serving path at full width and depth")
+        phase_serve(torch, model, args, results, "dense_caption",
+                    FLAGSHIP_BOS)
+        log("[dense-parity] kernel path vs plain-version path at full width")
+        phase_parity(torch, model, "dense-parity", FLAGSHIP_BOS)
     del model
     torch.cuda.empty_cache()
     log("[train] flagship training step at full width and depth")
@@ -1094,9 +1505,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
-    kernels = [{k: r[k] for k in keys}
+    # a kernel no path launches (topk_ban_mask) has 0 launches
+    kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}
                | {k: v for k, v in r.items() if k.endswith("_shape")}
                for r in results.values()]
+    if len(kernels) != len(kernel_wrappers()):
+        raise AssertionError(f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ the other.  The machine with the card has neither pydantic nor PyYAML, so
 the configurations are transcribed here as Python constants: the flagship
 (``training_configs/tpu/nano-mini.yaml``; :func:`flagship_config` mirrors
 the JAX package's ``__graft_entry__._flagship_config``, including its tiny
-form) and the int4 + LoRA GPT-2-medium captioner
-(``training_configs/tpu/gpt2-medium.yaml``, :func:`gpt2_medium_config`).
+form), its dense-encoder twin (:func:`flagship_dense_config`) and the int4
++ LoRA GPT-2-medium captioner (``training_configs/tpu/gpt2-medium.yaml``,
+:func:`gpt2_medium_config`).
 """
 from __future__ import annotations
 
@@ -175,6 +176,20 @@ def flagship_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
     return cfg
 
 
+def flagship_dense_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
+    """The flagship with a dense encoder (every encoder block runs every
+    token), derived as ``tools/encoder_phase_probe.py`` derives its
+    dense-attention twin: the encoder's ``transformer_config.is_sparse_attn``
+    False, nothing else changed; the decoder stays the flagship's sparse
+    one.  ``tiny`` cuts it as :func:`flagship_config` does."""
+    cfg = flagship_config(tiny)
+    cfg.vision_encoder_config.transformer_config.is_sparse_attn = False
+    return cfg
+
+
+FLAGSHIP_DENSE = flagship_dense_config()
+
+
 def _gpt2_medium() -> VisionEncoderDecoderConfig:
     """``training_configs/tpu/gpt2-medium.yaml``'s ``model`` section."""
     enc = VisionTransformerEncoderConfig(
@@ -230,9 +245,9 @@ def gpt2_medium_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
 
 
 __all__ = [
-    "FLAGSHIP", "GPT2_MEDIUM", "HuggingfaceDecoderConfig", "ImageInputSpec",
+    "FLAGSHIP", "FLAGSHIP_DENSE", "GPT2_MEDIUM", "HuggingfaceDecoderConfig", "ImageInputSpec",
     "LoraSpec", "MoEConfig", "SelfAttentionConfig", "SelfAttentionType",
     "TransformerConfig", "TransformerDecoderConfig",
     "VisionEncoderDecoderConfig", "VisionTransformerEncoderConfig",
-    "flagship_config", "gpt2_medium_config",
+    "flagship_config", "flagship_dense_config", "gpt2_medium_config",
 ]

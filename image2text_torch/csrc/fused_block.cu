@@ -1,18 +1,21 @@
-// Kernels of the lazy sparse encoder block for Hopper (sm_90a): counterpart
-// of image2text_tpu/ops/fused_block.py::_sparse_block_kernel, as a short
-// sequence of kernels (the TPU kernel's resident 7.6 MB of weights do not
-// fit a Hopper block's 227 KB of shared memory):
+// Kernels of the eval encoder blocks for Hopper (sm_90a): counterpart of
+// image2text_tpu/ops/fused_block.py::_sparse_block_kernel (the lazy sparse
+// block) and ::_block_kernel (the dense block, the same chain on the whole
+// stream), as a short sequence of kernels (the TPU kernels' resident 7.6 MB
+// of weights do not fit a Hopper block's 227 KB of shared memory):
 //
-//   ln_gather   LN1 of the selected rows, read through a row-index list;
+//   ln_gather   LN1 of the selected rows, read through a row-index list
+//               (or of every row when the list is null);
 //   gemm        C = A·B (+ bias) (+ residual), bf16 tensor cores with f32
-//               accumulators; A and the residual are read through row-index
-//               lists and C rows land at an offset, so the lazy layout's
-//               [sel; byp] gather and concat cost no separate pass;
+//               accumulators (gemm.cuh); A and the residual are read through
+//               row-index lists and C rows land at an offset, so the lazy
+//               layout's [sel; byp] gather and concat cost no separate pass;
 //   mqa_attention  one shared K/V head, scores rounded to bf16 before an
 //               f32 softmax, probabilities in bf16 before the V product.
 //
 // The block's MoE FFN stage is the kernel of fused_moe.cu.
 #include "common.cuh"
+#include "gemm.cuh"
 
 using namespace i2t;
 
@@ -20,13 +23,13 @@ namespace {
 
 // ---------------------------------------------------------------- LN gather
 // out[m] = LN(x[(m / tg) * T + rows[m % tg]]) with f32 two-pass statistics,
-// one warp per row.
+// one warp per row; a null row list reads row m.
 __global__ void __launch_bounds__(256) ln_gather_kernel(const bf16* x, bf16* out, const int* rows,
                                                         int b, int T, int tg, int d,
                                                         const bf16* w, const bf16* bias) {
   const int m = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (m >= b * tg) return;
-  const bf16* src = x + ((size_t)(m / tg) * T + rows[m % tg]) * d;
+  const bf16* src = x + map_row(m, rows, T, tg) * d;
   float sum = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
     const Bf16x8 v = *reinterpret_cast<const Bf16x8*>(src + c);
@@ -55,137 +58,6 @@ __global__ void __launch_bounds__(256) ln_gather_kernel(const bf16* x, bf16* out
       o.v[t] = to_bf(y);
     }
     *reinterpret_cast<Bf16x8*>(out + (size_t)m * d + c) = o;
-  }
-}
-
-// --------------------------------------------------------------------- GEMM
-constexpr int BM = 128, BN = 128, BK = 32, PAD = 8;
-constexpr int LDA = BK + PAD;  // shared-memory row strides (bf16 elements)
-constexpr int LDB = BN + PAD;
-constexpr size_t GEMM_SMEM = 2 * (BM * LDA + BK * LDB) * sizeof(bf16);
-
-struct GemmArgs {
-  const bf16* A;
-  const int* a_rows;
-  int a_T;
-  const bf16* B;  // (K, N) row-major
-  const bf16* bias;
-  const bf16* R;
-  const int* r_rows;
-  int r_T;
-  bf16* C;
-  int c_T, c_off, t_g, M, N, K;
-};
-
-// Row of the logical m-th row through an optional index list.
-__device__ __forceinline__ size_t map_row(int m, const int* rows, int T, int t_g) {
-  return rows != nullptr ? (size_t)(m / t_g) * T + rows[m % t_g] : (size_t)m;
-}
-
-// C[(m / t_g) * c_T + c_off + m % t_g, n] =
-//     bf16(bf16(bf16(Σ_k A[arow(m), k] B[k, n]) + bias[n]) ... + R[rrow(m), n])
-// 128x128 block tile, 8 warps of 32x64, BK = 32, cp.async double buffering.
-__global__ void __launch_bounds__(256) gemm_kernel(GemmArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sB = sA + 2 * BM * LDA;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  const bf16* a_src[2];
-  bool a_ok[2];
-  int a_off[2], b_row[2], b_col[2];
-  bool b_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = tid + i * 256;
-    const int row = v / (BK / 8), cv = (v % (BK / 8)) * 8;
-    const int m = m0 + row;
-    a_ok[i] = m < p.M;
-    a_src[i] = p.A + (a_ok[i] ? map_row(m, p.a_rows, p.a_T, p.t_g) : 0) * p.K + cv;
-    a_off[i] = row * LDA + cv;
-    b_row[i] = v / (BN / 8);
-    b_col[i] = (v % (BN / 8)) * 8;
-    b_ok[i] = n0 + b_col[i] < p.N;
-  }
-  auto load_stage = [&](int stage, int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      cp_async16(sA + stage * BM * LDA + a_off[i], a_ok[i] ? a_src[i] + kt * BK : p.A, a_ok[i]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      cp_async16(sB + stage * BK * LDB + b_row[i] * LDB + b_col[i],
-                 b_ok[i] ? p.B + (size_t)(kt * BK + b_row[i]) * p.N + n0 + b_col[i] : p.B,
-                 b_ok[i]);
-    cp_async_commit();
-  };
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int KT = p.K / BK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_stage((kt + 1) & 1, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* a = sA + (kt & 1) * BM * LDA;
-    const bf16* b = sB + (kt & 1) * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA fa[2];
-      FragB fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * LDA + kk * 16, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], b + kk * 16 * LDB + wn * 64 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through a per-warp 16x16 f32 staging tile.
-  float* stg = reinterpret_cast<float*>(smem_raw) + warp * 256;
-  const int r = lane / 2, c8 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 32 + i * 16 + r;
-      const int n = n0 + wn * 64 + j * 16 + c8;
-      if (m < p.M && n < p.N) {
-        Bf16x8 bb, rb, o;
-        if (p.bias != nullptr) bb = *reinterpret_cast<const Bf16x8*>(p.bias + n);
-        if (p.R != nullptr)
-          rb = *reinterpret_cast<const Bf16x8*>(
-              p.R + map_row(m, p.r_rows, p.r_T, p.t_g) * p.N + n);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          float v = rbf(stg[r * 16 + c8 + t]);
-          if (p.bias != nullptr) v = rbf(v + to_f(bb.v[t]));
-          if (p.R != nullptr) v = rbf(to_f(rb.v[t]) + v);
-          o.v[t] = to_bf(v);
-        }
-        const size_t crow = (size_t)(m / p.t_g) * p.c_T + p.c_off + m % p.t_g;
-        *reinterpret_cast<Bf16x8*>(p.C + crow * p.N + n) = o;
-      }
-      __syncwarp();
-    }
   }
 }
 
@@ -294,26 +166,8 @@ extern "C" int ln_gather_launch(const void* x, void* out, const void* rows, int 
 extern "C" int gemm_launch(const void* A, const void* a_rows, int a_T, const void* B,
                            const void* bias, const void* R, const void* r_rows, int r_T, void* C,
                            int c_T, int c_off, int n_img, int t_g, int N, int K, void* stream) {
-  if (n_img <= 0 || t_g <= 0 || N % 16 || K % BK || K <= 0) return (int)cudaErrorInvalidValue;
-  GemmArgs p;
-  p.A = static_cast<const bf16*>(A);
-  p.a_rows = static_cast<const int*>(a_rows);
-  p.a_T = a_T;
-  p.B = static_cast<const bf16*>(B);
-  p.bias = static_cast<const bf16*>(bias);
-  p.R = static_cast<const bf16*>(R);
-  p.r_rows = static_cast<const int*>(r_rows);
-  p.r_T = r_T;
-  p.C = static_cast<bf16*>(C);
-  p.c_T = c_T;
-  p.c_off = c_off;
-  p.t_g = t_g;
-  p.M = n_img * t_g;
-  p.N = N;
-  p.K = K;
-  dim3 grid((N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<<<grid, 256, GEMM_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_gemm(A, a_rows, a_T, B, bias, R, r_rows, r_T, C, c_T, c_off, n_img, t_g, N, K,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mqa_attention_launch(const void* qkv, void* o, int b, int t, int n_head, int hd,

@@ -188,6 +188,8 @@ class TransformerDecoder(nn.Module):
         """Whether cached decode over global positions [start, end) is
         exact: no sparse layer's selected count crosses 2 inside it."""
         for blk in self.blocks:
+            if not blk.is_sparse:
+                continue
             c = blk._cum_sel_np
             at_start = int(c[min(start - 1, len(c) - 1)]) if start > 0 else 0
             at_end = int(c[min(end - 1, len(c) - 1)]) if end > 0 else 0

@@ -4,10 +4,12 @@
 ConvMLP features, then the reference's raw row-major reshape of the NCHW
 feature map into n_patches² tokens of C·pw·ph (not a patchify), projector
 + LayerNormND over the whole (tokens, d) slab, the positional table,
-LayerNormND again, learned CLS tokens in front, and the sparse blocks on
-the lazy layout path; ``ln_f`` of the CLS rows is the output.  In
-training the front is dropped and, when the config enables gradient
-checkpointing, each block is recomputed in the backward.
+LayerNormND again, learned CLS tokens in front (at eval one
+``ops/fused_frontend.py::fused_frontend`` call: the CUDA kernels on the
+card), and the blocks, sparse ones on the lazy layout path; ``ln_f`` of
+the CLS rows is the output.  In training the front is the module chain,
+dropped, and, when the config enables gradient checkpointing, each block
+is recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -18,11 +20,12 @@ import torch
 from torch import nn
 
 from image2text_torch.configs.models import VisionTransformerEncoderConfig
-from image2text_torch.models.layers import ConvMLP, TransformerBlock
+from image2text_torch.models.layers import ConvMLP, TransformerBlock, _Cached
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       normal_init)
 from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
                                          Linear)
+from image2text_torch.ops.fused_frontend import FrontendWeights, fused_frontend
 from image2text_torch.ops.static_gather import layout_rows, static_take
 from image2text_torch.training.remat import checkpoint_block
 
@@ -61,6 +64,7 @@ class VisionTransformerEncoder(nn.Module):
         self.dropout_rate = acfg.dropout
         self.enable_gradient_checkpointing = (
             config.enable_gradient_checkpointing)
+        self._front = _Cached()
 
     @property
     def blocks(self) -> nn.ModuleList:
@@ -76,16 +80,36 @@ class VisionTransformerEncoder(nn.Module):
     def output_embed_dim(self) -> int:
         return self.out_dim
 
+    def frontend_weights(self, dtype) -> FrontendWeights:
+        """The eval front's operands of ``fused_frontend``."""
+        def make():
+            proj, ln = self.projector, self.ln_input
+            return FrontendWeights(
+                w_p=proj.weight.t().to(dtype).contiguous(),
+                b_p=None if proj.bias is None else proj.bias.to(dtype),
+                ln_w=ln.weight, ln_b=ln.bias,
+                wpe=self.transformer.wpe.weight.to(dtype),
+                cls=self.cls_token[0].to(dtype))
+        params = [self.projector.weight, self.ln_input.weight,
+                  self.transformer.wpe.weight, self.cls_token] + [
+                      b for b in (self.projector.bias, self.ln_input.bias)
+                      if b is not None]
+        return self._front.get(params, dtype, make)
+
     def forward(self, images: torch.Tensor, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True) -> torch.Tensor:
         x = self.feature_extractor(images)
         n = x.shape[0]
         x = x.reshape(n, self.n_patches ** 2, self.input_d)
-        x = self.ln_input(self.projector(x))
-        y = x + self.transformer.wpe.weight.to(x.dtype)[None]
-        cls = self.cls_token.to(x.dtype).expand(n, self.n_cls, self.out_dim)
-        x = torch.cat([cls, self.ln_input(y)], dim=1)
-        x, ctx = dropout(x, self.dropout_rate, ctx)
+        if not ctx.train:
+            x = fused_frontend(x, self.frontend_weights(x.dtype))
+        else:
+            x = self.ln_input(self.projector(x))
+            y = x + self.transformer.wpe.weight.to(x.dtype)[None]
+            cls = self.cls_token.to(x.dtype).expand(n, self.n_cls,
+                                                    self.out_dim)
+            x = torch.cat([cls, self.ln_input(y)], dim=1)
+            x, ctx = dropout(x, self.dropout_rate, ctx)
         remat = self.enable_gradient_checkpointing and ctx.train
         layout = None
         for depth, blk in enumerate(self.blocks):

@@ -1,0 +1,195 @@
+"""Batched stochastic beam search (counterpart of
+``image2text_tpu/models/generation_utils.py::BeamSearchTokenGenerator``).
+
+The encoder runs once and its output is tiled ``beam_width`` times, beam
+major (row ``beam · bs + sample``).  Each round every beam proposes
+``beam_expansion_factor`` candidates (``sampling.beam_candidates_with_ngram``:
+n-gram bans, top-k, the best ones when ``temperature <= 0``, otherwise
+drawn without replacement by Gumbel-top-k; the dense fallback where that
+scorer declines).  Sticky EOS: a beam whose last token is EOS keeps
+emitting EOS at zero added score whenever its candidate scores below
+``-log(length_boost)``; every other candidate gains ``log(length_boost)``.
+Consolidation keeps ``beam_width`` of the bw·bef candidates per sample by
+top-k or by Gumbel sampling at ``consolidation_temperature``, then gathers
+the id buffer, the scores and the KV cache along the beam axis.  The loop
+runs while ``cur_len < max_new_tokens + prompt_len - 1`` and some beam
+holds no EOS (one host read per round); the unwritten tail is filled with
+EOS.  Returns ids (bs, bw, T) and cumulative log-scores (bs, bw).
+
+Decoding is the cached branch of ``models/generation.py`` for both decoder
+kinds: the scratch decoder at offset ``space_for_prompt``, and the
+``prefix_in_decode`` decoders (GPT-2) with the soft prompt in the cache.
+Windows that need the full-reforward fallback raise, as ``generate``
+does.  Logits reach the scorer in f32, as in the JAX generator.
+:meth:`BeamSearchTokenGenerator.caption` is the serving path from raw
+uint8 frames; ``rounds`` holds the decode rounds of the last call.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from image2text_torch.models.generation import (decoder_step, prefill,
+                                                precompute_cross_kv)
+from image2text_torch.models.sampling import (apply_no_repeat_ngram,
+                                              apply_top_k,
+                                              beam_candidates_with_ngram,
+                                              gumbel_topk_sample, topk)
+from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+
+class BeamSearchTokenGenerator:
+    def __init__(self, model, beam_width: int = 3, temperature: float = 1.0,
+                 top_k: Optional[int] = None, max_new_tokens: int = 64,
+                 no_repeat_n_grams: Sequence[int] = (2, 3, 4),
+                 beam_expansion_factor: int = 4,
+                 eos_token_id: Optional[int] = None,
+                 consolidation_temperature: float = 1.0,
+                 length_boost: float = 1.0):
+        self.model = model
+        self.beam_width = beam_width
+        self.beam_expansion_factor = beam_expansion_factor
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self.consolidation_temperature = consolidation_temperature
+        self.top_k = top_k
+        self.eos_token_id = eos_token_id
+        self.length_boost = math.log(length_boost)
+        self.no_repeat_n_grams = tuple(no_repeat_n_grams)
+        self.rounds = 0     # decode rounds the last call ran
+
+    # -- per-round candidate scoring ------------------------------------------
+    def _candidates(self, last_logits, ids_flat, cur_len, generator,
+                    gumbel: Optional[torch.Tensor] = None):
+        """(next_ids, log_scores), both (rows, bef).  ``gumbel`` replaces
+        the noise: (rows, top_k) on the fused path, (rows, V) on the dense
+        one."""
+        bef = self.beam_expansion_factor
+        fused = beam_candidates_with_ngram(
+            last_logits, ids_flat, cur_len, self.no_repeat_n_grams,
+            generator, self.temperature, self.top_k, bef, gumbel=gumbel)
+        if fused is not None:
+            next_id, log_scores = fused
+        else:
+            scores = apply_no_repeat_ngram(last_logits.float(), ids_flat,
+                                           cur_len, self.no_repeat_n_grams)
+            scores = apply_top_k(scores, self.top_k)
+            if self.temperature <= 0:
+                prob = torch.log_softmax(scores, dim=-1)
+                next_id = topk(scores, bef)[1]
+                log_scores = prob.gather(-1, next_id)
+            else:
+                prob = torch.log_softmax(scores / self.temperature, dim=-1)
+                next_id, log_scores = gumbel_topk_sample(prob, bef, generator,
+                                                         gumbel)
+        if self.eos_token_id is not None:
+            where_eos = ids_flat[:, cur_len - 1:cur_len] == self.eos_token_id
+            sticky = where_eos & (log_scores + self.length_boost < 0)
+            next_id = next_id.masked_fill(sticky, self.eos_token_id)
+            log_scores = torch.where(sticky, torch.zeros_like(log_scores),
+                                     log_scores + self.length_boost)
+        return next_id, log_scores
+
+    # -- consolidation --------------------------------------------------------
+    def _consolidate(self, cum, next_ids, next_scores, generator):
+        """(beams_idx (bs, bw), chosen ids (bw, bs), chosen scores (bw, bs))
+        from bw·bef candidates per sample."""
+        bw, bs, bef = next_ids.shape
+        expanded = (cum[:, :, None] + next_scores).transpose(0, 1).reshape(
+            bs, bw * bef)
+        if self.consolidation_temperature <= 0:
+            best_pos = topk(expanded, bw)[1]
+        else:
+            logp = torch.log_softmax(
+                expanded / self.consolidation_temperature, dim=-1)
+            best_pos = gumbel_topk_sample(logp, bw, generator)[0]
+        chosen_ids = next_ids.transpose(0, 1).reshape(bs, bw * bef).gather(
+            -1, best_pos)
+        chosen_scores = next_scores.transpose(0, 1).reshape(
+            bs, bw * bef).gather(-1, best_pos)
+        return best_pos // bef, chosen_ids.T, chosen_scores.T
+
+    @torch.no_grad()
+    def __call__(self, images, decoded_ids: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 encoder_output: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam-search captions of ``images`` (or of ``encoder_output``)
+        from the prompt ``decoded_ids`` ((bs, t0) or (t0,)), on the model's
+        device: ids (bs, bw, T) and scores (bs, bw)."""
+        model = self.model
+        dec, dev = model.decoder, model.device
+        if not dec.is_causal:
+            raise ValueError("beam search needs a causal decoder")
+        bw, bef = self.beam_width, self.beam_expansion_factor
+        decoded_ids = decoded_ids.to(dev)
+        if decoded_ids.dim() == 1:
+            decoded_ids = decoded_ids[None]
+        if encoder_output is None:
+            encoder_output = model.encoder(images.to(dev))
+        bs, n_cls, n_embd = encoder_output.shape
+        x = encoder_output[None].expand(bw, bs, n_cls, n_embd).reshape(
+            bw * bs, n_cls, n_embd)
+        t0 = decoded_ids.shape[-1]
+        total = self.max_new_tokens + t0 - 1
+        ids_buf = torch.zeros((bw, bs, total), dtype=torch.long, device=dev)
+        ids_buf[:, :, :t0] = decoded_ids.expand(bs, t0)
+        cum = torch.zeros((bw, bs), dtype=torch.float32, device=dev)
+        cross = x if model.use_cross_attn else None
+        off = model.space_for_prompt
+        exact = getattr(dec, "cache_exact_for_window", None)
+        if exact is not None and not exact(off + t0, off + total):
+            raise NotImplementedError(
+                "this window needs the full-reforward fallback (a sparse "
+                "layer's selected count crosses 2), which is not ported yet")
+        cross_kv = precompute_cross_kv(model, cross)
+        logits, cache = prefill(model, x, ids_buf[:, :, :t0].reshape(
+            bw * bs, t0), total, cross_kv)
+        last = logits[:, -1]
+        beam_rows = torch.arange(bs, device=dev)[None, :]
+        cur_len = t0
+        self.rounds = 0
+        while cur_len < total and not self._all_done(ids_buf, cur_len):
+            next_ids, next_scores = self._candidates(
+                last, ids_buf.reshape(bw * bs, total), cur_len, generator)
+            beams_idx, chosen_ids, chosen_scores = self._consolidate(
+                cum, next_ids.reshape(bw, bs, bef),
+                next_scores.reshape(bw, bs, bef), generator)
+            # new beam (nb, b) takes old beam beams_idx[b, nb]
+            src = beams_idx.T
+            ids_buf = ids_buf.gather(0, src[:, :, None].expand(bw, bs, total))
+            cum = cum.gather(0, src) + chosen_scores
+            ids_buf[:, :, cur_len] = chosen_ids
+            # cross K/V need no reorder: every beam of a sample shares it
+            cache.gather_batch((src * bs + beam_rows).reshape(-1))
+            logits, cache = decoder_step(model, chosen_ids.reshape(-1, 1),
+                                         cache, off + cur_len, cross, cross_kv)
+            last = logits[:, -1]
+            cur_len += 1
+            self.rounds += 1
+        if self.eos_token_id is not None:
+            ids_buf[:, :, cur_len:] = self.eos_token_id
+        return ids_buf.transpose(0, 1), cum.T
+
+    @torch.no_grad()
+    def caption(self, frames_u8: torch.Tensor, decoded_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The beam serving path: raw uint8 frames (B, H, W, 3) →
+        resize/normalize on the model's device in the model's dtype →
+        encoder → beam search."""
+        model = self.model
+        size = model.config.vision_encoder_config.input.width
+        images = resize_normalize_on_device(frames_u8.to(model.device), size,
+                                            out_dtype=model.decoder.dtype)
+        return self(images, decoded_ids, generator)
+
+    def _all_done(self, ids_buf, cur_len: int) -> bool:
+        """Whether every beam holds an EOS among its first ``cur_len``
+        ids (never, without an EOS id)."""
+        if self.eos_token_id is None:
+            return False
+        return bool((ids_buf[:, :, :cur_len] == self.eos_token_id).any(-1)
+                    .all())

@@ -4,7 +4,8 @@
 (b, n_kv_heads, slots, head_dim) and a fill index per layer.  Unlike the
 JAX pytree, the port writes the buffers IN PLACE and advances the indices
 (plain Python ints) as each layer writes: PyTorch runs eagerly, so no
-functional successor cache is needed.  :class:`CacheRef` is the view one
+functional successor cache is needed.  Beam search reorders the batch
+axis with :meth:`KVCache.gather_batch`.  :class:`CacheRef` is the view one
 decoder forward hands down its blocks; attention layers claim their layer
 by call order, as in the JAX package.
 
@@ -35,6 +36,15 @@ class KVCache:
         return KVCache([(torch.zeros(s, dtype=dtype, device=device),
                          torch.zeros(s, dtype=dtype, device=device))
                         for s in layer_shapes])
+
+    def gather_batch(self, order: torch.Tensor) -> "KVCache":
+        """Reorder the batch axis of every layer's buffers (beam-search
+        consolidation): new row i is old row ``order[i]``.  The buffers
+        are replaced by their gathered copies; fill indices are
+        unchanged."""
+        self.layers = [(k.index_select(0, order), v.index_select(0, order))
+                       for k, v in self.layers]
+        return self
 
 
 class CacheRef:

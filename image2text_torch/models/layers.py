@@ -1,12 +1,14 @@
 """Layers of the port, the flagship subset of ``image2text_tpu/models/layers.py``:
-MLP, ConvMLP, MoELinear, _MoEMLP, MultiQueryAttention and the sparse
-TransformerBlock with its lazy layout path and its cached decode.
+MLP, ConvMLP, MoELinear, _MoEMLP, MultiQueryAttention and the
+TransformerBlock: sparse, with its lazy layout path and its cached decode,
+or dense (its non-cached paths).
 
 Parameter and buffer names reproduce the JAX package's (torch state-dict
 names), so one exported ``.npz`` feeds both packages.
 
 At eval (``ctx.train`` False) the flagship blocks run through the serving
-kernels (``sparse_block``, ``moe_ffn``), which have no backward.  In
+kernels (``sparse_block``, ``fused_block`` for a dense block, ``moe_ffn``),
+which have no backward.  In
 training every block computes from its parameters directly, with the
 dropout sites of the JAX package, and its self-attention goes through the
 flash kernels (``ops/attention.py::sdpa``).
@@ -29,7 +31,8 @@ from image2text_torch.nn.modules import (Conv2d, LayerNorm, Linear,
                                          MultiheadAttention, gelu_tanh)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.ops.functions import normalize_gradients
-from image2text_torch.ops.fused_block import SparseBlockWeights, sparse_block
+from image2text_torch.ops.fused_block import (BlockWeights, fused_block,
+                                              sparse_block)
 from image2text_torch.ops.fused_moe import (MoELinearWeights, moe_ffn,
                                             pack_moe_linear, topk_mask)
 from image2text_torch.ops.static_gather import (canonicalize, layout_rows,
@@ -267,9 +270,10 @@ def sparse_attention_indices(max_block_size: int, sparsity_factor: float,
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: self-attention → optional cross-attention → MoE FFN,
-    with static random-sparse token selection and the null-connector
-    bypass for the unselected tokens."""
+    """Pre-LN block: self-attention → optional cross-attention → MoE FFN.
+    A sparse block keeps a static random token selection and sends the
+    other tokens through the null-connector bypass; a dense block runs
+    every token through the body."""
 
     def __init__(self, config: TransformerConfig, seed: Optional[int] = None,
                  n_cls: int = 0, device=None):
@@ -292,8 +296,10 @@ class TransformerBlock(nn.Module):
             self.cross_attn = self.ln_3 = None
         self.is_sparse = config.is_sparse_attn
         self.n_cls = n_cls
+        self._weights = _Cached()
         if not self.is_sparse:
-            raise NotImplementedError("only sparse blocks are ported so far")
+            self.null_connector = None
+            return
         idx, not_idx = sparse_attention_indices(
             config.max_block_size, config.sparsity_factor, n_cls, seed)
         self.idx_np, self.not_idx_np = idx, not_idx
@@ -310,24 +316,30 @@ class TransformerBlock(nn.Module):
         self.null_connector = Linear(acfg.n_embd, acfg.n_embd, acfg.bias,
                                      device)
         self._rows: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self._weights = _Cached()
 
     def cache_shape(self, batch: int, max_len: int):
-        """Sparse layers hold only their selected TEXT positions within
-        the decode window [n_cls, n_cls + max_len)."""
+        """Dense layers hold ``max_len`` slots; sparse layers only their
+        selected TEXT positions within the decode window
+        [n_cls, n_cls + max_len)."""
+        if not self.is_sparse:
+            return self.attn.kv_shape(batch, max_len)
         n_sel = int(((self.idx_np >= self.n_cls)
                      & (self.idx_np < self.n_cls + max_len)).sum())
         return self.attn.kv_shape(batch, max(n_sel, 1))
 
     def runs_body(self, t: int) -> bool:
         """Whether a non-cached forward over a ``t``-row stream runs the
-        block body (attention and FFN): its selection keeps more than one
-        row of the stream; otherwise every row takes the null path."""
-        return int((self.idx_np < t).sum()) > 1
+        block body (attention and FFN): always for a dense block; for a
+        sparse one, when its selection keeps more than one row of the
+        stream (otherwise every row takes the null path)."""
+        return not self.is_sparse or int((self.idx_np < t).sum()) > 1
 
     def next_layout(self, layout, t: int):
         """Row layout the lazy path emits for a ``t``-row stream entering
-        under ``layout`` (None = canonical)."""
+        under ``layout`` (None = canonical; a dense block emits canonical
+        order)."""
+        if not self.is_sparse:
+            return None
         if not self.runs_body(t):
             return layout
         return np.concatenate([self.idx_np[self.idx_np < t],
@@ -336,28 +348,31 @@ class TransformerBlock(nn.Module):
     def runs_body_at(self, positions: np.ndarray) -> bool:
         """Whether a cached forward over ``positions`` runs the block body
         (attention and FFN) — the port's bookkeeping of FFN launches."""
+        if not self.is_sparse:
+            return True
         return any(p < len(self._sel_mask_np) and self._sel_mask_np[p]
                    for p in positions)
 
     # -- kernel operands ----------------------------------------------------
-    def sparse_block_weights(self, dtype) -> SparseBlockWeights:
+    def block_weights(self, dtype) -> BlockWeights:
+        """The block's operands of ``fused_block`` (dense) or
+        ``sparse_block`` (sparse: with the null connector's)."""
+        def wt(*lins):      # (in, out) weight of one or more Linears
+            return torch.cat([lin.weight for lin in lins]).t().to(dtype) \
+                .contiguous()
+
         def make():
-            a, dt = self.attn, dtype
-
-            def wt(*lins):      # (in, out) weight of one or more Linears
-                return torch.cat([lin.weight for lin in lins]).t().to(dt) \
-                    .contiguous()
-
+            a, dt, nc = self.attn, dtype, self.null_connector
             b_qkv = None if a.q_proj.bias is None else torch.cat(
                 [a.q_proj.bias, a.kv_proj.bias])
-            return SparseBlockWeights(
+            return BlockWeights(
                 ln1_w=self.ln_1.weight.to(dt), ln1_b=_opt(self.ln_1.bias, dt),
                 w_qkv=wt(a.q_proj, a.kv_proj), b_qkv=_opt(b_qkv, dt),
                 w_o=wt(a.out_proj), b_o=_opt(a.out_proj.bias, dt),
                 ln2_w=self.ln_2.weight.to(dt), ln2_b=_opt(self.ln_2.bias, dt),
                 fc=self.mlp.c_fc.packed(dt), proj=self.mlp.c_proj.packed(dt),
-                w_n=wt(self.null_connector),
-                b_n=_opt(self.null_connector.bias, dt), n_head=a.n_head)
+                n_head=a.n_head, w_n=None if nc is None else wt(nc),
+                b_n=None if nc is None else _opt(nc.bias, dt))
         return self._weights.get(list(self.parameters()), dtype, make)
 
     def layout_rows(self, layout, t: int, device):
@@ -398,11 +413,17 @@ class TransformerBlock(nn.Module):
                 use_flash: bool = True):
         """``layout``/``want_lazy``: a lazy call composes the block's
         static gathers with the incoming row ``layout`` and returns
-        ``(stream, new_layout)`` without reassembling canonical order.
-        At eval, a non-causal, unmasked lazy block without cross-attention
-        — every flagship encoder block — runs as one ``sparse_block``
-        call (``use_flash`` False, the parity mode, keeps the plain
-        block, as in the JAX package).  Training never takes it."""
+        ``(stream, new_layout)`` without reassembling canonical order (a
+        dense block canonicalises first and returns ``(out, None)``).
+        At eval, a non-causal, unmasked block without cross-attention —
+        every flagship encoder block — runs as one ``sparse_block`` call
+        (lazy sparse) or one ``fused_block`` call (dense); ``use_flash``
+        False, the parity mode, keeps the plain block, as in the JAX
+        package.  Training never takes them."""
+        if not self.is_sparse:
+            return self._dense_forward(x_orig, cross_attn_inputs, attn_mask,
+                                       kv_cache, cross_kv, layout, want_lazy,
+                                       ctx, use_flash)
         if kv_cache is not None:
             if layout is not None or want_lazy:
                 raise ValueError("the lazy layout is a non-cached path")
@@ -420,11 +441,10 @@ class TransformerBlock(nn.Module):
         # index tensors cached on the device: a fresh host→device copy
         # would synchronise the stream at every block
         rows_sel, rows_byp = self.layout_rows(layout, t, x_orig.device)
-        if (want_lazy and use_flash and not ctx.train and attn_mask is None
-                and cross_attn_inputs is None and cross_kv is None
-                and not self.is_causal):
+        if (want_lazy and self._serving(attn_mask, cross_attn_inputs,
+                                        cross_kv, ctx, use_flash)):
             return (sparse_block(x_orig, rows_sel, rows_byp,
-                                 self.sparse_block_weights(x_orig.dtype)),
+                                 self.block_weights(x_orig.dtype)),
                     new_layout)
         x = x_orig.index_select(1, rows_sel)
         if attn_mask is not None:
@@ -436,6 +456,30 @@ class TransformerBlock(nn.Module):
         if want_lazy:
             return torch.cat([x.to(x_orig.dtype), bypass], dim=1), new_layout
         return static_combine(x.to(x_orig.dtype), bypass, idx, not_idx)
+
+    def _serving(self, attn_mask, cross_attn_inputs, cross_kv, ctx,
+                 use_flash) -> bool:
+        """Whether a non-cached forward takes the eval block kernel: eval,
+        no mask, no cross-attention, not causal (JAX layers.py:569-571)."""
+        return (use_flash and not ctx.train and attn_mask is None
+                and cross_attn_inputs is None and cross_kv is None
+                and not self.is_causal)
+
+    def _dense_forward(self, x, cross_attn_inputs, attn_mask, kv_cache,
+                       cross_kv, layout, want_lazy, ctx, use_flash):
+        if kv_cache is not None:
+            raise NotImplementedError("the dense block's cached decode is "
+                                      "not ported yet")
+        if layout is not None:
+            x = canonicalize(x, layout)
+        if self._serving(attn_mask, cross_attn_inputs, cross_kv, ctx,
+                         use_flash):
+            out = fused_block(x, self.block_weights(x.dtype))
+        else:
+            out = self._body(x, cross_attn_inputs, cross_kv, mask=attn_mask,
+                             causal=self.is_causal, ctx=ctx,
+                             use_flash=use_flash)
+        return (out, None) if want_lazy else out
 
     def _sparse_cached_forward(self, x_orig, cross_attn_inputs, attn_mask,
                                kv_cache, cross_kv):

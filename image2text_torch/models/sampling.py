@@ -1,18 +1,22 @@
 """Sampling of the port (the flagship subset of
-``image2text_tpu/models/sampling.py``): no-repeat-n-gram bans and the
-exact ban → top-k → temperature → categorical pipeline.
+``image2text_tpu/models/sampling.py``): no-repeat-n-gram bans, the exact
+ban → top-k → temperature → categorical pipeline, and beam search's
+candidate scoring and Gumbel-top-k sampling.
 
-The JAX sampler pulls a top-(k + margin) head and falls back to a wider
+The JAX samplers pull a top-(k + margin) head and fall back to a wider
 pull under ``lax.cond``; that split is a TPU optimisation, not semantics.
-The port computes the same distribution directly: ban, ``torch.topk``,
-temperature, then ``argmax(values / T + gumbel)`` — which is what
-``jax.random.categorical`` computes from its own Gumbel noise.
+The port computes the same functions directly: ban, top-k, temperature,
+then ``argmax(values / T + gumbel)`` — which is what
+``jax.random.categorical`` computes from its own Gumbel noise.  Noise can
+be passed in (``gumbel=``) so that tests feed the JAX samplers' noise.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+NEG_INF = float("-inf")
 
 
 def _ngram_bans(ids_buf: torch.Tensor, cur_len: int,
@@ -86,8 +90,101 @@ def sample_topk_with_ngram(logits: torch.Tensor, ids_buf: torch.Tensor,
         return logits.argmax(dim=-1)
     v = logits.shape[-1]
     k = min(top_k if top_k is not None else v, v)
+    # the f32 torch.topk, not ``topk``: which of equal logits sits where in
+    # the head does not change the draw's distribution, and the int64 key
+    # cost 0.37 ms a flagship decode step on an H100
     tv, ti = torch.topk(logits, k, dim=-1)
     if gumbel is None:
         gumbel = gumbel_noise(tv.shape, generator, logits.device)
     choice = (tv.float() / temperature + gumbel).argmax(dim=-1)
     return ti.gather(-1, choice[:, None])[:, 0]
+
+
+def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last axis, values
+    descending, ties to the lowest index (``jax.lax.top_k``'s rule, which
+    ``torch.topk`` does not promise).  One ``torch.topk`` on an int64 key:
+    the value's order-preserving int32 image above the reversed index, so
+    -0.0 ranks below +0.0 as in ``lax.top_k``'s total order.  The JAX
+    package's chunked and threshold-gather forms are TPU formulations of
+    the same values."""
+    bits = x.float().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    v = x.shape[-1]
+    rev = torch.arange(v - 1, -1, -1, device=x.device)
+    idx = torch.topk(key * (1 << 32) + rev, k, dim=-1).indices
+    return x.gather(-1, idx), idx
+
+
+def apply_top_k(logits: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
+    """Keep the logits at or above the k-th largest, the rest -inf (ties at
+    the threshold kept)."""
+    if top_k is None:
+        return logits
+    kth = topk(logits, min(top_k, logits.shape[-1]))[0][..., -1:]
+    return logits.masked_fill(logits < kth, NEG_INF)
+
+
+def gumbel_topk_sample(log_probs: torch.Tensor, k: int,
+                       generator: Optional[torch.Generator] = None,
+                       gumbel: Optional[torch.Tensor] = None):
+    """k ids drawn without replacement ∝ exp(log_probs) (Gumbel-top-k):
+    (ids, their log_probs), both (..., k).  ``gumbel`` (log_probs' shape)
+    replaces the noise drawn from ``generator``."""
+    if gumbel is None:
+        gumbel = gumbel_noise(log_probs.shape, generator, log_probs.device)
+    _, ids = topk(log_probs + gumbel, k)
+    return ids, log_probs.gather(-1, ids)
+
+
+def beam_candidates_with_ngram(logits: torch.Tensor, ids_buf: torch.Tensor,
+                               cur_len: int, ngram_sizes: Sequence[int],
+                               generator: Optional[torch.Generator],
+                               temperature: Optional[float],
+                               top_k: Optional[int], bef: int,
+                               gumbel: Optional[torch.Tensor] = None):
+    """n-gram ban, top-k and the choice of ``bef`` candidates per row for
+    beam search: (next_ids (B, bef), log_scores (B, bef) f32), the
+    log-softmax values of the banned, top-k-truncated logits (at
+    ``temperature`` when stochastic).  Greedy (``temperature <= 0``) takes
+    the ``bef`` best; otherwise they are drawn without replacement by
+    Gumbel-top-k over the k-wide head (``gumbel`` (B, k) replaces the
+    noise).  Returns None where JAX's fused scorer does (stochastic with
+    ``top_k`` None, or ``bef`` > ``top_k``): the caller's dense path.
+
+    Two behaviours of the JAX scorer are kept on purpose:
+
+    * the head keeps exactly k values at a tied threshold (lowest indices),
+      where ``apply_top_k`` keeps every tie (JAX sampling.py:484-486);
+    * greedy with ``top_k`` None normalises over the unbanned ids by
+      subtracting the banned mass from the full log-sum-exp, and counts a
+      banned id once for every ban entry that names it — once per n-gram
+      size (and window) that bans it (JAX sampling.py:507).
+    """
+    v = logits.shape[-1]
+    greedy = temperature is None or temperature <= 0
+    k = min(top_k, v) if top_k is not None else None
+    if (k is None and not greedy) or (k is not None and bef > k):
+        return None
+    banned = apply_no_repeat_ngram(logits, ids_buf, cur_len, ngram_sizes)
+    if k is None:
+        x = logits.float()
+        lse = torch.logsumexp(x, dim=-1, keepdim=True)
+        cand, ban = _ngram_bans(ids_buf, cur_len, ngram_sizes)
+        if cand is not None:
+            bv = x.gather(-1, cand)
+            mass = torch.where(ban, torch.exp(bv - lse),
+                               torch.zeros_like(bv)).sum(-1, keepdim=True)
+            lse = lse + torch.log1p(-mass.clamp(max=1.0 - 1e-7))
+        tv, ti = topk(banned, bef)
+        return ti, tv.float() - lse
+    tv, ti = topk(banned, k)
+    tv = tv.float()
+    logp = torch.log_softmax(tv / (1.0 if greedy else temperature), dim=-1)
+    if greedy:
+        pos = topk(tv, bef)[1]
+    else:
+        if gumbel is None:
+            gumbel = gumbel_noise(logp.shape, generator, logp.device)
+        pos = topk(logp + gumbel, bef)[1]
+    return ti.gather(-1, pos), logp.gather(-1, pos)

@@ -88,7 +88,7 @@ def test_sparse_block_kernel_matches_plain(dev, n_embd, n_head, max_block, t,
     layout = torch.randperm(t, generator=torch.Generator().manual_seed(2)
                             ).numpy()
     rows_sel, rows_byp = blk.layout_rows(layout, t, dev)
-    w = blk.sparse_block_weights(torch.bfloat16)
+    w = blk.block_weights(torch.bfloat16)
     ts = rows_sel.numel()
     before = sparse_block.launches
     got, want, rk, gv = _run_pair(sparse_block, sparse_block_plain,
@@ -454,3 +454,227 @@ def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
         "int4_matmul": 3 * n_q}
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
     assert all(torch.equal(tensors[k], v) for k, v in frozen.items())
+
+
+# -- the beam-search slice: encoder front, dense block, ban mask ------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_fused_frontend_kernel_matches_plain(dev, bias):
+    """Projector GEMM + bias, the two slab LayerNorms and the positional
+    table, CLS rows in front: 3 images of 16 rows, din 128 → d 128 (one
+    ragged GEMM tile), and the flagship's front widths at 2 images."""
+    from image2text_torch.ops.fused_frontend import (FrontendWeights,
+                                                     fused_frontend,
+                                                     fused_frontend_plain)
+
+    g = _gen(dev, 13)
+    for b, t, din, d, n_cls in ((3, 16, 128, 128, 8), (2, 256, 2048, 1024,
+                                                         64)):
+        def r(*shape, scale=1.0):
+            return (torch.randn(*shape, device=dev, generator=g) * scale
+                    ).to(torch.bfloat16)
+
+        w = FrontendWeights(
+            w_p=r(din, d, scale=din ** -0.5), b_p=r(d) if bias else None,
+            ln_w=1 + r(t, d, scale=0.1), ln_b=r(t, d, scale=0.1) if bias
+            else None, wpe=r(t, d), cls=r(n_cls, d))
+        x = r(b, t, din)
+        before = fused_frontend.launches
+        got = fused_frontend(x, w)
+        want = fused_frontend_plain(x, w)
+        torch.cuda.synchronize()
+        assert fused_frontend.launches == before + 1
+        assert got.shape == (b, n_cls + t, d)
+        assert torch.equal(got[:, :n_cls], want[:, :n_cls])
+        check_output("fused_frontend", got, want)
+
+
+@pytest.mark.cuda
+def test_fused_frontend_raises_on_what_the_kernels_do_not_take(dev):
+    from image2text_torch.ops.fused_frontend import (FrontendWeights,
+                                                     fused_frontend)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+
+    good = FrontendWeights(t(64, 32), None, t(4, 32), None, t(4, 32), t(2, 32))
+    cases = [(t(1, 4, 64, dtype=torch.float32), good),              # dtype
+             (t(1, 4, 48), good._replace(w_p=t(48, 32))),            # din % 32
+             (t(1, 4, 64), good._replace(ln_w=t(5, 32))),            # table
+             (t(1, 4, 64), good._replace(wpe=t(4, 32, dtype=torch.float32)))]
+    before = fused_frontend.launches
+    for x, w in cases:
+        with pytest.raises(ValueError):
+            fused_frontend(x, w)
+    assert fused_frontend.launches == before
+
+
+def _dense_block(dev, n_embd, n_head, bias):
+    cfg = TransformerConfig(
+        is_sparse_attn=False,
+        attn_config=SelfAttentionConfig(
+            bias=bias, n_head=n_head, n_embd=n_embd,
+            attn_type=SelfAttentionType.MULTI_QUERY),
+        rotator_config=MoEConfig(num_experts=4, proj_features=16,
+                                 gate_sizes=(32,), ff_mult_factor=2.0,
+                                 top_k=2))
+    blk = TransformerBlock(cfg, device=dev)
+    init_parameters(blk, _gen(dev))
+    return blk.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_embd,n_head,t,bias", [
+    (256, 2, 40, True),      # head dim 128, t not % 16
+    (64, 4, 320, False),     # the dense twin's 320 keys at head dim 16
+])
+def test_fused_block_kernel_matches_plain(dev, n_embd, n_head, t, bias):
+    """The dense block's chain on every row, the plain version on the
+    kernel's routes; the FFN term lifted to the residual's size too."""
+    from image2text_torch.ops.fused_block import fused_block, fused_block_plain
+
+    blk = _dense_block(dev, n_embd, n_head, bias)
+    x = torch.randn(5, t, n_embd, device=dev, generator=_gen(dev, 14)
+                    ).to(torch.bfloat16)
+    w = blk.block_weights(torch.bfloat16)
+    before = fused_block.launches
+    got, want, rk, gv = _run_pair(fused_block, fused_block_plain, (x, w),
+                                  5 * t, w.fc.e)
+    assert fused_block.launches == before + 1
+    check_routes("fused_block", rk, gv, w.fc.k)
+    check_output("fused_block", got, want)
+    w64 = w._replace(proj=w.proj._replace(l2w=w.proj.l2w * 64,
+                                          l2b=w.proj.l2b * 64))
+    got, want, rk, gv = _run_pair(fused_block, fused_block_plain, (x, w64),
+                                  5 * t, w.fc.e)
+    check_routes("fused_block x64", rk, gv, w.fc.k)
+    check_output("fused_block x64", got, want)
+    with torch.no_grad():
+        assert torch.equal(blk(x), fused_block(x, w))
+
+
+@pytest.mark.cuda
+def test_fused_block_raises_past_the_attention_shared_memory(dev):
+    """More rows than the attention kernel's scores fit in a block's
+    shared memory: a ValueError before any launch, not a refused launch."""
+    from image2text_torch.ops.fused_block import MAX_ATTN_ROWS, fused_block
+
+    blk = _dense_block(dev, 64, 4, False)
+    w = blk.block_weights(torch.bfloat16)
+    x = torch.zeros(1, MAX_ATTN_ROWS + 16, 64, device=dev,
+                    dtype=torch.bfloat16)
+    before = fused_block.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_block(x, w)
+    assert fused_block.launches == before
+
+
+def _ban_cases(dev):
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(6, 50258, generator=g)
+    x[0, :8] = torch.tensor([0.0, -0.0] * 4)
+    x[0, 8:] = -1.0
+    x[1, 3:] = float("-inf")
+    x[2, :40] = x[2, 40]                         # ties at the threshold
+    ban = torch.randint(0, 50258, (6, 132), generator=g, dtype=torch.int32)
+    ban[torch.rand(6, 132, generator=g) < 0.3] = -1
+    ban[3] = torch.arange(132, dtype=torch.int32)
+    ban[4, :2] = torch.tensor([50258, 60000], dtype=torch.int32)
+    return x.to(dev), ban.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 50258])
+@pytest.mark.parametrize("with_bans", [False, True])
+def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k,
+                                                           with_bans):
+    """The flagship's vocabulary, signed zeros, -inf inputs, ties at the
+    threshold, 132 ban columns (more live bans than the JAX kernel's cap),
+    ids past the vocabulary; k from 1 to the whole row."""
+    from image2text_torch.ops.topk_mask import (topk_ban_mask,
+                                                topk_ban_mask_reference)
+
+    x, ban = _ban_cases(dev)
+    ban = ban if with_bans else None
+    before = topk_ban_mask.launches
+    got = topk_ban_mask(x, ban, k)
+    want = topk_ban_mask_reference(x, ban, k)
+    torch.cuda.synchronize()
+    assert topk_ban_mask.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_topk_ban_mask_raises_on_what_the_kernel_does_not_take(dev):
+    from image2text_torch.ops.topk_mask import MAX_VOCAB, topk_ban_mask
+
+    before = topk_ban_mask.launches
+    with pytest.raises(ValueError):
+        topk_ban_mask(torch.zeros(2, MAX_VOCAB + 1, device=dev), None, 4)
+    with pytest.raises(ValueError):
+        topk_ban_mask(torch.zeros(2, 64, device=dev),
+                      torch.zeros(3, 4, dtype=torch.int32, device=dev), 4)
+    assert topk_ban_mask.launches == before
+
+
+@pytest.mark.cuda
+def test_tiny_dense_twin_and_beam_search_on_card(dev):
+    """The tiny dense twin in bf16: an encoder forward launches the front
+    once and the dense block in every encoder block, and its first-step
+    logits agree with the plain-version path normwise; then a beam search
+    of the tiny flagship: ids and scores of the right shapes, the front
+    and the sparse block once each per encoder block."""
+    from image2text_torch.configs.models import flagship_dense_config
+    from image2text_torch.models import encoder as encmod
+    from image2text_torch.models import layers
+    from image2text_torch.models.generation_utils import (
+        BeamSearchTokenGenerator)
+    from image2text_torch.ops.fused_block import fused_block, fused_block_plain
+    from image2text_torch.ops.fused_frontend import (fused_frontend,
+                                                     fused_frontend_plain)
+
+    model = VisionEncoderDecoder(flagship_dense_config(tiny=True), device=dev
+                                 ).init_weights(0).to(torch.bfloat16)
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 16)
+                         ).to(torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+
+    def first_logits():
+        with torch.no_grad():
+            enc = model.encoder(images)
+            cache = model.decoder.init_cache(4, 9, enc.dtype, dev)
+            return decoder_step(model, prompt, cache, model.space_for_prompt,
+                                enc)[0][:, -1]
+
+    counts = fused_frontend.launches, fused_block.launches
+    got = first_logits()
+    assert (fused_frontend.launches, fused_block.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    saved = (encmod.fused_frontend, layers.fused_block, layers.sparse_block,
+             layers.moe_ffn)
+    (encmod.fused_frontend, layers.fused_block, layers.sparse_block,
+     layers.moe_ffn) = (fused_frontend_plain, fused_block_plain,
+                        sparse_block_plain, moe_ffn_plain)
+    try:
+        want = first_logits()
+    finally:
+        (encmod.fused_frontend, layers.fused_block, layers.sparse_block,
+         layers.moe_ffn) = saved
+    rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+    assert float(rel) <= TOL
+
+    sparse = VisionEncoderDecoder(flagship_config(tiny=True), device=dev
+                                  ).init_weights(0).to(torch.bfloat16)
+    gen = BeamSearchTokenGenerator(sparse, beam_width=3, temperature=0.7,
+                                   top_k=16, max_new_tokens=8,
+                                   no_repeat_n_grams=(2, 3, 4, 5),
+                                   eos_token_id=0)
+    counts = fused_frontend.launches, sparse_block.launches
+    ids, scores = gen(images, prompt, generator=_gen(dev, 17))
+    torch.cuda.synchronize()
+    assert ids.shape == (4, 3, 8) and scores.shape == (4, 3)
+    assert bool(torch.isfinite(scores).all()) and bool((ids < 512).all())
+    assert (fused_frontend.launches, sparse_block.launches) == (
+        counts[0] + 1, counts[1] + 2)

@@ -123,3 +123,45 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         moe_ffn(torch.empty(3, 64, device="meta"),
                 mlp.c_fc.packed(x.dtype), mlp.c_proj.packed(x.dtype))
     assert moe_ffn.launches == before
+
+
+@pytest.mark.parametrize("name", [
+    "image2text_torch.ops.fused_frontend", "image2text_torch.ops.topk_mask",
+    "image2text_torch.models.generation_utils"])
+def test_beam_slice_modules_are_covered(name):
+    """The beam-search slice's new modules are among those the no-JAX
+    import check walks, and none names JAX or the JAX package."""
+    assert name in _submodules()
+    path = REPO / (name.replace(".", "/") + ".py")
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|image2text_tpu)\b",
+                         path.read_text(), re.M)
+
+
+def test_new_kernel_wrappers_take_plain_version_only_on_cpu():
+    """The front, the dense block and the ban mask: plain on a CPU tensor,
+    no launch; on another device the kernel or a raise."""
+    from image2text_torch.configs.models import flagship_dense_config
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+    from image2text_torch.ops.fused_block import fused_block
+    from image2text_torch.ops.fused_frontend import fused_frontend
+    from image2text_torch.ops.topk_mask import topk_ban_mask
+
+    model = VisionEncoderDecoder(flagship_dense_config(tiny=True),
+                                 device="cpu").init_weights(0)
+    enc = model.vision_encoder
+    front, blk = enc.frontend_weights(torch.float32), enc.blocks[0]
+    x = torch.zeros(2, enc.n_patches ** 2, enc.input_d)
+    s = torch.zeros(2, enc.n_cls + enc.n_patches ** 2, enc.out_dim)
+    logits = torch.zeros(2, 50)
+    calls = [(fused_frontend, (x, front)),
+             (fused_block, (s, blk.block_weights(torch.float32))),
+             (topk_ban_mask, (logits, None, 4))]
+    for fn, args in calls:
+        before = fn.launches
+        assert fn(*args).device.type == "cpu" and fn.launches == before
+        meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(*meta)
+        assert fn.launches == before

@@ -121,7 +121,7 @@ def test_sparse_block_plain_forced_routes_reproduce_it():
     init_parameters(blk, torch.Generator().manual_seed(5))
     x = torch.randn(3, 32, 64, generator=torch.Generator().manual_seed(6))
     rows_sel, rows_byp = blk.layout_rows(None, 32, "cpu")
-    w = blk.sparse_block_weights(torch.float32)
+    w = blk.block_weights(torch.float32)
     n = 3 * rows_sel.numel()
     routes = torch.zeros(n, 2, dtype=torch.uint8)
     free = sparse_block_plain(x, rows_sel, rows_byp, w, routes=routes)

@@ -78,7 +78,7 @@ def test_sparse_block_plain_matches_jax_kernel(bias, permuted):
                                             layout, interpret=True)
     assert ref is not None
     rows_sel, rows_byp = tblk.layout_rows(layout, 32, "cpu")
-    w = tblk.sparse_block_weights(torch.float32)
+    w = tblk.block_weights(torch.float32)
     out = sparse_block_plain(torch.from_numpy(x), rows_sel, rows_byp, w)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=3e-5,
                                atol=3e-5)
@@ -100,7 +100,7 @@ def test_sparse_block_plain_matches_jax_kernel_bf16():
                                         interpret=True)
     rows_sel, rows_byp = tblk.layout_rows(None, 32, "cpu")
     out = sparse_block(torch.from_numpy(x).to(torch.bfloat16), rows_sel,
-                       rows_byp, tblk.sparse_block_weights(torch.bfloat16))
+                       rows_byp, tblk.block_weights(torch.bfloat16))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), rtol=0.06,

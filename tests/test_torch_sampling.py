@@ -92,3 +92,19 @@ def test_sampler_draws_from_generator():
     for seed in range(5):
         out = draw(seed)
         assert all(int(o) in top16[i].tolist() for i, o in enumerate(out))
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 40])
+def test_topk_equals_lax_top_k_with_ties(k):
+    """Values and indices of ``jax.lax.top_k``: ties (at the threshold and
+    above it) to the lowest index, -0.0 below +0.0, -inf entries last."""
+    rng = np.random.default_rng(k)
+    x = rng.integers(-3, 4, (5, 40)).astype(np.float32)      # many ties
+    x[1] = rng.standard_normal(40).astype(np.float32)
+    x[2, :6] = [0.0, -0.0, -0.0, 0.0, -0.0, 0.0]
+    x[2, 6:] = -1.0
+    x[3, 5:] = -np.inf
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
+    got_v, got_i = ts.topk(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
