@@ -7,7 +7,8 @@
 Phases, each printing its lines:
 
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
-2. build    nvcc builds every kernel source from the checkout, in parallel.
+2. build    nvcc builds every kernel source from the checkout, and the
+            probes' ablation builds of two of them, in parallel.
 3. kernels  each CUDA kernel against its plain PyTorch version, in bf16 at
             the flagship shapes, the plain version run on the kernel's own
             expert routes and held at the output's scale
@@ -19,7 +20,16 @@ Phases, each printing its lines:
             plain versions, and F.scaled_dot_product_attention's time as a
             yardstick the port never calls.
             The encoder front (fused_frontend) at the serving batch, with
-            the projector's torch.matmul as a yardstick.
+            the projector's torch.matmul as a yardstick.  The block
+            chain's stages alone: its wgmma GEMMs against torch.matmul at
+            the same shapes, its head-folded attention against one SDPA
+            call on the folded query.  moe_ffn's two regimes forced at
+            256 to 40,960 rows (where the switch FEW_ROWS lies).
+   probes   the two block probes (image2text_torch/probes/) at batch 64:
+            the chain built with each ablation (GELU, softmax, LayerNorm
+            swapped out) held against its plain chain, and launched per
+            image and per group of images against the whole batch; ms of
+            every variant.
 4. main     the flagship serving path at full width with random weights:
             raw uint8 frames → preprocess → encoder → cached generate
             (32 new tokens, temperature 0.7, top-k 16, n-grams 2–5);
@@ -120,6 +130,7 @@ BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
 F32_OP_PER_S = 67e12        # f32 outside the tensor cores
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
+PROBE_BATCH = 64  # the block probes' batch (tools/ ran 256; cut for time)
 BEAM_BATCH = 64  # bench.py::_bench_beam's batch (3 beams: 192 decode rows)
 FLAGSHIP_BOS = 1   # the flagship's prompt token
 FLAGSHIP_EOS = 0   # bench.py's beam eos_token_id
@@ -137,19 +148,9 @@ def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S):
 
 def cuda_ms(torch, fn, iters: int = 10) -> float:
     """Median device time of ``fn`` in ms (CUDA events, after warm-up)."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from image2text_torch.probes import time_ms
+
+    return time_ms(fn, iters)
 
 
 def nbytes(*ts) -> int:
@@ -269,6 +270,54 @@ def block_input(torch, model, gen, depth: int = 2):
     return images, captured["x"], captured["layout"]
 
 
+def chain_stage_ms(torch, w, b: int, ts: int, tb: int, gen) -> dict:
+    """The block chain's stages alone on random inputs at its shapes: the
+    wgmma GEMM at the q/kv, Wo and (tb > 0) bypass shapes (``gemm_ms``),
+    the head-folded attention kernel (``attention_ms``), and, as
+    yardsticks the port never calls, one F.scaled_dot_product_attention
+    on the folded (b, 1, n_head·ts, hd) query against the shared K/V
+    (``attention_library_ms``)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.fused_block import _attention, _gemm
+
+    dev, bf = w.w_o.device, torch.bfloat16
+    d = w.w_o.shape[0]
+    hd = d // w.n_head
+    lib = _build.load("fused_block")
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    a = torch.randn(b * ts, d, device=dev, dtype=bf, generator=gen)
+    a_b = torch.randn(b * max(tb, 1), d, device=dev, dtype=bf, generator=gen)
+    qkv = torch.randn(b * ts, d + 2 * hd, device=dev, dtype=bf,
+                      generator=gen)
+    c_qkv, c_o = torch.empty_like(qkv), torch.empty_like(a)
+    c_b = torch.empty_like(a_b)
+
+    def gemms():
+        _gemm(lib, st, a, None, ts, w.w_qkv, w.b_qkv, None, None, ts, c_qkv,
+              ts, 0, b, ts)
+        _gemm(lib, st, a, None, ts, w.w_o, w.b_o, a, None, ts, c_o, ts, 0, b,
+              ts)
+        if tb:
+            _gemm(lib, st, a_b, None, tb, w.w_n, w.b_n, a_b, None, tb, c_b,
+                  tb, 0, b, tb)
+
+    q = qkv[:, :d].reshape(b, ts, w.n_head, hd).transpose(1, 2).reshape(
+        b, 1, w.n_head * ts, hd).contiguous()
+    k = qkv[:, None, d:d + hd].reshape(b, ts, 1, hd).transpose(1, 2)
+    v = qkv[:, None, d + hd:].reshape(b, ts, 1, hd).transpose(1, 2)
+    k, v = k.contiguous(), v.contiguous()
+    return dict(
+        gemm_ms=cuda_ms(torch, gemms),
+        attention_ms=cuda_ms(torch, lambda: _attention(lib, st, qkv, b, ts,
+                                                       w.n_head, hd)),
+        attention_library_ms=cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v)))
+
+
 def kernel_row(results, name, tag, source, replaces, row, **shape):
     """Keep a kernel's measurements: its row (``tag`` None) or one of its
     ``<tag>_shape`` entries."""
@@ -360,18 +409,21 @@ def phase_dense_kernel(torch, model, args, results):
     lib = cuda_ms(torch, lambda: (
         torch.matmul(a, w.w_qkv), torch.matmul(a, w.w_o),
         F.scaled_dot_product_attention(q, kv, kv, enable_gqa=True)))
+    stages = chain_stage_ms(torch, w, b, t, 0, gen)
     if args.profile:
         log("  device time by kernel, one fused_block call:")
-        device_profile(torch, lambda: fused_block(x, w), top=6)
+        device_profile(torch, lambda: fused_block(x, w), top=8)
     log(f"  fused_block: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP; kernel at "
         f"{bms / ms:.3f} of it), torch.matmul at its two projections + "
-        f"SDPA {lib:.4f} ms")
+        f"SDPA {lib:.4f} ms; its two GEMMs alone {stages['gemm_ms']:.4f} "
+        f"ms, attention kernel {stages['attention_ms']:.4f} ms, SDPA on "
+        f"the head-folded query {stages['attention_library_ms']:.4f} ms")
     kernel_row(results, "fused_block", None,
                "image2text_torch/csrc/fused_block.cu",
                "image2text_tpu/ops/fused_block.py:105",
                dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib))
+                    bound_by=by, library_ms=lib, **stages))
 
 
 def phase_topk_kernel(torch, results, ids, ngrams, vocab: int, tag=None,
@@ -474,18 +526,24 @@ def phase_kernels(torch, model, args, results, tag=None):
     lib = cuda_ms(torch, lambda: (torch.matmul(a_sel, w.w_qkv),
                                   torch.matmul(a_sel, w.w_o),
                                   torch.matmul(a_byp, w.w_n)))
+    stages = chain_stage_ms(torch, w, b, ts, tb, gen)
     if args.profile:
         log("  device time by kernel, one sparse_block call:")
         device_profile(torch, lambda: sparse_block(x, rows_sel, rows_byp, w),
-                       top=6)
+                       top=8)
     log(f"  sparse_block: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP), torch.matmul at its "
-        f"GEMM shapes {lib:.4f} ms")
+        f"GEMM shapes {lib:.4f} ms; its three GEMMs alone "
+        f"{stages['gemm_ms']:.4f} ms ({stages['gemm_ms'] / lib:.3f} x "
+        f"torch.matmul), attention kernel {stages['attention_ms']:.4f} ms, "
+        f"SDPA on the head-folded query "
+        f"{stages['attention_library_ms']:.4f} ms")
     kernel_row(results, "sparse_block", tag,
                "image2text_torch/csrc/fused_block.cu",
                "image2text_tpu/ops/fused_block.py:118",
                dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib), b=b, t=t, t_sel=ts, d=d)
+                    bound_by=by, library_ms=lib, **stages), b=b, t=t,
+               t_sel=ts, d=d)
 
     # decode: a decoder block's FFN on its 256 rows; encoder: the sparse
     # block's FFN stage (LN2 prologue) on its b·t_sel rows, held at the
@@ -522,6 +580,95 @@ def phase_kernels(torch, model, args, results, tag=None):
             results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = dict(
                 rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+MOE_SWEEP_ROWS = (256, 512, 1024, 2048, 4096, 8192, 40960)
+
+
+def phase_moe_regimes(torch, model, results):
+    """moe_ffn's two regimes at the encoder's FFN widths (1024 → 2048),
+    each forced at every row count of MOE_SWEEP_ROWS: the many-rows kernel
+    (no split) and the hidden split with the slices the few-rows rule
+    gives (past FEW_ROWS, those at FEW_ROWS rows): where the switch point
+    FEW_ROWS should lie."""
+    from image2text_torch.ops.fused_moe import (FEW_ROWS, launch_moe_ffn,
+                                                moe_slices)
+
+    mlp = model.vision_encoder.blocks[2].mlp
+    bf = torch.bfloat16
+    fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
+    hidden = fc.l2w.shape[1]
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 12)
+    sweep = []
+    for n in MOE_SWEEP_ROWS:
+        x = torch.randn(n, fc.wa.shape[0], device=model.device, dtype=bf,
+                        generator=gen)
+        out = torch.empty_like(x)
+        split = moe_slices(min(n, FEW_ROWS), hidden)
+        many = cuda_ms(torch, lambda: launch_moe_ffn(x, fc, proj, out,
+                                                     slices=1), iters=20)
+        few = cuda_ms(torch, lambda: launch_moe_ffn(x, fc, proj, out,
+                                                    slices=split), iters=20)
+        sweep.append(dict(rows=n, many_ms=many, split_ms=few, slices=split,
+                          picked=moe_slices(n, hidden)))
+        log(f"  moe_ffn regimes rows={n} hidden={hidden}: many-rows kernel "
+            f"{many:.4f} ms, hidden split in {split} {few:.4f} ms; the "
+            f"wrapper picks {moe_slices(n, hidden)} slice(s) (FEW_ROWS "
+            f"{FEW_ROWS})")
+    results.setdefault("moe_ffn", {"name": "moe_ffn"})["regimes"] = sweep
+
+
+def phase_probes(torch, results):
+    """The two block probes (image2text_torch/probes/) at batch 64: every
+    variant held against its plain chain or the whole batch, and timed."""
+    from image2text_torch.ops.fused_block import fused_block_plain
+    from image2text_torch.probes import block_ablate, block_wide
+
+    for name, mod, replaces, held in (
+            ("block_ablate_probe", block_ablate,
+             "tools/block_ablate_probe.py:134",
+             "its plain chain with the same substitutions"),
+            ("block_wide_probe", block_wide, "tools/block_wide_probe.py:100",
+             "the whole batch in one launch")):
+        # ms: the shipping chain (full / the whole batch); the probe's
+        # variants under variants_ms
+        out = mod.main(PROBE_BATCH)
+        variants = {v: out[f"{v}_ms"] for v in mod.VARIANTS}
+        errs = [out[f"{v}_max_abs_err"] for v in mod.VARIANTS]
+        extra = "".join(f"; {v} held {out[f'{v}_held']}"
+                        for v in mod.VARIANTS if f"{v}_held" in out)
+        log(f"  {name} (batch {PROBE_BATCH}, t 160, d 1024; the TPU probe "
+            f"ran batch 256): "
+            + ", ".join(f"{v} {t:.4f} ms" for v, t in variants.items())
+            + (f", whole batch {out['whole_ms']:.4f} ms"
+               if "whole_ms" in out else "")
+            + f"; max_abs_err against {held} {max(errs):.6g}" + extra)
+        results[name] = dict(
+            name=name, route="cuda", replaces=replaces,
+            source=f"image2text_torch/probes/{mod.__name__.split('.')[-1]}.py",
+            variants_ms=variants, max_abs_err=max(errs), **out)
+    # the chain's plain version, bound and yardstick at the probe's shapes
+    x, w = block_ablate.probe_block(PROBE_BATCH, "cuda")
+    b, t, d = x.shape
+    plain = cuda_ms(torch, lambda: fused_block_plain(x, w))
+    n, hd = b * t, d // w.n_head
+    ffn_flops, _ = moe_flops_bytes(x.reshape(n, d), w.fc, w.proj)
+    flops = (2 * n * d * (d + 2 * hd) + 4 * b * w.n_head * t * t * hd
+             + 2 * n * d * d + ffn_flops)
+    wbytes = sum(nbytes(getattr(w, f)) for f in w._fields[:8]) + nbytes(
+        w.fc, w.proj)
+    bms, by = bound_ms(2 * nbytes(x) + wbytes, flops)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    a = torch.randn(n, d, device="cuda", dtype=torch.bfloat16, generator=gen)
+    lib = cuda_ms(torch, lambda: (torch.matmul(a, w.w_qkv),
+                                  torch.matmul(a, w.w_o)))
+    for name, ms_key in (("block_ablate_probe", "full_ms"),
+                         ("block_wide_probe", "whole_ms")):
+        results[name].update(ms=results[name][ms_key], plain_ms=plain,
+                             bound_ms=bms, bound_by=by, library_ms=lib)
+    log(f"  probe chain (b {b}, t {t}): plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), torch.matmul at its two projections "
+        f"{lib:.4f} ms")
 
 
 def serving_launches(model, n_forwards: int = 1 + MAX_NEW_TOKENS):
@@ -1393,10 +1540,13 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    from image2text_torch.probes.block_ablate import build_units
+
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"[build] {len(logs)} sources compiled in "
-        f"{time.perf_counter() - t0:.1f} s")
+    logs = _build.build_all(build_units())
+    log(f"[build] {len(logs)} libraries compiled in "
+        f"{time.perf_counter() - t0:.1f} s (every source, and "
+        f"fused_block.cu and fused_moe.cu once per probe variant)")
     for text in logs:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -1414,6 +1564,10 @@ def main() -> int:
     with torch.no_grad():
         log("[kernels] kernel vs plain version (bf16, flagship shapes)")
         phase_kernels(torch, model, args, results)
+        phase_moe_regimes(torch, model, results)
+        log("[probes] the block probes: ablations and launch groupings of "
+            "the encoder-block chain")
+        phase_probes(torch, results)
         log("  flash-attention kernels vs plain versions, same dropout "
             "seed (bf16, the training step's attention shapes)")
         phase_flash_kernels(torch, args, results)
@@ -1503,13 +1657,15 @@ def main() -> int:
                        LORA_GRADS)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path")
-    # a kernel no path launches (topk_ban_mask) has 0 launches
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("gemm_ms", "attention_ms", "attention_library_ms", "regimes",
+             "variants_ms", "launches_by_path")
+    # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}
+               | {k: r[k] for k in extra if k in r}
                | {k: v for k, v in r.items() if k.endswith("_shape")}
                for r in results.values()]
-    if len(kernels) != len(kernel_wrappers()):
+    if len(kernels) != len(kernel_wrappers()) + 2:   # + the two probes
         raise AssertionError(f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,7 @@ namespace i2t {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-// WMMA tile shape for bf16 inputs and f32 accumulators.
+// WMMA tile shape for bf16 inputs and f32 accumulators (the flash kernels).
 constexpr int TM = 16, TN = 16, TK = 16;
 using FragA = wmma::fragment<wmma::matrix_a, TM, TN, TK, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, TM, TN, TK, bf16, wmma::row_major>;
@@ -30,6 +30,33 @@ __device__ __forceinline__ float rbf(float v) { return to_f(to_bf(v)); }
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k = 0.7978845608028654f;
   return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
+// Measurement switches of the block probes (image2text_torch/probes/
+// block_ablate.py), fixed at compile time; the shipping build defines none:
+//   I2T_GELU     0 tanh GELU, 1 0.5·x, 2 x·sigmoid(1.702 x)
+//   I2T_SOFTMAX  0 exact softmax, 1 probabilities 0.01·s, 2 exp2 softmax
+//   I2T_LN       0 LayerNorm, 1 identity (LN1 and the FFN's LN2 prologue)
+#ifndef I2T_GELU
+#define I2T_GELU 0
+#endif
+#ifndef I2T_SOFTMAX
+#define I2T_SOFTMAX 0
+#endif
+#ifndef I2T_LN
+#define I2T_LN 0
+#endif
+
+// The MoE FFN's activation (gelu_tanh unless a probe build swaps it); the
+// caller rounds the result to bf16.
+__device__ __forceinline__ float act(float x) {
+#if I2T_GELU == 1
+  return 0.5f * x;
+#elif I2T_GELU == 2
+  return x * rbf(1.f / (1.f + expf(-1.702f * x)));
+#else
+  return gelu_tanh(x);
+#endif
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -60,6 +87,37 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mma.sync m16n8k16, bf16 in, f32 accumulate: c += a·b.  Fragments
+// (g = lane / 4, q = lane % 4): a0 (row g, k 2q..2q+1), a1 (row g + 8),
+// a2 (row g, k 2q + 8..), a3 (row g + 8, k 2q + 8..); b0 (k 2q..2q+1, col
+// g), b1 (k 2q + 8..); c0, c1 (row g, cols 2q, 2q + 1), c2, c3 (row g + 8).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i.  With .trans each comes transposed: from a
+// row-major (k, n) slab, the b0/b1 fragments of two n8 tiles.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+// Two f32 values as a bf16 pair (lo in the low half), rounded to nearest.
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 }  // namespace i2t

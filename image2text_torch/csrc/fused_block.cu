@@ -6,12 +6,14 @@
 //
 //   ln_gather   LN1 of the selected rows, read through a row-index list
 //               (or of every row when the list is null);
-//   gemm        C = A·B (+ bias) (+ residual), bf16 tensor cores with f32
-//               accumulators (gemm.cuh); A and the residual are read through
-//               row-index lists and C rows land at an offset, so the lazy
-//               layout's [sel; byp] gather and concat cost no separate pass;
-//   mqa_attention  one shared K/V head, scores rounded to bf16 before an
-//               f32 softmax, probabilities in bf16 before the V product.
+//   gemm        C = A·B (+ bias) (+ residual) on wgmma from TMA-fed shared
+//               memory tiles (gemm.cuh); the residual is read through a row
+//               list and C rows land at an offset, so the lazy layout's
+//               [sel; byp] gather and concat cost no separate pass;
+//   mqa_attention  multi-query attention with the heads folded into the
+//               rows: one shared K/V head, scores rounded to bf16 before an
+//               exact f32 softmax, probabilities in bf16 before the V
+//               product.
 //
 // The block's MoE FFN stage is the kernel of fused_moe.cu.
 #include "common.cuh"
@@ -30,6 +32,11 @@ __global__ void __launch_bounds__(256) ln_gather_kernel(const bf16* x, bf16* out
   const int m = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (m >= b * tg) return;
   const bf16* src = x + map_row(m, rows, T, tg) * d;
+  if (I2T_LN == 1) {
+    for (int c = lane * 8; c < d; c += 256)
+      *reinterpret_cast<Bf16x8*>(out + (size_t)m * d + c) = *reinterpret_cast<const Bf16x8*>(src + c);
+    return;
+  }
   float sum = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
     const Bf16x8 v = *reinterpret_cast<const Bf16x8*>(src + c);
@@ -62,93 +69,191 @@ __global__ void __launch_bounds__(256) ln_gather_kernel(const bf16* x, bf16* out
 }
 
 // ------------------------------------------------------------ MQA attention
-// A warp takes 16 query rows of one (image, head); a block holds 4 warps.
-// qkv holds tp = t rounded up to 16 rows per image, rows t..tp zero; a row
-// is [q (n_head·hd) | k (hd) | v (hd)]; o rows are n_head·hd, t per image.
-// Q, K and V fragments load straight from device memory (the image's K/V
-// rows stay hot in L1/L2 across its heads); the scores live in shared
-// memory as bf16 — the storage-dtype rounding the softmax reads — and are
-// turned into bf16 probabilities in place; key columns >= t are masked.
+// What bounds it: operations, and before the redesign the bytes it re-read:
+// 4·b·n_head·t²·hd FLOP (27 GFLOP at b 256, t 160: 0.03 ms at the bf16
+// peak).  With one shared K/V head the n_head·t query rows of an image all
+// meet the same K and V (the JAX sdpa head fold), so a block stages one
+// image's K (row-major) and Vᵀ in shared memory once and its 16 warps run
+// 16 folded query rows at a time through mma.sync m16n8k16, Q fragments
+// straight from device memory, K and Vᵀ fragments by ldmatrix.  The
+// softmax is exact, as the plain version's: pass 1 runs Q·Kᵀ over every
+// key for the row max and sum (the sum rescaled as the max grows: only its
+// f32 order differs), pass 2 runs Q·Kᵀ again, p = bf16(exp(s - max) / sum)
+// in registers, and P·V.  Scores never leave registers (keeping pass 1's
+// in registers for pass 2 spilled at the 128 registers a 16-warp block
+// allows, and ran slower).  Shared memory: tp (t rounded up to 16) rows of
+// K at hd + 8 bf16 and hd rows of Vᵀ at tp + 8, (tp·(hd + 8) + hd·(tp +
+// 8))·2 bytes: 86.5 KB at t 160, 171 KB at t 320; within a block's 227 KB
+// (232,448 bytes) up to tp 432 at hd 128.  Registers (at most 128 a
+// thread) allow one 16-warp block an SM.
 struct AttnArgs {
-  const bf16* qkv;
-  bf16* o;
+  const bf16* qkv;  // (b·t, ldq) rows [q (n_head·hd) | k (hd) | v (hd)]
+  bf16* o;          // (b·t, n_head·hd)
   int t, tp, n_head, d, ldq;
   float scale;
 };
 
-__host__ __device__ constexpr size_t attn_warp_bytes(int tp) { return 32 * (size_t)tp + 1024; }
+constexpr int ATTN_WARPS = 16;  // 512 threads at <= 128 registers: one block an SM
+
+__host__ __device__ constexpr size_t attn_smem_bytes(int tp, int hd) {
+  return ((size_t)tp * (hd + 8) + (size_t)hd * (tp + 8)) * 2;
+}
 
 template <int HD>
-__global__ void __launch_bounds__(128) mqa_attention_kernel(AttnArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = p.t, tp = p.tp, ldq = p.ldq;
-  const int img = blockIdx.z, h = blockIdx.y;
-  const int q0 = (blockIdx.x * 4 + warp) * 16;
-  if (q0 >= t) return;  // no block-wide barriers in this kernel
-  bf16* sP = reinterpret_cast<bf16*>(smem_raw + warp * attn_warp_bytes(tp));
-  float* stg = reinterpret_cast<float*>(sP + 16 * tp);
-  const bf16* base = p.qkv + (size_t)img * tp * ldq;
+__global__ void __launch_bounds__(ATTN_WARPS * 32, 1) mqa_attention_kernel(AttnArgs p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LDK = HD + 8;
+  const int t = p.t, tp = p.tp, ldv = tp + 8, img = blockIdx.y;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sVt = sK + (size_t)tp * LDK;
+  const bf16* base = p.qkv + (size_t)img * t * p.ldq;
 
-  FragA qf[HD / 16];
+  // stage K (rows t..tp zero) and Vᵀ (columns t..tp zero)
+  for (int i = threadIdx.x; i < tp * (HD / 8); i += blockDim.x) {
+    const int key = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    Bf16x8 kv, vv;
+    if (key < t) {
+      kv = *reinterpret_cast<const Bf16x8*>(base + (size_t)key * p.ldq + p.d + c);
+      vv = *reinterpret_cast<const Bf16x8*>(base + (size_t)key * p.ldq + p.d + HD + c);
+    } else {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], base + (size_t)q0 * ldq + h * HD + kk * 16, ldq);
+      for (int e = 0; e < 8; ++e) kv.v[e] = vv.v[e] = to_bf(0.f);
+    }
+    *reinterpret_cast<Bf16x8*>(sK + key * LDK + c) = kv;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sVt[(c + e) * ldv + key] = vv.v[e];
+  }
+  __syncthreads();
 
-  // S = Q Kᵀ (f32), scaled in f32 and rounded to bf16
-  for (int j = 0; j < tp / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q4 = lane % 4;
+  const int rows = p.n_head * t, tiles = (rows + 15) / 16;
+  for (int tile = blockIdx.x * ATTN_WARPS + warp; tile < tiles; tile += gridDim.x * ATTN_WARPS) {
+    // folded rows r = h·t + i of this tile: thread rows g and g + 8
+    int hh[2], ii[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tile * 16 + g + 8 * h;
+      ok[h] = r < rows;
+      hh[h] = ok[h] ? r / t : 0;
+      ii[h] = ok[h] ? r % t : 0;
+    }
+    uint32_t qa[HD / 16][4];
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      FragBT fb;
-      wmma::load_matrix_sync(fb, base + (size_t)j * 16 * ldq + p.d + kk * 16, ldq);
-      wmma::mma_sync(c, qf[kk], fb, c);
-    }
-    wmma::store_matrix_sync(stg, c, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) sP[(i / 16) * tp + j * 16 + i % 16] = to_bf(stg[i] * p.scale);
-    __syncwarp();
-  }
-
-  // softmax in f32 per row; bf16 probabilities written over the scores
-  for (int row = 0; row < 16; ++row) {
-    bf16* srow = sP + row * tp;
-    float mx = -INFINITY;
-    for (int c = lane; c < t; c += 32) mx = fmaxf(mx, to_f(srow[c]));
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < t; c += 32) sum += expf(to_f(srow[c]) - mx);
-    sum = warp_sum(sum);
-    for (int c = lane; c < tp; c += 32)
-      srow[c] = to_bf(c < t ? expf(to_f(srow[c]) - mx) / sum : 0.f);
-  }
-  __syncwarp();
-
-  // O = P V
-  const int r = lane / 2, c8 = (lane % 2) * 8;
 #pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    for (int kk = 0; kk < tp / 16; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, sP + kk * 16, tp);
-      wmma::load_matrix_sync(fb, base + (size_t)kk * 16 * ldq + p.d + HD + j * 16, ldq);
-      wmma::mma_sync(c, fa, fb, c);
+      for (int u = 0; u < 4; ++u) {
+        const int h = u & 1, col = kk * 16 + 2 * q4 + (u >> 1) * 8;
+        qa[kk][u] = ok[h] ? *reinterpret_cast<const uint32_t*>(
+                                base + (size_t)ii[h] * p.ldq + hh[h] * HD + col)
+                          : 0u;
+      }
     }
-    wmma::store_matrix_sync(stg, c, 16, wmma::mem_row_major);
-    __syncwarp();
-    if (q0 + r < t) {
-      Bf16x8 o;
+    // S for key tile j (8 keys): c0, c1 row g keys 8j + 2q4 (+1); c2, c3 row g + 8
+    // S for key tiles j and j + 1 (8 keys each): c0, c1 row g keys 8j + 2q4
+    // (+1); c2, c3 row g + 8.  One ldmatrix.x4 gives both tiles' K
+    // fragments (K rows are the B operand's columns) for a k16 step.
+    const int lrow = (lane % 8) + (lane / 16) * 8, lcol = ((lane / 8) % 2) * 8;
+    auto scores2 = [&](int j, float (&s0)[4], float (&s1)[4]) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) o.v[e] = to_bf(stg[r * 16 + c8 + e]);
-      *reinterpret_cast<Bf16x8*>(p.o + ((size_t)img * t + q0 + r) * p.d + h * HD + j * 16 + c8) =
-          o;
+      for (int u = 0; u < 4; ++u) s0[u] = s1[u] = 0.f;
+      const bf16* kr = sK + (j * 8 + lrow) * LDK + lcol;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, kr + kk * 16);
+        mma16816(s0, qa[kk], b[0], b[1]);
+        mma16816(s1, qa[kk], b[2], b[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float v0 = s0[u] * p.scale, v1 = s1[u] * p.scale;
+        s0[u] = I2T_SOFTMAX == 1 ? v0 * 0.01f : rbf(v0);
+        s1[u] = I2T_SOFTMAX == 1 ? v1 * 0.01f : rbf(v1);
+      }
+    };
+    auto ex = [](float x) {
+      return I2T_SOFTMAX == 2 ? exp2f(x * 1.4426950408889634f) : expf(x);
+    };
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    auto stats = [&](int j, const float (&sc)[4]) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int h = u >> 1;
+        if (j * 8 + 2 * q4 + (u & 1) >= t) continue;
+        const float v = sc[u];
+        if (v > mx[h]) {
+          sum[h] = sum[h] * ex(mx[h] - v);
+          mx[h] = v;
+        }
+        sum[h] += ex(v - mx[h]);
+      }
+    };
+    if (I2T_SOFTMAX != 1) {
+      // two key tiles at a time: two independent product chains
+      for (int j = 0; j < tp / 8; j += 2) {
+        float sc[2][4];
+        scores2(j, sc[0], sc[1]);
+        stats(j, sc[0]);
+        stats(j + 1, sc[1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float m2 = __shfl_xor_sync(0xffffffffu, mx[h], o);
+          const float s2 = __shfl_xor_sync(0xffffffffu, sum[h], o);
+          const float m = fmaxf(mx[h], m2);
+          sum[h] = (mx[h] == -INFINITY ? 0.f : sum[h] * ex(mx[h] - m)) +
+                   (m2 == -INFINITY ? 0.f : s2 * ex(m2 - m));
+          mx[h] = m;
+        }
+      }
     }
-    __syncwarp();
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int kc = 0; kc < tp / 16; ++kc) {
+      float s0[4], s1[4];
+      scores2(2 * kc, s0, s1);
+      float pr[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float s = u < 4 ? s0[u] : s1[u - 4];
+        const int key = kc * 16 + (u >> 2) * 8 + 2 * q4 + (u & 1), h = (u >> 1) & 1;
+        pr[u] = I2T_SOFTMAX == 1 ? (key < t ? s : 0.f)
+                                 : (key < t ? ex(s - mx[h]) / sum[h] : 0.f);
+      }
+      const uint32_t pa[4] = {pack_bf2(pr[0], pr[1]), pack_bf2(pr[2], pr[3]),
+                              pack_bf2(pr[4], pr[5]), pack_bf2(pr[6], pr[7])};
+      // Vᵀ rows are the B operand's columns: one ldmatrix.x4, two dim tiles
+      const bf16* vr = sVt + lrow * ldv + kc * 16 + lcol;
+#pragma unroll
+      for (int j = 0; j < HD / 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, vr + j * 8 * ldv);
+        mma16816(acc[j], pa, b[0], b[1]);
+        mma16816(acc[j + 1], pa, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!ok[h]) continue;
+      bf16* orow = p.o + ((size_t)img * t + ii[h]) * p.d + hh[h] * HD + 2 * q4;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) = pack_bf2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
   }
+}
+
+template <int HD>
+cudaError_t launch_attn(const AttnArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      mqa_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  mqa_attention_kernel<HD><<<grid, ATTN_WARPS * 32, smem, st>>>(p);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -163,16 +268,19 @@ extern "C" int ln_gather_launch(const void* x, void* out, const void* rows, int 
   return (int)cudaGetLastError();
 }
 
-extern "C" int gemm_launch(const void* A, const void* a_rows, int a_T, const void* B,
-                           const void* bias, const void* R, const void* r_rows, int r_T, void* C,
-                           int c_T, int c_off, int n_img, int t_g, int N, int K, void* stream) {
-  return launch_gemm(A, a_rows, a_T, B, bias, R, r_rows, r_T, C, c_T, c_off, n_img, t_g, N, K,
-                     static_cast<cudaStream_t>(stream));
+extern "C" int gemm_launch(const void* A, const void* a_rows, int a_T, void* a_scratch,
+                           const void* B, const void* bias, const void* R, const void* r_rows,
+                           int r_T, void* C, int c_T, int c_off, int n_img, int t_g, int N, int K,
+                           void* stream) {
+  return launch_gemm(A, a_rows, a_T, a_scratch, B, bias, R, r_rows, r_T, C, c_T, c_off, n_img,
+                     t_g, N, K, static_cast<cudaStream_t>(stream));
 }
 
+// qkv (b·t, n_head·hd + 2·hd) → o (b·t, n_head·hd); ``blocks_per_img``
+// blocks share each image's folded rows.
 extern "C" int mqa_attention_launch(const void* qkv, void* o, int b, int t, int n_head, int hd,
-                                    float scale, void* stream) {
-  if (b <= 0 || t <= 0 || n_head <= 0) return (int)cudaErrorInvalidValue;
+                                    float scale, int blocks_per_img, void* stream) {
+  if (b <= 0 || t <= 0 || n_head <= 0 || blocks_per_img <= 0) return (int)cudaErrorInvalidValue;
   AttnArgs p;
   p.qkv = static_cast<const bf16*>(qkv);
   p.o = static_cast<bf16*>(o);
@@ -182,18 +290,15 @@ extern "C" int mqa_attention_launch(const void* qkv, void* o, int b, int t, int 
   p.d = n_head * hd;
   p.ldq = p.d + 2 * hd;
   p.scale = scale;
-  const size_t smem = 4 * attn_warp_bytes(p.tp);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid((t + 63) / 64, n_head, b);
+  const size_t smem = attn_smem_bytes(p.tp, hd);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  dim3 grid(blocks_per_img, b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {
 #define I2T_ATTN(HD)                                                                        \
   case HD:                                                                                  \
-    err = cudaFuncSetAttribute(mqa_attention_kernel<HD>,                                    \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);     \
-    if (err != cudaSuccess) return (int)err;                                                \
-    mqa_attention_kernel<HD><<<grid, 128, smem, st>>>(p);                                   \
+    err = launch_attn<HD>(p, grid, smem, st);                                               \
     break;
     I2T_ATTN(16)
     I2T_ATTN(32)
@@ -203,5 +308,6 @@ extern "C" int mqa_attention_launch(const void* qkv, void* o, int b, int t, int 
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -140,9 +140,9 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_kernel(SlabArgs p) {
 extern "C" int frontend_launch(const void* x, const void* wp, const void* bp, const void* lnw,
                                const void* lnb, const void* wpe, const void* cls, void* out,
                                int b, int t, int din, int d, int n_cls, void* stream) {
-  if (b <= 0 || t <= 0 || n_cls < 0 || d % 16 || din % GEMM_BK) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || t <= 0 || n_cls < 0 || d % 16 || din % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_gemm(x, nullptr, t, wp, bp, nullptr, nullptr, t, out, n_cls + t, n_cls,
+  const int err = launch_gemm(x, nullptr, t, nullptr, wp, bp, nullptr, nullptr, t, out, n_cls + t, n_cls,
                               b, t, d, din, st);
   if (err != 0) return err;
   SlabArgs p;

@@ -8,6 +8,12 @@ root, keyed by a hash of the sources and flags.  The libraries load with
 here runs at import time: the first kernel launch builds what it needs,
 and :func:`build_all` builds every source at once, one ``nvcc`` per source
 started together.
+
+A source may also be built with preprocessor defines (``-DNAME=VALUE``):
+the measurement variants of ``csrc/fused_block.cu`` and ``csrc/fused_moe.cu``
+(``image2text_torch/probes/``).  Each distinct set of defines is its own
+library, ``lib<name>-<hash>.so`` with the defines in the hash key; the
+shipping build passes none.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Tuple, Union
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "image2text_torch"
@@ -25,9 +31,17 @@ SOURCES = ("fused_moe", "fused_block", "flash_attention", "int4_matmul",
            "fused_frontend", "topk_mask")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", "-ldl"]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+# A build unit: a source name, or (name, defines) with defines a tuple of
+# "NAME=VALUE" strings.
+Unit = Union[str, Tuple[str, Tuple[str, ...]]]
+
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def _unit(u: Unit) -> Tuple[str, Tuple[str, ...]]:
+    return (u, ()) if isinstance(u, str) else (u[0], tuple(sorted(u[1])))
 
 
 def _nvcc() -> str:
@@ -38,36 +52,43 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> List[str]:
-    """Compile every source not yet built, all ``nvcc`` processes started
-    together; returns the compiler logs (``-Xptxas -v`` resource use)."""
+def build_all(units: Iterable[Unit] = SOURCES) -> List[str]:
+    """Compile every unit (a source, or a source with defines) not yet
+    built, all ``nvcc`` processes started together; returns the compiler
+    logs (``-Xptxas -v`` resource use)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
-        out = _lib_path(name)
+    for name, defines in dict.fromkeys(map(_unit, units)):
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        label = f"{name}.cu" + (f" [{' '.join(defines)}]" if defines else "")
+        procs.append((label, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     logs = []
     failed = []
-    for name, out, tmp, proc in procs:
+    for label, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        logs.append(f"== {name}.cu ==\n{log}")
+        logs.append(f"== {label} ==\n{log}")
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(label)
             continue
         os.replace(tmp, out)
         out.with_suffix(".log").write_text(log)
@@ -76,15 +97,17 @@ def build_all(names=SOURCES) -> List[str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``
+    (none: the shipping build), built on first use."""
+    key = _unit((name, tuple(defines)))
+    lib = _loaded.get(key)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(*key)
         if not path.exists():
-            build_all([name])
+            build_all([key])
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 

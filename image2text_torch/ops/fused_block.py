@@ -27,17 +27,18 @@ for many thread blocks in flight:
 
 (a) ``ln_gather``: LN1 of the selected rows, gathered through the row list
     (every row for the dense block);
-(b) a tiled bf16 tensor-core GEMM (``csrc/gemm.cuh``: 128x128 tiles,
-    cp.async double buffering, f32 accumulators) whose A operand and
-    residual are read through row-index lists and whose epilogue adds the
-    bias and residual in bf16 and writes rows at an offset: it serves
-    ``[q | kv]``, ``Wo + bo + residual`` and the sparse bypass, which lands
-    directly in rows t_sel.. of the output, so the [sel; byp] gather costs
-    no separate pass;
-(c) a multi-query attention kernel, a warp per 16 query rows of one
-    (image, head), its Q/K/V fragments read straight from device memory
-    and its bf16 scores and probabilities kept in shared memory (32·t + 1
-    KB bytes per warp: 45 KB a block at the dense block's t = 320);
+(b) a wgmma GEMM (``csrc/gemm.cuh``: 128x256 tiles fed by TMA through a
+    4-stage mbarrier ring, a producer warp and two consumer warpgroups,
+    f32 accumulators) whose residual is read through a row-index list and
+    whose epilogue adds the bias and residual in bf16 and writes rows at an
+    offset: it serves ``[q | kv]``, ``Wo + bo + residual`` and the sparse
+    bypass, which lands directly in rows t_sel.. of the output, so the
+    [sel; byp] concat costs no pass (the bypass rows themselves are
+    gathered contiguous first: TMA loads boxes, not row lists);
+(c) a multi-query attention kernel with the heads folded into the rows:
+    a block stages one image's K and Vᵀ in shared memory once, its warps
+    run 16 folded query rows at a time through mma.sync, an exact softmax
+    in registers (``MAX_ATTN_ROWS`` keys at most);
 (d) the MoE FFN kernel with the LN2 prologue and residual epilogue,
     writing the chain's rows of the output.
 
@@ -48,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -129,49 +130,85 @@ def _fn(lib, name):
 def _gemm(lib, stream, A, a_rows, a_T, B, bias, R, r_rows, r_T, C, c_T,
           c_off, n_img, t_g):
     K, N = B.shape
+    # a row list on A: the kernel gathers the rows into this scratch first
+    scratch = (None if a_rows is None else
+               torch.empty(n_img * t_g, K, dtype=A.dtype, device=A.device))
     err = _fn(lib, "gemm_launch")(
-        _build.ptr(A), _build.ptr(a_rows), ctypes.c_int(a_T), _build.ptr(B),
-        _build.ptr(bias), _build.ptr(R), _build.ptr(r_rows),
-        ctypes.c_int(r_T), _build.ptr(C), ctypes.c_int(c_T),
-        ctypes.c_int(c_off), ctypes.c_int(n_img), ctypes.c_int(t_g),
-        ctypes.c_int(N), ctypes.c_int(K), stream)
+        _build.ptr(A), _build.ptr(a_rows), ctypes.c_int(a_T),
+        _build.ptr(scratch), _build.ptr(B), _build.ptr(bias), _build.ptr(R),
+        _build.ptr(r_rows), ctypes.c_int(r_T), _build.ptr(C),
+        ctypes.c_int(c_T), ctypes.c_int(c_off), ctypes.c_int(n_img),
+        ctypes.c_int(t_g), ctypes.c_int(N), ctypes.c_int(K), stream)
     _build.check(err, "gemm_launch")
+
+
+# The attention kernel stages one image's K (tp x (hd + 8) bf16) and Vᵀ
+# (hd x (tp + 8)) in shared memory, tp = t rounded up to 16; a block may
+# take 227 KB (232,448 bytes).  At the largest head dim it takes (128)
+# that is tp <= 432; smaller head dims fit more, but one limit holds for
+# all.
+ATTN_SMEM_LIMIT = 232448
+ATTN_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _attn_smem(tp: int, hd: int = 128) -> int:
+    return (tp * (hd + 8) + hd * (tp + 8)) * 2
+
+
+MAX_ATTN_ROWS = max(tp for tp in range(16, 4096, 16)
+                    if _attn_smem(tp) <= ATTN_SMEM_LIMIT)
+
+
+def _chain_shape_error(b: int, t: int, d: int, n_head: int, ts: int,
+                       w_qkv_shape) -> Optional[str]:
+    """Why the chain's kernels refuse these shapes (``ts`` rows per image
+    through the chain), or None."""
+    hd = d // n_head
+    if (ts < 2 or d % 64 or hd not in ATTN_HEAD_DIMS or n_head * hd != d
+            or tuple(w_qkv_shape) != (d, d + 2 * hd) or ts > MAX_ATTN_ROWS):
+        return (f"unsupported shape b={b} t={t} rows through the chain {ts} "
+                f"d={d} n_head={n_head} (needs d % 64 == 0, a head dim of "
+                f"16, 32, 64 or 128, and at most {MAX_ATTN_ROWS} rows for "
+                "the attention's shared memory)")
+    return None
 
 
 def _check_chain(kernel: str, x: torch.Tensor, w, ts: int) -> None:
     """Raise unless the chain's kernels take ``x`` and ``w`` with ``ts``
     rows per image going through the chain."""
-    b, t, d = x.shape
-    hd = d // w.n_head
     for f in ("ln1_w", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_w",
               "ln2_b"):
         _build.check_operand(kernel, f, getattr(w, f), torch.bfloat16)
     _build.check_operand(kernel, "x", x, torch.bfloat16)
-    tp = -(-ts // 16) * 16
-    if (ts < 2 or d % 64 or hd not in (16, 32, 64, 128)
-            or w.n_head * hd != d or w.w_qkv.shape != (d, d + 2 * hd)
-            or _attn_smem(tp) > ATTN_SMEM_LIMIT):
-        raise ValueError(f"{kernel} kernel: unsupported shape b={b} t={t} "
-                         f"rows through the chain {ts} d={d} n_head="
-                         f"{w.n_head} (needs d % 64 == 0, a head dim of 16, "
-                         f"32, 64 or 128, and at most {MAX_ATTN_ROWS} rows "
-                         "for the attention's shared memory)")
+    err = _chain_shape_error(*x.shape, w.n_head, ts, w.w_qkv.shape)
+    if err is not None:
+        raise ValueError(f"{kernel} kernel: {err}")
 
 
-# The attention kernel's dynamic shared memory: 4 warps, each 32 bytes per
-# (padded) key column for its 16 rows of bf16 scores, plus a 1 KB staging
-# tile; a block may take 227 KB.
-ATTN_SMEM_LIMIT = 227 * 1024
+def _attn_blocks(b: int, n_head: int, ts: int) -> int:
+    """Blocks per image of the attention kernel (16 warps of 16 folded
+    rows each): about two blocks an SM over the batch (132 SMs), at most
+    one per 256 folded rows.  At b 256 that is 2, which measured faster
+    than 3 or 5 at t 160 and 320 (PERF.md §6)."""
+    return max(1, min(-(-2 * 132 // b), -(-n_head * ts // 256)))
 
 
-def _attn_smem(tp: int) -> int:
-    return 4 * (32 * tp + 1024)
+def _attention(lib, stream, qkv, b: int, t: int, n_head: int,
+               hd: int) -> torch.Tensor:
+    """The attention kernel on ``qkv`` (b·t, n_head·hd + 2·hd) rows [q | k
+    | v]; returns o (b·t, n_head·hd)."""
+    o = torch.empty(b * t, n_head * hd, dtype=qkv.dtype, device=qkv.device)
+    err = _fn(lib, "mqa_attention_launch")(
+        _build.ptr(qkv), _build.ptr(o), ctypes.c_int(b), ctypes.c_int(t),
+        ctypes.c_int(n_head), ctypes.c_int(hd),
+        ctypes.c_float(1.0 / math.sqrt(hd)),
+        ctypes.c_int(_attn_blocks(b, n_head, t)), stream)
+    _build.check(err, "mqa_attention_launch")
+    return o
 
 
-MAX_ATTN_ROWS = (ATTN_SMEM_LIMIT // 4 - 1024) // 32 // 16 * 16
-
-
-def _launch_chain(lib, stream, x, rows, ts, w, out, routes) -> None:
+def _launch_chain(lib, stream, x, rows, ts, w, out, routes,
+                  defines: Tuple[str, ...] = ()) -> None:
     """The chain's kernels on the ``ts`` rows of each image that ``rows``
     (int32, or None for every row) picks from ``x`` (b, t, d); the chain's
     output lands in rows 0..ts of each image of ``out`` (b, t, d)."""
@@ -183,23 +220,17 @@ def _launch_chain(lib, stream, x, rows, ts, w, out, routes) -> None:
         ctypes.c_int(t), ctypes.c_int(ts), ctypes.c_int(d),
         _build.ptr(w.ln1_w), _build.ptr(w.ln1_b), stream)
     _build.check(err, "ln_gather_launch")
-    # [q | k | v] rows, ts rounded up to 16 per image (pad rows zero)
-    tp = -(-ts // 16) * 16
-    qkv = (torch.empty if tp == ts else torch.zeros)(
-        b * tp, d + 2 * hd, dtype=x.dtype, device=x.device)
+    # [q | k | v] rows, ts per image
+    qkv = torch.empty(b * ts, d + 2 * hd, dtype=x.dtype, device=x.device)
     _gemm(lib, stream, xn, None, ts, w.w_qkv, w.b_qkv, None, None, ts, qkv,
-          tp, 0, b, ts)
-    o = torch.empty(b * ts, d, dtype=x.dtype, device=x.device)
-    err = _fn(lib, "mqa_attention_launch")(
-        _build.ptr(qkv), _build.ptr(o), ctypes.c_int(b), ctypes.c_int(ts),
-        ctypes.c_int(w.n_head), ctypes.c_int(hd),
-        ctypes.c_float(1.0 / math.sqrt(hd)), stream)
-    _build.check(err, "mqa_attention_launch")
+          ts, 0, b, ts)
+    o = _attention(lib, stream, qkv, b, ts, w.n_head, hd)
     x1 = torch.empty(b * ts, d, dtype=x.dtype, device=x.device)
     _gemm(lib, stream, o, None, ts, w.w_o, w.b_o, x, rows, t, x1, ts, 0,
           b, ts)
     launch_moe_ffn(x1, w.fc, w.proj, out, w.ln2_w, w.ln2_b, residual=x1,
-                   rows_per_img=ts, out_rows_per_img=t, routes=routes)
+                   rows_per_img=ts, out_rows_per_img=t, routes=routes,
+                   defines=defines)
 
 
 def sparse_block(x: torch.Tensor, rows_sel: torch.Tensor,
@@ -246,13 +277,24 @@ def fused_block(x: torch.Tensor, w: BlockWeights,
     expert masks (for comparisons)."""
     if x.device.type == "cpu":
         return fused_block_plain(x, w, routes)
+    out = run_chain(x, w, routes)
+    fused_block.launches += 1
+    return out
+
+
+def run_chain(x: torch.Tensor, w: BlockWeights,
+              routes: Optional[torch.Tensor] = None,
+              defines: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The chain's kernels on every row of the CUDA tensor ``x``, built
+    with ``defines`` (a probe build, ``image2text_torch/probes/``; none:
+    the shipping kernels).  Counts nothing: :func:`fused_block` is the
+    counting wrapper."""
     t = x.shape[1]
     _check_chain("fused_block", x, w, t)
-    lib = _build.load("fused_block")
+    lib = _build.load("fused_block", defines)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     out = torch.empty_like(x)
-    _launch_chain(lib, stream, x, None, t, w, out, routes)
-    fused_block.launches += 1
+    _launch_chain(lib, stream, x, None, t, w, out, routes, defines)
     return out
 
 

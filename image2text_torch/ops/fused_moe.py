@@ -15,16 +15,25 @@ any row count (the ragged last tile is masked).
 
 What bounds it on the H100: bytes at decode (256 rows at hidden 4096 read
 about 1.7 MB of weights and 1 MB of activations, under a microsecond at
-3.35 TB/s, so launch latency dominates); operations at encoder row counts
-(about 0.5 MFLOP a row at hidden 2048).  The design keeps the hidden-wide
-activation out of device memory: a thread block owns 16 rows, runs both
-MoELinears with bf16 tensor-core products (WMMA, f32 accumulators), its
-warps splitting each stage's long dimension, and streams the hidden
-dimension in 64-wide chunks, each chunk of
+3.35 TB/s, so filling the card and the launches decide); operations at
+encoder row counts (about 1 MFLOP a row at hidden 2048), reached only if
+each weight byte a block reads from L2 serves many rows.  The kernel keeps
+the hidden-wide activation out of device memory: a warp owns 16 rows and
+runs both MoELinears with mma.sync bf16 products (f32 accumulators), the
+gate, top-k and combine in its registers, the weights staged once per
+block in shared memory (cp.async, double-buffered) for all its warps, the
+hidden dimension streamed in 64-wide chunks, each chunk of
 ``gelu(hw·l2w + c·l2b)`` feeding straight into the second MoELinear's
-narrow accumulators (gate 32 + experts 64 wide).  The optional LayerNorm
-prologue and residual epilogue let the sparse encoder block reuse it for
-``x1 + ffn(ln_2(x1))``.
+narrow accumulators (gate 32 + experts 64 wide).  Two regimes, picked from
+the row count (:func:`moe_regime`, :func:`moe_slices`): many rows run
+whole in blocks of 64 rows; few rows split the hidden dimension over
+about one block an SM, each writing its part of the second MoELinear's
+f32 accumulators to a scratch buffer that a second kernel sums in slice
+order before the gate, top-k, combine and output.  The switch point
+``FEW_ROWS`` is measured on the card (``chip_smoke.py``'s
+``phase_moe_regimes``; the times are in ``csrc/fused_moe.cu``).  The
+optional LayerNorm prologue and residual epilogue let the encoder blocks
+reuse it for ``x1 + ffn(ln_2(x1))``.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -33,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -166,16 +175,57 @@ def moe_ffn_plain(x: torch.Tensor, fc: MoELinearWeights,
     return y if residual is None else residual + y
 
 
+# Rows at or below which the kernel takes its few-rows regime (the hidden
+# dimension split over blocks).  Measured on the card: see the module note.
+FEW_ROWS = 4096
+ROWS_PER_BLOCK = 64   # 4 warps of 16 rows
+SMS = 132             # H100 SXM
+
+
+def moe_regime(n: int) -> str:
+    """The kernel's regime at ``n`` rows: "few" or "many"."""
+    return "few" if n <= FEW_ROWS else "many"
+
+
+def moe_slices(n: int, hidden: int) -> int:
+    """Hidden slices the kernel splits ``n`` rows' FFN into (1: the
+    many-rows kernel, no split): about one block an SM, at least 4 slices,
+    each slice at least one 64-wide hidden chunk.  The f32 sum of the second MoELinear's
+    accumulators runs slice by slice, so two row counts give bit-equal
+    rows only where they give the same count."""
+    if moe_regime(n) == "many":
+        return 1
+    chunks = hidden // 64
+    per = -(-chunks // max(4, SMS // -(-n // ROWS_PER_BLOCK)))
+    return -(-chunks // per)
+
+
+def _moe_shape_error(fin: int, hidden: int, g: int, e: int, r: int,
+                     slices: int) -> Optional[str]:
+    """Why the kernel refuses these widths, or None."""
+    if (fin % 64 or hidden % 64 or g + e * r != 96 or e * r != 64 or e > 8
+            or slices < 1):
+        return (f"unsupported shape fin={fin} hidden={hidden} g={g} e={e} "
+                f"r={r} slices={slices} (needs fin, hidden % 64, g + e*r == "
+                "96, e*r == 64, e <= 8, at least one slice)")
+    return None
+
+
 def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
                    proj: MoELinearWeights, out: torch.Tensor,
                    ln_w=None, ln_b=None, residual=None,
                    rows_per_img: Optional[int] = None,
                    out_rows_per_img: Optional[int] = None,
-                   routes: Optional[torch.Tensor] = None) -> None:
+                   routes: Optional[torch.Tensor] = None,
+                   defines: Tuple[str, ...] = (),
+                   slices: Optional[int] = None) -> None:
     """Launch the kernel on (n, fin) rows.  Output row m goes to
     ``out`` row (m // rows_per_img) * out_rows_per_img + m % rows_per_img
-    (identity by default).  Counts nothing: the counting wrappers are
-    :func:`moe_ffn` and the sparse block's."""
+    (identity by default).  ``defines`` picks a probe build of the kernel
+    (``image2text_torch/probes/``; none on every serving path); ``slices``
+    overrides :func:`moe_slices` (to time both regimes at one row
+    count).  Counts
+    nothing: the counting wrappers are :func:`moe_ffn` and the blocks'."""
     n, fin = x2d.shape
     hidden = fc.l2w.shape[1]
     for name, t in [("x", x2d), ("out", out), ("ln_w", ln_w), ("ln_b", ln_b),
@@ -184,13 +234,13 @@ def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
                         (f"proj.{f}", getattr(proj, f))
                         for f in proj._fields[:6]]:
         _build.check_operand("moe_ffn", name, t, torch.bfloat16)
-    if (fin % 64 or hidden % 64 or fc.g + fc.e * fc.r != 96
-            or fc.e * fc.r != 64 or fc.e > 8 or proj.l2w.shape[1] != fin
-            or (proj.g, proj.e, proj.r, proj.k) != (fc.g, fc.e, fc.r, fc.k)):
-        raise ValueError(
-            f"moe_ffn kernel: unsupported shape fin={fin} hidden={hidden} "
-            f"g={fc.g} e={fc.e} r={fc.r} (needs fin, hidden % 64, "
-            "g + e*r == 96, e*r == 64, a square FFN)")
+    slices = moe_slices(n, hidden) if slices is None else slices
+    err = _moe_shape_error(fin, hidden, fc.g, fc.e, fc.r, slices)
+    if err is None and (proj.l2w.shape[1] != fin or (
+            proj.g, proj.e, proj.r, proj.k) != (fc.g, fc.e, fc.r, fc.k)):
+        err = "the FFN must be square (fin → hidden → fin, one gate shape)"
+    if err is not None:
+        raise ValueError(f"moe_ffn kernel: {err}")
     if residual is not None and residual.shape != x2d.shape:
         raise ValueError("moe_ffn kernel: residual must match x")
     if routes is not None and (routes.dtype != torch.uint8
@@ -200,9 +250,9 @@ def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
     orpi = out_rows_per_img or rpi
     if out.numel() < ((n - 1) // rpi * orpi + (n - 1) % rpi + 1) * fin:
         raise ValueError("moe_ffn kernel: output too small for the row map")
-    # few rows (decode): 16 warps share a row tile's work; many rows: 4
-    warps = 16 if n <= 4096 else 4
-    lib = _build.load("fused_moe")
+    part = (None if slices == 1 else
+            torch.empty(slices, n, 96, dtype=torch.float32, device=x2d.device))
+    lib = _build.load("fused_moe", defines)
     fn = lib.moe_ffn_launch
     fn.restype = ctypes.c_int
     P = _build.ptr
@@ -213,7 +263,8 @@ def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
              P(proj.wa), P(proj.ba), P(proj.g1w), P(proj.g1b), P(proj.l2w),
              P(proj.l2b), ctypes.c_int(fc.g), ctypes.c_int(fc.e),
              ctypes.c_int(fc.r), ctypes.c_int(fc.k), P(routes),
-             ctypes.c_int(warps),
+             ctypes.c_int(ROWS_PER_BLOCK // 16), ctypes.c_int(slices),
+             ctypes.c_int(max(1, fin // 128)), P(part),
              ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
     _build.check(err, "moe_ffn_launch")
 

@@ -15,7 +15,11 @@ the kernel's own expert routes and is compared at the output's scale, and
 the routes against the plain top-k (``utils/kernel_check.py``).  The flash
 kernels are compared with their plain versions on the same inputs and
 dropout seed (the keep masks are identical), and one training step of the
-tiny flagship runs on the card.
+tiny flagship runs on the card.  The encoder chain's stages alone: the
+wgmma GEMM at ragged M, N and K with row lists, a row offset, bias and
+residual; the head-folded attention from 16 keys to its shared-memory
+limit; the MoE FFN in both regimes from 1 to 40,960 rows; and every block
+probe variant.
 """
 import pytest
 import torch
@@ -678,3 +682,161 @@ def test_tiny_dense_twin_and_beam_search_on_card(dev):
     assert bool(torch.isfinite(scores).all()) and bool((ids < 512).all())
     assert (fused_frontend.launches, sparse_block.launches) == (
         counts[0] + 1, counts[1] + 2)
+
+
+def _gemm_plain(A, a_rows, a_T, B, bias, R, r_rows, r_T, c_T, c_off, n_img,
+                t_g):
+    """The GEMM contract in plain PyTorch: (n_img, c_T, N) with rows
+    c_off..c_off + t_g of each image written, the rest NaN."""
+    def rows_of(X, rows, T):
+        if rows is None:
+            return X.reshape(n_img, t_g, -1)
+        return X.reshape(n_img, T, -1)[:, rows.long()]
+
+    y = torch.matmul(rows_of(A, a_rows, a_T), B)
+    if bias is not None:
+        y = y + bias
+    if R is not None:
+        y = rows_of(R, r_rows, r_T) + y
+    out = torch.full((n_img, c_T, B.shape[1]), float("nan"), device=A.device,
+                     dtype=A.dtype)
+    out[:, c_off:c_off + t_g] = y
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_img,t_g,K,N,rows,c_extra,bias,res", [
+    (3, 37, 200, 136, True, 13, True, True),    # ragged M, N and K, row lists
+    (2, 300, 1024, 1280, False, 0, False, False),  # the q/kv shape, narrow M
+    (4, 160, 1024, 1024, False, 0, True, True),  # the Wo shape, residual
+    (2, 256, 2048, 1024, False, 64, True, False),  # the front's projector
+])
+def test_gemm_kernel_matches_plain(dev, n_img, t_g, K, N, rows, c_extra,
+                                   bias, res):
+    """The wgmma GEMM of csrc/gemm.cuh: row lists on A and the residual, C
+    rows at an offset inside longer images, optional bias and residual,
+    against torch.matmul and the same bf16 adds."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.fused_block import _gemm
+
+    g = _gen(dev, 7)
+    T = t_g + 11 if rows else t_g
+    A = torch.randn(n_img * T, K, device=dev, generator=g).to(torch.bfloat16)
+    B = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5
+         ).to(torch.bfloat16)
+    b = (torch.randn(N, device=dev, generator=g).to(torch.bfloat16)
+         if bias else None)
+    R = (torch.randn(n_img * T, N, device=dev, generator=g
+                     ).to(torch.bfloat16) if res else None)
+    idx = (torch.randperm(T, generator=torch.Generator().manual_seed(1)
+                          )[:t_g].to(torch.int32).to(dev) if rows else None)
+    c_T, c_off = t_g + c_extra, c_extra
+    C = torch.full((n_img * c_T, N), float("nan"), device=dev,
+                   dtype=torch.bfloat16)
+    lib = _build.load("fused_block")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    import ctypes
+    _gemm(lib, ctypes.c_void_p(stream), A, idx, T, B, b, R, idx, T, C, c_T,
+          c_off, n_img, t_g)
+    want = _gemm_plain(A, idx, T, B, b, R, idx, T, c_T, c_off, n_img, t_g)
+    got = C.reshape(n_img, c_T, N)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[:, :c_off]).all()
+    check_output("gemm", got[:, c_off:], want[:, c_off:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [16, 17, 160, 320, 432])
+def test_mqa_attention_kernel_matches_plain(dev, t):
+    """The head-folded MQA kernel at 8 heads x head dim 128, from 16 keys
+    to the shared-memory limit (MAX_ATTN_ROWS), against ops.attention.sdpa."""
+    import ctypes
+    import math
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.attention import sdpa
+    from image2text_torch.ops.fused_block import MAX_ATTN_ROWS, _attention
+
+    assert t <= MAX_ATTN_ROWS
+    b, h, hd = 3, 8, 128
+    # N(0, 1) rows, as a LayerNormed stream's projections are: scores of
+    # standard deviation ~1 after the 1/sqrt(hd) scale
+    qkv = torch.randn(b * t, (h + 2) * hd, device=dev, generator=_gen(dev, 4)
+                      ).to(torch.bfloat16)
+    lib = _build.load("fused_block")
+    got = _attention(lib, ctypes.c_void_p(torch.cuda.current_stream(
+        dev).cuda_stream), qkv, b, t, h, hd)
+    q3 = qkv.reshape(b, t, -1)
+    q = q3[..., :h * hd].reshape(b, t, h, hd).transpose(1, 2)
+    k = q3[..., None, h * hd:(h + 1) * hd].transpose(1, 2)
+    v = q3[..., None, (h + 1) * hd:].transpose(1, 2)
+    want = sdpa(q, k, v).transpose(1, 2).reshape(b * t, h * hd)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(got.float().abs().max()))
+    check_output(f"mqa_attention t={t}", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 192, 256, 40960])
+@pytest.mark.parametrize("regime", ["auto", "other"])
+def test_moe_ffn_kernel_regimes_match_plain(dev, rows, regime):
+    """The MoE FFN at 1024 → 2048 → 1024 with the LN2 prologue and the
+    residual, in the regime the row count picks and forced into the other
+    one (the many-rows kernel at few rows; the hidden split at 40,960)."""
+    from image2text_torch.ops.fused_moe import launch_moe_ffn, moe_slices
+
+    blk = _block(dev, 1024, 8, 32, True)
+    fc = blk.mlp.c_fc.packed(torch.bfloat16)
+    proj = blk.mlp.c_proj.packed(torch.bfloat16)
+    proj = proj._replace(l2w=proj.l2w * 64, l2b=proj.l2b * 64)
+    x = torch.randn(rows, 1024, device=dev, generator=_gen(dev, 5)
+                    ).to(torch.bfloat16)
+    auto = moe_slices(rows, fc.l2w.shape[1])
+    slices = auto if regime == "auto" else (1 if auto > 1 else 8)
+    ln = dict(ln_w=blk.ln_2.weight, ln_b=blk.ln_2.bias)
+    routes = torch.zeros(rows, 2, dtype=torch.uint8, device=dev)
+    gates = torch.zeros(rows, 2, fc.e, dtype=torch.float32, device=dev)
+    got = torch.empty_like(x)
+    launch_moe_ffn(x, fc, proj, got, residual=x, routes=routes,
+                   slices=slices, **ln)
+    want = moe_ffn_plain(x, fc, proj, residual=x, force_routes=routes,
+                         gates=gates, **ln)
+    torch.cuda.synchronize()
+    check_routes("moe_ffn", routes, gates, fc.k)
+    check_output(f"moe_ffn rows={rows} slices={slices}", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "no_gelu", "no_softmax", "no_ln",
+                                     "dots_only", "exp2", "glu_sig"])
+def test_block_ablate_variant_matches_its_plain_chain(dev, variant):
+    """Each probe build of the chain (its own .so) against the probe's
+    plain chain with the same substitutions, at the probe's widths."""
+    from image2text_torch.probes.block_ablate import check_variant, probe_block
+
+    x, w = probe_block(2, dev)
+    with torch.no_grad():
+        check_variant(variant, x, w)
+
+
+@pytest.mark.cuda
+def test_block_wide_groupings_equal_the_whole_batch(dev):
+    """Launches over groups of images give the whole batch's rows: bit for
+    bit where the MoE FFN splits its hidden sum alike, else within the
+    kernel checks' limits."""
+    from image2text_torch.ops.fused_block import run_chain
+    from image2text_torch.ops.fused_moe import moe_slices
+    from image2text_torch.probes.block_ablate import probe_block
+    from image2text_torch.probes.block_wide import (VARIANTS, grouped,
+                                                    launch_rows)
+
+    x, w = probe_block(16, dev)
+    hidden = w.fc.l2w.shape[1]
+    with torch.no_grad():
+        ref = run_chain(x, w)
+        for name in VARIANTS:
+            y = grouped(run_chain, x, w, name)
+            if moe_slices(launch_rows(x, name), hidden) == moe_slices(
+                    x.shape[0] * x.shape[1], hidden):
+                assert torch.equal(y, ref), name
+            check_output(f"block_wide {name}", y, ref)
