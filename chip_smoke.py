@@ -13,12 +13,22 @@ Phases, each printing its lines:
             the flagship shapes, the plain version run on the kernel's own
             expert routes and held at the output's scale
             (image2text_torch/utils/kernel_check.py): error, kernel time,
-            plain time, bound.  The three flash-attention kernels at the
-            training step's encoder shape (batch 48, 8 heads, s 160,
-            d 128, multi-query, dropout 0.1) and a decoder shape (s 136,
-            causal, soft-prompt bias), with the same dropout seed as their
-            plain versions, and F.scaled_dot_product_attention's time as a
-            yardstick the port never calls.
+            plain time, bound.  The flash-attention forward and backward
+            (dQ, dK and dV in one call) at the training step's encoder
+            shape (batch 48, 8 heads, s 160, d 128, multi-query, dropout
+            0.1) and a decoder shape (s 136, causal, soft-prompt bias),
+            with the same dropout seed as their plain versions; the
+            backward launched three times, bitwise equal, and its visited
+            (query tile, key slice) pairs counted against the causal band;
+            F.scaled_dot_product_attention's forward, backward alone and
+            both as yardsticks the port never calls.  The chain
+            attention's worst error at score standard deviations 1, 2 and
+            4 (t 160, 320) beside the sensitivity of the reference's own
+            bf16 score rounding.
+   lm_head  the tied lm_head's bf16 product with f32 sums (dot_f32) at
+            256 rows and the flagship's and GPT-2-medium's vocab widths,
+            its two cuBLAS formulations, and the f32 formulation it
+            replaced.
             The encoder front (fused_frontend) at the serving batch, with
             the projector's torch.matmul as a yardstick.  The block
             chain's stages alone: its wgmma GEMMs against torch.matmul at
@@ -80,7 +90,7 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
             the weight dequantised once to bf16 as a yardstick; the front,
             the sparse block and the MoE FFN at the GPT-2-medium encoder's
             shapes; the
-            three flash kernels at its training step's attention shapes
+            flash forward and backward at its training step's attention shapes
             (encoder MQA s 80, GPT-2 self-attention 16 heads s 112 causal,
             cross-attention 112 x 64; batch 12, head dim 64).
 9. gpt2m    the serving path, batch 256, 32 new tokens: launches per
@@ -213,21 +223,20 @@ def plain_versions():
     from image2text_torch.ops.fused_moe import moe_ffn_plain
 
     saved = (layers.sparse_block, layers.fused_block, layers.moe_ffn,
-             encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd_dkv,
-             fa.flash_bwd_dq, i4.int4_matmul)
+             encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd,
+             i4.int4_matmul)
     layers.sparse_block, layers.moe_ffn = sparse_block_plain, moe_ffn_plain
     layers.fused_block = fused_block_plain
     encoder.fused_frontend = fused_frontend_plain
     fa.flash_fwd = fa.flash_forward_plain
-    fa.flash_bwd_dkv = lambda *a: fa.flash_backward_plain(*a)[1:]
-    fa.flash_bwd_dq = lambda *a: fa.flash_backward_plain(*a)[0]
+    fa.flash_bwd = fa.flash_backward_plain
     i4.int4_matmul = i4.int4_matmul_plain
     try:
         yield
     finally:
         (layers.sparse_block, layers.fused_block, layers.moe_ffn,
-         encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd_dkv,
-         fa.flash_bwd_dq, i4.int4_matmul) = saved
+         encoder.fused_frontend, fa.flash_fwd, fa.flash_bwd,
+         i4.int4_matmul) = saved
 
 
 def moe_flops_bytes(x, fc, proj):
@@ -316,6 +325,90 @@ def chain_stage_ms(torch, w, b: int, ts: int, tb: int, gen) -> dict:
                                                        w.n_head, hd)),
         attention_library_ms=cuda_ms(
             torch, lambda: F.scaled_dot_product_attention(q, k, v)))
+
+
+def phase_lm_head(torch, rows: int = BATCH):
+    """The tied lm_head (``ops/functions.py::dot_f32``: bf16 products,
+    f32 sums and logits) at ``rows`` decode rows and the flagship's and
+    GPT-2-medium's vocab widths: its time, both cuBLAS formulations it
+    picks between by the width's parity (direct; transposed and copied
+    back), and the f32 formulation it replaced."""
+    from image2text_torch.ops.functions import dot_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.randn(rows, 1024, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for vocab in (50258, 50259):
+        w = (0.02 * torch.randn(vocab, 1024, device="cuda", generator=gen)
+             ).to(torch.bfloat16)
+        ms = {
+            "dot_f32": cuda_ms(torch, lambda: dot_f32(x, w)),
+            "direct": cuda_ms(torch, lambda: torch.mm(
+                x, w.t(), out_dtype=torch.float32)),
+            "transposed": cuda_ms(torch, lambda: torch.mm(
+                w, x.t(), out_dtype=torch.float32).t().contiguous()),
+            "f32_copies": cuda_ms(torch, lambda: torch.mm(
+                x.float(), w.float().t()))}
+        err = float((dot_f32(x, w) - x.float() @ w.float().t()).abs().max())
+        log(f"    lm_head {rows} x 1024 x {vocab}: dot_f32 "
+            f"{ms['dot_f32']:.4f} ms (direct {ms['direct']:.4f}, transposed "
+            f"+ copy {ms['transposed']:.4f}); the f32 formulation it "
+            f"replaced {ms['f32_copies']:.4f}; max |difference| {err:.3g}")
+
+
+# The chain attention's sensitivity cases: (keys t, score standard
+# deviation); its q/k/v rows are N(0, std) so that q·k/sqrt(hd) has that
+# standard deviation.
+SENSITIVITY_CASES = tuple((t, std) for t in (160, 320) for std in (1, 2, 4))
+
+
+def mqa_case(torch, b: int, t: int, n_head: int, hd: int, score_std: float,
+             gen):
+    """qkv rows (b·t, (n_head + 2)·hd) in bf16 whose scores have standard
+    deviation ``score_std``, and their q (b, n_head, t, hd), k and v (b, 1,
+    t, hd)."""
+    qkv = (torch.randn(b * t, (n_head + 2) * hd, device="cuda",
+                       generator=gen) * math.sqrt(score_std)
+           ).to(torch.bfloat16)
+    q3 = qkv.reshape(b, t, -1)
+    q = q3[..., :n_head * hd].reshape(b, t, n_head, hd).transpose(1, 2)
+    k = q3[..., None, n_head * hd:(n_head + 1) * hd].transpose(1, 2)
+    v = q3[..., None, (n_head + 1) * hd:].transpose(1, 2)
+    return qkv, q, k, v
+
+
+def phase_attention_sensitivity(torch, results, b: int = 8):
+    """The encoder chain's head-folded attention (8 heads, head dim 128) at
+    ``SENSITIVITY_CASES``: its worst element error against ``sdpa`` beside
+    the sensitivity of the reference's own bf16 score rounding
+    (``kernel_check.attention_sensitivity``).  An error above twice that
+    sensitivity is a kernel fault and fails the phase."""
+    import ctypes
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.fused_block import _attention
+    from image2text_torch.utils import kernel_check
+
+    lib = _build.load("fused_block")
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    h, hd, rows = 8, 128, []
+    for t, std in SENSITIVITY_CASES:
+        qkv, q, k, v = mqa_case(torch, b, t, h, hd, std, gen)
+        got = _attention(lib, st, qkv, b, t, h, hd).reshape(
+            b, t, h, hd).transpose(1, 2)
+        e = kernel_check.attention_sensitivity(got, q, k, v)
+        rows.append(dict(t=t, score_std=std, **e))
+        log(f"    mqa_attention b={b} t={t} score std {std}: kernel vs sdpa "
+            f"{e['kernel_vs_sdpa']:.6g}, kernel vs f64 "
+            f"{e['kernel_vs_f64']:.6g}; the reference's sensitivity: sdpa vs "
+            f"f64 {e['sdpa_vs_f64']:.6g}, reordered sums vs f64 "
+            f"{e['reordered_vs_f64']:.6g} (kernel at "
+            f"{e['kernel_vs_sdpa'] / e['sensitivity']:.3g}x, limit 2x)")
+        if e["kernel_vs_sdpa"] > 2 * e["sensitivity"]:
+            raise AssertionError(f"mqa_attention t={t} score std {std}: "
+                                 f"error beyond twice the sensitivity {e}")
+    results["sparse_block"]["sensitivity"] = rows
 
 
 def kernel_row(results, name, tag, source, replaces, row, **shape):
@@ -1019,9 +1112,8 @@ def kernel_wrappers():
     from image2text_torch.ops.int4_matmul import int4_matmul
     from image2text_torch.ops.topk_mask import topk_ban_mask
 
-    return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd_dkv,
-            fa.flash_bwd_dq, int4_matmul, fused_frontend, fused_block,
-            topk_ban_mask)
+    return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd, int4_matmul,
+            fused_frontend, fused_block, topk_ban_mask)
 
 
 def launch_counts(run):
@@ -1058,9 +1150,10 @@ def soft_prompt_bias(torch, s: int, n_prefix: int, dev):
 
 
 def flash_work(q, k, bias, causal: bool, kind: str):
-    """(bytes, FLOP) one flash kernel call must move and do: each input
-    read once and each output written once; the products over the
-    (row, col) pairs the causal mask leaves (kind: fwd, dkv or dq)."""
+    """(bytes, FLOP) one flash call must move and do: each input read once
+    and each output written once; the products over the (row, col) pairs
+    the causal mask leaves.  ``kind`` fwd: S, PV; bwd (dQ, dK and dV
+    together, each product counted once): S, dP, dV, dK, dQ."""
     b, h, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     pairs = (sum(min(skv, max(0, r + skv - sq + 1)) for r in range(sq))
@@ -1072,9 +1165,7 @@ def flash_work(q, k, bias, causal: bool, kind: str):
     if kind == "fwd":                    # q, k, v, bias → out, lse
         return ins + qb + rows, 2 * mm
     ins += qb + 2 * rows                 # + dO, lse, D
-    if kind == "dkv":                    # → dk, dv; S, dP, dV, dK
-        return ins + 2 * kb, 4 * mm
-    return ins + qb, 3 * mm              # → dq; S, dP, dQ
+    return ins + qb + 2 * kb, 5 * mm     # → dq, dk, dv
 
 
 # Training attention calls: (label, b, h, K/V heads, sq, skv, head dim,
@@ -1086,20 +1177,51 @@ FLASH_GPT2M = (   # batch 12: the sparse encoder, GPT-2's self and cross
     ("gpt2m_encoder", 12, 8, 1, 80, 80, 64, False, None, DROPOUT),
     ("gpt2m_self", 12, 16, 16, 112, 112, 64, True, None, 0.0),
     ("gpt2m_cross", 12, 16, 16, 112, 64, 64, False, None, 0.0))
+# Keys past the resident route's limit (ops/flash_attention.py::
+# RESIDENT_MAX_KEYS): the tiled backward kernels, at the flagship's width.
+FLASH_LONG = (
+    ("long_keys", 4, 8, 1, 256, 1024, 128, True, None, DROPOUT),)
+
+
+def sdpa_times(torch, q, k, v, dout, mask, rate: float) -> dict:
+    """ms of one F.scaled_dot_product_attention call (the yardstick the
+    port never calls): forward, forward + backward, and the backward alone
+    (autograd.grad over one retained forward graph)."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd(a=q, b=k, c=v):
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              dropout_p=rate, enable_gqa=True)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            fwd(qg, kg, vg).backward(dout)
+
+    with torch.enable_grad():
+        out = fwd(qg, kg, vg)
+    bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True))
+    return {"fwd": cuda_ms(torch, fwd), "fwd_bwd": cuda_ms(torch, fwd_bwd),
+            "bwd": bwd}
 
 
 def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
-    """The three flash kernels against their plain versions at training
-    attention shapes, same inputs and dropout seed.  The first flagship
-    case fills the kernels' rows, every other case a ``<label>_shape``."""
-    import torch.nn.functional as F
-
+    """The flash forward and the flash backward against their plain
+    versions at training attention shapes, same inputs and dropout seed;
+    the backward twice more, bitwise equal; on the resident route its
+    visited (query tile, key slice) pairs held to ``bwd_pairs`` (the tiled
+    route counts none).  The first
+    flagship case fills the kernels' rows, every other case a
+    ``<label>_shape``."""
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.attention import causal_bias
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     seed = -987654321
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, b, h, hk, sq, s, d, causal, n_prefix, rate in cases:
         q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
                                      ).to(bf)
@@ -1112,62 +1234,61 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
         want, want_lse = fa.flash_forward_plain(*a, rate, seed)
         dvec = (dout.float() * want.float()).sum(-1)
         g = (dout, want_lse, dvec, rate, seed)
-        dk, dv = fa.flash_bwd_dkv(*a, *g)
-        dq = fa.flash_bwd_dq(*a, *g)
-        pq, pk, pv = fa.flash_backward_plain(*a, *g)
+        pairs = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = fa.flash_bwd(*a, *g, pairs=pairs)
+        again = [fa.flash_bwd(*a, *g) for _ in range(2)]
+        plain = fa.flash_backward_plain(*a, *g)
         torch.cuda.synchronize()
         shape = (f"b={b} h={h} hk={hk} sq={sq} skv={s} d={d} causal={causal} "
                  f"bias={None if bias is None else tuple(bias.shape)} "
                  f"dropout={rate}")
         errs = {"fwd": compare(f"flash_fwd out {label} {shape}", out, want)}
         compare(f"flash_fwd lse {label}", lse, want_lse)
-        errs["dkv"] = max(compare(f"flash_bwd_dkv dk {label}", dk, pk),
-                          compare(f"flash_bwd_dkv dv {label}", dv, pv))
-        errs["dq"] = compare(f"flash_bwd_dq dq {label}", dq, pq)
-        del out, lse, dk, dv, dq, pq, pk, pv
+        errs["bwd"] = max(compare(f"flash_bwd {n} {label}", x, y)
+                          for n, x, y in zip(("dq", "dk", "dv"), got, plain))
+        same = all(torch.equal(x, y) for run in again
+                   for x, y in zip(got, run))
+        route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms)
+        resident = route == "resident"
+        want_pairs = fa.bwd_pairs(b, h, sq, s, causal) if resident else 0
+        full = fa.bwd_pairs(b, h, sq, s, False) if resident else 0
+        log(f"    flash_bwd {label}: route {route}, G {groups}; two more "
+            f"launches bitwise equal: {same}; ({fa.BWD_TILE_ROWS}-row query "
+            f"tile, {fa.BWD_KEY_SLICE}-key slice) pairs visited {int(pairs)} "
+            f"(want {want_pairs}; {full} without the causal skip)")
+        if not same or int(pairs) != want_pairs:
+            raise AssertionError(f"flash_bwd {label}: not deterministic or "
+                                 f"pairs {int(pairs)} != {want_pairs}")
+        del out, lse, got, again, plain
         ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
-              "dkv": cuda_ms(torch, lambda: fa.flash_bwd_dkv(*a, *g)),
-              "dq": cuda_ms(torch, lambda: fa.flash_bwd_dq(*a, *g))}
-        plain_fwd = cuda_ms(torch, lambda: fa.flash_forward_plain(
-            *a, rate, seed))
-        plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g))
-        # the library yardstick: one SDPA call, causal folded into the mask
-        mask = None
+              "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
+        plain_ms = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
+            *a, rate, seed)),
+            "bwd": cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g))}
+        mask = None   # the yardstick's bf16 mask: bias and causal folded
         if bias is not None or causal:
-            mask = (0 if bias is None else bias) + (
-                causal_bias(sq, s, dev) if causal else 0)
-            mask = mask.to(bf)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, dropout_p=rate, enable_gqa=True)
-
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-        def lib_fwd_bwd():
-            with torch.enable_grad():
-                F.scaled_dot_product_attention(
-                    qg, kg, vg, attn_mask=mask, dropout_p=rate,
-                    enable_gqa=True).backward(dout)
-
-        lib = {"fwd": cuda_ms(torch, lib_fwd),
-               "fwd_bwd": cuda_ms(torch, lib_fwd_bwd)}
-        log(f"  flash {label}: fwd {ms['fwd']:.4f} ms (plain {plain_fwd:.4f}"
-            f", SDPA {lib['fwd']:.4f}), bwd_dkv {ms['dkv']:.4f} ms, bwd_dq "
-            f"{ms['dq']:.4f} ms (plain backward, dq dk dv together "
-            f"{plain_bwd:.4f}; SDPA forward + backward {lib['fwd_bwd']:.4f})")
-        for kind, line in (("fwd", 181), ("dkv", 362), ("dq", 400)):
-            name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+            mask = ((0 if bias is None else bias) + (
+                causal_bias(sq, s, dev) if causal else 0)).to(bf)
+        lib = sdpa_times(torch, q, k, v, dout, mask, rate)
+        log(f"  flash {label}: fwd {ms['fwd']:.4f} ms (plain "
+            f"{plain_ms['fwd']:.4f}, SDPA {lib['fwd']:.4f}), bwd (dq dk dv) "
+            f"{ms['bwd']:.4f} ms (plain {plain_ms['bwd']:.4f}; SDPA backward "
+            f"alone {lib['bwd']:.4f}, forward + backward "
+            f"{lib['fwd_bwd']:.4f})")
+        for kind, line in (("fwd", "181"), ("bwd", "362 + :400")):
+            name = f"flash_{kind}"
             n_bytes, flops = flash_work(q, k, bias, causal, kind)
             bms, by = bound_ms(n_bytes, flops)
             log(f"    {name} {label}: bound {bms:.5f} ms ({by}; "
                 f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), kernel "
                 f"at {bms / ms[kind]:.3f} of it")
             row = dict(max_abs_err=errs[kind], ms=ms[kind],
-                       plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
-                       bound_ms=bms, bound_by=by,
-                       library_ms=lib["fwd"] if kind == "fwd"
-                       else lib["fwd_bwd"])
+                       plain_ms=plain_ms[kind], bound_ms=bms, bound_by=by,
+                       library_ms=lib[kind])
+            if kind == "bwd":
+                row.update(library_bwd_ms=lib["bwd"],
+                           library_fwd_bwd_ms=lib["fwd_bwd"],
+                           pairs=int(pairs), groups=groups)
             if label == "encoder":
                 results[name] = dict(
                     name=name, route="cuda",
@@ -1225,8 +1346,7 @@ def flash_launches_per_step(cfg, model, seq_len: int):
         raise ValueError("the launch count assumes full gradient "
                          "checkpointing in both stacks")
     calls = model.sdpa_calls(seq_len)
-    return {"flash_fwd": 2 * calls, "flash_bwd_dkv": calls,
-            "flash_bwd_dq": calls}
+    return {"flash_fwd": 2 * calls, "flash_bwd": calls}
 
 
 def train_launches(cfg, model, seq_len: int):
@@ -1571,6 +1691,12 @@ def main() -> int:
         log("  flash-attention kernels vs plain versions, same dropout "
             "seed (bf16, the training step's attention shapes)")
         phase_flash_kernels(torch, args, results)
+        phase_flash_kernels(torch, args, results, FLASH_LONG)
+        log("  the chain attention's error against the sensitivity of the "
+            "reference's bf16 score rounding")
+        phase_attention_sensitivity(torch, results)
+        log("[lm_head] the tied lm_head's product at the serving batch")
+        phase_lm_head(torch)
         log("[main] flagship serving path at full width")
         ids = phase_serve(torch, model, args, results, "flagship_caption",
                           FLAGSHIP_BOS)
@@ -1659,7 +1785,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("gemm_ms", "attention_ms", "attention_library_ms", "regimes",
-             "variants_ms", "launches_by_path")
+             "variants_ms", "library_bwd_ms", "library_fwd_bwd_ms", "pairs",
+             "groups", "sensitivity", "launches_by_path")
     # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}
                | {k: r[k] for k in extra if k in r}

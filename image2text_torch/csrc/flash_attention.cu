@@ -1,6 +1,6 @@
 // Flash attention for training on Hopper (sm_90a): counterparts of
-// image2text_tpu/ops/flash_attention.py::_fwd_kernel, ::_bwd_dkv_kernel and
-// ::_bwd_dq_kernel.
+// image2text_tpu/ops/flash_attention.py::_fwd_kernel, and of ::_bwd_dkv_kernel
+// with ::_bwd_dq_kernel together (one backward).
 //
 // Forward: O = softmax(q·kᵀ·scale + clamp(bias, NEG_BIG) [causal]) · V with
 // the online softmax of FlashAttention-2; the per-row lse is saved.  The
@@ -16,30 +16,56 @@
 // (0.011 ms at 3.35 TB/s) for 5 GFLOP (0.005 ms at the bf16 peak); the
 // backward about twice both.  Scores never reach device memory.
 //
-// Design, correct and simple first: a thread block of four warps owns a
-// 64-row tile, each warp 16 rows, and loops over 64-row tiles of the other
-// side held in shared memory; every product is a WMMA bf16 tensor-core
-// product with f32 accumulators.  Score tiles go through shared memory in
-// f32 so that plain threads apply bias, masks, softmax and dropout with
-// known row/column coordinates; the forward's O accumulator lives in
-// shared memory too (its rows are rescaled by the online softmax).
-// - forward: one block per (batch·head, q tile); K/V of a multi-query
-//   call are indexed by batch only, so each image's K/V are read by its
-//   h heads' blocks through L2.
-// - dK/dV: one block per (K/V plane, kv tile).  For multi-query K/V the
-//   block loops over all h query heads and all q tiles, so the head
-//   reduction stays in f32 registers (no (b·h, skv, d) f32 outputs and no
-//   separate sum as on the TPU).
-// - dQ: one block per (batch·head, q tile) looping over kv tiles.
-// No atomics: every output element is written by one block, so results
-// are deterministic.  Causal calls without a bias skip the tiles above the
-// diagonal band.  Key columns past skv take no part (p = 0); query rows
-// past sq are computed on zeros and not written.  A row that sees no key at
-// all gets the uniform average over all skv keys (its scores are all
-// NEG_BIG), so a q tile holding a row that the causal offset leaves without
-// keys (sq > skv) visits every kv tile, and so does every q tile of a
-// causal call with a bias, which may mask a whole row (the decoder's calls;
-// at lengths 129 to 142 that is 9 (q tile, kv tile) pairs against 6).
+// Forward: a thread block of four warps owns a 64-row tile, each warp 16
+// rows, and loops over 64-row K/V tiles held in shared memory; WMMA bf16
+// products with f32 accumulators; score tiles go through shared memory in
+// f32 so that plain threads apply bias, masks, softmax and dropout; one
+// block per (batch·head, q tile), so each image's multi-query K/V are read
+// by its h heads' blocks through L2.
+//
+// Backward, K/V resident (skv <= SKV_MAX = 160 keys: every ported training
+// shape).  One block holds a whole K/V plane in shared memory, one warp
+// per 16 keys (at most 10 warps), and walks over 32-row query tiles of its
+// plane (multi-query: the h heads' rows folded, as the encoder chain's
+// attention folds them), each tile loaded by cp.async into a double buffer
+// while the previous one computes.  For each (tile, 16-key slice) a warp
+// computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ once on mma.sync m16n8k16 and keeps
+// them in registers, where every lane knows its (key, query) coordinates:
+// bias, causal mask, exp(s − lse), the dropout hash and dS are applied
+// there, once per element (5 products per pair, not 7: no recompute for
+// dQ).  p̃ᵀ and dSᵀ then feed dV += p̃ᵀ·dO and dK += dSᵀ·Q straight from
+// the accumulators (the f32 → bf16 A-fragment reuse of FlashAttention-2),
+// with dK/dV accumulating in registers over the block's tiles; dSᵀ goes to
+// shared memory as bf16 once, and all warps take dQ = dS·K of the tile in
+// (16 rows, 16 dims) jobs, written whole: the block sees every key, so no
+// dQ partials and no atomics.  A multi-query plane is split over G blocks
+// (G from the host: enough blocks for the SMs without a second wave), each
+// writing f32 dK/dV partials that a second kernel sums in group order; for
+// G = 1 (hk = h: GPT-2) the block writes bf16 dK/dV itself.  Results are
+// bitwise deterministic.  Causal calls skip the key slices wholly above the
+// band of a tile whose rows all saw a key — decided on the device from the
+// saved lse (a row had a visible key exactly when lse > NEG_BIG / 2, and
+// then p = exp(NEG_BIG − lse) = 0 above the band), so a soft-prompt bias no
+// longer forces every pair; a tile holding a keyless row (it averages over
+// every key) visits all slices.  dSᵀ needs one stage: a warp writes it
+// for tile t + 1 only after the barrier that every warp reaches once done
+// with tile t's dQ, its only reader.  Shared memory at d 128, 160 keys: K
+// and V 87,040 B, Q and dO two stages 34,816 B, dSᵀ 12,800 B, lse and D
+// 512 B: 135 KB, one block of 10 warps per SM.  The host picks the route
+// and G (ops/flash_attention.py::bwd_plan, which reads RB, KW and MAX_KW
+// from this file): G = 0 takes the tiled kernels.
+//
+// Backward, tiled (skv > 160: K/V do not fit a block): two kernels.
+// dK/dV: one block of four warps per (K/V plane, 64-key tile) looping over
+// every query head and 64-row q tile (multi-query heads summed in f32
+// registers); dQ: one block per (batch·head, q tile) looping over key
+// tiles, recomputing S and dP.  Score tiles through f32 shared memory.
+//
+// No float atomics anywhere: every output element is written by one block
+// (partials summed in a fixed order).  Key columns past skv take no part
+// (p = 0); query rows past sq are computed on zeros and not written.  A row
+// that sees no key at all gets the uniform average over all skv keys (its
+// scores are all NEG_BIG).
 #include "common.cuh"
 
 using namespace i2t;
@@ -67,6 +93,8 @@ struct Params {
   bf16* dq;
   bf16* dk;
   bf16* dv;
+  float* part;  // f32 dK/dV partials of the resident backward's groups
+  int* pairs;   // if set, the resident backward adds its visited pairs
   int b, h, hk, sq, skv;
   int causal;
   float scale;
@@ -432,6 +460,286 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
                 q0 + warp * 16, p.sq);
 }
 
+// ------------------------------------------------- backward, K/V resident
+constexpr int RB = 32;                // query rows per tile
+constexpr int KW = 16;                // keys per warp
+constexpr int MAX_KW = 10;            // warps of a block
+constexpr int SKV_MAX = KW * MAX_KW;  // keys a block holds
+constexpr int RLD = RB + 8;           // dSᵀ row stride (bf16)
+
+template <int D>
+size_t res_smem(int nw) {
+  constexpr int LD = D + 8;
+  return (size_t)2 * nw * KW * LD * sizeof(bf16)  // K, V
+         + 2 * 2 * RB * LD * sizeof(bf16)          // Q, dO: two stages
+         + nw * KW * RLD * sizeof(bf16)            // dSᵀ
+         + 2 * 2 * RB * sizeof(float);             // lse, D: two stages
+}
+
+// 4-byte asynchronous copy; pred false zero-fills and reads nothing.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 4 : 0));
+}
+
+// Q, dO, lse and D of rows [q0, q0 + RB) of plane bh into one stage (zeros
+// past sq).
+template <int D>
+__device__ void res_load_tile(const Params& p, bf16* Qs, bf16* dOs, float* lse, float* dvec,
+                              int bh, int q0) {
+  constexpr int LD = D + 8, VPR = D / 8;
+  const bf16* qp = p.q + (size_t)bh * p.sq * D;
+  const bf16* op = p.dout + (size_t)bh * p.sq * D;
+  for (int i = threadIdx.x; i < RB * VPR; i += blockDim.x) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    const bool in = q0 + r < p.sq;
+    const size_t off = in ? (size_t)(q0 + r) * D + c : 0;
+    cp_async16(Qs + r * LD + c, qp + off, in);
+    cp_async16(dOs + r * LD + c, op + off, in);
+  }
+  for (int i = threadIdx.x; i < 2 * RB; i += blockDim.x) {
+    const int r = i % RB;
+    const bool in = q0 + r < p.sq;
+    const size_t off = (size_t)bh * p.sq + (in ? q0 + r : 0);
+    if (i < RB)
+      cp_async4(lse + r, p.lse + off, in);
+    else
+      cp_async4(dvec + r, p.dvec + off, in);
+  }
+}
+
+// Grid (G groups, b·hk K/V planes); blockDim 32·⌈skv/16⌉.  Group g of a
+// plane takes its query tiles [g·T/G, (g+1)·T/G), T = (h if hk = 1 else 1)
+// × ⌈sq/32⌉, a tile being 32 rows of one head.
+template <int D>
+__global__ void __launch_bounds__(MAX_KW * 32, 1) flash_bwd_kernel(Params p) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x / 32, nk = nw * KW;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + nk * LD;
+  bf16* Qs = Vs + nk * LD;         // [2][RB][LD]
+  bf16* dOs = Qs + 2 * RB * LD;    // [2][RB][LD]
+  bf16* dSt = dOs + 2 * RB * LD;   // [nk][RLD]: dSᵀ, keys × query rows
+  float* lse_s = reinterpret_cast<float*>(dSt + nk * RLD);      // [2][RB]
+  float* dvec_s = lse_s + 2 * RB;                                // [2][RB]
+
+  const int kvp = blockIdx.y, grp = blockIdx.x, groups = gridDim.x;
+  const int bi = p.hk == 1 ? kvp : kvp / p.h;
+  const int h0 = p.hk == 1 ? 0 : kvp % p.h, nh = p.hk == 1 ? p.h : 1;
+  const int nqt = (p.sq + RB - 1) / RB, ntiles = nh * nqt;
+  const int t0 = (int)((long long)grp * ntiles / groups);
+  const int t1 = (int)((long long)(grp + 1) * ntiles / groups);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int kv0 = warp * KW;
+  // ldmatrix lane addresses: A from a row-major (m, k) tile; B from an
+  // (n, k) tile; B (.trans) from a row-major (k, n) tile; A (.trans) from a
+  // (k, m) tile
+  const int ar = (lane % 8) + ((lane / 8) % 2) * 8, ac = (lane / 16) * 8;
+  const int br = (lane % 8) + (lane / 16) * 8, bc = ((lane / 8) % 2) * 8;
+  const int tr = ar, tc = ac;
+  const int atr = br, atc = bc;
+
+  {  // the plane's K and V, rows past skv zero
+    const bf16* kp = p.k + (size_t)kvp * p.skv * D;
+    const bf16* vp = p.v + (size_t)kvp * p.skv * D;
+    for (int i = threadIdx.x; i < nk * (D / 8); i += blockDim.x) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      const bool in = r < p.skv;
+      const size_t off = in ? (size_t)r * D + c : 0;
+      cp_async16(Ks + r * LD + c, kp + off, in);
+      cp_async16(Vs + r * LD + c, vp + off, in);
+    }
+  }
+  if (t0 < t1)
+    res_load_tile<D>(p, Qs, dOs, lse_s, dvec_s, bi * p.h + h0 + t0 / nqt, (t0 % nqt) * RB);
+  cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dk[n][u] = dv[n][u] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const int st_ = (t - t0) & 1;
+    if (t + 1 < t1)
+      res_load_tile<D>(p, Qs + (st_ ^ 1) * RB * LD, dOs + (st_ ^ 1) * RB * LD,
+                       lse_s + (st_ ^ 1) * RB, dvec_s + (st_ ^ 1) * RB,
+                       bi * p.h + h0 + (t + 1) / nqt, ((t + 1) % nqt) * RB);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int hi = h0 + t / nqt, q0 = (t % nqt) * RB, bh = bi * p.h + hi;
+    const float* bias = p.bias ? p.bias + bi * p.bsb + hi * p.bsh : nullptr;
+    const bf16* Qt = Qs + st_ * RB * LD;
+    const bf16* dOt = dOs + st_ * RB * LD;
+    const float* lt = lse_s + st_ * RB;
+    const float* dt = dvec_s + st_ * RB;
+    // key slices [0, w_hi) are visited: under causal, when every row of the
+    // tile saw a key, those up to the band of its last row
+    const bool keyed =
+        __all_sync(0xffffffffu, q0 + lane >= p.sq || lt[lane] > 0.5f * NEG_BIG);
+    int w_hi = nw;
+    if (p.causal && keyed) w_hi = min(nw, (min(q0 + RB, p.sq) - 1 + p.skv - p.sq) / KW + 1);
+    if (p.pairs != nullptr && threadIdx.x == 0) atomicAdd(p.pairs, w_hi);
+
+    if (warp < w_hi) {
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warp's 16 keys × the tile's 32 rows
+      float sa[RB / 8][4], pa[RB / 8][4];
+#pragma unroll
+      for (int n = 0; n < RB / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sa[n][u] = pa[n][u] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, Ks + (kv0 + ar) * LD + kk * 16 + ac);
+        ldsm_x4(av, Vs + (kv0 + ar) * LD + kk * 16 + ac);
+#pragma unroll
+        for (int n = 0; n < RB / 16; ++n) {
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, Qt + (n * 16 + br) * LD + kk * 16 + bc);
+          ldsm_x4(bo, dOt + (n * 16 + br) * LD + kk * 16 + bc);
+          mma16816(sa[2 * n], ak, bq[0], bq[1]);
+          mma16816(sa[2 * n + 1], ak, bq[2], bq[3]);
+          mma16816(pa[2 * n], av, bo[0], bo[1]);
+          mma16816(pa[2 * n + 1], av, bo[2], bo[3]);
+        }
+      }
+      // p̃ (into sa) and dS (into pa) at (key kv0 + g [+ 8], row q0 + 8n +
+      // 2·c4 [+ 1])
+#pragma unroll
+      for (int n = 0; n < RB / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = kv0 + g + 8 * (u >> 1);
+          const int r = n * 8 + 2 * c4 + (u & 1), row = q0 + r;
+          float pr = 0.f;
+          if (row < p.sq && col < p.skv) {
+            float sc = sa[n][u] * p.scale;
+            if (bias != nullptr) sc += fmaxf(bias[row * p.bsr + col], NEG_BIG);
+            if (p.causal && col > row + p.skv - p.sq) sc = NEG_BIG;
+            pr = expf(sc - lt[r]);
+          }
+          float dp = pa[n][u];
+          if (p.dropout) {
+            const float ks = keep_scale(p, row, col, bh);
+            dp *= ks;
+            sa[n][u] = pr * ks;
+          } else {
+            sa[n][u] = pr;
+          }
+          pa[n][u] = pr * (dp - dt[r]);
+        }
+      // dV += p̃ᵀ·dO and dK += dSᵀ·Q, A fragments from the accumulators
+#pragma unroll
+      for (int kq = 0; kq < RB / 16; ++kq) {
+        const uint32_t ap[4] = {pack_bf2(sa[2 * kq][0], sa[2 * kq][1]),
+                                pack_bf2(sa[2 * kq][2], sa[2 * kq][3]),
+                                pack_bf2(sa[2 * kq + 1][0], sa[2 * kq + 1][1]),
+                                pack_bf2(sa[2 * kq + 1][2], sa[2 * kq + 1][3])};
+        const uint32_t as[4] = {pack_bf2(pa[2 * kq][0], pa[2 * kq][1]),
+                                pack_bf2(pa[2 * kq][2], pa[2 * kq][3]),
+                                pack_bf2(pa[2 * kq + 1][0], pa[2 * kq + 1][1]),
+                                pack_bf2(pa[2 * kq + 1][2], pa[2 * kq + 1][3])};
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(bo, dOt + (kq * 16 + tr) * LD + n * 16 + tc);
+          ldsm_x4_t(bq, Qt + (kq * 16 + tr) * LD + n * 16 + tc);
+          mma16816(dv[2 * n], ap, bo[0], bo[1]);
+          mma16816(dv[2 * n + 1], ap, bo[2], bo[3]);
+          mma16816(dk[2 * n], as, bq[0], bq[1]);
+          mma16816(dk[2 * n + 1], as, bq[2], bq[3]);
+        }
+      }
+      // dSᵀ to shared memory, as the same bf16 values
+#pragma unroll
+      for (int n = 0; n < RB / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dSt + (kv0 + g) * RLD + n * 8 + 2 * c4) =
+            pack_bf2(pa[n][0], pa[n][1]);
+        *reinterpret_cast<uint32_t*>(dSt + (kv0 + g + 8) * RLD + n * 8 + 2 * c4) =
+            pack_bf2(pa[n][2], pa[n][3]);
+      }
+    }
+    __syncthreads();
+    // dQ = dS·K·scale over the visited keys, in (16 rows, 16 dims) jobs
+    constexpr int NC = D / 16;
+    for (int j = warp; j < (RB / 16) * NC; j += nw) {
+      const int mt = j / NC, nc = j % NC;
+      float acc[2][4] = {};
+      for (int kk = 0; kk < w_hi; ++kk) {
+        uint32_t a[4], bk[4];
+        ldsm_x4_t(a, dSt + (kk * 16 + atr) * RLD + mt * 16 + atc);
+        ldsm_x4_t(bk, Ks + (kk * 16 + tr) * LD + nc * 16 + tc);
+        mma16816(acc[0], a, bk[0], bk[1]);
+        mma16816(acc[1], a, bk[2], bk[3]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = q0 + mt * 16 + g + 8 * hh;
+        if (row >= p.sq) continue;
+        bf16* dst = p.dq + ((size_t)bh * p.sq + row) * D + nc * 16 + 2 * c4;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          *reinterpret_cast<uint32_t*>(dst + n * 8) =
+              pack_bf2(acc[n][2 * hh] * p.scale, acc[n][2 * hh + 1] * p.scale);
+      }
+    }
+  }
+
+  // this warp's 16 keys of dK (scaled) and dV: bf16 when the block is the
+  // plane's only group, else f32 partials [dK: G][planes][skv][D], then dV
+  const size_t plane_elems = (size_t)gridDim.y * p.skv * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = kv0 + g + 8 * hh;
+    if (key >= p.skv) continue;
+    const size_t at = ((size_t)kvp * p.skv + key) * D + 2 * c4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      if (groups == 1) {
+        *reinterpret_cast<uint32_t*>(p.dk + at + n * 8) =
+            pack_bf2(dk[n][2 * hh] * p.scale, dk[n][2 * hh + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(p.dv + at + n * 8) =
+            pack_bf2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      } else {
+        float* pk = p.part + grp * plane_elems + at + n * 8;
+        float* pv = pk + groups * plane_elems;
+        *reinterpret_cast<float2*>(pk) = make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
+        *reinterpret_cast<float2*>(pv) = make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// dK = scale·Σ_g part_dK[g], dV = Σ_g part_dV[g], summed in group order;
+// ``elems`` = planes·skv·D (a multiple of 4), four elements a thread.
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const float* part, bf16* dk,
+                                                               bf16* dv, int groups,
+                                                               long long elems, float scale) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * elems) return;
+  const bool is_v = i >= elems;
+  const long long j = is_v ? i - elems : i;
+  const float* src = part + (is_v ? groups * elems : 0) + j;
+  float4 s = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < groups; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * elems);
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  const float m = is_v ? 1.f : scale;
+  uint2 o;
+  o.x = pack_bf2(s.x * m, s.y * m);
+  o.y = pack_bf2(s.z * m, s.w * m);
+  *reinterpret_cast<uint2*>((is_v ? dv : dk) + j) = o;
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq,
                    int skv, int causal, float scale, int dropout, unsigned seed,
@@ -459,11 +767,38 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, void* stream) {
+int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, void* stream,
+           int threads = THREADS) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tiled backward (skv > SKV_MAX): dK/dV, then dQ.
+template <int D>
+int launch_tiled_bwd(const Params& p, void* stream) {
+  int err = launch(flash_bwd_dkv_kernel<D>, BwdSmem<D>::bytes,
+                   dim3((p.skv + BK - 1) / BK, p.b * p.hk), p, stream);
+  if (err != 0) return err;
+  return launch(flash_bwd_dq_kernel<D>, BwdSmem<D>::bytes,
+                dim3((p.sq + BQ - 1) / BQ, p.b * p.h), p, stream);
+}
+
+template <int D>
+int launch_bwd(const Params& p, int groups, void* stream) {
+  if (groups == 0) return launch_tiled_bwd<D>(p, stream);
+  if (groups < 0 || p.skv > SKV_MAX || (groups > 1 && p.part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int nw = (p.skv + KW - 1) / KW;
+  int err = launch(flash_bwd_kernel<D>, res_smem<D>(nw), dim3(groups, p.b * p.hk), p, stream,
+                   32 * nw);
+  if (err != 0 || groups == 1) return err;
+  const long long elems = (long long)p.b * p.hk * p.skv * D;
+  const long long threads = (2 * elems / 4 + 255) / 256;
+  flash_bwd_reduce_kernel<<<(unsigned)threads, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      p.part, p.dk, p.dv, groups, elems, p.scale);
   return (int)cudaGetLastError();
 }
 
@@ -501,33 +836,25 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
 #undef FWD
 }
 
-extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                    const void* dout, const void* lse, const void* dvec,
-                                    void* dk, void* dv, I2T_FLASH_ARGS) {
-  if (!valid(b, h, hk, sq, skv)) return (int)cudaErrorInvalidValue;
-  Params p = I2T_FLASH_PARAMS;
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.dvec = static_cast<const float*>(dvec);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  const dim3 grid((skv + BK - 1) / BK, b * hk);
-#define DKV(D) return launch(flash_bwd_dkv_kernel<D>, BwdSmem<D>::bytes, grid, p, stream)
-  I2T_DISPATCH(DKV)
-#undef DKV
-}
-
-extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse, const void* dvec,
-                                   void* dq, I2T_FLASH_ARGS) {
+// dQ, dK and dV of one backward call: the K/V-resident kernel (skv <=
+// SKV_MAX; ``groups`` blocks per K/V plane; for groups > 1 ``part`` holds
+// 2·groups·b·hk·skv·d f32 partials, summed by a second kernel), or the
+// tiled kernels for groups = 0.  ``pairs`` (may be null) counts the
+// resident kernel's visited (32-row query tile, 16-key slice) pairs.
+extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* dvec, void* dq, void* dk, void* dv,
+                                void* part, void* pairs, int groups, I2T_FLASH_ARGS) {
   if (!valid(b, h, hk, sq, skv)) return (int)cudaErrorInvalidValue;
   Params p = I2T_FLASH_PARAMS;
   p.dout = static_cast<const bf16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.dvec = static_cast<const float*>(dvec);
   p.dq = static_cast<bf16*>(dq);
-  const dim3 grid((sq + BQ - 1) / BQ, b * h);
-#define DQ(D) return launch(flash_bwd_dq_kernel<D>, BwdSmem<D>::bytes, grid, p, stream)
-  I2T_DISPATCH(DQ)
-#undef DQ
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.part = static_cast<float*>(part);
+  p.pairs = static_cast<int*>(pairs);
+#define BWD(D) return launch_bwd<D>(p, groups, stream)
+  I2T_DISPATCH(BWD)
+#undef BWD
 }

@@ -26,6 +26,7 @@ from image2text_torch.models.layers import MoELinear, TransformerBlock
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, normal_init,
                                       zeros_init)
 from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
+from image2text_torch.ops.functions import dot_f32
 from image2text_torch.ops.static_gather import canonicalize
 from image2text_torch.training.remat import checkpoint_block
 
@@ -179,8 +180,7 @@ class TransformerDecoder(nn.Module):
         if layout is not None:
             x = canonicalize(x, layout)
         x = self.transformer.ln_f(x)
-        logits = torch.matmul(x.float(),
-                              self.transformer.wte.weight.float().t())
+        logits = dot_f32(x, self.transformer.wte.weight)
         return logits, x
 
     # -- cached decoding ------------------------------------------------------

@@ -24,6 +24,7 @@ from image2text_torch.configs.models import HuggingfaceDecoderConfig
 from image2text_torch.models.hf_decoders.gpt2 import GPT2Backbone
 from image2text_torch.models.kv_cache import KVCache
 from image2text_torch.nn.core import EVAL_CTX, Ctx
+from image2text_torch.ops.functions import dot_f32
 
 GPT2_TABLE = {
     "gpt2": dict(n_layer=12, n_embd=768, n_head=12),
@@ -61,8 +62,7 @@ class HuggingfaceDecoder(nn.Module):
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied lm_head: products of the hidden dtype, f32 sums and f32
         logits (the JAX ``preferred_element_type=f32``)."""
-        w = self._embed_weight().to(hidden.dtype)
-        return torch.matmul(hidden.float(), w.float().t())
+        return dot_f32(hidden, self._embed_weight())
 
     @property
     def block_size(self) -> int:

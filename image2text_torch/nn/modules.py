@@ -20,6 +20,7 @@ from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       normal_init, ones_init,
                                       torch_linear_weight_init,
                                       xavier_uniform_init, zeros_init)
+from image2text_torch.ops.functions import dot_f32
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -188,8 +189,7 @@ class MultiheadAttention(nn.Module):
             k, v = precomputed_kv
         else:
             k, v = self.project_kv(key, value)
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        scores = scores / math.sqrt(self.head_dim)
+        scores = dot_f32(q, k) / math.sqrt(self.head_dim)
         probs = torch.softmax(scores, dim=-1).to(query.dtype)
         probs, _ = dropout(probs, self.dropout_rate, ctx)
         y = torch.matmul(probs, v)

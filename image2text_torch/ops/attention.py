@@ -2,10 +2,12 @@
 ``image2text_tpu/ops/attention.py``).
 
 Not ``F.scaled_dot_product_attention``: its rounding differs.  The JAX
-chain is kept step for step: scores accumulate in f32 and are scaled in
-f32, then (for a low-precision input) rounded to the storage dtype; the
-softmax runs in f32 and is safe for fully masked rows; probabilities drop
-to the storage dtype before the V product.  Multi-query K/V are read once
+chain is kept step for step: scores are products of the storage dtype
+accumulated in f32 (``ops/functions.py::dot_f32``: no f32 copy of q or of
+the KV cache) and scaled in f32, then (for a low-precision input) rounded
+to the storage dtype; the softmax runs in f32 and is safe for fully
+masked rows; probabilities drop to the storage dtype before the V
+product.  Multi-query K/V are read once
 by folding the query heads into the sequence axis.
 
 Training (``ctx.train``) with ``use_flash`` goes through the flash kernels
@@ -24,6 +26,7 @@ import torch
 
 from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
 from image2text_torch.ops.flash_attention import flash_sdpa
+from image2text_torch.ops.functions import dot_f32
 
 
 def causal_bias(s: int, l: int, device=None,
@@ -57,7 +60,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hk = k.shape[1]
     g = h // hk
     qf = q.reshape(b, hk, g * s, d) if g > 1 else q
-    scores = torch.matmul(qf.float(), k.float().transpose(-1, -2)) * scale
+    scores = dot_f32(qf, k) * scale
     if g > 1:
         scores = scores.reshape(b, h, s, -1)
     if q.dtype != torch.float32:

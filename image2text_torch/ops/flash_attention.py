@@ -3,9 +3,12 @@ their plain versions, and the autograd function that joins them.
 
 Replaces ``image2text_tpu/ops/flash_attention.py``'s three Pallas kernels:
 ``_fwd_kernel`` (FlashAttention-2 forward with online softmax, saving the
-per-row logsumexp), ``_bwd_dkv_kernel`` (dK, dV over a loop of query
-tiles) and ``_bwd_dq_kernel`` (dQ over a loop of key tiles).  The function
-is the Pallas one, not its TPU layout:
+per-row logsumexp) by :func:`flash_fwd`, and ``_bwd_dkv_kernel`` (dK, dV
+over a loop of query tiles) with ``_bwd_dq_kernel`` (dQ over a loop of key
+tiles) by one backward, :func:`flash_bwd`, which computes the scores, the
+probabilities and dS once per (query, key) pair for all three gradients
+while a plane's K/V fit one block (``RESIDENT_MAX_KEYS``; the plan is
+:func:`bwd_plan`).  The function is the Pallas one, not its TPU layout:
 
 * scores ``q·kᵀ·scale`` in f32 plus an additive f32 bias clamped at
   ``NEG_BIG``, broadcast over (batch | 1, head | 1, query | 1, key);
@@ -36,6 +39,8 @@ whose query axis is neither 1 nor sq, a dtype other than bf16).
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +50,23 @@ from image2text_torch.ops import _build
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _M32 = 0xFFFFFFFF
+
+
+def _kernel_constants(*names: str) -> Tuple[int, ...]:
+    """``constexpr int NAME = <literal>;`` values of
+    ``csrc/flash_attention.cu``: the backward's tiling has one owner, the
+    kernel source."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    found = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
+    return tuple(int(found[n]) for n in names)
+
+
+# The backward kernel's tiling: query tiles of BWD_TILE_ROWS rows (RB), one
+# warp per BWD_KEY_SLICE keys (KW), a whole K/V plane resident in one block
+# of at most MAX_KW warps; longer planes take the tiled kernels.
+BWD_TILE_ROWS, BWD_KEY_SLICE, _MAX_KW = _kernel_constants("RB", "KW",
+                                                          "MAX_KW")
+RESIDENT_MAX_KEYS = BWD_KEY_SLICE * _MAX_KW
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +140,7 @@ def flash_forward_plain(q, k, v, bias=None, causal: bool = False,
 
 def flash_backward_plain(q, k, v, bias, causal: bool, g, lse, dvec,
                          rate: float = 0.0, seed: int = 0):
-    """Plain version of both backward kernels: (dq, dk, dv) in the inputs'
+    """Plain version of the backward kernels: (dq, dk, dv) in the inputs'
     dtypes, from the forward's ``lse`` and ``dvec = rowsum(g ∘ out)``."""
     b, h, sq, _ = q.shape
     scale = 1.0 / q.shape[-1] ** 0.5
@@ -201,51 +223,78 @@ def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
     return out, lse
 
 
-def flash_bwd_dkv(q, k, v, bias, causal: bool, g, lse, dvec,
-                  rate: float = 0.0, seed: int = 0):
-    """dK, dV (multi-query: summed over the query heads inside the
-    kernel)."""
+def bwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
+             n_sms: int) -> Tuple[str, int]:
+    """(route, groups) of one backward call, the kernel's launch argument
+    G.  ``"resident"`` while a K/V plane fits one block (skv <=
+    RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's query tiles, as
+    many as the SMs left over by the b·hk planes allow without a second
+    wave (at most one per tile); else ``"tiled"`` (groups 0)."""
+    if skv > RESIDENT_MAX_KEYS:
+        return "tiled", 0
+    tiles = (h if hk == 1 else 1) * -(-sq // BWD_TILE_ROWS)
+    return "resident", max(1, min(tiles, n_sms // (b * hk)))
+
+
+def bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
+    """(query tile, key slice) pairs the resident backward visits when no
+    bias leaves a row without keys: under ``causal`` the slices up to the
+    band of each tile's last row, but all of them for a tile holding a row
+    the causal offset leaves keyless (sq > skv: it averages over every
+    key); without ``causal`` all of them."""
+    slices = -(-skv // BWD_KEY_SLICE)
+    per_plane = 0
+    for q0 in range(0, sq, BWD_TILE_ROWS):
+        last = min(q0 + BWD_TILE_ROWS, sq) - 1
+        keyed = q0 + skv - sq >= 0
+        per_plane += (min(slices, (last + skv - sq) // BWD_KEY_SLICE + 1)
+                      if causal and keyed else slices)
+    return b * h * per_plane
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
+              rate: float = 0.0, seed: int = 0, pairs=None):
+    """(dq, dk, dv) from the forward's ``lse`` and ``dvec = rowsum(g ∘
+    out)``; multi-query dK/dV summed over the query heads.  The CUDA
+    kernels (:func:`bwd_plan`) for CUDA tensors, the plain version for CPU
+    tensors.  ``pairs``, an int32 CUDA tensor of one element, gets the
+    resident kernel's visited (query tile, key slice) pairs added."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
-                                    rate, seed)[1:]
-    bias, strides = _check("flash_bwd_dkv", q, k, v, bias)
-    _build.check_operand("flash_bwd_dkv", "g", g, torch.bfloat16)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+                                    rate, seed)
+    bias, strides = _check("flash_bwd", q, k, v, bias)
+    _build.check_operand("flash_bwd", "g", g, torch.bfloat16)
+    _build.check_operand("flash_bwd", "lse", lse, torch.float32)
+    _build.check_operand("flash_bwd", "dvec", dvec, torch.float32)
+    _build.check_operand("flash_bwd", "pairs", pairs, torch.int32)
+    b, h, sq, _ = q.shape
+    _, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
+                         _n_sms(q.device.index or 0))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty(2 * groups * k.numel(), dtype=torch.float32,
+                        device=q.device) if groups > 1 else None)
     P = _build.ptr
-    _launch("flash_bwd_dkv_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
-            P(dk), P(dv), *_common_args(q, k, bias, strides, causal, rate,
-                                        seed))
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    _launch("flash_bwd_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
+            P(dq), P(dk), P(dv), P(part), P(pairs), ctypes.c_int(groups),
+            *_common_args(q, k, bias, strides, causal, rate, seed))
+    flash_bwd.launches += 1
+    return dq, dk, dv
 
 
-def flash_bwd_dq(q, k, v, bias, causal: bool, g, lse, dvec,
-                 rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """dQ."""
-    if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
-                                    rate, seed)[0]
-    bias, strides = _check("flash_bwd_dq", q, k, v, bias)
-    _build.check_operand("flash_bwd_dq", "g", g, torch.bfloat16)
-    dq = torch.empty_like(q)
-    P = _build.ptr
-    _launch("flash_bwd_dq_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
-            P(dq), *_common_args(q, k, bias, strides, causal, rate, seed))
-    flash_bwd_dq.launches += 1
-    return dq
-
-
-flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+flash_fwd.launches = flash_bwd.launches = 0
 
 
 def flash_backward(q, k, v, bias, causal, out, lse, g, rate, seed):
-    """(dq, dk, dv): ``D = rowsum(g ∘ out)`` in f32, then both backward
-    wrappers."""
+    """(dq, dk, dv): ``D = rowsum(g ∘ out)`` in f32, then the backward
+    wrapper."""
     g = g.contiguous()
     dvec = (g.float() * out.float()).sum(-1).contiguous()
-    dk, dv = flash_bwd_dkv(q, k, v, bias, causal, g, lse, dvec, rate, seed)
-    dq = flash_bwd_dq(q, k, v, bias, causal, g, lse, dvec, rate, seed)
-    return dq, dk, dv
+    return flash_bwd(q, k, v, bias, causal, g, lse, dvec, rate, seed)
 
 
 class FlashSDPA(torch.autograd.Function):
@@ -284,7 +333,8 @@ def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
                            0 if seed is None else int(seed))
 
 
-__all__ = ["NEG_BIG", "FlashSDPA", "dropout_keep_mask", "flash_bwd_dkv",
-           "flash_bwd_dq", "flash_forward_plain", "flash_backward_plain",
+__all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan",
+           "dropout_keep_mask", "flash_bwd", "flash_forward_plain",
+           "flash_backward_plain",
            "flash_fwd", "flash_sdpa", "keep_threshold"]
 

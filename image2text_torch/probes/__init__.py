@@ -1,5 +1,7 @@
-"""Measurement probes of the encoder-block chain on the card (counterparts
-of the TPU probes under ``tools/``): ``block_ablate`` and ``block_wide``."""
+"""Measurement probes on the card: of the encoder-block chain
+(counterparts of the TPU probes under ``tools/``: ``block_ablate`` and
+``block_wide``), and of two checkouts' kernel times in turns
+(``kernel_times``)."""
 from __future__ import annotations
 
 import statistics

@@ -13,8 +13,17 @@ with its plain version forced onto those same routes, so every row is
 compared; :func:`check_routes` then holds the routes themselves against
 the top-k of the plain gate values: a route that differs must be a near
 tie (rounding order), and such rows must be few.
+
+An attention kernel that rounds its scores to bf16 (as the reference
+``ops/attention.py::sdpa`` specifies) can part from the reference by more
+than sums in another order explain element by element: a score near a
+bf16 rounding boundary rounds the other way.  :func:`attention_sensitivity`
+measures how far that rounding alone moves the result, so that a kernel's
+error is judged against it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,4 +92,41 @@ def check_routes(name: str, routes: torch.Tensor, gates: torch.Tensor,
             f"{name}: kernel routes disagree with the plain top-k: {st} "
             f"(limits: max_tie_gap <= {TIE}, rows_apart <= max(1, "
             f"{MAX_APART} * rows))")
+    return st
+
+
+def rounding_reference(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention (q (b, h, t, d), k/v (b, 1 or h, l, d)) in f64,
+    rounded to q's dtype where the reference rounds: the scaled scores, the
+    probabilities and the output."""
+    dt = q.dtype
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(
+        q.shape[-1])
+    p = torch.softmax(s.to(dt).double(), dim=-1).to(dt)
+    return torch.matmul(p.double(), v.double()).to(dt)
+
+
+def attention_sensitivity(got: torch.Tensor, q: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Worst element errors of an attention kernel's output ``got`` (b, h,
+    t, d) on (q, k, v): against ``sdpa`` (``kernel_vs_sdpa``) and against
+    :func:`rounding_reference` (``kernel_vs_f64``); and the sensitivity of
+    the reference's own rounding: ``sdpa`` against the f64 formulation
+    (``sdpa_vs_f64``), and ``sdpa`` with its sums in another order (head
+    dims and keys reversed) against it (``reordered_vs_f64``).
+    ``sensitivity`` is the larger of those two."""
+    from image2text_torch.ops.attention import sdpa
+
+    want = sdpa(q, k, v)
+    ref = rounding_reference(q, k, v)
+    reordered = sdpa(q.flip(-1), k.flip(-1).flip(-2), v.flip(-2))
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    st = {"kernel_vs_sdpa": err(got, want), "kernel_vs_f64": err(got, ref),
+          "sdpa_vs_f64": err(want, ref),
+          "reordered_vs_f64": err(reordered, ref)}
+    st["sensitivity"] = max(st["sdpa_vs_f64"], st["reordered_vs_f64"])
     return st

@@ -18,8 +18,12 @@ dropout seed (the keep masks are identical), and one training step of the
 tiny flagship runs on the card.  The encoder chain's stages alone: the
 wgmma GEMM at ragged M, N and K with row lists, a row offset, bias and
 residual; the head-folded attention from 16 keys to its shared-memory
-limit; the MoE FFN in both regimes from 1 to 40,960 rows; and every block
-probe variant.
+limit, and its error beside the sensitivity of the reference's bf16 score
+rounding at score standard deviations 1, 2 and 4; the MoE FFN in both
+regimes from 1 to 40,960 rows; and every block probe variant.  The flash
+backward on both routes (K/V resident up to 160 keys, tiled beyond), every
+bias broadcast form, bitwise-deterministic reruns and its causal band skip;
+the lm_head and the eval attention without f32 copies.
 """
 import pytest
 import torch
@@ -177,46 +181,124 @@ def _soft_prompt_bias(s, n_prefix, dev):
     return bias
 
 
+def _flash_bias(kind, b, h, sq, skv, dev, g):
+    """An f32 bias of each broadcast form (1|b, 1|h, 1|sq, skv)."""
+    if kind is None:
+        return None
+    if kind == "soft_prompt":
+        return _soft_prompt_bias(sq, 9, dev)
+    if kind == "per_batch":
+        bias = torch.zeros(b, 1, sq, skv, device=dev)
+        bias[0, :, :, 30:] = float("-inf")
+        return bias
+    if kind == "per_head":
+        return torch.randn(1, h, 1, skv, device=dev, generator=g)
+    shape = {"keys": (1, 1, 1, skv), "batch_keys": (b, 1, 1, skv),
+             "rows": (1, 1, sq, skv), "head_rows": (1, h, sq, skv),
+             "full": (b, h, sq, skv), "batch_head": (b, h, 1, skv)}[kind]
+    bias = torch.randn(*shape, device=dev, generator=g)
+    bias[..., 3] = float("-inf")   # clamped to NEG_BIG inside the kernels
+    return bias
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hk,sq,skv,d,bias,causal,rate", [
     (3, 8, 1, 160, 160, 128, None, False, 0.1),      # encoder-like, MQA
     (2, 4, 1, 137, 137, 64, "soft_prompt", True, 0.1),  # decoder-like
     (2, 2, 2, 40, 40, 32, "per_batch", False, 0.0),  # MHA, ragged
     (1, 2, 1, 40, 137, 16, "per_head", True, 0.1),   # causal sq < skv
+    (2, 16, 16, 112, 64, 64, None, False, 0.0),      # cross: sq > skv
+    (1, 2, 1, 161, 161, 64, None, True, 0.1),        # just past resident
+    (2, 4, 1, 256, 1024, 64, None, True, 0.1),       # long keys: tiled
+    (1, 2, 2, 300, 1024, 128, "per_head", False, 0.1),  # tiled, MHA
 ])
 def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
                                    rate):
+    """Forward and backward against the plain versions on both backward
+    routes (resident K/V up to 160 keys, tiled beyond); the backward
+    launched twice more gives bitwise-equal dQ, dK and dV."""
     g = _gen(dev, 11)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
                                  ).to(torch.bfloat16)
                      for shape in ((b, h, sq, d), (b, hk, skv, d),
                                    (b, hk, skv, d), (b, h, sq, d)))
-    if bias == "soft_prompt":
-        bias = _soft_prompt_bias(sq, 9, dev)
-    elif bias == "per_batch":
-        bias = torch.zeros(b, 1, sq, skv, device=dev)
-        bias[0, :, :, 30:] = float("-inf")
-    elif bias == "per_head":
-        bias = torch.randn(1, h, 1, skv, device=dev, generator=g)
+    bias = _flash_bias(bias, b, h, sq, skv, dev, g)
     seed = -987654321
-    counts = fa.flash_fwd.launches, fa.flash_bwd_dkv.launches
+    counts = fa.flash_fwd.launches, fa.flash_bwd.launches
     out, lse = fa.flash_fwd(q, k, v, bias, causal, rate, seed)
     want, want_lse = fa.flash_forward_plain(q, k, v, bias, causal, rate, seed)
     dvec = (dout.float() * want.float()).sum(-1)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, causal, dout, want_lse, dvec,
-                              rate, seed)
-    dq = fa.flash_bwd_dq(q, k, v, bias, causal, dout, want_lse, dvec, rate,
-                         seed)
-    pq, pk, pv = fa.flash_backward_plain(q, k, v, bias, causal, dout,
-                                         want_lse, dvec, rate, seed)
+    gr = (dout, want_lse, dvec, rate, seed)
+    got = fa.flash_bwd(q, k, v, bias, causal, *gr)
+    again = fa.flash_bwd(q, k, v, bias, causal, *gr)
+    plain = fa.flash_backward_plain(q, k, v, bias, causal, *gr)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (
-        counts[0] + 1, counts[1] + 1)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (
+        counts[0] + 1, counts[1] + 2)
     check_output("flash_fwd out", out, want)
     check_output("flash_fwd lse", lse, want_lse)
-    check_output("flash_bwd_dq", dq, pq)
-    check_output("flash_bwd_dkv dk", dk, pk)
-    check_output("flash_bwd_dkv dv", dv, pv)
+    for name, mine, ref, rerun in zip(("dq", "dk", "dv"), got, plain, again):
+        check_output(f"flash_bwd {name}", mine, ref)
+        assert torch.equal(mine, rerun), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["keys", "batch_keys", "rows", "head_rows",
+                                  "full", "batch_head"])
+@pytest.mark.parametrize("hk", [1, 4])
+def test_flash_bwd_takes_every_bias_broadcast_form(dev, kind, hk):
+    """(1|b, 1|h, 1|sq, skv) biases, multi-query and not, causal, at the
+    resident route's 160-key limit."""
+    b, h, sq, skv, d, rate, seed = 2, 4, 150, 160, 64, 0.1, 321
+    g = _gen(dev, 13)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
+                                 ).to(torch.bfloat16)
+                     for shape in ((b, h, sq, d), (b, hk, skv, d),
+                                   (b, hk, skv, d), (b, h, sq, d)))
+    bias = _flash_bias(kind, b, h, sq, skv, dev, g)
+    a = (q, k, v, bias, True)
+    want, lse = fa.flash_forward_plain(*a, rate, seed)
+    check_output("flash_fwd out", fa.flash_fwd(*a, rate, seed)[0], want)
+    gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
+    for name, mine, ref in zip(("dq", "dk", "dv"), fa.flash_bwd(*a, *gr),
+                               fa.flash_backward_plain(*a, *gr)):
+        check_output(f"flash_bwd {name} bias {kind}", mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prefix,keyless_row", [(32, None), (32, 70)])
+def test_flash_bwd_skips_the_causal_band_only_where_every_row_sees_a_key(
+        dev, n_prefix, keyless_row):
+    """At the flagship decoder's s 136 with its soft-prompt bias, the
+    backward visits 29 of the 45 (32-row tile, 16-key slice) pairs a head
+    (``bwd_pairs``: the band, decided from the saved lse on the card); a
+    row the bias leaves keyless makes its tile visit all 9 slices (it
+    averages over every key), and the result still holds."""
+    b, h, s, d, rate, seed = 2, 8, 136, 128, 0.1, 99
+    g = _gen(dev, 14)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
+                                 ).to(torch.bfloat16)
+                     for shape in ((b, h, s, d), (b, 1, s, d), (b, 1, s, d),
+                                   (b, h, s, d)))
+    bias = _soft_prompt_bias(s, n_prefix, dev)
+    if keyless_row is not None:
+        bias[..., keyless_row, :] = float("-inf")
+    a = (q, k, v, bias, True)
+    want, lse = fa.flash_forward_plain(*a, rate, seed)
+    gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
+    pairs = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = fa.flash_bwd(*a, *gr, pairs=pairs)
+    torch.cuda.synchronize()
+    band = fa.bwd_pairs(b, h, s, s, True)
+    assert band == b * h * 29
+    extra = 0 if keyless_row is None else b * h * (9 - 6)  # tile 64..95
+    assert int(pairs) == band + extra
+    for name, mine, ref in zip(("dq", "dk", "dv"), got,
+                               fa.flash_backward_plain(*a, *gr)):
+        st = output_error(mine, ref)
+        assert (st["finite"] and st["rel_l2"] <= REL_L2
+                and st["max_abs_err"] <= MAX_ABS_SHARE * st["max_plain"]), (
+            name, st)
 
 
 @pytest.mark.cuda
@@ -235,7 +317,8 @@ def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
     rounds to NEG_BIG in f32 (log skv is lost), so its recomputed p is 1,
     its dS terms are O(10), and their bf16 rounding in the kernel's
     tensor-core products leaves O(0.1) errors on sums that cancel to small
-    values."""
+    values.  Without a bias the visited (query tile, key slice) pairs are
+    ``bwd_pairs``'s: every slice for a tile holding a keyless row."""
     b, h, d, rate, seed = 1, 2, 64, 0.1, 12345
     g = _gen(dev, 12)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
@@ -251,7 +334,10 @@ def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
     want, lse = fa.flash_forward_plain(*a, rate, seed)
     check_output("flash_fwd out", out, want)
     gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
-    got = (fa.flash_bwd_dq(*a, *gr), *fa.flash_bwd_dkv(*a, *gr))
+    pairs = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = fa.flash_bwd(*a, *gr, pairs=pairs)
+    if masked_rows is None:
+        assert int(pairs) == fa.bwd_pairs(b, h, sq, skv, True)
     for name, mine, ref in zip(("dq", "dk", "dv"), got,
                                fa.flash_backward_plain(*a, *gr)):
         st = output_error(mine, ref)
@@ -300,8 +386,7 @@ def test_tiny_training_step_on_card(dev, remat):
     trainer = Trainer(cfg, w)
     images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 6))
     labels = torch.randint(3, 511, (4, 48), device=dev, generator=_gen(dev, 7))
-    kernels = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq, sparse_block,
-               moe_ffn)
+    kernels = (fa.flash_fwd, fa.flash_bwd, sparse_block, moe_ffn)
     for kern in kernels:
         kern.launches = 0
     losses = [float(trainer._train_step(images, labels, 0, i)[
@@ -310,8 +395,8 @@ def test_tiny_training_step_on_card(dev, remat):
     calls = 3 * w.model.sdpa_calls(48)
     got = {kern.__name__: kern.launches for kern in kernels}
     assert calls > 0 and got == {
-        "flash_fwd": (2 if remat else 1) * calls, "flash_bwd_dkv": calls,
-        "flash_bwd_dq": calls, "sparse_block": 0, "moe_ffn": 0}
+        "flash_fwd": (2 if remat else 1) * calls, "flash_bwd": calls,
+        "sparse_block": 0, "moe_ffn": 0}
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
 
 
@@ -445,7 +530,7 @@ def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
     labels = torch.full((4, 24), -100, dtype=torch.long, device=dev)
     labels[:, :16] = torch.randint(3, 50000, (4, 16), device=dev,
                                    generator=_gen(dev, 7))
-    kernels = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq, int4_matmul)
+    kernels = (fa.flash_fwd, fa.flash_bwd, int4_matmul)
     for kern in kernels:
         kern.launches = 0
     losses = [float(trainer._train_step(images, labels, 0, i)[
@@ -454,7 +539,7 @@ def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
     n_q = sum(isinstance(m, QuantizedLinear) for m in w.model.decoder.modules())
     calls = 3 * w.model.sdpa_calls(24)
     assert {kern.__name__: kern.launches for kern in kernels} == {
-        "flash_fwd": calls, "flash_bwd_dkv": calls, "flash_bwd_dq": calls,
+        "flash_fwd": calls, "flash_bwd": calls,
         "int4_matmul": 3 * n_q}
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
     assert all(torch.equal(tensors[k], v) for k, v in frozen.items())
@@ -774,6 +859,114 @@ def test_mqa_attention_kernel_matches_plain(dev, t):
     torch.cuda.synchronize()
     assert math.isfinite(float(got.float().abs().max()))
     check_output(f"mqa_attention t={t}", got, want)
+
+
+def _mqa_case(dev, b, t, h, hd, score_std, seed):
+    """qkv rows whose scores q·k/sqrt(hd) have standard deviation
+    ``score_std``, and their q (b, h, t, hd), k and v (b, 1, t, hd)."""
+    import math
+
+    qkv = (torch.randn(b * t, (h + 2) * hd, device=dev,
+                       generator=_gen(dev, seed)) * math.sqrt(score_std)
+           ).to(torch.bfloat16)
+    q3 = qkv.reshape(b, t, -1)
+    q = q3[..., :h * hd].reshape(b, t, h, hd).transpose(1, 2)
+    k = q3[..., None, h * hd:(h + 1) * hd].transpose(1, 2)
+    v = q3[..., None, (h + 1) * hd:].transpose(1, 2)
+    return qkv, q, k, v
+
+
+def _mqa_kernel(dev, qkv, b, t, h, hd):
+    import ctypes
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.fused_block import _attention
+
+    got = _attention(_build.load("fused_block"), ctypes.c_void_p(
+        torch.cuda.current_stream(dev).cuda_stream), qkv, b, t, h, hd)
+    return got.reshape(b, t, h, hd).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [16, 17, 160, 320, 432])
+def test_mqa_attention_kernel_matches_plain_at_input_scale_2(dev, t):
+    """The 2·N(0, 1) inputs next to the N(0, 1) ones above: scores of
+    standard deviation 4, where a score near a bf16 rounding boundary may
+    round the other way in the kernel and in sdpa (both round the scores
+    to bf16, as the reference specifies), so one element can exceed the
+    0.06 element bound.  The bound here is the measured sensitivity of
+    that rounding (``kernel_check.attention_sensitivity``): the worst
+    element error at most twice the larger of sdpa's and a reordered
+    sdpa's error against the f64 formulation rounded at the same points;
+    and the normwise limits as everywhere."""
+    from image2text_torch.ops.fused_block import MAX_ATTN_ROWS
+    from image2text_torch.utils.kernel_check import attention_sensitivity
+
+    assert t <= MAX_ATTN_ROWS
+    b, h, hd = 3, 8, 128
+    qkv, q, k, v = _mqa_case(dev, b, t, h, hd, 4.0, 4)
+    got = _mqa_kernel(dev, qkv, b, t, h, hd)
+    st = attention_sensitivity(got, q, k, v)
+    from image2text_torch.ops.attention import sdpa
+    norm = output_error(got, sdpa(q, k, v))
+    assert norm["finite"] and norm["rel_l2"] <= REL_L2, norm
+    assert st["kernel_vs_sdpa"] <= 2 * st["sensitivity"], st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [160, 320])
+@pytest.mark.parametrize("score_std", [1.0, 2.0, 4.0])
+def test_mqa_attention_error_within_twice_the_reference_sensitivity(
+        dev, t, score_std):
+    """The chain attention at the flagship's 8 heads x 128 and the dense
+    twin's and sparse encoder's key counts: the kernel's worst element
+    error against sdpa stays within twice the sensitivity of the
+    reference's own bf16 score rounding (else it is a kernel fault)."""
+    from image2text_torch.utils.kernel_check import attention_sensitivity
+
+    b, h, hd = 4, 8, 128
+    qkv, q, k, v = _mqa_case(dev, b, t, h, hd, score_std, 5)
+    st = attention_sensitivity(_mqa_kernel(dev, qkv, b, t, h, hd), q, k, v)
+    assert 0 < st["sensitivity"] and st["kernel_vs_sdpa"] <= 2 * st[
+        "sensitivity"], st
+
+
+@pytest.mark.cuda
+def test_lm_head_and_eval_attention_make_no_f32_copy(dev):
+    """The tied lm_head at the flagship's vocab (50,258 x 1,024) and a
+    decode step's eval attention against a bf16 KV cache: bf16 products
+    summed in f32 (aten::mm.dtype / bmm.dtype), f32 results.  The rise in
+    peak memory over each call stays below the f32 copy of its weight or
+    of the cache that the previous formulation made."""
+    from image2text_torch.ops.attention import sdpa
+    from image2text_torch.ops.functions import dot_f32
+
+    g = _gen(dev, 15)
+    x = torch.randn(256, 1, 1024, device=dev, generator=g).to(torch.bfloat16)
+    w = (0.02 * torch.randn(50258, 1024, device=dev, generator=g)
+         ).to(torch.bfloat16)
+
+    def rise(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    logits, up = rise(lambda: dot_f32(x, w))
+    assert logits.dtype == torch.float32 and logits.shape == (256, 1, 50258)
+    assert up < w.numel() * 4, up     # an f32 copy of w alone: 206 MB
+    torch.testing.assert_close(logits, x.float() @ w.float().t(),
+                               rtol=1e-4, atol=1e-4)
+    cache = torch.randn(2, 256, 16, 512, 64, device=dev, generator=g
+                        ).to(torch.bfloat16)
+    q = torch.randn(256, 16, 1, 64, device=dev, generator=g
+                    ).to(torch.bfloat16)
+    k, v = cache[0, :, :, :300], cache[1, :, :, :300]
+    out, up = rise(lambda: sdpa(q, k, v))
+    assert up < k.numel() * 4, up     # an f32 copy of the cached keys
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.cuda

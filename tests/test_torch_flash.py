@@ -139,3 +139,99 @@ def test_dropout_rate_changes_the_result_and_seed_matters():
     assert not torch.equal(a, fa.flash_sdpa(q, k, v, rate=0.1, seed=6))
     with pytest.raises(ValueError, match="seed"):
         fa.flash_sdpa(q, k, v, rate=0.1)
+
+
+# -- the single backward (flash_bwd) ------------------------------------------
+
+# The training attention shapes (chip_smoke.py's FLASH_FLAGSHIP and
+# FLASH_GPT2M) at batch 2: (h, hk, sq, skv, d, causal, soft-prompt prefix,
+# dropout rate).
+TRAIN_SHAPES = {
+    "flagship_encoder": (8, 1, 160, 160, 128, False, None, 0.1),
+    "flagship_decoder": (8, 1, 136, 136, 128, True, 32, 0.1),
+    "gpt2m_encoder": (8, 1, 80, 80, 64, False, None, 0.1),
+    "gpt2m_self": (16, 16, 112, 112, 64, True, None, 0.0),
+    "gpt2m_cross": (16, 16, 112, 64, 64, False, None, 0.0),
+}
+
+
+@pytest.mark.parametrize("label", list(TRAIN_SHAPES))
+def test_flash_bwd_cpu_route_matches_jax_at_training_shapes(label):
+    """flash_bwd on CPU tensors (its plain route) from the port's forward
+    statistics: dQ, dK and dV against the gradients of JAX's flash_sdpa
+    (its Pallas backward kernels in interpret mode), same dropout seed.
+    Tolerance as above, at each tensor's scale (sums of up to 8·160 terms
+    in another order)."""
+    h, hk, sq, skv, d, causal, n_prefix, rate = TRAIN_SHAPES[label]
+    b, seed = 2, -55555
+    rng = np.random.default_rng(3)
+    q, g = (rng.standard_normal((b, h, sq, d)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((b, hk, skv, d)).astype(np.float32)
+            for _ in range(2))
+    bias = None if n_prefix is None else _soft_prompt_bias(sq, n_prefix)
+    jb = None if bias is None else jnp.asarray(bias)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(
+            lambda q_, k_, v_: jax_flash_sdpa(q_, k_, v_, jb, causal, rate,
+                                              jnp.int32(seed)),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = fa.flash_fwd(tq, tk, tv, tb, causal, rate, seed)
+    dvec = (tg * out).sum(-1)
+    before = fa.flash_bwd.launches
+    got = fa.flash_bwd(tq, tk, tv, tb, causal, tg, lse, dvec, rate, seed)
+    assert fa.flash_bwd.launches == before   # CPU: the plain version
+    for name, mine, ref in zip(("dq", "dk", "dv"), got, want):
+        assert mine.shape == ref.shape, name
+        np.testing.assert_allclose(
+            mine.numpy(), ref, rtol=TOL["rtol"],
+            atol=TOL["atol"] * max(1.0, float(np.abs(ref).max())),
+            err_msg=name)
+
+
+@pytest.mark.parametrize("args,want", [
+    ((48, 8, 1, 160, 160, 132), ("resident", 2)),    # flagship encoder
+    ((48, 8, 1, 136, 136, 132), ("resident", 2)),    # flagship decoder
+    ((12, 8, 1, 80, 80, 132), ("resident", 11)),     # GPT-2-medium encoder
+    ((12, 16, 16, 112, 112, 132), ("resident", 1)),  # GPT-2 self, 192 planes
+    ((1, 2, 1, 40, 40, 132), ("resident", 4)),       # at most one per tile
+    ((2, 4, 1, 256, 1024, 132), ("tiled", 0)),       # long keys
+])
+def test_bwd_plan(args, want):
+    assert fa.bwd_plan(*args) == want
+
+
+def test_bwd_plan_resident_up_to_the_threshold():
+    """The route switches past RESIDENT_MAX_KEYS (the kernel's SKV_MAX:
+    ten warps of 16 keys, as read from the kernel source), whatever the
+    other sizes; the tiled route is the kernel's groups 0."""
+    assert (fa.BWD_TILE_ROWS, fa.BWD_KEY_SLICE) == (32, 16)
+    assert fa.RESIDENT_MAX_KEYS == 10 * fa.BWD_KEY_SLICE == 160
+    for b, h, hk in ((1, 1, 1), (48, 8, 1), (12, 16, 16)):
+        assert fa.bwd_plan(b, h, hk, 64, 160, 132)[0] == "resident"
+        assert fa.bwd_plan(b, h, hk, 64, 161, 132) == ("tiled", 0)
+
+
+@pytest.mark.parametrize("sq,skv,causal", [
+    (136, 136, True), (160, 160, False), (112, 112, True), (112, 64, False),
+    (40, 137, True), (1, 1, True), (33, 160, True), (200, 128, True),
+    (112, 64, True)])
+def test_bwd_pairs_equal_the_slices_the_causal_mask_reaches(sq, skv, causal):
+    """bwd_pairs against a count from the mask itself: a (32-row query
+    tile, 16-key slice) pair is visited iff some row of the tile sees some
+    key of the slice, or some row of the tile sees no key at all (causal
+    with sq > skv: such a row averages over every key)."""
+    row = np.arange(sq)[:, None] + (skv - sq)
+    col = np.arange(skv)[None, :]
+    sees = (col <= row) if causal else np.ones((sq, skv), bool)
+    want = sum(bool(sees[r:r + 32, c:c + 16].any()
+                    or not sees[r:r + 32].any(-1).all())
+               for r in range(0, sq, 32) for c in range(0, skv, 16))
+    assert fa.bwd_pairs(3, 2, sq, skv, causal) == 3 * 2 * want
+    if (sq, skv) == (136, 136):   # the flagship decoder: 29 of 45 a head
+        assert want == 29 and fa.bwd_pairs(1, 1, sq, skv, False) == 45
+    if (sq, skv) == (200, 128):   # 3 keyless tiles × 8 slices, then the band
+        assert want == 3 * 8 + 4 + 6 + 8 + 8
