@@ -18,6 +18,8 @@ Phases, each printing its lines:
             shape (batch 48, 8 heads, s 160, d 128, multi-query, dropout
             0.1) and a decoder shape (s 136, causal, soft-prompt bias),
             with the same dropout seed as their plain versions; the
+            forward's route and groups (fwd_plan) and its registers and
+            spills (the build's -Xptxas -v); the
             backward launched three times, bitwise equal, and its visited
             (query tile, key slice) pairs counted against the causal band;
             F.scaled_dot_product_attention's forward, backward alone and
@@ -86,7 +88,8 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
 
 8. kernels  int4_matmul against its plain version at the decoder's four
             quantized Linear shapes, at 256 decode rows and at the training
-            step's 12 x 112 rows (bf16, bf16 scales), with torch.matmul on
+            step's 12 x 112 rows (bf16, bf16 scales), its plan (tile and
+            split of the input) and two reruns bitwise equal, with torch.matmul on
             the weight dequantised once to bf16 as a yardstick; the front,
             the sparse block and the MoE FFN at the GPT-2-medium encoder's
             shapes; the
@@ -104,6 +107,11 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
             loss of every step, frozen tensors bitwise unchanged.
 12. gpt2m-train-parity  depth 2 + 2, full width, batch 8: loss and
             gradients, kernel path against plain-version path.
+
+13. device-times  the device time of the flash forward and int4_matmul
+            rows (torch.profiler's kernel durations, free of the wrapper's
+            host time that their CUDA-event times include), taken last:
+            the profiler slows every later host call of the process.
 
 Every launch count is read over one run of its path with every count set
 to 0 just before it (``launches_by_path`` in the JSON line).
@@ -161,6 +169,30 @@ def cuda_ms(torch, fn, iters: int = 10) -> float:
     from image2text_torch.probes import time_ms
 
     return time_ms(fn, iters)
+
+
+# (kernel row, call) pairs whose device time is read at the end of the run:
+# the profiler that reads it slows every later host call of the process,
+# so no CUDA-event time is taken after it (run_device_times).
+DEVICE_TIMES = []
+
+
+def defer_device_ms(label: str, row: dict, fn) -> None:
+    """Have ``row["device_ms"]`` measured at the end of the run: ``fn``'s
+    device time in ms, the host's launch overhead excluded (torch.profiler's
+    kernel durations)."""
+    DEVICE_TIMES.append((label, row, fn))
+
+
+def run_device_times() -> None:
+    """Measure every deferred device time (after all CUDA-event timing)."""
+    from image2text_torch.probes import device_ms
+
+    for label, row, fn in DEVICE_TIMES:
+        row["device_ms"] = device_ms(fn)
+        log(f"  {label}: device {row['device_ms']:.4f} ms (CUDA events "
+            f"{row['ms']:.4f})")
+    DEVICE_TIMES.clear()
 
 
 def nbytes(*ts) -> int:
@@ -686,27 +718,28 @@ def phase_moe_regimes(torch, model, results):
     FEW_ROWS should lie."""
     from image2text_torch.ops.fused_moe import (FEW_ROWS, launch_moe_ffn,
                                                 moe_slices)
+    from image2text_torch.utils.device import sm_count
 
     mlp = model.vision_encoder.blocks[2].mlp
     bf = torch.bfloat16
     fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
     hidden = fc.l2w.shape[1]
     gen = torch.Generator(device=model.device).manual_seed(SEED + 12)
-    sweep = []
+    sweep, n_sms = [], sm_count(model.device)
     for n in MOE_SWEEP_ROWS:
         x = torch.randn(n, fc.wa.shape[0], device=model.device, dtype=bf,
                         generator=gen)
         out = torch.empty_like(x)
-        split = moe_slices(min(n, FEW_ROWS), hidden)
+        split = moe_slices(min(n, FEW_ROWS), hidden, n_sms)
         many = cuda_ms(torch, lambda: launch_moe_ffn(x, fc, proj, out,
                                                      slices=1), iters=20)
         few = cuda_ms(torch, lambda: launch_moe_ffn(x, fc, proj, out,
                                                     slices=split), iters=20)
         sweep.append(dict(rows=n, many_ms=many, split_ms=few, slices=split,
-                          picked=moe_slices(n, hidden)))
+                          picked=moe_slices(n, hidden, n_sms)))
         log(f"  moe_ffn regimes rows={n} hidden={hidden}: many-rows kernel "
             f"{many:.4f} ms, hidden split in {split} {few:.4f} ms; the "
-            f"wrapper picks {moe_slices(n, hidden)} slice(s) (FEW_ROWS "
+            f"wrapper picks {moe_slices(n, hidden, n_sms)} slice(s) (FEW_ROWS "
             f"{FEW_ROWS})")
     results.setdefault("moe_ffn", {"name": "moe_ffn"})["regimes"] = sweep
 
@@ -1215,6 +1248,7 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
     route counts none).  The first
     flagship case fills the kernels' rows, every other case a
     ``<label>_shape``."""
+    from image2text_torch.ops import _build
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.attention import causal_bias
 
@@ -1248,6 +1282,12 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
                           for n, x, y in zip(("dq", "dk", "dv"), got, plain))
         same = all(torch.equal(x, y) for run in again
                    for x, y in zip(got, run))
+        fwd_route, fwd_groups = fa.fwd_plan(b, h, hk, sq, s, n_sms)
+        regs, spills = _build.resources("flash_attention", (
+            "flash_fwd_res_kernel" if fwd_route == "resident"
+            else "flash_fwd_kernel") + f"ILi{d}E")
+        log(f"    flash_fwd {label}: route {fwd_route}, G {fwd_groups}; "
+            f"{regs} registers, {spills} bytes spilled a thread")
         route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms)
         resident = route == "resident"
         want_pairs = fa.bwd_pairs(b, h, sq, s, causal) if resident else 0
@@ -1289,16 +1329,22 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
                 row.update(library_bwd_ms=lib["bwd"],
                            library_fwd_bwd_ms=lib["fwd_bwd"],
                            pairs=int(pairs), groups=groups)
+            else:
+                row.update(plan_route=fwd_route, groups=fwd_groups,
+                           registers=regs, spill_bytes=spills)
             if label == "encoder":
-                results[name] = dict(
+                stored = results[name] = dict(
                     name=name, route="cuda",
                     source="image2text_torch/csrc/flash_attention.cu",
                     replaces=f"image2text_tpu/ops/flash_attention.py:{line}",
                     **row)
             else:
-                results.setdefault(name, {"name": name})[
+                stored = results.setdefault(name, {"name": name})[
                     f"{label}_shape"] = dict(b=b, h=h, hk=hk, sq=sq, skv=s,
                                              d=d, causal=causal, **row)
+            if kind == "fwd":
+                defer_device_ms(f"flash_fwd {label}", stored,
+                                lambda a=a, r=rate: fa.flash_fwd(*a, r, seed))
 
 
 def train_inputs(torch, cfg, batch: int, seed: int):
@@ -1535,11 +1581,13 @@ def phase_int4_kernels(torch, model, results):
     """int4_matmul against its plain version at the GPT-2-medium decoder's
     four quantized Linear shapes, at the serving batch (256 decode rows)
     and at the training step's rows (12 x 112), bf16 x and the bf16 scales
-    the model's cast leaves; beside it torch.matmul on the weight
+    the model's cast leaves, with the plan (tile, splits of the input) and
+    two more launches bitwise equal; beside it torch.matmul on the weight
     dequantised once to bf16, a yardstick the port never calls."""
     from image2text_torch.ops.int4_matmul import (dequantize_int4,
                                                   int4_matmul,
-                                                  int4_matmul_plain)
+                                                  int4_matmul_plain, int4_plan)
+    from image2text_torch.utils.device import sm_count
 
     dev, bf = model.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -1554,10 +1602,19 @@ def phase_int4_kernels(torch, model, results):
             x = torch.randn(rows, lin.in_pad, device=dev, generator=gen).to(bf)
             got = int4_matmul(x, packed, scales)
             want = int4_matmul_plain(x, packed, scales)
+            same = all(torch.equal(got, int4_matmul(x, packed, scales))
+                       for _ in range(2))
             torch.cuda.synchronize()
+            bm, bn, splits = int4_plan(rows, lin.out_features, lin.in_pad,
+                                       sm_count(dev))
             shape = (f"rows={rows} in={lin.in_pad} out={lin.out_features} "
                      f"scales {scales.dtype}")
             err = compare(f"int4_matmul {phase} {label} {shape}", got, want)
+            log(f"    {phase} {label}: tile {bm} x {bn}, {splits} split(s) of "
+                f"the input; two more launches bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"int4_matmul {phase} {label}: reruns "
+                                     "differ")
             ms = cuda_ms(torch, lambda: int4_matmul(x, packed, scales), 20)
             plain = cuda_ms(torch, lambda: int4_matmul_plain(x, packed,
                                                              scales), 20)
@@ -1571,7 +1628,8 @@ def phase_int4_kernels(torch, model, results):
                 f"torch.matmul on the bf16-dequantised weight {lib:.4f} ms")
             row = dict(rows=rows, in_pad=lin.in_pad, out=lin.out_features,
                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, library_ms=lib)
+                       bound_by=by, library_ms=lib, tile=[bm, bn],
+                       splits=splits, reruns_bitwise_equal=same)
             entry = results.setdefault("int4_matmul",
                                        {"name": "int4_matmul"})
             if "source" not in entry:   # the first row: decode c_attn
@@ -1582,6 +1640,9 @@ def phase_int4_kernels(torch, model, results):
                                            "bound_ms", "bound_by",
                                            "library_ms")})
             entry[f"{phase}_{label}_shape"] = row
+            defer_device_ms(f"int4_matmul {phase} {label}", row,
+                            lambda x=x, p=packed, sc=scales: int4_matmul(
+                                x, p, sc))
 
 
 def gpt2m_model(torch):
@@ -1782,11 +1843,16 @@ def main() -> int:
                        lambda cfg: gpt2m_train_inputs(torch, 8, SEED + 11),
                        LORA_GRADS)
 
+    log("[device-times] kernel device times (torch.profiler), taken after "
+        "every CUDA-event time of the run")
+    run_device_times()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("gemm_ms", "attention_ms", "attention_library_ms", "regimes",
              "variants_ms", "library_bwd_ms", "library_fwd_bwd_ms", "pairs",
-             "groups", "sensitivity", "launches_by_path")
+             "groups", "plan_route", "registers", "spill_bytes", "device_ms",
+             "sensitivity",
+             "launches_by_path")
     # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}
                | {k: r[k] for k in extra if k in r}

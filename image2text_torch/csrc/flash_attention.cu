@@ -16,12 +16,34 @@
 // (0.011 ms at 3.35 TB/s) for 5 GFLOP (0.005 ms at the bf16 peak); the
 // backward about twice both.  Scores never reach device memory.
 //
-// Forward: a thread block of four warps owns a 64-row tile, each warp 16
-// rows, and loops over 64-row K/V tiles held in shared memory; WMMA bf16
-// products with f32 accumulators; score tiles go through shared memory in
-// f32 so that plain threads apply bias, masks, softmax and dropout; one
-// block per (batch·head, q tile), so each image's multi-query K/V are read
-// by its h heads' blocks through L2.
+// Forward, K/V resident (skv <= SKV_MAX = 160 keys: every ported training
+// shape).  A block of four warps holds a whole K/V plane in shared memory,
+// loaded once by cp.async, and its warps walk the 16-row query tiles of the
+// plane (multi-query: the h heads' rows folded, as the backward folds
+// them), each warp on its own tiles with no block barrier past the K/V
+// load: a warp pulls its tile's Q into mma.sync A fragments, then at once
+// starts the cp.async of its next tile into the same buffer.  S = Q·Kᵀ
+// runs on mma.sync m16n8k16 into registers, the whole row of up to 160
+// keys (80 f32 a thread), where every lane knows its (row, col): bias,
+// causal mask, the exact softmax (row max and sum over the 4 lanes of a
+// quad, p = exp(s − m) against the row's final max, as the plain version
+// rounds it) and the dropout hash are applied there; p̃ feeds P̃·V
+// straight from the score registers as A fragments and O accumulates in
+// registers (64 f32 a thread at d 128, live only once Q's fragments are
+// not).  The hash and the bias take the unfolded (head, row) of each
+// folded row.  A causal tile stops at its band once every row in it holds
+// a max above NEG_BIG / 2 (past the band p = exp(NEG_BIG − m) = 0); a tile
+// with a keyless row visits every key.  A plane is split over G blocks (the
+// host's ops/flash_attention.py::fwd_plan: as many as two blocks an SM
+// allow in one wave; it reads FWD_ROWS, FWD_WARPS, FWD_SLICE and
+// FWD_BLOCKS_PER_SM from this file).  Shared memory at d 128, 160 keys:
+// K and V 87,040 B, four warps' Q 17,408 B: 104,448 B, two blocks an SM.
+//
+// Forward, tiled (skv > 160): a thread block of four warps owns a 64-row
+// tile, each warp 16 rows, and loops over 64-row K/V tiles held in shared
+// memory; WMMA bf16 products with f32 accumulators; score tiles go through
+// shared memory in f32 so that plain threads apply bias, masks, softmax and
+// dropout; one block per (batch·head, q tile).
 //
 // Backward, K/V resident (skv <= SKV_MAX = 160 keys: every ported training
 // shape).  One block holds a whole K/V plane in shared memory, one warp
@@ -715,6 +737,233 @@ __global__ void __launch_bounds__(MAX_KW * 32, 1) flash_bwd_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------- forward, K/V resident
+constexpr int FWD_ROWS = 16;          // query rows of a warp's tile
+constexpr int FWD_WARPS = 4;          // warps of a block
+constexpr int FWD_SLICE = 32;         // keys of an online-softmax step
+constexpr int FWD_BLOCKS_PER_SM = 2;  // blocks an SM holds (launch bounds; shared memory)
+constexpr int SM_SMEM = 233472;       // shared memory of an SM (228 KB), 1 KB a block reserved
+constexpr int FWD_SLICES = SKV_MAX / FWD_SLICE;  // score slices a warp holds
+static_assert(FWD_SLICES * FWD_SLICE == SKV_MAX, "the resident keys are whole slices");
+
+// Max over the 4 lanes of a quad (the lanes holding one accumulator row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+constexpr size_t fwd_smem(int d, int skv) {
+  return (size_t)(2 * ((skv + FWD_SLICE - 1) / FWD_SLICE * FWD_SLICE) + FWD_WARPS * FWD_ROWS) *
+         (d + 8) * sizeof(bf16);
+}
+static_assert(FWD_BLOCKS_PER_SM * (fwd_smem(128, SKV_MAX) + 1024) <= SM_SMEM,
+              "two resident forward blocks must fit an SM at d 128, 160 keys");
+
+// Grid (G groups, b·hk K/V planes); FWD_WARPS warps.  Group g of a plane
+// takes its 16-row tiles [g·T/G, (g+1)·T/G) of the nh·sq folded rows (nh =
+// h if hk = 1 else 1), T = ⌈nh·sq/16⌉; warp w of the block the tiles
+// t1 − 1 − w, t1 − 1 − w − FWD_WARPS, ... of that range [t0, t1).
+template <int D>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
+    flash_fwd_res_kernel(Params p) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nk = (p.skv + FWD_SLICE - 1) / FWD_SLICE * FWD_SLICE, ns = nk / FWD_SLICE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + nk * LD;
+  bf16* Qw = Vs + nk * LD + warp * FWD_ROWS * LD;  // this warp's Q tile
+
+  const int kvp = blockIdx.y, grp = blockIdx.x, groups = gridDim.x;
+  const int bi = p.hk == 1 ? kvp : kvp / p.h;
+  const int h0 = p.hk == 1 ? 0 : kvp % p.h, nh = p.hk == 1 ? p.h : 1;
+  const int nrows = nh * p.sq, ntiles = (nrows + FWD_ROWS - 1) / FWD_ROWS;
+  const int t0 = (int)((long long)grp * ntiles / groups);
+  const int t1 = (int)((long long)(grp + 1) * ntiles / groups);
+  const size_t base = (size_t)(bi * p.h + h0) * p.sq;  // first folded row of (b, h, sq)
+  // ldmatrix lane addresses: A from a row-major (m, k) tile; B from an
+  // (n, k) tile; B (.trans) from a row-major (k, n) tile
+  const int ar = (lane % 8) + ((lane / 8) % 2) * 8, ac = (lane / 16) * 8;
+  const int br = (lane % 8) + (lane / 16) * 8, bc = ((lane / 8) % 2) * 8;
+
+  {  // the plane's K and V, rows past skv zero
+    const bf16* kp = p.k + (size_t)kvp * p.skv * D;
+    const bf16* vp = p.v + (size_t)kvp * p.skv * D;
+    for (int i = threadIdx.x; i < nk * (D / 8); i += blockDim.x) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      const bool in = r < p.skv;
+      const size_t off = in ? (size_t)r * D + c : 0;
+      cp_async16(Ks + r * LD + c, kp + off, in);
+      cp_async16(Vs + r * LD + c, vp + off, in);
+    }
+  }
+  // folded rows [16 t, 16 t + 16) of Q into this warp's buffer, zeros past
+  // the plane's rows
+  auto load_q = [&](int t) {
+    const bf16* qp = p.q + base * D;
+    for (int i = lane; i < FWD_ROWS * (D / 8); i += 32) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8, fr = t * FWD_ROWS + r;
+      const bool in = fr < nrows;
+      cp_async16(Qw + r * LD + c, qp + (in ? (size_t)fr * D + c : 0), in);
+    }
+  };
+  // a warp walks its tiles from the range's end: within a head a causal
+  // tile's band, and so its work, falls with the tile, so each tile's Q
+  // copy runs under a tile at least as long
+  int t = t1 - 1 - warp;
+  if (t >= t0) load_q(t);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (; t >= t0; t -= FWD_WARPS) {
+    cp_async_wait<0>();
+    __syncwarp();
+    uint32_t qa[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], Qw + ar * LD + kk * 16 + ac);
+    __syncwarp();
+    if (t - FWD_WARPS >= t0) load_q(t - FWD_WARPS);
+    cp_async_commit();
+
+    // this lane's rows g and g + 8 of the tile, unfolded to (head, row)
+    int row[2], lim[2], plane[2];
+    bool in[2];
+    const float* brow[2];
+    int band = -1;  // the last key any row of the tile sees (causal)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int fr = t * FWD_ROWS + g + 8 * hh;
+      in[hh] = fr < nrows;
+      const int head = h0 + (in[hh] ? fr / p.sq : 0);
+      row[hh] = fr % p.sq;
+      plane[hh] = bi * p.h + head;
+      lim[hh] = row[hh] + p.skv - p.sq;
+      brow[hh] = (p.bias != nullptr && in[hh])
+                     ? p.bias + bi * p.bsb + head * p.bsh + row[hh] * p.bsr
+                     : nullptr;
+      if (in[hh]) band = max(band, lim[hh]);
+    }
+    band = __reduce_max_sync(0xffffffffu, band);
+
+    // S = Q·Kᵀ of the visited slices, all in registers (at most SKV_MAX
+    // keys): the scores a causal tile needs end at its band; a tile with a
+    // row that sees no key there visits every slice (it averages over all)
+    float s[FWD_SLICES][FWD_SLICE / 8][4];
+    float m[2] = {-INFINITY, -INFINITY};
+    auto scores = [&](int j) {
+      const int k0 = j * FWD_SLICE;
+#pragma unroll
+      for (int n = 0; n < FWD_SLICE / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[j][n][u] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < FWD_SLICE / 16; ++n) {
+          uint32_t bk[4];
+          ldsm_x4(bk, Ks + (k0 + n * 16 + br) * LD + kk * 16 + bc);
+          mma16816(s[j][2 * n], qa[kk], bk[0], bk[1]);
+          mma16816(s[j][2 * n + 1], qa[kk], bk[2], bk[3]);
+        }
+      // at (row g [+ 8], col k0 + 8n + 2·c4 [+ 1]); -inf past skv
+#pragma unroll
+      for (int n = 0; n < FWD_SLICE / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int hh = u >> 1, col = k0 + n * 8 + 2 * c4 + (u & 1);
+          float x = -INFINITY;
+          if (col < p.skv) {
+            x = s[j][n][u] * p.scale;
+            if (brow[hh] != nullptr) x += fmaxf(brow[hh][col], NEG_BIG);
+            if (p.causal && col > lim[hh]) x = NEG_BIG;
+          }
+          s[j][n][u] = x;
+          m[hh] = fmaxf(m[hh], x);
+        }
+    };
+    // slices up to the band; past it only for a tile with a row that has
+    // seen no key (every lane takes part in the quad shuffles)
+    const int band_slices = p.causal ? min(ns, max(band, 0) / FWD_SLICE + 1) : ns;
+    int nv = 0;
+#pragma unroll
+    for (int j = 0; j < FWD_SLICES; ++j) {
+      if (j >= ns) break;
+      if (j == band_slices) {
+        const float mq0 = quad_max(m[0]), mq1 = quad_max(m[1]);
+        if (__all_sync(0xffffffffu, (!in[0] || mq0 > 0.5f * NEG_BIG) &&
+                                        (!in[1] || mq1 > 0.5f * NEG_BIG)))
+          break;
+      }
+      scores(j);
+      nv = j + 1;
+    }
+    // the exact softmax: p = exp(s − m) with the row's max over every
+    // visited key (past the band p = exp(NEG_BIG − m) = 0), the denominator
+    // before dropout, then p̃ = p·keep/(1 − rate)
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) m[hh] = fmaxf(quad_max(m[hh]), NEG_BIG);
+#pragma unroll
+    for (int j = 0; j < FWD_SLICES; ++j) {
+      if (j >= nv) continue;
+#pragma unroll
+      for (int n = 0; n < FWD_SLICE / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int hh = u >> 1;
+          float pr = expf(s[j][n][u] - m[hh]);
+          l[hh] += pr;
+          if (p.dropout)
+            pr *= keep_scale(p, row[hh], j * FWD_SLICE + n * 8 + 2 * c4 + (u & 1), plane[hh]);
+          s[j][n][u] = pr;
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    // O = P̃·V, A fragments from the score registers (bf16)
+    float o[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[n][u] = 0.f;
+#pragma unroll
+    for (int j = 0; j < FWD_SLICES; ++j) {
+      if (j >= nv) continue;
+#pragma unroll
+      for (int kq = 0; kq < FWD_SLICE / 16; ++kq) {
+        const uint32_t ap[4] = {pack_bf2(s[j][2 * kq][0], s[j][2 * kq][1]),
+                                pack_bf2(s[j][2 * kq][2], s[j][2 * kq][3]),
+                                pack_bf2(s[j][2 * kq + 1][0], s[j][2 * kq + 1][1]),
+                                pack_bf2(s[j][2 * kq + 1][2], s[j][2 * kq + 1][3])};
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, Vs + (j * FWD_SLICE + kq * 16 + ar) * LD + n * 16 + ac);
+          mma16816(o[2 * n], ap, bv[0], bv[1]);
+          mma16816(o[2 * n + 1], ap, bv[2], bv[3]);
+        }
+      }
+    }
+    // O / l as bf16 and lse, rows past the plane's not written
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!in[hh]) continue;
+      const size_t at = base + t * FWD_ROWS + g + 8 * hh;
+      const float lc = fmaxf(l[hh], 1e-30f);
+      bf16* dst = p.o + at * D + 2 * c4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf2(o[n][2 * hh] / lc, o[n][2 * hh + 1] / lc);
+      if (c4 == 0) p.lse_out[at] = m[hh] + logf(lc);
+    }
+  }
+}
+
 // dK = scale·Σ_g part_dK[g], dV = Σ_g part_dV[g], summed in group order;
 // ``elems`` = planes·skv·D (a multiple of 4), four elements a thread.
 __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const float* part, bf16* dk,
@@ -824,16 +1073,27 @@ bool valid(int b, int h, int hk, int sq, int skv) {
     default: return (int)cudaErrorInvalidValue; \
   }
 
+// Out and lse of one forward call: the K/V-resident kernel (skv <=
+// SKV_MAX) with ``groups`` blocks per K/V plane, or the tiled kernel for
+// groups = 0.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                void* lse, I2T_FLASH_ARGS) {
-  if (!valid(b, h, hk, sq, skv)) return (int)cudaErrorInvalidValue;
+                                void* lse, int groups, I2T_FLASH_ARGS) {
+  if (!valid(b, h, hk, sq, skv) || groups < 0 || (groups > 0 && skv > SKV_MAX))
+    return (int)cudaErrorInvalidValue;
   Params p = I2T_FLASH_PARAMS;
   p.o = static_cast<bf16*>(o);
   p.lse_out = static_cast<float*>(lse);
-  const dim3 grid((sq + BQ - 1) / BQ, b * h);
+  if (groups == 0) {
+    const dim3 grid((sq + BQ - 1) / BQ, b * h);
 #define FWD(D) return launch(flash_fwd_kernel<D>, FwdSmem<D>::bytes, grid, p, stream)
-  I2T_DISPATCH(FWD)
+    I2T_DISPATCH(FWD)
 #undef FWD
+  }
+  const dim3 grid(groups, b * hk);
+#define FWD_RES(D) \
+  return launch(flash_fwd_res_kernel<D>, fwd_smem(D, skv), grid, p, stream, FWD_WARPS * 32)
+  I2T_DISPATCH(FWD_RES)
+#undef FWD_RES
 }
 
 // dQ, dK and dV of one backward call: the K/V-resident kernel (skv <=

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -111,10 +112,68 @@ def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
     return lib
 
 
+def kernel_constants(name: str, *names: str) -> Tuple[int, ...]:
+    """``constexpr int NAME = <literal>;`` values of ``csrc/<name>.cu``:
+    a kernel's tiling has one owner, its source, which the host's launch
+    plans read."""
+    text = (CSRC / f"{name}.cu").read_text()
+    found = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
+    return tuple(int(found[n]) for n in names)
+
+
+def resources(name: str, kernel: str) -> Tuple[int, int]:
+    """(registers, spill store bytes) of the first kernel of
+    ``csrc/<name>.cu``'s shipping build whose mangled name contains
+    ``kernel`` (e.g. ``"flash_fwd_res_kernelILi128E"``), from the build's
+    ``-Xptxas -v`` log; built first if needed."""
+    load(name)
+    log = _lib_path(name).with_suffix(".log").read_text()
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or kernel not in entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            return int(m.group(1)), spills
+    raise KeyError(f"{kernel} not in the {name}.cu build log")
+
+
+_entry_points: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def entry_point(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """``name`` of the shipping build of ``csrc/<source>.cu``, returning a
+    ``cudaError_t`` and taking ``argtypes`` (so plain Python ints and
+    floats pass without ctypes wrappers); loaded once."""
+    fn = _entry_points.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entry_points[(source, name)] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
+
+
+def stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a C entry
+    point's ``void* stream`` (the raw query: a few µs cheaper a launch than
+    building a ``torch.cuda.Stream``)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def ptr(t) -> ctypes.c_void_p:

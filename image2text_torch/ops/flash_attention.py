@@ -3,7 +3,8 @@ their plain versions, and the autograd function that joins them.
 
 Replaces ``image2text_tpu/ops/flash_attention.py``'s three Pallas kernels:
 ``_fwd_kernel`` (FlashAttention-2 forward with online softmax, saving the
-per-row logsumexp) by :func:`flash_fwd`, and ``_bwd_dkv_kernel`` (dK, dV
+per-row logsumexp) by :func:`flash_fwd`, a K/V-resident kernel while a
+plane fits one block (its plan is :func:`fwd_plan`), and ``_bwd_dkv_kernel`` (dK, dV
 over a loop of query tiles) with ``_bwd_dq_kernel`` (dQ over a loop of key
 tiles) by one backward, :func:`flash_bwd`, which computes the scores, the
 probabilities and dS once per (query, key) pair for all three gradients
@@ -40,12 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import re
 from typing import Optional, Tuple
 
 import torch
 
 from image2text_torch.ops import _build
+from image2text_torch.utils.device import sm_count
 
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -54,11 +55,9 @@ _M32 = 0xFFFFFFFF
 
 def _kernel_constants(*names: str) -> Tuple[int, ...]:
     """``constexpr int NAME = <literal>;`` values of
-    ``csrc/flash_attention.cu``: the backward's tiling has one owner, the
+    ``csrc/flash_attention.cu``: the kernels' tiling has one owner, the
     kernel source."""
-    text = (_build.CSRC / "flash_attention.cu").read_text()
-    found = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
-    return tuple(int(found[n]) for n in names)
+    return _build.kernel_constants("flash_attention", *names)
 
 
 # The backward kernel's tiling: query tiles of BWD_TILE_ROWS rows (RB), one
@@ -67,6 +66,13 @@ def _kernel_constants(*names: str) -> Tuple[int, ...]:
 BWD_TILE_ROWS, BWD_KEY_SLICE, _MAX_KW = _kernel_constants("RB", "KW",
                                                           "MAX_KW")
 RESIDENT_MAX_KEYS = BWD_KEY_SLICE * _MAX_KW
+# The resident forward's: 16-row query tiles, one a warp at a time, four
+# warps a block, scores in 32-key slices, two blocks an SM (its launch
+# bounds; the kernel source asserts that its shared memory at 160 keys, d
+# 128, fits an SM twice).
+FWD_TILE_ROWS, FWD_WARPS, FWD_KEY_SLICE, FWD_BLOCKS_PER_SM = (
+    _kernel_constants("FWD_ROWS", "FWD_WARPS", "FWD_SLICE",
+                      "FWD_BLOCKS_PER_SM"))
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -189,40 +195,66 @@ def _check(kernel: str, q, k, v, bias):
 
 
 def _common_args(q, k, bias, strides, causal, rate, seed):
+    """The C entry points' trailing arguments (``I2T_FLASH_ARGS``), as the
+    plain Python values their argtypes convert."""
     b, h, sq, d = q.shape
-    c = ctypes
-    return [_build.ptr(bias), *(c.c_longlong(s) for s in strides),
-            c.c_int(b), c.c_int(h), c.c_int(k.shape[1]), c.c_int(sq),
-            c.c_int(k.shape[2]), c.c_int(d), c.c_int(int(causal)),
-            c.c_float(1.0 / d ** 0.5), c.c_int(int(rate > 0.0)),
-            c.c_uint(int(seed) & _M32), c.c_uint(keep_threshold(rate)),
-            c.c_float(1.0 / (1.0 - rate)),
-            c.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)]
+    return [0 if bias is None else bias.data_ptr(), *strides, b, h,
+            k.shape[1], sq, k.shape[2], d, int(causal), 1.0 / d ** 0.5,
+            int(rate > 0.0), int(seed) & _M32, keep_threshold(rate),
+            1.0 / (1.0 - rate), _build.stream(q.device)]
+
+
+_COMMON_TYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+                 + [ctypes.c_uint] * 2 + [ctypes.c_float, ctypes.c_void_p])
+# leading arguments of each entry point: its pointers, then the groups
+_LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int],
+               "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int]}
 
 
 def _launch(name: str, *args):
-    fn = getattr(_build.load("flash_attention"), name)
-    fn.restype = ctypes.c_int
+    fn = _build.entry_point("flash_attention", name,
+                            _LEAD_TYPES[name] + _COMMON_TYPES)
     _build.check(fn(*args), name)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
+             n_sms: int) -> Tuple[str, int]:
+    """(route, groups) of one forward call, the kernel's launch argument
+    G.  ``"resident"`` while a K/V plane fits one block (skv <=
+    RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's 16-row tiles (h
+    heads' rows folded for multi-query), at least a tile for each of a
+    block's warps, and G·b·hk at most FWD_BLOCKS_PER_SM·n_sms, one wave:
+    a block's shared memory (the K/V plane and a Q tile a warp: at most
+    104,448 bytes, at d 128 and 160 keys) fits that many times in an SM;
+    else ``"tiled"`` (groups 0)."""
+    if skv > RESIDENT_MAX_KEYS:
+        return "tiled", 0
+    tiles = -(-(h if hk == 1 else 1) * sq // FWD_TILE_ROWS)
+    return "resident", max(1, min(-(-tiles // FWD_WARPS),
+                                  FWD_BLOCKS_PER_SM * n_sms // (b * hk)))
 
 
 def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
               seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward: (out, lse).  The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """Forward: (out, lse).  The CUDA kernels (:func:`fwd_plan`) for CUDA
+    tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, bias, causal, rate, seed)
     bias, strides = _check("flash_fwd", q, k, v, bias)
     b, h, sq, d = q.shape
+    _, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2], sm_count(q.device))
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    P = _build.ptr
-    _launch("flash_fwd_launch", P(q), P(k), P(v), P(out), P(lse),
+    _launch("flash_fwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), groups,
             *_common_args(q, k, bias, strides, causal, rate, seed))
     flash_fwd.launches += 1
     return out, lse
 
 
+@functools.lru_cache(maxsize=256)
 def bwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
              n_sms: int) -> Tuple[str, int]:
     """(route, groups) of one backward call, the kernel's launch argument
@@ -252,11 +284,6 @@ def bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
     return b * h * per_plane
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
               rate: float = 0.0, seed: int = 0, pairs=None):
     """(dq, dk, dv) from the forward's ``lse`` and ``dvec = rowsum(g ∘
@@ -274,7 +301,7 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
     _build.check_operand("flash_bwd", "pairs", pairs, torch.int32)
     b, h, sq, _ = q.shape
     _, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
-                         _n_sms(q.device.index or 0))
+                         sm_count(q.device))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     part = (torch.empty(2 * groups * k.numel(), dtype=torch.float32,
                         device=q.device) if groups > 1 else None)
@@ -335,6 +362,7 @@ def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
 
 __all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan",
            "dropout_keep_mask", "flash_bwd", "flash_forward_plain",
+           "fwd_plan",
            "flash_backward_plain",
            "flash_fwd", "flash_sdpa", "keep_threshold"]
 

@@ -58,6 +58,7 @@ from image2text_torch.ops import _build
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.ops.fused_moe import (MoELinearWeights, launch_moe_ffn,
                                             moe_ffn_plain)
+from image2text_torch.utils.device import sm_count
 
 
 class BlockWeights(NamedTuple):
@@ -185,12 +186,12 @@ def _check_chain(kernel: str, x: torch.Tensor, w, ts: int) -> None:
         raise ValueError(f"{kernel} kernel: {err}")
 
 
-def _attn_blocks(b: int, n_head: int, ts: int) -> int:
+def _attn_blocks(b: int, n_head: int, ts: int, n_sms: int) -> int:
     """Blocks per image of the attention kernel (16 warps of 16 folded
-    rows each): about two blocks an SM over the batch (132 SMs), at most
-    one per 256 folded rows.  At b 256 that is 2, which measured faster
-    than 3 or 5 at t 160 and 320 (PERF.md §6)."""
-    return max(1, min(-(-2 * 132 // b), -(-n_head * ts // 256)))
+    rows each): about two blocks an SM over the batch (``n_sms``: 132 on
+    the H100 SXM), at most one per 256 folded rows.  At b 256 that is 2,
+    which measured faster than 3 or 5 at t 160 and 320 (PERF.md §6)."""
+    return max(1, min(-(-2 * n_sms // b), -(-n_head * ts // 256)))
 
 
 def _attention(lib, stream, qkv, b: int, t: int, n_head: int,
@@ -202,7 +203,8 @@ def _attention(lib, stream, qkv, b: int, t: int, n_head: int,
         _build.ptr(qkv), _build.ptr(o), ctypes.c_int(b), ctypes.c_int(t),
         ctypes.c_int(n_head), ctypes.c_int(hd),
         ctypes.c_float(1.0 / math.sqrt(hd)),
-        ctypes.c_int(_attn_blocks(b, n_head, t)), stream)
+        ctypes.c_int(_attn_blocks(b, n_head, t, sm_count(qkv.device))),
+        stream)
     _build.check(err, "mqa_attention_launch")
     return o
 

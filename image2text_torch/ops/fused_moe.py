@@ -48,6 +48,7 @@ import torch
 
 from image2text_torch.nn.modules import gelu_tanh, layer_norm
 from image2text_torch.ops import _build
+from image2text_torch.utils.device import sm_count
 
 
 class MoELinearWeights(NamedTuple):
@@ -179,7 +180,6 @@ def moe_ffn_plain(x: torch.Tensor, fc: MoELinearWeights,
 # dimension split over blocks).  Measured on the card: see the module note.
 FEW_ROWS = 4096
 ROWS_PER_BLOCK = 64   # 4 warps of 16 rows
-SMS = 132             # H100 SXM
 
 
 def moe_regime(n: int) -> str:
@@ -187,16 +187,17 @@ def moe_regime(n: int) -> str:
     return "few" if n <= FEW_ROWS else "many"
 
 
-def moe_slices(n: int, hidden: int) -> int:
+def moe_slices(n: int, hidden: int, n_sms: int) -> int:
     """Hidden slices the kernel splits ``n`` rows' FFN into (1: the
-    many-rows kernel, no split): about one block an SM, at least 4 slices,
+    many-rows kernel, no split): about one block an SM of the card's
+    ``n_sms`` (``utils/device.py::sm_count``), at least 4 slices,
     each slice at least one 64-wide hidden chunk.  The f32 sum of the second MoELinear's
     accumulators runs slice by slice, so two row counts give bit-equal
     rows only where they give the same count."""
     if moe_regime(n) == "many":
         return 1
     chunks = hidden // 64
-    per = -(-chunks // max(4, SMS // -(-n // ROWS_PER_BLOCK)))
+    per = -(-chunks // max(4, n_sms // -(-n // ROWS_PER_BLOCK)))
     return -(-chunks // per)
 
 
@@ -234,7 +235,8 @@ def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
                         (f"proj.{f}", getattr(proj, f))
                         for f in proj._fields[:6]]:
         _build.check_operand("moe_ffn", name, t, torch.bfloat16)
-    slices = moe_slices(n, hidden) if slices is None else slices
+    slices = (moe_slices(n, hidden, sm_count(x2d.device)) if slices is None
+              else slices)
     err = _moe_shape_error(fin, hidden, fc.g, fc.e, fc.r, slices)
     if err is None and (proj.l2w.shape[1] != fin or (
             proj.g, proj.e, proj.r, proj.k) != (fc.g, fc.e, fc.r, fc.k)):

@@ -16,14 +16,14 @@ package's, so one exported state dict feeds both:
 * f32 accumulation, the result in x's dtype.
 
 What bounds it on the H100: at the decoder's widths and the serving batch
-(256 rows, in 1024, out 3072) about 3.8 MB and 1.6 GFLOP, so operations
-(1.6 µs at the dense bf16 peak) over bytes (1.1 µs).  The kernel
-(64 x 64 output tiles, cp.async double buffering over one 32-column strip
-pair per step) unpacks each weight tile in shared memory into bf16
-tensor-core operands: q − 8 is exact in bf16, so the products x·q are
-exact, each strip's partial sums stay in f32 and are multiplied by their
-f32 scale before they join the accumulator.  The dequantised weight is
-never rounded to bf16.
+(256 rows, in 1024, out 3072) about 2.3 MB and 1.6 GFLOP, so operations
+(1.6 µs at the dense bf16 peak) over bytes (0.7 µs).  The kernel unpacks
+each weight byte once per block into a bf16 tile in shared memory that
+all its warps read as tensor-core operands: q − 8 is exact in bf16, so
+the products x·q are exact, each strip's partial sums stay in f32 and are
+multiplied by their f32 scale before they join the accumulator.  The
+dequantised weight is never rounded to bf16.  Its tiling and its split of
+the input over blocks are :func:`int4_plan`'s.
 
 The TPU gates (the ``auto`` width choice, ``_pick_bp``'s 128-multiple
 rule, the rows < 8 fallback of the quantized Linear) came from TPU
@@ -39,14 +39,23 @@ dequant(W)`` in f32, no gradient for the packed weight or the scales
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from image2text_torch.ops import _build
+from image2text_torch.utils.device import sm_count
 
 QBLOCK = 64          # columns per scale (a 32 + 32 strip pair)
 STRIP = QBLOCK // 2  # 32
+
+# The kernel's block tiles (rows x outs): one up to DEC_ROWS rows, one
+# above; PAIRS strip pairs (64 input columns each) a pipeline stage.  Read
+# from ``csrc/int4_matmul.cu``, their one owner.
+DEC_ROWS, DEC_OUTS, TRAIN_ROWS, TRAIN_OUTS, STAGE_PAIRS = (
+    _build.kernel_constants("int4_matmul", "DEC_BM", "DEC_BN", "TRAIN_BM",
+                            "TRAIN_BN", "PAIRS"))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -121,25 +130,52 @@ def _check(x, packed, scales):
                          f"must be ({out_f}, {in_p // QBLOCK})")
 
 
+@functools.lru_cache(maxsize=256)
+def int4_plan(rows: int, out: int, in_pad: int,
+              n_sms: int) -> tuple:
+    """(tile rows, tile outs, splits) of one kernel call.  Up to DEC_ROWS
+    rows one block tile covers every row (256 x 64), so each weight byte
+    is unpacked once for all of them; above, 128 x 128 tiles.  While the
+    output tiles number fewer than the SMs, the input's strip pairs are
+    split over ``splits`` blocks a tile, as many as fill the SMs in one
+    wave (one block an SM: its shared memory), at least one strip pair
+    each: split z takes pairs [z·nb/splits, (z+1)·nb/splits), nb =
+    in_pad/64, and the splits' f32 partials are summed in z order."""
+    bm, bn = ((DEC_ROWS, DEC_OUTS) if rows <= DEC_ROWS
+              else (TRAIN_ROWS, TRAIN_OUTS))
+    tiles = -(-rows // bm) * -(-out // bn)
+    splits = max(1, min(in_pad // QBLOCK, n_sms // tiles))
+    return bm, bn, splits
+
+
+# int4_matmul_launch(x, w, scales, scale_bf16, y, part, rows, out, in_pad,
+# bm, bn, splits, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
                 scales: torch.Tensor) -> torch.Tensor:
     """x (..., in_pad) · dequant(packed, scales)ᵀ → (..., out) in x's
-    dtype.  The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    dtype.  The CUDA kernel (:func:`int4_plan`) for CUDA tensors, the
+    plain version for CPU tensors; one launch counted per call (a split's
+    summing kernel included)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales)
     _check(x, packed, scales)
-    out_f = packed.shape[0]
-    rows = x.numel() // x.shape[-1]
+    out_f, in_p = packed.shape[0], x.shape[-1]
+    rows = x.numel() // in_p
+    bm, bn, splits = int4_plan(rows, out_f, in_p, sm_count(x.device))
     y = torch.empty(*x.shape[:-1], out_f, dtype=x.dtype, device=x.device)
-    fn = _build.load("int4_matmul").int4_matmul_launch
-    fn.restype = ctypes.c_int
-    P, c = _build.ptr, ctypes
-    _build.check(fn(P(x), P(packed), P(scales),
-                    c.c_int(int(scales.dtype == torch.bfloat16)), P(y),
-                    c.c_int(rows), c.c_int(out_f), c.c_int(x.shape[-1]),
-                    c.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)),
-                 "int4_matmul")
+    part = (torch.empty(splits * rows * out_f, dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    fn = _build.entry_point("int4_matmul", "int4_matmul_launch", _ARGTYPES)
+    _build.check(fn(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        int(scales.dtype == torch.bfloat16), y.data_ptr(),
+        0 if part is None else part.data_ptr(), rows, out_f, in_p, bm, bn,
+        splits, _build.stream(x.device)),
+        "int4_matmul")
     int4_matmul.launches += 1
     return y
 
@@ -164,4 +200,5 @@ class Int4Matmul(torch.autograd.Function):
 
 
 __all__ = ["Int4Matmul", "QBLOCK", "STRIP", "dequantize_int4", "int4_matmul",
-           "int4_matmul_plain", "quantize_pack_int4", "unpack_int4"]
+           "int4_matmul_plain", "int4_plan",
+           "quantize_pack_int4", "unpack_int4"]

@@ -24,3 +24,23 @@ def time_ms(fn, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` in ms: the kernels' durations that
+    torch.profiler records over ``iters`` calls after warm-up, summed and
+    divided by ``iters``.  Free of the host's launch overhead, which
+    :func:`time_ms` includes wherever it exceeds the kernels' time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters / 1e3

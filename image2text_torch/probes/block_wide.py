@@ -63,11 +63,13 @@ def main(batch: int = 64) -> dict:
     from image2text_torch.ops.fused_moe import moe_slices
     from image2text_torch.probes import time_ms
     from image2text_torch.probes.block_ablate import probe_block
+    from image2text_torch.utils.device import sm_count
     from image2text_torch.utils import kernel_check
 
     x, w = probe_block(batch, "cuda")
     hidden = w.fc.l2w.shape[1]
-    whole = moe_slices(x.shape[0] * x.shape[1], hidden)
+    n_sms = sm_count(x.device)
+    whole = moe_slices(x.shape[0] * x.shape[1], hidden, n_sms)
     out = {"batch": batch, "t_sel": x.shape[1],
            "device": torch.cuda.get_device_name(0)}
     with torch.no_grad():
@@ -75,7 +77,7 @@ def main(batch: int = 64) -> dict:
         out["whole_ms"] = time_ms(lambda: run_chain(x, w))
         for name in VARIANTS:
             y = grouped(run_chain, x, w, name)
-            exact = moe_slices(launch_rows(x, name), hidden) == whole
+            exact = moe_slices(launch_rows(x, name), hidden, n_sms) == whole
             if exact and not torch.equal(y, ref):
                 raise AssertionError(f"block_wide {name}: differs from the "
                                      "whole batch in one launch")

@@ -1,7 +1,7 @@
 """Times of the serving and flash kernels of one checkout, for comparing
 two trees in one process each, on one card, in turns.
 
-    python -m image2text_torch.probes.kernel_times [--flash-only] TREE...
+    python -m image2text_torch.probes.kernel_times [--flash-only | --int4-only] TREE...
 
 For each TREE (the root of a checkout: this repository, or an unpacked
 ``git archive`` of another commit) a fresh process imports that tree's
@@ -11,10 +11,18 @@ decode and encoder rows) and the dense twin's (``phase_dense_kernel``:
 fused_block), then its flash phase (``phase_flash_kernels``) at the
 flagship's and GPT-2-medium's training shapes (``FLASH_FLAGSHIP``,
 ``FLASH_GPT2M``), each kernel checked against its plain version as
-``chip_smoke.py`` checks it; ``--flash-only`` runs the flash phase alone.
-Per flash shape it prints the backward's ms (dQ, dK and dV: one call, or
-a tree's dK/dV and dQ kernels summed) and, timed in the same process by
-this module's own code, SDPA's backward alone.  With the flash phase it
+``chip_smoke.py`` checks it; ``--flash-only`` runs the flash phase alone,
+``--int4-only`` the int4 dequant-matmul's phase alone
+(``phase_int4_kernels``: the GPT-2-medium decoder's four quantized
+Linears at 256 decode rows and 1,344 training rows, beside the bf16
+``torch.matmul`` yardstick; ``int4_matmul.<decode|train>_<linear>.ms`` and
+``.library_ms``).  Per flash shape it prints the forward's and the
+backward's ms (dQ, dK and dV: one call, or a tree's dK/dV and dQ kernels
+summed) and, timed in the same process by this module's own code, SDPA's
+forward and its backward alone (``sdpa_fwd.<label>.ms``,
+``sdpa_bwd.<label>.ms``).  A tree whose ``chip_smoke.py`` defers device
+times (``run_device_times``) also gives ``flash_fwd.<label>.device_ms`` and
+``int4_matmul.<...>.device_ms``, read after every CUDA-event time.  With the flash phase it
 also holds each tree's backward at a case whose rows 0–71 see no key
 (causal, sq 200 > skv 128, as the card test
 ``test_flash_kernels_give_keyless_rows_every_key``) against the plain
@@ -31,7 +39,7 @@ from pathlib import Path
 
 _CHILD = r'''
 import json, sys, types
-tree, flash_only = sys.argv[1], sys.argv[2] == "1"
+tree, mode = sys.argv[1], sys.argv[2]
 sys.path.insert(0, tree)
 import torch
 import torch.nn.functional as F
@@ -45,7 +53,8 @@ res, args = {}, types.SimpleNamespace(profile=False)
 out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
 
 
-def sdpa_bwd_ms(b, h, hk, sq, s, d, causal, n_prefix, rate):
+def sdpa_ms(b, h, hk, sq, s, d, causal, n_prefix, rate):
+    """(forward, backward alone) ms of one SDPA call at a flash shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
@@ -60,10 +69,13 @@ def sdpa_bwd_ms(b, h, hk, sq, s, d, causal, n_prefix, rate):
         if causal:
             mask = mask + causal_bias(sq, s, dev)
         mask = mask.to(torch.bfloat16)
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              dropout_p=rate, enable_gqa=True)
+
     with torch.enable_grad():
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                           dropout_p=rate, enable_gqa=True)
-    return cs.cuda_ms(torch, lambda: torch.autograd.grad(
+        o = fwd()
+    return cs.cuda_ms(torch, fwd), cs.cuda_ms(torch, lambda: torch.autograd.grad(
         o, (q, k, v), dout.detach(), retain_graph=True))
 
 
@@ -87,7 +99,21 @@ def keyless_errors():
 
 
 with torch.no_grad():
-    if not flash_only:
+    if mode == "int4":
+        with cs.gpt2_depth(1):
+            model = cs.gpt2m_model(torch)
+        cs.phase_int4_kernels(torch, model, res)
+        if hasattr(cs, "run_device_times"):   # after every event time
+            cs.run_device_times()
+        for key, r in res["int4_matmul"].items():
+            if key.endswith("_shape"):
+                out[f"int4_matmul.{key[:-6]}.ms"] = r["ms"]
+                out[f"int4_matmul.{key[:-6]}.library_ms"] = r["library_ms"]
+                if "device_ms" in r:
+                    out[f"int4_matmul.{key[:-6]}.device_ms"] = r["device_ms"]
+        print("KERNEL_TIMES " + json.dumps(out), flush=True)
+        sys.exit(0)
+    if mode == "all":
         for cfg, phase in ((FLAGSHIP, cs.phase_kernels),
                            (FLAGSHIP_DENSE, cs.phase_dense_kernel)):
             model = VisionEncoderDecoder(cfg, device="cuda").init_weights(
@@ -110,8 +136,16 @@ with torch.no_grad():
             out[f"flash_bwd.{label}.ms"] = (
                 fused if fused is not None
                 else ms("flash_bwd_dkv") + ms("flash_bwd_dq"))
-            out[f"sdpa_bwd.{label}.ms"] = sdpa_bwd_ms(*case[1:])
+            out[f"sdpa_fwd.{label}.ms"], out[f"sdpa_bwd.{label}.ms"] = sdpa_ms(
+                *case[1:])
     keyless_errors()
+    if hasattr(cs, "run_device_times"):   # after every event time
+        cs.run_device_times()
+        for case in cs.FLASH_FLAGSHIP + cs.FLASH_GPT2M:
+            label = case[0]
+            fwd = res["flash_fwd"]
+            fwd = fwd if label == "encoder" else fwd[f"{label}_shape"]
+            out[f"flash_fwd.{label}.device_ms"] = fwd["device_ms"]
 for name, r in res.items():
     if name.startswith("flash_"):
         continue
@@ -125,12 +159,14 @@ print("KERNEL_TIMES " + json.dumps(out), flush=True)
 '''
 
 
+MODES = {"--flash-only": "flash", "--int4-only": "int4"}
+
+
 def main(argv) -> int:
-    flash_only = "--flash-only" in argv
-    for tree in [a for a in argv if a != "--flash-only"]:
+    mode = next((MODES[a] for a in argv if a in MODES), "all")
+    for tree in [a for a in argv if a not in MODES]:
         root = str(Path(tree).resolve())
-        proc = subprocess.run([sys.executable, "-c", _CHILD, root,
-                               "1" if flash_only else "0"],
+        proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode],
                               cwd=root, capture_output=True, text=True)
         lines = [l for l in proc.stdout.splitlines()
                  if l.startswith("KERNEL_TIMES ")]

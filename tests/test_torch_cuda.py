@@ -209,13 +209,14 @@ def _flash_bias(kind, b, h, sq, skv, dev, g):
     (1, 2, 1, 40, 137, 16, "per_head", True, 0.1),   # causal sq < skv
     (2, 16, 16, 112, 64, 64, None, False, 0.0),      # cross: sq > skv
     (1, 2, 1, 161, 161, 64, None, True, 0.1),        # just past resident
+    (2, 8, 1, 160, 160, 128, "soft_prompt", True, 0.1),  # 160 keys exactly
     (2, 4, 1, 256, 1024, 64, None, True, 0.1),       # long keys: tiled
     (1, 2, 2, 300, 1024, 128, "per_head", False, 0.1),  # tiled, MHA
 ])
 def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
                                    rate):
-    """Forward and backward against the plain versions on both backward
-    routes (resident K/V up to 160 keys, tiled beyond); the backward
+    """Forward and backward against the plain versions on both routes of
+    each (resident K/V up to 160 keys, tiled beyond); the backward
     launched twice more gives bitwise-equal dQ, dK and dV."""
     g = _gen(dev, 11)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
@@ -240,6 +241,67 @@ def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
     for name, mine, ref, rerun in zip(("dq", "dk", "dv"), got, plain, again):
         check_output(f"flash_bwd {name}", mine, ref)
         assert torch.equal(mine, rerun), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hk,sq,skv,d,masked_rows", [
+    (8, 1, 200, 128, 128, None),         # causal offset: rows 0..71 keyless
+    (8, 1, 136, 136, 128, (5, 70, 130)),  # folded tiles straddle heads
+    (4, 4, 150, 160, 64, (0, 149)),       # one head a plane, 160 keys
+    (2, 1, 40, 137, 16, (39,)),           # sq < skv: the band ends late
+])
+def test_flash_fwd_band_skip_gives_keyless_rows_every_key(dev, h, hk, sq,
+                                                          skv, d,
+                                                          masked_rows):
+    """The resident forward stops a causal tile at its band only once
+    every row of the tile saw a key: rows the causal offset (sq > skv) or
+    a bias leaves keyless average over all skv keys, with dropout, as the
+    plain version does; out and the keyed rows' lse within the kernel
+    checks' limits, the keyless rows' lse (NEG_BIG) equal."""
+    b, rate, seed = 2, 0.1, 4242
+    assert fa.fwd_plan(b, h, hk, sq, skv, 132)[0] == "resident"
+    g = _gen(dev, 15)
+    q = torch.randn(b, h, sq, d, device=dev, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(b, hk, skv, d, device=dev, generator=g
+                        ).to(torch.bfloat16) for _ in range(2))
+    bias = None
+    if masked_rows is not None:
+        bias = torch.zeros(1, 1, sq, skv, device=dev)
+        bias[..., :, :3] = float("-inf")
+        bias[..., list(masked_rows), :] = float("-inf")
+    a = (q, k, v, bias, True, rate, seed)
+    out, lse = fa.flash_fwd(*a)
+    want, want_lse = fa.flash_forward_plain(*a)
+    torch.cuda.synchronize()
+    check_output("flash_fwd out", out, want)
+    keyed = want_lse > 0.5 * fa.NEG_BIG   # keyless rows: lse = NEG_BIG
+    assert 0 < int(keyed.sum()) < keyed.numel()
+    check_output("flash_fwd lse", lse[keyed], want_lse[keyed])
+    assert torch.equal(lse[~keyed], want_lse[~keyed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [136, 160])
+def test_flash_fwd_dropout_mask_bit_for_bit_with_folded_heads(dev, sq):
+    """q = 0 and V the identity (skv = d = 64): every score is 0, so
+    out[b, head, row, col] = p̃ / 64 is non-zero exactly where the entry is
+    kept.  With 8 query heads folded over one K/V head (16-row tiles
+    straddle two heads at sq 136), ``out != 0`` must equal
+    ``dropout_keep_mask(row, col, b·h + head)`` bit for bit: the hash takes
+    the unfolded (head, row)."""
+    b, h, d, rate, seed = 2, 8, 64, 0.1, -123457
+    q = torch.zeros(b, h, sq, d, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(b, 1, d, d, device=dev, generator=_gen(dev, 16)
+                    ).to(torch.bfloat16)
+    v = torch.eye(d, device=dev, dtype=torch.bfloat16).expand(b, 1, d, d
+                                                             ).contiguous()
+    out, _ = fa.flash_fwd(q, k, v, None, False, rate, seed)
+    rows = torch.arange(sq, device=dev)[:, None]
+    cols = torch.arange(d, device=dev)[None, :]
+    plane = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    keep = fa.dropout_keep_mask(rows, cols, plane, seed, rate) > 0
+    assert torch.equal(out != 0, keep)
+    assert 0.85 < keep.float().mean() < 0.95
 
 
 @pytest.mark.cuda
@@ -405,29 +467,44 @@ def test_tiny_training_step_on_card(dev, remat):
 TINY_GPT2 = dict(n_layer=2, n_embd=128, n_head=4)
 
 
+# GPT-2-medium's four quantized Linears (in_pad, out) at 256 decode rows and
+# the training step's 1,344, and a split case (256 rows, in 4096, out 1024:
+# 16 output tiles, 8 splits of 8 strip pairs).
+INT4_GPT2M = [(rows, in_f, out_f) for rows in (256, 1344)
+              for in_f, out_f in ((1024, 3072), (1024, 1024), (1024, 4096),
+                                  (4096, 1024))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 7, 256, 1344])
-@pytest.mark.parametrize("in_f", [64, 4096])
+@pytest.mark.parametrize("rows,in_f,out_f", [
+    (rows, in_f, 1000) for rows in (1, 7, 256, 1344) for in_f in (64, 4096)
+] + INT4_GPT2M + [(256, 4096, 1024), (300, 192, 1000), (7, 4096, 999)])
 @pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
-def test_int4_matmul_kernel_matches_plain(dev, rows, in_f, scale_dtype):
-    """Rows below one tile and ragged, out 1000 (not a tile multiple), the
-    narrowest and the widest packed width, scales in both dtypes."""
+def test_int4_matmul_kernel_matches_plain(dev, rows, in_f, out_f,
+                                          scale_dtype):
+    """Rows below one tile and ragged, out 1000 and 999 (not a tile
+    multiple; odd), the narrowest and the widest packed width, an odd
+    count of strip pairs (in 192), the GPT-2-medium shapes on both tiles,
+    split over the input and not, scales in both dtypes; two reruns
+    bitwise equal (the split's partials sum in a fixed order)."""
     from image2text_torch.ops.int4_matmul import (int4_matmul,
                                                   int4_matmul_plain,
                                                   quantize_pack_int4)
 
     g = _gen(dev, rows + in_f)
-    w = torch.randn(1000, in_f, device=dev, generator=g) * 0.02
+    w = torch.randn(out_f, in_f, device=dev, generator=g) * 0.02
     packed, scales = quantize_pack_int4(w)
     scales = scales.to(scale_dtype)
     x = torch.randn(rows, in_f, device=dev, generator=g).to(torch.bfloat16)
     before = int4_matmul.launches
     got = int4_matmul(x, packed, scales)
     want = int4_matmul_plain(x, packed, scales)
+    again = [int4_matmul(x, packed, scales) for _ in range(2)]
     torch.cuda.synchronize()
-    assert int4_matmul.launches == before + 1
-    assert got.shape == (rows, 1000) and got.dtype == torch.bfloat16
+    assert int4_matmul.launches == before + 3
+    assert got.shape == (rows, out_f) and got.dtype == torch.bfloat16
     check_output("int4_matmul", got, want)
+    assert all(torch.equal(got, y) for y in again)
 
 
 @pytest.mark.cuda
@@ -977,6 +1054,7 @@ def test_moe_ffn_kernel_regimes_match_plain(dev, rows, regime):
     residual, in the regime the row count picks and forced into the other
     one (the many-rows kernel at few rows; the hidden split at 40,960)."""
     from image2text_torch.ops.fused_moe import launch_moe_ffn, moe_slices
+    from image2text_torch.utils.device import sm_count
 
     blk = _block(dev, 1024, 8, 32, True)
     fc = blk.mlp.c_fc.packed(torch.bfloat16)
@@ -984,7 +1062,7 @@ def test_moe_ffn_kernel_regimes_match_plain(dev, rows, regime):
     proj = proj._replace(l2w=proj.l2w * 64, l2b=proj.l2b * 64)
     x = torch.randn(rows, 1024, device=dev, generator=_gen(dev, 5)
                     ).to(torch.bfloat16)
-    auto = moe_slices(rows, fc.l2w.shape[1])
+    auto = moe_slices(rows, fc.l2w.shape[1], sm_count(dev))
     slices = auto if regime == "auto" else (1 if auto > 1 else 8)
     ln = dict(ln_w=blk.ln_2.weight, ln_b=blk.ln_2.bias)
     routes = torch.zeros(rows, 2, dtype=torch.uint8, device=dev)
@@ -1022,6 +1100,7 @@ def test_block_wide_groupings_equal_the_whole_batch(dev):
     from image2text_torch.probes.block_ablate import probe_block
     from image2text_torch.probes.block_wide import (VARIANTS, grouped,
                                                     launch_rows)
+    from image2text_torch.utils.device import sm_count
 
     x, w = probe_block(16, dev)
     hidden = w.fc.l2w.shape[1]
@@ -1029,7 +1108,8 @@ def test_block_wide_groupings_equal_the_whole_batch(dev):
         ref = run_chain(x, w)
         for name in VARIANTS:
             y = grouped(run_chain, x, w, name)
-            if moe_slices(launch_rows(x, name), hidden) == moe_slices(
-                    x.shape[0] * x.shape[1], hidden):
+            if moe_slices(launch_rows(x, name), hidden,
+                          sm_count(dev)) == moe_slices(
+                    x.shape[0] * x.shape[1], hidden, sm_count(dev)):
                 assert torch.equal(y, ref), name
             check_output(f"block_wide {name}", y, ref)

@@ -215,6 +215,44 @@ def test_bwd_plan_resident_up_to_the_threshold():
         assert fa.bwd_plan(b, h, hk, 64, 161, 132) == ("tiled", 0)
 
 
+@pytest.mark.parametrize("args,want", [
+    ((48, 8, 1, 160, 160, 132), ("resident", 5)),    # flagship encoder
+    ((48, 8, 1, 136, 136, 132), ("resident", 5)),    # flagship decoder
+    ((12, 8, 1, 80, 80, 132), ("resident", 10)),     # GPT-2-medium encoder
+    ((12, 16, 16, 112, 112, 132), ("resident", 1)),  # GPT-2 self, 192 planes
+    ((12, 16, 16, 112, 64, 132), ("resident", 1)),   # GPT-2 cross
+    ((1, 2, 1, 40, 40, 132), ("resident", 2)),       # at least 4 tiles a block
+    ((4, 8, 1, 256, 1024, 132), ("tiled", 0)),       # long keys (FLASH_LONG)
+])
+def test_fwd_plan(args, want):
+    """The forward's route and groups at chip_smoke.py's flash shapes
+    (FLASH_FLAGSHIP, FLASH_GPT2M, FLASH_LONG) on the H100's 132 SMs."""
+    assert fa.fwd_plan(*args) == want
+
+
+def test_fwd_plan_reads_the_kernel_tiling_and_fills_one_wave():
+    """The route switches past RESIDENT_MAX_KEYS (160, the backward's too);
+    the tiling comes from the kernel source (which asserts that two blocks
+    of the largest resident shape, d 128 and 160 keys, fit an SM), so
+    G·planes within FWD_BLOCKS_PER_SM·n_sms is one wave."""
+    src = (fa._build.CSRC / "flash_attention.cu").read_text()
+    for name, value in (("FWD_ROWS", fa.FWD_TILE_ROWS),
+                        ("FWD_WARPS", fa.FWD_WARPS),
+                        ("FWD_SLICE", fa.FWD_KEY_SLICE),
+                        ("FWD_BLOCKS_PER_SM", fa.FWD_BLOCKS_PER_SM)):
+        assert f"constexpr int {name} = {value};" in src
+    assert (fa.FWD_TILE_ROWS, fa.FWD_WARPS, fa.FWD_KEY_SLICE,
+            fa.FWD_BLOCKS_PER_SM) == (16, 4, 32, 2)
+    for b, h, hk in ((1, 1, 1), (48, 8, 1), (12, 16, 16), (200, 16, 16)):
+        assert fa.fwd_plan(b, h, hk, 64, 160, 132)[0] == "resident"
+        assert fa.fwd_plan(b, h, hk, 64, 161, 132) == ("tiled", 0)
+        for n_sms in (1, 66, 132, 144):
+            _, g = fa.fwd_plan(b, h, hk, 160, 160, n_sms)
+            assert g >= 1
+            if b * hk <= fa.FWD_BLOCKS_PER_SM * n_sms:
+                assert g * b * hk <= fa.FWD_BLOCKS_PER_SM * n_sms
+
+
 @pytest.mark.parametrize("sq,skv,causal", [
     (136, 136, True), (160, 160, False), (112, 112, True), (112, 64, False),
     (40, 137, True), (1, 1, True), (33, 160, True), (200, 128, True),

@@ -134,6 +134,61 @@ def test_wrapper_launches_or_raises_off_the_cpu():
     assert ti.int4_matmul.launches == before
 
 
+# GPT-2-medium's quantized Linears (in_pad, out) at 256 decode rows and the
+# training step's 12 x 112 rows, and the plan the kernel takes on 132 SMs.
+GPT2M_PLANS = [
+    ((256, 3072, 1024), (256, 64, 2)),    # c_attn: 48 tiles
+    ((256, 1024, 1024), (256, 64, 8)),    # attn c_proj: 16 tiles
+    ((256, 4096, 1024), (256, 64, 2)),    # c_fc: 64 tiles
+    ((256, 1024, 4096), (256, 64, 8)),    # mlp c_proj
+    ((1344, 3072, 1024), (128, 128, 1)),  # 11 x 24 tiles: two full waves
+    ((1344, 1024, 1024), (128, 128, 1)),
+    ((1344, 4096, 1024), (128, 128, 1)),
+    ((1344, 1024, 4096), (128, 128, 1)),
+    ((1, 1000, 64), (256, 64, 1)),        # a single strip pair: no split
+    ((7, 1000, 4096), (256, 64, 8)),
+    ((257, 1000, 64), (128, 128, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", GPT2M_PLANS)
+def test_int4_plan(shape, want):
+    rows, out_f, in_pad = shape
+    assert ti.int4_plan(rows, out_f, in_pad, 132) == want
+
+
+@pytest.mark.parametrize("in_pad", [64, 128, 192, 1024, 4096])
+@pytest.mark.parametrize("n_sms", [1, 16, 132])
+@pytest.mark.parametrize("rows,out_f", [(1, 1000), (7, 64), (256, 1024),
+                                        (1344, 4096)])
+def test_int4_split_covers_the_input_in_whole_strips(in_pad, n_sms, rows,
+                                                     out_f):
+    """The split never cuts a strip pair (one scale) and covers in_pad
+    exactly, every split non-empty; split blocks fill at most one wave."""
+    bm, bn, splits = ti.int4_plan(rows, out_f, in_pad, n_sms)
+    assert 1 <= splits <= in_pad // ti.QBLOCK
+    tiles = -(-rows // bm) * -(-out_f // bn)
+    assert splits == 1 or tiles * splits <= n_sms
+    nb = in_pad // ti.QBLOCK   # the kernel's split z: [z·nb/splits, (z+1)·nb/splits)
+    ranges = [(z * nb // splits, (z + 1) * nb // splits)
+              for z in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] * ti.QBLOCK == in_pad
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(ranges[-1][1], 0)]):
+        assert lo < hi == nxt
+
+
+def test_int4_plan_reads_the_kernel_tiling():
+    """The tiles come from csrc/int4_matmul.cu, their one owner."""
+    src = (ti._build.CSRC / "int4_matmul.cu").read_text()
+    for name, value in (("DEC_BM", ti.DEC_ROWS), ("DEC_BN", ti.DEC_OUTS),
+                        ("TRAIN_BM", ti.TRAIN_ROWS),
+                        ("TRAIN_BN", ti.TRAIN_OUTS),
+                        ("PAIRS", ti.STAGE_PAIRS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert (ti.DEC_ROWS, ti.DEC_OUTS, ti.TRAIN_ROWS, ti.TRAIN_OUTS,
+            ti.STAGE_PAIRS) == (256, 64, 128, 128, 2)
+
+
 def test_structure_lora_wrapping_and_its_errors():
     """``quantize_module_structure`` skips the cross-attention paths;
     ``apply_lora`` matches peft-style targets, keeps the base's tensor

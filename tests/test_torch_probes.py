@@ -172,9 +172,10 @@ def test_attention_row_limit_is_pinned():
     (256, 2048, 32), (1280, 2048, 6), (fm.FEW_ROWS, 2048, 4),
     (fm.FEW_ROWS + 1, 2048, 1), (40960, 2048, 1)])
 def test_moe_regimes_from_the_row_count(rows, hidden, slices):
-    """Few rows split the hidden dimension into about one block an SM;
+    """Few rows split the hidden dimension into about one block an SM
+    (132 SMs: the H100 SXM's count, passed in as the card would give it);
     past FEW_ROWS the many-rows kernel runs whole (one slice)."""
-    assert fm.moe_slices(rows, hidden) == slices
+    assert fm.moe_slices(rows, hidden, 132) == slices
     assert fm.moe_regime(rows) == ("few" if slices > 1 else "many")
     assert fm._moe_shape_error(1024, hidden, 32, 4, 16, 8) is None
     assert fm._moe_shape_error(1000, hidden, 32, 4, 16, 8) is not None
