@@ -31,8 +31,11 @@ Phases, each printing its lines:
             256 rows and the flagship's and GPT-2-medium's vocab widths,
             its two cuBLAS formulations, and the f32 formulation it
             replaced.
-            The encoder front (fused_frontend) at the serving batch, with
-            the projector's torch.matmul as a yardstick.  The block
+            The encoder front (fused_frontend) at the serving batch on the
+            route front_plan gives it (one thread-block cluster an image:
+            its resident clusters, registers and spills) and on the slab
+            route forced at the same shape, reruns bitwise equal, with the
+            projector's torch.matmul as a yardstick.  The block
             chain's stages alone: its wgmma GEMMs against torch.matmul at
             the same shapes, its head-folded attention against one SDPA
             call on the folded query.  moe_ffn's two regimes forced at
@@ -49,7 +52,8 @@ Phases, each printing its lines:
             topk_ban_mask (a kernel no path dispatches, as in the JAX
             package) bit for bit against its reference on (256, 50258)
             f32 logits, k 16, with the n-gram bans of the call's id buffer
-            (132 columns), torch.topk as a yardstick.
+            (132 columns), its bound the bytes alone, torch.topk as a
+            yardstick.
 5. parity   at batch 8, first-step logits and greedy tokens of the kernel
             path against the plain-version path.
    beam     the beam-search serving path (bench.py::_bench_beam): raw
@@ -108,10 +112,11 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
 12. gpt2m-train-parity  depth 2 + 2, full width, batch 8: loss and
             gradients, kernel path against plain-version path.
 
-13. device-times  the device time of the flash forward and int4_matmul
-            rows (torch.profiler's kernel durations, free of the wrapper's
-            host time that their CUDA-event times include), taken last:
-            the profiler slows every later host call of the process.
+13. device-times  the device time of the flash forward, int4_matmul,
+            fused_frontend (both routes) and topk_ban_mask rows, in all and
+            by kernel (torch.profiler's kernel durations, free of the
+            wrapper's host time that their CUDA-event times include), taken
+            last: the profiler slows every later host call of the process.
 
 Every launch count is read over one run of its path with every count set
 to 0 just before it (``launches_by_path`` in the JSON line).
@@ -145,7 +150,6 @@ TRAIN_BATCH = 48     # training_configs/tpu/nano-mini.yaml
 TRAIN_SEQ = 256      # bench_train.py's padded caption length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
-F32_OP_PER_S = 67e12        # f32 outside the tensor cores
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
 PROBE_BATCH = 64  # the block probes' batch (tools/ ran 256; cut for time)
@@ -177,21 +181,25 @@ def cuda_ms(torch, fn, iters: int = 10) -> float:
 DEVICE_TIMES = []
 
 
-def defer_device_ms(label: str, row: dict, fn) -> None:
-    """Have ``row["device_ms"]`` measured at the end of the run: ``fn``'s
+def defer_device_ms(label: str, row: dict, fn, key: str = "device") -> None:
+    """Have ``row[key + "_ms"]`` measured at the end of the run: ``fn``'s
     device time in ms, the host's launch overhead excluded (torch.profiler's
-    kernel durations)."""
-    DEVICE_TIMES.append((label, row, fn))
+    kernel durations), and ``row[key + "_kernels"]`` the same by kernel."""
+    DEVICE_TIMES.append((label, row, fn, key))
 
 
 def run_device_times() -> None:
     """Measure every deferred device time (after all CUDA-event timing)."""
-    from image2text_torch.probes import device_ms
+    from image2text_torch.probes import device_kernel_ms
 
-    for label, row, fn in DEVICE_TIMES:
-        row["device_ms"] = device_ms(fn)
-        log(f"  {label}: device {row['device_ms']:.4f} ms (CUDA events "
-            f"{row['ms']:.4f})")
+    for label, row, fn, key in DEVICE_TIMES:
+        split = device_kernel_ms(fn)
+        row[f"{key}_ms"] = sum(split.values())
+        row[f"{key}_kernels"] = split
+        events = row["ms" if key == "device" else key[:-len("device")] + "ms"]
+        log(f"  {label}: device {row[f'{key}_ms']:.4f} ms (CUDA events "
+            f"{events:.4f}); by kernel " + ", ".join(
+                f"{name[:60]} {ms:.4f}" for name, ms in split.items()))
     DEVICE_TIMES.clear()
 
 
@@ -445,21 +453,30 @@ def phase_attention_sensitivity(torch, results, b: int = 8):
 
 def kernel_row(results, name, tag, source, replaces, row, **shape):
     """Keep a kernel's measurements: its row (``tag`` None) or one of its
-    ``<tag>_shape`` entries."""
+    ``<tag>_shape`` entries; returns the dict kept."""
     if tag is None:
         results[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, **row)
-    else:
-        results.setdefault(name, {"name": name})[f"{tag}_shape"] = dict(
-            **shape, **row)
+        return results[name]
+    kept = results.setdefault(name, {"name": name})[f"{tag}_shape"] = dict(
+        **shape, **row)
+    return kept
 
 
 def phase_front_kernel(torch, model, images, results, tag=None):
     """fused_frontend against its plain version on ``model``'s patch stream
-    of ``images``, and torch.matmul of the projector alone as a
-    yardstick the port never calls."""
-    from image2text_torch.ops.fused_frontend import (fused_frontend,
-                                                     fused_frontend_plain)
+    of ``images``, on the route front_plan gives its shape (the cluster
+    route at the flagship's and GPT-2-medium's shapes: its resident
+    clusters, registers and spills) and on the slab route forced at the
+    same shape (the two-launch design it replaces), reruns bitwise equal;
+    torch.matmul of the projector alone as a yardstick the port never
+    calls.  Device times by kernel of both routes, read at the end."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.fused_frontend import (FrontPlan, front_plan,
+                                                     fused_frontend,
+                                                     fused_frontend_plain,
+                                                     launch_front,
+                                                     resident_clusters)
 
     enc = model.vision_encoder
     x = enc.feature_extractor(images)
@@ -467,15 +484,24 @@ def phase_front_kernel(torch, model, images, results, tag=None):
     w = enc.frontend_weights(x.dtype)
     b, t, din = x.shape
     d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    plan = front_plan(t, d)
+    slab = FrontPlan("slab", plan.cluster_n, plan.cluster_m)
     got = fused_frontend(x, w)
     want = fused_frontend_plain(x, w)
+    again = fused_frontend(x, w)
+    by_slab = launch_front(x, w, slab)
     torch.cuda.synchronize()
-    err = compare(f"fused_frontend b={b} t={t} din={din} d={d} n_cls={n_cls}",
-                  got, want)
-    if not torch.equal(got[:, :n_cls], want[:, :n_cls]):
+    label = f"fused_frontend b={b} t={t} din={din} d={d} n_cls={n_cls}"
+    err = compare(f"{label} ({plan.route} route)", got, want)
+    compare(f"{label} (slab route)", by_slab, want)
+    if not (torch.equal(got[:, :n_cls], want[:, :n_cls])
+            and torch.equal(by_slab[:, :n_cls], want[:, :n_cls])):
         raise AssertionError("fused_frontend: CLS rows differ")
-    del got, want
+    if not torch.equal(got, again):
+        raise AssertionError("fused_frontend: reruns differ")
+    del got, want, again, by_slab
     ms = cuda_ms(torch, lambda: fused_frontend(x, w))
+    slab_ms = cuda_ms(torch, lambda: launch_front(x, w, slab))
     plain = cuda_ms(torch, lambda: fused_frontend_plain(x, w))
     lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p))
     # the projector's products on the tensor cores; the two slab norms'
@@ -483,15 +509,29 @@ def phase_front_kernel(torch, model, images, results, tag=None):
     flops = 2 * b * t * din * d
     n_bytes = nbytes(x, *w) + b * (n_cls + t) * d * x.element_size()
     bms, by = bound_ms(n_bytes, flops)
-    log(f"  fused_frontend: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} "
-        f"MB; kernel at {bms / ms:.3f} of it), torch.matmul of the projector "
-        f"alone {lib:.4f} ms")
-    kernel_row(results, "fused_frontend", tag,
-               "image2text_torch/csrc/fused_frontend.cu",
-               "image2text_tpu/ops/fused_frontend.py:45",
-               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib), b=b, t=t, din=din, d=d)
+    extra = dict(plan_route=plan.route, slab_route_ms=slab_ms)
+    if plan.route == "cluster":
+        regs, spills = _build.resources("fused_frontend",
+                                        "front_cluster_kernel")
+        extra.update(clusters=[plan.cluster_n, plan.cluster_m],
+                     resident_clusters=resident_clusters(
+                         x.device.index, plan.cluster_n, plan.cluster_m),
+                     registers=regs, spill_bytes=spills)
+    log(f"  fused_frontend: {plan.route} route {ms:.4f} ms (slab route "
+        f"{slab_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
+        f"{flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; kernel at "
+        f"{bms / ms:.3f} of it), torch.matmul of the projector alone "
+        f"{lib:.4f} ms; {extra}")
+    row = kernel_row(results, "fused_frontend", tag,
+                     "image2text_torch/csrc/fused_frontend.cu",
+                     "image2text_tpu/ops/fused_frontend.py:45",
+                     dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=lib,
+                          **extra), b=b, t=t, din=din, d=d)
+    defer_device_ms(f"{label} ({plan.route} route)", row,
+                    lambda: fused_frontend(x, w))
+    defer_device_ms(f"{label} (slab route)", row,
+                    lambda: launch_front(x, w, slab), key="slab_route_device")
 
 
 def phase_dense_kernel(torch, model, args, results):
@@ -586,19 +626,21 @@ def phase_topk_kernel(torch, results, ids, ngrams, vocab: int, tag=None,
     plain = cuda_ms(torch, lambda: topk_ban_mask_reference(x, banned, k),
                     iters=20)
     lib = cuda_ms(torch, lambda: torch.topk(x, k), iters=20)
-    # each row read and written once; 32 bisection rounds of one compare
-    # per element on the CUDA cores
+    # each row read and written once, the bans read once: bytes alone (a
+    # compare or two an element is far below them on the CUDA cores)
     n_bytes = 2 * nbytes(x) + nbytes(banned)
-    bms, by = bound_ms(n_bytes, 32 * rows * vocab, F32_OP_PER_S)
+    bms, by = bound_ms(n_bytes, 0)
     log(f"  topk_ban_mask: kernel {ms:.4f} ms, reference {plain:.4f} ms, "
         f"bound {bms:.5f} ms ({by}; {n_bytes / 1e6:.1f} MB; kernel at "
         f"{bms / ms:.3f} of it), torch.topk(x, {k}) {lib:.4f} ms")
-    kernel_row(results, "topk_ban_mask", tag,
-               "image2text_torch/csrc/topk_mask.cu",
-               "image2text_tpu/ops/topk_mask.py:91",
-               dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib), rows=rows, V=vocab, k=k,
-               M=banned.shape[1])
+    row = kernel_row(results, "topk_ban_mask", tag,
+                     "image2text_torch/csrc/topk_mask.cu",
+                     "image2text_tpu/ops/topk_mask.py:91",
+                     dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=lib),
+                     rows=rows, V=vocab, k=k, M=banned.shape[1])
+    defer_device_ms(f"topk_ban_mask rows={rows}", row,
+                    lambda: topk_ban_mask(x, banned, k))
 
 
 def phase_kernels(torch, model, args, results, tag=None):
@@ -1851,7 +1893,9 @@ def main() -> int:
     extra = ("gemm_ms", "attention_ms", "attention_library_ms", "regimes",
              "variants_ms", "library_bwd_ms", "library_fwd_bwd_ms", "pairs",
              "groups", "plan_route", "registers", "spill_bytes", "device_ms",
-             "sensitivity",
+             "device_kernels", "clusters", "resident_clusters",
+             "slab_route_ms", "slab_route_device_ms",
+             "slab_route_device_kernels", "sensitivity",
              "launches_by_path")
     # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}

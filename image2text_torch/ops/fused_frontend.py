@@ -15,18 +15,30 @@ not pay for.  nvcc builds this one in seconds, so every eval encoder
 forward on the card launches it.  What bounds it on the H100: operations
 (the projector GEMM); see ``csrc/fused_frontend.cu`` for the design.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernels or raises.
+Two routes, chosen by shape (:func:`front_plan`): an image's slab of at
+most ``MAX_CLUSTER`` GEMM tiles is one thread-block cluster (one kernel,
+z kept on the chip: the flagship's and GPT-2-medium's fronts); a larger
+slab takes the GEMM and a slab kernel (two launches, z through device
+memory).  On a CPU tensor the wrapper computes the plain version; on a
+CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from image2text_torch.nn.modules import layer_norm
 from image2text_torch.ops import _build
+
+# gemm.cuh's output tile (rows x columns), and the most tiles an image's
+# slab may have to be one cluster, read from the sources, their owners.
+TILE_ROWS, TILE_COLS = _build.kernel_constants("gemm.cuh", "GEMM_BM",
+                                               "GEMM_BN")
+(MAX_CLUSTER,) = _build.kernel_constants("fused_frontend",
+                                         "FRONT_MAX_CLUSTER")
 
 
 class FrontendWeights(NamedTuple):
@@ -55,10 +67,77 @@ def fused_frontend_plain(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
     return torch.cat([cls, layer_norm(y, w.ln_w, w.ln_b, n_dims=2)], dim=1)
 
 
+class FrontPlan(NamedTuple):
+    """How one call runs: ``route`` "cluster" (one cluster of
+    ``cluster_n`` x ``cluster_m`` blocks an image: its slab's tiles along d
+    and along t) or "slab" (the GEMM, then the slab kernel)."""
+
+    route: str
+    cluster_n: int
+    cluster_m: int
+
+
+@functools.lru_cache(maxsize=64)
+def front_plan(t: int, d: int) -> FrontPlan:
+    """The route for images of t patches and width d: the cluster route
+    where an image's slab is at most MAX_CLUSTER tiles of TILE_ROWS x
+    TILE_COLS, else the slab route."""
+    cn, cm = -(-d // TILE_COLS), -(-t // TILE_ROWS)
+    if cn * cm <= MAX_CLUSTER:
+        return FrontPlan("cluster", cn, cm)
+    return FrontPlan("slab", cn, cm)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device_index: int, cn: int, cm: int) -> int:
+    """How many clusters of the cluster route the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): the persistent grid's size."""
+    fn = _build.entry_point("fused_frontend", "front_cluster_occupancy",
+                            [ctypes.c_int, ctypes.c_int])
+    with torch.cuda.device(device_index):
+        n = fn(cn, cm)
+    if n < 0:
+        _build.check(-n, "front_cluster_occupancy")
+    return n
+
+
+# front_cluster_launch(x, wp, bp, lnw, lnb, wpe, cls, out, b, t, din, d,
+# n_cls, cn, cm, n_clusters, stream); front_slab_launch: no cn, cm, n_clusters
+_CLUSTER_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SLAB_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def launch_front(x: torch.Tensor, w: FrontendWeights,
+                 plan: FrontPlan) -> torch.Tensor:
+    """Launch ``plan``'s route on checked CUDA operands (see
+    :func:`fused_frontend`); a plan of the slab route runs any shape."""
+    b, t, din = x.shape
+    d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    out = torch.empty(b, n_cls + t, d, dtype=x.dtype, device=x.device)
+    ptrs = [_build.ptr(a) for a in (x, w.w_p, w.b_p, w.ln_w, w.ln_b, w.wpe,
+                                    w.cls, out)]
+    stream = _build.stream(x.device)
+    n_clusters = (resident_clusters(x.device.index, plan.cluster_n,
+                                    plan.cluster_m)
+                  if plan.route == "cluster" else 0)
+    if n_clusters > 0:
+        fn = _build.entry_point("fused_frontend", "front_cluster_launch",
+                                _CLUSTER_ARGS)
+        err = fn(*ptrs, b, t, din, d, n_cls, plan.cluster_n, plan.cluster_m,
+                 n_clusters, stream)
+    else:   # a card that holds no such cluster: the slab route
+        fn = _build.entry_point("fused_frontend", "front_slab_launch",
+                                _SLAB_ARGS)
+        err = fn(*ptrs, b, t, din, d, n_cls, stream)
+    _build.check(err, f"fused_frontend ({plan.route} route)")
+    fused_frontend.launches += 1
+    return out
+
+
 def fused_frontend(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
     """The (b, n_cls + t, d) block-loop input from the (b, t, din) patch
-    stream ``x``: the CUDA kernels for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    stream ``x``: the CUDA kernels for a CUDA tensor (the route of
+    :func:`front_plan`), the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_frontend_plain(x, w)
     for name, t in [("x", x)] + list(zip(w._fields, w)):
@@ -74,18 +153,7 @@ def fused_frontend(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
         raise ValueError(f"fused_frontend kernel: unsupported shape b={b} "
                          f"t={t} din={din} d={d} n_cls={n_cls} (needs din "
                          "% 32 == 0, d % 16 == 0 and (t, d) tables)")
-    out = torch.empty(b, n_cls + t, d, dtype=x.dtype, device=x.device)
-    lib = _build.load("fused_frontend")
-    fn = lib.frontend_launch
-    fn.restype = ctypes.c_int
-    P = _build.ptr
-    err = fn(P(x), P(w.w_p), P(w.b_p), P(w.ln_w), P(w.ln_b), P(w.wpe),
-             P(w.cls), P(out), ctypes.c_int(b), ctypes.c_int(t),
-             ctypes.c_int(din), ctypes.c_int(d), ctypes.c_int(n_cls),
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(err, "frontend_launch")
-    fused_frontend.launches += 1
-    return out
+    return launch_front(x, w, front_plan(t, d))
 
 
 fused_frontend.launches = 0

@@ -16,19 +16,26 @@ like every other wrapper; callers that want the reference on the card call
 ``topk_ban_mask_reference``.  The JAX ``BAN_CAP`` compaction and its
 ``lax.cond`` fallback exist because Mosaic unrolls the ban loop
 statically; the CUDA kernel loops over any M, so neither comes across.
+
+The kernel finds the k-th key by a radix select (``csrc/topk_mask.cu``):
+three digits of the monotone key, the first over the row, the next two
+over a short list of the keys from the first digit's bin up;
+:func:`kth_key_radix` repeats its steps in plain PyTorch for the tests.
+It takes any V.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from image2text_torch.ops import _build
 
-# the kernel holds a row in one block's shared memory (227 KB, less 1 KB
-# for its own scratch)
-MAX_VOCAB = (227 * 1024 - 1024) // 4
+# The radix select's digits (key bits 31..21, 20..10, 9..0) and its
+# candidate list's length, read from ``csrc/topk_mask.cu``, their one owner.
+RADIX_BITS, RADIX_LAST_BITS, CAND_CAP = _build.kernel_constants(
+    "topk_mask", "RADIX_BITS", "RADIX_LAST_BITS", "CAND_CAP")
 
 
 def topk_ban_mask_reference(logits: torch.Tensor,
@@ -48,6 +55,69 @@ def topk_ban_mask_reference(logits: torch.Tensor,
     return torch.where(x < kth, torch.full_like(x, float("-inf")), x)
 
 
+def _ukey(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's unsigned key of f32 values, as int64: the monotone int32
+    key (±0.0 share 0) plus 2**31."""
+    i = x.float().contiguous().view(torch.int32).long()
+    return torch.where(i >= 0, i, -(2 ** 31) - i) + 2 ** 31
+
+
+def kth_key_radix(logits: torch.Tensor, banned_id: Optional[torch.Tensor],
+                  k: int, cand_cap: int = CAND_CAP
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's radix select in plain PyTorch, step for step: per row,
+    the exact k-th largest key after the bans, as the monotone int32 key;
+    and whether the row's first-digit bin overflowed the candidate list
+    (the kernel then re-reads the row for the later digits and the write:
+    the same counts).  Each level histograms the keys under the prefix fixed so far,
+    moves each live ban's original key to -inf's bin, and takes the bin
+    where the count from the top reaches k.  For the tests only."""
+    b, v = logits.shape
+    k = min(int(k), v)
+    keys = _ukey(logits)
+    inf_key = int(_ukey(torch.tensor([float("-inf")]))[0])
+    shifts = (32 - RADIX_BITS, RADIX_LAST_BITS, 0)
+    widths = (RADIX_BITS, RADIX_BITS, RADIX_LAST_BITS)
+    out = torch.empty(b, dtype=torch.int64)
+    overflow = torch.zeros(b, dtype=torch.bool)
+    for r in range(b):
+        ids = [] if banned_id is None else [int(i) for i in banned_id[r]]
+        live = list(dict.fromkeys(i for i in ids if 0 <= i < v))
+        ban_keys = keys[r, live]
+        row = keys[r]
+        prefix, rank = 0, k
+        for level, (sh, w) in enumerate(zip(shifts, widths)):
+            hi = sh + w
+
+            def under(u):
+                return (torch.ones_like(u, dtype=torch.bool) if hi == 32
+                        else (u >> hi) == prefix)
+
+            def digit(u):
+                return (u >> sh) & ((1 << w) - 1)
+
+            hist = torch.bincount(digit(row[under(row)]), minlength=1 << w)
+            hist -= torch.bincount(digit(ban_keys[under(ban_keys)]),
+                                   minlength=1 << w)
+            if live and bool(under(torch.tensor([inf_key]))[0]):
+                hist[digit(torch.tensor(inf_key))] += len(live)
+            above = hist.flip(0).cumsum(0).flip(0) - hist   # Σ of bins above
+            bin_ = int(torch.nonzero((above < rank) & (rank <= above + hist)
+                                     )[0, 0])
+            prefix, rank = (prefix << w) | bin_, rank - int(above[bin_])
+            if level == 0:   # the list: this bin's keys and those above
+                cand = row[(row >> sh) >= bin_]
+                overflow[r] = cand.numel() > cand_cap
+                if not overflow[r]:
+                    row = cand
+        out[r] = prefix - 2 ** 31
+    return out.to(torch.int32), overflow
+
+
+# topk_ban_mask_launch(x, ban, live, out, B, V, M, k, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def topk_ban_mask(logits: torch.Tensor, banned_id: Optional[torch.Tensor],
                   k: int) -> torch.Tensor:
     """(B, V) f32: ``logits`` with banned ids and everything below the k-th
@@ -61,23 +131,20 @@ def topk_ban_mask(logits: torch.Tensor, banned_id: Optional[torch.Tensor],
     if banned_id is not None and banned_id.shape[-1]:
         ban = banned_id.to(torch.int32).contiguous()
         _build.check_operand("topk_ban_mask", "banned_id", ban, torch.int32)
-        if ban.shape[0] != b:
+        if ban.dim() != 2 or ban.shape[0] != b:
             raise ValueError("topk_ban_mask kernel: banned_id must be (B, M)")
         m = ban.shape[1]
     else:
         ban, m = None, 0
-    if k < 1 or v > MAX_VOCAB:
-        raise ValueError(f"topk_ban_mask kernel: unsupported k={k} V={v} "
-                         f"(needs k >= 1 and V <= {MAX_VOCAB}: a row lives "
-                         "in one block's shared memory)")
+    if k < 1:
+        raise ValueError(f"topk_ban_mask kernel: unsupported k={k} (needs "
+                         "k >= 1)")
     out = torch.empty_like(x)
-    lib = _build.load("topk_mask")
-    fn = lib.topk_ban_mask_launch
-    fn.restype = ctypes.c_int
-    err = fn(_build.ptr(x), _build.ptr(ban), _build.ptr(out), ctypes.c_int(b),
-             ctypes.c_int(v), ctypes.c_int(m), ctypes.c_int(k),
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(err, "topk_ban_mask_launch")
+    live = torch.empty_like(ban) if ban is not None else None
+    fn = _build.entry_point("topk_mask", "topk_ban_mask_launch", _ARGTYPES)
+    _build.check(fn(x.data_ptr(), _build.ptr(ban), _build.ptr(live),
+                    out.data_ptr(), b, v, m, k, _build.stream(x.device)),
+                 "topk_ban_mask_launch")
     topk_ban_mask.launches += 1
     return out
 

@@ -26,11 +26,12 @@ def time_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()`` in ms: the kernels' durations that
-    torch.profiler records over ``iters`` calls after warm-up, summed and
-    divided by ``iters``.  Free of the host's launch overhead, which
-    :func:`time_ms` includes wherever it exceeds the kernels' time."""
+def device_kernel_ms(fn, iters: int = 20) -> dict:
+    """Device time of one ``fn()`` in ms by kernel name: the kernels'
+    durations that torch.profiler records over ``iters`` calls after
+    warm-up, summed per name and divided by ``iters``.  Free of the host's
+    launch overhead, which :func:`time_ms` includes wherever it exceeds
+    the kernels' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -41,6 +42,6 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3
+    return {e.key: e.device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}

@@ -1,7 +1,8 @@
 """Times of the serving and flash kernels of one checkout, for comparing
 two trees in one process each, on one card, in turns.
 
-    python -m image2text_torch.probes.kernel_times [--flash-only | --int4-only] TREE...
+    python -m image2text_torch.probes.kernel_times \
+        [--flash-only | --int4-only | --front-topk-only] TREE...
 
 For each TREE (the root of a checkout: this repository, or an unpacked
 ``git archive`` of another commit) a fresh process imports that tree's
@@ -16,8 +17,18 @@ flagship's and GPT-2-medium's training shapes (``FLASH_FLAGSHIP``,
 (``phase_int4_kernels``: the GPT-2-medium decoder's four quantized
 Linears at 256 decode rows and 1,344 training rows, beside the bf16
 ``torch.matmul`` yardstick; ``int4_matmul.<decode|train>_<linear>.ms`` and
-``.library_ms``).  Per flash shape it prints the forward's and the
-backward's ms (dQ, dK and dV: one call, or a tree's dK/dV and dQ kernels
+``.library_ms``), ``--front-topk-only`` the encoder front and the ban mask
+with the kernels that share the front's GEMM (``gemm.cuh``): the
+flagship's ``phase_kernels`` and ``phase_dense_kernel``, a depth-1
+GPT-2-medium's ``phase_kernels`` (its front and sparse block, under
+``gpt2m``), and ``phase_topk_kernel`` at (256, 50258) and (192, 50258),
+k 16, with the bans of a random id buffer; beside ``ms`` the front's and
+the ban mask's ``device_ms`` and ``device_kernels`` (by kernel name), and
+``sparse_block.digest`` and ``fused_block.digest`` (sha256 of block 2's
+output on a seeded input: equal across trees = bitwise equal),
+measured by this module's own code with this checkout's
+``probes.device_kernel_ms`` for every tree.  Per flash shape it prints
+the forward's and the backward's ms (dQ, dK and dV: one call, or a tree's dK/dV and dQ kernels
 summed) and, timed in the same process by this module's own code, SDPA's
 forward and its backward alone (``sdpa_fwd.<label>.ms``,
 ``sdpa_bwd.<label>.ms``).  A tree whose ``chip_smoke.py`` defers device
@@ -38,8 +49,8 @@ import sys
 from pathlib import Path
 
 _CHILD = r'''
-import json, sys, types
-tree, mode = sys.argv[1], sys.argv[2]
+import hashlib, importlib.util, json, sys, types
+tree, mode, own_probes = sys.argv[1], sys.argv[2], sys.argv[3]
 sys.path.insert(0, tree)
 import torch
 import torch.nn.functional as F
@@ -98,7 +109,95 @@ def keyless_errors():
         out[f"keyless.{name}"] = output_error(x, y)
 
 
+def front_topk():
+    """The front and the ban mask in both trees' own phases, device times
+    by kernel from this checkout's probes."""
+    spec = importlib.util.spec_from_file_location("own_probes", own_probes)
+    probes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probes)
+    from image2text_torch.models.sampling import _ngram_bans
+    from image2text_torch.ops.fused_frontend import fused_frontend
+    from image2text_torch.ops.topk_mask import topk_ban_mask
+    calls = {}
+
+    def front_call(model, label):
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+        images, _, _ = cs.block_input(torch, model, gen)
+        enc = model.vision_encoder
+        x = enc.feature_extractor(images)
+        x = x.reshape(x.shape[0], enc.n_patches ** 2, enc.input_d)
+        w = enc.frontend_weights(x.dtype)
+        calls[label] = lambda: fused_frontend(x, w)
+
+    def block_digest(model, name):
+        """sha256 of block 2's kernel output on a seeded N(0, 1) stream (not
+        the front's output, which differs between the trees' fronts) under
+        the encoder's row layout: equal digests across trees = bitwise
+        equal outputs."""
+        from image2text_torch.ops.fused_block import fused_block, sparse_block
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+        _, x, layout = cs.block_input(torch, model, gen)
+        x = torch.randn(x.shape, device="cuda", generator=gen).to(x.dtype)
+        blk = model.vision_encoder.blocks[2]
+        w = blk.block_weights(torch.bfloat16)
+        if name == "sparse_block":
+            y = sparse_block(x, *blk.layout_rows(layout, x.shape[1], x.device),
+                             w)
+        else:
+            y = fused_block(x, w)
+        out[f"{name}.digest"] = hashlib.sha256(
+            y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+    for cfg, phase, name in ((FLAGSHIP, cs.phase_kernels, "sparse_block"),
+                             (FLAGSHIP_DENSE, cs.phase_dense_kernel,
+                              "fused_block")):
+        model = VisionEncoderDecoder(cfg, device="cuda").init_weights(
+            cs.SEED).to(torch.bfloat16).eval()
+        phase(torch, model, args, res)
+        block_digest(model, name)
+        if cfg is FLAGSHIP:
+            front_call(model, "fused_frontend")
+            vocab = cfg.decoder_config.vocab_size
+            ngrams = tuple(model.no_repeat_n_grams)
+        del model
+        torch.cuda.empty_cache()
+    with cs.gpt2_depth(1):
+        model = cs.gpt2m_model(torch)
+    cs.phase_kernels(torch, model, args, res, tag="gpt2m")
+    front_call(model, "fused_frontend.gpt2m")
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 8)
+    for rows, tag in ((cs.BATCH, None), (3 * cs.BEAM_BATCH, "beam")):
+        ids = torch.randint(0, vocab, (rows, 1 + cs.MAX_NEW_TOKENS),
+                            device="cuda", generator=gen)
+        cs.phase_topk_kernel(torch, res, ids, ngrams, vocab, tag=tag)
+        x = 2 * torch.randn(rows, vocab, device="cuda", generator=gen)
+        cand, ban = _ngram_bans(ids, ids.shape[1], ngrams)
+        banned = torch.where(ban, cand, -1).to(torch.int32)
+        label = "topk_ban_mask" + ("" if tag is None else f".{tag}")
+        calls[label] = (lambda x=x, banned=banned:
+                        topk_ban_mask(x, banned, 16))
+    for label, fn in calls.items():   # after every event time
+        split = probes.device_kernel_ms(fn)
+        out[f"{label}.device_ms"] = sum(split.values())
+        out[f"{label}.device_kernels"] = split
+    for name in ("fused_frontend", "topk_ban_mask"):
+        for tag in (None, "gpt2m", "beam"):
+            r = res.get(name, {})
+            r = r if tag is None else r.get(f"{tag}_shape")
+            if r:
+                label = name + ("" if tag is None else f".{tag}")
+                for key in ("ms", "library_ms", "plain_ms", "slab_route_ms"):
+                    if key in r:
+                        out[f"{label}.{key}"] = r[key]
+    r = res["sparse_block"]
+    out["sparse_block.gpt2m.ms"] = r["gpt2m_shape"]["ms"]
+
+
 with torch.no_grad():
+    if mode == "front_topk":
+        front_topk()
     if mode == "int4":
         with cs.gpt2_depth(1):
             model = cs.gpt2m_model(torch)
@@ -121,31 +220,32 @@ with torch.no_grad():
             phase(torch, model, args, res)
             del model
             torch.cuda.empty_cache()
-    for cases in (cs.FLASH_FLAGSHIP, cs.FLASH_GPT2M):
-        cs.phase_flash_kernels(torch, args, res, cases)
-        for case in cases:
-            label = case[0]
+    if mode in ("all", "flash"):
+        for cases in (cs.FLASH_FLAGSHIP, cs.FLASH_GPT2M):
+            cs.phase_flash_kernels(torch, args, res, cases)
+            for case in cases:
+                label = case[0]
 
-            def ms(name):
-                r = res.get(name, {})
-                r = r if label == "encoder" else r.get(f"{label}_shape", {})
-                return r.get("ms")
+                def ms(name):
+                    r = res.get(name, {})
+                    r = r if label == "encoder" else r.get(f"{label}_shape", {})
+                    return r.get("ms")
 
-            fused = ms("flash_bwd")
-            out[f"flash_fwd.{label}.ms"] = ms("flash_fwd")
-            out[f"flash_bwd.{label}.ms"] = (
-                fused if fused is not None
-                else ms("flash_bwd_dkv") + ms("flash_bwd_dq"))
-            out[f"sdpa_fwd.{label}.ms"], out[f"sdpa_bwd.{label}.ms"] = sdpa_ms(
-                *case[1:])
-    keyless_errors()
-    if hasattr(cs, "run_device_times"):   # after every event time
-        cs.run_device_times()
-        for case in cs.FLASH_FLAGSHIP + cs.FLASH_GPT2M:
-            label = case[0]
-            fwd = res["flash_fwd"]
-            fwd = fwd if label == "encoder" else fwd[f"{label}_shape"]
-            out[f"flash_fwd.{label}.device_ms"] = fwd["device_ms"]
+                fused = ms("flash_bwd")
+                out[f"flash_fwd.{label}.ms"] = ms("flash_fwd")
+                out[f"flash_bwd.{label}.ms"] = (
+                    fused if fused is not None
+                    else ms("flash_bwd_dkv") + ms("flash_bwd_dq"))
+                out[f"sdpa_fwd.{label}.ms"], out[f"sdpa_bwd.{label}.ms"] = sdpa_ms(
+                    *case[1:])
+        keyless_errors()
+        if hasattr(cs, "run_device_times"):   # after every event time
+            cs.run_device_times()
+            for case in cs.FLASH_FLAGSHIP + cs.FLASH_GPT2M:
+                label = case[0]
+                fwd = res["flash_fwd"]
+                fwd = fwd if label == "encoder" else fwd[f"{label}_shape"]
+                out[f"flash_fwd.{label}.device_ms"] = fwd["device_ms"]
 for name, r in res.items():
     if name.startswith("flash_"):
         continue
@@ -159,14 +259,16 @@ print("KERNEL_TIMES " + json.dumps(out), flush=True)
 '''
 
 
-MODES = {"--flash-only": "flash", "--int4-only": "int4"}
+MODES = {"--flash-only": "flash", "--int4-only": "int4",
+         "--front-topk-only": "front_topk"}
 
 
 def main(argv) -> int:
     mode = next((MODES[a] for a in argv if a in MODES), "all")
     for tree in [a for a in argv if a not in MODES]:
         root = str(Path(tree).resolve())
-        proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode],
+        proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode,
+                               str(Path(__file__).with_name("__init__.py"))],
                               cwd=root, capture_output=True, text=True)
         lines = [l for l in proc.stdout.splitlines()
                  if l.startswith("KERNEL_TIMES ")]

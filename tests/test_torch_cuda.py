@@ -627,34 +627,50 @@ def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
-def test_fused_frontend_kernel_matches_plain(dev, bias):
+@pytest.mark.parametrize("b,t,din,d,n_cls,route", [
+    (3, 16, 128, 128, 8, "cluster"),      # t < a tile: tiles straddle images
+    (3, 200, 256, 512, 8, "cluster"),     # 2 x 2 tiles, rows past t in the second
+    (2, 256, 2048, 1024, 64, "cluster"),  # the flagship's front: 8 tiles
+    (3, 256, 2048, 512, 64, "cluster"),   # GPT-2-medium's front: 4 tiles
+    (2, 256, 256, 2048, 8, "slab"),       # 16 tiles: past one cluster
+])
+def test_fused_frontend_kernel_matches_plain(dev, bias, b, t, din, d, n_cls,
+                                             route):
     """Projector GEMM + bias, the two slab LayerNorms and the positional
-    table, CLS rows in front: 3 images of 16 rows, din 128 → d 128 (one
-    ragged GEMM tile), and the flagship's front widths at 2 images."""
+    table, CLS rows in front, on the route front_plan gives the shape; the
+    slab route forced at every shape too; reruns bitwise equal."""
     from image2text_torch.ops.fused_frontend import (FrontendWeights,
+                                                     FrontPlan, front_plan,
                                                      fused_frontend,
-                                                     fused_frontend_plain)
+                                                     fused_frontend_plain,
+                                                     launch_front)
 
     g = _gen(dev, 13)
-    for b, t, din, d, n_cls in ((3, 16, 128, 128, 8), (2, 256, 2048, 1024,
-                                                         64)):
-        def r(*shape, scale=1.0):
-            return (torch.randn(*shape, device=dev, generator=g) * scale
-                    ).to(torch.bfloat16)
 
-        w = FrontendWeights(
-            w_p=r(din, d, scale=din ** -0.5), b_p=r(d) if bias else None,
-            ln_w=1 + r(t, d, scale=0.1), ln_b=r(t, d, scale=0.1) if bias
-            else None, wpe=r(t, d), cls=r(n_cls, d))
-        x = r(b, t, din)
-        before = fused_frontend.launches
-        got = fused_frontend(x, w)
-        want = fused_frontend_plain(x, w)
-        torch.cuda.synchronize()
-        assert fused_frontend.launches == before + 1
-        assert got.shape == (b, n_cls + t, d)
-        assert torch.equal(got[:, :n_cls], want[:, :n_cls])
-        check_output("fused_frontend", got, want)
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale
+                ).to(torch.bfloat16)
+
+    w = FrontendWeights(
+        w_p=r(din, d, scale=din ** -0.5), b_p=r(d) if bias else None,
+        ln_w=1 + r(t, d, scale=0.1), ln_b=r(t, d, scale=0.1) if bias
+        else None, wpe=r(t, d), cls=r(n_cls, d))
+    x = r(b, t, din)
+    plan = front_plan(t, d)
+    assert plan.route == route
+    before = fused_frontend.launches
+    got = fused_frontend(x, w)
+    want = fused_frontend_plain(x, w)
+    torch.cuda.synchronize()
+    assert fused_frontend.launches == before + 1
+    assert got.shape == (b, n_cls + t, d)
+    assert torch.equal(got[:, :n_cls], want[:, :n_cls])
+    check_output(f"fused_frontend {route}", got, want)
+    assert torch.equal(fused_frontend(x, w), got)
+    slab = launch_front(x, w, FrontPlan("slab", *plan[1:]))
+    torch.cuda.synchronize()
+    assert torch.equal(slab[:, :n_cls], want[:, :n_cls])
+    check_output("fused_frontend slab route", slab, want)
 
 
 @pytest.mark.cuda
@@ -737,32 +753,43 @@ def test_fused_block_raises_past_the_attention_shared_memory(dev):
     assert fused_block.launches == before
 
 
-def _ban_cases(dev):
+def _ban_cases(dev, rows, vocab):
+    """(rows, vocab) f32 logits and (rows, 132) bans: signed zeros, -inf
+    inputs, ties at the threshold, a row of equal values (its first digit
+    overflows the candidate list), a fully banned head, ids past the
+    vocabulary, a repeated id; random rows after the sixth."""
     g = torch.Generator().manual_seed(15)
-    x = torch.randn(6, 50258, generator=g)
+    x = torch.randn(rows, vocab, generator=g)
     x[0, :8] = torch.tensor([0.0, -0.0] * 4)
     x[0, 8:] = -1.0
     x[1, 3:] = float("-inf")
     x[2, :40] = x[2, 40]                         # ties at the threshold
-    ban = torch.randint(0, 50258, (6, 132), generator=g, dtype=torch.int32)
-    ban[torch.rand(6, 132, generator=g) < 0.3] = -1
+    x[5] = 0.75                                  # one value: overflow
+    ban = torch.randint(0, vocab, (rows, 132), generator=g, dtype=torch.int32)
+    ban[torch.rand(rows, 132, generator=g) < 0.3] = -1
     ban[3] = torch.arange(132, dtype=torch.int32)
-    ban[4, :2] = torch.tensor([50258, 60000], dtype=torch.int32)
+    ban[4, :2] = torch.tensor([vocab, vocab + 9000], dtype=torch.int32)
+    ban[4, 2:6] = int(torch.argmax(x[4]))       # the top id, four times
     return x.to(dev), ban.to(dev)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 16, 50258])
+@pytest.mark.parametrize("k", [1, 16, "all"])
 @pytest.mark.parametrize("with_bans", [False, True])
-def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k,
-                                                           with_bans):
-    """The flagship's vocabulary, signed zeros, -inf inputs, ties at the
-    threshold, 132 ban columns (more live bans than the JAX kernel's cap),
-    ids past the vocabulary; k from 1 to the whole row."""
-    from image2text_torch.ops.topk_mask import (topk_ban_mask,
+@pytest.mark.parametrize("rows,vocab", [(6, 50258), (192, 50258),
+                                        (6, 151936)])
+def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k, with_bans,
+                                                           rows, vocab):
+    """The flagship's vocabulary at 6 engineered rows and at the beam's 192
+    decode rows, and Qwen-2's 151,936: signed zeros, -inf inputs, ties at
+    the threshold, 132 ban columns (more live bans than the JAX kernel's
+    cap), ids past the vocabulary, repeated ids, a row whose first digit
+    overflows the candidate list; k from 1 to the whole row."""
+    from image2text_torch.ops.topk_mask import (kth_key_radix, topk_ban_mask,
                                                 topk_ban_mask_reference)
 
-    x, ban = _ban_cases(dev)
+    k = vocab if k == "all" else k
+    x, ban = _ban_cases(dev, rows, vocab)
     ban = ban if with_bans else None
     before = topk_ban_mask.launches
     got = topk_ban_mask(x, ban, k)
@@ -770,18 +797,21 @@ def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k,
     torch.cuda.synchronize()
     assert topk_ban_mask.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if k == 16:   # rows of one value (-1.0, -inf, 0.75) fill their bins
+        _, overflow = kth_key_radix(x[:6].cpu(), None, k)
+        assert overflow.tolist() == [True, True, False, False, False, True]
 
 
 @pytest.mark.cuda
 def test_topk_ban_mask_raises_on_what_the_kernel_does_not_take(dev):
-    from image2text_torch.ops.topk_mask import MAX_VOCAB, topk_ban_mask
+    from image2text_torch.ops.topk_mask import topk_ban_mask
 
     before = topk_ban_mask.launches
     with pytest.raises(ValueError):
-        topk_ban_mask(torch.zeros(2, MAX_VOCAB + 1, device=dev), None, 4)
-    with pytest.raises(ValueError):
         topk_ban_mask(torch.zeros(2, 64, device=dev),
                       torch.zeros(3, 4, dtype=torch.int32, device=dev), 4)
+    with pytest.raises(ValueError):
+        topk_ban_mask(torch.zeros(2, 64, device=dev), None, 0)
     assert topk_ban_mask.launches == before
 
 

@@ -5,6 +5,7 @@ chain, on the encoder of ``tests/test_fused_block.py``'s front test; f32
 (3e-5) and bf16 (0.05), the tolerances of that test.  Inputs from a numpy
 seed; JAX at full matmul precision."""
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from image2text_tpu.utils.checkpoint import export_state_dict
 
 from image2text_torch.configs import models as tcm
 from image2text_torch.models.encoder import VisionTransformerEncoder
+from image2text_torch.ops import fused_frontend as ff
 from image2text_torch.ops.fused_frontend import (fused_frontend,
                                                  fused_frontend_plain)
 from image2text_torch.utils.checkpoint import load_jax_state_dict
@@ -113,3 +115,30 @@ def test_eval_front_equals_the_training_module_chain(encoders):
     assert seen[0].shape == (2, 8 + 16, 128)
     np.testing.assert_allclose(seen[0].numpy(), seen[1].numpy(), atol=1e-6,
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("t,d,want", [
+    (256, 1024, ("cluster", 4, 2)),   # the flagship's front: 8 tiles
+    (256, 512, ("cluster", 2, 2)),    # GPT-2-medium's front
+    (16, 128, ("cluster", 1, 1)),     # one tile, straddling images
+    (200, 512, ("cluster", 2, 2)),    # t not a multiple of the tile rows
+    (128, 2048, ("cluster", 8, 1)),
+    (256, 2048, ("slab", 8, 2)),      # 16 tiles: past one cluster
+    (384, 1024, ("slab", 4, 3)),
+])
+def test_front_plan_route_per_shape(t, d, want):
+    """The cluster route takes every slab of at most MAX_CLUSTER GEMM
+    tiles, the slab route the rest; the plan is a pure function of t, d."""
+    assert tuple(ff.front_plan(t, d)) == want
+
+
+def test_front_plan_reads_the_kernel_tiling():
+    """The tile and the cluster limit come from the CUDA sources."""
+    from image2text_torch.ops._build import CSRC
+
+    gemm = (CSRC / "gemm.cuh").read_text()
+    front = (CSRC / "fused_frontend.cu").read_text()
+    assert re.search(rf"GEMM_BM = {ff.TILE_ROWS}\b", gemm)
+    assert re.search(rf"GEMM_BN = {ff.TILE_COLS}\b", gemm)
+    assert re.search(rf"FRONT_MAX_CLUSTER = {ff.MAX_CLUSTER};", front)
+    assert (ff.TILE_ROWS, ff.TILE_COLS, ff.MAX_CLUSTER) == (128, 256, 8)

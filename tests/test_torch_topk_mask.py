@@ -2,7 +2,9 @@
 bit: ``topk_ban_mask_reference`` (the plain version the CPU runs, and what
 the CUDA kernel is held to on the card) against JAX's reference and JAX's
 Pallas kernel in interpret mode, on the cases of ``tests/test_topk_mask.py``
-plus signed zeros and -inf inputs."""
+plus signed zeros and -inf inputs.  The CUDA kernel's radix select, in its
+plain emulation ``kth_key_radix``, against the reference's k-th value on
+engineered rows."""
 import numpy as np
 import pytest
 import torch
@@ -115,3 +117,76 @@ def test_signed_zeros_infinities_and_fully_banned_rows():
                                   np.signbit(logits[0, :8]))
     assert np.isneginf(got[3]).all()
     assert np.isfinite(got[1]).sum() == 3
+
+
+def _kth_key(logits, banned, k):
+    """The reference's k-th value after the bans, as the monotone int32 key."""
+    x = torch.from_numpy(logits).clone()
+    if banned is not None:
+        for r, ids in enumerate(banned):
+            live = [int(i) for i in ids if 0 <= i < x.shape[1]]
+            x[r, live] = float("-inf")
+    kth = torch.topk(x, min(k, x.shape[1])).values[:, -1].contiguous()
+    i = kth.view(torch.int32).long()
+    return torch.where(i >= 0, i, -(2 ** 31) - i).to(torch.int32)
+
+
+def _digit_boundary_row(v):
+    """Keys straddling the first digit's (2**21) and the second's (2**10)
+    boundaries around 1.0 (bits 0x3F800000, a multiple of 2**21), with
+    repeats, among N(0, 1) values."""
+    x = np.random.default_rng(2).standard_normal(v).astype(np.float32) * 0.1
+    bits = np.array([0x3F800000 + o for o in (-2 ** 10, -1, -1, 0, 0, 1,
+                                               2 ** 10 - 1, 2 ** 10, 2 ** 10,
+                                               2 ** 21, 2 ** 21 + 5)],
+                    np.uint32)
+    x[:bits.size] = bits.view(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("case", ["random", "signed_zeros", "neg_inf",
+                                  "ties", "saturated_bans", "k_covers_row",
+                                  "equal_values", "digit_boundaries"])
+@pytest.mark.parametrize("k", [1, 3, 6, 16])
+def test_kth_key_radix_matches_the_reference_kth(case, k):
+    """The kernel's three-digit radix select, emulated step for step (ban
+    corrections, the candidate list and its overflow route), finds the
+    reference's exact k-th key: signed zeros (one key), -inf inputs and
+    thresholds, ties, saturated and repeated bans, k at or past the
+    unbanned count, a row of one value (its first digit's bin overflows a
+    small list), ties across the digit boundaries."""
+    from image2text_torch.ops.topk_mask import kth_key_radix
+
+    rng = np.random.default_rng(k)
+    v = 300
+    logits = rng.standard_normal((3, v)).astype(np.float32)
+    banned = _random_banned(rng, 3, v, 17)
+    if case == "signed_zeros":
+        logits[:, :40] = np.where(np.arange(40) % 2, -0.0, 0.0)
+        logits[:, 40:] = -np.abs(logits[:, 40:]) - 1
+    elif case == "neg_inf":
+        logits[0, 2:] = -np.inf
+        logits[1, ::2] = -np.inf
+    elif case == "ties":
+        for r in range(3):
+            logits[r, rng.permutation(v)[:7]] = np.sort(logits[r])[-k]
+    elif case == "saturated_bans":
+        banned = np.argsort(logits, axis=-1)[:, -40:].astype(np.int32)
+        banned[:, :5] = banned[:, 5:6]                  # repeated ids
+    elif case == "k_covers_row":
+        banned = np.tile(np.arange(v - 2, dtype=np.int32), (3, 1))
+    elif case == "equal_values":
+        logits[:] = 0.25
+    elif case == "digit_boundaries":
+        logits = np.stack([_digit_boundary_row(v)] * 3)
+        banned[2] = -1
+        banned[2, :3] = [3, 4, 9]     # two of the repeated keys, and one more
+    for ban in (None, banned):
+        got, overflow = kth_key_radix(torch.from_numpy(logits),
+                                      None if ban is None
+                                      else torch.from_numpy(ban), k,
+                                      cand_cap=64)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _kth_key(logits, ban, k).numpy())
+        if case == "equal_values":
+            assert overflow.all()
