@@ -32,9 +32,9 @@ Phases, each printing its lines:
             its two cuBLAS formulations, and the f32 formulation it
             replaced.
             The encoder front (fused_frontend) at the serving batch on the
-            route front_plan gives it (one thread-block cluster an image:
-            its resident clusters, registers and spills) and on the slab
-            route forced at the same shape, reruns bitwise equal, with the
+            route front_plan gives it and on the other route forced at the
+            same shape (the cluster route: its chunk, resident clusters,
+            registers and spills), reruns bitwise equal, with the
             projector's torch.matmul as a yardstick.  The block
             chain's stages alone: its wgmma GEMMs against torch.matmul at
             the same shapes, its head-folded attention against one SDPA
@@ -181,19 +181,32 @@ def cuda_ms(torch, fn, iters: int = 10) -> float:
 DEVICE_TIMES = []
 
 
-def defer_device_ms(label: str, row: dict, fn, key: str = "device") -> None:
+def defer_device_ms(label: str, row: dict, fn, key: str = "device",
+                    held=None) -> None:
     """Have ``row[key + "_ms"]`` measured at the end of the run: ``fn``'s
     device time in ms, the host's launch overhead excluded (torch.profiler's
-    kernel durations), and ``row[key + "_kernels"]`` the same by kernel."""
-    DEVICE_TIMES.append((label, row, fn, key))
+    kernel durations), and ``row[key + "_kernels"]`` the same by kernel.
+    With ``held`` (a tensor), ``fn`` takes it as its argument: the run
+    keeps a host copy and puts it back on the device only to measure, so
+    that it does not count in later phases' peak memory."""
+    if held is None:
+        DEVICE_TIMES.append((label, row, lambda: fn, key))
+        return
+    host, device = held.cpu(), held.device
+
+    def make():
+        arg = host.to(device)
+        return lambda: fn(arg)
+
+    DEVICE_TIMES.append((label, row, make, key))
 
 
 def run_device_times() -> None:
     """Measure every deferred device time (after all CUDA-event timing)."""
     from image2text_torch.probes import device_kernel_ms
 
-    for label, row, fn, key in DEVICE_TIMES:
-        split = device_kernel_ms(fn)
+    for label, row, make, key in DEVICE_TIMES:
+        split = device_kernel_ms(make())
         row[f"{key}_ms"] = sum(split.values())
         row[f"{key}_kernels"] = split
         events = row["ms" if key == "device" else key[:-len("device")] + "ms"]
@@ -465,14 +478,15 @@ def kernel_row(results, name, tag, source, replaces, row, **shape):
 
 def phase_front_kernel(torch, model, images, results, tag=None):
     """fused_frontend against its plain version on ``model``'s patch stream
-    of ``images``, on the route front_plan gives its shape (the cluster
-    route at the flagship's and GPT-2-medium's shapes: its resident
-    clusters, registers and spills) and on the slab route forced at the
-    same shape (the two-launch design it replaces), reruns bitwise equal;
-    torch.matmul of the projector alone as a yardstick the port never
-    calls.  Device times by kernel of both routes, read at the end."""
+    of ``images``, on the route front_plan gives its shape and on the other
+    route forced at the same shape where it runs (the cluster route where
+    its chunk fits: its chunk, resident clusters, registers and spills),
+    reruns bitwise equal; torch.matmul of the projector alone as a
+    yardstick the port never calls.  Device times by kernel of both routes,
+    read at the end."""
     from image2text_torch.ops import _build
-    from image2text_torch.ops.fused_frontend import (FrontPlan, front_plan,
+    from image2text_torch.ops.fused_frontend import (SLAB_MAX_CHUNK,
+                                                     FrontPlan, front_plan,
                                                      fused_frontend,
                                                      fused_frontend_plain,
                                                      launch_front,
@@ -485,23 +499,27 @@ def phase_front_kernel(torch, model, images, results, tag=None):
     b, t, din = x.shape
     d, n_cls = w.w_p.shape[1], w.cls.shape[0]
     plan = front_plan(t, d)
-    slab = FrontPlan("slab", plan.cluster_n, plan.cluster_m)
+    other = FrontPlan("slab" if plan.route == "cluster" else "cluster",
+                      plan.chunk)
+    if other.route == "cluster" and plan.chunk > SLAB_MAX_CHUNK:
+        other = None
     got = fused_frontend(x, w)
     want = fused_frontend_plain(x, w)
     again = fused_frontend(x, w)
-    by_slab = launch_front(x, w, slab)
-    torch.cuda.synchronize()
     label = f"fused_frontend b={b} t={t} din={din} d={d} n_cls={n_cls}"
     err = compare(f"{label} ({plan.route} route)", got, want)
-    compare(f"{label} (slab route)", by_slab, want)
-    if not (torch.equal(got[:, :n_cls], want[:, :n_cls])
-            and torch.equal(by_slab[:, :n_cls], want[:, :n_cls])):
+    if not torch.equal(got[:, :n_cls], want[:, :n_cls]):
         raise AssertionError("fused_frontend: CLS rows differ")
     if not torch.equal(got, again):
         raise AssertionError("fused_frontend: reruns differ")
-    del got, want, again, by_slab
+    if other is not None:
+        by_other = launch_front(x, w, other)
+        compare(f"{label} ({other.route} route)", by_other, want)
+        if not torch.equal(by_other[:, :n_cls], want[:, :n_cls]):
+            raise AssertionError("fused_frontend: CLS rows differ")
+        del by_other
+    del got, want, again
     ms = cuda_ms(torch, lambda: fused_frontend(x, w))
-    slab_ms = cuda_ms(torch, lambda: launch_front(x, w, slab))
     plain = cuda_ms(torch, lambda: fused_frontend_plain(x, w))
     lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p))
     # the projector's products on the tensor cores; the two slab norms'
@@ -509,19 +527,20 @@ def phase_front_kernel(torch, model, images, results, tag=None):
     flops = 2 * b * t * din * d
     n_bytes = nbytes(x, *w) + b * (n_cls + t) * d * x.element_size()
     bms, by = bound_ms(n_bytes, flops)
-    extra = dict(plan_route=plan.route, slab_route_ms=slab_ms)
-    if plan.route == "cluster":
+    extra = dict(plan_route=plan.route, chunk=plan.chunk)
+    if other is not None:
+        extra.update(other_route=other.route, other_route_ms=cuda_ms(
+            torch, lambda: launch_front(x, w, other)))
+    if plan.chunk <= SLAB_MAX_CHUNK:
         regs, spills = _build.resources("fused_frontend",
-                                        "front_cluster_kernel")
-        extra.update(clusters=[plan.cluster_n, plan.cluster_m],
-                     resident_clusters=resident_clusters(
-                         x.device.index, plan.cluster_n, plan.cluster_m),
-                     registers=regs, spill_bytes=spills)
-    log(f"  fused_frontend: {plan.route} route {ms:.4f} ms (slab route "
-        f"{slab_ms:.4f}), plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
-        f"{flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; kernel at "
-        f"{bms / ms:.3f} of it), torch.matmul of the projector alone "
-        f"{lib:.4f} ms; {extra}")
+                                        "cluster_slab_kernel")
+        extra.update(resident_clusters=resident_clusters(
+            x.device.index, plan.chunk, w.ln_b is not None),
+            registers=regs, spill_bytes=spills)
+    log(f"  fused_frontend: {plan.route} route {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB; kernels at {bms / ms:.3f} of it), "
+        f"torch.matmul of the projector alone {lib:.4f} ms; {extra}")
     row = kernel_row(results, "fused_frontend", tag,
                      "image2text_torch/csrc/fused_frontend.cu",
                      "image2text_tpu/ops/fused_frontend.py:45",
@@ -529,9 +548,11 @@ def phase_front_kernel(torch, model, images, results, tag=None):
                           bound_ms=bms, bound_by=by, library_ms=lib,
                           **extra), b=b, t=t, din=din, d=d)
     defer_device_ms(f"{label} ({plan.route} route)", row,
-                    lambda: fused_frontend(x, w))
-    defer_device_ms(f"{label} (slab route)", row,
-                    lambda: launch_front(x, w, slab), key="slab_route_device")
+                    lambda x: fused_frontend(x, w), held=x)
+    if other is not None:
+        defer_device_ms(f"{label} ({other.route} route)", row,
+                        lambda x: launch_front(x, w, other),
+                        key="other_route_device", held=x)
 
 
 def phase_dense_kernel(torch, model, args, results):
@@ -640,7 +661,7 @@ def phase_topk_kernel(torch, results, ids, ngrams, vocab: int, tag=None,
                           bound_ms=bms, bound_by=by, library_ms=lib),
                      rows=rows, V=vocab, k=k, M=banned.shape[1])
     defer_device_ms(f"topk_ban_mask rows={rows}", row,
-                    lambda: topk_ban_mask(x, banned, k))
+                    lambda x: topk_ban_mask(x, banned, k), held=x)
 
 
 def phase_kernels(torch, model, args, results, tag=None):
@@ -1893,9 +1914,9 @@ def main() -> int:
     extra = ("gemm_ms", "attention_ms", "attention_library_ms", "regimes",
              "variants_ms", "library_bwd_ms", "library_fwd_bwd_ms", "pairs",
              "groups", "plan_route", "registers", "spill_bytes", "device_ms",
-             "device_kernels", "clusters", "resident_clusters",
-             "slab_route_ms", "slab_route_device_ms",
-             "slab_route_device_kernels", "sensitivity",
+             "device_kernels", "chunk", "resident_clusters", "other_route",
+             "other_route_ms", "other_route_device_ms",
+             "other_route_device_kernels", "sensitivity",
              "launches_by_path")
     # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}

@@ -13,71 +13,63 @@
 // What bounds it: operations.  The projector is 2·t·din·d per image (275
 // GFLOP at the flagship's b 256, t 256, din 2048, d 1024: 0.28 ms at the
 // bf16 peak) against 0.13 ms of bytes (x read once, the output written
-// once).
+// once).  Two launches: gemm.cuh's wgmma/TMA GEMM with the bias in its
+// epilogue writes z into rows n_cls.. of each image's output rows, then a
+// slab kernel takes each image's slab through the two LayerNorms, writes
+// the output over z and the CLS rows in front.  Two slab kernels, chosen
+// by shape (ops/fused_frontend.py::front_plan):
 //
-// Cluster route (front_cluster_kernel): one thread-block cluster per image,
-// so z never leaves the chip.  An image's slab is exactly the GEMM's output
-// tiles of that image (gemm.cuh's 128 x 256: 2 x 4 = 8 tiles at the
-// flagship, 2 x 2 at GPT-2-medium's d 512), one block each.  The clusters
-// are persistent (as many as are resident, cudaOccupancyMaxActiveClusters:
-// 15 of 8 blocks and 30 of 4 on an H100), each taking image after image.
-// In a block, two consumer warpgroups run gemm.cuh's wgmma/TMA mainloop (a
-// ring of FRONT_STAGES slots that lane 0 of warp 8 keeps filling) and stage
-// the tile's bf16(x·Wp) in shared memory.  The epilogue then takes the
-// staged tile through the bias, LayerNormND, the positional table and
-// LayerNormND again, in whole 16-byte pieces of rows, so the tables (lnw,
-// lnb, wpe: shared by every image, so from L2) are read and the output
-// written once, coalesced, in two phases: phase 1 (the bias, Σz, Σ(z −
-// mean)²) by warps 9..11 alone while the consumers run the next image's
-// mainloop; phase 2 (y, Σy, Σ(y − mean)², the output) by the consumers and
-// warps 9..11 together once that mainloop is through, which frees the tile
-// for the next image.  Warps 9..11 also write an image's CLS columns.  The
-// four slab statistics (the module's two-pass form) are cluster-wide sums:
-// a block's partial is pushed into a slot of every block of the cluster
-// through distributed shared memory, signalled by a remote mbarrier arrive,
-// and every block adds the slots in rank order (the same total, bit for
-// bit, in every block and every run).  Only the epilogue's threads take
-// part in that exchange: a cluster barrier would wait on the producer,
-// which waits on the consumers' free slots.
+// Cluster route (cluster_slab_kernel), where an image's slab splits into
+// SLAB_CLUSTER chunks of CLUSTER_MIN_CHUNK to SLAB_MAX_CHUNK elements (the
+// flagship's 256 x 1024): one thread-block cluster of SLAB_CLUSTER blocks
+// an image, each block a contiguous chunk of the slab, persistent (as many
+// clusters as the card holds, 15 on an H100, each taking image after
+// image).  A block keeps its chunk of the tables lnw, wpe and lnb in
+// shared memory for all its images (they are the same for every image:
+// read once, not once an image) and its chunk of an image's z in
+// registers (SLAB_VECS 16-byte vectors a thread), read once from device
+// memory.  Each LayerNorm's statistics take one exchange: a block's sum
+// and its sum of squares about its own mean (two passes over its chunk)
+// go into a slot of every block of the cluster through distributed shared
+// memory behind a cluster barrier, and every block combines the slots in
+// rank order (Chan et al.'s pairwise update: the two-pass variance of the
+// slab; the same result, bit for bit, in every block and every run).  So
+// z crosses device memory twice (written by the GEMM, read once).
 //
-// What sets its pace (ablation builds on an NVIDIA H100 80GB HBM3 at 700 W,
-// not kept): the persistent mainloop alone is faster than the slab route's
-// GEMM; the epilogue is a chain of four dependent slab reductions, each a
-// short pass over the tile and an exchange, whose time neither batching
-// the loads nor more threads shortened much.  So phase 1 hides under the
-// mainloop and phase 2 does not.  512 threads leave too few registers for
-// the m64n256 wgmma's accumulators.  chip_smoke.py times both routes.
+// Slab route (slab_kernel), every other shape: one 1,024-thread block an
+// image makes five passes over its z in device memory (mean, variance,
+// y's mean and variance with y recomputed, the write, in place).  At the
+// flagship's shape its resident blocks touch about 135 MB against 50 MB of
+// L2, so the passes read z from HBM (0.35 ms of device time beside the
+// GEMM's 0.41); at GPT-2-medium's 256 x 512 it is 0.143 ms, faster than
+// the cluster route's 0.164 (an NVIDIA H100 80GB HBM3 at 700 W), hence
+// CLUSTER_MIN_CHUNK.
 //
-// Where the trouble lies: (1) tiles that do not align with images — with t
-// not a multiple of 128 a tile's A box runs into the next image's rows (or
-// TMA's zero fill past the last), and columns past d load zeros; the
-// epilogue visits only the slab's rows and columns, so those are kept out
-// of the sums (a zero there would bias the mean) and never written.
-// (2) Slabs of more than FRONT_MAX_CLUSTER tiles cannot be one cluster (8
-// is the portable limit): those shapes take the slab route.
-// (3) Shared memory: the staged tile (66 KB) leaves room for three ring
-// slots of 48 KB, not gemm.cuh's four.  (4) Registers: setmaxnreg gives
-// the consumers' 128 accumulators 200 a thread and the producer warpgroup
-// 96, which warps 9..11's share of the epilogue works within.
-//
-// Slab route (front_slab_launch), for larger slabs: gemm.cuh's GEMM with
-// the bias in its epilogue writes z into rows n_cls.. of each image's
-// output rows, then a slab kernel, one block per image, makes five passes
-// over the image's z (mean, variance, y's mean and variance with y
-// recomputed, the write in place) and writes the CLS rows.  z goes
-// through device memory: 134 MB at the flagship's shape, where 264
-// resident blocks touch about 135 MB at once against 50 MB of L2, so the
-// passes read it from HBM: the GEMM takes 0.41 ms and the slab kernel
-// 0.35 ms of device time (chip_smoke.py's device times, NVIDIA H100 80GB
-// HBM3 at 700 W).
+// Why z goes through device memory: with the slab statistics in the
+// GEMM's epilogue (an image's tiles in one cluster, z kept on the chip)
+// the front was slower on that card, the epilogue not fitting under the
+// next image's mainloop in the registers and shared memory the mainloop
+// leaves; and why z sits in registers, not in shared memory: the tables
+// take that (PERF.md, row 8).
 #include "common.cuh"
 #include "gemm.cuh"
 
 using namespace i2t;
 
-namespace {
+constexpr int SLAB_THREADS = 1024;    // the slab route's block
+constexpr int SLAB_CLUSTER = 8;       // the cluster route's blocks an image
+constexpr int CLUSTER_THREADS = 512;  // a cluster-route block
+constexpr int SLAB_VECS = 8;          // 16-byte vectors of an image's z a thread holds
+constexpr int SLAB_MAX_CHUNK = 32768;
+// The smallest chunk the cluster route takes: below it the slab route
+// measured faster on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+// device times for 256 images: GPT-2-medium's 256 x 512 slab, chunks of
+// 16,384, 0.143 ms against 0.164; the flagship's 256 x 1024, chunks of
+// 32,768, 0.36 against 0.24).
+constexpr int CLUSTER_MIN_CHUNK = 24576;
+static_assert(SLAB_MAX_CHUNK == CLUSTER_THREADS * SLAB_VECS * 8, "a block's chunk");
 
-constexpr int SLAB_THREADS = 1024;
+namespace {
 
 // Sum of ``v`` over the block; every thread gets the total.  ``red`` holds
 // 33 floats and is free again when this returns.
@@ -103,7 +95,8 @@ struct SlabArgs {
   const bf16* lnb;   // (t, d) or null
   const bf16* wpe;   // (t, d)
   const bf16* cls;   // (n_cls, d)
-  int t, d, n_cls;
+  int b, t, d, n_cls;
+  int chunk;         // cluster route: slab elements a block takes (a multiple of 8)
 };
 
 // y = bf16(bf16(LN(z)) + wpe) of 8 consecutive elements at slab offset e.
@@ -182,17 +175,235 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_kernel(SlabArgs p) {
   }
 }
 
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// ``v`` into the f32 at ``slot`` in the shared memory of the cluster's
+// block ``rank``.
+__device__ __forceinline__ void store_remote(float* slot, uint32_t rank, float v) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(slot))), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+// Keeps the compiler from hoisting the next vector's table reads above
+// this point: hoisted, the eight vectors' reads outgrow the registers
+// and spill.
+__device__ __forceinline__ void order_loads() { asm volatile("" ::: "memory"); }
+
+// Cluster (SLAB_CLUSTER, 1, 1), blockIdx.y the cluster; the block's rank
+// is its chunk of every image's slab.
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) cluster_slab_kernel(SlabArgs p) {
+  extern __shared__ uint4 tables[];  // the chunk of lnw, wpe, lnb (where given)
+  __shared__ float slots[2][2][SLAB_CLUSTER];  // [statistic pair][sum, M2][rank]
+  __shared__ float red[2][CLUSTER_THREADS / 32];
+  // every block of the cluster has started before one writes into
+  // another's slots: waited on before the first exchange
+  cluster_arrive();
+  const uint32_t rank = cluster_rank();
+  const size_t n = (size_t)p.t * p.d;
+  const float inv_n = 1.f / (float)n;
+  const bool has_lnb = p.lnb != nullptr;
+  // the elements of rank r's chunk
+  auto count = [&](size_t r) {
+    const size_t e = r * p.chunk;
+    return e >= n ? 0 : e + p.chunk < n ? (size_t)p.chunk : n - e;
+  };
+  const size_t e0 = (size_t)rank * p.chunk;
+  const int nv = (int)(count(rank) / 8);
+  Bf16x8* lnw = reinterpret_cast<Bf16x8*>(tables);
+  Bf16x8* wpe = lnw + nv;
+  Bf16x8* lnb = wpe + nv;
+  for (int i = threadIdx.x; i < nv; i += CLUSTER_THREADS) {
+    lnw[i] = reinterpret_cast<const Bf16x8*>(p.lnw + e0)[i];
+    wpe[i] = reinterpret_cast<const Bf16x8*>(p.wpe + e0)[i];
+    if (has_lnb) lnb[i] = reinterpret_cast<const Bf16x8*>(p.lnb + e0)[i];
+  }
+  // thread's vector j is i = threadIdx.x + j * CLUSTER_THREADS, where i < nv
+  auto mine = [&](int j) { return threadIdx.x + j * CLUSTER_THREADS < nv; };
+  // Σ of every thread's v over the block, warps in order; every thread
+  // gets it
+  auto block_sum = [&](float v, int k) {
+    v = warp_sum(v);
+    if (threadIdx.x % 32 == 0) red[k][threadIdx.x / 32] = v;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < CLUSTER_THREADS / 32; ++w) total += red[k][w];
+    return total;
+  };
+  // The slab's mean and 1 / sqrt(variance + eps) from the values v of every
+  // thread's vectors: each block's own sum and, about its own mean, sum of
+  // squares (two passes over its chunk), exchanged once through slot pair
+  // ``s`` of every block of the cluster, then combined in rank order by
+  // every thread (Chan et al.'s pairwise update: the two-pass variance of
+  // the whole slab).
+  auto slab_stats = [&](const Bf16x8(&v)[SLAB_VECS], int s, float& mean, float& rstd) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < SLAB_VECS; ++j)
+      if (mine(j))
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += to_f(v[j].v[e]);
+    const float sum = block_sum(acc, 0);
+    const float own = nv > 0 ? sum / (float)(nv * 8) : 0.f;
+    acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < SLAB_VECS; ++j)
+      if (mine(j))
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += (to_f(v[j].v[e]) - own) * (to_f(v[j].v[e]) - own);
+    const float m2 = block_sum(acc, 1);
+    if (threadIdx.x < SLAB_CLUSTER) {
+      store_remote(&slots[s][0][rank], threadIdx.x, sum);
+      store_remote(&slots[s][1][rank], threadIdx.x, m2);
+    }
+    cluster_arrive();
+    cluster_wait();
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < SLAB_CLUSTER; ++r) total += slots[s][0][r];
+    mean = total * inv_n;
+    float sq = 0.f;
+#pragma unroll
+    for (int r = 0; r < SLAB_CLUSTER; ++r) {
+      const float nr = (float)count(r);
+      if (nr > 0.f) {
+        const float dm = slots[s][0][r] / nr - mean;
+        sq += slots[s][1][r] + nr * dm * dm;
+      }
+    }
+    rstd = rsqrtf(sq * inv_n + 1e-5f);
+  };
+
+  __syncthreads();  // the tables are in
+  cluster_wait();
+  for (int img = blockIdx.y; img < p.b; img += gridDim.y) {
+    bf16* head = p.out + (size_t)img * (p.n_cls + p.t) * p.d;
+    Bf16x8* z = reinterpret_cast<Bf16x8*>(head + (size_t)p.n_cls * p.d + e0);
+    Bf16x8 v[SLAB_VECS] = {};
+#pragma unroll
+    for (int j = 0; j < SLAB_VECS; ++j)
+      if (mine(j)) v[j] = z[threadIdx.x + j * CLUSTER_THREADS];
+    // the CLS rows, spread over the cluster
+    for (int i = rank * CLUSTER_THREADS + threadIdx.x; i < p.n_cls * p.d / 8;
+         i += SLAB_CLUSTER * CLUSTER_THREADS)
+      reinterpret_cast<Bf16x8*>(head)[i] = reinterpret_cast<const Bf16x8*>(p.cls)[i];
+
+    float mean1, rstd1, mean2, rstd2;
+    slab_stats(v, 0, mean1, rstd1);
+    // y = bf16(bf16(LN(z)) + wpe) in place
+    const float shift1 = -mean1 * rstd1;
+#pragma unroll
+    for (int j = 0; j < SLAB_VECS; ++j) {
+      const int i = threadIdx.x + j * CLUSTER_THREADS;
+      if (i >= nv) continue;
+      const Bf16x8 w = lnw[i], pe = wpe[i], b = has_lnb ? lnb[i] : Bf16x8{};
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {  // pairs: one conversion rounds two values
+        float u0 = fmaf(to_f(v[j].v[e]), rstd1, shift1) * to_f(w.v[e]);
+        float u1 = fmaf(to_f(v[j].v[e + 1]), rstd1, shift1) * to_f(w.v[e + 1]);
+        if (has_lnb) {
+          u0 += to_f(b.v[e]);
+          u1 += to_f(b.v[e + 1]);
+        }
+        const float2 r = __bfloat1622float2(__floats2bfloat162_rn(u0, u1));
+        const __nv_bfloat162 y =
+            __floats2bfloat162_rn(r.x + to_f(pe.v[e]), r.y + to_f(pe.v[e + 1]));
+        v[j].v[e] = y.x;
+        v[j].v[e + 1] = y.y;
+      }
+      order_loads();
+    }
+    slab_stats(v, 1, mean2, rstd2);
+    // the output over z
+    const float shift2 = -mean2 * rstd2;
+#pragma unroll
+    for (int j = 0; j < SLAB_VECS; ++j) {
+      const int i = threadIdx.x + j * CLUSTER_THREADS;
+      if (i >= nv) continue;
+      const Bf16x8 w = lnw[i], b = has_lnb ? lnb[i] : Bf16x8{};
+      Bf16x8 o;
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float u0 = fmaf(to_f(v[j].v[e]), rstd2, shift2) * to_f(w.v[e]);
+        float u1 = fmaf(to_f(v[j].v[e + 1]), rstd2, shift2) * to_f(w.v[e + 1]);
+        if (has_lnb) {
+          u0 += to_f(b.v[e]);
+          u1 += to_f(b.v[e + 1]);
+        }
+        const __nv_bfloat162 r = __floats2bfloat162_rn(u0, u1);
+        o.v[e] = r.x;
+        o.v[e + 1] = r.y;
+      }
+      z[i] = o;
+      order_loads();
+    }
+  }
+}
+
 }  // namespace
+
+static int cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int chunk,
+                          bool has_lnb, int n_clusters, cudaStream_t st) {
+  const int smem = (has_lnb ? 3 : 2) * chunk * 2;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cluster_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 3 * SLAB_MAX_CHUNK * 2);
+  if (err != cudaSuccess) return (int)err;
+  cfg->gridDim = dim3(SLAB_CLUSTER, n_clusters, 1);
+  cfg->blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = SLAB_CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+// The number of cluster_slab_kernel's clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters) for a chunk of ``chunk`` elements, or
+// -(cudaError_t).
+extern "C" int frontend_clusters(int chunk, int has_lnb) {
+  if (chunk <= 0 || chunk % 8 || chunk > SLAB_MAX_CHUNK) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  const int err = cluster_config(&cfg, &attr, chunk, has_lnb != 0, 1, 0);
+  if (err != 0) return -err;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, cluster_slab_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
 
 // x (b, t, din) → out (b, n_cls + t, d), all bf16; wp (din, d), bp (d) or
 // null, lnw and lnb (t, d) (lnb may be null), wpe (t, d), cls (n_cls, d).
-extern "C" int front_slab_launch(const void* x, const void* wp, const void* bp, const void* lnw,
+// ``chunk`` > 0: the cluster route, on ``n_clusters`` persistent clusters
+// whose blocks take ``chunk`` elements of an image's slab each (a multiple
+// of 8, at most SLAB_MAX_CHUNK, SLAB_CLUSTER of them covering t·d);
+// ``chunk`` 0: the slab route.
+extern "C" int frontend_launch(const void* x, const void* wp, const void* bp, const void* lnw,
                                const void* lnb, const void* wpe, const void* cls, void* out,
-                               int b, int t, int din, int d, int n_cls, void* stream) {
-  if (b <= 0 || t <= 0 || n_cls < 0 || d % 16 || din % 8) return (int)cudaErrorInvalidValue;
+                               int b, int t, int din, int d, int n_cls, int chunk, int n_clusters,
+                               void* stream) {
+  if (b <= 0 || t <= 0 || n_cls < 0 || d % 16 || din % 8 || chunk < 0 || chunk % 8 ||
+      chunk > SLAB_MAX_CHUNK ||
+      (chunk > 0 && ((size_t)chunk * SLAB_CLUSTER < (size_t)t * d || n_clusters <= 0)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_gemm(x, nullptr, t, nullptr, wp, bp, nullptr, nullptr, t, out, n_cls + t, n_cls,
-                              b, t, d, din, st);
+  int err = launch_gemm(x, nullptr, t, nullptr, wp, bp, nullptr, nullptr, t, out, n_cls + t, n_cls,
+                        b, t, d, din, st);
   if (err != 0) return err;
   SlabArgs p;
   p.out = static_cast<bf16*>(out);
@@ -200,441 +411,20 @@ extern "C" int front_slab_launch(const void* x, const void* wp, const void* bp, 
   p.lnb = static_cast<const bf16*>(lnb);
   p.wpe = static_cast<const bf16*>(wpe);
   p.cls = static_cast<const bf16*>(cls);
-  p.t = t;
-  p.d = d;
-  p.n_cls = n_cls;
-  slab_kernel<<<b, SLAB_THREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------ cluster route
-constexpr int FRONT_MAX_CLUSTER = 8;  // tiles of one image's slab (portable cluster limit)
-constexpr int FRONT_STATS = 4;        // Σz, Σ(z − mean)², Σy, Σ(y − mean)²
-constexpr int FRONT_STAGES = 3;       // the ring's slots: a fourth would not leave room for z
-constexpr int FRONT_EPI_WARPS = 11;   // phase 2: the consumers' 8, then warps 9..11
-constexpr int FRONT_P1_WARPS = 3;     // phase 1: warps 9..11
-constexpr int FRONT_BATCH = 2;        // epilogue steps whose loads are issued together
-// setmaxnreg: the consumers' 128 accumulators, and the producer
-// warpgroup's epilogue warps' batched loads, within the launch's 168
-constexpr int FRONT_CONSUMER_REGS = 200, FRONT_OTHER_REGS = 96;
-static_assert(256 * FRONT_CONSUMER_REGS + 128 * FRONT_OTHER_REGS <= GEMM_THREADS * 168,
-              "registers");
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-// ``v`` into the f32 at ``slot`` of block ``rank``'s shared memory, then one
-// arrive (release, cluster scope) on that block's mbarrier ``bar``.
-__device__ __forceinline__ void push_partial(float* slot, uint64_t* bar, uint32_t rank, float v) {
-  uint32_t rs, rb;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rs) : "r"(smem_u32(slot)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(rs), "f"(v) : "memory");
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(rb)
-               : "memory");
-}
-// Wait (acquire, cluster scope) for this block's mbarrier phase ``parity``.
-__device__ __forceinline__ void wait_cluster(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 8 bf16 values as a uint4, to f32 and back (round to nearest even), in
-// registers: the epilogue's loads stay in flight across its batches.
-__device__ __forceinline__ void unpack8(const uint4& q, float (&f)[8]) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack_bf2(f[0], f[1]), pack_bf2(f[2], f[3]), pack_bf2(f[4], f[5]),
-                    pack_bf2(f[6], f[7]));
-}
-struct Uint4x2 {
-  uint4 a, b;
-};
-struct Uint4x4 {
-  uint4 a, b, c, d;
-};
-// The epilogue's two teams: warps 9..11, and the consumers with them.
-struct Team1 {
-  static constexpr int STEP = 32 * FRONT_P1_WARPS, BAR = 2;
-};
-struct Team2 {
-  static constexpr int STEP = 32 * FRONT_EPI_WARPS, BAR = 1;
-};
-// A step of the epilogue: row r of the tile, columns 8 c .. 8 c + 7.
-struct Pos {
-  int r, c;
-};
-// use(q, load(q)) for this epilogue thread's steps q over the tile's rows
-// rows and 8-column groups vrow, STEP steps apart (its team's size) in row-major
-// order (kept as a row and a group, no division a step): FRONT_BATCH steps'
-// loads issued before any is used (the in-place stores to z would
-// otherwise keep the next step's loads waiting behind them), then the tail
-// one at a time.
-template <int STEP, class Load, class Use>
-__device__ __forceinline__ void over_tile(int ep, int rows, int vrow, Load load, Use use) {
-  constexpr int B = FRONT_BATCH;
-  const int dr = STEP / vrow, dc = STEP % vrow;
-  auto next = [&](Pos a) {
-    a.r += dr;
-    a.c += dc;
-    if (a.c >= vrow) {
-      a.c -= vrow;
-      ++a.r;
-    }
-    return a;
-  };
-  Pos q = {ep / vrow, ep % vrow};
-  while (true) {
-    Pos ps[B];
-    ps[0] = q;
-#pragma unroll
-    for (int u = 1; u < B; ++u) ps[u] = next(ps[u - 1]);
-    if (ps[B - 1].r >= rows) break;
-    decltype(load(q)) d[B];
-#pragma unroll
-    for (int u = 0; u < B; ++u) d[u] = load(ps[u]);
-#pragma unroll
-    for (int u = 0; u < B; ++u) use(ps[u], d[u]);
-    q = next(ps[B - 1]);
-  }
-  for (; q.r < rows; q = next(q)) use(q, load(q));
-}
-
-struct FrontArgs {
-  const bf16* bp;    // (d) or null
-  const bf16* lnw;   // (t, d)
-  const bf16* lnb;   // (t, d) or null
-  const bf16* wpe;   // (t, d)
-  const bf16* cls;   // (n_cls, d)
-  bf16* out;         // (b, n_cls + t, d)
-  int b, t, d, n_cls, K;
-};
-
-// Shared memory: the ring, the staged tile z (bf16, rows GEMM_LDE apart),
-// the ring's and z's mbarriers, the statistics' mbarriers, their slots
-// (one per statistic and cluster rank) and the epilogue warps' partials.
-constexpr int FRONT_RING = FRONT_STAGES * GEMM_STAGE_BYTES;
-constexpr int FRONT_Z = GEMM_BM * GEMM_LDE * 2;
-constexpr int FRONT_BARS = 2 * FRONT_STAGES + 2 + FRONT_STATS;  // ring, z_full, p1_done, stats
-constexpr size_t FRONT_SMEM = 1024 + FRONT_RING + FRONT_Z + FRONT_BARS * 8 +
-                              FRONT_STATS * FRONT_MAX_CLUSTER * 4 + FRONT_EPI_WARPS * 4 +
-                              FRONT_STATS * 4;
-static_assert(FRONT_SMEM <= 232448, "a block's shared memory");
-
-// Roles: warpgroups 0 and 1 run the mainloop of image after image and stage
-// each tile's bf16(x·Wp) in z; lane 0 of warp 8 issues the TMA loads; warps
-// 9..15 take z through the slab statistics (bias, LN, + wpe, LN) while the
-// consumers run the next image's mainloop.
-__global__ void __launch_bounds__(GEMM_THREADS, 1)
-    front_cluster_kernel(const __grid_constant__ CUtensorMap tma_a,
-                         const __grid_constant__ CUtensorMap tma_b, FrontArgs p) {
-  extern __shared__ __align__(128) unsigned char front_smem[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(front_smem) + 1023) & ~uintptr_t(1023));
-  bf16* zt = reinterpret_cast<bf16*>(ring + FRONT_RING);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + FRONT_RING + FRONT_Z);
-  uint64_t* empty = full + FRONT_STAGES;
-  uint64_t* z_full = empty + FRONT_STAGES;   // the consumers staged z
-  uint64_t* p1_done = z_full + 1;            // phase 1 published z's statistics
-  uint64_t* stat_bar = p1_done + 1;
-  float* slots = reinterpret_cast<float*>(stat_bar + FRONT_STATS);  // [stat][rank]
-  float* red = slots + FRONT_STATS * FRONT_MAX_CLUSTER;             // [warp of the team]
-  float* stat = red + FRONT_EPI_WARPS;  // the four statistics' cluster-wide sums
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const int n0 = blockIdx.x * GEMM_BN, m0 = blockIdx.y * GEMM_BM;
-  const int csize = gridDim.x * gridDim.y;  // the cluster is one image's tiles
-  const int KT = (p.K + GEMM_BK - 1) / GEMM_BK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < FRONT_STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
-    }
-    mbar_init(z_full, 256);
-    mbar_init(p1_done, 32 * FRONT_P1_WARPS);
-    for (int s = 0; s < FRONT_STATS; ++s) mbar_init(&stat_bar[s], csize);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  // every block's barriers are initialised before any block pushes to them
-  cluster_sync_all();
-
-  // The epilogue walks the tile's rows below t and columns below d, 8
-  // columns (16 bytes) a step, row-major, so table reads and output writes
-  // are whole 16-byte pieces of rows.  Phase 1 (warps 9..11, ep 0..95,
-  // under the next image's mainloop): the bias, Σz and Σ(z − mean)².
-  // Phase 2 (the consumers, ep 0..255, and warps 9..11, ep 256..351, once
-  // the consumers are through that mainloop): y, Σy, Σ(y − mean)², the
-  // output.
-  const uint32_t rank = cluster_rank();
-  const int rows = min(GEMM_BM, p.t - m0), vrow = min(GEMM_BN, p.d - n0) / 8;
-  const float inv_n = 1.f / ((float)p.t * (float)p.d);
-  const bool has_bp = p.bp != nullptr, has_lnb = p.lnb != nullptr;
-
-  // Cluster-wide sum of a team's ``v`` (statistic ``s`` of the iter-th
-  // image): warp sums, the block's in warp order, pushed to every block's
-  // slot [s][rank], added in rank order by every block into stat[s], which
-  // the team reads once its named barrier ``Team::BAR`` is passed.
-  auto cluster_sum = [&](auto team, int ep, float v, int s, int iter) {
-    using Team = decltype(team);
-    v = warp_sum(v);
-    if (ep % 32 == 0) red[ep / 32] = v;
-    named_barrier(Team::BAR, Team::STEP);
-    if (ep == 0) {
-      float b = 0.f;
-      for (int w = 0; w < Team::STEP / 32; ++w) b += red[w];
-      for (int r = 0; r < csize; ++r)
-        push_partial(&slots[s * FRONT_MAX_CLUSTER + rank], &stat_bar[s], r, b);
-      wait_cluster(&stat_bar[s], iter & 1);
-      float total = 0.f;
-      for (int r = 0; r < csize; ++r) total += slots[s * FRONT_MAX_CLUSTER + r];
-      stat[s] = total;
-    }
-    named_barrier(Team::BAR, Team::STEP);
-  };
-  auto mean = [&](int s) { return stat[s] * inv_n; };
-  auto rstd = [&](int s) { return rsqrtf(stat[s] * inv_n + 1e-5f); };
-  auto zv = [&](Pos q) -> uint4* { return reinterpret_cast<uint4*>(zt + q.r * GEMM_LDE + q.c * 8); };
-  auto table = [&](const bf16* tab, Pos q) {
-    return *reinterpret_cast<const uint4*>(tab + (size_t)(m0 + q.r) * p.d + n0 + q.c * 8);
-  };
-  const uint4 none = make_uint4(0, 0, 0, 0);
-  // Σ (v - c)² over the staged tile into stat[s]
-  auto var_pass = [&](auto team, int ep, float c, int s, int iter) {
-    float acc = 0.f;
-    over_tile<decltype(team)::STEP>(ep, rows, vrow, [&](Pos q) { return *zv(q); },
-                                    [&](Pos, const uint4& z) {
-                                      float f[8];
-                                      unpack8(z, f);
-#pragma unroll
-                                      for (int e = 0; e < 8; ++e) acc += (f[e] - c) * (f[e] - c);
-                                    });
-    cluster_sum(team, ep, acc, s, iter);
-  };
-  // z = bf16(z + bp) in place, Σz into stat[0]
-  auto bias_pass = [&](auto team, int ep, int iter) {
-    float acc = 0.f;
-    over_tile<decltype(team)::STEP>(
-        ep, rows, vrow,
-        [&](Pos q) {
-          return Uint4x2{*zv(q), has_bp ? *reinterpret_cast<const uint4*>(p.bp + n0 + q.c * 8)
-                                        : none};
-        },
-        [&](Pos q, const Uint4x2& d) {
-          float z[8], b[8];
-          unpack8(d.a, z);
-          unpack8(d.b, b);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            z[e] = has_bp ? rbf(z[e] + b[e]) : z[e];
-            acc += z[e];
-          }
-          if (has_bp) *zv(q) = pack8(z);
-        });
-    cluster_sum(team, ep, acc, 0, iter);
-  };
-  // y = bf16(bf16(LN(z)) + wpe) in place, Σy into stat[2]
-  auto y_pass = [&](auto team, int ep, int iter) {
-    const float m = mean(0), r = rstd(1);
-    float acc = 0.f;
-    over_tile<decltype(team)::STEP>(
-        ep, rows, vrow,
-        [&](Pos q) {
-          return Uint4x4{*zv(q), table(p.lnw, q), table(p.wpe, q),
-                         has_lnb ? table(p.lnb, q) : none};
-        },
-        [&](Pos q, const Uint4x4& d) {
-          float z[8], w[8], pe[8], b[8];
-          unpack8(d.a, z);
-          unpack8(d.b, w);
-          unpack8(d.c, pe);
-          unpack8(d.d, b);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            float u = (z[e] - m) * r * w[e];
-            if (has_lnb) u += b[e];
-            z[e] = rbf(rbf(u) + pe[e]);
-            acc += z[e];
-          }
-          *zv(q) = pack8(z);
-        });
-    cluster_sum(team, ep, acc, 2, iter);
-  };
-  // out = bf16(LN(y)), rows n_cls + m0.. of the image, written once
-  auto out_pass = [&](auto team, int ep, int img) {
-    const float m = mean(2), r = rstd(3);
-    bf16* o = p.out + ((size_t)img * (p.n_cls + p.t) + p.n_cls + m0) * p.d + n0;
-    over_tile<decltype(team)::STEP>(
-        ep, rows, vrow,
-        [&](Pos q) {
-          return Uint4x4{*zv(q), table(p.lnw, q), has_lnb ? table(p.lnb, q) : none, none};
-        },
-        [&](Pos q, const Uint4x4& d) {
-          float y[8], w[8], b[8];
-          unpack8(d.a, y);
-          unpack8(d.b, w);
-          unpack8(d.c, b);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            y[e] = (y[e] - m) * r * w[e];
-            if (has_lnb) y[e] += b[e];
-          }
-          *reinterpret_cast<uint4*>(o + (size_t)q.r * p.d + q.c * 8) = pack8(y);
-        });
-  };
-  // Phase 1, warps 9..11 under the next image's mainloop: the bias, Σz and
-  // Σ(z − mean)².  (y's pass too would keep the consumers waiting: three
-  // warps take longer over it than the mainloop.)
-  auto phase1 = [&](int iter) {
-    Team1 team;
-    const int ep = threadIdx.x - 288;
-    bias_pass(team, ep, iter);
-    var_pass(team, ep, mean(0), 1, iter);
-  };
-  // Phase 2, the consumers and warps 9..11 once that mainloop is through:
-  // y, Σy, Σ(y − mean)², the output; then z is free for the next image.
-  auto phase2 = [&](int img, int iter) {
-    Team2 team;
-    const int ep = threadIdx.x < 256 ? threadIdx.x : threadIdx.x - 32;
-    mbar_wait(p1_done, iter & 1);
-    y_pass(team, ep, iter);
-    var_pass(team, ep, mean(2), 3, iter);
-    out_pass(team, ep, img);
-    named_barrier(Team2::BAR, Team2::STEP);  // the team is through with z
-  };
-
-  if (wg < 2) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FRONT_CONSUMER_REGS));
-    const int warp = tid / 32, lane = tid % 32;
-    float acc[128];
-    int iter = 0, prev = -1;
-    for (int img = blockIdx.z; img < p.b; img += gridDim.z, ++iter) {
-#pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-      gemm_consume<FRONT_STAGES>(acc, ring, full, empty, wg, lane, KT, iter * KT);
-      if (prev >= 0) phase2(prev, iter - 1);  // the previous image's, which frees z
-      // stage bf16(acc) (thread (warp w, lane l): rows 16 w + l / 4 (+ 8),
-      // columns 8 j + 2 (l % 4) (+ 1))
-      bf16* stg = zt + wg * 64 * GEMM_LDE;
-#pragma unroll
-      for (int j = 0; j < GEMM_BN / 8; ++j) {
-        const int r = warp * 16 + lane / 4, c = j * 8 + (lane % 4) * 2;
-        *reinterpret_cast<uint32_t*>(stg + r * GEMM_LDE + c) = pack_bf2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(stg + (r + 8) * GEMM_LDE + c) =
-            pack_bf2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
-      mbar_arrive(z_full);
-      prev = img;
-    }
-    if (prev >= 0) phase2(prev, iter - 1);
-    return;
-  }
-
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FRONT_OTHER_REGS));
-  if (wg == 2 && tid == 0) {
-    int slot = 0;
-    for (int img = blockIdx.z; img < p.b; img += gridDim.z, slot += KT)
-      gemm_produce<FRONT_STAGES>(&tma_a, &tma_b, ring, full, empty, img * p.t + m0, n0, KT, slot);
-  }
-  if (tid < 32) return;
-  int iter = 0;
-  for (int img = blockIdx.z; img < p.b; img += gridDim.z, ++iter) {
-    if (m0 == 0) {  // the CLS rows' columns of this tile
-      bf16* o = p.out + (size_t)img * (p.n_cls + p.t) * p.d + n0;
-      for (int i = tid - 32; i < p.n_cls * vrow; i += 32 * FRONT_P1_WARPS) {
-        const int r = i / vrow, c = (i % vrow) * 8;
-        *reinterpret_cast<uint4*>(o + (size_t)r * p.d + c) =
-            *reinterpret_cast<const uint4*>(p.cls + (size_t)r * p.d + n0 + c);
-      }
-    }
-    mbar_wait(z_full, iter & 1);
-    phase1(iter);
-    mbar_arrive(p1_done);
-    phase2(img, iter);
-  }
-}
-
-static int front_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cn,
-                                int cm, int n_clusters, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      front_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FRONT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  cfg->gridDim = dim3(cn, cm, n_clusters);
-  cfg->blockDim = dim3(GEMM_THREADS, 1, 1);
-  cfg->dynamicSmemBytes = FRONT_SMEM;
-  cfg->stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cn;
-  attr->val.clusterDim.y = cm;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return 0;
-}
-
-// The number of (cn x cm)-block clusters of front_cluster_kernel the card
-// holds at once (cudaOccupancyMaxActiveClusters), or -(cudaError_t).
-extern "C" int front_cluster_occupancy(int cn, int cm) {
-  if (cn <= 0 || cm <= 0 || cn * cm > FRONT_MAX_CLUSTER) return -(int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  int err = front_cluster_config(&cfg, &attr, cn, cm, 1, 0);
-  if (err != 0) return -err;
-  int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, front_cluster_kernel, &cfg);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
-// The cluster route: as front_slab_launch, for a slab of cm x cn tiles
-// (cm = ceil(t / 128), cn = ceil(d / 256), at most FRONT_MAX_CLUSTER), on
-// n_clusters persistent clusters.
-extern "C" int front_cluster_launch(const void* x, const void* wp, const void* bp, const void* lnw,
-                                    const void* lnb, const void* wpe, const void* cls, void* out,
-                                    int b, int t, int din, int d, int n_cls, int cn, int cm,
-                                    int n_clusters, void* stream) {
-  if (b <= 0 || t <= 0 || n_cls < 0 || d % 16 || din % 8 || n_clusters <= 0 ||
-      cn != (d + GEMM_BN - 1) / GEMM_BN || cm != (t + GEMM_BM - 1) / GEMM_BM ||
-      cn * cm > FRONT_MAX_CLUSTER)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap ma, mb;
-  int terr = make_tma_2d(&ma, x, b * t, din, GEMM_BM);
-  if (terr == 0) terr = make_tma_2d(&mb, wp, din, d, GEMM_BK);
-  if (terr != 0) return terr;
-  FrontArgs p;
-  p.bp = static_cast<const bf16*>(bp);
-  p.lnw = static_cast<const bf16*>(lnw);
-  p.lnb = static_cast<const bf16*>(lnb);
-  p.wpe = static_cast<const bf16*>(wpe);
-  p.cls = static_cast<const bf16*>(cls);
-  p.out = static_cast<bf16*>(out);
   p.b = b;
   p.t = t;
   p.d = d;
   p.n_cls = n_cls;
-  p.K = din;
+  p.chunk = chunk;
+  if (chunk == 0) {
+    slab_kernel<<<b, SLAB_THREADS, 0, st>>>(p);
+    return (int)cudaGetLastError();
+  }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  const int err = front_cluster_config(&cfg, &attr, cn, cm, min(n_clusters, b),
-                                       static_cast<cudaStream_t>(stream));
+  err = cluster_config(&cfg, &attr, chunk, lnb != nullptr, n_clusters < b ? n_clusters : b, st);
   if (err != 0) return err;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, front_cluster_kernel, ma, mb, p);
-  if (e != cudaSuccess) return (int)e;
+  err = (int)cudaLaunchKernelEx(&cfg, cluster_slab_kernel, p);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }

@@ -135,64 +135,6 @@ __device__ __forceinline__ size_t map_row(int m, const int* rows, int T, int t_g
   return rows != nullptr ? (size_t)(m / t_g) * T + rows[m % t_g] : (size_t)m;
 }
 
-// The mainloop's two roles, shared with the encoder front's cluster kernel
-// (fused_frontend.cu).  A caller that runs several tiles through one ring
-// passes ``slot0``, the count of ring slots its earlier tiles used, so the
-// slots' mbarrier phases carry on.
-//
-// Producer (one thread): the TMA loads of the KT k-tiles of the tile whose
-// A rows start at ``a_row`` and whose columns start at ``n0``, into a ring
-// of STAGES slots.
-template <int STAGES = GEMM_STAGES>
-__device__ __forceinline__ void gemm_produce(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
-                                             unsigned char* ring, uint64_t* full, uint64_t* empty,
-                                             int a_row, int n0, int KT, int slot0) {
-  for (int kt = 0; kt < KT; ++kt) {
-    const int it = slot0 + kt, s = it % STAGES;
-    mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-    unsigned char* st = ring + s * GEMM_STAGE_BYTES;
-    mbar_expect_tx(&full[s], GEMM_STAGE_BYTES);
-    tma_load_2d(st, tma_a, &full[s], kt * GEMM_BK, a_row);
-    // B: four 64-column boxes of 64 k-rows of 128 bytes, 8 KB apart
-    unsigned char* sb = st + GEMM_BM * GEMM_BK * 2;
-#pragma unroll
-    for (int c = 0; c < GEMM_BN / 64; ++c)
-      tma_load_2d(sb + c * GEMM_BK * 128, tma_b, &full[s], n0 + c * 64, kt * GEMM_BK);
-  }
-}
-
-// Consumers (warpgroups 0 and 1; warpgroup wg owns rows 64 wg .. + 64 of
-// the tile): acc += the tile's product, every slot released once read.
-template <int STAGES = GEMM_STAGES>
-__device__ __forceinline__ void gemm_consume(float (&acc)[128], const unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty, int wg, int lane,
-                                             int KT, int slot0) {
-  for (int kt = 0; kt < KT; ++kt) {
-    const int it = slot0 + kt, s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    const unsigned char* sa = ring + s * GEMM_STAGE_BYTES + wg * 64 * 128;
-    const unsigned char* sb = ring + s * GEMM_STAGE_BYTES + GEMM_BM * GEMM_BK * 2;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      // A: K-major rows of 128 bytes, 8-row groups 1,024 bytes apart; a
-      // k16 step is 32 bytes along the row.  B: MN-major, 8 k-rows of
-      // 128 bytes per group (1,024 bytes), the 64-column boxes 8 KB apart.
-      wgmma_m64n256k16(acc, wgmma_desc(sa + kk * 32, 16, 1024),
-                       wgmma_desc(sb + kk * 16 * 128, GEMM_BK * 128, 1024));
-    }
-    wgmma_commit();
-    fence_regs(acc);
-    // one group in flight: the previous stage's products are done
-    wgmma_wait<1>();
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if (lane == 0) mbar_arrive(&empty[(slot0 + KT - 1) % STAGES]);
-}
-
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
                 GemmArgs p) {
@@ -216,7 +158,20 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   if (wg == 2) {
     // producer warpgroup: one thread issues the TMA loads of every stage
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 0) gemm_produce(&tma_a, &tma_b, ring, full, empty, m0, n0, KT, 0);
+    if (tid == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % GEMM_STAGES;
+        mbar_wait(&empty[s], ((kt / GEMM_STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * GEMM_STAGE_BYTES;
+        mbar_expect_tx(&full[s], GEMM_STAGE_BYTES);
+        tma_load_2d(st, &tma_a, &full[s], kt * GEMM_BK, m0);
+        // B: four 64-column boxes of 64 k-rows of 128 bytes, 8 KB apart
+        unsigned char* sb = st + GEMM_BM * GEMM_BK * 2;
+#pragma unroll
+        for (int c = 0; c < GEMM_BN / 64; ++c)
+          tma_load_2d(sb + c * GEMM_BK * 128, &tma_b, &full[s], n0 + c * 64, kt * GEMM_BK);
+      }
+    }
   } else {
     // consumers: warpgroup wg owns rows m0 + 64 wg .. + 64 of the tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -224,7 +179,29 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    gemm_consume(acc, ring, full, empty, wg, lane, KT, 0);
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % GEMM_STAGES;
+      mbar_wait(&full[s], (kt / GEMM_STAGES) & 1);
+      const unsigned char* sa = ring + s * GEMM_STAGE_BYTES + wg * 64 * 128;
+      const unsigned char* sb = ring + s * GEMM_STAGE_BYTES + GEMM_BM * GEMM_BK * 2;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
+        // A: K-major rows of 128 bytes, 8-row groups 1,024 bytes apart; a
+        // k16 step is 32 bytes along the row.  B: MN-major, 8 k-rows of
+        // 128 bytes per group (1,024 bytes), the 64-column boxes 8 KB apart.
+        wgmma_m64n256k16(acc, wgmma_desc(sa + kk * 32, 16, 1024),
+                         wgmma_desc(sb + kk * 16 * 128, GEMM_BK * 128, 1024));
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      // one group in flight: the previous stage's products are done
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % GEMM_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
 
     // Epilogue.  Every load of this CTA's ring has landed and no more come,
     // so once both warpgroups are past it the ring holds the tile's bf16(acc)

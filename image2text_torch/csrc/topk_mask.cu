@@ -15,7 +15,8 @@
 // key, one block of RADIX_THREADS per row and a few tens of KB of shared
 // memory, so every row of a decode batch runs in one wave:
 //   pass 0  one 16-byte vector in SAMPLE_STRIDE of the row: a guess at
-//           the first digit (the sample's k / SAMPLE_STRIDE + 8-th key),
+//           the first digit (the sample's k / SAMPLE_STRIDE +
+//           GUESS_MARGIN-th key, bans not counted),
 //           low enough that the k-th key's digit is very likely above it;
 //   pass 1  the row from device memory in 16-byte loads: a histogram of
 //           the key's top RADIX_BITS (2,048 bins) in shared memory, and
@@ -58,6 +59,7 @@ constexpr int RADIX_BINS = 1 << RADIX_BITS;
 constexpr int RADIX_LAST_BITS = 10;
 constexpr int CAND_CAP = 4096;         // candidate keys kept in shared memory
 constexpr int SAMPLE_STRIDE = 16;      // pass 0 reads one 16-byte vector in SAMPLE_STRIDE
+constexpr int GUESS_MARGIN = 8;        // the guess: the sample's k / SAMPLE_STRIDE + GUESS_MARGIN-th key
 constexpr int BINS_PER_THREAD = RADIX_BINS / RADIX_THREADS;
 static_assert(BINS_PER_THREAD * RADIX_THREADS == RADIX_BINS, "bins per thread");
 static_assert(2 * RADIX_BITS + RADIX_LAST_BITS == 32, "three digits cover the key");
@@ -221,7 +223,7 @@ __global__ void __launch_bounds__(RADIX_THREADS) topk_ban_mask_kernel(const floa
   __syncthreads();
   if (threadIdx.x == 0) {
     guess.prefix = 0;
-    guess.k = k / SAMPLE_STRIDE + 8;
+    guess.k = k / SAMPLE_STRIDE + GUESS_MARGIN;
   }
   __syncthreads();
   select_bin(hist, 0, &guess, part);  // no bin (a short sample): 0, every key

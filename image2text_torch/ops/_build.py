@@ -113,14 +113,11 @@ def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
 
 
 def kernel_constants(name: str, *names: str) -> Tuple[int, ...]:
-    """``constexpr int NAME = <literal>;`` values of ``csrc/<name>.cu`` (or
-    of ``csrc/<name>`` where ``name`` has a suffix, e.g. ``gemm.cuh``): a
-    kernel's tiling has one owner, its source, which the host's launch
+    """``constexpr int NAME = <literal>;`` values of ``csrc/<name>.cu``:
+    a kernel's tiling has one owner, its source, which the host's launch
     plans read."""
-    text = (CSRC / (name if "." in name else f"{name}.cu")).read_text()
-    found = {}
-    for decl in re.findall(r"constexpr int ([^;]*);", text):
-        found.update(re.findall(r"(\w+) = (\d+)\s*(?:,|$)", decl))
+    text = (CSRC / f"{name}.cu").read_text()
+    found = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
     return tuple(int(found[n]) for n in names)
 
 

@@ -15,12 +15,14 @@ not pay for.  nvcc builds this one in seconds, so every eval encoder
 forward on the card launches it.  What bounds it on the H100: operations
 (the projector GEMM); see ``csrc/fused_frontend.cu`` for the design.
 
-Two routes, chosen by shape (:func:`front_plan`): an image's slab of at
-most ``MAX_CLUSTER`` GEMM tiles is one thread-block cluster (one kernel,
-z kept on the chip: the flagship's and GPT-2-medium's fronts); a larger
-slab takes the GEMM and a slab kernel (two launches, z through device
-memory).  On a CPU tensor the wrapper computes the plain version; on a
-CUDA tensor it launches the kernels or raises.
+Two routes, chosen by shape (:func:`front_plan`), both the projector GEMM
+and then a slab kernel: the cluster route (one thread-block cluster an
+image, persistent, the tables held on the chip) where an image's slab
+splits into SLAB_CLUSTER chunks of CLUSTER_MIN_CHUNK to SLAB_MAX_CHUNK
+elements (the flagship's front); the slab route (one block an image over
+device memory) elsewhere.  A plan of the cluster route runs any slab of
+at most SLAB_CLUSTER x SLAB_MAX_CHUNK elements, the slab route any.  On a CPU tensor the wrapper computes the plain version;
+on a CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -33,12 +35,10 @@ import torch
 from image2text_torch.nn.modules import layer_norm
 from image2text_torch.ops import _build
 
-# gemm.cuh's output tile (rows x columns), and the most tiles an image's
-# slab may have to be one cluster, read from the sources, their owners.
-TILE_ROWS, TILE_COLS = _build.kernel_constants("gemm.cuh", "GEMM_BM",
-                                               "GEMM_BN")
-(MAX_CLUSTER,) = _build.kernel_constants("fused_frontend",
-                                         "FRONT_MAX_CLUSTER")
+# The cluster route's blocks an image (one cluster) and the fewest and
+# most slab elements it gives a block, read from the source, their owner.
+SLAB_CLUSTER, CLUSTER_MIN_CHUNK, SLAB_MAX_CHUNK = _build.kernel_constants(
+    "fused_frontend", "SLAB_CLUSTER", "CLUSTER_MIN_CHUNK", "SLAB_MAX_CHUNK")
 
 
 class FrontendWeights(NamedTuple):
@@ -68,67 +68,61 @@ def fused_frontend_plain(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
 
 
 class FrontPlan(NamedTuple):
-    """How one call runs: ``route`` "cluster" (one cluster of
-    ``cluster_n`` x ``cluster_m`` blocks an image: its slab's tiles along d
-    and along t) or "slab" (the GEMM, then the slab kernel)."""
+    """How one call runs: ``route`` "cluster" (SLAB_CLUSTER blocks an image,
+    ``chunk`` slab elements each) or "slab" (one block an image)."""
 
     route: str
-    cluster_n: int
-    cluster_m: int
+    chunk: int
 
 
 @functools.lru_cache(maxsize=64)
 def front_plan(t: int, d: int) -> FrontPlan:
-    """The route for images of t patches and width d: the cluster route
-    where an image's slab is at most MAX_CLUSTER tiles of TILE_ROWS x
-    TILE_COLS, else the slab route."""
-    cn, cm = -(-d // TILE_COLS), -(-t // TILE_ROWS)
-    if cn * cm <= MAX_CLUSTER:
-        return FrontPlan("cluster", cn, cm)
-    return FrontPlan("slab", cn, cm)
+    """The route for images of t patches and width d: the (t, d) slab in
+    SLAB_CLUSTER chunks of whole 16-byte vectors; the cluster route where a
+    chunk has CLUSTER_MIN_CHUNK to SLAB_MAX_CHUNK elements (the flagship's
+    front), else the slab route (GPT-2-medium's front among them: there
+    the slab route measured faster)."""
+    chunk = -(-t * d // (8 * SLAB_CLUSTER)) * 8
+    fits = CLUSTER_MIN_CHUNK <= chunk <= SLAB_MAX_CHUNK
+    return FrontPlan("cluster" if fits else "slab", chunk)
 
 
 @functools.lru_cache(maxsize=None)
-def resident_clusters(device_index: int, cn: int, cm: int) -> int:
+def resident_clusters(device_index: int, chunk: int, has_lnb: bool) -> int:
     """How many clusters of the cluster route the card holds at once
-    (``cudaOccupancyMaxActiveClusters``): the persistent grid's size."""
-    fn = _build.entry_point("fused_frontend", "front_cluster_occupancy",
+    (``cudaOccupancyMaxActiveClusters``): its persistent grid."""
+    fn = _build.entry_point("fused_frontend", "frontend_clusters",
                             [ctypes.c_int, ctypes.c_int])
     with torch.cuda.device(device_index):
-        n = fn(cn, cm)
-    if n < 0:
-        _build.check(-n, "front_cluster_occupancy")
+        n = fn(chunk, int(has_lnb))
+    if n <= 0:
+        raise RuntimeError(f"fused_frontend: no cluster of the cluster route "
+                           f"fits the card (chunk {chunk}; "
+                           f"cudaOccupancyMaxActiveClusters gave {n})")
     return n
 
 
-# front_cluster_launch(x, wp, bp, lnw, lnb, wpe, cls, out, b, t, din, d,
-# n_cls, cn, cm, n_clusters, stream); front_slab_launch: no cn, cm, n_clusters
-_CLUSTER_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SLAB_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# frontend_launch(x, wp, bp, lnw, lnb, wpe, cls, out, b, t, din, d, n_cls,
+# chunk, n_clusters, stream): chunk 0 is the slab route
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def launch_front(x: torch.Tensor, w: FrontendWeights,
                  plan: FrontPlan) -> torch.Tensor:
     """Launch ``plan``'s route on checked CUDA operands (see
-    :func:`fused_frontend`); a plan of the slab route runs any shape."""
+    :func:`fused_frontend`): a plan of the slab route runs any shape, one
+    of the cluster route any chunk up to SLAB_MAX_CHUNK."""
     b, t, din = x.shape
     d, n_cls = w.w_p.shape[1], w.cls.shape[0]
     out = torch.empty(b, n_cls + t, d, dtype=x.dtype, device=x.device)
-    ptrs = [_build.ptr(a) for a in (x, w.w_p, w.b_p, w.ln_w, w.ln_b, w.wpe,
-                                    w.cls, out)]
-    stream = _build.stream(x.device)
-    n_clusters = (resident_clusters(x.device.index, plan.cluster_n,
-                                    plan.cluster_m)
-                  if plan.route == "cluster" else 0)
-    if n_clusters > 0:
-        fn = _build.entry_point("fused_frontend", "front_cluster_launch",
-                                _CLUSTER_ARGS)
-        err = fn(*ptrs, b, t, din, d, n_cls, plan.cluster_n, plan.cluster_m,
-                 n_clusters, stream)
-    else:   # a card that holds no such cluster: the slab route
-        fn = _build.entry_point("fused_frontend", "front_slab_launch",
-                                _SLAB_ARGS)
-        err = fn(*ptrs, b, t, din, d, n_cls, stream)
+    cluster = plan.route == "cluster"
+    n_clusters = (resident_clusters(x.device.index, plan.chunk,
+                                    w.ln_b is not None) if cluster else 0)
+    fn = _build.entry_point("fused_frontend", "frontend_launch", _ARGTYPES)
+    err = fn(*[_build.ptr(a) for a in (x, w.w_p, w.b_p, w.ln_w, w.ln_b, w.wpe,
+                                       w.cls, out)],
+             b, t, din, d, n_cls, plan.chunk if cluster else 0, n_clusters,
+             _build.stream(x.device))
     _build.check(err, f"fused_frontend ({plan.route} route)")
     fused_frontend.launches += 1
     return out

@@ -19,23 +19,17 @@ statically; the CUDA kernel loops over any M, so neither comes across.
 
 The kernel finds the k-th key by a radix select (``csrc/topk_mask.cu``):
 three digits of the monotone key, the first over the row, the next two
-over a short list of the keys from the first digit's bin up;
-:func:`kth_key_radix` repeats its steps in plain PyTorch for the tests.
-It takes any V.
+over a short list of the keys from the first digit's bin up.  It takes
+any V.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from image2text_torch.ops import _build
-
-# The radix select's digits (key bits 31..21, 20..10, 9..0) and its
-# candidate list's length, read from ``csrc/topk_mask.cu``, their one owner.
-RADIX_BITS, RADIX_LAST_BITS, CAND_CAP = _build.kernel_constants(
-    "topk_mask", "RADIX_BITS", "RADIX_LAST_BITS", "CAND_CAP")
 
 
 def topk_ban_mask_reference(logits: torch.Tensor,
@@ -53,65 +47,6 @@ def topk_ban_mask_reference(logits: torch.Tensor,
                         torch.tensor(float("-inf"), device=x.device))
     kth = torch.topk(x, min(k, v), dim=-1).values[..., -1:]
     return torch.where(x < kth, torch.full_like(x, float("-inf")), x)
-
-
-def _ukey(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's unsigned key of f32 values, as int64: the monotone int32
-    key (±0.0 share 0) plus 2**31."""
-    i = x.float().contiguous().view(torch.int32).long()
-    return torch.where(i >= 0, i, -(2 ** 31) - i) + 2 ** 31
-
-
-def kth_key_radix(logits: torch.Tensor, banned_id: Optional[torch.Tensor],
-                  k: int, cand_cap: int = CAND_CAP
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's radix select in plain PyTorch, step for step: per row,
-    the exact k-th largest key after the bans, as the monotone int32 key;
-    and whether the row's first-digit bin overflowed the candidate list
-    (the kernel then re-reads the row for the later digits and the write:
-    the same counts).  Each level histograms the keys under the prefix fixed so far,
-    moves each live ban's original key to -inf's bin, and takes the bin
-    where the count from the top reaches k.  For the tests only."""
-    b, v = logits.shape
-    k = min(int(k), v)
-    keys = _ukey(logits)
-    inf_key = int(_ukey(torch.tensor([float("-inf")]))[0])
-    shifts = (32 - RADIX_BITS, RADIX_LAST_BITS, 0)
-    widths = (RADIX_BITS, RADIX_BITS, RADIX_LAST_BITS)
-    out = torch.empty(b, dtype=torch.int64)
-    overflow = torch.zeros(b, dtype=torch.bool)
-    for r in range(b):
-        ids = [] if banned_id is None else [int(i) for i in banned_id[r]]
-        live = list(dict.fromkeys(i for i in ids if 0 <= i < v))
-        ban_keys = keys[r, live]
-        row = keys[r]
-        prefix, rank = 0, k
-        for level, (sh, w) in enumerate(zip(shifts, widths)):
-            hi = sh + w
-
-            def under(u):
-                return (torch.ones_like(u, dtype=torch.bool) if hi == 32
-                        else (u >> hi) == prefix)
-
-            def digit(u):
-                return (u >> sh) & ((1 << w) - 1)
-
-            hist = torch.bincount(digit(row[under(row)]), minlength=1 << w)
-            hist -= torch.bincount(digit(ban_keys[under(ban_keys)]),
-                                   minlength=1 << w)
-            if live and bool(under(torch.tensor([inf_key]))[0]):
-                hist[digit(torch.tensor(inf_key))] += len(live)
-            above = hist.flip(0).cumsum(0).flip(0) - hist   # Σ of bins above
-            bin_ = int(torch.nonzero((above < rank) & (rank <= above + hist)
-                                     )[0, 0])
-            prefix, rank = (prefix << w) | bin_, rank - int(above[bin_])
-            if level == 0:   # the list: this bin's keys and those above
-                cand = row[(row >> sh) >= bin_]
-                overflow[r] = cand.numel() > cand_cap
-                if not overflow[r]:
-                    row = cand
-        out[r] = prefix - 2 ** 31
-    return out.to(torch.int32), overflow
 
 
 # topk_ban_mask_launch(x, ban, live, out, B, V, M, k, stream)

@@ -23,9 +23,7 @@ flagship's ``phase_kernels`` and ``phase_dense_kernel``, a depth-1
 GPT-2-medium's ``phase_kernels`` (its front and sparse block, under
 ``gpt2m``), and ``phase_topk_kernel`` at (256, 50258) and (192, 50258),
 k 16, with the bans of a random id buffer; beside ``ms`` the front's and
-the ban mask's ``device_ms`` and ``device_kernels`` (by kernel name), and
-``sparse_block.digest`` and ``fused_block.digest`` (sha256 of block 2's
-output on a seeded input: equal across trees = bitwise equal),
+the ban mask's ``device_ms`` and ``device_kernels`` (by kernel name),
 measured by this module's own code with this checkout's
 ``probes.device_kernel_ms`` for every tree.  Per flash shape it prints
 the forward's and the backward's ms (dQ, dK and dV: one call, or a tree's dK/dV and dQ kernels
@@ -49,7 +47,7 @@ import sys
 from pathlib import Path
 
 _CHILD = r'''
-import hashlib, importlib.util, json, sys, types
+import importlib.util, json, sys, types
 tree, mode, own_probes = sys.argv[1], sys.argv[2], sys.argv[3]
 sys.path.insert(0, tree)
 import torch
@@ -129,32 +127,11 @@ def front_topk():
         w = enc.frontend_weights(x.dtype)
         calls[label] = lambda: fused_frontend(x, w)
 
-    def block_digest(model, name):
-        """sha256 of block 2's kernel output on a seeded N(0, 1) stream (not
-        the front's output, which differs between the trees' fronts) under
-        the encoder's row layout: equal digests across trees = bitwise
-        equal outputs."""
-        from image2text_torch.ops.fused_block import fused_block, sparse_block
-        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
-        _, x, layout = cs.block_input(torch, model, gen)
-        x = torch.randn(x.shape, device="cuda", generator=gen).to(x.dtype)
-        blk = model.vision_encoder.blocks[2]
-        w = blk.block_weights(torch.bfloat16)
-        if name == "sparse_block":
-            y = sparse_block(x, *blk.layout_rows(layout, x.shape[1], x.device),
-                             w)
-        else:
-            y = fused_block(x, w)
-        out[f"{name}.digest"] = hashlib.sha256(
-            y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-
-    for cfg, phase, name in ((FLAGSHIP, cs.phase_kernels, "sparse_block"),
-                             (FLAGSHIP_DENSE, cs.phase_dense_kernel,
-                              "fused_block")):
+    for cfg, phase in ((FLAGSHIP, cs.phase_kernels),
+                       (FLAGSHIP_DENSE, cs.phase_dense_kernel)):
         model = VisionEncoderDecoder(cfg, device="cuda").init_weights(
             cs.SEED).to(torch.bfloat16).eval()
         phase(torch, model, args, res)
-        block_digest(model, name)
         if cfg is FLAGSHIP:
             front_call(model, "fused_frontend")
             vocab = cfg.decoder_config.vocab_size
@@ -188,7 +165,7 @@ def front_topk():
             r = r if tag is None else r.get(f"{tag}_shape")
             if r:
                 label = name + ("" if tag is None else f".{tag}")
-                for key in ("ms", "library_ms", "plain_ms", "slab_route_ms"):
+                for key in ("ms", "library_ms", "plain_ms", "other_route_ms"):
                     if key in r:
                         out[f"{label}.{key}"] = r[key]
     r = res["sparse_block"]

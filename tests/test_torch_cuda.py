@@ -628,18 +628,20 @@ def test_tiny_gpt2_training_step_on_card(dev, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("b,t,din,d,n_cls,route", [
-    (3, 16, 128, 128, 8, "cluster"),      # t < a tile: tiles straddle images
-    (3, 200, 256, 512, 8, "cluster"),     # 2 x 2 tiles, rows past t in the second
-    (2, 256, 2048, 1024, 64, "cluster"),  # the flagship's front: 8 tiles
-    (3, 256, 2048, 512, 64, "cluster"),   # GPT-2-medium's front: 4 tiles
-    (2, 256, 256, 2048, 8, "slab"),       # 16 tiles: past one cluster
+    (3, 16, 128, 128, 8, "slab"),         # t < a GEMM tile: tiles straddle images
+    (3, 200, 256, 512, 8, "slab"),        # rows past t in the second GEMM tile
+    (2, 256, 2048, 1024, 64, "cluster"),  # the flagship's front
+    (40, 256, 2048, 512, 64, "slab"),     # GPT-2-medium's: clusters take 3 images
+    (2, 256, 256, 2048, 8, "slab"),       # past SLAB_MAX_CHUNK
 ])
 def test_fused_frontend_kernel_matches_plain(dev, bias, b, t, din, d, n_cls,
                                              route):
     """Projector GEMM + bias, the two slab LayerNorms and the positional
     table, CLS rows in front, on the route front_plan gives the shape; the
-    slab route forced at every shape too; reruns bitwise equal."""
-    from image2text_torch.ops.fused_frontend import (FrontendWeights,
+    slab route forced at every shape, the cluster route wherever its chunk
+    fits; reruns bitwise equal."""
+    from image2text_torch.ops.fused_frontend import (SLAB_MAX_CHUNK,
+                                                     FrontendWeights,
                                                      FrontPlan, front_plan,
                                                      fused_frontend,
                                                      fused_frontend_plain,
@@ -667,10 +669,14 @@ def test_fused_frontend_kernel_matches_plain(dev, bias, b, t, din, d, n_cls,
     assert torch.equal(got[:, :n_cls], want[:, :n_cls])
     check_output(f"fused_frontend {route}", got, want)
     assert torch.equal(fused_frontend(x, w), got)
-    slab = launch_front(x, w, FrontPlan("slab", *plan[1:]))
-    torch.cuda.synchronize()
-    assert torch.equal(slab[:, :n_cls], want[:, :n_cls])
-    check_output("fused_frontend slab route", slab, want)
+    routes = ["slab"] + (["cluster"] if plan.chunk <= SLAB_MAX_CHUNK else [])
+    for forced in routes:
+        out = launch_front(x, w, FrontPlan(forced, plan.chunk))
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, :n_cls], want[:, :n_cls])
+        check_output(f"fused_frontend {forced} route", out, want)
+        assert torch.equal(launch_front(x, w, FrontPlan(forced, plan.chunk)),
+                           out)
 
 
 @pytest.mark.cuda
@@ -754,10 +760,12 @@ def test_fused_block_raises_past_the_attention_shared_memory(dev):
 
 
 def _ban_cases(dev, rows, vocab):
-    """(rows, vocab) f32 logits and (rows, 132) bans: signed zeros, -inf
+    """(rows, vocab) f32 logits and (rows, 644) bans: signed zeros, -inf
     inputs, ties at the threshold, a row of equal values (its first digit
     overflows the candidate list), a fully banned head, ids past the
-    vocabulary, a repeated id; random rows after the sixth."""
+    vocabulary, a repeated id, a row whose top 644 values are banned (the
+    k-th key's digit below the sampled guess); random rows after the
+    seventh, their bans in the first 132 columns."""
     g = torch.Generator().manual_seed(15)
     x = torch.randn(rows, vocab, generator=g)
     x[0, :8] = torch.tensor([0.0, -0.0] * 4)
@@ -765,28 +773,35 @@ def _ban_cases(dev, rows, vocab):
     x[1, 3:] = float("-inf")
     x[2, :40] = x[2, 40]                         # ties at the threshold
     x[5] = 0.75                                  # one value: overflow
-    ban = torch.randint(0, vocab, (rows, 132), generator=g, dtype=torch.int32)
-    ban[torch.rand(rows, 132, generator=g) < 0.3] = -1
-    ban[3] = torch.arange(132, dtype=torch.int32)
+    ban = torch.full((rows, 644), -1, dtype=torch.int32)
+    ban[:, :132] = torch.randint(0, vocab, (rows, 132), generator=g,
+                                 dtype=torch.int32)
+    ban[torch.rand(rows, 644, generator=g) < 0.3] = -1
+    ban[3, :132] = torch.arange(132, dtype=torch.int32)
     ban[4, :2] = torch.tensor([vocab, vocab + 9000], dtype=torch.int32)
     ban[4, 2:6] = int(torch.argmax(x[4]))       # the top id, four times
+    ban[6] = torch.argsort(x[6], descending=True)[:644].to(torch.int32)
     return x.to(dev), ban.to(dev)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 16, "all"])
 @pytest.mark.parametrize("with_bans", [False, True])
-@pytest.mark.parametrize("rows,vocab", [(6, 50258), (192, 50258),
-                                        (6, 151936)])
+@pytest.mark.parametrize("rows,vocab", [(7, 50258), (192, 50258),
+                                        (7, 151936)])
 def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k, with_bans,
                                                            rows, vocab):
-    """The flagship's vocabulary at 6 engineered rows and at the beam's 192
+    """The flagship's vocabulary at 7 engineered rows and at the beam's 192
     decode rows, and Qwen-2's 151,936: signed zeros, -inf inputs, ties at
-    the threshold, 132 ban columns (more live bans than the JAX kernel's
-    cap), ids past the vocabulary, repeated ids, a row whose first digit
-    overflows the candidate list; k from 1 to the whole row."""
-    from image2text_torch.ops.topk_mask import (kth_key_radix, topk_ban_mask,
+    the threshold, up to 644 live bans a row (the JAX kernel's cap is
+    128), ids past the vocabulary, repeated ids, a row whose first digit
+    overflows the candidate list, a row whose bans push the k-th key's
+    digit below the sampled guess; k from 1 to the whole row.  At k 1 and 16
+    the routes (``tests/torch_radix_select.py``) of the engineered rows are
+    pinned: each of the kernel's four is taken."""
+    from image2text_torch.ops.topk_mask import (topk_ban_mask,
                                                 topk_ban_mask_reference)
+    from torch_radix_select import kth_key_radix
 
     k = vocab if k == "all" else k
     x, ban = _ban_cases(dev, rows, vocab)
@@ -797,9 +812,12 @@ def test_topk_ban_mask_kernel_equals_reference_bit_for_bit(dev, k, with_bans,
     torch.cuda.synchronize()
     assert topk_ban_mask.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    if k == 16:   # rows of one value (-1.0, -inf, 0.75) fill their bins
-        _, overflow = kth_key_radix(x[:6].cpu(), None, k)
-        assert overflow.tolist() == [True, True, False, False, False, True]
+    if k in (1, 16):   # rows of one value (-1.0, -inf, 0.75) fill their bins
+        _, routes = kth_key_radix(x[:7].cpu(), None if ban is None
+                                  else ban[:7].cpu(), k)
+        assert routes[0] == routes[1] == ("reread" if k == 1 else "overflow")
+        assert routes[5] == "overflow"
+        assert routes[6] == ("list" if ban is None else "guess_high")
 
 
 @pytest.mark.cuda

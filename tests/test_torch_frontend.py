@@ -118,27 +118,29 @@ def test_eval_front_equals_the_training_module_chain(encoders):
 
 
 @pytest.mark.parametrize("t,d,want", [
-    (256, 1024, ("cluster", 4, 2)),   # the flagship's front: 8 tiles
-    (256, 512, ("cluster", 2, 2)),    # GPT-2-medium's front
-    (16, 128, ("cluster", 1, 1)),     # one tile, straddling images
-    (200, 512, ("cluster", 2, 2)),    # t not a multiple of the tile rows
-    (128, 2048, ("cluster", 8, 1)),
-    (256, 2048, ("slab", 8, 2)),      # 16 tiles: past one cluster
-    (384, 1024, ("slab", 4, 3)),
+    (256, 1024, ("cluster", 32768)),  # the flagship's front: 8 x 64 KB
+    (256, 512, ("slab", 16384)),      # GPT-2-medium's front
+    (16, 128, ("slab", 256)),         # a slab smaller than a GEMM tile
+    (200, 512, ("slab", 12800)),
+    (128, 2048, ("cluster", 32768)),  # SLAB_MAX_CHUNK exactly
+    (256, 2048, ("slab", 65536)),     # past SLAB_MAX_CHUNK
+    (384, 1024, ("slab", 49152)),
+    (320, 512, ("slab", 20480)),      # below CLUSTER_MIN_CHUNK
+    (192, 1024, ("cluster", 24576)),  # CLUSTER_MIN_CHUNK exactly
 ])
 def test_front_plan_route_per_shape(t, d, want):
-    """The cluster route takes every slab of at most MAX_CLUSTER GEMM
-    tiles, the slab route the rest; the plan is a pure function of t, d."""
+    """The cluster route takes every slab that SLAB_CLUSTER chunks of whole
+    16-byte vectors, CLUSTER_MIN_CHUNK to SLAB_MAX_CHUNK elements each,
+    cover; the slab route the rest; the plan is a pure function of t, d."""
     assert tuple(ff.front_plan(t, d)) == want
 
 
 def test_front_plan_reads_the_kernel_tiling():
-    """The tile and the cluster limit come from the CUDA sources."""
+    """The cluster and its chunk limits come from the CUDA source."""
     from image2text_torch.ops._build import CSRC
 
-    gemm = (CSRC / "gemm.cuh").read_text()
     front = (CSRC / "fused_frontend.cu").read_text()
-    assert re.search(rf"GEMM_BM = {ff.TILE_ROWS}\b", gemm)
-    assert re.search(rf"GEMM_BN = {ff.TILE_COLS}\b", gemm)
-    assert re.search(rf"FRONT_MAX_CLUSTER = {ff.MAX_CLUSTER};", front)
-    assert (ff.TILE_ROWS, ff.TILE_COLS, ff.MAX_CLUSTER) == (128, 256, 8)
+    for name in ("SLAB_CLUSTER", "CLUSTER_MIN_CHUNK", "SLAB_MAX_CHUNK"):
+        assert re.search(rf"{name} = {getattr(ff, name)};", front)
+    assert (ff.SLAB_CLUSTER, ff.CLUSTER_MIN_CHUNK, ff.SLAB_MAX_CHUNK) == (
+        8, 24576, 32768)

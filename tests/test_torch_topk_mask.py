@@ -3,8 +3,8 @@ bit: ``topk_ban_mask_reference`` (the plain version the CPU runs, and what
 the CUDA kernel is held to on the card) against JAX's reference and JAX's
 Pallas kernel in interpret mode, on the cases of ``tests/test_topk_mask.py``
 plus signed zeros and -inf inputs.  The CUDA kernel's radix select, in its
-plain emulation ``kth_key_radix``, against the reference's k-th value on
-engineered rows."""
+plain emulation ``tests/torch_radix_select.py::kth_key_radix``, against
+the reference's k-th value on engineered rows."""
 import numpy as np
 import pytest
 import torch
@@ -146,21 +146,25 @@ def _digit_boundary_row(v):
 
 @pytest.mark.parametrize("case", ["random", "signed_zeros", "neg_inf",
                                   "ties", "saturated_bans", "k_covers_row",
-                                  "equal_values", "digit_boundaries"])
+                                  "equal_values", "digit_boundaries",
+                                  "bans_past_the_guess"])
 @pytest.mark.parametrize("k", [1, 3, 6, 16])
 def test_kth_key_radix_matches_the_reference_kth(case, k):
-    """The kernel's three-digit radix select, emulated step for step (ban
-    corrections, the candidate list and its overflow route), finds the
-    reference's exact k-th key: signed zeros (one key), -inf inputs and
-    thresholds, ties, saturated and repeated bans, k at or past the
-    unbanned count, a row of one value (its first digit's bin overflows a
-    small list), ties across the digit boundaries."""
-    from image2text_torch.ops.topk_mask import kth_key_radix
+    """The kernel's three-digit radix select, emulated step for step (the
+    sampled guess, ban corrections, the candidate list and its routes),
+    finds the reference's exact k-th key: signed zeros (one key), -inf
+    inputs and thresholds, ties, saturated and repeated bans, k at or past
+    the unbanned count, a row of one value (its first digit's bin
+    overflows a small list), ties across the digit boundaries, bans of
+    the row's top 200 values (the k-th key's digit lies below the guess:
+    the second read of the row)."""
+    from torch_radix_select import CAND_CAP, kth_key_radix
 
     rng = np.random.default_rng(k)
     v = 300
     logits = rng.standard_normal((3, v)).astype(np.float32)
     banned = _random_banned(rng, 3, v, 17)
+    cand_cap = 64
     if case == "signed_zeros":
         logits[:, :40] = np.where(np.arange(40) % 2, -0.0, 0.0)
         logits[:, 40:] = -np.abs(logits[:, 40:]) - 1
@@ -181,12 +185,17 @@ def test_kth_key_radix_matches_the_reference_kth(case, k):
         logits = np.stack([_digit_boundary_row(v)] * 3)
         banned[2] = -1
         banned[2, :3] = [3, 4, 9]     # two of the repeated keys, and one more
+    elif case == "bans_past_the_guess":
+        banned = np.argsort(logits, axis=-1)[:, -200:].astype(np.int32)
+        cand_cap = CAND_CAP
     for ban in (None, banned):
-        got, overflow = kth_key_radix(torch.from_numpy(logits),
-                                      None if ban is None
-                                      else torch.from_numpy(ban), k,
-                                      cand_cap=64)
+        got, routes = kth_key_radix(torch.from_numpy(logits),
+                                    None if ban is None
+                                    else torch.from_numpy(ban), k,
+                                    cand_cap=cand_cap)
         np.testing.assert_array_equal(got.numpy(),
                                       _kth_key(logits, ban, k).numpy())
         if case == "equal_values":
-            assert overflow.all()
+            assert routes == ["overflow"] * 3
+        if case == "bans_past_the_guess":
+            assert routes == ["list" if ban is None else "guess_high"] * 3
