@@ -112,7 +112,35 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
 12. gpt2m-train-parity  depth 2 + 2, full width, batch 8: loss and
             gradients, kernel path against plain-version path.
 
-13. device-times  the device time of the flash forward, int4_matmul,
+Then the offline end-to-end path (training_configs/local/synthetic-*.yaml:
+f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
+
+13. offline-kernels  the f32 forms of the flash forward and backward at
+            synthetic-smoke.yaml's training shapes (b 8, 4 heads, one K/V
+            head, d 16; the encoder's 264 rows, the decoder's 128, causal,
+            with the soft-prompt bias; dropout 0.1, the plain version's
+            seed) and of the encoder front at the evaluate batch (4 images
+            of quality2_ck.npz's val stream), against their plain versions
+            at the f32 limits (utils/kernel_check.py F32_LIMITS): ms, the
+            bound at the f32 FFMA peak, F.scaled_dot_product_attention in
+            f32 and the projector's f32 torch.matmul as yardsticks; kept as
+            ``offline_*_f32_shape`` in the kernels' rows.
+14. offline-train  the trainer twin (python -m image2text_torch.trainer)
+            on synthetic-smoke.yaml, 20 steps x 2 loop epochs with eval and
+            val, --chkpt_file and --resume_dir into a directory under
+            build/: launches of the whole run held to the counts derived
+            from the model, the loss of every step (finite, lower at the
+            end), peak memory, step ms (--profile: device time by kernel of
+            one step).
+15. offline-eval  the evaluate twin, greedy, 32 images, on the new
+            checkpoint and on artifacts/quality2_ck.npz: the card's tokens,
+            BLEU-4 and CIDEr-D equal to the CPU run's in this process; the
+            sampled metrics beside them.
+16. offline-beam  greedy beam search on quality2_ck.npz, card against CPU:
+            the rounds each sample's ids stay equal, and the margins where
+            they part.
+
+17. device-times  the device time of the flash forward, int4_matmul,
             fused_frontend (both routes) and topk_ban_mask rows, in all and
             by kernel (torch.profiler's kernel durations, free of the
             wrapper's host time that their CUDA-event times include), taken
@@ -132,9 +160,11 @@ import argparse
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -150,6 +180,7 @@ TRAIN_BATCH = 48     # training_configs/tpu/nano-mini.yaml
 TRAIN_SEQ = 256      # bench_train.py's padded caption length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores (FFMA)
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
 PROBE_BATCH = 64  # the block probes' batch (tools/ ran 256; cut for time)
@@ -228,26 +259,30 @@ def nbytes(*ts) -> int:
     return total
 
 
-def compare(name, got, want, routes=None, gates=None, k=None):
+def compare(name, got, want, routes=None, gates=None, k=None, f32=False):
     """Hold a kernel's output against its plain version, which ran on the
-    kernel's own expert routes, at the output's scale; and the routes
-    against the plain gate values (``image2text_torch.utils.kernel_check``).
-    Raises on disagreement; returns the largest absolute error."""
+    kernel's own expert routes, at the output's scale (``f32``: the f32
+    kernels' tighter limits); and the routes against the plain gate
+    values (``image2text_torch.utils.kernel_check``).  Raises on
+    disagreement; returns the largest absolute error."""
     from image2text_torch.utils import kernel_check
 
-    st = kernel_check.output_error(got, want)
+    limits = (kernel_check.F32_LIMITS if f32 else (
+        kernel_check.ELEMENT_TOL, kernel_check.MAX_ABS_SHARE,
+        kernel_check.REL_L2))
+    st = kernel_check.output_error(got, want, limits[0])
     line = (f"  {name}: max_abs_err {st['max_abs_err']:.6g} (max|plain| "
-            f"{st['max_plain']:.6g}, limit {kernel_check.MAX_ABS_SHARE} x), "
-            f"rel_l2 {st['rel_l2']:.6g} (limit {kernel_check.REL_L2}), "
+            f"{st['max_plain']:.6g}, limit {limits[1]} x), "
+            f"rel_l2 {st['rel_l2']:.6g} (limit {limits[2]}), "
             f"bitwise-equal share {st['equal_share']:.4f}, elements beyond "
-            f"{kernel_check.ELEMENT_TOL} abs + rel {st['elements_beyond']}")
+            f"{limits[0]} abs + rel {st['elements_beyond']}")
     if routes is not None:
         rt = kernel_check.check_routes(name, routes, gates, k)
         line += (f"; rows routed apart {rt['rows_apart']} of {rt['rows']}, "
                  f"largest tie gap crossed {rt['max_tie_gap']:.3g} (limit "
                  f"{kernel_check.TIE})")
     log(line)
-    kernel_check.check_output(name, got, want)
+    kernel_check.check_output(name, got, want, limits)
     return st["max_abs_err"]
 
 
@@ -1752,6 +1787,369 @@ def gpt2m_train_inputs(torch, batch: int, seed: int):
     return (torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev))
 
 
+# -- the offline end-to-end path (training_configs/local/synthetic-*.yaml) -----
+
+SMOKE_YAML = "training_configs/local/synthetic-smoke.yaml"
+QUALITY2_YAML = "training_configs/local/synthetic-quality2.yaml"
+QUALITY2_CK = "artifacts/quality2_ck.npz"
+OFFLINE_EVAL_IMAGES = 32
+OFFLINE_BEAM_BATCH = 8
+# The offline configs' training attention (as FLASH_FLAGSHIP's fields):
+# synthetic-smoke.yaml's batch 8, 4 heads of 16, one K/V head; the encoder's
+# 8 CLS + 256 patch rows (past RESIDENT_MAX_KEYS); the decoder's soft
+# prompt and labels cut at its block size 128, causal, with the bias.
+FLASH_OFFLINE = (
+    ("offline_encoder", 8, 4, 1, 264, 264, 16, False, None, DROPOUT),
+    ("offline_decoder", 8, 4, 1, 128, 128, 16, True, 8, DROPOUT))
+OFFLINE_FRONT_BATCH = 4   # evaluate.py's --num_candidates: a call's images
+
+
+def offline_model(torch, yaml: str, ck: str, device: str):
+    """The f32 model of ``yaml`` with the weights of the checkpoint ``ck``
+    on ``device``, and its config."""
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+    from image2text_torch.utils.checkpoint import (load_jax_state_dict,
+                                                   load_state_dict)
+
+    cfg = load_training_config(REPO / yaml)
+    model = VisionEncoderDecoder(cfg.model, device=device)
+    load_jax_state_dict(model, load_state_dict(str(REPO / ck)))
+    return model, cfg
+
+
+def offline_images(torch, cfg, n: int, device):
+    """The first ``n`` val images of ``cfg``'s synthetic stream (f32)."""
+    from image2text_torch.trainer import build_inner_datasets, config_tokenizer
+
+    _, val_ds = build_inner_datasets(cfg, config_tokenizer(cfg))
+    return torch.as_tensor(next(iter(val_ds))["image"][:n], device=device)
+
+
+def phase_offline_kernels(torch, results):
+    """The f32 kernels against their plain versions (kernel_check's f32
+    limits): the flash forward and backward at the offline training
+    shapes, the dropout seed shared, the backward rerun bitwise equal; the
+    front at the evaluate batch on quality2_ck.npz's weights and val
+    images.  ms, plain ms, the bound (at the f32 FFMA peak), registers and
+    spills, and as yardsticks F.scaled_dot_product_attention in f32
+    (forward; backward alone) and the projector's f32 torch.matmul; kept
+    as each kernel's ``<label>_f32_shape`` beside its bf16 numbers."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops.attention import causal_bias
+    from image2text_torch.ops.fused_frontend import (fused_frontend,
+                                                     fused_frontend_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    seed = -987654321
+    for label, b, h, hk, sq, s, d, causal, n_prefix, rate in FLASH_OFFLINE:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen)
+                         for shape in ((b, h, sq, d), (b, hk, s, d),
+                                       (b, hk, s, d), (b, h, sq, d)))
+        bias = None if n_prefix is None else soft_prompt_bias(torch, s,
+                                                              n_prefix, dev)
+        a = (q, k, v, bias, causal)
+        out, lse = fa.flash_fwd(*a, rate, seed)
+        want, want_lse = fa.flash_forward_plain(*a, rate, seed)
+        dvec = (dout * want).sum(-1)
+        g = (dout, want_lse, dvec, rate, seed)
+        got = fa.flash_bwd(*a, *g)
+        again = fa.flash_bwd(*a, *g)
+        plain = fa.flash_backward_plain(*a, *g)
+        torch.cuda.synchronize()
+        shape = (f"b={b} h={h} hk={hk} sq={sq} skv={s} d={d} causal={causal} "
+                 f"bias={None if bias is None else tuple(bias.shape)} "
+                 f"dropout={rate}")
+        errs = {"fwd": compare(f"flash_fwd f32 out {label} {shape}", out,
+                               want, f32=True)}
+        compare(f"flash_fwd f32 lse {label}", lse, want_lse, f32=True)
+        errs["bwd"] = max(compare(f"flash_bwd f32 {n} {label}", x, y,
+                                  f32=True)
+                          for n, x, y in zip(("dq", "dk", "dv"), got, plain))
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_bwd f32 {label}: reruns differ")
+        res = {kind: _build.resources("flash_attention_f32",
+                                      f"flash_{kind}_f32_kernelILi{d}E")
+               for kind in ("fwd", "bwd_dkv", "bwd_dq")}
+        log(f"    f32 kernels {label}: (registers, bytes spilled) {res}; "
+            f"backward rerun bitwise equal")
+        del out, lse, got, again, plain
+        ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
+              "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
+        plain_ms = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
+            *a, rate, seed)),
+            "bwd": cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g))}
+        mask = None
+        if bias is not None or causal:
+            mask = (0 if bias is None else bias) + (
+                causal_bias(sq, s, dev) if causal else 0)
+        lib = sdpa_times(torch, q, k, v, dout, mask, rate)
+        log(f"  flash f32 {label}: fwd {ms['fwd']:.4f} ms (plain "
+            f"{plain_ms['fwd']:.4f}, SDPA f32 {lib['fwd']:.4f}), bwd (dq dk "
+            f"dv) {ms['bwd']:.4f} ms (plain {plain_ms['bwd']:.4f}; SDPA f32 "
+            f"backward alone {lib['bwd']:.4f})")
+        for kind in ("fwd", "bwd"):
+            n_bytes, flops = flash_work(q, k, bias, causal, kind)
+            bms, by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+            log(f"    flash_{kind} f32 {label}: bound {bms:.5f} ms ({by}; "
+                f"{flops / 1e9:.4f} GFLOP at the f32 peak, "
+                f"{n_bytes / 1e6:.3f} MB), kernel at {bms / ms[kind]:.3f} "
+                f"of it")
+            regs = ([res["fwd"]] if kind == "fwd"
+                    else [res["bwd_dkv"], res["bwd_dq"]])
+            results.setdefault(f"flash_{kind}", {"name": f"flash_{kind}"})[
+                f"{label}_f32_shape"] = dict(
+                    b=b, h=h, hk=hk, sq=sq, skv=s, d=d, causal=causal,
+                    dtype="float32",
+                    source="image2text_torch/csrc/flash_attention_f32.cu",
+                    max_abs_err=errs[kind], ms=ms[kind],
+                    plain_ms=plain_ms[kind], bound_ms=bms, bound_by=by,
+                    library_ms=lib[kind],
+                    registers=[r for r, _ in regs],
+                    spill_bytes=[sp for _, sp in regs])
+
+    model, cfg = offline_model(torch, QUALITY2_YAML, QUALITY2_CK, "cuda")
+    enc = model.vision_encoder
+    x = enc.feature_extractor(offline_images(torch, cfg, OFFLINE_FRONT_BATCH,
+                                             dev))
+    x = x.reshape(x.shape[0], enc.n_patches ** 2, enc.input_d)
+    w = enc.frontend_weights(x.dtype)
+    b, t, din = x.shape
+    d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    got, again = fused_frontend(x, w), fused_frontend(x, w)
+    want = fused_frontend_plain(x, w)
+    torch.cuda.synchronize()
+    err = compare(f"fused_frontend f32 b={b} t={t} din={din} d={d} "
+                  f"n_cls={n_cls}", got, want, f32=True)
+    if not torch.equal(got[:, :n_cls], want[:, :n_cls]):
+        raise AssertionError("fused_frontend f32: CLS rows differ")
+    if not torch.equal(got, again):
+        raise AssertionError("fused_frontend f32: reruns differ")
+    ms = cuda_ms(torch, lambda: fused_frontend(x, w))
+    plain = cuda_ms(torch, lambda: fused_frontend_plain(x, w))
+    lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p))
+    flops = 2 * b * t * din * d
+    n_bytes = nbytes(x, *w) + b * (n_cls + t) * d * x.element_size()
+    bms, by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+    regs = [_build.resources("fused_frontend", k)
+            for k in ("gemm_f32_kernel", "slab_kernelIfE")]
+    log(f"  fused_frontend f32: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}; {flops / 1e6:.1f} MFLOP at the f32 peak, "
+        f"{n_bytes / 1e6:.2f} MB; kernels at {bms / ms:.3f} of it), f32 "
+        f"torch.matmul of the projector alone {lib:.4f} ms; (registers, "
+        f"bytes spilled) of the GEMM and the slab kernel {regs}")
+    results.setdefault("fused_frontend", {"name": "fused_frontend"})[
+        "offline_f32_shape"] = dict(
+            b=b, t=t, din=din, d=d, dtype="float32",
+            source="image2text_torch/csrc/fused_frontend.cu",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by, library_ms=lib, registers=[r for r, _ in regs],
+            spill_bytes=[sp for _, sp in regs])
+    del model
+
+
+def offline_train_launches(cfg, trainer, seq_len: int):
+    """Launches of each kernel wrapper in the trainer twin's run of ``cfg``:
+    each step one flash forward and one backward per self-attention call,
+    and a second forward per call of a stack that checkpoints its blocks;
+    per loop epoch one encoder front for eval_model's caption call and one
+    per val step; no other kernel."""
+    model = trainer.wrapper.model
+    enc = model.vision_encoder
+    enc_calls = sum(blk.runs_body(enc.n_cls + enc.n_patches ** 2)
+                    for blk in enc.blocks)
+    calls = model.sdpa_calls(seq_len)
+    recompute = (enc_calls * cfg.model.vision_encoder_config
+                 .enable_gradient_checkpointing
+                 + (calls - enc_calls) * cfg.model.decoder_config
+                 .enable_gradient_checkpointing)
+    want = {kern.__name__: 0 for kern in kernel_wrappers()}
+    want["flash_fwd"] = trainer.step * (calls + recompute)
+    want["flash_bwd"] = trainer.step * calls
+    want["fused_frontend"] = cfg.max_loop_epochs * (1 + cfg.num_val_steps)
+    return want
+
+
+def phase_offline_train(torch, args, results, work: Path) -> Path:
+    """The trainer twin (image2text_torch/trainer.py::main) on
+    synthetic-smoke.yaml, as ci.sh runs trainer.py, into ``work`` with
+    --chkpt_file and --resume_dir: every launch count of the whole run
+    held to ``offline_train_launches``, the loss of every step (finite,
+    lower at the end), the train state and the checkpoint written, the
+    peak memory; then step ms, the median of 3 windows of 4 steps on one
+    batch of the stream (with ``--profile``, device time by kernel of one
+    more step).  Returns the checkpoint."""
+    import numpy as np
+
+    from image2text_torch import trainer as twin
+    from image2text_torch.utils.checkpoint import load_state_dict
+
+    ck, state = work / "smoke_ck.npz", work / "smoke_state"
+    cli = twin.parse_args(["--config_file", str(REPO / SMOKE_YAML),
+                           "--chkpt_file", str(ck), "--resume_dir",
+                           str(state)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts, trainer = launch_counts(lambda: twin.main(cli))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    record_launches(results, "offline_train", counts)
+    cfg = trainer.config
+    train_dl, _ = twin.build_dataloaders(cfg, twin.config_tokenizer(cfg))
+    images, labels = trainer._batch(*next(iter(train_dl)))
+    want = offline_train_launches(cfg, trainer, labels.shape[1])
+    losses = [float(m["train_loss_lm"]) for m in trainer.history]
+    sd = load_state_dict(str(ck))
+    log(f"  {trainer.step} steps ({cfg.max_loop_epochs} loop epochs of "
+        f"{cfg.num_steps}, batch {cfg.batch_size}, precision "
+        f"{cfg.precision!r}: f32) with eval and val in {wall:.1f} s; peak "
+        f"memory {peak:.3f} GiB on {torch.cuda.get_device_name(0)}; "
+        f"launches {counts} (want {want}); checkpoint {len(sd)} keys, train "
+        f"state {sorted(p.name for p in state.iterdir())}")
+    log(f"  loss by step: {[round(x, 5) for x in losses]}")
+    if counts != want:
+        raise AssertionError(f"offline-train launch counts {counts} != {want}")
+    if (not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]
+            or len(losses) != trainer.step or not (state / "train_state.pt"
+                                                   ).exists()):
+        raise AssertionError(f"offline-train: loss not finite or not falling "
+                             f"{losses}, or no train state")
+    step, windows = trainer._train_step, []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(4):
+            step(images, labels, cfg.seed, 100 + 4 * w + i)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 4)
+    step_s = statistics.median(windows)
+    log(f"  step ms (median of 3 windows of 4 steps, one batch): "
+        f"{step_s * 1e3:.2f}; windows {[round(x * 1e3, 2) for x in windows]}; "
+        f"tokens/s (label positions) "
+        f"{int(np.prod(labels.shape)) / step_s:.1f}")
+    if args.profile:
+        log("  device time by kernel, one offline training step:")
+        device_profile(torch, lambda: step(images, labels, cfg.seed, 99))
+    del trainer
+    torch.cuda.empty_cache()
+    return ck
+
+
+def phase_offline_eval(torch, results, smoke_ck: Path):
+    """The evaluate twin (image2text_torch/evaluate.py::main), greedy on
+    OFFLINE_EVAL_IMAGES val images, on the card and on the CPU (plain
+    versions) in this process: the trained smoke checkpoint and
+    artifacts/quality2_ck.npz.  The card's tokens, BLEU-4 and CIDEr-D
+    equal the CPU's; launches held to one front an image; then the
+    sampled metrics at evaluate.py's defaults (temperature 1.0, top-k
+    16) on the card."""
+    from image2text_torch import evaluate as ev
+
+    for label, yaml, ck in (("smoke", SMOKE_YAML, str(smoke_ck)),
+                            ("quality2", QUALITY2_YAML,
+                             str(REPO / QUALITY2_CK))):
+        common = ["--config_file", str(REPO / yaml), "--chkpt_file", ck,
+                  "--num_images", str(OFFLINE_EVAL_IMAGES)]
+        greedy = ev.parse_args(common + ["--temperature", "0"])
+        t0 = time.perf_counter()
+        counts, card = launch_counts(lambda: ev.main(greedy))
+        t_card = time.perf_counter() - t0
+        record_launches(results, f"offline_eval_{label}", counts)
+        t0 = time.perf_counter()
+        cpu = ev.main(greedy, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        want = {kern.__name__: 0 for kern in kernel_wrappers()}
+        want["fused_frontend"] = OFFLINE_EVAL_IMAGES
+        equal = sum(a == b for a, b in zip(card["candidates"],
+                                           cpu["candidates"]))
+        log(f"  {label} greedy ({OFFLINE_EVAL_IMAGES} images): card BLEU-4 "
+            f"{card['bleu']!r} CIDEr-D {card['cider']!r} ({t_card:.1f} s), "
+            f"CPU BLEU-4 {cpu['bleu']!r} CIDEr-D {cpu['cider']!r} "
+            f"({t_cpu:.1f} s); captions equal token for token {equal} of "
+            f"{len(card['candidates'])}; launches {counts} (want {want})")
+        if counts != want:
+            raise AssertionError(f"offline-eval {label}: launches {counts}")
+        if (card["candidates"] != cpu["candidates"]
+                or card["bleu"] != cpu["bleu"]
+                or card["cider"] != cpu["cider"]):
+            raise AssertionError(f"offline-eval {label}: the card's greedy "
+                                 "captions or metrics differ from the CPU's")
+        sampled = ev.main(ev.parse_args(common))
+        log(f"  {label} sampled (temperature 1.0, top-k 16, card): BLEU-4 "
+            f"{sampled['bleu']!r} CIDEr-D {sampled['cider']!r}")
+
+
+def phase_offline_beam(torch):
+    """Greedy beam search (width 3, expansion 4, top-k 16, 32 new tokens,
+    eos 0, consolidation 0) on quality2_ck.npz at batch 8 of its val
+    images, on the card and on the CPU: every round's scorer input
+    recorded; the rounds each sample's ids stayed equal, and where they
+    part the margin (how far the CPU's logits put its choice ahead of the
+    card's, beside the two paths' logit differences there); the round-0
+    logits held to the f32 kernels' relative L2 limit."""
+    from image2text_torch.models.generation_utils import (
+        BeamSearchTokenGenerator)
+    from image2text_torch.utils import kernel_check
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        model, cfg = offline_model(torch, QUALITY2_YAML, QUALITY2_CK, device)
+        images = offline_images(torch, cfg, OFFLINE_BEAM_BATCH, device)
+        beam = BeamSearchTokenGenerator(
+            model, beam_width=3, temperature=0.0, top_k=16,
+            max_new_tokens=MAX_NEW_TOKENS, eos_token_id=0,
+            no_repeat_n_grams=tuple(cfg.model.no_repeat_n_grams),
+            consolidation_temperature=0.0)
+        rounds, candidates = [], beam._candidates
+
+        def record(last, ids_flat, cur_len, generator, rounds=rounds,
+                   candidates=candidates):
+            out = candidates(last, ids_flat, cur_len, generator)
+            rounds.append(last.float().cpu())
+            return out
+
+        beam._candidates = record
+        prompt = torch.ones(1, 1, dtype=torch.long)
+        with torch.no_grad():
+            ids, scores = beam(images, prompt)
+        runs.append((ids.cpu(), scores.cpu(), rounds))
+    (ik, sk, rk), (ip, sp, rp) = runs
+    equal_rounds, partings = [], []
+    for s in range(ik.shape[0]):
+        differ = (ik[s] != ip[s]).any(0).nonzero()
+        equal_rounds.append(int(differ[0]) - 1 if len(differ) else len(rk))
+        if len(differ):
+            pos = int(differ[0])
+            ck, cp = int(ik[s, 0, pos]), int(ip[s, 0, pos])
+            lk, lp = rk[pos - 1][s], rp[pos - 1][s]   # beam 0's row
+            partings.append((s, pos - 1, round(float(lp[cp] - lp[ck]), 6),
+                             round(float((lk[cp] - lp[cp]).abs()
+                                         + (lk[ck] - lp[ck]).abs()), 6)))
+    rel0 = float(torch.linalg.vector_norm(rk[0] - rp[0])
+                 / torch.linalg.vector_norm(rp[0]))
+    margins = []
+    for lk in rk:   # the gap between the two largest raw logits of a row
+        top2 = torch.topk(lk, 2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+    log(f"  greedy beam on quality2_ck.npz (batch {ik.shape[0]}, width 3, "
+        f"{len(rk)} / {len(rp)} rounds): round-0 logits relative L2 "
+        f"{rel0:.3g} (limit {kernel_check.F32_LIMITS[2]}); rounds with equal "
+        f"ids per sample {equal_rounds}; partings (sample, round, CPU logit "
+        f"of the CPU's choice minus that of the card's, the paths' logit "
+        f"differences at the two ids summed): {partings}; smallest gap "
+        f"between a row's two largest raw logits on the card "
+        f"{min(margins):.6g}; scores equal {bool(torch.equal(sk, sp))}, "
+        f"largest score difference {float((sk - sp).abs().max()):.3g}")
+    if rel0 > kernel_check.F32_LIMITS[2] or not bool(
+            torch.isfinite(sk).all()):
+        raise AssertionError("offline-beam: the card's first logits part "
+                             "from the CPU's beyond the f32 limit")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1905,6 +2303,25 @@ def main() -> int:
                        lambda: gpt2m_train_setup(torch, n_layer=2),
                        lambda cfg: gpt2m_train_inputs(torch, 8, SEED + 11),
                        LORA_GRADS)
+
+    log("[offline-kernels] the f32 kernels of the offline path (flash at "
+        "synthetic-smoke.yaml's training shapes, the front at the evaluate "
+        "batch) vs their plain versions")
+    with torch.no_grad():
+        phase_offline_kernels(torch, results)
+    work = Path(tempfile.mkdtemp(prefix="offline-", dir=REPO / "build"))
+    try:
+        log("[offline-train] the trainer twin on synthetic-smoke.yaml "
+            "(ci.sh step 3's run) at the config's full size")
+        smoke_ck = phase_offline_train(torch, args, results, work)
+        log("[offline-eval] the evaluate twin, greedy, card vs CPU: the "
+            "smoke checkpoint and artifacts/quality2_ck.npz")
+        phase_offline_eval(torch, results, smoke_ck)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("[offline-beam] greedy beam ids on quality2_ck.npz, card vs CPU, "
+        "every round")
+    phase_offline_beam(torch)
 
     log("[device-times] kernel device times (torch.profiler), taken after "
         "every CUDA-event time of the run")

@@ -1,9 +1,12 @@
 """Model configuration for the PyTorch port: plain dataclasses.
 
-Same class and field names as ``image2text_tpu/configs/models.py`` for the
-classes the ported caption models use, so a reader can hold one against
-the other.  The machine with the card has neither pydantic nor PyYAML, so
-the configurations are transcribed here as Python constants: the flagship
+Same class and field names as ``image2text_tpu/configs/models.py``, so a
+reader can hold one against the other, and the YAML reader
+(``configs/reader.py``) fills them from ``training_configs/`` (classes of
+models not ported yet, such as :class:`PretrainedViTConfig`, are read but
+not built).  The machine with the card has neither pydantic nor PyYAML, so
+the reader is the port's own, and three configurations are also
+transcribed here as Python constants: the flagship
 (``training_configs/tpu/nano-mini.yaml``; :func:`flagship_config` mirrors
 the JAX package's ``__graft_entry__._flagship_config``, including its tiny
 form), its dense-encoder twin (:func:`flagship_dense_config`) and the int4
@@ -25,6 +28,11 @@ class LoraSpec:
     lora_dropout: float = 0.1
     target_modules: Optional[List[str]] = None
     force_enable_update_modules: Optional[List[str]] = None
+
+
+@dataclass
+class MLPConfig:
+    ff_mult: float
 
 
 @dataclass
@@ -53,7 +61,7 @@ class SelfAttentionConfig:
 
 @dataclass
 class TransformerConfig:
-    rotator_config: MoEConfig
+    rotator_config: Union[MoEConfig, MLPConfig]
     attn_config: SelfAttentionConfig
     is_causal: bool = False
     is_cross_attn: bool = False
@@ -70,6 +78,21 @@ class ImageInputSpec:
 
 
 @dataclass
+class LshConfig:
+    num_bins: Tuple[int, ...]
+    num_proj: int
+    learnable: bool
+
+
+@dataclass
+class PeerConfig:
+    num_units_sqrt: int
+    topk: int
+    nhead: int
+    query_dim: Optional[int] = None
+
+
+@dataclass
 class VisionTransformerEncoderConfig:
     n_cls: int
     transformer_config: TransformerConfig
@@ -80,6 +103,28 @@ class VisionTransformerEncoderConfig:
     enable_gradient_checkpointing: bool = False
     feature_extractor_gate_sizes: Optional[Tuple[int, ...]] = None
     feature_extractor_kernel_size: Tuple[int, int] = (4, 4)
+    lora_spec: Optional[LoraSpec] = None
+
+
+@dataclass
+class PretrainedViTConfig:
+    """The pretrained-ViT encoder (ROADMAP queue 1 item 4): read from a
+    config, not built by the port yet."""
+
+    n_cls: int
+    n_embd_out_vit: int
+    refine_base_model: bool = True
+    peer_config: Optional[PeerConfig] = None
+    lsh_config: Optional[LshConfig] = None
+    gate_sizes: Optional[Tuple[int, ...]] = None
+    lora_spec: Optional[LoraSpec] = None
+
+
+class ModelType(Enum):
+    GPT2 = "gpt2"
+    GPT2_MEDIUM = "gpt2-medium"
+    GPT2_LARGE = "gpt2-large"
+    GPT2_XL = "gpt2-xl"
 
 
 @dataclass
@@ -91,6 +136,9 @@ class TransformerDecoderConfig:
     enable_gradient_checkpointing: bool = False
     use_advanced_pos_emb: bool = False
     skip_alternate_cross_attn: bool = True
+    advanced_pos_emb_gate_sizes: Optional[Tuple[int, ...]] = None
+    pretrained_model: Optional[ModelType] = None
+    lora_spec: Optional[LoraSpec] = None
 
 
 @dataclass
@@ -105,15 +153,19 @@ class HuggingfaceDecoderConfig:
     vocab_size: int
     lora_spec: Optional[LoraSpec] = None
     enable_gradient_checkpointing: bool = False
+    use_auth_token: bool = False
 
 
 @dataclass
 class VisionEncoderDecoderConfig:
-    vision_encoder_config: VisionTransformerEncoderConfig
+    vision_encoder_config: Union[VisionTransformerEncoderConfig,
+                                 PretrainedViTConfig]
     decoder_config: Union[TransformerDecoderConfig, HuggingfaceDecoderConfig]
     use_cross_attn: bool = False
     use_soft_prompting: bool = True
     no_repeat_n_grams: Tuple[int, ...] = (2, 3, 4, 5)
+    loose_match_decoder_state_dict: bool = False
+    chkpt_path: Optional[str] = None
 
 
 def _flagship() -> VisionEncoderDecoderConfig:
@@ -246,7 +298,9 @@ def gpt2_medium_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
 
 __all__ = [
     "FLAGSHIP", "FLAGSHIP_DENSE", "GPT2_MEDIUM", "HuggingfaceDecoderConfig", "ImageInputSpec",
-    "LoraSpec", "MoEConfig", "SelfAttentionConfig", "SelfAttentionType",
+    "LoraSpec", "LshConfig", "MLPConfig", "ModelType", "MoEConfig",
+    "PeerConfig", "PretrainedViTConfig", "SelfAttentionConfig",
+    "SelfAttentionType",
     "TransformerConfig", "TransformerDecoderConfig",
     "VisionEncoderDecoderConfig", "VisionTransformerEncoderConfig",
     "flagship_config", "flagship_dense_config", "gpt2_medium_config",

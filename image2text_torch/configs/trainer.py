@@ -1,13 +1,11 @@
 """Trainer configuration for the PyTorch port: plain dataclasses.
 
-The fields of ``image2text_tpu/configs/trainer.py`` that the training step
-and loop read, under the same names.  The JAX package's mesh, ZeRO,
-sequence-parallel, dataset and profiling fields are not ported (single
-device; no data pipeline yet), and so are the tokenizer name, the epoch
-count and ``ignore_index``, which only the CLI reads (it hands
-``ignore_index`` to the trainer wrapper).  :data:`FLAGSHIP_TRAINING`
-transcribes ``training_configs/tpu/nano-mini.yaml`` (the card's machine
-has no YAML parser) and :data:`GPT2_MEDIUM_TRAINING`
+The fields of ``image2text_tpu/configs/trainer.py`` under the same names,
+but for the JAX package's mesh, ZeRO and sequence-parallel fields (one
+device: ROADMAP queue 1 item 7).  ``configs/reader.py`` reads a
+``training_configs/`` YAML file into :class:`TrainingConfig`;
+:data:`FLAGSHIP_TRAINING` transcribes
+``training_configs/tpu/nano-mini.yaml`` and :data:`GPT2_MEDIUM_TRAINING`
 ``training_configs/tpu/gpt2-medium.yaml``.
 """
 from __future__ import annotations
@@ -46,23 +44,32 @@ class OptimizerConfig:
 class TrainingConfig:
     model: VisionEncoderDecoderConfig
     batch_size: int
+    tokenizer_str: str
     trainer: TrainerWrapperConfig
     optimizers: List[OptimizerConfig]
     disable_flash: bool = False
+    ignore_index: int = -100
+    dataloader_buffer_size: int = 5
+    shuffle: bool = True
     gradient_accumulation_steps: int = 1
+    epochs: int = 1
     num_steps: Optional[int] = None
     num_val_steps: Optional[int] = None
     precision: str = "no"
     reset_moco_after_k_epochs: Optional[List[int]] = None
     use_snr_optim: bool = False
     seed: int = 0
+    dataset: str = "flickr30k"  # or "synthetic" / "synthetic-composite"
+    dataset_dir: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler trace output dir
     remat_policy: Optional[str] = None
+    max_loop_epochs: Optional[int] = None
 
 
 FLAGSHIP_TRAINING = TrainingConfig(
-    model=flagship_config(), trainer=TrainerWrapperConfig(),
-    optimizers=[OptimizerConfig(lr=6e-4)], disable_flash=False,
-    batch_size=48, num_steps=200, num_val_steps=20,
+    model=flagship_config(), tokenizer_str="gpt2",
+    trainer=TrainerWrapperConfig(), optimizers=[OptimizerConfig(lr=6e-4)],
+    disable_flash=False, batch_size=48, num_steps=200, num_val_steps=20,
     gradient_accumulation_steps=1, precision="bf16")
 
 
@@ -78,7 +85,8 @@ def flagship_training_config(tiny: bool = False) -> TrainingConfig:
 # batch of 12 does not divide, so the step refuses it (as the JAX step
 # does); gpt2_medium_training_config gives the form that runs.
 GPT2_MEDIUM_TRAINING = TrainingConfig(
-    model=gpt2_medium_config(), trainer=TrainerWrapperConfig(),
+    model=gpt2_medium_config(), tokenizer_str="gpt2-medium",
+    trainer=TrainerWrapperConfig(),
     optimizers=[OptimizerConfig(lr=6e-4)], batch_size=12,
     gradient_accumulation_steps=8, precision="bf16")
 

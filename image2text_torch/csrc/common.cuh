@@ -59,6 +59,40 @@ __device__ __forceinline__ float act(float x) {
 #endif
 }
 
+// The flash kernels' dropout hash: a murmur3 finalizer over (row, col,
+// plane = batch·h + head, seed), bit for bit the JAX package's
+// ops/flash_attention.py::dropout_keep_mask; keep iff below the threshold.
+__device__ __forceinline__ unsigned keep_hash(int row, int col, int plane, unsigned seed) {
+  unsigned x = (unsigned)row * 0x9E3779B1u ^ (unsigned)col * 0x85EBCA77u ^
+               (unsigned)plane * 0xC2B2AE3Du ^ seed;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The flash entry points' trailing arguments (flash_attention.cu's bf16
+// kernels and flash_attention_f32.cu's f32 ones: ops/flash_attention.py
+// passes the same list to both), their Params built by the including
+// file's make_params, and the dispatch on the head dim.
+#define I2T_FLASH_ARGS                                                                        \
+  const void *bias, long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq, \
+      int skv, int d, int causal, float scale, int dropout, unsigned seed, unsigned threshold, \
+      float inv_keep, void *stream
+#define I2T_FLASH_PARAMS \
+  make_params(q, k, v, bias, bsb, bsh, bsr, b, h, hk, sq, skv, causal, scale, dropout, seed, \
+              threshold, inv_keep)
+#define I2T_DISPATCH(X) \
+  switch (d) {          \
+    case 16: X(16);     \
+    case 32: X(32);     \
+    case 64: X(64);     \
+    case 128: X(128);   \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -126,14 +126,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float keep_scale(const Params& p, int row, int col, int plane) {
-  unsigned x = (unsigned)row * 0x9E3779B1u ^ (unsigned)col * 0x85EBCA77u ^
-               (unsigned)plane * 0xC2B2AE3Du ^ p.seed;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x < p.threshold ? p.inv_keep : 0.f;
+  return keep_hash(row, col, plane, p.seed) < p.threshold ? p.inv_keep : 0.f;
 }
 
 // Rows [r0, r0 + 64) of a (rows, D) bf16 matrix into shared memory (row
@@ -1056,22 +1049,6 @@ bool valid(int b, int h, int hk, int sq, int skv) {
 }
 
 }  // namespace
-
-#define I2T_FLASH_ARGS                                                                        \
-  const void *bias, long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq, \
-      int skv, int d, int causal, float scale, int dropout, unsigned seed, unsigned threshold, \
-      float inv_keep, void *stream
-#define I2T_FLASH_PARAMS \
-  make_params(q, k, v, bias, bsb, bsh, bsr, b, h, hk, sq, skv, causal, scale, dropout, seed, \
-              threshold, inv_keep)
-#define I2T_DISPATCH(X) \
-  switch (d) {          \
-    case 16: X(16);     \
-    case 32: X(32);     \
-    case 64: X(64);     \
-    case 128: X(128);   \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 // Out and lse of one forward call: the K/V-resident kernel (skv <=
 // SKV_MAX) with ``groups`` blocks per K/V plane, or the tiled kernel for

@@ -51,6 +51,16 @@
 // next image's mainloop in the registers and shared memory the mainloop
 // leaves; and why z sits in registers, not in shared memory: the tables
 // take that (PERF.md, row 8).
+//
+// The f32 form (frontend_launch_f32: configs with ``precision: 'no'``, the
+// offline synthetic ones, d 64, t 256, din 128): the JAX kernel is
+// dtype-generic, so it runs in f32 here too.  The projector is a SIMT f32
+// tile product (gemm_f32_kernel; wgmma takes f32 only as TF32), then the
+// slab route's kernel instantiated for f32, nothing rounded narrower.
+// What bounds it there: operations and bytes about equal (an image's 4.2
+// MFLOP take 0.063 µs at 67 TFLOP/s of f32 FFMA, its 195 KB in and out
+// 0.058 µs); the tables, read once a call, tip it to bytes at the
+// evaluate batch of 4.
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -89,55 +99,95 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-struct SlabArgs {
-  bf16* out;         // (b, n_cls + t, d); rows n_cls.. hold z on entry
-  const bf16* lnw;   // (t, d)
-  const bf16* lnb;   // (t, d) or null
-  const bf16* wpe;   // (t, d)
-  const bf16* cls;   // (n_cls, d)
+// The slab kernels' operands in the storage type T (bf16, or f32 for the
+// f32 front).
+template <typename T>
+struct SlabArgsT {
+  T* out;         // (b, n_cls + t, d); rows n_cls.. hold z on entry
+  const T* lnw;   // (t, d)
+  const T* lnb;   // (t, d) or null
+  const T* wpe;   // (t, d)
+  const T* cls;   // (n_cls, d)
   int b, t, d, n_cls;
-  int chunk;         // cluster route: slab elements a block takes (a multiple of 8)
+  int chunk;      // cluster route: slab elements a block takes (a multiple of 8)
 };
+using SlabArgs = SlabArgsT<bf16>;
 
-// y = bf16(bf16(LN(z)) + wpe) of 8 consecutive elements at slab offset e.
-__device__ __forceinline__ void pos_add(const SlabArgs& p, const Bf16x8& z, size_t e,
-                                        float mean, float rstd, float y[8]) {
-  const Bf16x8 w = *reinterpret_cast<const Bf16x8*>(p.lnw + e);
-  const Bf16x8 pe = *reinterpret_cast<const Bf16x8*>(p.wpe + e);
-  Bf16x8 b;
-  if (p.lnb != nullptr) b = *reinterpret_cast<const Bf16x8*>(p.lnb + e);
+// 8 consecutive values of T as one (bf16) or two (f32) 16-byte accesses,
+// and the rounding to T at an operation's output (none for f32).
+struct alignas(16) F32x8 {
+  float v[8];
+};
+template <typename T>
+struct Vec8 {
+  using type = Bf16x8;
+};
+template <>
+struct Vec8<float> {
+  using type = F32x8;
+};
+__device__ __forceinline__ float val(bf16 v) { return to_f(v); }
+__device__ __forceinline__ float val(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return rbf(v);
+}
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ T store_as(float v) {
+  return to_bf(v);
+}
+template <>
+__device__ __forceinline__ float store_as<float>(float v) {
+  return v;
+}
+
+// y = T(T(LN(z)) + wpe) of 8 consecutive elements at slab offset e.
+template <typename T>
+__device__ __forceinline__ void pos_add(const SlabArgsT<T>& p, const typename Vec8<T>::type& z,
+                                        size_t e, float mean, float rstd, float y[8]) {
+  using V = typename Vec8<T>::type;
+  const V w = *reinterpret_cast<const V*>(p.lnw + e);
+  const V pe = *reinterpret_cast<const V*>(p.wpe + e);
+  V b;
+  if (p.lnb != nullptr) b = *reinterpret_cast<const V*>(p.lnb + e);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float u = (to_f(z.v[i]) - mean) * rstd * to_f(w.v[i]);
-    if (p.lnb != nullptr) u += to_f(b.v[i]);
-    y[i] = rbf(rbf(u) + to_f(pe.v[i]));
+    float u = (val(z.v[i]) - mean) * rstd * val(w.v[i]);
+    if (p.lnb != nullptr) u += val(b.v[i]);
+    y[i] = round_to<T>(round_to<T>(u) + val(pe.v[i]));
   }
 }
 
-__global__ void __launch_bounds__(SLAB_THREADS) slab_kernel(SlabArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(SLAB_THREADS) slab_kernel(SlabArgsT<T> p) {
+  using V = typename Vec8<T>::type;
   __shared__ float red[33];
   const size_t n = (size_t)p.t * p.d, nv = n / 8;
   const float inv_n = 1.f / (float)n;
-  bf16* img = p.out + (size_t)blockIdx.x * (p.n_cls + p.t) * p.d;
-  bf16* slab = img + (size_t)p.n_cls * p.d;
-  const Bf16x8* zv = reinterpret_cast<const Bf16x8*>(slab);
+  T* img = p.out + (size_t)blockIdx.x * (p.n_cls + p.t) * p.d;
+  T* slab = img + (size_t)p.n_cls * p.d;
+  const V* zv = reinterpret_cast<const V*>(slab);
 
   for (size_t i = threadIdx.x; i < (size_t)p.n_cls * p.d / 8; i += blockDim.x)
-    reinterpret_cast<Bf16x8*>(img)[i] = reinterpret_cast<const Bf16x8*>(p.cls)[i];
+    reinterpret_cast<V*>(img)[i] = reinterpret_cast<const V*>(p.cls)[i];
 
   float s = 0.f;
   for (size_t i = threadIdx.x; i < nv; i += blockDim.x) {
-    const Bf16x8 z = zv[i];
+    const V z = zv[i];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s += to_f(z.v[j]);
+    for (int j = 0; j < 8; ++j) s += val(z.v[j]);
   }
   const float mean1 = block_sum(s, red) * inv_n;
   s = 0.f;
   for (size_t i = threadIdx.x; i < nv; i += blockDim.x) {
-    const Bf16x8 z = zv[i];
+    const V z = zv[i];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float e = to_f(z.v[j]) - mean1;
+      const float e = val(z.v[j]) - mean1;
       s += e * e;
     }
   }
@@ -162,16 +212,69 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_kernel(SlabArgs p) {
   // in place: each thread reads and then writes only its own vectors
   for (size_t i = threadIdx.x; i < nv; i += blockDim.x) {
     pos_add(p, zv[i], i * 8, mean1, rstd1, y);
-    const Bf16x8 w = *reinterpret_cast<const Bf16x8*>(p.lnw + i * 8);
-    Bf16x8 b, o;
-    if (p.lnb != nullptr) b = *reinterpret_cast<const Bf16x8*>(p.lnb + i * 8);
+    const V w = *reinterpret_cast<const V*>(p.lnw + i * 8);
+    V b, o;
+    if (p.lnb != nullptr) b = *reinterpret_cast<const V*>(p.lnb + i * 8);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float u = (y[j] - mean2) * rstd2 * to_f(w.v[j]);
-      if (p.lnb != nullptr) u += to_f(b.v[j]);
-      o.v[j] = to_bf(u);
+      float u = (y[j] - mean2) * rstd2 * val(w.v[j]);
+      if (p.lnb != nullptr) u += val(b.v[j]);
+      o.v[j] = store_as<T>(u);
     }
-    reinterpret_cast<Bf16x8*>(slab)[i] = o;
+    reinterpret_cast<V*>(slab)[i] = o;
+  }
+}
+
+// The f32 front's projector: z = x·Wp (+ bp) for the (b·t, din) f32 rows of
+// x, into rows n_cls.. of each image's output rows.  A 64 x 64 output tile
+// a block of 256 threads, 4 x 4 a thread, x and Wp staged in 16-deep
+// slices; true f32 products (FFMA), the bias added after the sum, as the
+// plain version adds it.  At the offline configs' front (b·t = 256 rows an
+// image, din 128, d 64) the product is 4.2 MFLOP an image.
+constexpr int G32_TILE = 64, G32_DEPTH = 16, G32_THREADS = 256;
+
+__global__ void __launch_bounds__(G32_THREADS) gemm_f32_kernel(const float* x, const float* w,
+                                                               const float* bias, float* out,
+                                                               int rows, int t, int n_cls,
+                                                               int din, int d) {
+  __shared__ float xs[G32_DEPTH][G32_TILE + 4];  // x transposed: [k][row]
+  __shared__ float ws[G32_DEPTH][G32_TILE + 4];
+  const int m0 = blockIdx.y * G32_TILE, n0 = blockIdx.x * G32_TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < din; k0 += G32_DEPTH) {
+    for (int i = threadIdx.x; i < G32_TILE * G32_DEPTH; i += G32_THREADS) {
+      const int mm = i / G32_DEPTH, kk = i % G32_DEPTH, gm = m0 + mm, gk = k0 + kk;
+      xs[kk][mm] = gm < rows && gk < din ? x[(size_t)gm * din + gk] : 0.f;
+      const int kw = i / G32_TILE, nn = i % G32_TILE, gkw = k0 + kw, gn = n0 + nn;
+      ws[kw][nn] = gkw < din && gn < d ? w[(size_t)gkw * d + gn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < G32_DEPTH; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = xs[kk][ty + 16 * i];
+        b[i] = ws[kk][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= rows) continue;
+    float* dst = out + ((size_t)(gm / t) * (n_cls + t) + n_cls + gm % t) * d;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn < d) dst[gn] = bias != nullptr ? acc[i][j] + bias[gn] : acc[i][j];
+    }
   }
 }
 
@@ -417,7 +520,7 @@ extern "C" int frontend_launch(const void* x, const void* wp, const void* bp, co
   p.n_cls = n_cls;
   p.chunk = chunk;
   if (chunk == 0) {
-    slab_kernel<<<b, SLAB_THREADS, 0, st>>>(p);
+    slab_kernel<bf16><<<b, SLAB_THREADS, 0, st>>>(p);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -426,5 +529,37 @@ extern "C" int frontend_launch(const void* x, const void* wp, const void* bp, co
   if (err != 0) return err;
   err = (int)cudaLaunchKernelEx(&cfg, cluster_slab_kernel, p);
   if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
+// The f32 front: x (b, t, din) → out (b, n_cls + t, d), all f32; operands
+// as frontend_launch's.  gemm_f32_kernel, then the slab route's kernel
+// instantiated for f32 (d a multiple of 8).
+extern "C" int frontend_launch_f32(const void* x, const void* wp, const void* bp,
+                                   const void* lnw, const void* lnb, const void* wpe,
+                                   const void* cls, void* out, int b, int t, int din, int d,
+                                   int n_cls, void* stream) {
+  if (b <= 0 || t <= 0 || din <= 0 || n_cls < 0 || d <= 0 || d % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * t;
+  gemm_f32_kernel<<<dim3((d + G32_TILE - 1) / G32_TILE, (rows + G32_TILE - 1) / G32_TILE),
+                    G32_THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bp),
+      static_cast<float*>(out), rows, t, n_cls, din, d);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  SlabArgsT<float> p;
+  p.out = static_cast<float*>(out);
+  p.lnw = static_cast<const float*>(lnw);
+  p.lnb = static_cast<const float*>(lnb);
+  p.wpe = static_cast<const float*>(wpe);
+  p.cls = static_cast<const float*>(cls);
+  p.b = b;
+  p.t = t;
+  p.d = d;
+  p.n_cls = n_cls;
+  p.chunk = 0;
+  slab_kernel<float><<<b, SLAB_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,10 @@ def decoder_from_config(config, space_for_prompt: int = 0, device=None):
     """The decoder a config describes (pretrained scratch-decoder weights
     and LoRA on the scratch decoder are not ported)."""
     if isinstance(config, TransformerDecoderConfig):
+        if config.pretrained_model is not None or config.lora_spec is not None:
+            raise NotImplementedError(
+                "the GPT-2-initialised scratch decoder and LoRA on it are not "
+                "ported yet (ROADMAP queue 1 item 4)")
         return TransformerDecoder(config, space_for_prompt, device)
     if isinstance(config, HuggingfaceDecoderConfig):
         from image2text_torch.models.hf_decoders.factory import (

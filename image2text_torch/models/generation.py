@@ -11,8 +11,14 @@ with ``prefix_in_decode`` (the plain-causal HF decoders) prefills
 branch does.  The sampler reads the last logits cast to the compute dtype
 (the encoder output's), as in JAX.
 
-Not yet ported: the bidirectional-decoder branch and the full-reforward
-fallback for windows where a sparse layer's selected count crosses 2.
+Each step samples as the JAX package's ``_sample_step``: the fused n-gram
+ban + top-k sampler where it applies (greedy, or top-k without nucleus),
+else the bans into the f32 logits, then greedy argmax or
+``sampling.sample_logits`` (top-k, nucleus).
+
+Not yet ported (ROADMAP queue 1 item 2): the bidirectional-decoder branch
+and the full-reforward fallback for windows where a sparse layer's
+selected count crosses 2; both raise.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ from typing import Optional
 import torch
 
 from image2text_torch.models.kv_cache import CacheRef, KVCache
-from image2text_torch.models.sampling import sample_topk_with_ngram
+from image2text_torch.models.sampling import (apply_no_repeat_ngram,
+                                              sample_logits,
+                                              sample_topk_with_ngram)
 from image2text_torch.ops.preprocess import resize_normalize_on_device
 
 
@@ -64,12 +72,29 @@ def precompute_cross_kv(model, cross: Optional[torch.Tensor]):
     return model.decoder.precompute_cross_kv(cross)
 
 
+def sample_step(model, ids_buf: torch.Tensor, cur_len: int,
+                last_logits: torch.Tensor, generator, temperature,
+                top_k: Optional[int], nucleus_p: Optional[float]):
+    """The next ids (B,) from the last logits (JAX ``_sample_step``)."""
+    greedy = temperature is None or temperature <= 0
+    if nucleus_p is None and (greedy or top_k is not None):
+        return sample_topk_with_ngram(last_logits, ids_buf, cur_len,
+                                      model.no_repeat_n_grams, generator,
+                                      temperature, top_k)
+    logits = apply_no_repeat_ngram(last_logits.float(), ids_buf, cur_len,
+                                   model.no_repeat_n_grams)
+    if greedy:
+        return logits.argmax(dim=-1)
+    return sample_logits(logits, generator, temperature, top_k, nucleus_p)
+
+
 @torch.no_grad()
 def generate(model, images, prompt_ids: torch.Tensor,
              max_new_tokens: int = 128, temperature: float = 1.0,
              top_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             encoder_output: Optional[torch.Tensor] = None) -> torch.Tensor:
+             encoder_output: Optional[torch.Tensor] = None,
+             nucleus_p: Optional[float] = None) -> torch.Tensor:
     """Sample captions: (B, prompt_len + max_new_tokens) ids.  Runs on the
     model's device; inputs are moved there."""
     dev = model.device
@@ -81,13 +106,10 @@ def generate(model, images, prompt_ids: torch.Tensor,
     if max_new_tokens > blk_size - t0:
         raise ValueError(f"max_new_tokens={max_new_tokens} exceeds the "
                          f"decoder window ({blk_size} - prompt {t0})")
-    greedy = temperature is None or temperature <= 0
-    if not greedy and top_k is None:
-        raise NotImplementedError("full-vocabulary and nucleus sampling are "
-                                  "not ported yet: pass top_k")
     if not model.decoder.is_causal:
         raise NotImplementedError("the bidirectional-decoder branch of "
-                                  "generate is not ported yet")
+                                  "generate is not ported yet (ROADMAP "
+                                  "queue 1 item 2)")
     if encoder_output is None:
         encoder_output = model.encoder(images.to(dev))
     bs = encoder_output.shape[0]
@@ -102,16 +124,16 @@ def generate(model, images, prompt_ids: torch.Tensor,
     if exact is not None and not exact(off + t0, off + total):
         raise NotImplementedError(
             "this window needs the full-reforward fallback (a sparse layer's "
-            "selected count crosses 2), which is not ported yet")
+            "selected count crosses 2), which is not ported yet (ROADMAP "
+            "queue 1 item 2)")
     cross_kv = precompute_cross_kv(model, cross)
     logits, cache = prefill(model, encoder_output, prompt_ids, total,
                             cross_kv)
     last = logits[:, -1].to(cdt)
     for i in range(max_new_tokens):
         cur = t0 + i
-        nxt = sample_topk_with_ngram(last, ids_buf, cur,
-                                     model.no_repeat_n_grams, generator,
-                                     temperature, top_k)
+        nxt = sample_step(model, ids_buf, cur, last, generator,
+                          temperature, top_k, nucleus_p)
         ids_buf[:, cur] = nxt
         logits, cache = decoder_step(model, nxt[:, None], cache, off + cur,
                                      cross, cross_kv)

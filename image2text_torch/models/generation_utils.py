@@ -143,7 +143,8 @@ class BeamSearchTokenGenerator:
         if exact is not None and not exact(off + t0, off + total):
             raise NotImplementedError(
                 "this window needs the full-reforward fallback (a sparse "
-                "layer's selected count crosses 2), which is not ported yet")
+                "layer's selected count crosses 2), which is not ported yet "
+                "(ROADMAP queue 1 item 2)")
         cross_kv = precompute_cross_kv(model, cross)
         logits, cache = prefill(model, x, ids_buf[:, :, :t0].reshape(
             bw * bs, t0), total, cross_kv)

@@ -1,7 +1,7 @@
 """Layers of the port, the flagship subset of ``image2text_tpu/models/layers.py``:
-MLP, ConvMLP, MoELinear, _MoEMLP, MultiQueryAttention and the
+MLP, ConvMLP, MoELinear, _MoEMLP, _MLP, MultiQueryAttention and the
 TransformerBlock: sparse, with its lazy layout path and its cached decode,
-or dense (its non-cached paths).
+or dense, with its cached decode.
 
 Parameter and buffer names reproduce the JAX package's (torch state-dict
 names), so one exported ``.npz`` feeds both packages.
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import (MoEConfig, SelfAttentionConfig,
+from image2text_torch.configs.models import (MLPConfig, MoEConfig,
+                                             SelfAttentionConfig,
                                              SelfAttentionType,
                                              TransformerConfig)
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
@@ -202,6 +203,24 @@ class _MoEMLP(nn.Module):
         return dropout(h, self.dropout_rate, ctx)[0]
 
 
+class _MLP(nn.Module):
+    """Transformer-block FFN with GPT-2 naming (c_fc/c_proj): two Linears
+    around a tanh GELU, the output dropped in training.  No kernel: as in
+    the JAX package, whose eval block kernels take MoE blocks only."""
+
+    def __init__(self, n_embd: int, bias: bool, config: MLPConfig,
+                 device=None, dropout_rate: float = 0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        hidden = int(config.ff_mult * n_embd)
+        self.c_fc = Linear(n_embd, hidden, bias, device)
+        self.c_proj = Linear(hidden, n_embd, bias, device)
+
+    def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
+        h = self.c_proj(gelu_tanh(self.c_fc(x)))
+        return dropout(h, self.dropout_rate, ctx)[0]
+
+
 class MultiQueryAttention(nn.Module):
     """Multi-query attention: one shared K/V head."""
 
@@ -283,10 +302,10 @@ class TransformerBlock(nn.Module):
         self.ln_1 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
         self.attn = MultiQueryAttention(acfg, device)
         self.ln_2 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
-        if not isinstance(config.rotator_config, MoEConfig):
-            raise NotImplementedError("only the MoE FFN is ported so far")
-        self.mlp = _MoEMLP(acfg.n_embd, acfg.bias, config.rotator_config,
-                           device, dropout_rate=acfg.dropout)
+        ffn = (_MoEMLP if isinstance(config.rotator_config, MoEConfig)
+               else _MLP)
+        self.mlp = ffn(acfg.n_embd, acfg.bias, config.rotator_config, device,
+                       dropout_rate=acfg.dropout)
         self.is_cross_attn = config.is_cross_attn
         if config.is_cross_attn:
             self.cross_attn = MultiheadAttention(
@@ -460,16 +479,24 @@ class TransformerBlock(nn.Module):
     def _serving(self, attn_mask, cross_attn_inputs, cross_kv, ctx,
                  use_flash) -> bool:
         """Whether a non-cached forward takes the eval block kernel: eval,
-        no mask, no cross-attention, not causal (JAX layers.py:569-571)."""
+        no mask, no cross-attention, not causal (JAX layers.py:569-571),
+        and an MoE FFN (the JAX gates take MoE blocks only, behind
+        ``_gate_and_weights``; an ``_MLP`` block runs the plain body)."""
         return (use_flash and not ctx.train and attn_mask is None
                 and cross_attn_inputs is None and cross_kv is None
-                and not self.is_causal)
+                and not self.is_causal and isinstance(self.mlp, _MoEMLP))
 
     def _dense_forward(self, x, cross_attn_inputs, attn_mask, kv_cache,
                        cross_kv, layout, want_lazy, ctx, use_flash):
         if kv_cache is not None:
-            raise NotImplementedError("the dense block's cached decode is "
-                                      "not ported yet")
+            # cached decode (JAX layers.py:567): the causal bias over the
+            # cache's slots comes from CacheRef.update, which sees the true
+            # key length, so the body runs without the causal flag
+            if layout is not None or want_lazy:
+                raise ValueError("the lazy layout is a non-cached path")
+            return self._body(x, cross_attn_inputs, cross_kv, mask=attn_mask,
+                              kv_cache=kv_cache, ctx=ctx,
+                              use_flash=use_flash)
         if layout is not None:
             x = canonicalize(x, layout)
         if self._serving(attn_mask, cross_attn_inputs, cross_kv, ctx,

@@ -1,7 +1,9 @@
-"""Sampling of the port (the flagship subset of
-``image2text_tpu/models/sampling.py``): no-repeat-n-gram bans, the exact
-ban → top-k → temperature → categorical pipeline, and beam search's
-candidate scoring and Gumbel-top-k sampling.
+"""Sampling of the port (``image2text_tpu/models/sampling.py`` but for its
+approximate top-k): no-repeat-n-gram bans, the exact ban → top-k →
+temperature → categorical pipeline, the reference's temperature → top-k →
+nucleus → categorical pipeline (:func:`sample_logits`, as the trainer's
+qualitative eval samples), and beam search's candidate scoring and
+Gumbel-top-k sampling.
 
 The JAX samplers pull a top-(k + margin) head and fall back to a wider
 pull under ``lax.cond``; that split is a TPU optimisation, not semantics.
@@ -123,6 +125,55 @@ def apply_top_k(logits: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
         return logits
     kth = topk(logits, min(top_k, logits.shape[-1]))[0][..., -1:]
     return logits.masked_fill(logits < kth, NEG_INF)
+
+
+def nucleus_sample(probs: torch.Tensor, nucleus_p: float,
+                   generator: Optional[torch.Generator] = None,
+                   gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-p sample ids from probabilities (B, V), the reference's
+    semantics: sort descending (ties to the lowest index), keep the prefix
+    whose cumulative mass is at most max(p, p₀), renormalise, draw.
+    ``gumbel`` (B, V), over the sorted positions, replaces the noise drawn
+    from ``generator``.  The JAX package sorts only a top-2048 head where
+    that provably holds the prefix, a TPU optimisation of the same
+    function."""
+    sorted_probs, order = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    keep = cum <= torch.maximum(torch.as_tensor(nucleus_p, dtype=cum.dtype),
+                                sorted_probs[..., :1])
+    trunc = torch.where(keep, sorted_probs, torch.zeros_like(sorted_probs))
+    logp = torch.log(trunc.clamp_min(1e-30)).masked_fill(~keep, NEG_INF)
+    if gumbel is None:
+        gumbel = gumbel_noise(logp.shape, generator, logp.device)
+    choice = (logp + gumbel).argmax(dim=-1)
+    return order.gather(-1, choice[:, None])[:, 0]
+
+
+def sample_logits(logits: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  temperature: float = 1.0, top_k: Optional[int] = None,
+                  nucleus_p: Optional[float] = None,
+                  gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's sampling pipeline on last-step logits (B, V):
+    top-k alone draws among the k largest at ``temperature``; otherwise
+    the logits at ``temperature``, :func:`apply_top_k` (ties at the k-th
+    kept), then :func:`nucleus_sample` or a draw over the whole row.
+    ``gumbel`` replaces the noise of the draw: (B, k), or (B, V) (over the
+    sorted positions for nucleus)."""
+    if top_k is not None and nucleus_p is None:
+        tv, ti = topk(logits, min(top_k, logits.shape[-1]))
+        if gumbel is None:
+            gumbel = gumbel_noise(tv.shape, generator, logits.device)
+        choice = (tv.float() / temperature + gumbel).argmax(dim=-1)
+        return ti.gather(-1, choice[:, None])[:, 0]
+    logits = apply_top_k(logits.float() / temperature, top_k)
+    if nucleus_p is not None:
+        return nucleus_sample(torch.softmax(logits, dim=-1), nucleus_p,
+                              generator, gumbel)
+    if gumbel is None:
+        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+    return (logits + gumbel).argmax(dim=-1)
 
 
 def gumbel_topk_sample(log_probs: torch.Tensor, k: int,

@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import VisionEncoderDecoderConfig
+from image2text_torch.configs.models import (VisionEncoderDecoderConfig,
+                                             VisionTransformerEncoderConfig)
 from image2text_torch.models.decoder import decoder_from_config
 from image2text_torch.models.encoder import VisionTransformerEncoder
 from image2text_torch.nn.core import EVAL_CTX, Ctx, init_parameters
@@ -49,6 +50,10 @@ class VisionEncoderDecoder(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
+        if not isinstance(config.vision_encoder_config,
+                          VisionTransformerEncoderConfig):
+            raise NotImplementedError("the pretrained-ViT encoder is not "
+                                      "ported yet (ROADMAP queue 1 item 4)")
         encoder = VisionTransformerEncoder(config.vision_encoder_config, device)
         self.space_for_prompt = (encoder.num_outputs
                                  if config.use_soft_prompting else 0)
@@ -71,10 +76,18 @@ class VisionEncoderDecoder(nn.Module):
         return self.decoder.transformer.wte.weight.device
 
     def init_weights(self, seed: int = 0) -> "VisionEncoderDecoder":
-        """Random weights from the port's own initialisers, seeded."""
+        """Random weights from the port's own initialisers, seeded; then,
+        where the config names a ``chkpt_path``, that checkpoint's keys
+        over them (the JAX ``init``'s partial restore)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         init_parameters(self, gen)
+        if self.config.chkpt_path is not None:
+            from image2text_torch.utils.checkpoint import (
+                update_params_from_partial_checkpoint)
+
+            update_params_from_partial_checkpoint(self,
+                                                  self.config.chkpt_path)
         return self
 
     @property

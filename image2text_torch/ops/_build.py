@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List, Tuple, Union
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "image2text_torch"
 SOURCES = ("fused_moe", "fused_block", "flash_attention", "int4_matmul",
-           "fused_frontend", "topk_mask")
+           "fused_frontend", "topk_mask", "flash_attention_f32")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v", "-ldl"]

@@ -32,10 +32,17 @@ Dropout is a counter hash of (row, col, plane = batch·h + head, seed):
 the plain versions and the JAX kernels all drop the same probabilities,
 and the backward regenerates the forward's mask from the seed alone.
 
+The wrappers dispatch on the dtype, as the JAX kernels are generic in it:
+bf16 operands take the kernels of ``csrc/flash_attention.cu`` (their
+plans :func:`fwd_plan`, :func:`bwd_plan`), f32 operands (the configs with
+``precision: 'no'``) the f32 kernels of ``csrc/flash_attention_f32.cu``,
+which compute every product in true f32 and round nothing narrower (one
+route for every shape; they count no visited pairs).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises on what the kernel does not take (a head
 dim other than 16, 32, 64 or 128, K/V heads other than 1 or h, a bias
-whose query axis is neither 1 nor sq, a dtype other than bf16).
+whose query axis is neither 1 nor sq, a dtype other than bf16 or f32).
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from image2text_torch.utils.device import sm_count
 
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _M32 = 0xFFFFFFFF
 
 
@@ -171,8 +179,9 @@ def flash_backward_plain(q, k, v, bias, causal: bool, g, lse, dvec,
 # -- kernel wrappers ----------------------------------------------------------
 
 def _check(kernel: str, q, k, v, bias):
+    dtype = q.dtype if q.dtype in KERNEL_DTYPES else torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_operand(kernel, name, t, torch.bfloat16)
+        _build.check_operand(kernel, name, t, dtype)
     b, h, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
@@ -208,13 +217,17 @@ _COMMON_TYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
                  + [ctypes.c_uint] * 2 + [ctypes.c_float, ctypes.c_void_p])
 # leading arguments of each entry point: its pointers, then the groups
+# (the f32 kernels take none)
 _LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int],
-               "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int]}
+               "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int],
+               "flash_fwd_f32_launch": [ctypes.c_void_p] * 5,
+               "flash_bwd_f32_launch": [ctypes.c_void_p] * 9}
 
 
 def _launch(name: str, *args):
-    fn = _build.entry_point("flash_attention", name,
-                            _LEAD_TYPES[name] + _COMMON_TYPES)
+    source = ("flash_attention_f32" if name.endswith("_f32_launch")
+              else "flash_attention")
+    fn = _build.entry_point(source, name, _LEAD_TYPES[name] + _COMMON_TYPES)
     _build.check(fn(*args), name)
 
 
@@ -238,18 +251,24 @@ def fwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
 
 def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
               seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward: (out, lse).  The CUDA kernels (:func:`fwd_plan`) for CUDA
-    tensors, the plain version for CPU tensors."""
+    """Forward: (out, lse).  The CUDA kernels (bf16: :func:`fwd_plan`;
+    f32: the f32 kernel) for CUDA tensors, the plain version for CPU
+    tensors."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, bias, causal, rate, seed)
     bias, strides = _check("flash_fwd", q, k, v, bias)
     b, h, sq, d = q.shape
-    _, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2], sm_count(q.device))
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), groups,
-            *_common_args(q, k, bias, strides, causal, rate, seed))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    common = _common_args(q, k, bias, strides, causal, rate, seed)
+    if q.dtype == torch.float32:
+        _launch("flash_fwd_f32_launch", *ptrs, *common)
+    else:
+        _, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
+                             sm_count(q.device))
+        _launch("flash_fwd_launch", *ptrs, groups, *common)
     flash_fwd.launches += 1
     return out, lse
 
@@ -290,19 +309,27 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
     out)``; multi-query dK/dV summed over the query heads.  The CUDA
     kernels (:func:`bwd_plan`) for CUDA tensors, the plain version for CPU
     tensors.  ``pairs``, an int32 CUDA tensor of one element, gets the
-    resident kernel's visited (query tile, key slice) pairs added."""
+    resident kernel's visited (query tile, key slice) pairs added (the
+    tiled and the f32 kernels add none)."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
                                     rate, seed)
     bias, strides = _check("flash_bwd", q, k, v, bias)
-    _build.check_operand("flash_bwd", "g", g, torch.bfloat16)
+    _build.check_operand("flash_bwd", "g", g, q.dtype)
     _build.check_operand("flash_bwd", "lse", lse, torch.float32)
     _build.check_operand("flash_bwd", "dvec", dvec, torch.float32)
     _build.check_operand("flash_bwd", "pairs", pairs, torch.int32)
     b, h, sq, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.float32:
+        P = _build.ptr
+        _launch("flash_bwd_f32_launch", P(q), P(k), P(v), P(g), P(lse),
+                P(dvec), P(dq), P(dk), P(dv),
+                *_common_args(q, k, bias, strides, causal, rate, seed))
+        flash_bwd.launches += 1
+        return dq, dk, dv
     _, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
                          sm_count(q.device))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     part = (torch.empty(2 * groups * k.numel(), dtype=torch.float32,
                         device=q.device) if groups > 1 else None)
     P = _build.ptr

@@ -21,8 +21,14 @@ image, persistent, the tables held on the chip) where an image's slab
 splits into SLAB_CLUSTER chunks of CLUSTER_MIN_CHUNK to SLAB_MAX_CHUNK
 elements (the flagship's front); the slab route (one block an image over
 device memory) elsewhere.  A plan of the cluster route runs any slab of
-at most SLAB_CLUSTER x SLAB_MAX_CHUNK elements, the slab route any.  On a CPU tensor the wrapper computes the plain version;
-on a CUDA tensor it launches the kernels or raises.
+at most SLAB_CLUSTER x SLAB_MAX_CHUNK elements, the slab route any.
+
+f32 operands (the configs with ``precision: 'no'``; the JAX kernel is
+generic in the dtype) take the f32 form: a SIMT f32 projector product and
+the slab route's kernel instantiated for f32 (:func:`launch_front_f32`).
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
+it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -128,25 +134,52 @@ def launch_front(x: torch.Tensor, w: FrontendWeights,
     return out
 
 
+# frontend_launch_f32(x, wp, bp, lnw, lnb, wpe, cls, out, b, t, din, d,
+# n_cls, stream)
+_ARGTYPES_F32 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def launch_front_f32(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
+    """The f32 form on checked CUDA operands (see :func:`fused_frontend`):
+    the SIMT projector product, then the slab kernel in f32."""
+    b, t, din = x.shape
+    d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    out = torch.empty(b, n_cls + t, d, dtype=x.dtype, device=x.device)
+    fn = _build.entry_point("fused_frontend", "frontend_launch_f32",
+                            _ARGTYPES_F32)
+    err = fn(*[_build.ptr(a) for a in (x, w.w_p, w.b_p, w.ln_w, w.ln_b, w.wpe,
+                                       w.cls, out)],
+             b, t, din, d, n_cls, _build.stream(x.device))
+    _build.check(err, "fused_frontend (f32)")
+    fused_frontend.launches += 1
+    return out
+
+
 def fused_frontend(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
     """The (b, n_cls + t, d) block-loop input from the (b, t, din) patch
-    stream ``x``: the CUDA kernels for a CUDA tensor (the route of
-    :func:`front_plan`), the plain version for a CPU tensor."""
+    stream ``x``: the CUDA kernels for a CUDA tensor (bf16: the route of
+    :func:`front_plan`; f32: :func:`launch_front_f32`), the plain version
+    for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_frontend_plain(x, w)
+    f32 = x.dtype == torch.float32
     for name, t in [("x", x)] + list(zip(w._fields, w)):
-        _build.check_operand("fused_frontend", name, t, torch.bfloat16)
+        _build.check_operand("fused_frontend", name, t,
+                             torch.float32 if f32 else torch.bfloat16)
     b, t, din = x.shape
     d = w.w_p.shape[1]
     n_cls = w.cls.shape[0]
-    if (din % 32 or d % 16 or w.w_p.shape != (din, d)
+    need = "d % 8 == 0" if f32 else "din % 32 == 0, d % 16 == 0"
+    if ((d % 8 if f32 else din % 32 or d % 16) or w.w_p.shape != (din, d)
             or w.ln_w.shape != (t, d) or w.wpe.shape != (t, d)
             or w.cls.shape != (n_cls, d)
             or (w.ln_b is not None and w.ln_b.shape != (t, d))
             or (w.b_p is not None and w.b_p.shape != (d,))):
         raise ValueError(f"fused_frontend kernel: unsupported shape b={b} "
-                         f"t={t} din={din} d={d} n_cls={n_cls} (needs din "
-                         "% 32 == 0, d % 16 == 0 and (t, d) tables)")
+                         f"t={t} din={din} d={d} n_cls={n_cls} (needs "
+                         f"{need} and (t, d) tables)")
+    if f32:
+        return launch_front_f32(x, w)
     return launch_front(x, w, front_plan(t, d))
 
 

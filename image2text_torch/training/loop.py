@@ -16,11 +16,16 @@
 
 PyTorch updates in place: the parameters and the optimizer's moments are
 the train state, and the step function returns only the metrics.
-Data parallelism is not ported yet.
+``Trainer.save_state``/``restore_state`` write and read that state with
+the step (``training/checkpoint.py``); ``train_loop`` writes the weights
+to ``chkpt_fname`` after its steps (``utils/checkpoint.py``, only the
+optimizer's ``target_modules`` where they are given), traces the first
+epoch's steps 10–12 into ``profile_dir`` and reports steps/s and tokens/s
+(``utils/profiling.py``).  Data parallelism is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -31,6 +36,7 @@ from image2text_torch.nn.core import Ctx
 from image2text_torch.training.optimizer import build_optimizer
 from image2text_torch.training.remat import check_remat_policy
 from image2text_torch.training.wrapper import ModelTrainerWrapper
+from image2text_torch.utils.patterns import PatternMatcher
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -123,21 +129,32 @@ class Trainer:
             wrapper, self.optimizer, config.gradient_accumulation_steps,
             config.precision, use_flash)
         self._val_step = make_val_step(wrapper, config.precision, use_flash)
+        self.matchers = [PatternMatcher(oc.target_modules)
+                         for oc in config.optimizers
+                         if oc.target_modules is not None]
         self.step = 0
         self.seed = config.seed
+        # every step's metrics, left on the device (no synchronisation)
+        self.history: List[Dict[str, torch.Tensor]] = []
 
     def _batch(self, images, labels):
         return (torch.as_tensor(np.asarray(images), device=self.device),
                 torch.as_tensor(np.asarray(labels), device=self.device))
 
     def train_loop(self, train_iter: Iterator, epoch: int,
+                   chkpt_fname: Optional[str] = None,
                    log_every: int = 20) -> bool:
-        """Up to ``num_steps`` steps (100 by default); True when the
-        iterator ran out."""
+        """Up to ``num_steps`` steps (100 by default), then the weights to
+        ``chkpt_fname``; True when the iterator ran out."""
+        from image2text_torch.utils.profiling import Throughput, TraceWindow
+
         cfg = self.config
         num_steps = 100 if cfg.num_steps is None else cfg.num_steps
         stop = False
+        meter = Throughput()
+        trace = TraceWindow(cfg.profile_dir if epoch == 0 else None)
         for step in range(num_steps):
+            trace.step(step)
             try:
                 images, labels = next(train_iter)
             except StopIteration:
@@ -145,18 +162,49 @@ class Trainer:
                 break
             metrics = self._train_step(*self._batch(images, labels),
                                        self.seed, self.step)
+            self.history.append(metrics)
             self.step += 1
+            meter.update(items=int(np.prod(np.shape(labels))))
             if (step + 1) % log_every == 0 or step == num_steps - 1:
                 values = {k: float(v) for k, v in metrics.items()}
-                print(f"epoch {epoch} step {step + 1}/{num_steps} {values}",
-                      flush=True)
+                print(f"epoch {epoch} step {step + 1}/{num_steps} {values} "
+                      f"({meter.steps_per_sec:.2f} steps/s, "
+                      f"{meter.items_per_sec:.0f} tok/s)", flush=True)
                 if self.logging_callback is not None:
                     self.logging_callback(values, batch=step, epoch=epoch)
+        trace.close()
         if (cfg.reset_moco_after_k_epochs is not None
                 and (epoch + 1) in cfg.reset_moco_after_k_epochs
                 and self.wrapper.is_momentum):
             self.wrapper.copy_momentum_params()
+        if chkpt_fname is not None:
+            from image2text_torch.utils.checkpoint import save_checkpoint
+
+            save_checkpoint(self.wrapper.model, chkpt_fname,
+                            matchers=self.matchers or None)
         return stop
+
+    # -- full-state resume ---------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """The train state (weights, optimizer, step, seed) into ``path``."""
+        from image2text_torch.training.checkpoint import save_train_state
+
+        save_train_state(path, dict(
+            wrapper=self.wrapper.state_dict(),
+            optimizer=self.optimizer.state_dict(), step=self.step,
+            seed=self.seed))
+
+    def restore_state(self, path: str) -> None:
+        """The train state :meth:`save_state` wrote into ``path``."""
+        from image2text_torch.training.checkpoint import restore_train_state
+
+        state = restore_train_state(path, self.device)
+        if state["seed"] != self.seed:
+            raise ValueError(f"{path} holds a run of seed {state['seed']}, "
+                             f"not {self.seed}")
+        self.wrapper.load_state_dict(state["wrapper"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = state["step"]
 
     def val_loop(self, val_iter: Iterator, epoch: int):
         """(mean loss, mean metrics) over ``num_val_steps`` batches; the

@@ -54,6 +54,13 @@ class TokenizerInfo:
         self.mask_token_id = mask_token_id
         self.vocab_size = vocab_size
 
+    @classmethod
+    def from_tokenizer(cls, tok) -> "TokenizerInfo":
+        return cls(eos_token_id=tok.eos_token_id,
+                   bos_token_id=tok.bos_token_id,
+                   mask_token_id=getattr(tok, "mask_token_id", None),
+                   vocab_size=tok.vocab_size)
+
 
 class ModelTrainerWrapper(nn.Module):
     def __init__(self, model_config: VisionEncoderDecoderConfig,

@@ -1,4 +1,6 @@
-"""Weight bridge between the JAX package's flat state dict and the port.
+"""Weight bridge between the JAX package's flat state dict and the port,
+and the port's weight checkpoints (counterpart of
+``image2text_tpu/utils/checkpoint.py``).
 
 ``image2text_tpu/utils/checkpoint.py::export_state_dict`` writes torch
 state-dict names: stacked MoE experts split into
@@ -10,10 +12,19 @@ the same key set, shapes and dtypes from the port, and with ``grads=True``
 the parameters' gradients under the same keys (to hold them against the
 JAX gradient tree's export).  The sparse-selection index buffers are the
 port's own, derived from the config: they are compared, never copied.
+
+:func:`save_checkpoint` writes that key set as the ``.npz`` the JAX
+package's ``load_state_dict`` reads (optionally only the parameters the
+optimizer's ``target_modules`` patterns name, and the buffers), and
+:func:`update_params_from_partial_checkpoint` is the JAX package's
+tolerant restore: the keys a checkpoint has overwrite the model's, the
+rest keep their values.  So a checkpoint goes both ways.
 """
 from __future__ import annotations
 
-from typing import Dict
+import io
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -72,10 +83,11 @@ def state_dict_numpy(model: nn.Module,
 
 
 @torch.no_grad()
-def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
-    """Fill every parameter and buffer of ``model`` from the JAX export
-    ``sd`` ({key: ndarray}).  Unknown keys, shape mismatches and missing
-    keys raise; the sparse-selection buffers must equal the port's own."""
+def _assign(model: nn.Module, sd: Dict[str, np.ndarray]) -> set:
+    """Copy every key of ``sd`` into ``model`` (an alias into its source
+    where the source is absent); returns what was filled.  Unknown keys
+    and shape mismatches raise; the sparse-selection buffers must equal
+    the port's own."""
     tensors = _tensors(model)
     aliases = _tied_aliases(model)
     joins = {}
@@ -85,10 +97,13 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
     filled = set()
     for key, value in sd.items():
         if key in aliases:
-            if not np.array_equal(value, sd[aliases[key]]):
+            if aliases[key] not in sd:
+                key = aliases[key]
+            elif not np.array_equal(value, sd[aliases[key]]):
                 raise ValueError(f"tied alias {key} differs from "
                                  f"{aliases[key]}")
-            continue
+            else:
+                continue
         if key in joins:
             stacked, i = joins[key]
             dst = tensors[stacked][i]
@@ -107,6 +122,15 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
                 raise ValueError(f"buffer {key} differs from the port's")
             continue
         dst.copy_(src.to(dst.dtype))
+    return filled
+
+
+def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
+    """Fill every parameter and buffer of ``model`` from the JAX export
+    ``sd`` ({key: ndarray}).  Unknown keys, shape mismatches and missing
+    keys raise; the sparse-selection buffers must equal the port's own."""
+    filled = _assign(model, sd)
+    tensors = _tensors(model)
     missing = [k for k, t in tensors.items()
                if k not in filled and k not in split_specs(model)]
     missing += [f"{s}[{i}]" for s in split_specs(model)
@@ -114,3 +138,39 @@ def load_jax_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
     if missing:
         raise KeyError(f"checkpoint lacks {missing[:5]} "
                        f"({len(missing)} in all)")
+
+
+def save_checkpoint(model: nn.Module, path: str,
+                    matchers: Optional[List] = None) -> None:
+    """Write ``model``'s weights as the JAX export's ``.npz``; with
+    ``matchers`` (``utils/patterns.PatternMatcher``s) only the keys one of
+    them matches, and every buffer.  Only process 0 of a process group
+    writes."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
+    sd = state_dict_numpy(model)
+    if matchers:
+        buffers = {k for k, _ in model.named_buffers()}
+        sd = {k: v for k, v in sd.items()
+              if k in buffers or any(m.match(k) for m in matchers)}
+    buf = io.BytesIO()
+    np.savez(buf, **sd)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """{key: ndarray} of a ``.npz`` checkpoint."""
+    with np.load(path) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def update_params_from_partial_checkpoint(model: nn.Module,
+                                          path: str) -> None:
+    """The checkpoint's keys overwrite ``model``'s weights in place; every
+    other weight keeps its value (tied aliases resolve to their source;
+    an unknown key or a shape mismatch raises)."""
+    _assign(model, load_state_dict(path))

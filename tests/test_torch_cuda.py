@@ -23,7 +23,9 @@ rounding at score standard deviations 1, 2 and 4; the MoE FFN in both
 regimes from 1 to 40,960 rows; and every block probe variant.  The flash
 backward on both routes (K/V resident up to 160 keys, tiled beyond), every
 bias broadcast form, bitwise-deterministic reruns and its causal band skip;
-the lm_head and the eval attention without f32 copies.
+the lm_head and the eval attention without f32 copies.  The f32 forms of
+the flash kernels and the encoder front (the offline configs' precision
+'no') against their plain versions at the f32 limits.
 """
 import pytest
 import torch
@@ -417,8 +419,10 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(dev):
              (t(1, 4, 8, 64), t(1, 2, 8, 64), None),          # grouped K/V
              (t(1, 2, 8, 64), t(1, 1, 8, 64),
               t(1, 1, 3, 8, dtype=torch.float32)),              # bias rows
+             (t(1, 2, 8, 64, dtype=torch.float16),
+              t(1, 1, 8, 64, dtype=torch.float16), None),     # dtype
              (t(1, 2, 8, 64, dtype=torch.float32),
-              t(1, 1, 8, 64, dtype=torch.float32), None)]     # dtype
+              t(1, 1, 8, 64), None)]                          # mixed dtypes
     before = fa.flash_fwd.launches
     for q, k, bias in cases:
         with pytest.raises(ValueError):
@@ -1161,3 +1165,109 @@ def test_block_wide_groupings_equal_the_whole_batch(dev):
                     x.shape[0] * x.shape[1], hidden, sm_count(dev)):
                 assert torch.equal(y, ref), name
             check_output(f"block_wide {name}", y, ref)
+
+
+# -- the f32 kernels (training_configs/local/synthetic-*.yaml) ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,sq,skv,d,bias,causal,rate", [
+    (2, 4, 1, 264, 264, 16, None, False, 0.1),       # offline encoder
+    (2, 4, 1, 128, 128, 16, "soft_prompt", True, 0.1),  # offline decoder
+    (2, 2, 2, 70, 100, 128, None, True, 0.0),        # MHA, causal sq < skv
+    (1, 4, 1, 112, 64, 64, "per_head", False, 0.1),  # cross: sq > skv
+    (2, 2, 1, 40, 33, 32, "full", False, 0.2),       # every bias element
+    (1, 2, 2, 300, 1024, 64, "batch_keys", True, 0.1),  # long keys
+])
+def test_flash_f32_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias,
+                                       causal, rate):
+    """The f32 forward and backward against the plain versions at the f32
+    limits, the same dropout seed; the backward rerun bitwise equal; each
+    wrapper counts one launch a call."""
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 21)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g)
+                     for shape in ((b, h, sq, d), (b, hk, skv, d),
+                                   (b, hk, skv, d), (b, h, sq, d)))
+    bias = _flash_bias(bias, b, h, sq, skv, dev, g)
+    seed = 424242
+    counts = fa.flash_fwd.launches, fa.flash_bwd.launches
+    out, lse = fa.flash_fwd(q, k, v, bias, causal, rate, seed)
+    want, want_lse = fa.flash_forward_plain(q, k, v, bias, causal, rate, seed)
+    dvec = (dout * want).sum(-1)
+    gr = (dout, want_lse, dvec, rate, seed)
+    got = fa.flash_bwd(q, k, v, bias, causal, *gr)
+    again = fa.flash_bwd(q, k, v, bias, causal, *gr)
+    plain = fa.flash_backward_plain(q, k, v, bias, causal, *gr)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    assert out.dtype == torch.float32 and got[0].dtype == torch.float32
+    check_output("flash_fwd f32 out", out, want, F32_LIMITS)
+    check_output("flash_fwd f32 lse", lse, want_lse, F32_LIMITS)
+    for name, mine, ref, rerun in zip(("dq", "dk", "dv"), got, plain, again):
+        check_output(f"flash_bwd f32 {name}", mine, ref, F32_LIMITS)
+        assert torch.equal(mine, rerun), name
+
+
+@pytest.mark.cuda
+def test_flash_f32_gives_keyless_rows_every_key(dev):
+    """Rows that a bias leaves without a key average every key (p = 1 in
+    the forward; in the backward p = exp(s - lse) = 1, lse rounding to
+    NEG_BIG), as the plain version does."""
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 22)
+    q, dout = (torch.randn(1, 2, 64, 16, device=dev, generator=g)
+               for _ in range(2))
+    k, v = (torch.randn(1, 1, 48, 16, device=dev, generator=g)
+            for _ in range(2))
+    bias = torch.zeros(1, 1, 64, 48, device=dev)
+    bias[..., 40:, :] = float("-inf")
+    out, lse = fa.flash_fwd(q, k, v, bias, False)
+    want, want_lse = fa.flash_forward_plain(q, k, v, bias, False)
+    dvec = (dout * want).sum(-1)
+    got = fa.flash_bwd(q, k, v, bias, False, dout, want_lse, dvec)
+    plain = fa.flash_backward_plain(q, k, v, bias, False, dout, want_lse,
+                                    dvec)
+    torch.cuda.synchronize()
+    assert torch.allclose(out[0, 0, 50], v[0, 0].mean(0), atol=1e-5)
+    check_output("flash_fwd f32 keyless", out, want, F32_LIMITS)
+    for name, mine, ref in zip(("dq", "dk", "dv"), got, plain):
+        check_output(f"flash_bwd f32 keyless {name}", mine, ref, F32_LIMITS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,d,n_cls,bias", [
+    (4, 256, 128, 64, 8, True),     # the offline configs' front
+    (3, 16, 40, 24, 2, False),      # ragged GEMM tiles, no biases
+    (2, 100, 200, 128, 0, True),    # no CLS rows
+])
+def test_fused_frontend_f32_matches_plain(dev, b, t, din, d, n_cls, bias):
+    """The f32 front (SIMT projector, the slab kernel in f32) against its
+    plain version at the f32 limits; CLS rows copied exactly; reruns
+    bitwise equal."""
+    from image2text_torch.ops.fused_frontend import (FrontendWeights,
+                                                     fused_frontend,
+                                                     fused_frontend_plain)
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 23)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=g)
+
+    w = FrontendWeights(r(din, d, scale=din ** -0.5),
+                        r(d, scale=0.1) if bias else None,
+                        1.0 + r(t, d, scale=0.1),
+                        r(t, d, scale=0.1) if bias else None,
+                        r(t, d), r(n_cls, d))
+    x = r(b, t, din)
+    before = fused_frontend.launches
+    got, again = fused_frontend(x, w), fused_frontend(x, w)
+    want = fused_frontend_plain(x, w)
+    torch.cuda.synchronize()
+    assert fused_frontend.launches == before + 2
+    check_output("fused_frontend f32", got, want, F32_LIMITS)
+    assert torch.equal(got[:, :n_cls], want[:, :n_cls])
+    assert torch.equal(got, again)

@@ -97,7 +97,8 @@ def test_dense_block_matches_jax_kernel_and_xla_block(blocks, dtype):
 def test_dense_block_contract(blocks):
     """No selection buffers and no null connector; canonical layout out;
     a cache of ``max_len`` slots; a lazy layout coming in is undone first;
-    the dense cached decode raises (not ported yet)."""
+    the dense cached decode (a 16-row prefill into the cache) equals the
+    forward under a causal mask, the cache's own bias over its slots."""
     _, _, tblk = blocks
     assert tblk.null_connector is None
     assert not any("input_mask" in k for k, _ in tblk.named_buffers())
@@ -112,8 +113,18 @@ def test_dense_block_contract(blocks):
     assert layout is None
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="cached decode"):
-        tblk(x, kv_cache=object())
+    from image2text_torch.models.kv_cache import CacheRef, KVCache
+    from image2text_torch.ops.attention import causal_bias
+
+    ref = CacheRef(KVCache.create([tblk.cache_shape(2, 16)]))
+    ref.positions = np.arange(16)
+    with torch.no_grad():
+        cached = tblk(x, kv_cache=ref)
+        masked = tblk(x, attn_mask=causal_bias(16, 16))
+    np.testing.assert_allclose(cached.numpy(), masked.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    with pytest.raises(ValueError, match="lazy layout"):
+        tblk(x, kv_cache=ref, layout=perm)
 
 
 @pytest.fixture(scope="module")
