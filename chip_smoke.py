@@ -68,6 +68,26 @@ Phases, each printing its lines:
             (normwise, as parity) and the candidates' log-scores (0.1
             nats); then the rounds each sample's ids stayed equal and the
             near-tie margin where they parted.
+   serve-modes  bench.py's serving modes (BENCH_FULL=1) on the flagship at
+            full width and depth, batch 256, in this process: exact, int8
+            cross-KV, W8A8 decoder weights (int8_serving_params at its
+            default min_elems) with int8 cross-KV, approx top-k, all
+            stacked.  Each: launches held to the exact path's counts,
+            captions/s, W8A8 products a call, peak memory, the prefill's
+            and an 8-token cached step's logits against exact's, greedy
+            agreement with exact over 32 tokens; approx equal to exact
+            (and all to w8a8) token for token.  The encoder in W8A8 as
+            well: no sparse_block or front kernel (the blocks' module
+            path, whose MoE FFN launches moe_ffn).  Then the W8A8 product
+            (torch._int_mm on zero-padded operands) bit for bit against
+            the CPU's at the lm_head's and every decode projection's
+            shapes (256, 192 and 1 rows), and the W8A8 lm_head's ms.
+   beam-int8  beam search (batch 64, width 3, expansion 4) exact, with
+            int8 cross-KV and with W8A8 + int8 cross-KV: captions/s,
+            launches, greedy beam ids against exact's.
+   reforward  generate(force_no_cache=True), greedy, batch 16: launches
+            held to the counts derived from the model (the MoE FFN of
+            each block the bypass rule keeps at each length).
    dense    the flagship's dense-encoder twin (FLAGSHIP_DENSE): the eval
             dense block kernel (fused_block) against its plain version at
             its encoder's shapes (batch 256, t 320), then its serving path
@@ -105,6 +125,10 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
             captions/s.
 10. gpt2m-parity  at batch 8: first-step logits and greedy tokens, kernel
             path against plain-version path.
+   gpt2m-int8  as serve-modes, exact against int8 cross-KV with
+            int8_serving_params on the decoder (its float tables and
+            Linears; the int4 Linears stay int4: 3,168 int4_matmul
+            launches a call either way).
 11. gpt2m-train  the kbit + LoRA training step (batch 12 x 48 labels,
             accumulation 1, bf16 compute from f32 masters, checkpointing,
             SNRAdam lr 6e-4): launches per step, step ms, peak memory, the
@@ -140,7 +164,14 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             the rounds each sample's ids stay equal, and the margins where
             they part.
 
-17. device-times  the device time of the flash forward, int4_matmul,
+17. offline-modes  the evaluate twin on quality2_ck.npz with
+            --int8_serving and with --approx_topk: greedy, card = CPU token
+            for token and in BLEU-4 and CIDEr-D; each mode's change
+            against exact, greedy and sampled (candidate 0, 5 references).
+18. reforward  the fallback on quality2_ck.npz: force_no_cache greedy ids
+            equal to the cached path's and to the CPU's.
+
+19. device-times  the device time of the flash forward, int4_matmul,
             fused_frontend (both routes) and topk_ban_mask rows, in all and
             by kernel (torch.profiler's kernel durations, free of the
             wrapper's host time that their CUDA-event times include), taken
@@ -158,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import shutil
@@ -170,6 +202,15 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 0.06       # whole-stack parity: the JAX bf16 kernel tests' tolerance
+# a serving mode's logits, card against a CPU copy of the model (decoder
+# only, on the card's encoder output), relative L2: over the readings on an
+# H100 (flagship exact 0.0085, int8_kv 0.0085, w8a8 0.0225; GPT-2-medium
+# exact 0.0166, int8 0.0202)
+CPU_MODE_TOL = 0.03
+CPU_ROWS = 2     # images of that check
+# the int8 cross-attention read against f64 (relative L2): two bf16
+# roundings, each within 2^-9 relative
+INT8_READ_TOL = 1e-2
 # greedy beam parity: candidates' log-scores (nats) in one round, an
 # absolute limit over the card's readings (at most 0.062 on an H100)
 BEAM_SCORE_TOL = 0.1
@@ -948,9 +989,9 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
         return caption(model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
                        temperature=0.7, top_k=16, generator=g)
 
-    ids = drive_serving(torch, args, results, path, run, b,
-                        lambda: serving_launches(model), "one caption call")
-    vocab = model.decoder.transformer.wte.weight.shape[0]
+    ids, _ = drive_serving(torch, args, results, path, run, b,
+                           lambda: serving_launches(model), "one caption call")
+    vocab = model.decoder.transformer.wte.stored_shape[0]
     if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
             or not bool(((ids >= 0) & (ids < vocab)).all())
             or not bool((ids[:, 0] == bos).all())):
@@ -968,7 +1009,7 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
     held to ``want()`` (read just after it), then captions/s over 3 warm
     windows of one call on ``b`` images each (the median reported) and,
     with ``--profile``, device time by kernel of one more call.  Returns
-    the counted call's output."""
+    the counted call's output and the captions/s."""
     run(0)
     torch.cuda.synchronize()
     counts, out = launch_counts(lambda: run(1))
@@ -984,14 +1025,15 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
         run(10 + w)
         torch.cuda.synchronize()
         windows.append(b / (time.perf_counter() - t0))
+    rate = statistics.median(windows)
     log(f"  captions/s (batch {b}, {MAX_NEW_TOKENS} new tokens, median of 3 "
-        f"windows): {statistics.median(windows):.2f} on "
+        f"windows): {rate:.2f} on "
         f"{torch.cuda.get_device_name(0)}; windows "
         f"{[round(x, 2) for x in windows]}")
     if args.profile:
         log(f"  device time by kernel, {what}:")
         device_profile(torch, lambda: run(20))
-    return out
+    return out, rate
 
 
 def device_profile(torch, fn, top: int = 12) -> None:
@@ -1109,15 +1151,18 @@ def beam_generator(model, **kw):
     return BeamSearchTokenGenerator(model, **(args | kw))
 
 
-def phase_beam(torch, model, args, results):
+def phase_beam(torch, model, args, results, path: str = "flagship_beam",
+               **kw):
     """The beam-search serving path (bench.py::_bench_beam at batch 64):
     raw uint8 frames → caption; launches in one call held to
     ``serving_launches`` over the rounds it ran, and captions/s, the
-    median of 3 warm windows.  Returns the ids (b, beams, T)."""
+    median of 3 warm windows.  ``kw`` goes to the generator (a serving
+    mode: ``cross_kv_quant``).  Returns the ids (b, beams, T) and the
+    captions/s."""
     dev, b = model.device, BEAM_BATCH
     frames, prompt = serving_inputs(torch, model, b, SEED + 12,
                                     FLAGSHIP_BOS)
-    beam = beam_generator(model)
+    beam = beam_generator(model, **kw)
     bw = beam.beam_width
 
     def run(seed):
@@ -1130,11 +1175,11 @@ def phase_beam(torch, model, args, results):
         rounds.append(beam.rounds)
         return serving_launches(model, 1 + beam.rounds)
 
-    ids, scores = drive_serving(
-        torch, args, results, "flagship_beam", run, b, want,
+    (ids, scores), rate = drive_serving(
+        torch, args, results, path, run, b, want,
         f"one beam-search call (width {bw} x expansion "
         f"{beam.beam_expansion_factor}: {bw * b} decode rows)")
-    vocab = model.decoder.transformer.wte.weight.shape[0]
+    vocab = model.decoder.transformer.wte.stored_shape[0]
     if (tuple(ids.shape) != (b, bw, MAX_NEW_TOKENS)
             or tuple(scores.shape) != (b, bw)
             or not bool(((ids >= 0) & (ids < vocab)).all())
@@ -1145,7 +1190,7 @@ def phase_beam(torch, model, args, results):
     log(f"  rounds in the counted call: {rounds[0]}; sample beams: "
         f"{ids[0, :, :10].tolist()}, scores "
         f"{[round(float(s), 4) for s in scores[0]]}")
-    return ids
+    return ids, rate
 
 
 def phase_beam_parity(torch, model):
@@ -1232,6 +1277,432 @@ def phase_beam_parity(torch, model):
             or not bool(torch.isfinite(sk).all())):
         raise AssertionError("beam-parity: kernel path disagrees with the "
                              "plain-version path beyond tolerance")
+
+
+# bench.py's serving modes (BENCH_FULL=1, bench.py:243-274) and all of them
+# stacked: (name, W8A8 decoder weights, generate's mode arguments)
+SERVE_MODES = (
+    ("exact", False, {}),
+    ("int8_kv", False, dict(cross_kv_quant="int8")),
+    ("w8a8", True, dict(cross_kv_quant="int8")),
+    ("approx", False, dict(approx_top_k=True)),
+    ("all", True, dict(cross_kv_quant="int8", approx_top_k=True)),
+)
+
+
+# GPT-2-medium's modes: exact, and int8 cross-KV with W8A8 float weights
+GPT2M_MODES = (SERVE_MODES[0], ("int8", True, dict(cross_kv_quant="int8")))
+
+
+def w8a8_model(model):
+    """A copy of ``model`` whose decoder holds its W8A8 serving form at
+    ``int8_serving_params``' default min_elems, as bench.py's
+    ``int8_serving`` mode builds it (the MoE gates stay float, so
+    ``moe_ffn`` keeps its inputs)."""
+    from image2text_torch.models.quantization import int8_serving_params
+
+    q = copy.deepcopy(model)
+    int8_serving_params(q.decoder)
+    return q
+
+
+def int8_forms(model) -> list:
+    """Paths of the modules holding an int8 serving form."""
+    return [n for n, m in model.named_modules() if getattr(m, "is_int8",
+                                                             False)]
+
+
+def mode_logits(torch, model, enc, ids, quant=None):
+    """Logits of ``model`` in a serving mode on the encoder output ``enc``:
+    (the prefill's last row on the one-token prompt ``ids[:, :1]``, which
+    reads the exact cross K/V as JAX's prefill does; a prefill over
+    ``ids[:, :8]`` against the mode's cross K/V (``quant``), whose rows
+    stand for decode steps' logits)."""
+    from image2text_torch.models.generation import (prefill,
+                                                    precompute_cross_kv,
+                                                    quantize_cross_kv)
+
+    kv = precompute_cross_kv(model, enc)
+    first = prefill(model, enc, ids[:, :1], 1, kv)[0][:, -1]
+    kv = quantize_cross_kv(kv, quant)
+    steps = prefill(model, enc, ids[:, :8], 8, kv)[0]
+    return first.float(), steps.float()
+
+
+def cpu_copy(model):
+    """A CPU copy of ``model`` that holds no card memory: the cached kernel
+    operands and padded int8 weights it copied are dropped."""
+    from image2text_torch.models.layers import _Cached
+
+    c = copy.deepcopy(model).cpu()
+    for mod in c.modules():
+        for value in vars(mod).values():
+            if isinstance(value, _Cached):
+                value.clear()
+        vars(mod).pop("_padded", None)
+    return c
+
+
+def cpu_mode_check(torch, m, cpu_m, images, ids, quant, mode: str):
+    """One mode's logits (``mode_logits``, ``CPU_ROWS`` images) on the card
+    against the same mode on a CPU copy of the same model, on the card's
+    encoder output: the card's int8 cross-attention read and W8A8 products
+    against the CPU's plain ones.  Fails beyond ``CPU_MODE_TOL``."""
+    enc = m.encoder(images[:CPU_ROWS])
+    ids = ids[:CPU_ROWS]
+    got = mode_logits(torch, m, enc, ids, quant)
+    want = mode_logits(torch, cpu_m, enc.cpu(), ids.cpu(), quant)
+    errs = [rel_l2(torch, g.cpu(), w) for g, w in zip(got, want)]
+    log(f"  {mode}: card against a CPU copy in the same mode ({CPU_ROWS} "
+        f"images), relative L2: prefill {errs[0]:.6g}, 8-token prefill "
+        f"{errs[1]:.6g} (limit {CPU_MODE_TOL})")
+    if not all(bool(torch.isfinite(g).all()) for g in got) or (
+            max(errs) > CPU_MODE_TOL):
+        raise AssertionError(f"serve-modes {mode}: card against CPU {errs}")
+    return errs
+
+
+def rel_l2(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
+                      bos: int = FLAGSHIP_BOS, tag: str = "serve"):
+    """bench.py's serving modes (batch 256, 32 new tokens, temperature 0.7,
+    top-k 16, n-grams 2–5) in this process: for the flagship exact, int8
+    cross-KV, W8A8 decoder weights with int8 cross-KV, approx top-k, and
+    all stacked (``modes``).  Each mode: launches of one caption call held to
+    ``serving_launches`` (unchanged by the mode), captions/s (median of 3
+    windows; --profile: device busy ms and share), W8A8 products per call,
+    peak memory, the logits of a one-token prefill and of an 8-token one
+    against the mode's cross memory, each against exact (relative L2; an
+    int8 mode must differ from exact, so none runs exact unnoticed) and
+    against the same mode on a CPU copy of the model (``cpu_mode_check``,
+    held to ``CPU_MODE_TOL``), and greedy tokens against exact over 32
+    tokens.
+    ``approx`` must equal ``exact`` token for token under the same
+    generator (the port takes approx top-k as exact)."""
+    from image2text_torch.models.generation import caption, generate
+    from image2text_torch.ops.functions import int8_mm
+    from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+    dev, b = model.device, BATCH
+    frames, prompt = serving_inputs(torch, model, b, SEED + 2, bos)
+    images = resize_normalize_on_device(
+        frames, model.config.vision_encoder_config.input.width,
+        out_dtype=torch.bfloat16)
+    forms = int8_forms(w8)
+    log(f"  W8A8 decoder: {len(forms)} int8 forms: {forms[:3]} ... "
+        f"{forms[-2:]}")
+    cpu_copies = {False: cpu_copy(model), True: cpu_copy(w8)}
+    summary, counted, greedy, exact_logits = {}, {}, {}, None
+    for mode, quant_weights, kw in modes:
+        m = w8 if quant_weights else model
+        quant = kw.get("cross_kv_quant")
+        log(f"  mode {mode}: {'W8A8 decoder, ' if quant_weights else ''}"
+            f"{kw or 'exact'}")
+
+        def run(seed, m=m, kw=kw):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return caption(m, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                           temperature=0.7, top_k=16, generator=g, **kw)
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        products = int8_mm.launches
+        ids, rate = drive_serving(torch, args, results, f"{tag}_{mode}", run,
+                                  b, lambda: serving_launches(model),
+                                  f"one caption call ({mode})")
+        peak = torch.cuda.max_memory_allocated()
+        calls = 6 if args.profile else 5
+        per_call = (int8_mm.launches - products) / calls
+        counted[mode] = ids
+        greedy[mode] = generate(m, images, prompt,
+                                max_new_tokens=MAX_NEW_TOKENS,
+                                temperature=0.0, **kw)
+        got = mode_logits(torch, m, m.encoder(images), greedy["exact"],
+                          quant)
+        exact_logits = exact_logits or got
+        on_cpu = cpu_mode_check(torch, m, cpu_copies[quant_weights], images,
+                                greedy["exact"], quant, mode)
+        agree = float((greedy[mode][:, 1:] == greedy["exact"][:, 1:]).float()
+                      .mean())
+        summary[mode] = dict(
+            captions_per_s=round(rate, 2),
+            peak_gib=round(peak / 2 ** 30, 3),
+            peak_above_resident_gib=round((peak - resident) / 2 ** 30, 3),
+            int8_products_per_call=per_call,
+            prefill_rel_l2=rel_l2(torch, got[0], exact_logits[0]),
+            steps_rel_l2=rel_l2(torch, got[1], exact_logits[1]),
+            greedy_agreement=agree, cpu_prefill_rel_l2=on_cpu[0],
+            cpu_steps_rel_l2=on_cpu[1])
+        log(f"  {mode}: peak {summary[mode]['peak_gib']} GiB "
+            f"({summary[mode]['peak_above_resident_gib']} above the resident "
+            f"weights of both models); W8A8 products per call {per_call}; "
+            f"prefill logits relative L2 against exact "
+            f"{summary[mode]['prefill_rel_l2']:.6g}, an 8-token prefill "
+            f"on exact's greedy ids {summary[mode]['steps_rel_l2']:.6g}; "
+            f"greedy tokens equal "
+            f"to exact's over {MAX_NEW_TOKENS} steps: {agree:.4f}")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"serve-modes {mode}: logits not finite")
+        if (per_call > 0) != quant_weights:
+            raise AssertionError(f"serve-modes {mode}: {per_call} W8A8 "
+                                 "products a call")
+        if (quant is not None or quant_weights) and not (
+                summary[mode]["steps_rel_l2"] > 0
+                and (summary[mode]["prefill_rel_l2"] > 0) == quant_weights):
+            raise AssertionError(f"serve-modes {mode}: the logits do not "
+                                 "show its int8 forms")
+    del cpu_copies
+    for mode in [m for m in ("approx", "all") if m in summary]:
+        base = "exact" if mode == "approx" else "w8a8"
+        same = bool(torch.equal(counted[mode], counted[base])
+                    and torch.equal(greedy[mode], greedy[base]))
+        log(f"  {mode} equals {base} token for token (sampled under the "
+            f"same generator, and greedy): {same}")
+        if not same:
+            raise AssertionError(f"serve-modes: {mode} differs from {base}")
+    log(f"  [{tag}-modes] summary " + json.dumps(summary))
+    return summary
+
+
+def phase_encoder_w8a8(torch, w8, results, b: int = 16):
+    """The encoder in W8A8 as well (JAX's
+    ``test_int8_serving_composes_on_encoder_subtree``), one caption call
+    at batch ``b``: its blocks hold int8 forms, so none takes the
+    sparse_block kernel (JAX's chain gate declines W8A8 forms) and the
+    front runs its module chain; each block's MoE FFN, whose gates stay
+    float, launches moe_ffn instead.  Launches held to that derivation."""
+    from image2text_torch.models.generation import caption
+    from image2text_torch.models.quantization import int8_serving_params
+
+    m = copy.deepcopy(w8)
+    int8_serving_params(m.encoder)
+    enc = m.vision_encoder
+    frames, prompt = serving_inputs(torch, m, b, SEED + 16, FLAGSHIP_BOS)
+    want = serving_launches(m)
+    t = enc.n_cls + enc.n_patches ** 2
+    want["moe_ffn"] += sum(blk.runs_body(t) for blk in enc.blocks)
+    want["sparse_block"] = want["fused_frontend"] = 0
+
+    def run():
+        return caption(m, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                       temperature=0.7, top_k=16, cross_kv_quant="int8",
+                       generator=torch.Generator(device=m.device)
+                       .manual_seed(SEED))
+
+    run()
+    counts, ids = launch_counts(run)
+    record_launches(results, "serve_w8a8_encoder", counts)
+    log(f"  encoder in W8A8 too ({len(int8_forms(m.encoder))} int8 forms in "
+        f"it), batch {b}: launches {counts} (want {want})")
+    if counts != want or tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS):
+        raise AssertionError(f"encoder W8A8: launches {counts} != {want}")
+
+
+def phase_int8_products(torch, w8):
+    """The W8A8 product (``ops/functions.py::int8_mm``: ``torch._int_mm``
+    on zero-padded operands) at the flagship's shapes, the int32 result
+    bit for bit against the CPU's exact product on the same int8 operands:
+    the tied lm_head (its 50,258 rows padded), every decode projection,
+    at 256, 192 (beam) and 1 (rows padded) decode rows, with the weight
+    padded in the call and through the form's operand padded once.  Then
+    the W8A8 lm_head (activation rounding, product, scales) as the form
+    runs it, and with the table padded in every call, against the exact
+    mode's bf16 ``dot_f32`` lm_head, CUDA-event ms."""
+    from image2text_torch.nn.modules import int8_dot_rows, quantize_rows_int8
+    from image2text_torch.ops.functions import (dot_f32, int8_mm,
+                                                int8_mm_plain,
+                                                int8_mm_shapes)
+
+    dec = w8.decoder
+    blk = dec.blocks[0]
+    weights = (("lm_head", dec.transformer.wte),
+               ("q_proj", blk.attn.q_proj), ("kv_proj", blk.attn.kv_proj),
+               ("out_proj", blk.attn.out_proj),
+               ("null_connector", blk.null_connector),
+               ("cross out_proj", blk.cross_attn.out_proj))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = torch.randn(BATCH, 1024, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    xq, _ = quantize_rows_int8(x)
+    ok = True
+    for name, mod in weights:
+        ok &= w8a8_against_cpu(torch, x, mod, name)
+        for rows in (BATCH, 3 * BEAM_BATCH, 1):
+            a = xq[:rows]
+            want = int8_mm_plain(a.cpu(), mod.qweight.cpu())
+            kept = int8_mm(a, mod.int8_operand())[:, :want.shape[1]]
+            equal = bool(torch.equal(int8_mm(a, mod.qweight).cpu(), want)
+                         and torch.equal(kept.cpu(), want))
+            ok &= equal
+            log(f"    int8 product {name} {rows} x {mod.qweight.shape[1]} x "
+                f"{mod.qweight.shape[0]} (padded to "
+                f"{int8_mm_shapes(rows, mod.qweight.shape[1], mod.qweight.shape[0])}"
+                f"; also through the form's padded operand): int32 equal "
+                f"to the CPU's bit for bit: {equal}")
+    wte = dec.transformer.wte
+    w_exact = torch.empty(wte.qweight.shape, dtype=torch.bfloat16,
+                          device="cuda").normal_(0, 0.02, generator=gen)
+    ms = {"w8a8": cuda_ms(torch, lambda: wte.lm_head(x)),
+          "int8_mm": cuda_ms(torch, lambda: int8_mm(xq, wte.int8_operand())),
+          "padding": cuda_ms(torch, lambda: int8_dot_rows(x, wte.qweight,
+                                                          wte.qscale)),
+          "dot_f32": cuda_ms(torch, lambda: dot_f32(x, w_exact))}
+    log(f"    lm_head {BATCH} x 1024 x {wte.qweight.shape[0]}: W8A8 "
+        f"{ms['w8a8']:.4f} ms (its int8 product alone {ms['int8_mm']:.4f}; "
+        f"with the table padded in every call {ms['padding']:.4f}) against "
+        f"the exact bf16 dot_f32 {ms['dot_f32']:.4f} ms")
+    if not ok:
+        raise AssertionError("int8 products differ from the CPU's")
+
+
+def w8a8_against_cpu(torch, x, mod, name: str) -> bool:
+    """One W8A8 product as an int8 form runs it on the card
+    (``int8_dot_rows`` through its padded operand) against the CPU on the
+    same input: the row scales within one f32 ulp of the CPU's, any int8
+    activation that differs lying within 1e-3 quanta of its half-quantum
+    boundary (a one-ulp scale moves it across), and the result bit for bit
+    the CPU's product and scales applied to the card's own activations."""
+    from image2text_torch.nn.modules import int8_dot_rows, quantize_rows_int8
+    from image2text_torch.ops.functions import int8_mm_plain
+
+    got = int8_dot_rows(x, mod.int8_operand(), mod.qscale).cpu()
+    xq, xs = (t.cpu() for t in quantize_rows_int8(x))
+    cq, cs = quantize_rows_int8(x.cpu())
+    ulps = int((xs.view(torch.int32).long() - cs.view(torch.int32).long())
+               .abs().max())
+    flips = xq != cq
+    y = (x.cpu().float() / cs[..., None])[flips]
+    margin = float((y - y.floor() - 0.5).abs().max()) if len(y) else 0.0
+    want = (int8_mm_plain(xq, mod.qweight.cpu()).float() * xs[..., None]
+            * mod.qscale.cpu())
+    same = bool(torch.equal(got, want))
+    log(f"    W8A8 {name} {x.shape[0]} rows, card against CPU: scales within "
+        f"{ulps} ulp, {int(flips.sum())} of {xq.numel()} activations on the "
+        f"other quantum (within {margin:.3g} quanta of the boundary), the "
+        f"product and scales equal bit for bit: {same}")
+    return same and ulps <= 1 and margin <= 1e-3
+
+
+def phase_int8_kv_read(torch, model, b: int = BATCH):
+    """The int8 cross-attention read (``MultiheadAttention.
+    _int8_kv_attention``, bf16) on the card at the flagship's decode shape
+    (``b`` rows, one query each, a cross layer's K/V of the encoder's
+    output) against an f64 computation of the same read from the same q
+    and int8 memory on the CPU.  The read rounds twice to bf16 (the scaled
+    probabilities and the output, each within 2^-9 relative), so the
+    relative L2 stays near 2^-8; it fails beyond ``INT8_READ_TOL``."""
+    from image2text_torch.nn.core import EVAL_CTX
+    from image2text_torch.nn.modules import QuantizedKV
+    from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+    attn = next(blk.cross_attn for blk in model.decoder.blocks
+                if blk.is_cross_attn)
+    frames, _ = serving_inputs(torch, model, 16, SEED + 17, FLAGSHIP_BOS)
+    images = resize_normalize_on_device(
+        frames, model.config.vision_encoder_config.input.width,
+        out_dtype=torch.bfloat16)
+    enc = model.encoder(images).repeat(b // 16, 1, 1)
+    kv = QuantizedKV.of(*attn.project_kv(enc, enc))
+    g = torch.Generator(device=model.device).manual_seed(SEED + 18)
+    query = torch.randn(b, 1, attn.embed_dim, device=model.device,
+                        generator=g).to(torch.bfloat16)
+    q = attn._split_heads(attn._proj(query, 0))
+    got = attn._int8_kv_attention(q, kv, query, EVAL_CTX).cpu().double()
+    kq, ks, vq, vs = (t.cpu().double() for t in kv)
+    scores = (q.cpu().double() @ kq.transpose(-1, -2) * ks[..., None, :]
+              / math.sqrt(attn.head_dim))
+    pv = torch.softmax(scores, dim=-1) * vs[..., None, :]
+    want = (pv @ vq).transpose(-3, -2).reshape(got.shape)
+    err = rel_l2(torch, got, want)
+    log(f"    int8 cross-attention read, {b} rows x {kq.shape[-2]} memory "
+        f"positions x {attn.num_heads} heads: relative L2 against f64 "
+        f"{err:.6g} (limit {INT8_READ_TOL})")
+    if not err <= INT8_READ_TOL:
+        raise AssertionError(f"int8 cross-attention read: {err}")
+
+
+def phase_beam_modes(torch, model, w8, args, results):
+    """Beam search (bench.py::_bench_beam: batch 64, width 3, expansion 4,
+    31 rounds) exact, with int8 cross-KV, and with W8A8 decoder weights
+    and int8 cross-KV, in this process: captions/s, launches held to the
+    rounds each ran (moe_ffn unchanged by the mode), and the greedy beam
+    ids (temperature 0, consolidation 0) of each int8 mode against
+    exact's."""
+    frames, prompt = serving_inputs(torch, model, BEAM_BATCH, SEED + 12,
+                                    FLAGSHIP_BOS)
+    rates, beams = {}, {}
+    for mode, m, kw in (("exact", model, {}),
+                        ("int8_kv", model, dict(cross_kv_quant="int8")),
+                        ("w8a8", w8, dict(cross_kv_quant="int8"))):
+        log(f"  beam mode {mode}")
+        _, rates[mode] = phase_beam(torch, m, args, results,
+                                    path=f"beam_{mode}", **kw)
+        greedy = beam_generator(m, temperature=0.0,
+                                consolidation_temperature=0.0, **kw)
+        beams[mode] = greedy.caption(frames, prompt)[0]
+    for mode in ("int8_kv", "w8a8"):
+        same = (beams[mode] == beams["exact"]).all(-1).all(-1)
+        agree = float((beams[mode] == beams["exact"]).float().mean())
+        log(f"  {mode}: {rates[mode]:.2f} captions/s against exact's "
+            f"{rates['exact']:.2f} (x{rates[mode] / rates['exact']:.3f}); "
+            f"greedy beam ids equal to exact's in {int(same.sum())} of "
+            f"{BEAM_BATCH} samples, {agree:.4f} of the ids")
+    return rates
+
+
+def reforward_launches(model, t0: int, n_new: int):
+    """Launches of a greedy ``generate(force_no_cache=True)`` from images:
+    the encoder once (fused_frontend, sparse_block per sparse block that
+    runs its body), then one non-cached decoder forward per new token over
+    the whole buffer of ``space_for_prompt + t0 + n_new`` rows (cut at the
+    block size), each running the MoE FFN of the blocks the bypass rule at
+    the current length keeps (``reforward_ffn_evaluations``)."""
+    want = serving_launches(model, 0)
+    dec, off = model.decoder, model.space_for_prompt
+    t = min(dec.block_size, off + t0 + n_new)
+    want["moe_ffn"] = sum(dec.reforward_ffn_evaluations(t, off + t0 + i)
+                          for i in range(n_new))
+    return want
+
+
+def phase_reforward_flagship(torch, model, results, b: int = 16):
+    """The full-reforward fallback on the flagship at full width
+    (``force_no_cache``, greedy, batch 16, 32 new tokens): launches held to
+    ``reforward_launches``, the wall time of the call, and the ids against
+    the cached path's (reported: the two paths round bf16 differently)."""
+    from image2text_torch.models.generation import generate
+    from image2text_torch.ops.preprocess import resize_normalize_on_device
+
+    frames, prompt = serving_inputs(torch, model, b, SEED + 14, FLAGSHIP_BOS)
+    images = resize_normalize_on_device(
+        frames, model.config.vision_encoder_config.input.width,
+        out_dtype=torch.bfloat16)
+
+    def run():
+        return generate(model, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                        temperature=0.0, force_no_cache=True)
+
+    run()
+    t0 = time.perf_counter()
+    counts, ids = launch_counts(run)
+    wall = time.perf_counter() - t0
+    record_launches(results, "flagship_reforward", counts)
+    want = reforward_launches(model, 1, MAX_NEW_TOKENS)
+    cached = generate(model, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                      temperature=0.0)
+    agree = float((ids[:, 1:] == cached[:, 1:]).float().mean())
+    log(f"  force_no_cache, batch {b}: launches {counts} (want {want}); "
+        f"{wall * 1e3:.1f} ms a call; greedy ids equal to the cached "
+        f"path's: {agree:.4f}")
+    if counts != want:
+        raise AssertionError(f"reforward launches {counts} != {want}")
+    if tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS):
+        raise AssertionError("reforward: malformed ids")
 
 
 def kernel_wrappers():
@@ -2150,6 +2621,103 @@ def phase_offline_beam(torch):
                              "from the CPU's beyond the f32 limit")
 
 
+def phase_offline_modes(torch, results):
+    """The evaluate twin on quality2_ck.npz (OFFLINE_EVAL_IMAGES val
+    images) with ``--int8_serving`` and with ``--approx_topk``: greedy,
+    the card's tokens, BLEU-4 and CIDEr-D equal to the CPU's in this
+    process (one front launch an image; no W8A8 product: at d 64 no weight
+    reaches int8_serving_params' 2^18 elements, so ``--int8_serving`` is
+    int8 cross-KV alone on this checkpoint, as in JAX); then each mode's
+    change against exact by tools/quality_price_tags.py's protocol
+    (candidate 0 against 5 references), greedy and sampled (temperature
+    1.0, top-k 16, the same generator seed)."""
+    from image2text_torch import evaluate as ev
+    from image2text_torch.ops.functions import int8_mm
+
+    common = ["--config_file", str(REPO / QUALITY2_YAML), "--chkpt_file",
+              str(REPO / QUALITY2_CK), "--num_images",
+              str(OFFLINE_EVAL_IMAGES)]
+    want = {kern.__name__: 0 for kern in kernel_wrappers()}
+    want["fused_frontend"] = OFFLINE_EVAL_IMAGES
+    metrics = {}
+    for flags in ([], ["--int8_serving"], ["--approx_topk"]):
+        label = flags[0][2:] if flags else "exact"
+        greedy = ev.parse_args(common + flags + ["--temperature", "0"])
+        products = int8_mm.launches
+        counts, card = launch_counts(lambda: ev.main(greedy))
+        record_launches(results, f"offline_modes_{label}", counts)
+        sampled = ev.main(ev.parse_args(common + flags))
+        metrics[label] = (card, sampled)
+        if counts != want or int8_mm.launches != products:
+            raise AssertionError(f"offline-modes {label}: launches {counts}, "
+                                 f"{int8_mm.launches - products} W8A8 "
+                                 "products")
+        if not flags:
+            continue
+        cpu = ev.main(greedy, device="cpu")
+        equal = sum(a == b for a, b in zip(card["candidates"],
+                                           cpu["candidates"]))
+        log(f"  {label} greedy ({OFFLINE_EVAL_IMAGES} images): card BLEU-4 "
+            f"{card['bleu']!r} CIDEr-D {card['cider']!r}; CPU BLEU-4 "
+            f"{cpu['bleu']!r} CIDEr-D {cpu['cider']!r}; captions equal token "
+            f"for token {equal} of {len(card['candidates'])}; launches "
+            f"{counts}")
+        if (card["candidates"] != cpu["candidates"]
+                or card["bleu"] != cpu["bleu"]
+                or card["cider"] != cpu["cider"]):
+            raise AssertionError(f"offline-modes {label}: the card's greedy "
+                                 "captions or metrics differ from the CPU's")
+    (eg, es) = metrics["exact"]
+    for label in ("int8_serving", "approx_topk"):
+        g, smp = metrics[label]
+        same = sum(a == b for a, b in zip(g["candidates"], eg["candidates"]))
+        log(f"  {label} against exact (card): greedy BLEU-4 "
+            f"{g['bleu'] - eg['bleu']:+.6f}, CIDEr-D "
+            f"{g['cider'] - eg['cider']:+.6f} ({same} of "
+            f"{OFFLINE_EVAL_IMAGES} captions the same); sampled BLEU-4 "
+            f"{smp['bleu'] - es['bleu']:+.6f} ({smp['bleu']!r} against "
+            f"{es['bleu']!r}), CIDEr-D {smp['cider'] - es['cider']:+.6f} "
+            f"({smp['cider']!r} against {es['cider']!r})")
+    if metrics["approx_topk"][1] != es:
+        raise AssertionError("offline-modes: approx top-k sampled differently "
+                             "from exact under the same generator")
+
+
+def phase_reforward_quality2(torch, results):
+    """The full-reforward fallback on quality2_ck.npz (``force_no_cache``,
+    greedy, OFFLINE_BEAM_BATCH val images, 32 new tokens): the card's ids
+    equal the card's cached path's and the CPU's fallback's; one front
+    launch."""
+    from image2text_torch.models.generation import generate
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        model, cfg = offline_model(torch, QUALITY2_YAML, QUALITY2_CK, device)
+        images = offline_images(torch, cfg, OFFLINE_BEAM_BATCH, device)
+        prompt = torch.ones(1, 1, dtype=torch.long)
+        for force in (True, False) if device == "cuda" else (True,):
+            def run(force=force):
+                return generate(model, images, prompt,
+                                max_new_tokens=MAX_NEW_TOKENS,
+                                temperature=0.0, force_no_cache=force)
+            if device == "cuda" and force:
+                counts, ids = launch_counts(run)
+                record_launches(results, "quality2_reforward", counts)
+                if counts["fused_frontend"] != 1 or sum(counts.values()) != 1:
+                    raise AssertionError(f"reforward quality2: {counts}")
+            else:
+                ids = run()
+            out[(device, force)] = ids.cpu()
+    re, cached, cpu = (out[("cuda", True)], out[("cuda", False)],
+                       out[("cpu", True)])
+    log(f"  quality2 force_no_cache greedy (batch {OFFLINE_BEAM_BATCH}, "
+        f"{MAX_NEW_TOKENS} new tokens): equal to the cached path's "
+        f"{bool(torch.equal(re, cached))}, to the CPU's "
+        f"{bool(torch.equal(re, cpu))}; sample {re[0, :12].tolist()}")
+    if not (torch.equal(re, cached) and torch.equal(re, cpu)):
+        raise AssertionError("reforward quality2: the fallback's ids differ")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2231,7 +2799,7 @@ def main() -> int:
         phase_parity(torch, model, "parity", FLAGSHIP_BOS)
         log("[beam] flagship beam-search serving path at full width and "
             "depth")
-        ids = phase_beam(torch, model, args, results)
+        ids, _ = phase_beam(torch, model, args, results)
         log("[kernels] topk_ban_mask at the beam's decode rows, bans from "
             "its id buffer")
         phase_topk_kernel(torch, results,
@@ -2240,6 +2808,22 @@ def main() -> int:
         log("[beam-parity] greedy beam search, kernel path vs plain-version "
             "path at full width")
         phase_beam_parity(torch, model)
+        w8 = w8a8_model(model)
+        log("[serve-modes] bench.py's serving modes on the flagship at full "
+            "width and depth: exact, int8 cross-KV, W8A8 + int8 cross-KV, "
+            "approx top-k, all")
+        phase_serve_modes(torch, model, w8, args, results)
+        phase_encoder_w8a8(torch, w8, results)
+        log("  the W8A8 product at the flagship's shapes, card against CPU")
+        phase_int8_products(torch, w8)
+        phase_int8_kv_read(torch, model)
+        log("[beam-int8] beam search with int8 cross-KV and with W8A8 + "
+            "int8 cross-KV at full width")
+        phase_beam_modes(torch, model, w8, args, results)
+        del w8
+        log("[reforward] the full-reforward fallback on the flagship at full "
+            "width (force_no_cache)")
+        phase_reforward_flagship(torch, model, results)
     del model
     torch.cuda.empty_cache()
 
@@ -2290,6 +2874,11 @@ def main() -> int:
         phase_serve(torch, model, args, results, "gpt2m_caption", GPT2M_EOS)
         log("[gpt2m-parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model, "gpt2m-parity", GPT2M_EOS)
+        log("[gpt2m-int8] GPT-2-medium with int8 cross-KV and W8A8 float "
+            "weights (the tied table and its lm_head, wpe, the cross "
+            "q_attn and c_proj; the int4 Linears stay int4)")
+        phase_serve_modes(torch, model, w8a8_model(model), args, results,
+                          modes=GPT2M_MODES, bos=GPT2M_EOS, tag="gpt2m")
     del model
     torch.cuda.empty_cache()
     log("[gpt2m-train] int4 + LoRA training step at full width and depth")
@@ -2322,6 +2911,12 @@ def main() -> int:
     log("[offline-beam] greedy beam ids on quality2_ck.npz, card vs CPU, "
         "every round")
     phase_offline_beam(torch)
+    log("[offline-modes] the evaluate twin with --int8_serving and "
+        "--approx_topk on quality2_ck.npz, card vs CPU, and against exact")
+    phase_offline_modes(torch, results)
+    log("[reforward] the fallback on quality2_ck.npz: card vs its cached "
+        "path and vs the CPU")
+    phase_reforward_quality2(torch, results)
 
     log("[device-times] kernel device times (torch.profiler), taken after "
         "every CUDA-event time of the run")

@@ -9,8 +9,11 @@ against the ground truths, and compute corpus BLEU-4 and CIDEr-D.
         [--num_candidates 8] [--beam_search] [--top_k 16] [--temperature 1.0]
 
 It runs on the card; a caller may pass ``device='cpu'`` to :func:`main`.
-``--int8_serving`` and ``--approx_topk`` belong to ROADMAP queue 1 item 2
-and raise until it lands.
+``--int8_serving`` gives the decoder its W8A8 serving form
+(``models/quantization.py::int8_serving_params`` at its default
+``min_elems``) and decodes against int8 cross-attention K/V;
+``--approx_topk`` sets the sampler's approximate-top-k flag, which the
+port takes as exact (``models/sampling.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from image2text_torch.configs.reader import load_training_config
 from image2text_torch.eval.metrics import cider_d, corpus_bleu
 from image2text_torch.models.generation_utils import BeamSearchTokenGenerator
+from image2text_torch.models.quantization import int8_serving_params
 from image2text_torch.models.vision_encoder_decoder import VisionEncoderDecoder
 from image2text_torch.trainer import build_inner_datasets, config_tokenizer
 from image2text_torch.training.data import normalize_label
@@ -40,17 +44,17 @@ def main(args, device=None) -> dict:
     """Evaluate as ``args`` say, on the card (``device`` None) or on
     ``device``: {"bleu", "cider", "candidates", "references"} (the
     candidates' and references' token ids, EOS cut)."""
-    for flag in ("int8_serving", "approx_topk"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is a serving mode of ROADMAP queue 1 item 2, not "
-                "ported yet")
     config = load_training_config(args.config_file)
     if args.chkpt_file:
         config.model.chkpt_path = args.chkpt_file
     tokenizer = config_tokenizer(config)
     model = VisionEncoderDecoder(config.model, device=device).init_weights(
         config.seed)
+    if args.int8_serving:
+        # W8A8 decoder weights; the generation paths also get int8
+        # cross-KV below (lossy: the serving mode's quality cost)
+        int8_serving_params(model.decoder)
+    quant = "int8" if args.int8_serving else None
     dev = model.device
 
     # the inner dataset (pre-expansion batch dicts): every image scored
@@ -66,7 +70,7 @@ def main(args, device=None) -> dict:
             temperature=args.temperature, top_k=args.top_k,
             max_new_tokens=max_new, eos_token_id=eos,
             no_repeat_n_grams=tuple(config.model.no_repeat_n_grams),
-            consolidation_temperature=0.0)
+            consolidation_temperature=0.0, cross_kv_quant=quant)
 
     cands, refs = [], []
     gen = torch.Generator(device=dev).manual_seed(config.seed + 123)
@@ -92,7 +96,9 @@ def main(args, device=None) -> dict:
                 x = img.expand(args.num_candidates, *img.shape[1:])
                 out = model.generate(x, prompt, max_new_tokens=max_new,
                                      temperature=args.temperature,
-                                     top_k=args.top_k, generator=gen)
+                                     top_k=args.top_k, generator=gen,
+                                     cross_kv_quant=quant,
+                                     approx_top_k=args.approx_topk)
                 best = out[0, 1:].cpu().numpy()
             cand = _strip(best, eos)
             cands.append(cand)
@@ -122,11 +128,11 @@ def parse_args(argv=None):
     p.add_argument("--top_k", type=int, default=16)
     p.add_argument("--beam_search", action="store_true")
     p.add_argument("--int8_serving", action="store_true",
-                   help="W8A8 decoder weights + int8 cross-KV (ROADMAP "
-                        "queue 1 item 2: raises until ported)")
+                   help="W8A8 decoder weights + int8 cross-KV (lossy "
+                        "serving mode)")
     p.add_argument("--approx_topk", action="store_true",
-                   help="approximate top-k sampling (ROADMAP queue 1 item "
-                        "2: raises until ported)")
+                   help="approximate top-k sampling (taken as exact by the "
+                        "port: no op on the card computes approx_max_k)")
     return p.parse_args(argv)
 
 

@@ -9,6 +9,9 @@
   ``wte`` with f32 accumulation and f32 logits.  In training the positions
   are dropped and, when the config enables gradient checkpointing, each
   block is recomputed in the backward with its bias and cross inputs.
+  Under ``models/quantization.py::int8_serving_params`` the tables read
+  their int8 forms: token and position rows dequantised on gather, the
+  tied lm_head W8A8 (JAX decoder.py:233, :278-285).
 """
 from __future__ import annotations
 
@@ -26,7 +29,6 @@ from image2text_torch.models.layers import MoELinear, TransformerBlock
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, normal_init,
                                       zeros_init)
 from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
-from image2text_torch.ops.functions import dot_f32
 from image2text_torch.ops.static_gather import canonicalize
 from image2text_torch.training.remat import checkpoint_block
 
@@ -119,8 +121,11 @@ class TransformerDecoder(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The dtype the decoder computes in (its embedding table's)."""
-        return self.transformer.wte.weight.dtype
+        """The dtype the decoder computes in (its embedding table's, or the
+        one its int8 form records)."""
+        return self.transformer.wte.stored_dtype
+
+    supports_kv_cache = True
 
     def sdpa_calls(self, t: int) -> int:
         """Attention calls (``ops.attention.sdpa``) of one non-cached
@@ -135,19 +140,23 @@ class TransformerDecoder(nn.Module):
     def _cross_depth(self, depth: int) -> bool:
         return not self.skip_alternate_cross_attn or depth % 2 == 0
 
-    def precompute_cross_kv(self, enc: torch.Tensor):
+    def precompute_cross_kv(self, enc: torch.Tensor, quant=None):
         """Per-depth split-head cross K/V of the (fixed) encoder output,
-        computed once per generated sequence."""
-        return {depth: blk.cross_attn.project_kv(enc, enc)
+        computed once per generated sequence; ``quant='int8'`` stores them
+        as ``QuantizedKV``."""
+        return {depth: blk.cross_attn.project_kv(enc, enc, quant=quant)
                 for depth, blk in enumerate(self.blocks)
                 if blk.is_cross_attn and self._cross_depth(depth)}
 
     def forward(self, idx=None, inputs_embeds=None, cross_attn_embeds=None,
                 attn_msk=None, kv_cache=None, pos_offset: int = 0,
-                cross_kv=None, ctx: Ctx = EVAL_CTX, use_flash: bool = True):
+                cross_kv=None, ctx: Ctx = EVAL_CTX, use_flash: bool = True,
+                sparse_rule_len=None):
         """Returns (logits (b, t, V) f32, hidden state).  ``pos_offset``
         (a host int) places the chunk at global positions
-        pos_offset + arange(t)."""
+        pos_offset + arange(t).  ``sparse_rule_len`` (the full-reforward
+        fallback's current length, soft prompt included) goes to the
+        sparse blocks, which then run in canonical order."""
         if inputs_embeds is None:
             inputs_embeds = self.get_inputs_embeds(idx)
         t = inputs_embeds.shape[-2]
@@ -157,10 +166,10 @@ class TransformerDecoder(nn.Module):
                              f"{self.block_size}")
         if kv_cache is not None:
             kv_cache.positions = pos_offset + np.arange(t)
-        pos_emb = self.transformer.wpe.weight[pos_offset:pos_offset + t]
+        pos_emb = self.transformer.wpe.rows(pos_offset, pos_offset + t)
         x = inputs_embeds + pos_emb.to(inputs_embeds.dtype)
         x, ctx = dropout(x, self.dropout_rate, ctx.fold(2))
-        lazy = kv_cache is None
+        lazy = kv_cache is None and sparse_rule_len is None
         remat = (self.enable_gradient_checkpointing and ctx.train
                  and kv_cache is None)
         layout = None
@@ -174,7 +183,8 @@ class TransformerDecoder(nn.Module):
                     ctx_=ctx.fold(100 + depth)):
                 out = blk_(x_, cross_attn_inputs=ci_, attn_mask=am_,
                            kv_cache=kv_cache, cross_kv=ckv_, layout=layout_,
-                           want_lazy=lazy, ctx=ctx_, use_flash=use_flash)
+                           want_lazy=lazy, ctx=ctx_, use_flash=use_flash,
+                           sparse_rule_len=sparse_rule_len)
                 return out[0] if lazy else out
 
             ci = None if ckv is not None else cross_inputs
@@ -184,8 +194,7 @@ class TransformerDecoder(nn.Module):
         if layout is not None:
             x = canonicalize(x, layout)
         x = self.transformer.ln_f(x)
-        logits = dot_f32(x, self.transformer.wte.weight)
-        return logits, x
+        return self.transformer.wte.lm_head(x), x
 
     # -- cached decoding ------------------------------------------------------
     def cache_exact_for_window(self, start: int, end: int) -> bool:
@@ -211,3 +220,12 @@ class TransformerDecoder(nn.Module):
         cached forward over positions pos_offset + arange(t)."""
         positions = pos_offset + np.arange(t)
         return sum(blk.runs_body_at(positions) for blk in self.blocks)
+
+    def reforward_ffn_evaluations(self, t: int, rule_len: int) -> int:
+        """How many blocks run their body in a non-cached forward over a
+        ``t``-row stream under ``sparse_rule_len=rule_len`` (the
+        fallback's): every dense block; a sparse one when its selection
+        keeps more than one row and the rule's count reaches 2."""
+        return sum(blk.runs_body(t) and (not blk.is_sparse
+                                         or blk.selected_count(rule_len) >= 2)
+                   for blk in self.blocks)

@@ -6,7 +6,8 @@ feature map into n_patches² tokens of C·pw·ph (not a patchify), projector
 + LayerNormND over the whole (tokens, d) slab, the positional table,
 LayerNormND again, learned CLS tokens in front (at eval one
 ``ops/fused_frontend.py::fused_frontend`` call: the CUDA kernels on the
-card), and the blocks, sparse ones on the lazy layout path; ``ln_f`` of
+card; the module chain where the projector holds its int8 serving form),
+and the blocks, sparse ones on the lazy layout path; ``ln_f`` of
 the CLS rows is the output.  In training the front is the module chain,
 dropped, and, when the config enables gradient checkpointing, each block
 is recomputed in the backward.
@@ -30,6 +31,12 @@ from image2text_torch.ops.static_gather import layout_rows, static_take
 from image2text_torch.training.remat import checkpoint_block
 
 
+class _WpeEmbedding(Embedding):
+    """The positional table (JAX ``encoder.py:269 _WpeEmbedding``: its own
+    type, so the W8A8 transform, typed on ``Embedding``, leaves it in
+    float)."""
+
+
 class VisionTransformerEncoder(nn.Module):
     def __init__(self, config: VisionTransformerEncoderConfig, device=None):
         super().__init__()
@@ -51,7 +58,8 @@ class VisionTransformerEncoder(nn.Module):
         self.ln_input = LayerNormND((n_patches ** 2, self.out_dim), acfg.bias,
                                     device=device)
         self.transformer = nn.Module()
-        self.transformer.wpe = Embedding(n_patches ** 2, self.out_dim, device)
+        self.transformer.wpe = _WpeEmbedding(n_patches ** 2, self.out_dim,
+                                             device)
         self.transformer.h = nn.ModuleList([
             TransformerBlock(config.transformer_config, seed=depth,
                              device=device)
@@ -101,9 +109,9 @@ class VisionTransformerEncoder(nn.Module):
         x = self.feature_extractor(images)
         n = x.shape[0]
         x = x.reshape(n, self.n_patches ** 2, self.input_d)
-        if not ctx.train:
+        if not ctx.train and not self.projector.is_int8:
             x = fused_frontend(x, self.frontend_weights(x.dtype))
-        else:
+        else:   # training, or the projector's int8 serving form
             x = self.ln_input(self.projector(x))
             y = x + self.transformer.wpe.weight.to(x.dtype)[None]
             cls = self.cls_token.to(x.dtype).expand(n, self.n_cls,

@@ -1,24 +1,36 @@
-"""Cached autoregressive generation (counterpart of the cached branch of
+"""Autoregressive generation (counterpart of
 ``image2text_tpu/models/generation.py``).
 
-Precompute the cross-attention K/V per cross depth, prefill the prompt
-once on them, then one single-token cached decoder step per new token.  The
-scratch decoder's prefill skips the soft-prompt prefix (it is dead for
-text logits there) and starts at offset ``space_for_prompt``; a decoder
-with ``prefix_in_decode`` (the plain-causal HF decoders) prefills
-``[encoder output; prompt embeddings]`` at position 0 into a cache of
-``space_for_prompt + total`` slots, as the JAX package's prefix-in-decode
-branch does.  The sampler reads the last logits cast to the compute dtype
-(the encoder output's), as in JAX.
+The cached branch: precompute the cross-attention K/V per cross depth,
+prefill the prompt once on them, then one single-token cached decoder step
+per new token.  The scratch decoder's prefill skips the soft-prompt prefix
+(it is dead for text logits there) and starts at offset
+``space_for_prompt``; a decoder with ``prefix_in_decode`` (the
+plain-causal HF decoders) prefills ``[encoder output; prompt embeddings]``
+at position 0 into a cache of ``space_for_prompt + total`` slots, as the
+JAX package's prefix-in-decode branch does.  The sampler reads the last
+logits cast to the compute dtype (the encoder output's), as in JAX.
+``cross_kv_quant='int8'`` decodes against an int8 cross-attention memory
+(``nn/modules.py::QuantizedKV``); the prefill reads the exact K/V, as
+JAX's prefill, which projects them itself.
+
+The other branches of JAX's ``generate``:
+
+* the **full-reforward fallback**, for windows where a sparse layer's
+  selected count crosses 2 inside the decode window (a cached prefix
+  cannot reproduce the reference's global bypass rule there) or under
+  ``force_no_cache``: the whole fixed-size id buffer is re-forwarded
+  every step under ``sparse_rule_len = space_for_prompt + cur`` and the
+  logits are read at ``cur - 1``;
+* the **bidirectional-decoder branch**: the growing sequence is
+  re-forwarded every step (every position sees the whole sequence, so a
+  fixed buffer's unwritten slots would leak into the logits).
 
 Each step samples as the JAX package's ``_sample_step``: the fused n-gram
 ban + top-k sampler where it applies (greedy, or top-k without nucleus),
 else the bans into the f32 logits, then greedy argmax or
-``sampling.sample_logits`` (top-k, nucleus).
-
-Not yet ported (ROADMAP queue 1 item 2): the bidirectional-decoder branch
-and the full-reforward fallback for windows where a sparse layer's
-selected count crosses 2; both raise.
+``sampling.sample_logits`` (top-k, nucleus).  ``approx_top_k`` is passed
+to the fused sampler, which takes it as exact (``models/sampling.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from image2text_torch.models.kv_cache import CacheRef, KVCache
 from image2text_torch.models.sampling import (apply_no_repeat_ngram,
                                               sample_logits,
                                               sample_topk_with_ngram)
+from image2text_torch.nn.modules import quantize_kv
 from image2text_torch.ops.preprocess import resize_normalize_on_device
 
 
@@ -72,15 +85,26 @@ def precompute_cross_kv(model, cross: Optional[torch.Tensor]):
     return model.decoder.precompute_cross_kv(cross)
 
 
+def quantize_cross_kv(cross_kv, quant: Optional[str]):
+    """Exact per-depth cross K/V in the form of the cross-KV quant mode
+    (what the decoder's ``precompute_cross_kv(quant=)`` returns, without
+    projecting again)."""
+    if cross_kv is None:
+        return None
+    return {depth: quantize_kv(kv, quant) for depth, kv in cross_kv.items()}
+
+
 def sample_step(model, ids_buf: torch.Tensor, cur_len: int,
                 last_logits: torch.Tensor, generator, temperature,
-                top_k: Optional[int], nucleus_p: Optional[float]):
+                top_k: Optional[int], nucleus_p: Optional[float],
+                approx_top_k: bool = False):
     """The next ids (B,) from the last logits (JAX ``_sample_step``)."""
     greedy = temperature is None or temperature <= 0
     if nucleus_p is None and (greedy or top_k is not None):
         return sample_topk_with_ngram(last_logits, ids_buf, cur_len,
                                       model.no_repeat_n_grams, generator,
-                                      temperature, top_k)
+                                      temperature, top_k,
+                                      approx=approx_top_k)
     logits = apply_no_repeat_ngram(last_logits.float(), ids_buf, cur_len,
                                    model.no_repeat_n_grams)
     if greedy:
@@ -94,9 +118,14 @@ def generate(model, images, prompt_ids: torch.Tensor,
              top_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
              encoder_output: Optional[torch.Tensor] = None,
-             nucleus_p: Optional[float] = None) -> torch.Tensor:
+             nucleus_p: Optional[float] = None, force_no_cache: bool = False,
+             cross_kv_quant: Optional[str] = None,
+             approx_top_k: bool = False) -> torch.Tensor:
     """Sample captions: (B, prompt_len + max_new_tokens) ids.  Runs on the
-    model's device; inputs are moved there."""
+    model's device; inputs are moved there.  ``cross_kv_quant='int8'``
+    (cached branch only) and ``approx_top_k`` are the serving modes of
+    JAX's ``generate``; ``force_no_cache`` takes the full-reforward
+    fallback."""
     dev = model.device
     prompt_ids = prompt_ids.to(dev)
     if prompt_ids.dim() == 1:
@@ -106,34 +135,45 @@ def generate(model, images, prompt_ids: torch.Tensor,
     if max_new_tokens > blk_size - t0:
         raise ValueError(f"max_new_tokens={max_new_tokens} exceeds the "
                          f"decoder window ({blk_size} - prompt {t0})")
-    if not model.decoder.is_causal:
-        raise NotImplementedError("the bidirectional-decoder branch of "
-                                  "generate is not ported yet (ROADMAP "
-                                  "queue 1 item 2)")
     if encoder_output is None:
         encoder_output = model.encoder(images.to(dev))
     bs = encoder_output.shape[0]
     prompt_ids = prompt_ids.expand(bs, t0)
+    step = dict(generator=generator, temperature=temperature, top_k=top_k,
+                nucleus_p=nucleus_p, approx_top_k=approx_top_k)
+    if not getattr(model.decoder, "is_causal", True):
+        return _generate_bidirectional(model, encoder_output, prompt_ids,
+                                       max_new_tokens, blk_size, step)
     total = t0 + max_new_tokens
     ids_buf = torch.zeros((bs, total), dtype=torch.long, device=dev)
     ids_buf[:, :t0] = prompt_ids
     cdt = encoder_output.dtype
     cross = encoder_output if model.use_cross_attn else None
     off = model.space_for_prompt
+    use_cache = (getattr(model.decoder, "supports_kv_cache", False)
+                 and not force_no_cache)
     exact = getattr(model.decoder, "cache_exact_for_window", None)
-    if exact is not None and not exact(off + t0, off + total):
-        raise NotImplementedError(
-            "this window needs the full-reforward fallback (a sparse layer's "
-            "selected count crosses 2), which is not ported yet (ROADMAP "
-            "queue 1 item 2)")
+    if use_cache and exact is not None:
+        # a sparse layer whose global < 2-selected bypass rule flips inside
+        # the window changes earlier hidden states: only the fallback
+        # reproduces that
+        use_cache = exact(off + t0, off + total)
+    if not use_cache:
+        for i in range(max_new_tokens):
+            cur = t0 + i
+            out = model(None, ids_buf, encoder_output=encoder_output,
+                        sparse_rule_len=off + cur)
+            last = out.logits[:, cur - 1].to(cdt)
+            ids_buf[:, cur] = sample_step(model, ids_buf, cur, last, **step)
+        return ids_buf
     cross_kv = precompute_cross_kv(model, cross)
     logits, cache = prefill(model, encoder_output, prompt_ids, total,
                             cross_kv)
+    cross_kv = quantize_cross_kv(cross_kv, cross_kv_quant)
     last = logits[:, -1].to(cdt)
     for i in range(max_new_tokens):
         cur = t0 + i
-        nxt = sample_step(model, ids_buf, cur, last, generator,
-                          temperature, top_k, nucleus_p)
+        nxt = sample_step(model, ids_buf, cur, last, **step)
         ids_buf[:, cur] = nxt
         logits, cache = decoder_step(model, nxt[:, None], cache, off + cur,
                                      cross, cross_kv)
@@ -141,17 +181,37 @@ def generate(model, images, prompt_ids: torch.Tensor,
     return ids_buf
 
 
+def _generate_bidirectional(model, encoder_output, prompt_ids,
+                            max_new_tokens: int, blk_size: int, step):
+    """JAX ``generate``'s bidirectional branch: the growing sequence (its
+    last ``blk_size`` ids) re-forwarded every step, the next id drawn from
+    the last row's logits."""
+    ids = prompt_ids
+    for _ in range(max_new_tokens):
+        cond = ids if ids.shape[-1] <= blk_size else ids[..., -blk_size:]
+        out = model(None, cond, encoder_output=encoder_output)
+        nxt = sample_step(model, ids, ids.shape[-1], out.logits[:, -1],
+                          **step)
+        ids = torch.cat([ids, nxt[:, None]], dim=-1)
+    return ids
+
+
 @torch.no_grad()
 def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
             max_new_tokens: int = 32, temperature: float = 0.7,
             top_k: Optional[int] = 16,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            cross_kv_quant: Optional[str] = None,
+            approx_top_k: bool = False) -> torch.Tensor:
     """The serving path: raw uint8 frames (B, H, W, 3) → resize/normalize
-    on the model's device in the model's dtype → encoder → generate."""
+    on the model's device in the model's dtype → encoder → generate, in
+    the serving mode the last two arguments name (bench.py's modes; the
+    W8A8 weights are the model's own, ``int8_serving_params``)."""
     dtype = model.decoder.dtype
     size = model.config.vision_encoder_config.input.width
     images = resize_normalize_on_device(frames_u8.to(model.device), size,
                                         out_dtype=dtype)
     return generate(model, images, prompt_ids, max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k,
-                    generator=generator)
+                    generator=generator, cross_kv_quant=cross_kv_quant,
+                    approx_top_k=approx_top_k)

@@ -18,9 +18,14 @@ EOS.  Returns ids (bs, bw, T) and cumulative log-scores (bs, bw).
 
 Decoding is the cached branch of ``models/generation.py`` for both decoder
 kinds: the scratch decoder at offset ``space_for_prompt``, and the
-``prefix_in_decode`` decoders (GPT-2) with the soft prompt in the cache.
-Windows that need the full-reforward fallback raise, as ``generate``
-does.  Logits reach the scorer in f32, as in the JAX generator.
+``prefix_in_decode`` decoders (GPT-2) with the soft prompt in the cache;
+``cross_kv_quant='int8'`` decodes against the int8 cross-attention memory
+(the prefill reads the exact one).  Where the cache cannot serve the
+window (a sparse layer's selected count crosses 2 inside it, or a decoder
+without ``supports_kv_cache``) every round re-forwards the whole id buffer
+under ``sparse_rule_len`` and reads the logits at ``cur_len - 1``
+(JAX ``_full_logits``).  A bidirectional decoder raises ``ValueError``, as
+in JAX.  Logits reach the scorer in f32, as in the JAX generator.
 :meth:`BeamSearchTokenGenerator.caption` is the serving path from raw
 uint8 frames; ``rounds`` holds the decode rounds of the last call.
 """
@@ -32,7 +37,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from image2text_torch.models.generation import (decoder_step, prefill,
-                                                precompute_cross_kv)
+                                                precompute_cross_kv,
+                                                quantize_cross_kv)
 from image2text_torch.models.sampling import (apply_no_repeat_ngram,
                                               apply_top_k,
                                               beam_candidates_with_ngram,
@@ -47,8 +53,10 @@ class BeamSearchTokenGenerator:
                  beam_expansion_factor: int = 4,
                  eos_token_id: Optional[int] = None,
                  consolidation_temperature: float = 1.0,
-                 length_boost: float = 1.0):
+                 length_boost: float = 1.0,
+                 cross_kv_quant: Optional[str] = None):
         self.model = model
+        self.cross_kv_quant = cross_kv_quant
         self.beam_width = beam_width
         self.beam_expansion_factor = beam_expansion_factor
         self.max_new_tokens = max_new_tokens
@@ -121,8 +129,13 @@ class BeamSearchTokenGenerator:
         device: ids (bs, bw, T) and scores (bs, bw)."""
         model = self.model
         dec, dev = model.decoder, model.device
-        if not dec.is_causal:
-            raise ValueError("beam search needs a causal decoder")
+        if not getattr(dec, "is_causal", True):
+            raise ValueError(
+                "Beam search needs a causal decoder: with a bidirectional "
+                "decoder every position's logits see the whole fixed-size "
+                "id buffer, so the cached and fallback decode paths would "
+                "leak unwritten future slots. Use generate (which has an "
+                "exact growing-sequence path) for such models.")
         bw, bef = self.beam_width, self.beam_expansion_factor
         decoded_ids = decoded_ids.to(dev)
         if decoded_ids.dim() == 1:
@@ -139,16 +152,19 @@ class BeamSearchTokenGenerator:
         cum = torch.zeros((bw, bs), dtype=torch.float32, device=dev)
         cross = x if model.use_cross_attn else None
         off = model.space_for_prompt
+        use_cache = getattr(dec, "supports_kv_cache", False)
         exact = getattr(dec, "cache_exact_for_window", None)
-        if exact is not None and not exact(off + t0, off + total):
-            raise NotImplementedError(
-                "this window needs the full-reforward fallback (a sparse "
-                "layer's selected count crosses 2), which is not ported yet "
-                "(ROADMAP queue 1 item 2)")
-        cross_kv = precompute_cross_kv(model, cross)
-        logits, cache = prefill(model, x, ids_buf[:, :, :t0].reshape(
-            bw * bs, t0), total, cross_kv)
-        last = logits[:, -1]
+        if use_cache and exact is not None:
+            use_cache = exact(off + t0, off + total)
+        if use_cache:
+            cross_kv = precompute_cross_kv(model, cross)
+            logits, cache = prefill(model, x, ids_buf[:, :, :t0].reshape(
+                bw * bs, t0), total, cross_kv)
+            cross_kv = quantize_cross_kv(cross_kv, self.cross_kv_quant)
+            last = logits[:, -1]
+        else:
+            cache = None
+            last = self._full_logits(ids_buf, t0, encoder_output)
         beam_rows = torch.arange(bs, device=dev)[None, :]
         cur_len = t0
         self.rounds = 0
@@ -163,11 +179,17 @@ class BeamSearchTokenGenerator:
             ids_buf = ids_buf.gather(0, src[:, :, None].expand(bw, bs, total))
             cum = cum.gather(0, src) + chosen_scores
             ids_buf[:, :, cur_len] = chosen_ids
-            # cross K/V need no reorder: every beam of a sample shares it
-            cache.gather_batch((src * bs + beam_rows).reshape(-1))
-            logits, cache = decoder_step(model, chosen_ids.reshape(-1, 1),
-                                         cache, off + cur_len, cross, cross_kv)
-            last = logits[:, -1]
+            if cache is None:
+                last = self._full_logits(ids_buf, cur_len + 1,
+                                         encoder_output)
+            else:
+                # cross K/V need no reorder: every beam of a sample shares
+                # it
+                cache.gather_batch((src * bs + beam_rows).reshape(-1))
+                logits, cache = decoder_step(model, chosen_ids.reshape(-1, 1),
+                                             cache, off + cur_len, cross,
+                                             cross_kv)
+                last = logits[:, -1]
             cur_len += 1
             self.rounds += 1
         if self.eos_token_id is not None:
@@ -186,6 +208,19 @@ class BeamSearchTokenGenerator:
         images = resize_normalize_on_device(frames_u8.to(model.device), size,
                                             out_dtype=model.decoder.dtype)
         return self(images, decoded_ids, generator)
+
+    def _full_logits(self, ids_buf, cur_len: int, encoder_output):
+        """The fallback: the whole (bw, bs, T) buffer re-forwarded with
+        ``sparse_rule_len`` at the current length; the logits at
+        ``cur_len - 1`` (bw · bs, V)."""
+        bw, bs, total = ids_buf.shape
+        enc = encoder_output[None].expand(bw, *encoder_output.shape).reshape(
+            bw * bs, *encoder_output.shape[1:])
+        out = self.model(None, ids_buf.reshape(bw * bs, total),
+                         encoder_output=enc,
+                         sparse_rule_len=self.model.space_for_prompt
+                         + cur_len)
+        return out.logits[:, cur_len - 1]
 
     def _all_done(self, ids_buf, cur_len: int) -> bool:
         """Whether every beam holds an EOS among its first ``cur_len``

@@ -17,14 +17,12 @@ HF checkpoint directories.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from image2text_torch.configs.models import HuggingfaceDecoderConfig
 from image2text_torch.models.hf_decoders.gpt2 import GPT2Backbone
 from image2text_torch.models.kv_cache import KVCache
 from image2text_torch.nn.core import EVAL_CTX, Ctx
-from image2text_torch.ops.functions import dot_f32
 
 GPT2_TABLE = {
     "gpt2": dict(n_layer=12, n_embd=768, n_head=12),
@@ -42,6 +40,7 @@ class HuggingfaceDecoder(nn.Module):
 
     prefix_in_decode = True
     is_causal = True
+    supports_kv_cache = True
 
     def __init__(self, config: HuggingfaceDecoderConfig, block_size: int,
                  n_embd: int, embed_path: str):
@@ -53,16 +52,17 @@ class HuggingfaceDecoder(nn.Module):
         self.vocab_eff = config.vocab_size + config.extra_tokens
         self.tied_aliases = {"lm_head.weight": f"{embed_path}.weight"}
 
-    def _embed_weight(self) -> torch.Tensor:
-        return self.get_submodule(self.embed_path).weight
+    def _embed(self):
+        return self.get_submodule(self.embed_path)
 
     def get_inputs_embeds(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self._embed_weight())
+        return self._embed()(idx)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied lm_head: products of the hidden dtype, f32 sums and f32
-        logits (the JAX ``preferred_element_type=f32``)."""
-        return dot_f32(hidden, self._embed_weight())
+        logits (the JAX ``preferred_element_type=f32``); W8A8 on the
+        table's int8 serving form (JAX factory.py:168-186)."""
+        return self._embed().lm_head(hidden)
 
     @property
     def block_size(self) -> int:
@@ -74,8 +74,9 @@ class HuggingfaceDecoder(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The dtype the decoder computes in (its embedding table's)."""
-        return self._embed_weight().dtype
+        """The dtype the decoder computes in (its embedding table's, or the
+        one its int8 form records)."""
+        return self._embed().stored_dtype
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
                    device=None) -> KVCache:
@@ -110,11 +111,13 @@ class GPT2HuggingfaceDecoder(HuggingfaceDecoder):
 
     def forward(self, idx=None, inputs_embeds=None, cross_attn_embeds=None,
                 attn_msk=None, kv_cache=None, pos_offset: int = 0,
-                cross_kv=None, ctx: Ctx = EVAL_CTX, use_flash: bool = True):
+                cross_kv=None, ctx: Ctx = EVAL_CTX, use_flash: bool = True,
+                sparse_rule_len=None):
         """Returns (logits (b, t, V) f32, hidden state).  ``attn_msk`` is
         ignored, as by the JAX decoder: under soft prompting the composite
         model's -inf text→prefix bias is dropped and the text rows attend
-        the image prefix through the plain causal mask."""
+        the image prefix through the plain causal mask.  So is
+        ``sparse_rule_len`` (no sparse layer)."""
         if inputs_embeds is None:
             inputs_embeds = self.get_inputs_embeds(idx)
         enc = cross_attn_embeds if self.config.use_cross_attn else None
@@ -123,11 +126,12 @@ class GPT2HuggingfaceDecoder(HuggingfaceDecoder):
                                   pos_offset=pos_offset, cross_kv=cross_kv)
         return self._logits(hidden), hidden
 
-    def precompute_cross_kv(self, enc: torch.Tensor):
-        """Per-depth cross K/V of the fixed encoder output (decode time)."""
+    def precompute_cross_kv(self, enc: torch.Tensor, quant=None):
+        """Per-depth cross K/V of the fixed encoder output (decode time);
+        ``quant='int8'`` stores them as ``QuantizedKV``."""
         if not self.config.use_cross_attn:
             return {}
-        return {depth: blk.crossattention.project_kv(enc)
+        return {depth: blk.crossattention.project_kv(enc, quant=quant)
                 for depth, blk in enumerate(self.blocks)}
 
 

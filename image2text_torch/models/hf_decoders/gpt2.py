@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
-from image2text_torch.nn.modules import Embedding, LayerNorm, Linear, gelu_tanh
+from image2text_torch.nn.modules import (Embedding, LayerNorm, Linear,
+                                         QuantizedKV, gelu_tanh, quantize_kv)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.training.remat import checkpoint_block
 
@@ -75,16 +76,26 @@ class _GPT2CrossAttention(nn.Module):
         self.c_attn = Linear(n_embd, 2 * n_embd, device=device)
         self.c_proj = Linear(n_embd, n_embd, device=device)
 
-    def project_kv(self, enc: torch.Tensor):
+    def project_kv(self, enc: torch.Tensor, quant=None):
         """Split-head K/V of a fixed encoder output (decode time: once per
-        sequence, not once per token)."""
-        return tuple(_heads(z, self.n_head)
-                     for z in self.c_attn(enc).split(self.n_embd, dim=-1))
+        sequence, not once per token); ``quant='int8'`` gives them as a
+        ``QuantizedKV``."""
+        k, v = (_heads(z, self.n_head)
+                for z in self.c_attn(enc).split(self.n_embd, dim=-1))
+        return quantize_kv((k, v), quant)
 
     def forward(self, x, enc, ctx: Ctx = EVAL_CTX, use_flash: bool = True,
                 precomputed_kv=None):
-        k, v = (precomputed_kv if precomputed_kv is not None
-                else self.project_kv(enc))
+        """An int8 memory is dequantised on read, K and V each in f32 then
+        in ``x``'s dtype (JAX gpt2.py:107-111)."""
+        if isinstance(precomputed_kv, QuantizedKV):
+            kq, ks, vq, vs = precomputed_kv
+            k = (kq.float() * ks[..., None]).to(x.dtype)
+            v = (vq.float() * vs[..., None]).to(x.dtype)
+        elif precomputed_kv is not None:
+            k, v = precomputed_kv
+        else:
+            k, v = self.project_kv(enc)
         y = sdpa(_heads(self.q_attn(x), self.n_head), k, v, ctx=ctx,
                  use_flash=use_flash)
         y = self.c_proj(_merge(y))
@@ -156,7 +167,7 @@ class GPT2Backbone(nn.Module):
             raise ValueError(f"Cannot forward positions up to "
                              f"{pos_offset + t}, block size is only "
                              f"{self.n_positions}")
-        pos = self.wpe.weight[pos_offset:pos_offset + t]
+        pos = self.wpe.rows(pos_offset, pos_offset + t)
         x = inputs_embeds + pos.to(inputs_embeds.dtype)
         x, ctx = dropout(x, self.dropout_rate, ctx)
         # per-block recompute in training; cached decode and eval never

@@ -53,6 +53,9 @@ class _Cached:
     backward."""
 
     def __init__(self):
+        self.clear()
+
+    def clear(self):
         self._key = None
         self._held = None
         self._value = None
@@ -151,6 +154,12 @@ class MoELinear(nn.Module):
                                          "l2_bias")}
         self._packed = _Cached()
 
+    @property
+    def plain_gates(self) -> bool:
+        """Whether the gate Linears hold float weights (not the int8
+        serving form, which the ``moe_ffn`` kernel does not take)."""
+        return not any(lin.is_int8 for lin in self.expert_gates.linears)
+
     def packed(self, dtype) -> MoELinearWeights:
         g0, g1 = self.expert_gates.linears
         return self._packed.get(
@@ -195,8 +204,14 @@ class _MoEMLP(nn.Module):
         self.c_fc = MoELinear(n_embd, hidden, **kw)
         self.c_proj = MoELinear(hidden, n_embd, **kw)
 
+    @property
+    def plain_weights(self) -> bool:
+        """Whether ``moe_ffn`` takes this FFN's weights: no int8 gate (JAX
+        ``ops/fused_moe.py:_supported`` declines W8A8 gates likewise)."""
+        return self.c_fc.plain_gates and self.c_proj.plain_gates
+
     def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
-        if not ctx.train:
+        if not ctx.train and self.plain_weights:
             return moe_ffn(x, self.c_fc.packed(x.dtype),
                            self.c_proj.packed(x.dtype))
         h = self.c_proj(gelu_tanh(self.c_fc(x)))
@@ -364,6 +379,12 @@ class TransformerBlock(nn.Module):
         return np.concatenate([self.idx_np[self.idx_np < t],
                                self.not_idx_np[self.not_idx_np < t]])
 
+    def selected_count(self, length: int) -> int:
+        """Selected positions among the first ``length`` (the count the
+        global bypass rule reads; JAX clips the index into the table)."""
+        c = self._cum_sel_np
+        return int(c[min(max(length - 1, 0), len(c) - 1)])
+
     def runs_body_at(self, positions: np.ndarray) -> bool:
         """Whether a cached forward over ``positions`` runs the block body
         (attention and FFN) — the port's bookkeeping of FFN launches."""
@@ -429,7 +450,7 @@ class TransformerBlock(nn.Module):
     def forward(self, x_orig: torch.Tensor, cross_attn_inputs=None,
                 attn_mask=None, kv_cache=None, cross_kv=None, layout=None,
                 want_lazy: bool = False, ctx: Ctx = EVAL_CTX,
-                use_flash: bool = True):
+                use_flash: bool = True, sparse_rule_len=None):
         """``layout``/``want_lazy``: a lazy call composes the block's
         static gathers with the incoming row ``layout`` and returns
         ``(stream, new_layout)`` without reassembling canonical order (a
@@ -438,7 +459,14 @@ class TransformerBlock(nn.Module):
         every flagship encoder block — runs as one ``sparse_block`` call
         (lazy sparse) or one ``fused_block`` call (dense); ``use_flash``
         False, the parity mode, keeps the plain block, as in the JAX
-        package.  Training never takes them."""
+        package, and so do int8 serving forms in the block.  Training
+        never takes them.
+
+        ``sparse_rule_len`` (a host int; the full-reforward fallback of
+        generation): a sparse block evaluates the global "< 2 selected →
+        every row takes the null path" rule at that length, not at the
+        padded buffer's (JAX layers.py:610-621).  Where it holds the body
+        is not run: JAX computes it and discards it."""
         if not self.is_sparse:
             return self._dense_forward(x_orig, cross_attn_inputs, attn_mask,
                                        kv_cache, cross_kv, layout, want_lazy,
@@ -448,6 +476,12 @@ class TransformerBlock(nn.Module):
                 raise ValueError("the lazy layout is a non-cached path")
             return self._sparse_cached_forward(x_orig, cross_attn_inputs,
                                                attn_mask, kv_cache, cross_kv)
+        if sparse_rule_len is not None:
+            if layout is not None or want_lazy:
+                raise ValueError("the generation fallback runs blocks in "
+                                 "canonical order")
+            if self.selected_count(sparse_rule_len) < 2:
+                return self._null_path(x_orig)
         t = x_orig.shape[1]
         if not self.runs_body(t):
             out = self._null_path(x_orig)
@@ -484,7 +518,21 @@ class TransformerBlock(nn.Module):
         ``_gate_and_weights``; an ``_MLP`` block runs the plain body)."""
         return (use_flash and not ctx.train and attn_mask is None
                 and cross_attn_inputs is None and cross_kv is None
-                and not self.is_causal and isinstance(self.mlp, _MoEMLP))
+                and not self.is_causal and isinstance(self.mlp, _MoEMLP)
+                and self.plain_weights)
+
+    @property
+    def plain_weights(self) -> bool:
+        """Whether every Linear the block kernels read holds float
+        weights: an int8 serving form takes the module path (JAX
+        ``ops/fused_block.py:232-233`` declines W8A8 forms to XLA)."""
+        a = self.attn
+        lins = [a.q_proj, a.kv_proj, a.out_proj]
+        if self.null_connector is not None:
+            lins.append(self.null_connector)
+        return (not any(lin.is_int8 for lin in lins)
+                and (not isinstance(self.mlp, _MoEMLP)
+                     or self.mlp.plain_weights))
 
     def _dense_forward(self, x, cross_attn_inputs, attn_mask, kv_cache,
                        cross_kv, layout, want_lazy, ctx, use_flash):

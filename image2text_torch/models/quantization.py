@@ -12,7 +12,9 @@ parameter (``nn.core.frozen_param_paths``); the scales are a frozen f32
 parameter, so a cast of the model to bf16 turns them into bf16 as the
 JAX bf16 cast does, and the kernel reads them in that dtype.
 
-Not ported yet: ``int8_serving_params`` (the W8A8 serving transform).
+:func:`int8_serving_params` is the W8A8 serving transform: the sizeable
+``Linear`` and ``Embedding`` weights of a subtree become their int8 forms
+(``nn/modules.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from image2text_torch.nn.core import new_param, zeros_init
-from image2text_torch.nn.modules import Linear
+from image2text_torch.nn.modules import Embedding, Linear
 from image2text_torch.ops import int4_matmul as int4_ops
 from image2text_torch.ops.int4_matmul import (QBLOCK, Int4Matmul,
                                               dequantize_int4,
@@ -100,6 +102,42 @@ def quantize_module_structure(module: nn.Module,
 
 
 @torch.no_grad()
+def int8_serving_params(module: nn.Module,
+                        min_elems: int = 1 << 18) -> nn.Module:
+    """The W8A8 serving transform, in place (JAX
+    ``models/quantization.py::int8_serving_params``): every module of the
+    subtree whose type is exactly ``Linear`` or ``Embedding`` and whose
+    weight is a 2-D float tensor of at least ``min_elems`` elements takes
+    its int8 form (``qweight`` int8 rows, ``qscale`` f32 per row, the
+    storage dtype recorded in ``qdtype``).  Typed on the module tree, as
+    JAX's walk: ``MoELinear``'s stacked experts, LoRA wrappers and their
+    adapters, int4 ``QuantizedLinear``s and ``MultiheadAttention``'s
+    ``in_proj_weight`` are never rewritten, nor is a subclass such as the
+    encoder's positional table.  Apply it after any dtype cast of the
+    model (the scales stay f32), to the decoder subtree as serving does.
+    The eval kernels' cached operands in the subtree are dropped: the
+    kernels take float weights only, and their callers check the form."""
+    from image2text_torch.models.layers import _Cached
+
+    def walk(parent: nn.Module):
+        for child in parent.children():
+            if type(child) in (Linear, Embedding):
+                w = getattr(child, "weight", None)
+                if (w is not None and w.dim() == 2 and w.is_floating_point()
+                        and w.numel() >= min_elems):
+                    child.to_int8()
+            else:
+                walk(child)
+
+    walk(module)
+    for mod in module.modules():
+        for value in vars(mod).values():
+            if isinstance(value, _Cached):
+                value.clear()
+    return module
+
+
+@torch.no_grad()
 def assign_imported(tensors: Dict[str, torch.Tensor], key: str,
                     value: np.ndarray) -> bool:
     """Copy an imported float tensor into ``tensors[key]`` (a module's
@@ -139,5 +177,5 @@ def fill_random_int4(module: nn.Module, generator: torch.Generator) -> None:
 
 
 __all__ = ["QuantizedLinear", "assign_imported", "dequantize_blockwise",
-           "fill_random_int4", "quantize_blockwise",
+           "fill_random_int4", "int8_serving_params", "quantize_blockwise",
            "quantize_module_structure"]

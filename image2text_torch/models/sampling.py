@@ -1,6 +1,6 @@
-"""Sampling of the port (``image2text_tpu/models/sampling.py`` but for its
-approximate top-k): no-repeat-n-gram bans, the exact ban → top-k →
-temperature → categorical pipeline, the reference's temperature → top-k →
+"""Sampling of the port (``image2text_tpu/models/sampling.py``):
+no-repeat-n-gram bans, the exact ban → top-k → temperature → categorical
+pipeline, the reference's temperature → top-k →
 nucleus → categorical pipeline (:func:`sample_logits`, as the trainer's
 qualitative eval samples), and beam search's candidate scoring and
 Gumbel-top-k sampling.
@@ -11,6 +11,15 @@ The port computes the same functions directly: ban, top-k, temperature,
 then ``argmax(values / T + gumbel)`` — which is what
 ``jax.random.categorical`` computes from its own Gumbel noise.  Noise can
 be passed in (``gumbel=``) so that tests feed the JAX samplers' noise.
+
+The ``approx`` flag of :func:`sample_logits` and
+:func:`sample_topk_with_ngram` (the approx-top-k serving mode, JAX
+``sampling.py:323-345, :373-425``) is taken as exact: JAX pulls the head
+with ``jax.lax.approx_max_k`` (recall target 0.95), which no op on the
+card computes, so the port's approximate mode is its exact top-k, on the
+card and on the CPU.  On the CPU JAX's ``approx_max_k`` returns exactly
+``lax.top_k``, so the two packages draw the same ids there.  Greedy
+decoding never reads the flag, as in JAX.
 """
 from __future__ import annotations
 
@@ -81,12 +90,13 @@ def sample_topk_with_ngram(logits: torch.Tensor, ids_buf: torch.Tensor,
                            generator: Optional[torch.Generator],
                            temperature: Optional[float],
                            top_k: Optional[int],
-                           gumbel: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           gumbel: Optional[torch.Tensor] = None,
+                           approx: bool = False) -> torch.Tensor:
     """n-gram ban → top-k → temperature → categorical on last-step logits
     (B, V); ``temperature <= 0`` returns the banned argmax.  ``gumbel``
     (B, k) replaces the noise drawn from ``generator`` (tests feed the
-    JAX sampler's noise)."""
+    JAX sampler's noise).  ``approx`` is taken as exact (module
+    docstring)."""
     logits = apply_no_repeat_ngram(logits, ids_buf, cur_len, ngram_sizes)
     if temperature is None or temperature <= 0:
         return logits.argmax(dim=-1)
@@ -154,13 +164,15 @@ def sample_logits(logits: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   temperature: float = 1.0, top_k: Optional[int] = None,
                   nucleus_p: Optional[float] = None,
-                  gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  gumbel: Optional[torch.Tensor] = None,
+                  approx: bool = False) -> torch.Tensor:
     """The reference's sampling pipeline on last-step logits (B, V):
     top-k alone draws among the k largest at ``temperature``; otherwise
     the logits at ``temperature``, :func:`apply_top_k` (ties at the k-th
     kept), then :func:`nucleus_sample` or a draw over the whole row.
     ``gumbel`` replaces the noise of the draw: (B, k), or (B, V) (over the
-    sorted positions for nucleus)."""
+    sorted positions for nucleus).  ``approx`` is taken as exact (module
+    docstring)."""
     if top_k is not None and nucleus_p is None:
         tv, ti = topk(logits, min(top_k, logits.shape[-1]))
         if gumbel is None:

@@ -73,7 +73,7 @@ class VisionEncoderDecoder(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.transformer.wte.weight.device
+        return self.decoder.transformer.ln_f.weight.device
 
     def init_weights(self, seed: int = 0) -> "VisionEncoderDecoder":
         """Random weights from the port's own initialisers, seeded; then,
@@ -111,7 +111,11 @@ class VisionEncoderDecoder(nn.Module):
                 + self.decoder.sdpa_calls(t_dec))
 
     def forward(self, images, ids, encoder_output=None, ctx: Ctx = EVAL_CTX,
-                use_flash: bool = True):
+                use_flash: bool = True, sparse_rule_len=None):
+        """``sparse_rule_len``: the valid length of the decoder's input in
+        block coordinates (soft-prompt prefix included), which the
+        generation fallbacks pass so that sparse blocks evaluate the
+        global bypass rule at the generated length, not the buffer's."""
         if encoder_output is None:
             encoder_output = self.encoder(images, ctx=ctx.fold(1),
                                           use_flash=use_flash)
@@ -136,7 +140,8 @@ class VisionEncoderDecoder(nn.Module):
         logits, hidden = self.decoder(idx=dec_ids, inputs_embeds=inputs_embeds,
                                       cross_attn_embeds=cross,
                                       attn_msk=attn_bias, ctx=ctx.fold(2),
-                                      use_flash=use_flash)
+                                      use_flash=use_flash,
+                                      sparse_rule_len=sparse_rule_len)
         return VisionEncoderDecoderModelOutput(
             encoder_output=encoder_output, logits=logits[..., offset:, :],
             hidden_state=hidden)
@@ -144,7 +149,7 @@ class VisionEncoderDecoder(nn.Module):
     def generate(self, images, prompt_ids, max_new_tokens: int = 128,
                  temperature: float = 1.0, top_k: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, **kwargs):
-        """Cached autoregressive sampling; see models/generation.py."""
+        """Autoregressive sampling; see models/generation.py."""
         from image2text_torch.models.generation import generate
 
         return generate(self, images, prompt_ids,

@@ -6,11 +6,20 @@ activation (storage) dtype, a bias is added in that dtype afterwards, and
 normalisation statistics run in f32.  ``F.linear``'s fused bias would add
 the bias before the rounding, so products and bias adds stay separate.
 Training dropout takes a ``Ctx`` (``nn/core.py``).
+
+The int8 serving forms (JAX ``nn/modules.py:166-214``): a ``Linear`` or
+``Embedding`` turned by :meth:`Linear.to_int8` (through
+``models/quantization.py::int8_serving_params``) holds ``qweight`` (int8
+rows), ``qscale`` (f32, one a row) and ``qdtype`` (a zero-length tensor of
+the original storage dtype) as buffers instead of its ``weight``.  A Linear
+then runs W8A8 (:func:`int8_dot_rows`), an Embedding dequantises only the
+rows it gathers (:func:`embedding_rows`).  :class:`QuantizedKV` is the int8
+cross-attention memory of ``generate(cross_kv_quant='int8')``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +29,7 @@ from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       normal_init, ones_init,
                                       torch_linear_weight_init,
                                       xavier_uniform_init, zeros_init)
-from image2text_torch.ops.functions import dot_f32
+from image2text_torch.ops.functions import dot_f32, int8_mm, int8_mm_weight
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -44,9 +53,110 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
-class Linear(nn.Module):
+def quantize_rows_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per row of the last axis: (..., s, d) → (int8
+    values, f32 (..., s) scales) with t ≈ values · scales[..., None]; the
+    scale is max |t| / 127 floored at 1e-12, the values rounded half to
+    even and clipped to ±127, all in f32 as the JAX function."""
+    t32 = t.float()
+    scale = (t32.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    q = torch.round(t32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+class QuantizedKV(NamedTuple):
+    """Per-position symmetric-int8 cross-attention K/V: ``k_q``/``v_q``
+    int8 (..., h, s, d), scales f32 (..., h, s)."""
+
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+    @classmethod
+    def of(cls, k: torch.Tensor, v: torch.Tensor) -> "QuantizedKV":
+        return cls(*quantize_rows_int8(k), *quantize_rows_int8(v))
+
+
+def quantize_kv(kv, quant: Optional[str]):
+    """Cross K/V ``(k, v)`` in the form the cross-KV quant mode ``quant``
+    stores: as they are for None, a :class:`QuantizedKV` for 'int8'.  The
+    one place where the mode is read."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"unknown cross-KV quant mode {quant!r}")
+    return kv if quant is None else QuantizedKV.of(*kv)
+
+
+def embedding_rows(qweight: torch.Tensor, qscale: torch.Tensor,
+                   qdtype: torch.dtype, idx) -> torch.Tensor:
+    """Rows ``idx`` (an index tensor or a slice) of an int8 table,
+    dequantised in f32 and returned in the recorded storage dtype."""
+    rows = qweight[idx].float() * qscale[idx][..., None]
+    return rows.to(qdtype)
+
+
+def int8_dot_rows(x: torch.Tensor, qw: torch.Tensor,
+                  qs: torch.Tensor) -> torch.Tensor:
+    """W8A8 product: x (..., in) float against int8 rows qw (out, in) with
+    f32 scales qs (out,).  x is quantized per row, the s8 x s8 → s32
+    product is exact (``ops/functions.py::int8_mm``), then both row scales
+    apply in f32 as ``y · xs · qs``.  ``qw`` may carry zero rows past
+    ``out`` (the padded operand of :meth:`_Int8Form.int8_operand`); they
+    are cut.  Returns f32 (..., out)."""
+    xq, xs = quantize_rows_int8(x)
+    y = int8_mm(xq.reshape(-1, xq.shape[-1]), qw)[:, :qs.shape[0]]
+    y = y.reshape(*x.shape[:-1], qs.shape[0])
+    return y.float() * xs[..., None] * qs
+
+
+class _Int8Form:
+    """The int8 serving form of a module with a 2-D ``weight``."""
+
+    @property
+    def is_int8(self) -> bool:
+        return "qweight" in self._buffers
+
+    @property
+    def stored_dtype(self) -> torch.dtype:
+        """The dtype of the (float or recorded) weight."""
+        return self.qdtype.dtype if self.is_int8 else self.weight.dtype
+
+    @property
+    def stored_shape(self) -> Tuple[int, int]:
+        return tuple((self.qweight if self.is_int8 else self.weight).shape)
+
+    @torch.no_grad()
+    def to_int8(self) -> None:
+        """Replace ``weight`` by ``qweight``/``qscale``/``qdtype`` (in
+        place), recording the weight's dtype."""
+        w = self.weight.detach()
+        q, s = quantize_rows_int8(w)
+        del self.weight
+        getattr(self, "_init_fns", {}).pop("weight", None)
+        self.register_buffer("qweight", q)
+        self.register_buffer("qscale", s)
+        self.register_buffer("qdtype", torch.zeros(0, dtype=w.dtype,
+                                                   device=w.device))
+
+    def int8_operand(self) -> torch.Tensor:
+        """``qweight`` as :func:`int8_mm` takes it: on the card zero-padded
+        to its shapes once (``ops/functions.py::int8_mm_weight``) and kept
+        until ``qweight`` is replaced or written, on the CPU as it is."""
+        q = self.qweight
+        if q.device.type == "cpu":
+            self._padded = None
+            return q
+        key = (q._version, q.data_ptr())
+        held = getattr(self, "_padded", None)
+        if held is None or held[0] is not q or held[1] != key:
+            self._padded = (q, key, int8_mm_weight(q))
+        return self._padded[2]
+
+
+class Linear(_Int8Form, nn.Module):
     """y = x @ W.T + b with torch layout W:(out, in); f32 accumulation,
-    output and bias add in ``x``'s dtype."""
+    output and bias add in ``x``'s dtype.  The int8 form computes
+    :func:`int8_dot_rows`, rounded to ``x``'s dtype."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -59,15 +169,19 @@ class Linear(nn.Module):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight.to(x.dtype).t())
+        if self.is_int8:
+            y = int8_dot_rows(x, self.int8_operand(),
+                              self.qscale).to(x.dtype)
+        else:
+            y = torch.matmul(x, self.weight.to(x.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
 
 
-class Embedding(nn.Module):
+class Embedding(_Int8Form, nn.Module):
     """Token embedding, torch layout (num_embeddings, dim), init
-    N(0, init_std²)."""
+    N(0, init_std²).  The int8 form dequantises the gathered rows only."""
 
     def __init__(self, num_embeddings: int, dim: int, device=None,
                  init_std: float = 1.0):
@@ -76,7 +190,24 @@ class Embedding(nn.Module):
                   normal_init(std=init_std), device)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        if self.is_int8:
+            return embedding_rows(self.qweight, self.qscale,
+                                  self.qdtype.dtype, idx)
         return F.embedding(idx, self.weight)
+
+    def rows(self, start: int, stop: int) -> torch.Tensor:
+        """Rows start..stop-1 (the positional tables' contiguous slice)."""
+        if self.is_int8:
+            return embedding_rows(self.qweight, self.qscale,
+                                  self.qdtype.dtype, slice(start, stop))
+        return self.weight[start:stop]
+
+    def lm_head(self, x: torch.Tensor) -> torch.Tensor:
+        """x · tableᵀ in f32, the tied lm_head: ``dot_f32`` on the float
+        table, :func:`int8_dot_rows` on the int8 form."""
+        if self.is_int8:
+            return int8_dot_rows(x, self.int8_operand(), self.qscale)
+        return dot_f32(x, self.weight)
 
 
 class LayerNorm(nn.Module):
@@ -175,16 +306,22 @@ class MultiheadAttention(nn.Module):
         b = self.in_proj_bias[part * e:(part + 1) * e].to(x.dtype)
         return torch.matmul(x, w.t()) + b
 
-    def project_kv(self, key: torch.Tensor, value: torch.Tensor):
+    def project_kv(self, key: torch.Tensor, value: torch.Tensor,
+                   quant: Optional[str] = None):
         """Split-head K/V of a fixed memory (decode-time cross-attention:
-        computed once per sequence instead of once per token)."""
-        return (self._split_heads(self._proj(key, 1)),
-                self._split_heads(self._proj(value, 2)))
+        computed once per sequence instead of once per token);
+        ``quant='int8'`` gives them as a :class:`QuantizedKV`."""
+        k = self._split_heads(self._proj(key, 1))
+        v = self._split_heads(self._proj(value, 2))
+        return quantize_kv((k, v), quant)
 
     def forward(self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None,
                 precomputed_kv=None, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
         q = self._split_heads(self._proj(query, 0))
+        if isinstance(precomputed_kv, QuantizedKV):
+            return self.out_proj(self._int8_kv_attention(q, precomputed_kv,
+                                                         query, ctx))
         if precomputed_kv is not None:
             k, v = precomputed_kv
         else:
@@ -195,3 +332,19 @@ class MultiheadAttention(nn.Module):
         y = torch.matmul(probs, v)
         y = y.transpose(-3, -2).reshape(*query.shape[:-1], self.embed_dim)
         return self.out_proj(y)
+
+    def _int8_kv_attention(self, q, kv: QuantizedKV, query, ctx: Ctx):
+        """The mixed-precision read of an int8 memory (JAX
+        ``nn/modules.py:277-299``): q and the probabilities stay in float,
+        K/V are converted to q's dtype on read; the per-position K scale
+        multiplies the f32 scores, the V scale is folded into the
+        probabilities before their cast."""
+        if ctx.train:
+            raise ValueError("quantized cross-KV is decode-only")
+        kq, ks, vq, vs = kv
+        scores = dot_f32(q, kq.to(q.dtype))
+        scores = scores * ks[..., None, :] / math.sqrt(self.head_dim)
+        probs = torch.softmax(scores, dim=-1)
+        pv = (probs * vs[..., None, :]).to(q.dtype)
+        y = torch.matmul(pv, vq.to(q.dtype)).to(query.dtype)
+        return y.transpose(-3, -2).reshape(*query.shape[:-1], self.embed_dim)

@@ -10,10 +10,19 @@ sums, an f32 result, and no f32 copy of either operand in the forward (the
 tied lm_head's (vocab, d) weight, the eval attention's K/V).  Its backward
 is JAX's: the f32 cotangent against the other operand in f32, rounded to
 the operand's dtype.
+
+``int8_mm``: the s8 x s8 -> s32 product of the W8A8 serving forms
+(``nn/modules.py::int8_dot_rows``), which JAX computes as an XLA dot with
+``preferred_element_type=int32`` outside any Pallas kernel.  On the card
+it is ``torch._int_mm``, whose shape rules the operands are zero-padded
+to here (zero rows and columns add nothing to an integer sum, so the
+product stays exact); a CPU tensor takes the plain version, an exact f64
+product.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 class _NormalizeGradients(torch.autograd.Function):
@@ -85,3 +94,63 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return torch.matmul(a, b.transpose(-1, -2))
     return _DotF32.apply(a, b)
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int8_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (m, k) int8 · bᵀ, b (n, k) int8 → int32 (m, n): f64 products and
+    sums, exact while |sum| < 2^53 (127² · k for any k a model has)."""
+    return torch.matmul(a.double(), b.double().t()).to(torch.int32)
+
+
+def int8_mm_shapes(m: int, k: int, n: int):
+    """The (rows, inner, outer) ``torch._int_mm`` takes on the card for an
+    (m, k) · (k, n) product: more than 16 rows, the inner and outer sizes
+    multiples of 8 and at least 16.  Rows are padded to a multiple of 8
+    as well."""
+    return max(_ceil(m, 8), 24), max(_ceil(k, 8), 16), max(_ceil(n, 8), 16)
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if tuple(t.shape) == (rows, cols):
+        return t
+    return F.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def int8_mm_weight(b: torch.Tensor) -> torch.Tensor:
+    """The weight operand b (n, k) of :func:`int8_mm` zero-padded to the
+    card's shapes, made once and passed in its place (a serving form keeps
+    it: ``nn/modules.py::_Int8Form.int8_operand``); b itself where no
+    padding is needed."""
+    _, kp, np_ = int8_mm_shapes(1, b.shape[1], b.shape[0])
+    return _pad_to(b, np_, kp).contiguous()
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (m, k) int8 · bᵀ, b (n, k) int8 → int32 (m, n), exact.  On a CUDA
+    tensor ``torch._int_mm`` on the operands zero-padded to
+    :func:`int8_mm_shapes` (the flagship's vocabulary of 50,258 and a
+    decode row count of 1 need it), the result sliced back; b may come
+    padded already (:func:`int8_mm_weight`, its zero columns past k
+    included), and then only ``a`` is padded.  On a CPU tensor
+    :func:`int8_mm_plain`."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError("int8_mm takes int8 operands")
+    if a.device.type == "cpu":
+        return int8_mm_plain(a, b)
+    if not (a.is_cuda and b.is_cuda):
+        raise ValueError(f"int8_mm: the operands must be CUDA tensors, got "
+                         f"{a.device} and {b.device}")
+    m, k = a.shape
+    n = b.shape[0]
+    mp, kp, np_ = int8_mm_shapes(m, max(k, b.shape[1]), n)
+    a, b = _pad_to(a, mp, kp), int8_mm_weight(b)
+    int8_mm.launches += 1
+    out = torch._int_mm(a.contiguous(), b.t())
+    return out[:m, :n]
+
+
+int8_mm.launches = 0

@@ -12,6 +12,13 @@ the same key set, shapes and dtypes from the port, and with ``grads=True``
 the parameters' gradients under the same keys (to hold them against the
 JAX gradient tree's export).  The sparse-selection index buffers are the
 port's own, derived from the config: they are compared, never copied.
+The int8 serving forms (``models/quantization.py::int8_serving_params``)
+cross both ways as JAX's tree holds them: ``qweight`` int8, ``qscale``
+f32 and the zero-length ``qdtype`` marker, whose dtype (float32, float16
+or bfloat16) is what it carries; a tied alias whose source is an int8
+form is not written, as in JAX's export.  The port's modules must already
+hold the int8 form (the transform is a function of shapes and
+``min_elems``) before such a tree loads into them.
 
 :func:`save_checkpoint` writes that key set as the ``.npz`` the JAX
 package's ``load_state_dict`` reads (optionally only the parameters the
@@ -31,6 +38,26 @@ import torch
 from torch import nn
 
 SELECTION_BUFFERS = ("input_mask_idx", "input_mask_not_idx")
+QDTYPE = "qdtype"   # the int8 forms' zero-length storage-dtype marker
+_MARKER_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                  "bfloat16": torch.bfloat16}
+
+
+def _marker_numpy(t: torch.Tensor) -> np.ndarray:
+    """The zero-length marker as numpy in its own dtype (bfloat16 through
+    ``ml_dtypes``, the numpy extension that defines it)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return np.zeros((0,), ml_dtypes.bfloat16)
+    return np.zeros((0,), str(t.dtype).split(".")[-1])
+
+
+def _marker_dtype(value: np.ndarray) -> torch.dtype:
+    name = np.dtype(value.dtype).name
+    if name not in _MARKER_DTYPES:
+        raise ValueError(f"qdtype marker of dtype {name!r}")
+    return _MARKER_DTYPES[name]
 
 
 def split_specs(model: nn.Module) -> Dict[str, str]:
@@ -72,13 +99,17 @@ def state_dict_numpy(model: nn.Module,
         if grads:
             t = torch.zeros_like(t) if t.grad is None else t.grad
         t = t.detach().cpu()
+        if k.rsplit(".", 1)[-1] == QDTYPE:
+            flat[k] = _marker_numpy(t)
+            continue
         flat[k] = (t.float() if t.is_floating_point() else t).numpy()
     for stacked, template in split_specs(model).items():
         arr = flat.pop(stacked)
         for i in range(arr.shape[0]):
             flat[template.format(i=i)] = arr[i]
     for alias, source in _tied_aliases(model).items():
-        flat[alias] = flat[source]
+        if source in flat:
+            flat[alias] = flat[source]
     return flat
 
 
@@ -116,6 +147,14 @@ def _assign(model: nn.Module, sd: Dict[str, np.ndarray]) -> set:
         if tuple(dst.shape) != tuple(value.shape):
             raise ValueError(f"shape mismatch for {key}: {tuple(dst.shape)} "
                              f"vs {value.shape}")
+        if key.rsplit(".", 1)[-1] == QDTYPE:
+            path, name = key.rsplit(".", 1)
+            model.get_submodule(path).register_buffer(name, torch.zeros(
+                0, dtype=_marker_dtype(value), device=dst.device))
+            continue
+        value = np.asarray(value)
+        if value.dtype.name == "bfloat16":   # a bf16 JAX tree: exact in f32
+            value = value.astype(np.float32)
         src = torch.from_numpy(np.array(value))
         if key.rsplit(".", 1)[-1] in SELECTION_BUFFERS:
             if not torch.equal(dst.cpu(), src.to(dst.dtype)):

@@ -25,7 +25,9 @@ backward on both routes (K/V resident up to 160 keys, tiled beyond), every
 bias broadcast form, bitwise-deterministic reruns and its causal band skip;
 the lm_head and the eval attention without f32 copies.  The f32 forms of
 the flash kernels and the encoder front (the offline configs' precision
-'no') against their plain versions at the f32 limits.
+'no') against their plain versions at the f32 limits.  The W8A8
+product (``torch._int_mm`` on padded operands) bit for bit against the
+CPU's exact one, and the serving modes' launch counts.
 """
 import pytest
 import torch
@@ -1271,3 +1273,122 @@ def test_fused_frontend_f32_matches_plain(dev, b, t, din, d, n_cls, bias):
     check_output("fused_frontend f32", got, want, F32_LIMITS)
     assert torch.equal(got[:, :n_cls], want[:, :n_cls])
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (256, 1024, 50258),     # the flagship's W8A8 lm_head: outer padded
+    (256, 1024, 1024),      # q_proj, out_proj, null_connector
+    (256, 1024, 256),       # kv_proj
+    (192, 1024, 50258),     # beam search's decode rows
+    (1, 1024, 1024),        # one decode row: rows padded to 24
+    (17, 70, 50),           # every size padded
+])
+def test_int8_mm_bit_equal_to_the_cpu(dev, m, k, n):
+    """The W8A8 product on the card (``torch._int_mm`` on the padded
+    operands) equals the CPU's exact product bit for bit, on int8 operands
+    up to ±127 (the extremes included), and counts one launch."""
+    from image2text_torch.ops.functions import int8_mm, int8_mm_plain
+
+    g = torch.Generator().manual_seed(m * 7 + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    a[0], b[0] = 127, -127
+    before = int8_mm.launches
+    got = int8_mm(a.to(dev), b.to(dev))
+    assert int8_mm.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.cpu(), int8_mm_plain(a, b))
+    assert int(got[0, 0]) == -127 * 127 * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(50258, 1024), (1024, 1024), (50, 70)])
+def test_int8_form_pads_its_weight_once(dev, n, k):
+    """An int8 form keeps its weight operand padded to ``torch._int_mm``'s
+    shapes on the card: a second call reuses it, a write to ``qweight``
+    makes it anew.  The tied lm_head and the Linear through it equal
+    ``int8_dot_rows`` on the unpadded rows bit for bit, at 256 and 1 rows
+    (the flagship's vocabulary of 50,258 pads to 50,264)."""
+    from image2text_torch.nn.modules import Embedding, Linear, int8_dot_rows
+    from image2text_torch.ops.functions import int8_mm_shapes
+
+    g = _gen(dev, n)
+    emb, lin = Embedding(n, k, device=dev), Linear(k, n, bias=False,
+                                                   device=dev)
+    for mod in (emb, lin):
+        with torch.no_grad():
+            mod.weight.normal_(generator=g)
+        mod.to_int8()
+        padded = mod.int8_operand()
+        _, kp, np_ = int8_mm_shapes(1, k, n)
+        assert tuple(padded.shape) == (np_, kp)
+        assert torch.equal(padded[:n, :k], mod.qweight)
+        assert mod.int8_operand() is padded
+    for rows in (256, 1):
+        x = torch.randn(rows, k, generator=g, device=dev).to(torch.bfloat16)
+        want = int8_dot_rows(x, emb.qweight, emb.qscale)
+        assert torch.equal(emb.lm_head(x), want)
+        assert torch.equal(lin(x), int8_dot_rows(x, lin.qweight, lin.qscale)
+                           .to(x.dtype))
+    with torch.no_grad():
+        emb.qweight[0] = -emb.qweight[0]
+    assert emb.int8_operand() is not padded
+    assert torch.equal(emb.int8_operand()[0, :k], emb.qweight[0])
+
+
+@pytest.mark.cuda
+def test_serving_modes_on_the_card_keep_the_kernels(dev):
+    """The tiny flagship in bf16 on the card: int8 cross-KV, W8A8 (at a
+    min_elems that leaves the MoE gates in float, as the flagship's
+    default does: at these widths that is the tied table alone, so the
+    W8A8 products are its lm_head's) with int8 cross-KV, and approx top-k
+    each launch the
+    same sparse_block and moe_ffn counts as the exact mode; the W8A8
+    products run on the card; the logits of a cached 8-token step against
+    the mode's cross memory stay finite and near the exact mode's (equal
+    for approx top-k, which the port takes as exact)."""
+    import copy
+
+    from image2text_torch.models.generation import (decoder_step,
+                                                    precompute_cross_kv,
+                                                    quantize_cross_kv)
+    from image2text_torch.models.quantization import int8_serving_params
+    from image2text_torch.ops.functions import int8_mm
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device=dev)
+    model.init_weights(0).to(torch.bfloat16).eval()
+    w8a8 = copy.deepcopy(model)
+    int8_serving_params(w8a8.decoder, min_elems=10000)
+    assert w8a8.decoder.transformer.wte.is_int8
+    assert all(blk.mlp.plain_weights for blk in w8a8.decoder.blocks)
+    img = torch.randn(4, 3, 64, 64, generator=_gen(dev), device=dev,
+                      dtype=torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+    chunk = torch.randint(0, 512, (4, 8), generator=_gen(dev, 2), device=dev)
+    counts, first = {}, {}
+    for mode, m, kw in (("exact", model, {}),
+                        ("int8_kv", model, dict(cross_kv_quant="int8")),
+                        ("w8a8", w8a8, dict(cross_kv_quant="int8")),
+                        ("approx", model, dict(approx_top_k=True))):
+        sparse_block.launches = moe_ffn.launches = 0
+        products = int8_mm.launches
+        with torch.no_grad():
+            ids = m.generate(img, prompt, max_new_tokens=8, temperature=0.7,
+                             top_k=16, generator=_gen(dev, 1), **kw)
+            enc = m.encoder(img)
+            kv = quantize_cross_kv(precompute_cross_kv(m, enc),
+                                   kw.get("cross_kv_quant"))
+            cache = m.decoder.init_cache(4, 8, enc.dtype, dev)
+            first[mode] = decoder_step(m, chunk, cache, m.space_for_prompt,
+                                       enc, kv)[0].float()
+        counts[mode] = (sparse_block.launches, moe_ffn.launches)
+        assert ids.shape == (4, 9) and bool((ids[:, 0] == 1).all())
+        assert (int8_mm.launches > products) == (mode == "w8a8")
+        assert bool(torch.isfinite(first[mode]).all())
+    assert len(set(counts.values())) == 1 and counts["exact"][1] > 0
+    assert torch.equal(first["approx"], first["exact"])
+    for mode in ("int8_kv", "w8a8"):
+        rel = (torch.linalg.vector_norm(first[mode] - first["exact"])
+               / torch.linalg.vector_norm(first["exact"]))
+        assert 0 < float(rel) < 0.1, (mode, float(rel))

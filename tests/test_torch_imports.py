@@ -165,3 +165,33 @@ def test_new_kernel_wrappers_take_plain_version_only_on_cpu():
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(*meta)
         assert fn.launches == before
+
+
+@pytest.mark.parametrize("name", [
+    "image2text_torch.nn.modules", "image2text_torch.ops.functions",
+    "image2text_torch.models.quantization",
+    "image2text_torch.models.generation", "image2text_torch.evaluate"])
+def test_serving_mode_modules_are_covered(name):
+    """The serving modes' new and changed modules are among those the
+    no-JAX import check walks, and none names JAX or the JAX package."""
+    assert name in _submodules()
+    path = REPO / (name.replace(".", "/") + ".py")
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|image2text_tpu)\b",
+                         path.read_text(), re.M)
+
+
+def test_int8_product_takes_plain_version_only_on_cpu():
+    """``int8_mm`` (the W8A8 product): the exact plain product on CPU
+    tensors, counting no launch; on another device ``torch._int_mm`` or a
+    raise, never the plain version."""
+    from image2text_torch.ops.functions import int8_mm, int8_mm_plain
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (3, 16), dtype=torch.int8, generator=gen)
+    b = torch.randint(-127, 128, (5, 16), dtype=torch.int8, generator=gen)
+    before = int8_mm.launches
+    assert torch.equal(int8_mm(a, b), int8_mm_plain(a, b))
+    assert int8_mm.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        int8_mm(a.to("meta"), b.to("meta"))
+    assert int8_mm.launches == before

@@ -3,8 +3,9 @@
 against the JAX package: logits (the f32 front and the ``_MLP`` dense
 blocks), the dense block's cached decode against the full forward, greedy
 tokens and the evaluate twin's greedy BLEU-4 and CIDEr-D against JAX's
-``evaluate.py`` logic on a fixed image set, and checkpoints written by the
-port and read by JAX.  f32 at ``jax.default_matmul_precision("highest")``."""
+``evaluate.py`` logic on a fixed image set (exact, ``--int8_serving`` and
+``--approx_topk``), and checkpoints written by the port and read by
+JAX.  f32 at ``jax.default_matmul_precision("highest")``."""
 from pathlib import Path
 
 import numpy as np
@@ -154,11 +155,69 @@ def test_quality2_greedy_tokens_and_evaluate_metrics_match_jax(q2):
     assert got["cider"] == cider_d(cands, refs) > 1.0
 
 
-def test_evaluate_twin_refuses_the_unported_serving_flags():
-    for flag in ("--int8_serving", "--approx_topk"):
-        args = twin_eval.parse_args(["--config_file", str(YAML), flag])
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            twin_eval.main(args, device="cpu")
+def _jax_evaluate_greedy(q2, **generate_kw):
+    """JAX's evaluate.py logic, greedy, on the first N_IMAGES val images:
+    (candidates, references)."""
+    jm, params, _, val = q2
+    with jax.default_matmul_precision("highest"):
+        out = np.asarray(jax.jit(lambda p, i: jm.generate(
+            p, i, jnp.asarray([[1]]), max_new_tokens=MAX_NEW,
+            temperature=0.0, top_k=16, **generate_kw))(
+                params, jnp.asarray(val["image"][:N_IMAGES])))
+    refs = []
+    for r in range(N_IMAGES):
+        truths = []
+        for c in range(5):
+            lab = normalize_label(val[f"input_ids_{c}"][r:r + 1],
+                                  val[f"attn_mask_{c}"][r:r + 1])[0]
+            truths.append(twin_eval._strip(lab[lab != -100], 0))
+        refs.append(truths)
+    return [twin_eval._strip(row[1:], 0) for row in out], refs
+
+
+def _twin(*flags):
+    return twin_eval.main(twin_eval.parse_args([
+        "--config_file", str(YAML), "--chkpt_file", str(CK), "--num_images",
+        str(N_IMAGES), "--num_candidates", "1", *flags]), device="cpu")
+
+
+def test_evaluate_twin_int8_serving_matches_jax(q2):
+    """``--int8_serving`` (greedy): JAX's evaluate.py applies
+    ``int8_serving_params`` to the decoder at its default min_elems
+    (2^18) and decodes with int8 cross-KV.  At d 64 no weight of this
+    checkpoint reaches 2^18 elements (the largest, wte, is 1,024 x 64), so
+    the mode is int8 cross-KV alone in both packages; the twin's
+    candidates, BLEU-4 and CIDEr-D equal JAX's."""
+    jm, params, _, _ = q2
+    from image2text_tpu.models.quantization import (
+        int8_serving_params as jax_int8_serving_params)
+    from image2text_tpu.utils.tree import flatten
+
+    pq = dict(params)
+    pq["decoder"] = jax_int8_serving_params(jm.decoder, params["decoder"])
+    assert not any(k.endswith("qweight") for k in flatten(pq["decoder"]))
+    cands, refs = _jax_evaluate_greedy((jm, pq, None, q2[3]),
+                                       cross_kv_quant="int8")
+    got = _twin("--temperature", "0", "--int8_serving")
+    assert got["references"] == refs
+    assert got["candidates"] == cands
+    assert got["bleu"] == corpus_bleu(cands, refs) > 0.5
+    assert got["cider"] == cider_d(cands, refs) > 1.0
+
+
+def test_evaluate_twin_approx_topk_matches_jax(q2):
+    """``--approx_topk``: greedy, the twin's candidates and metrics equal
+    JAX's approx-mode ones (greedy never reads the flag in either
+    package); sampled (temperature 1.0, top-k 16), the twin's run equals
+    its own run without the flag, the same generator draws for both: the
+    port takes the flag as exact."""
+    cands, refs = _jax_evaluate_greedy(q2, approx_top_k=True)
+    got = _twin("--temperature", "0", "--approx_topk")
+    assert got["candidates"] == cands
+    assert got["bleu"] == corpus_bleu(cands, refs) > 0.5
+    assert got["cider"] == cider_d(cands, refs) > 1.0
+    sampled = _twin("--approx_topk")
+    assert sampled == _twin()
 
 
 def test_port_checkpoint_loads_in_jax_with_the_same_logits(q2, tmp_path):
