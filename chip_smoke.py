@@ -81,7 +81,9 @@ Phases, each printing its lines:
             path, whose MoE FFN launches moe_ffn).  Then the W8A8 product
             (torch._int_mm on zero-padded operands) bit for bit against
             the CPU's at the lm_head's and every decode projection's
-            shapes (256, 192 and 1 rows), and the W8A8 lm_head's ms.
+            shapes (256, 192 and 1 rows), the row scales and int8
+            activations equal to the CPU's (0 ulp, 0 flips), and the W8A8
+            lm_head's ms.
    beam-int8  beam search (batch 64, width 3, expansion 4) exact, with
             int8 cross-KV and with W8A8 + int8 cross-KV: captions/s,
             launches, greedy beam ids against exact's.
@@ -135,6 +137,32 @@ LoRA B N(0, 0.02): zero initialisers would make both vanish):
             loss of every step, frozen tensors bitwise unchanged.
 12. gpt2m-train-parity  depth 2 + 2, full width, batch 8: loss and
             gradients, kernel path against plain-version path.
+
+Then the pretrained-ViT nano family at full width and depth, batch 256,
+random weights from the seed (ViT-B/16 at 224², 197 tokens; a
+GPT-2-initialised decoder imports a GPT-2-layout state dict of seeded
+numpy normals in HF names and Conv1D layout through
+``import_gpt2_state_dict``, loose as its config says):
+
+   nano-mini  training_configs/local/nano-mini.yaml: positional-MLP head
+            (16 x 768), bridge 768 → 1024, 6 sparse MQA/MoE decoder
+            layers with the positional-MLP embedding, soft prompt +
+            cross-attention: moe_ffn at its decode shape (256 rows, 1024 →
+            2048) against its plain version, then the serving path as
+            [main] (launches held to serving_launches: moe_ffn only),
+            captions/s and the call's wall; nano-mini-parity as [parity].
+   nano     training_configs/tpu/nano.yaml: PEER head (65,536 units,
+            top-8, 4 heads, query 128, out 1600), bridge 1600 → 1280, the
+            36-layer d-1280 MHA decoder from GPT-2-large's layout (its
+            1,024-row wpe skipped against 256), cross-attention alone.
+   nano-lsh training_configs/local/nano.yaml: LSH head (8 CLS, bins
+            4/8/20, 32 projections), the 12-layer d-768 MHA decoder from
+            GPT-2's layout, soft prompt + cross-attention.
+   nano-cpu depth 2 + 2 forms of the three, card against a CPU copy:
+            encoder output, first-step logits (f32, TF32 off: within 1e-4
+            relative L2; nano-mini in bf16, moe_ffn's dtype, within 0.03)
+            and greedy ids; the LSH bins that differ, each within 1e-5 of
+            a grid point.
 
 Then the offline end-to-end path (training_configs/local/synthetic-*.yaml:
 f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
@@ -746,7 +774,6 @@ def phase_kernels(torch, model, args, results, tag=None):
     shapes, kept under ``<tag>_shape`` in the rows."""
     from image2text_torch.ops.fused_block import (sparse_block,
                                                   sparse_block_plain)
-    from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
 
     dev, bf = model.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -816,33 +843,43 @@ def phase_kernels(torch, model, args, results, tag=None):
     if tag is None:
         cases.insert(0, ("decode", model.decoder.blocks[0].mlp, BATCH, {}))
     for label, mlp, rows, ln in cases:
-        fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
-        xm = torch.randn(rows, fc.wa.shape[0], device=dev, dtype=bf,
-                         generator=gen)
-        got, want, rk, gv = run_pair(torch, moe_ffn, moe_ffn_plain,
-                                     (xm, fc, proj), rows, fc.e, **ln)
-        hidden = fc.l2w.shape[1]
-        err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}", got,
-                      want, rk, gv, fc.k)
-        ms = cuda_ms(torch, lambda: moe_ffn(xm, fc, proj, **ln), iters=20)
-        plain = cuda_ms(torch, lambda: moe_ffn_plain(xm, fc, proj, **ln),
-                        iters=20)
-        flops, byts = moe_flops_bytes(xm, fc, proj)
-        bms, by = bound_ms(byts + nbytes(*ln.values()), flops)
-        log(f"  moe_ffn {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
-            f"{byts / 1e6:.2f} MB)")
+        row = moe_case(torch, mlp, rows, gen, label, ln)
         if label == "decode":
+            row.pop("rows"), row.pop("hidden")
             results["moe_ffn"] = dict(
                 name="moe_ffn", route="cuda",
                 source="image2text_torch/csrc/fused_moe.cu",
                 replaces="image2text_tpu/ops/fused_moe.py:95",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                library_ms=None, **row)
         else:
             key = "encoder_shape" if tag is None else f"{tag}_encoder_shape"
-            results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = dict(
-                rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
+            results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = row
+
+
+def moe_case(torch, mlp, rows: int, gen, label: str, ln=None) -> dict:
+    """``moe_ffn`` on ``mlp``'s weights and ``rows`` random bf16 rows
+    against its plain version on the kernel's routes (``ln``: the LN2
+    prologue's weights), timed beside the plain version; its bound."""
+    from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
+
+    ln, bf = ln or {}, torch.bfloat16
+    fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
+    xm = torch.randn(rows, fc.wa.shape[0], device=gen.device, dtype=bf,
+                     generator=gen)
+    got, want, rk, gv = run_pair(torch, moe_ffn, moe_ffn_plain,
+                                 (xm, fc, proj), rows, fc.e, **ln)
+    hidden = fc.l2w.shape[1]
+    err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}", got, want,
+                  rk, gv, fc.k)
+    ms = cuda_ms(torch, lambda: moe_ffn(xm, fc, proj, **ln), iters=20)
+    plain = cuda_ms(torch, lambda: moe_ffn_plain(xm, fc, proj, **ln),
+                    iters=20)
+    flops, byts = moe_flops_bytes(xm, fc, proj)
+    bms, by = bound_ms(byts + nbytes(*ln.values()), flops)
+    log(f"  moe_ffn {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+        f"{byts / 1e6:.2f} MB)")
+    return dict(rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
@@ -940,25 +977,32 @@ def serving_launches(model, n_forwards: int = 1 + MAX_NEW_TOKENS):
     """Launches of each kernel wrapper in one caption call with a one-token
     prompt and ``n_forwards`` one-token decoder forwards at text positions
     0, 1, ... (the prefill, then one per decode step: 1 + MAX_NEW_TOKENS
-    for ``generate``, 1 + rounds for beam search), derived from the model:
-    one fused_frontend (the encoder front); one sparse_block per sparse
-    encoder block that runs its body and one fused_block per dense one
-    (the block's MoE FFN runs inside); one moe_ffn per cached forward of a
-    scratch-decoder block that runs its body; one int4_matmul per
+    for ``generate``, 1 + rounds for beam search), derived from the model.
+    A scratch encoder: one fused_frontend (the encoder front), one
+    sparse_block per sparse encoder block that runs its body and one
+    fused_block per dense one (the block's MoE FFN runs inside); the
+    pretrained ViT launches none of them.  One moe_ffn per cached forward
+    of a scratch-decoder MoE block that runs its body; one int4_matmul per
     quantized Linear per decoder forward."""
+    import numpy as np
+
+    from image2text_torch.models.encoder import VisionTransformerEncoder
+    from image2text_torch.models.layers import _MoEMLP
     from image2text_torch.models.quantization import QuantizedLinear
 
     enc, dec = model.vision_encoder, model.decoder
-    t = enc.n_cls + enc.n_patches ** 2
     want = {kern.__name__: 0 for kern in kernel_wrappers()}
-    want["fused_frontend"] = 1
-    want["sparse_block"] = sum(blk.is_sparse and blk.runs_body(t)
-                               for blk in enc.blocks)
-    want["fused_block"] = sum(not blk.is_sparse for blk in enc.blocks)
+    if isinstance(enc, VisionTransformerEncoder):
+        t = enc.n_cls + enc.n_patches ** 2
+        want["fused_frontend"] = 1
+        want["sparse_block"] = sum(blk.is_sparse and blk.runs_body(t)
+                                   for blk in enc.blocks)
+        want["fused_block"] = sum(not blk.is_sparse for blk in enc.blocks)
     if hasattr(dec, "ffn_evaluations"):
-        want["moe_ffn"] = sum(dec.ffn_evaluations(model.space_for_prompt + i,
-                                                  1)
-                              for i in range(n_forwards))
+        want["moe_ffn"] = sum(
+            blk.runs_body_at(np.asarray([model.space_for_prompt + i]))
+            for i in range(n_forwards) for blk in dec.blocks
+            if isinstance(blk.mlp, _MoEMLP))
     n_q = sum(isinstance(m, QuantizedLinear) for m in dec.modules())
     want["int4_matmul"] = n_forwards * n_q
     return want
@@ -1029,7 +1073,8 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
     log(f"  captions/s (batch {b}, {MAX_NEW_TOKENS} new tokens, median of 3 "
         f"windows): {rate:.2f} on "
         f"{torch.cuda.get_device_name(0)}; windows "
-        f"{[round(x, 2) for x in windows]}")
+        f"{[round(x, 2) for x in windows]}; wall a call "
+        f"{[round(b / x * 1e3, 2) for x in windows]} ms")
     if args.profile:
         log(f"  device time by kernel, {what}:")
         device_profile(torch, lambda: run(20))
@@ -1082,14 +1127,12 @@ def device_profile(torch, fn, top: int = 12) -> None:
 def phase_parity(torch, model, phase: str, bos: int):
     """At batch 8: the first-step logits (the prefill's last row) and the
     greedy tokens of the kernel path against the plain-version path."""
-    from image2text_torch.models.generation import generate, prefill
-    from image2text_torch.ops.preprocess import resize_normalize_on_device
+    from image2text_torch.models.generation import (generate, prefill,
+                                                    preprocess_frames)
 
     b = 8
     frames, prompt = serving_inputs(torch, model, b, SEED + 3, bos)
-    images = resize_normalize_on_device(
-        frames, model.config.vision_encoder_config.input.width,
-        out_dtype=torch.bfloat16)
+    images = preprocess_frames(model, frames, torch.bfloat16)
 
     def first_logits():
         return prefill(model, model.encoder(images), prompt,
@@ -1563,10 +1606,10 @@ def phase_int8_products(torch, w8):
 def w8a8_against_cpu(torch, x, mod, name: str) -> bool:
     """One W8A8 product as an int8 form runs it on the card
     (``int8_dot_rows`` through its padded operand) against the CPU on the
-    same input: the row scales within one f32 ulp of the CPU's, any int8
-    activation that differs lying within 1e-3 quanta of its half-quantum
-    boundary (a one-ulp scale moves it across), and the result bit for bit
-    the CPU's product and scales applied to the card's own activations."""
+    same input: the row scales and the int8 activations equal the CPU's
+    bit for bit (0 ulp, 0 activations on another quantum: the scale is a
+    true division on the card too, ``nn/modules.py::divide``), and the
+    result equal bit for bit to the CPU's product and scales."""
     from image2text_torch.nn.modules import int8_dot_rows, quantize_rows_int8
     from image2text_torch.ops.functions import int8_mm_plain
 
@@ -1575,17 +1618,15 @@ def w8a8_against_cpu(torch, x, mod, name: str) -> bool:
     cq, cs = quantize_rows_int8(x.cpu())
     ulps = int((xs.view(torch.int32).long() - cs.view(torch.int32).long())
                .abs().max())
-    flips = xq != cq
-    y = (x.cpu().float() / cs[..., None])[flips]
-    margin = float((y - y.floor() - 0.5).abs().max()) if len(y) else 0.0
-    want = (int8_mm_plain(xq, mod.qweight.cpu()).float() * xs[..., None]
+    flips = int((xq != cq).sum())
+    want = (int8_mm_plain(cq, mod.qweight.cpu()).float() * cs[..., None]
             * mod.qscale.cpu())
     same = bool(torch.equal(got, want))
     log(f"    W8A8 {name} {x.shape[0]} rows, card against CPU: scales within "
-        f"{ulps} ulp, {int(flips.sum())} of {xq.numel()} activations on the "
-        f"other quantum (within {margin:.3g} quanta of the boundary), the "
-        f"product and scales equal bit for bit: {same}")
-    return same and ulps <= 1 and margin <= 1e-3
+        f"{ulps} ulp, {flips} of {xq.numel()} activations on the other "
+        f"quantum, the product and scales equal the CPU's bit for bit: "
+        f"{same}")
+    return same and ulps == 0 and flips == 0
 
 
 def phase_int8_kv_read(torch, model, b: int = BATCH):
@@ -2718,6 +2759,216 @@ def phase_reforward_quality2(torch, results):
         raise AssertionError("reforward quality2: the fallback's ids differ")
 
 
+NANO_YAML = {"nano-mini": "training_configs/local/nano-mini.yaml",
+             "nano": "training_configs/tpu/nano.yaml",
+             "nano-lsh": "training_configs/local/nano.yaml"}
+NANO_BOS = 50256    # GPT-2's <|endoftext|>, the nano family's tokenizer
+NANO_CPU_BATCH = 4  # [nano-cpu]'s images
+NANO_CPU_TOL = 1e-4     # [nano-cpu] f32 logits, card against CPU (rel L2)
+LSH_EDGE = 1e-5     # a bin may differ only this close to a grid point
+
+
+def gpt2_layout_state_dict(n_layer: int, d: int, vocab: int = 50257,
+                           positions: int = 1024, seed: int = SEED + 30):
+    """An HF GPT-2 state dict of seeded normals (N(0, 0.02); LayerNorm
+    weights 1 + N(0, 0.02)), built in numpy on the host: HF key names,
+    Conv1D (in, out) weights, the causal-mask buffers (skipped by the
+    import) and the tied ``lm_head.weight``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= 0.02
+        return a
+
+    mask = np.tril(np.ones((1, 1, positions, positions), np.float32))
+    sd = {"transformer.wte.weight": w(vocab, d),
+          "transformer.wpe.weight": w(positions, d),
+          "transformer.ln_f.weight": 1 + w(d), "transformer.ln_f.bias": w(d)}
+    for i in range(n_layer):
+        h = f"transformer.h.{i}."
+        sd.update({h + "ln_1.weight": 1 + w(d), h + "ln_1.bias": w(d),
+                   h + "attn.bias": mask,
+                   h + "attn.masked_bias": np.asarray(-1e4, np.float32),
+                   h + "attn.c_attn.weight": w(d, 3 * d),
+                   h + "attn.c_attn.bias": w(3 * d),
+                   h + "attn.c_proj.weight": w(d, d),
+                   h + "attn.c_proj.bias": w(d),
+                   h + "ln_2.weight": 1 + w(d), h + "ln_2.bias": w(d),
+                   h + "mlp.c_fc.weight": w(d, 4 * d),
+                   h + "mlp.c_fc.bias": w(4 * d),
+                   h + "mlp.c_proj.weight": w(4 * d, d),
+                   h + "mlp.c_proj.bias": w(d)})
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def nano_model(torch, name: str, dtype, depth=None, device="cuda"):
+    """A nano-family model from its YAML at full width, at full depth or
+    with ``depth`` ViT and decoder layers, random weights from SEED.  A
+    GPT-2-initialised decoder takes a GPT-2-layout state dict of its GPT-2
+    size (``gpt2_layout_state_dict``) through ``import_gpt2_state_dict``
+    with the config's loose flag, as ``init_weights`` runs it.  Returns
+    (model, seconds to build, seconds of the GPT-2 surgery)."""
+    from image2text_torch.configs.models import GPT2_MODEL_TABLE
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models import encoder as tenc
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+
+    t0 = time.perf_counter()
+    cfg = load_training_config(NANO_YAML[name]).model
+    dec, vit_args = cfg.decoder_config, tenc.VIT_B16_ARGS
+    if depth is not None:
+        dec.n_layer = depth
+        tenc.VIT_B16_ARGS = dict(num_layers=depth)
+    try:
+        model = VisionEncoderDecoder(cfg, device=device)
+    finally:
+        tenc.VIT_B16_ARGS = vit_args
+    sd, surgery = None, 0.0
+    if dec.pretrained_model is not None:
+        d = GPT2_MODEL_TABLE[dec.pretrained_model]["n_embd"]
+        sd = gpt2_layout_state_dict(dec.n_layer, d)
+    t1 = time.perf_counter()
+    model.init_weights(SEED, gpt2_state_dict=sd)
+    if sd is not None:
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        surgery = time.perf_counter() - t1
+    del sd
+    model = model.to(dtype).eval()
+    return model, time.perf_counter() - t0, surgery
+
+
+def describe(torch, model, label: str, built: float, surgery: float) -> None:
+    enc, dec = model.vision_encoder, model.decoder
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[{label}-model] {type(enc).__name__} ({len(enc.blocks)} ViT "
+        f"blocks, head {'PEER' if enc.use_peer else 'LSH' if enc.use_lsh else 'positional MLP'}"
+        f", {enc.num_outputs} x {enc.output_embed_dim}), "
+        f"{'bridge, ' if model.encoder is not enc else ''}"
+        f"{len(dec.blocks)}-layer d-{dec.n_embd} decoder "
+        f"({dec.blocks[0].attn.__class__.__name__}, vocab "
+        f"{dec.transformer.wte.stored_shape[0]}); {n:,} parameters "
+        f"({n * 2 / 2 ** 30:.2f} GiB in bf16), built in {built:.1f} s"
+        + (f" (the GPT-2 surgery {surgery:.1f} s)" if surgery else ""))
+
+
+def phase_nano_moe_kernel(torch, model, results):
+    """``moe_ffn`` at nano-mini's decode shape (256 rows, 1024 → 2048 →
+    1024) against its plain version, kept as ``nano_mini_decode_shape``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    results.setdefault("moe_ffn", {"name": "moe_ffn"})[
+        "nano_mini_decode_shape"] = moe_case(
+            torch, model.decoder.blocks[0].mlp, BATCH, gen, "nano-mini decode")
+
+
+def first_parting(torch, ids_a, ids_b):
+    """(row, step) of the first id where two greedy runs part, or None."""
+    diff = (ids_a.cpu() != ids_b.cpu()).nonzero()
+    if not len(diff):
+        return None
+    row, step = (int(v) for v in diff[diff[:, 1].argmin()])
+    return row, step
+
+
+def phase_nano_cpu(torch):
+    """Depth-reduced forms (ViT depth 2, decoder depth 2, widths as
+    configured) on the card against a CPU copy of the same weights:
+    encoder output, first-step logits (a one-token prefill's last row) and
+    greedy ids over MAX_NEW_TOKENS, NANO_CPU_BATCH images.  PEER and LSH
+    forms in f32 with TF32 off: logits within NANO_CPU_TOL and the ids
+    equal; every LSH bin that differs is reported, and must lie within
+    LSH_EDGE of a grid point.  nano-mini in bf16: ``moe_ffn`` takes bf16
+    only (JAX's kernel gate declines f32 on the TPU likewise), so its
+    card-against-CPU distance is bf16's, within CPU_MODE_TOL."""
+    from image2text_torch.models.generation import (generate, prefill,
+                                                    preprocess_frames)
+    from image2text_torch.models.layers import _unit_rows
+
+    for name in ("nano", "nano-lsh", "nano-mini"):
+        dtype = torch.bfloat16 if name == "nano-mini" else torch.float32
+        m, _, _ = nano_model(torch, name, dtype, depth=2)
+        cpu = cpu_copy(m)
+        frames, prompt = serving_inputs(torch, m, NANO_CPU_BATCH, SEED + 32,
+                                        NANO_BOS)
+        images = preprocess_frames(m, frames, dtype)
+        enc, cenc = m.encoder(images), cpu.encoder(images.cpu())
+        got = prefill(m, enc, prompt, 1 + MAX_NEW_TOKENS)[0][:, -1].float()
+        want = prefill(cpu, cenc, prompt.cpu(),
+                       1 + MAX_NEW_TOKENS)[0][:, -1].float()
+        ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                       temperature=0.0)
+        cids = generate(cpu, images.cpu(), prompt.cpu(),
+                        max_new_tokens=MAX_NEW_TOKENS, temperature=0.0)
+        flips, margin = 0, 0.0
+        if name == "nano-lsh":
+            vit, cvit = m.vision_encoder, cpu.vision_encoder
+            x, cx = vit.model(images), cvit.model(images.cpu())
+            for comp, ccomp in zip(vit.lsh_emb, cvit.lsh_emb):
+                for mod, cmod in zip(comp.emb, ccomp.emb):
+                    diff = (mod.bins(x[:, None]).cpu()
+                            != cmod.bins(cx[:, None]))
+                    if bool(diff.any()):
+                        z = torch.matmul(_unit_rows(cx[:, None]),
+                                         cmod.projection_mat)
+                        edge = (z[..., None] - cmod.grid).abs().amin(-1)
+                        flips += int(diff.sum())
+                        margin = max(margin, float(edge[diff].max()))
+        enc_err = rel_l2(torch, enc.float().cpu(), cenc.float())
+        err = rel_l2(torch, got.cpu(), want)
+        parting = first_parting(torch, ids, cids)
+        tol = CPU_MODE_TOL if name == "nano-mini" else NANO_CPU_TOL
+        log(f"  {name} (depth 2 + 2, {str(dtype).split('.')[-1]}), card "
+            f"against CPU, {NANO_CPU_BATCH} images: encoder output relative "
+            f"L2 {enc_err:.6g}, first-step logits {err:.6g} (limit {tol}); "
+            f"greedy ids over {MAX_NEW_TOKENS} steps equal: "
+            f"{parting is None}" + ("" if parting is None else
+                                    f" (first parting at row, step "
+                                    f"{parting})")
+            + (f"; LSH bins differing {flips} (largest distance of their "
+               f"projection from a grid point {margin:.3g}, limit "
+               f"{LSH_EDGE})" if name == "nano-lsh" else ""))
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"nano-cpu {name}: logits {err} > {tol}")
+        if margin > LSH_EDGE:
+            raise AssertionError(f"nano-cpu {name}: an LSH bin differs "
+                                 f"{margin} from a grid point")
+        if name != "nano-mini" and not flips and parting is not None:
+            raise AssertionError(f"nano-cpu {name}: greedy ids part at "
+                                 f"{parting}")
+        del m, cpu
+        torch.cuda.empty_cache()
+
+
+def phase_nano(torch, args, results):
+    """The three nano configurations at full width and depth, batch 256:
+    [nano-mini] (with its moe_ffn row and [nano-mini-parity]), [nano],
+    [nano-lsh]; then [nano-cpu]."""
+    bf = torch.bfloat16
+    for name, path in (("nano-mini", "nano_mini_caption"),
+                       ("nano", "nano_caption"),
+                       ("nano-lsh", "nano_lsh_caption")):
+        model, built, surgery = nano_model(torch, name, bf)
+        describe(torch, model, name, built, surgery)
+        log(f"[{name}] {NANO_YAML[name]} serving path at full width and "
+            "depth")
+        if name == "nano-mini":
+            phase_nano_moe_kernel(torch, model, results)
+        phase_serve(torch, model, args, results, path, NANO_BOS)
+        if name == "nano-mini":
+            log("[nano-mini-parity] kernel path vs plain-version path at "
+                "full width")
+            phase_parity(torch, model, "nano-mini-parity", NANO_BOS)
+        del model
+        torch.cuda.empty_cache()
+    log("[nano-cpu] depth-reduced forms, card against CPU")
+    phase_nano_cpu(torch)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2892,6 +3143,9 @@ def main() -> int:
                        lambda: gpt2m_train_setup(torch, n_layer=2),
                        lambda cfg: gpt2m_train_inputs(torch, 8, SEED + 11),
                        LORA_GRADS)
+
+    with torch.no_grad():
+        phase_nano(torch, args, results)
 
     log("[offline-kernels] the f32 kernels of the offline path (flash at "
         "synthetic-smoke.yaml's training shapes, the front at the evaluate "

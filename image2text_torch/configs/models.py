@@ -2,9 +2,7 @@
 
 Same class and field names as ``image2text_tpu/configs/models.py``, so a
 reader can hold one against the other, and the YAML reader
-(``configs/reader.py``) fills them from ``training_configs/`` (classes of
-models not ported yet, such as :class:`PretrainedViTConfig`, are read but
-not built).  The machine with the card has neither pydantic nor PyYAML, so
+(``configs/reader.py``) fills them from ``training_configs/``.  The machine with the card has neither pydantic nor PyYAML, so
 the reader is the port's own, and three configurations are also
 transcribed here as Python constants: the flagship
 (``training_configs/tpu/nano-mini.yaml``; :func:`flagship_config` mirrors
@@ -108,8 +106,9 @@ class VisionTransformerEncoderConfig:
 
 @dataclass
 class PretrainedViTConfig:
-    """The pretrained-ViT encoder (ROADMAP queue 1 item 4): read from a
-    config, not built by the port yet."""
+    """The pretrained ViT-B/16 encoder with one of its three heads: the
+    positional MLP (``gate_sizes``), PEER (``peer_config``) or LSH
+    (``lsh_config``, which forces the backbone frozen)."""
 
     n_cls: int
     n_embd_out_vit: int
@@ -125,6 +124,16 @@ class ModelType(Enum):
     GPT2_MEDIUM = "gpt2-medium"
     GPT2_LARGE = "gpt2-large"
     GPT2_XL = "gpt2-xl"
+
+
+# GPT-2 sizes the scratch decoder may be initialised from (a copy of
+# image2text_tpu/models/decoder.py's GPT2_MODEL_TABLE)
+GPT2_MODEL_TABLE = {
+    ModelType.GPT2: dict(n_layer=12, n_head=12, n_embd=768),
+    ModelType.GPT2_MEDIUM: dict(n_layer=24, n_head=16, n_embd=1024),
+    ModelType.GPT2_LARGE: dict(n_layer=36, n_head=20, n_embd=1280),
+    ModelType.GPT2_XL: dict(n_layer=48, n_head=25, n_embd=1600),
+}
 
 
 @dataclass
@@ -297,7 +306,8 @@ def gpt2_medium_config(tiny: bool = False) -> VisionEncoderDecoderConfig:
 
 
 __all__ = [
-    "FLAGSHIP", "FLAGSHIP_DENSE", "GPT2_MEDIUM", "HuggingfaceDecoderConfig", "ImageInputSpec",
+    "FLAGSHIP", "FLAGSHIP_DENSE", "GPT2_MEDIUM", "GPT2_MODEL_TABLE",
+    "HuggingfaceDecoderConfig", "ImageInputSpec",
     "LoraSpec", "LshConfig", "MLPConfig", "ModelType", "MoEConfig",
     "PeerConfig", "PretrainedViTConfig", "SelfAttentionConfig",
     "SelfAttentionType",

@@ -4,28 +4,37 @@
   ``Decoder.from_config`` does: the scratch decoder, or the HF family
   (``models/hf_decoders/``; GPT-2 so far).
 * :class:`TransformerDecoder`, the scratch decoder: token table ``wte``,
-  plain positional table ``wpe``, sparse MQA/MoE blocks with
-  cross-attention on even depths only, ``ln_f`` and the lm_head tied to
-  ``wte`` with f32 accumulation and f32 logits.  In training the positions
-  are dropped and, when the config enables gradient checkpointing, each
-  block is recomputed in the backward with its bias and cross inputs.
-  Under ``models/quantization.py::int8_serving_params`` the tables read
-  their int8 forms: token and position rows dequantised on gather, the
-  tied lm_head W8A8 (JAX decoder.py:233, :278-285).
+  positional table ``wpe`` (or, with ``use_advanced_pos_emb``, the
+  positional MLP, which *replaces* the embeddings: ``x = wpe(embeds)``,
+  at the chunk's absolute positions in a cached forward), sparse or dense
+  MQA/MHA blocks with cross-attention on even depths only, ``ln_f`` and
+  the lm_head tied to ``wte`` with f32 accumulation and f32 logits.  Its
+  GPT-2 initialisation (``pretrained_model``) checks the config against
+  ``GPT2_MODEL_TABLE`` unless ``loose``; the GPT-2 weights enter through
+  ``models/hf_import.py::import_gpt2_state_dict`` from a local state dict.
+  In training the positions are dropped and, when the config enables
+  gradient checkpointing, each block is recomputed in the backward with
+  its bias and cross inputs.  Under
+  ``models/quantization.py::int8_serving_params`` the tables read their
+  int8 forms: token and position rows dequantised on gather, the tied
+  lm_head W8A8 (JAX decoder.py:233, :278-285).
 """
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import (HuggingfaceDecoderConfig,
-                                             TransformerConfig,
+from image2text_torch.configs.models import (GPT2_MODEL_TABLE,
+                                             HuggingfaceDecoderConfig,
+                                             MLPConfig, TransformerConfig,
                                              TransformerDecoderConfig)
 from image2text_torch.models.kv_cache import KVCache
-from image2text_torch.models.layers import MoELinear, TransformerBlock
+from image2text_torch.models.layers import (AdvancedPositionalBiasMLP,
+                                            MoELinear, TransformerBlock)
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, normal_init,
                                       zeros_init)
 from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
@@ -42,15 +51,21 @@ def mutate_transformer_config(config: TransformerConfig, depth: int,
     return config
 
 
-def decoder_from_config(config, space_for_prompt: int = 0, device=None):
-    """The decoder a config describes (pretrained scratch-decoder weights
-    and LoRA on the scratch decoder are not ported)."""
+def decoder_from_config(config, space_for_prompt: int = 0, device=None,
+                        loose: bool = False):
+    """The decoder a config describes (JAX ``Decoder.from_config``): a
+    GPT-2-initialised scratch decoder is checked against its GPT-2 size
+    unless ``loose`` (the composite config's
+    ``loose_match_decoder_state_dict``); its vocabulary never shrinks."""
     if isinstance(config, TransformerDecoderConfig):
-        if config.pretrained_model is not None or config.lora_spec is not None:
+        if config.lora_spec is not None:
             raise NotImplementedError(
-                "the GPT-2-initialised scratch decoder and LoRA on it are not "
-                "ported yet (ROADMAP queue 1 item 4)")
-        return TransformerDecoder(config, space_for_prompt, device)
+                "LoRA on the scratch decoder is not ported yet (ROADMAP "
+                "queue 1 item 5)")
+        if config.pretrained_model is not None:
+            check_gpt2_shapes(config, loose)
+        return TransformerDecoder(config, space_for_prompt, device,
+                                  loose=loose)
     if isinstance(config, HuggingfaceDecoderConfig):
         from image2text_torch.models.hf_decoders.factory import (
             build_hf_decoder)
@@ -59,20 +74,47 @@ def decoder_from_config(config, space_for_prompt: int = 0, device=None):
     raise ValueError("Unknown config type!!!")
 
 
+def check_gpt2_shapes(config: TransformerDecoderConfig, loose: bool) -> None:
+    """JAX decoder.py:58-71: unless ``loose``, the config must be the GPT-2
+    it names (depth, width, heads, bias, 1,024 positions, dense, causal,
+    a 4x MLP); the vocabulary must not shrink either way."""
+    args = GPT2_MODEL_TABLE[config.pretrained_model]
+    tc = config.transformer_config
+    if not loose:
+        ok = (config.n_layer == args["n_layer"]
+              and tc.attn_config.n_embd == args["n_embd"]
+              and tc.attn_config.n_head == args["n_head"]
+              and tc.attn_config.bias is True
+              and config.block_size == 1024 and not tc.is_sparse_attn
+              and tc.is_causal is True
+              and isinstance(tc.rotator_config, MLPConfig)
+              and tc.rotator_config.ff_mult == 4)
+        if not ok:
+            raise ValueError("provided configs do not match the pretrained "
+                             "model")
+    if config.vocab_size < 50257:
+        raise ValueError("vocab should not shrink")
+
+
 class TransformerDecoder(nn.Module):
     def __init__(self, config: TransformerDecoderConfig,
-                 space_for_prompt: int = 0, device=None):
+                 space_for_prompt: int = 0, device=None, loose: bool = False):
         super().__init__()
-        if config.use_advanced_pos_emb:
-            raise NotImplementedError(
-                "the positional MLP (use_advanced_pos_emb) is not ported yet")
         self.config = config
+        self.pretrained_model = config.pretrained_model
+        self.loose = loose
         self.skip_alternate_cross_attn = config.skip_alternate_cross_attn
         self.tied_aliases = {"lm_head.weight": "transformer.wte.weight"}
         n_embd = config.transformer_config.attn_config.n_embd
         self.transformer = nn.Module()
         self.transformer.wte = Embedding(config.vocab_size, n_embd, device)
-        self.transformer.wpe = Embedding(config.block_size, n_embd, device)
+        if config.use_advanced_pos_emb:
+            self.transformer.wpe = AdvancedPositionalBiasMLP(
+                config.block_size, n_embd, n_embd,
+                config.advanced_pos_emb_gate_sizes, True, device)
+        else:
+            self.transformer.wpe = Embedding(config.block_size, n_embd,
+                                             device)
         self.transformer.h = nn.ModuleList([
             TransformerBlock(
                 mutate_transformer_config(config.transformer_config, depth,
@@ -87,18 +129,27 @@ class TransformerDecoder(nn.Module):
         self._gpt2_init_policy()
 
     def _gpt2_init_policy(self):
-        """GPT-2 initialisation of the JAX decoder: Linear, Embedding and
-        stacked-expert weights N(0, 0.02), their biases zero (no weight
-        of the flagship ends in 'c_proj.weight', so no residual scaling)."""
-        for mod in self.modules():
+        """GPT-2 initialisation of the JAX decoder (decoder.py:137-177):
+        Linear, Embedding, stacked-expert and positional-MLP weights
+        N(0, 0.02), a Linear weight whose path ends in 'c_proj.weight'
+        N(0, 0.02 / sqrt(2 n_layer)), the biases zero."""
+        proj_std = 0.02 / math.sqrt(2 * self.config.n_layer)
+        for path, mod in self.named_modules():
             fns = getattr(mod, "_init_fns", {})
-            if isinstance(mod, (Linear, Embedding)):
+            if isinstance(mod, Linear):
                 for name in fns:
-                    fns[name] = (normal_init(0.02) if name == "weight"
+                    std = (proj_std if path.endswith("c_proj") else 0.02)
+                    fns[name] = (normal_init(std) if name == "weight"
                                  else zeros_init())
+            elif isinstance(mod, Embedding):
+                fns["weight"] = normal_init(0.02)
             elif isinstance(mod, MoELinear):
                 for name in fns:
                     fns[name] = (normal_init(0.02) if name.endswith("weight")
+                                 else zeros_init())
+            elif isinstance(mod, AdvancedPositionalBiasMLP):
+                for name in fns:
+                    fns[name] = (normal_init(0.02) if name.startswith("w")
                                  else zeros_init())
 
     @property
@@ -166,8 +217,12 @@ class TransformerDecoder(nn.Module):
                              f"{self.block_size}")
         if kv_cache is not None:
             kv_cache.positions = pos_offset + np.arange(t)
-        pos_emb = self.transformer.wpe.rows(pos_offset, pos_offset + t)
-        x = inputs_embeds + pos_emb.to(inputs_embeds.dtype)
+        wpe = self.transformer.wpe
+        if isinstance(wpe, AdvancedPositionalBiasMLP):
+            x = wpe.forward_at(inputs_embeds, pos_offset + np.arange(t))
+        else:
+            pos_emb = wpe.rows(pos_offset, pos_offset + t)
+            x = inputs_embeds + pos_emb.to(inputs_embeds.dtype)
         x, ctx = dropout(x, self.dropout_rate, ctx.fold(2))
         lazy = kv_cache is None and sparse_rule_len is None
         remat = (self.enable_gradient_checkpointing and ctx.train

@@ -1,5 +1,13 @@
-"""From-scratch vision encoder (counterpart of
-``image2text_tpu/models/encoder.py::VisionTransformerEncoder``).
+"""Vision encoders (counterpart of ``image2text_tpu/models/encoder.py``),
+chosen by the config's type (:func:`encoder_from_config`):
+
+* :class:`PretrainedViT`: the ViT-B/16 backbone (``models/vit.py``,
+  frozen unless ``refine_base_model``) and one of three heads on its class
+  token: the positional MLP (one residual MLP per output token, the input
+  and output unit-normalised), PEER (the ``peer_proj_wt`` product to
+  ``n_cls`` queries, then ``PeerLookup``) or LSH (one composite cosine
+  embedding per output token; it forces the backbone frozen).
+* :class:`VisionTransformerEncoder`, from scratch:
 
 ConvMLP features, then the reference's raw row-major reshape of the NCHW
 feature map into n_patches² tokens of C·pw·ph (not a patchify), projector
@@ -20,8 +28,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import VisionTransformerEncoderConfig
-from image2text_torch.models.layers import ConvMLP, TransformerBlock, _Cached
+from image2text_torch.configs.models import (PretrainedViTConfig,
+                                             VisionTransformerEncoderConfig)
+from image2text_torch.models.layers import (AdvancedPositionalBiasMLP,
+                                            CompositeCosineVectorEmbedding,
+                                            ConvMLP, PeerLookup,
+                                            TransformerBlock, _Cached)
+from image2text_torch.models.vit import VisionTransformerB16
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       normal_init)
 from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
@@ -29,6 +42,99 @@ from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
 from image2text_torch.ops.fused_frontend import FrontendWeights, fused_frontend
 from image2text_torch.ops.static_gather import layout_rows, static_take
 from image2text_torch.training.remat import checkpoint_block
+
+
+# keyword arguments of the pretrained ViT's backbone (JAX encoder.py's
+# VIT_B16_ARGS): a hook for a depth-reduced backbone in tests and tools
+VIT_B16_ARGS: dict = {}
+# the backbone's width, which every head takes (JAX encoder.py:93, :102, :117)
+VIT_WIDTH = 768
+
+
+def encoder_from_config(config, device=None) -> nn.Module:
+    """The encoder a config describes (JAX ``Encoder.from_config``)."""
+    if isinstance(config, PretrainedViTConfig):
+        if config.lora_spec is not None:
+            raise NotImplementedError(
+                "LoRA on the pretrained ViT is not ported yet (ROADMAP "
+                "queue 1 item 5)")
+        return PretrainedViT(config, device)
+    if isinstance(config, VisionTransformerEncoderConfig):
+        return VisionTransformerEncoder(config, device)
+    raise ValueError("Unknown config")
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+
+
+class PretrainedViT(nn.Module):
+    """ViT-B/16 backbone + projection head; forward (b, 3, 224, 224) →
+    (b, n_cls, n_embd_out_vit).  Without ``refine_base_model`` (or with
+    the LSH head) the backbone's output is detached and its parameters
+    are frozen (:meth:`frozen_param_paths` through ``_freeze_all``), so
+    no optimizer step, weight decay included, moves them.  The PEER-less
+    heads keep a zero ``(1,)`` ``peer_proj_wt`` buffer, as the reference
+    registers one, so checkpoints round-trip."""
+
+    def __init__(self, config: PretrainedViTConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.out_dim = config.n_embd_out_vit
+        self.n_cls = config.n_cls
+        self.use_peer = config.peer_config is not None
+        self.use_lsh = not self.use_peer and config.lsh_config is not None
+        self.model = VisionTransformerB16(**VIT_B16_ARGS, device=device)
+        self.refine = config.refine_base_model and not self.use_lsh
+        self.model._freeze_all = not self.refine
+        self.proj = self.peer = self.lsh_emb = None
+        if not (self.use_lsh or self.use_peer):
+            self.proj = AdvancedPositionalBiasMLP(
+                config.n_cls, VIT_WIDTH, config.n_embd_out_vit,
+                config.gate_sizes, True, device)
+        if self.use_peer:
+            pc = config.peer_config
+            self.peer = PeerLookup(VIT_WIDTH, config.n_embd_out_vit,
+                                   pc.num_units_sqrt ** 2, pc.topk, pc.nhead,
+                                   pc.query_dim, device)
+            new_param(self, "peer_proj_wt", (VIT_WIDTH, VIT_WIDTH, self.n_cls),
+                      normal_init(std=1.0 / math.sqrt(VIT_WIDTH)), device)
+        else:
+            self.register_buffer("peer_proj_wt",
+                                 torch.zeros(1, device=device))
+        if self.use_lsh:
+            lc = config.lsh_config
+            self.lsh_emb = nn.ModuleList([
+                CompositeCosineVectorEmbedding(
+                    VIT_WIDTH, config.n_embd_out_vit, lc.num_bins,
+                    lc.num_proj, lc.learnable, seed=i, device=device)
+                for i in range(self.n_cls)])
+
+    @property
+    def num_outputs(self) -> int:
+        return self.n_cls
+
+    @property
+    def output_embed_dim(self) -> int:
+        return self.out_dim
+
+    @property
+    def blocks(self):
+        """The backbone's encoder blocks."""
+        return self.model.blocks
+
+    def forward(self, images: torch.Tensor, ctx: Ctx = EVAL_CTX,
+                use_flash: bool = True) -> torch.Tensor:
+        x = self.model(images, ctx=ctx.fold(1))
+        if not self.refine:
+            x = x.detach()
+        if self.use_peer:
+            z = torch.einsum("bd,des->bse", x, self.peer_proj_wt.to(x.dtype))
+            return self.peer(z)
+        if self.use_lsh:
+            return torch.stack([mod(x) for mod in self.lsh_emb], dim=1)
+        x = _l2_normalize(x)[:, None, :].expand(-1, self.n_cls, -1)
+        return _l2_normalize(self.proj(x))
 
 
 class _WpeEmbedding(Embedding):

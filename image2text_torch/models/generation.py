@@ -43,7 +43,9 @@ from image2text_torch.models.sampling import (apply_no_repeat_ngram,
                                               sample_logits,
                                               sample_topk_with_ngram)
 from image2text_torch.nn.modules import quantize_kv
-from image2text_torch.ops.preprocess import resize_normalize_on_device
+from image2text_torch.models.encoder import PretrainedViT
+from image2text_torch.ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
+                                             resize_normalize_on_device)
 
 
 def decoder_step(model, tok_ids: Optional[torch.Tensor], cache: KVCache,
@@ -196,6 +198,22 @@ def _generate_bidirectional(model, encoder_output, prompt_ids,
     return ids
 
 
+def preprocess_frames(model, frames_u8: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """The encoder's input from raw uint8 frames: the scratch encoder's
+    ``input.width`` with Flickr's statistics, or the pretrained ViT's
+    ``image_size`` (224) with ImageNet's (JAX
+    ``resize_normalize_on_device(raw, 224, IMAGENET_MEAN, IMAGENET_STD)``)."""
+    enc = model.vision_encoder
+    if isinstance(enc, PretrainedViT):
+        return resize_normalize_on_device(
+            frames_u8, enc.model.image_size, IMAGENET_MEAN, IMAGENET_STD,
+            out_dtype=dtype)
+    return resize_normalize_on_device(
+        frames_u8, model.config.vision_encoder_config.input.width,
+        out_dtype=dtype)
+
+
 @torch.no_grad()
 def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
             max_new_tokens: int = 32, temperature: float = 0.7,
@@ -204,13 +222,12 @@ def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
             cross_kv_quant: Optional[str] = None,
             approx_top_k: bool = False) -> torch.Tensor:
     """The serving path: raw uint8 frames (B, H, W, 3) → resize/normalize
-    on the model's device in the model's dtype → encoder → generate, in
+    on the model's device in the model's dtype (``preprocess_frames``) →
+    encoder → generate, in
     the serving mode the last two arguments name (bench.py's modes; the
     W8A8 weights are the model's own, ``int8_serving_params``)."""
-    dtype = model.decoder.dtype
-    size = model.config.vision_encoder_config.input.width
-    images = resize_normalize_on_device(frames_u8.to(model.device), size,
-                                        out_dtype=dtype)
+    images = preprocess_frames(model, frames_u8.to(model.device),
+                               model.decoder.dtype)
     return generate(model, images, prompt_ids, max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k,
                     generator=generator, cross_kv_quant=cross_kv_quant,

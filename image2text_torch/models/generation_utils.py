@@ -38,12 +38,12 @@ import torch
 
 from image2text_torch.models.generation import (decoder_step, prefill,
                                                 precompute_cross_kv,
+                                                preprocess_frames,
                                                 quantize_cross_kv)
 from image2text_torch.models.sampling import (apply_no_repeat_ngram,
                                               apply_top_k,
                                               beam_candidates_with_ngram,
                                               gumbel_topk_sample, topk)
-from image2text_torch.ops.preprocess import resize_normalize_on_device
 
 
 class BeamSearchTokenGenerator:
@@ -201,12 +201,12 @@ class BeamSearchTokenGenerator:
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The beam serving path: raw uint8 frames (B, H, W, 3) →
-        resize/normalize on the model's device in the model's dtype →
+        resize/normalize on the model's device in the model's dtype
+        (``generation.preprocess_frames``) →
         encoder → beam search."""
         model = self.model
-        size = model.config.vision_encoder_config.input.width
-        images = resize_normalize_on_device(frames_u8.to(model.device), size,
-                                            out_dtype=model.decoder.dtype)
+        images = preprocess_frames(model, frames_u8.to(model.device),
+                                   model.decoder.dtype)
         return self(images, decoded_ids, generator)
 
     def _full_logits(self, ids_buf, cur_len: int, encoder_output):

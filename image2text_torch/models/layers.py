@@ -1,7 +1,10 @@
-"""Layers of the port, the flagship subset of ``image2text_tpu/models/layers.py``:
-MLP, ConvMLP, MoELinear, _MoEMLP, _MLP, MultiQueryAttention and the
-TransformerBlock: sparse, with its lazy layout path and its cached decode,
-or dense, with its cached decode.
+"""Layers of the port (counterpart of ``image2text_tpu/models/layers.py``):
+MLP, ConvMLP, MoELinear, _MoEMLP, _MLP, multi-query and multi-head
+self-attention (``self_attention_from_config``), the TransformerBlock:
+sparse, with its lazy layout path and its cached decode, or dense, with
+its cached decode; and the pretrained ViT's heads and the decoder's
+positional MLP: AdvancedPositionalBiasMLP, PEER (PeerLookup) and the LSH
+embeddings.
 
 Parameter and buffer names reproduce the JAX package's (torch state-dict
 names), so one exported ``.npz`` feeds both packages.
@@ -11,7 +14,8 @@ kernels (``sparse_block``, ``fused_block`` for a dense block, ``moe_ffn``),
 which have no backward.  In
 training every block computes from its parameters directly, with the
 dropout sites of the JAX package, and its self-attention goes through the
-flash kernels (``ops/attention.py::sdpa``).
+flash kernels (``ops/attention.py::sdpa``).  The heads and the positional
+MLP run no kernel (JAX computes them outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ from image2text_torch.configs.models import (MLPConfig, MoEConfig,
                                              SelfAttentionConfig,
                                              SelfAttentionType,
                                              TransformerConfig)
+from image2text_torch.models.sampling import topk as tie_exact_topk
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
-                                      uniform_init)
-from image2text_torch.nn.modules import (Conv2d, LayerNorm, Linear,
-                                         MultiheadAttention, gelu_tanh)
+                                      normal_init, uniform_init)
+from image2text_torch.nn.modules import (Conv2d, Embedding, LayerNorm,
+                                         Linear, MultiheadAttention,
+                                         gelu_tanh)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.ops.functions import normalize_gradients
 from image2text_torch.ops.fused_block import (BlockWeights, fused_block,
@@ -236,40 +242,28 @@ class _MLP(nn.Module):
         return dropout(h, self.dropout_rate, ctx)[0]
 
 
-class MultiQueryAttention(nn.Module):
-    """Multi-query attention: one shared K/V head."""
+class _SelfAttention(nn.Module):
+    """What the two self-attentions share: their dropout sites and the
+    attention over their heads; a subclass gives its q, k, v
+    (``_heads``) and its output projection (``_out``)."""
 
-    def __init__(self, config: SelfAttentionConfig, device=None):
+    def __init__(self, config: SelfAttentionConfig):
         super().__init__()
-        if config.attn_type != SelfAttentionType.MULTI_QUERY:
-            raise NotImplementedError(
-                "only multi-query self-attention is ported so far")
-        hd = config.n_embd // config.n_head
-        self.q_proj = Linear(config.n_embd, config.n_embd, config.bias, device)
-        self.kv_proj = Linear(config.n_embd, 2 * hd, config.bias, device)
-        self.out_proj = Linear(config.n_embd, config.n_embd, config.bias,
-                               device)
         self.n_head = config.n_head
         self.n_embd = config.n_embd
         self.attn_dropout = config.attn_dropout
         self.resid_dropout = config.dropout
 
-    def kv_shape(self, batch: int, max_len: int):
-        return (batch, 1, max_len, self.n_embd // self.n_head)
-
     def forward(self, x: torch.Tensor, mask=None, kv_cache=None,
                 causal: bool = False, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True) -> torch.Tensor:
         """In training: the reference's per-token q/k/v dropout masks
-        (rate ``attn_dropout``), probability dropout inside ``sdpa`` at
-        the *resid* rate (a quirk of the reference, kept) and resid
-        dropout after ``out_proj``."""
+        (rate ``attn_dropout``, drawn for k, q, v in that order),
+        probability dropout inside ``sdpa`` at the *resid* rate (a quirk
+        of the reference, kept) and resid dropout after the output
+        projection."""
         b, t, c = x.shape
-        hd = c // self.n_head
-        q = self.q_proj(x).reshape(b, t, self.n_head, hd).transpose(1, 2)
-        kv = self.kv_proj(x)
-        k = kv[..., :hd].reshape(b, t, 1, hd).transpose(1, 2)
-        v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
+        q, k, v = self._heads(x)
         if ctx.train and self.attn_dropout > 0.0:
             ones = torch.ones(b, 1, t, 1, device=x.device)
             k_do, ctx = dropout(ones, self.attn_dropout, ctx)
@@ -282,8 +276,70 @@ class MultiQueryAttention(nn.Module):
         y = sdpa(q, k, v, mask=mask, causal=causal,
                  dropout_rate=self.resid_dropout, ctx=ctx.fold(3),
                  use_flash=use_flash)
-        y = self.out_proj(y.transpose(1, 2).reshape(b, t, c))
+        y = self._out(y.transpose(1, 2).reshape(b, t, c))
         return dropout(y, self.resid_dropout, ctx.fold(4))[0]
+
+
+def self_attention_from_config(config: SelfAttentionConfig, device=None):
+    """The self-attention a config's ``attn_type`` names (JAX
+    ``SelfAttention.from_config``)."""
+    if config.n_embd % config.n_head:
+        raise ValueError("n_embd must be a multiple of n_head")
+    if config.attn_type == SelfAttentionType.MULTI_HEAD:
+        return MultiHeadAttention(config, device)
+    if config.attn_type == SelfAttentionType.MULTI_QUERY:
+        return MultiQueryAttention(config, device)
+    raise ValueError("unknown self attn implementation!")
+
+
+class MultiHeadAttention(_SelfAttention):
+    """A fused ``c_attn`` (q, k, v of every head) and ``c_proj``; full-head
+    K/V, so its cache is (b, h, L, hd)."""
+
+    def __init__(self, config: SelfAttentionConfig, device=None):
+        super().__init__(config)
+        self.c_attn = Linear(config.n_embd, 3 * config.n_embd, config.bias,
+                             device)
+        self.c_proj = Linear(config.n_embd, config.n_embd, config.bias,
+                             device)
+
+    def kv_shape(self, batch: int, max_len: int):
+        return (batch, self.n_head, max_len, self.n_embd // self.n_head)
+
+    def _heads(self, x):
+        b, t, c = x.shape
+        return tuple(z.reshape(b, t, self.n_head, c // self.n_head)
+                     .transpose(1, 2) for z in self.c_attn(x).split(c, -1))
+
+    def _out(self, y):
+        return self.c_proj(y)
+
+
+class MultiQueryAttention(_SelfAttention):
+    """Multi-query attention: one shared K/V head."""
+
+    def __init__(self, config: SelfAttentionConfig, device=None):
+        super().__init__(config)
+        hd = config.n_embd // config.n_head
+        self.q_proj = Linear(config.n_embd, config.n_embd, config.bias, device)
+        self.kv_proj = Linear(config.n_embd, 2 * hd, config.bias, device)
+        self.out_proj = Linear(config.n_embd, config.n_embd, config.bias,
+                               device)
+
+    def kv_shape(self, batch: int, max_len: int):
+        return (batch, 1, max_len, self.n_embd // self.n_head)
+
+    def _heads(self, x):
+        b, t, c = x.shape
+        hd = c // self.n_head
+        q = self.q_proj(x).reshape(b, t, self.n_head, hd).transpose(1, 2)
+        kv = self.kv_proj(x)
+        k = kv[..., :hd].reshape(b, t, 1, hd).transpose(1, 2)
+        v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
+        return q, k, v
+
+    def _out(self, y):
+        return self.out_proj(y)
 
 
 def sparse_attention_indices(max_block_size: int, sparsity_factor: float,
@@ -315,7 +371,7 @@ class TransformerBlock(nn.Module):
         acfg = config.attn_config
         self.is_causal = config.is_causal
         self.ln_1 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
-        self.attn = MultiQueryAttention(acfg, device)
+        self.attn = self_attention_from_config(acfg, device)
         self.ln_2 = LayerNorm(acfg.n_embd, acfg.bias, device=device)
         ffn = (_MoEMLP if isinstance(config.rotator_config, MoEConfig)
                else _MLP)
@@ -514,11 +570,13 @@ class TransformerBlock(nn.Module):
                  use_flash) -> bool:
         """Whether a non-cached forward takes the eval block kernel: eval,
         no mask, no cross-attention, not causal (JAX layers.py:569-571),
-        and an MoE FFN (the JAX gates take MoE blocks only, behind
-        ``_gate_and_weights``; an ``_MLP`` block runs the plain body)."""
+        multi-query attention and an MoE FFN (the JAX gates take such
+        blocks only, behind ``_gate_and_weights``; an ``_MLP`` or
+        multi-head block runs the plain body)."""
         return (use_flash and not ctx.train and attn_mask is None
                 and cross_attn_inputs is None and cross_kv is None
                 and not self.is_causal and isinstance(self.mlp, _MoEMLP)
+                and isinstance(self.attn, MultiQueryAttention)
                 and self.plain_weights)
 
     @property
@@ -588,3 +646,269 @@ class TransformerBlock(nn.Module):
 
 def _opt(t, dtype):
     return None if t is None else t.to(dtype)
+
+
+# -- the pretrained-ViT heads and the decoder's positional MLP ----------------
+
+def _per_position(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h (..., p, in) against one (out, in) matrix per position, w
+    (p, out, in): products of h's dtype summed in f32, rounded once."""
+    return torch.einsum("...pi,poi->...po", h, w.to(h.dtype))
+
+
+class AdvancedPositionalBiasMLP(nn.Module):
+    """One residual MLP per position (GELU-tanh between its layers), the
+    positions' weights stacked along a leading axis: ``w{lid}`` (P, out,
+    in), ``b{lid}`` (P, out) and, where the widths differ, ``w_res`` /
+    ``b_res``.  The checkpoint bridge splits them into the reference's
+    ``models.{i}.model.{lid}.weight`` and ``models.{i}.residual_connector.*``
+    keys (``split_specs``)."""
+
+    def __init__(self, context_width: int, in_features: int,
+                 out_features: int,
+                 gate_sizes: Optional[Tuple[int, ...]] = None,
+                 add_residual_connection: bool = True, device=None):
+        super().__init__()
+        self.context_width = context_width
+        self.add_residual = add_residual_connection
+        self.needs_res_proj = (add_residual_connection
+                               and in_features != out_features)
+        sizes = (in_features,) + tuple(gate_sizes or ()) + (out_features,)
+        self.layer_ids = [str(2 * i) for i in range(len(sizes) - 1)]
+        self.split_specs = {}
+        P = context_width
+        for j, lid in enumerate(self.layer_ids):
+            fi, fo = sizes[j], sizes[j + 1]
+            init = uniform_init(1.0 / math.sqrt(fi))
+            new_param(self, f"w{lid}", (P, fo, fi), init, device)
+            new_param(self, f"b{lid}", (P, fo), init, device)
+            self.split_specs[f"w{lid}"] = f"models.{{i}}.model.{lid}.weight"
+            self.split_specs[f"b{lid}"] = f"models.{{i}}.model.{lid}.bias"
+        if self.needs_res_proj:
+            init = uniform_init(1.0 / math.sqrt(in_features))
+            new_param(self, "w_res", (P, out_features, in_features), init,
+                      device)
+            new_param(self, "b_res", (P, out_features), init, device)
+            self.split_specs["w_res"] = "models.{i}.residual_connector.weight"
+            self.split_specs["b_res"] = "models.{i}.residual_connector.bias"
+
+    def _mlp(self, x: torch.Tensor, pick) -> torch.Tensor:
+        """``pick(stacked)`` selects the positions' slices of this call."""
+        dt = x.dtype
+        h = x
+        for j, lid in enumerate(self.layer_ids):
+            h = (_per_position(h, pick(getattr(self, f"w{lid}")))
+                 + pick(getattr(self, f"b{lid}")).to(dt))
+            if j < len(self.layer_ids) - 1:
+                h = gelu_tanh(h)
+        if not self.add_residual:
+            return h
+        if self.needs_res_proj:
+            return h + (_per_position(x, pick(self.w_res))
+                        + pick(self.b_res).to(dt))
+        return h + x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., t, in): position i's MLP on row i, t ≤ the context."""
+        t = x.shape[-2]
+        if t > self.context_width:
+            raise ValueError(f"{t} positions, context is {self.context_width}")
+        return self._mlp(x, lambda arr: arr[:t])
+
+    def forward_at(self, x: torch.Tensor, positions) -> torch.Tensor:
+        """x (..., t, in) at the global ``positions`` (t,): a host array
+        (a contiguous run is a slice, with no index copied to the device)
+        or an index tensor — the cached decode's rows."""
+        if isinstance(positions, np.ndarray):
+            start = int(positions[0])
+            if np.array_equal(positions, start + np.arange(len(positions))):
+                if start + len(positions) > self.context_width:
+                    raise ValueError("positions past the context")
+                return self._mlp(
+                    x, lambda arr: arr[start:start + len(positions)])
+            positions = torch.as_tensor(positions, device=x.device)
+        return self._mlp(x, lambda arr: arr.index_select(0, positions))
+
+
+class PeerLookupQueryUnit(nn.Module):
+    """A bias-free scorer and its top-k (``lax.top_k``'s lowest-index
+    ties, through ``models/sampling.py::topk``)."""
+
+    def __init__(self, num_embed: int, emb_dim: int, topk: int, device=None):
+        super().__init__()
+        self.linear = Linear(emb_dim, num_embed, bias=False, device=device)
+        self.topk = topk
+
+    def forward(self, x: torch.Tensor):
+        return tie_exact_topk(self.linear(x), self.topk)
+
+
+class PeerLookup(nn.Module):
+    """Product-key memory: left and right top-k scores summed over their
+    Cartesian product and cut to k again (lowest-index ties: in bf16 the
+    scores of 256 query units tie often, and another tie-break gathers
+    other expert rows); the composite index gathers rows of the in and
+    out tables; GELU(input · in-row) times the softmax of the scores
+    weights the out-rows; plus a linear residual.  The composite index is
+    the reference's ``left * topk + right`` (radix ``topk``, not the
+    number of query units), a quirk kept on purpose."""
+
+    def __init__(self, in_features: int, out_features: int, num_units: int,
+                 topk: int, nhead: int = 1, query_dim: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        self.query_dim = query_dim or in_features // 2
+        self.num_query_units = int(math.isqrt(num_units))
+        if self.num_query_units ** 2 != num_units:
+            raise ValueError(f"num_units must be a perfect square but "
+                             f"{num_units} was not")
+        self.nhead, self.in_features, self.topk = nhead, in_features, topk
+        self.residual = Linear(in_features, out_features, False, device)
+        self.query_linear = Linear(in_features, self.query_dim * nhead,
+                                   False, device)
+        self.key_linear = Linear(in_features, in_features * nhead, False,
+                                 device)
+        self.query_left = PeerLookupQueryUnit(self.num_query_units,
+                                              self.query_dim, topk, device)
+        self.query_right = PeerLookupQueryUnit(self.num_query_units,
+                                               self.query_dim, topk, device)
+        self.emb_in = Embedding(num_units, in_features, device)
+        self.emb_out = Embedding(num_units, out_features, device)
+
+    def expert_indices(self, x: torch.Tensor):
+        """(softmax weights in x's dtype, composite indices) (b, s, h, k)
+        of the queries x (b, s, h, query_dim)."""
+        k = self.topk
+        left_v, left_i = self.query_left(x)
+        right_v, right_i = self.query_right(x)
+        cross = (left_v[..., :, None] + right_v[..., None, :]).reshape(
+            *x.shape[:-1], k * k)
+        dot, idx = tie_exact_topk(cross, k)
+        scores = torch.softmax(dot.float(), dim=-1).to(x.dtype)
+        left = left_i.gather(-1, torch.div(idx, k, rounding_mode="floor"))
+        right = right_i.gather(-1, idx % k)
+        return scores, left * k + right
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        bs, s, _ = inp.shape
+        dt = inp.dtype
+        x = self.query_linear(inp).reshape(bs, s, self.nhead, self.query_dim)
+        inp_proj = self.key_linear(inp).reshape(bs, s, self.nhead,
+                                                self.in_features)
+        residual = self.residual(inp)
+        scores, final = self.expert_indices(x)
+        inp_expert = self.emb_in(final).to(dt)        # (b, s, h, k, in)
+        out_expert = self.emb_out(final).to(dt)       # (b, s, h, k, out)
+        in_dot = torch.matmul(inp_expert, inp_proj[..., None])[..., 0]
+        weight = scores * gelu_tanh(in_dot)           # (b, s, h, k)
+        hk = self.nhead * self.topk
+        out = torch.matmul(weight.reshape(bs, s, 1, hk),
+                           out_expert.reshape(bs, s, hk, -1))[:, :, 0]
+        return out + residual
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+class CosineVectorEmbedding(nn.Module):
+    """Frozen random projections of the unit input, binned on a uniform
+    grid of [-1, 1] (``searchsorted``, left side, on the f32 grid), one
+    table row per (projection, bin), the mean of the projections' rows
+    (``EmbeddingBag(mode='mean')``).  The buffers ``projection_mat``
+    (numpy ``PCG64(seed)`` normals, unit columns), ``grid`` and the unused
+    ``pos_offset`` are the JAX package's, bit for bit."""
+
+    def __init__(self, inp_dim: int, emb_dim: int, n_proj: int = 16,
+                 num_bins: int = 20, seed: int = 0, device=None):
+        super().__init__()
+        gen = np.random.Generator(np.random.PCG64(seed=seed))
+        proj = gen.standard_normal((inp_dim, n_proj)).astype(np.float32)
+        proj = proj / np.linalg.norm(proj, axis=0, keepdims=True)
+        resolution = 2.0 / num_bins
+        grid = np.linspace(-1, 1, num_bins + 1)[:-1] + 0.5 * resolution
+        pos_offset = ((num_bins + 1) * np.arange(n_proj, dtype=np.int64)
+                      ).reshape(-1, 1, 1)
+        for name, value in (("projection_mat", proj),
+                            ("grid", grid.astype(np.float32)),
+                            ("pos_offset", pos_offset)):
+            self.register_buffer(name, torch.as_tensor(value, device=device))
+        self.emb = Embedding((num_bins + 1) * n_proj, emb_dim, device)
+        self.n_proj = n_proj
+
+    def bins(self, x: torch.Tensor) -> torch.Tensor:
+        """The table rows (b, s, n_proj) that x (b, s, d) selects."""
+        z = torch.matmul(_unit_rows(x), self.projection_mat.to(x.dtype))
+        bins = torch.searchsorted(self.grid.float(), z.float().contiguous())
+        step = self.grid.shape[0] + 1
+        return bins + torch.arange(self.n_proj, device=x.device) * step
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.emb(self.bins(x)).mean(dim=-2)
+
+
+class CosineLinear(nn.Module):
+    """Cosine similarity of the unit input and the unit weight rows."""
+
+    def __init__(self, inp_dim: int, out_dim: int, device=None):
+        super().__init__()
+        new_param(self, "weight", (out_dim, inp_dim),
+                  normal_init(std=1.0 / math.sqrt(inp_dim)), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = _unit_rows(self.weight.to(x.dtype))
+        return torch.matmul(_unit_rows(x), w.t())
+
+
+class LearnableCosineVectorEmbedding(nn.Module):
+    """Learnable LSH: Gaussian soft-binning of the cosine projections
+    around learned centres (``mean``), optionally cut to the top ``top_k``
+    bins, unit-normalised and mapped by a bias-free Linear."""
+
+    def __init__(self, inp_dim: int, emb_dim: int, n_proj: int = 16,
+                 num_bins: int = 20, sigma_inflation_factor: float = 1.0,
+                 top_k: Optional[int] = None, device=None):
+        super().__init__()
+        self.n_proj, self.num_bins = n_proj, num_bins
+        self.top_k = None if top_k is None else min(top_k, num_bins)
+        self.sigma2 = (sigma_inflation_factor * 2.0 / num_bins) ** 2
+        self.proj = CosineLinear(inp_dim, n_proj, device)
+        new_param(self, "mean", (1, 1, n_proj, num_bins), uniform_init(1.0),
+                  device)
+        self.emb = Linear(n_proj * num_bins, emb_dim, bias=False,
+                          device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bs, s, _ = x.shape
+        z = self.proj(x)
+        diff = z[..., None] - self.mean.to(z.dtype)
+        act = torch.exp(-0.5 * diff * diff / self.sigma2)
+        if self.top_k is not None:
+            kth = tie_exact_topk(act, self.top_k)[0][..., -1:]
+            act = torch.where(act < kth, torch.zeros_like(act), act)
+        act = _unit_rows(act)
+        return self.emb(act.reshape(bs, s, self.n_proj * self.num_bins))
+
+
+class CompositeCosineVectorEmbedding(nn.Module):
+    """The sum of LSH embeddings at several bin counts; the fixed ones'
+    projections are seeded ``seed * 1000 + j``."""
+
+    def __init__(self, inp_dim: int, emb_dim: int, num_bins: Tuple[int, ...],
+                 n_proj: int, learnable: bool, seed: int = 0, device=None):
+        super().__init__()
+        self.emb = nn.ModuleList([
+            LearnableCosineVectorEmbedding(inp_dim, emb_dim, n_proj, k,
+                                           device=device) if learnable
+            else CosineVectorEmbedding(inp_dim, emb_dim, n_proj, k,
+                                       seed=seed * 1000 + j, device=device)
+            for j, k in enumerate(num_bins)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (b, d) → (b, emb_dim)."""
+        x = x[:, None, :]
+        out = None
+        for mod in self.emb:
+            y = mod(x)
+            out = y if out is None else out + y
+        return out[:, 0, :]

@@ -6,8 +6,10 @@ embeddings under the reference's additive bias: prefix query rows attend
 everywhere (subject to the blocks' causality), text → prefix is blocked
 (-inf), and the text block is open.  Cross-attention feeds the encoder
 output to the decoder (the scratch decoder's even-depth blocks, every
-GPT-2 block).  The decoder is the one the config's type names
-(``models/decoder.py::decoder_from_config``); a GPT-2 decoder ignores the
+GPT-2 block).  The encoder and the decoder are the ones the config's
+types name (``models/encoder.py::encoder_from_config``,
+``models/decoder.py::decoder_from_config``), bridged by a bias-free
+Linear where their widths differ; a GPT-2 decoder ignores the
 soft-prompt bias and its text rows attend the prefix through its causal
 mask, as the JAX one does.  ``forward`` is differentiable;
 a training forward passes a train ``Ctx`` (``training/wrapper.py``).
@@ -19,10 +21,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from image2text_torch.configs.models import (VisionEncoderDecoderConfig,
-                                             VisionTransformerEncoderConfig)
-from image2text_torch.models.decoder import decoder_from_config
-from image2text_torch.models.encoder import VisionTransformerEncoder
+from image2text_torch.configs.models import VisionEncoderDecoderConfig
+from image2text_torch.models.decoder import (TransformerDecoder,
+                                             decoder_from_config)
+from image2text_torch.models.encoder import (VisionTransformerEncoder,
+                                             encoder_from_config)
 from image2text_torch.nn.core import EVAL_CTX, Ctx, init_parameters
 from image2text_torch.nn.modules import Linear
 from image2text_torch.object_models import VisionEncoderDecoderModelOutput
@@ -50,15 +53,12 @@ class VisionEncoderDecoder(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        if not isinstance(config.vision_encoder_config,
-                          VisionTransformerEncoderConfig):
-            raise NotImplementedError("the pretrained-ViT encoder is not "
-                                      "ported yet (ROADMAP queue 1 item 4)")
-        encoder = VisionTransformerEncoder(config.vision_encoder_config, device)
+        encoder = encoder_from_config(config.vision_encoder_config, device)
         self.space_for_prompt = (encoder.num_outputs
                                  if config.use_soft_prompting else 0)
-        self.decoder = decoder_from_config(config.decoder_config,
-                                           self.space_for_prompt, device)
+        self.decoder = decoder_from_config(
+            config.decoder_config, self.space_for_prompt, device,
+            loose=config.loose_match_decoder_state_dict)
         if encoder.output_embed_dim != self.decoder.n_embd:
             encoder = _EncoderWithBridge(encoder, Linear(
                 encoder.output_embed_dim, self.decoder.n_embd, bias=False,
@@ -75,13 +75,29 @@ class VisionEncoderDecoder(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.transformer.ln_f.weight.device
 
-    def init_weights(self, seed: int = 0) -> "VisionEncoderDecoder":
-        """Random weights from the port's own initialisers, seeded; then,
-        where the config names a ``chkpt_path``, that checkpoint's keys
-        over them (the JAX ``init``'s partial restore)."""
+    def init_weights(self, seed: int = 0,
+                     gpt2_state_dict=None) -> "VisionEncoderDecoder":
+        """Random weights from the port's own initialisers, seeded; a
+        GPT-2-initialised scratch decoder then takes ``gpt2_state_dict``
+        (an HF GPT-2 state dict, through ``import_gpt2_state_dict`` with the
+        config's ``loose_match_decoder_state_dict``; without one it raises,
+        where the JAX ``init`` downloads GPT-2); then, where the config
+        names a ``chkpt_path``, that checkpoint's keys over them (the JAX
+        ``init``'s partial restore)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         init_parameters(self, gen)
+        dec = self.decoder
+        if (isinstance(dec, TransformerDecoder)
+                and dec.pretrained_model is not None):
+            from image2text_torch.models import hf_import
+
+            if gpt2_state_dict is None:
+                hf_import.load_pretrained_gpt2_params(
+                    dec, dec.pretrained_model, dec.config.vocab_size,
+                    dec.loose)
+            hf_import.import_gpt2_state_dict(dec, gpt2_state_dict,
+                                             loose=dec.loose)
         if self.config.chkpt_path is not None:
             from image2text_torch.utils.checkpoint import (
                 update_params_from_partial_checkpoint)
@@ -91,7 +107,7 @@ class VisionEncoderDecoder(nn.Module):
         return self
 
     @property
-    def vision_encoder(self) -> VisionTransformerEncoder:
+    def vision_encoder(self) -> nn.Module:
         """The vision encoder, without the bridge to the decoder's width."""
         enc = self.encoder
         return (enc._modules["0"] if isinstance(enc, _EncoderWithBridge)
@@ -100,15 +116,18 @@ class VisionEncoderDecoder(nn.Module):
     def sdpa_calls(self, seq_len: int) -> int:
         """Attention calls (``ops.attention.sdpa``: in training each is one
         flash forward) of one non-cached forward over ``seq_len`` labels:
-        the encoder's blocks that run their body
-        (``TransformerBlock.runs_body``) over its CLS and patch rows, and
+        the scratch encoder's blocks that run their body
+        (``TransformerBlock.runs_body``) over its CLS and patch rows (the
+        pretrained ViT's attention is ``MultiheadAttention``'s own), and
         the decoder's (``sdpa_calls``) over the soft prompt and labels cut
         at its block size, as :meth:`forward` builds them."""
         enc = self.vision_encoder
-        t_enc = enc.n_cls + enc.n_patches ** 2
         t_dec = min(self.decoder.block_size, self.space_for_prompt + seq_len)
-        return (sum(blk.runs_body(t_enc) for blk in enc.blocks)
-                + self.decoder.sdpa_calls(t_dec))
+        n_enc = 0
+        if isinstance(enc, VisionTransformerEncoder):
+            t_enc = enc.n_cls + enc.n_patches ** 2
+            n_enc = sum(blk.runs_body(t_enc) for blk in enc.blocks)
+        return n_enc + self.decoder.sdpa_calls(t_dec)
 
     def forward(self, images, ids, encoder_output=None, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True, sparse_rule_len=None):

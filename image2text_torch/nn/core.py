@@ -23,7 +23,8 @@ first time.
 :func:`frozen_param_paths` is the trainable/frozen state of the JAX
 ``Module``: a module may name frozen tensors of its own (``_frozen``),
 freeze its whole subtree but the LoRA adapters (``_lora_freeze_all``) and
-re-enable paths by pattern (``_force_enable``).  The packed int4 weights
+re-enable paths by pattern (``_force_enable``), and a whole subtree may
+be frozen (``_freeze_all``).  The packed int4 weights
 are integer tensors, which torch cannot hold as parameters; their module
 registers them as buffers and lists them in ``_param_buffers``, so they
 count among the parameter paths as they do in the JAX tree.
@@ -114,11 +115,14 @@ def _param_paths(module: nn.Module, path: str = "") -> List[str]:
 
 def frozen_param_paths(module: nn.Module, path: str = "") -> List[str]:
     """Paths of the parameters excluded from training, the JAX
-    ``Module.frozen_param_paths``: a ``_lora_freeze_all`` module freezes
-    every path under it but the ``lora_A``/``lora_B`` adapters, others
-    their ``_frozen`` names; a ``_force_enable`` pattern matcher re-enables
+    ``Module.frozen_param_paths``: a ``_freeze_all`` module (the pretrained
+    ViT's backbone when it is not refined) freezes every path under it, a
+    ``_lora_freeze_all`` one every path but the ``lora_A``/``lora_B``
+    adapters, others their ``_frozen`` names; a ``_force_enable`` pattern matcher re-enables
     the paths it matches, whole or relative to its module."""
-    if getattr(module, "_lora_freeze_all", False):
+    if getattr(module, "_freeze_all", False):
+        out = _param_paths(module, path)
+    elif getattr(module, "_lora_freeze_all", False):
         out = [p for p in _param_paths(module, path)
                if ".lora_A." not in p and ".lora_B." not in p]
     else:

@@ -19,7 +19,7 @@ cross-attention memory of ``generate(cross_kv_quant='int8')``.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,13 +53,31 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def divide(t: torch.Tensor, d: float) -> torch.Tensor:
+    """``t / d`` as a true division on every device.  PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's f32 reciprocal,
+    which can land one ulp from the quotient that the CPU and JAX compute;
+    a divisor held as a 0-d tensor on ``t``'s device (made once per
+    device, dtype and value) is divided elementwise."""
+    key = (t.device, t.dtype, d)
+    c = _CONSTANTS.get(key)
+    if c is None:
+        c = _CONSTANTS[key] = torch.full((), d, dtype=t.dtype,
+                                         device=t.device)
+    return t / c
+
+
 def quantize_rows_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per row of the last axis: (..., s, d) → (int8
     values, f32 (..., s) scales) with t ≈ values · scales[..., None]; the
-    scale is max |t| / 127 floored at 1e-12, the values rounded half to
-    even and clipped to ±127, all in f32 as the JAX function."""
+    scale is max |t| / 127 (a true division, :func:`divide`) floored at
+    1e-12, the values rounded half to even and clipped to ±127, all in
+    f32 as the JAX function, bit for bit on the card as on the CPU."""
     t32 = t.float()
-    scale = (t32.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    scale = divide(t32.abs().amax(dim=-1), 127.0).clamp_min(1e-12)
     q = torch.round(t32 / scale[..., None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -326,7 +344,7 @@ class MultiheadAttention(nn.Module):
             k, v = precomputed_kv
         else:
             k, v = self.project_kv(key, value)
-        scores = dot_f32(q, k) / math.sqrt(self.head_dim)
+        scores = divide(dot_f32(q, k), math.sqrt(self.head_dim))
         probs = torch.softmax(scores, dim=-1).to(query.dtype)
         probs, _ = dropout(probs, self.dropout_rate, ctx)
         y = torch.matmul(probs, v)
@@ -343,7 +361,7 @@ class MultiheadAttention(nn.Module):
             raise ValueError("quantized cross-KV is decode-only")
         kq, ks, vq, vs = kv
         scores = dot_f32(q, kq.to(q.dtype))
-        scores = scores * ks[..., None, :] / math.sqrt(self.head_dim)
+        scores = divide(scores * ks[..., None, :], math.sqrt(self.head_dim))
         probs = torch.softmax(scores, dim=-1)
         pv = (probs * vs[..., None, :]).to(q.dtype)
         y = torch.matmul(pv, vq.to(q.dtype)).to(query.dtype)

@@ -1392,3 +1392,140 @@ def test_serving_modes_on_the_card_keep_the_kernels(dev):
         rel = (torch.linalg.vector_norm(first[mode] - first["exact"])
                / torch.linalg.vector_norm(first["exact"]))
         assert 0 < float(rel) < 0.1, (mode, float(rel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((256, 1024), torch.bfloat16),    # the flagship's W8A8 decode activations
+    ((192, 1024), torch.bfloat16),    # beam search's decode rows
+    ((64, 8, 64, 128), torch.bfloat16),   # cross K/V (b, h, s, hd)
+    ((1000, 70), torch.float32),
+])
+def test_quantize_rows_int8_bit_equal_to_the_cpu(dev, shape, dtype):
+    """``quantize_rows_int8`` on the card gives the CPU's scales and int8
+    values bit for bit: the scale max|t| / 127 is a true division there
+    too (``nn/modules.py::divide``), not a product with the f32
+    reciprocal of 127, which lands up to one ulp away."""
+    from image2text_torch.nn.modules import divide, quantize_rows_int8
+
+    g = torch.Generator().manual_seed(sum(shape))
+    t = (torch.randn(shape, generator=g) * 3).to(dtype)
+    q, s = quantize_rows_int8(t.to(dev))
+    cq, cs = quantize_rows_int8(t)
+    assert torch.equal(s.cpu().view(torch.int32), cs.view(torch.int32))
+    assert torch.equal(q.cpu(), cq)
+    x = torch.rand(1 << 16, generator=g) * 1000
+    assert torch.equal(divide(x.to(dev), 127.0).cpu().view(torch.int32),
+                       (x / 127.0).view(torch.int32))
+
+
+def _nano_tiny(name, dev, monkeypatch):
+    """A tiny form of a pretrained-ViT configuration, from its YAML: the
+    ViT-B/16 at depth 2 on 32² images (width 768), narrow heads and
+    decoders; random bf16 weights."""
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models import encoder as tenc
+
+    path = {"nano-mini": "training_configs/local/nano-mini.yaml",
+            "nano": "training_configs/tpu/nano.yaml",
+            "nano-lsh": "training_configs/local/nano.yaml"}[name]
+    cfg = load_training_config(path).model
+    enc, dec = cfg.vision_encoder_config, cfg.decoder_config
+    enc.n_cls, enc.n_embd_out_vit = 4, 64
+    if enc.peer_config is not None:
+        pc = enc.peer_config
+        pc.num_units_sqrt, pc.topk, pc.nhead, pc.query_dim = 16, 4, 2, 16
+    dec.n_layer, dec.block_size = 2, 64
+    dec.transformer_config.attn_config.n_embd = 64
+    dec.transformer_config.attn_config.n_head = 4
+    if dec.transformer_config.is_sparse_attn:
+        dec.transformer_config.max_block_size = 80
+    monkeypatch.setattr(tenc, "VIT_B16_ARGS",
+                        dict(image_size=32, num_layers=2))
+    return VisionEncoderDecoder(cfg, device=dev)
+
+
+def lsh_bins(model, images):
+    """{(cls, resolution): bins (b, 1, n_proj)} of an LSH model's fixed
+    heads on ``images``, and the projections z whose bins they are."""
+    enc = model.vision_encoder
+    x = enc.model(images)
+    out = {}
+    for i, comp in enumerate(enc.lsh_emb):
+        for j, mod in enumerate(comp.emb):
+            out[i, j] = mod.bins(x[:, None, :]), mod
+    return x, out
+
+
+def lsh_bin_margin(x_card, x_cpu, card, cpu):
+    """(bins that differ, the largest distance of their projections from a
+    grid point on the CPU): a differing bin is a projection lying on a
+    boundary, where the card's and the CPU's f32 sums round apart."""
+    from image2text_torch.models.layers import _unit_rows
+
+    n, margin = 0, 0.0
+    for key, (b_card, _) in card.items():
+        b_cpu, mod = cpu[key]
+        diff = b_card.cpu() != b_cpu
+        if bool(diff.any()):
+            z = torch.matmul(_unit_rows(x_cpu[:, None, :]), mod.projection_mat)
+            dist = (z[..., None] - mod.grid).abs().amin(-1)
+            n += int(diff.sum())
+            margin = max(margin, float(dist[diff].max()))
+    return n, margin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nano-mini", "nano", "nano-lsh"])
+def test_nano_family_card_equals_cpu(dev, name, monkeypatch):
+    """The tiny nano forms on the card against a CPU copy: encoder output
+    and a cached prefill's logits (PEER's tie-exact top-k, LSH's
+    ``searchsorted``, the positional MLP's ``forward_at``), then greedy
+    ids.  f32 (TF32 off, in the GEMMs and in cuDNN's patch convolution)
+    for PEER and LSH: relative L2 within 1e-4 and the
+    ids equal, unless an LSH projection lies within 1e-5 of a bin boundary
+    (then its bin may differ, and only that is asserted).  nano-mini in
+    bf16 (``moe_ffn`` takes bf16 only, as JAX's kernel gate on the TPU):
+    within 0.03, and its decoder launches ``moe_ffn`` once per cached
+    forward of a block that runs its body."""
+    import copy
+
+    from image2text_torch.models.generation import prefill
+
+    m = _nano_tiny(name, dev, monkeypatch)
+    gpt2 = {} if m.decoder.config.pretrained_model is not None else None
+    m.init_weights(0, gpt2_state_dict=gpt2).eval()   # {}: random GPT-2
+    dtype = torch.bfloat16 if name == "nano-mini" else torch.float32
+    m.to(dtype)
+    cpu = copy.deepcopy(m).cpu()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    img = torch.randn(4, 3, 32, 32, generator=_gen(dev), device=dev,
+                      dtype=dtype)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        enc, cenc = m.encoder(img), cpu.encoder(img.cpu())
+        got = prefill(m, enc, prompt, 4)[0][:, -1].cpu()
+        want = prefill(cpu, cenc, prompt.cpu(), 4)[0][:, -1]
+        moe_ffn.launches = 0
+        ids = m.generate(img, prompt, max_new_tokens=6, temperature=0.0)
+        launched = moe_ffn.launches
+        cids = cpu.generate(img.cpu(), prompt.cpu(), max_new_tokens=6,
+                            temperature=0.0)
+        flips = 0
+        if name == "nano-lsh":
+            x, card = lsh_bins(m, img)
+            cx, cbins = lsh_bins(cpu, img.cpu())
+            flips, margin = lsh_bin_margin(x, cx, card, cbins)
+            assert margin < 1e-5, (flips, margin)
+    rel = float(torch.linalg.vector_norm(got.float() - want.float())
+                / torch.linalg.vector_norm(want.float()))
+    off = m.space_for_prompt
+    if name == "nano-mini":
+        assert rel < 0.03 and bool(torch.isfinite(got).all())
+        assert launched == sum(m.decoder.ffn_evaluations(off + i, 1)
+                               for i in range(7)) > 0
+    elif not flips:
+        assert rel < 1e-4
+        assert torch.equal(ids.cpu(), cids)
+        assert launched == 0
