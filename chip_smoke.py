@@ -164,6 +164,32 @@ numpy normals in HF names and Conv1D layout through
             and greedy ids; the LSH bins that differ, each within 1e-5 of
             a grid point.
 
+   nano-f32 local/nano-mini.yaml at its own precision 'no' (f32): the
+            serving path through moe_ffn's f32 form (launches as derived),
+            then its depth-2 form card against CPU (f32 logits within
+            1e-4, greedy ids equal).
+
+Then the HF decoder families at full width and depth, batch 256, random
+weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
+
+   hf-kernels  int4_matmul against its plain version at every Linear
+            shape of the Llama-2-13B, Falcon-7B and GPT-2-xl decoders, at
+            256 decode rows and at their prefill rows (256 x 17, 256 x
+            65), reruns bitwise equal, torch.matmul on the dequantised
+            weight as a yardstick; moe_ffn's f32 form at nano-mini's
+            decode shape (f32 limits).
+   llama13b, falcon7b, qwen, llama7b, gpt2xl  tpu/llama2-13b.yaml,
+            tpu/falcon-7b.yaml, local/qwen-1.5b-deepseek-distill.yaml,
+            local/llama2-7b.yaml, tpu/gpt2-xl.yaml: parameters, build
+            seconds and the build's peak memory against the resident
+            size, the serving path as [main] (launches held to
+            serving_launches), peak memory; for the models that launch a
+            kernel, parity as [parity], the plain path also run with its
+            int4 products summed in another f32 order (its own spread).
+   hf-cpu   depth-2 forms card against CPU: each family in f32 (logits
+            within 1e-4, ids equal; Falcon's and GPT-2-xl's decoders on the
+            CPU's encoder output), and the int4 Llama-2-13B form in bf16.
+
 Then the offline end-to-end path (training_configs/local/synthetic-*.yaml:
 f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
 
@@ -257,6 +283,7 @@ BEAM_BATCH = 64  # bench.py::_bench_beam's batch (3 beams: 192 decode rows)
 FLAGSHIP_BOS = 1   # the flagship's prompt token
 FLAGSHIP_EOS = 0   # bench.py's beam eos_token_id
 SEED = 0         # weights, frames and sampling noise derive from it
+CARD = ""        # the card's nvidia-smi name and power limit, set by main()
 
 
 def log(msg: str) -> None:
@@ -301,18 +328,32 @@ def defer_device_ms(label: str, row: dict, fn, key: str = "device",
     DEVICE_TIMES.append((label, row, make, key))
 
 
+DEVICE_TRIES = 3   # profiler sessions a deferred device time may take
+
+
 def run_device_times() -> None:
-    """Measure every deferred device time (after all CUDA-event timing)."""
+    """Measure every deferred device time (after all CUDA-event timing).
+    A profiler session on the card's machine can record no kernel at all
+    (every other session, in a run of many): such a session is taken
+    again, up to DEVICE_TRIES times, and a time never recorded is kept as
+    None ("not measured"), never as 0."""
     from image2text_torch.probes import device_kernel_ms
 
     for label, row, make, key in DEVICE_TIMES:
-        split = device_kernel_ms(make())
-        row[f"{key}_ms"] = sum(split.values())
+        fn = make()
+        for _ in range(DEVICE_TRIES):
+            split = device_kernel_ms(fn)
+            if split:
+                break
+        row[f"{key}_ms"] = sum(split.values()) if split else None
         row[f"{key}_kernels"] = split
         events = row["ms" if key == "device" else key[:-len("device")] + "ms"]
-        log(f"  {label}: device {row[f'{key}_ms']:.4f} ms (CUDA events "
-            f"{events:.4f}); by kernel " + ", ".join(
-                f"{name[:60]} {ms:.4f}" for name, ms in split.items()))
+        shown = ("not measured (no kernel recorded in "
+                 f"{DEVICE_TRIES} profiler sessions)" if not split
+                 else f"{row[f'{key}_ms']:.4f} ms")
+        log(f"  {label}: device {shown} (CUDA events {events:.4f}); by "
+            "kernel " + ", ".join(f"{name[:60]} {ms:.4f}"
+                                  for name, ms in split.items()))
     DEVICE_TIMES.clear()
 
 
@@ -856,31 +897,41 @@ def phase_kernels(torch, model, args, results, tag=None):
             results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = row
 
 
-def moe_case(torch, mlp, rows: int, gen, label: str, ln=None) -> dict:
-    """``moe_ffn`` on ``mlp``'s weights and ``rows`` random bf16 rows
-    against its plain version on the kernel's routes (``ln``: the LN2
-    prologue's weights), timed beside the plain version; its bound."""
+def moe_case(torch, mlp, rows: int, gen, label: str, ln=None,
+             dtype=None) -> dict:
+    """``moe_ffn`` on ``mlp``'s weights and ``rows`` random rows of
+    ``dtype`` (bf16 by default; f32: the kernel's f32 form, held at the f32
+    limits, its bound at the f32 FFMA peak) against its plain version on
+    the kernel's routes (``ln``: the LN2 prologue's weights), timed beside
+    the plain version; its bound."""
     from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
 
-    ln, bf = ln or {}, torch.bfloat16
-    fc, proj = mlp.c_fc.packed(bf), mlp.c_proj.packed(bf)
-    xm = torch.randn(rows, fc.wa.shape[0], device=gen.device, dtype=bf,
+    ln, dt = ln or {}, dtype or torch.bfloat16
+    f32 = dt == torch.float32
+    fc, proj = mlp.c_fc.packed(dt), mlp.c_proj.packed(dt)
+    xm = torch.randn(rows, fc.wa.shape[0], device=gen.device, dtype=dt,
                      generator=gen)
     got, want, rk, gv = run_pair(torch, moe_ffn, moe_ffn_plain,
                                  (xm, fc, proj), rows, fc.e, **ln)
     hidden = fc.l2w.shape[1]
-    err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}", got, want,
-                  rk, gv, fc.k)
+    err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}"
+                  + (" (f32 form)" if f32 else ""), got, want, rk, gv, fc.k,
+                  f32=f32)
     ms = cuda_ms(torch, lambda: moe_ffn(xm, fc, proj, **ln), iters=20)
     plain = cuda_ms(torch, lambda: moe_ffn_plain(xm, fc, proj, **ln),
                     iters=20)
     flops, byts = moe_flops_bytes(xm, fc, proj)
-    bms, by = bound_ms(byts + nbytes(*ln.values()), flops)
+    bms, by = bound_ms(byts + nbytes(*ln.values()), flops,
+                       F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     log(f"  moe_ffn {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
         f"{byts / 1e6:.2f} MB)")
-    return dict(rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+    row = dict(rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by)
+    if f32:
+        defer_device_ms(f"moe_ffn {label} (f32)", row,
+                        lambda: moe_ffn(xm, fc, proj, **ln))
+    return row
 
 
 MOE_SWEEP_ROWS = (256, 512, 1024, 2048, 4096, 8192, 40960)
@@ -1008,6 +1059,15 @@ def serving_launches(model, n_forwards: int = 1 + MAX_NEW_TOKENS):
     return want
 
 
+def vocab_rows(model) -> int:
+    """Rows of the decoder's token table (its int8 form's too): the
+    scratch and GPT-2 decoders' ``transformer.wte``, the Llama and Falcon
+    decoders' ``embed_tokens`` / ``word_embeddings``."""
+    dec = model.decoder
+    table = dec._embed() if hasattr(dec, "_embed") else dec.transformer.wte
+    return table.stored_shape[0]
+
+
 def serving_inputs(torch, model, b: int, seed: int, bos: int):
     """Raw uint8 frames (b, 160, 240, 3) from ``seed`` and the one-token
     prompt ``bos``."""
@@ -1035,7 +1095,7 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
 
     ids, _ = drive_serving(torch, args, results, path, run, b,
                            lambda: serving_launches(model), "one caption call")
-    vocab = model.decoder.transformer.wte.stored_shape[0]
+    vocab = vocab_rows(model)
     if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
             or not bool(((ids >= 0) & (ids < vocab)).all())
             or not bool((ids[:, 0] == bos).all())):
@@ -1071,8 +1131,8 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
         windows.append(b / (time.perf_counter() - t0))
     rate = statistics.median(windows)
     log(f"  captions/s (batch {b}, {MAX_NEW_TOKENS} new tokens, median of 3 "
-        f"windows): {rate:.2f} on "
-        f"{torch.cuda.get_device_name(0)}; windows "
+        f"windows): {rate:.2f} on {CARD or torch.cuda.get_device_name(0)}; "
+        f"windows "
         f"{[round(x, 2) for x in windows]}; wall a call "
         f"{[round(b / x * 1e3, 2) for x in windows]} ms")
     if args.profile:
@@ -1124,9 +1184,17 @@ def device_profile(torch, fn, top: int = 12) -> None:
             f"{e.key[:90]}")
 
 
-def phase_parity(torch, model, phase: str, bos: int):
+def phase_parity(torch, model, phase: str, bos: int,
+                 sensitivity: bool = False):
     """At batch 8: the first-step logits (the prefill's last row) and the
-    greedy tokens of the kernel path against the plain-version path."""
+    greedy tokens of the kernel path against the plain-version path.  With
+    ``sensitivity`` (a deep int4 decoder: a kernel summing in another f32
+    order than the plain version moves its bf16 logits further than TOL),
+    the plain path is run a second time with its int4 products summed in
+    another f32 order (``int4_matmul_reordered``): the reference's own
+    spread.  The kernel path then passes within TOL or within twice that
+    spread (as the chain attention's error is held to twice the
+    reference's rounding sensitivity)."""
     from image2text_torch.models.generation import (generate, prefill,
                                                     preprocess_frames)
 
@@ -1145,6 +1213,9 @@ def phase_parity(torch, model, phase: str, bos: int):
     got, ids_k = first_logits(), greedy()
     with plain_versions():
         want, ids_p = first_logits(), greedy()
+        if sensitivity:
+            with int4_reordered(torch):
+                other, ids_o = first_logits(), greedy()
     torch.cuda.synchronize()
     n_layers = len(model.vision_encoder.blocks) + len(model.decoder.blocks)
     rel_l2, err, scale, ok = logits_error(torch, got, want)
@@ -1158,9 +1229,42 @@ def phase_parity(torch, model, phase: str, bos: int):
         f" + {TOL} rel: {beyond} of {got.numel()}")
     log(f"  greedy tokens agreeing: first step {first:.4f}, over "
         f"{MAX_NEW_TOKENS} steps {agree:.4f}")
+    if sensitivity:
+        s_rel, s_err, _, _ = logits_error(torch, other, want)
+        s_agree = float((ids_o[:, 1:] == ids_p[:, 1:]).float().mean())
+        log(f"  the plain path against itself with its int4 products summed "
+            f"in another f32 order: relative L2 {s_rel:.6g}, max_abs_err "
+            f"{s_err:.6g}, greedy tokens agreeing over {MAX_NEW_TOKENS} "
+            f"steps {s_agree:.4f}; the kernel path's limits: relative L2 "
+            f"{max(TOL, 2 * s_rel):.6g}, max_abs_err "
+            f"{max(TOL * scale, 2 * s_err):.6g}")
+        ok = ok or (bool(torch.isfinite(got).all()) and rel_l2 <= 2 * s_rel
+                    and err <= max(TOL * scale, 2 * s_err))
     if not ok:
         raise AssertionError(f"{phase}: kernel path disagrees with the "
                              "plain path beyond tolerance")
+
+
+@contextlib.contextmanager
+def int4_reordered(torch):
+    """The int4 plain version with its input split in two halves, each
+    half's f32 product taken alone and the two summed: the same function
+    in another f32 summation order (for ``phase_parity``'s
+    sensitivity)."""
+    from image2text_torch.ops import int4_matmul as i4
+
+    def reordered(x, packed, scales):
+        w = i4.dequantize_int4(packed, scales, torch.float32)
+        h, xf = w.shape[1] // 2, x.float()
+        return (torch.matmul(xf[..., :h], w[:, :h].t())
+                + torch.matmul(xf[..., h:], w[:, h:].t())).to(x.dtype)
+
+    saved = i4.int4_matmul
+    i4.int4_matmul = reordered
+    try:
+        yield
+    finally:
+        i4.int4_matmul = saved
 
 
 def logits_error(torch, got, want):
@@ -1222,7 +1326,7 @@ def phase_beam(torch, model, args, results, path: str = "flagship_beam",
         torch, args, results, path, run, b, want,
         f"one beam-search call (width {bw} x expansion "
         f"{beam.beam_expansion_factor}: {bw * b} decode rows)")
-    vocab = model.decoder.transformer.wte.stored_shape[0]
+    vocab = vocab_rows(model)
     if (tuple(ids.shape) != (b, bw, MAX_NEW_TOKENS)
             or tuple(scores.shape) != (b, bw)
             or not bool(((ids >= 0) & (ids < vocab)).all())
@@ -2177,28 +2281,78 @@ def randomize_gpt2m(torch, model, seed):
     return model
 
 
-def int4_work(lin, x):
+def int4_work(x, packed, scales):
     """(bytes, FLOP) of one int4_matmul call on ``x``: x, the packed weight
     and the scales read once, y written once; 2·rows·out·in_pad
     operations."""
-    rows = x.numel() // x.shape[-1]
-    out_bytes = rows * lin.out_features * x.element_size()
-    return (nbytes(x, lin.weight, lin.weight_scales) + out_bytes,
-            2 * rows * lin.out_features * lin.in_pad)
+    rows, in_pad = x.numel() // x.shape[-1], x.shape[-1]
+    out_bytes = rows * packed.shape[0] * x.element_size()
+    return (nbytes(x, packed, scales) + out_bytes,
+            2 * rows * packed.shape[0] * in_pad)
+
+
+def int4_case(torch, results, key: str, x, packed, scales,
+              iters: int = 20) -> dict:
+    """int4_matmul on ``x`` against its plain version, with the plan (tile,
+    splits of the input) and two more launches bitwise equal; beside it
+    torch.matmul on the weight dequantised once to bf16, a yardstick the
+    port never calls.  Kept as the int4_matmul row's ``<key>_shape`` (the
+    first case also gives the row's own numbers); its device time is read
+    at the end of the run, with x held on the host meanwhile."""
+    from image2text_torch.ops.int4_matmul import (dequantize_int4,
+                                                  int4_matmul,
+                                                  int4_matmul_plain, int4_plan)
+    from image2text_torch.utils.device import sm_count
+
+    rows, in_pad, out_f = x.shape[0], x.shape[-1], packed.shape[0]
+    got = int4_matmul(x, packed, scales)
+    want = int4_matmul_plain(x, packed, scales)
+    same = all(torch.equal(got, int4_matmul(x, packed, scales))
+               for _ in range(2))
+    torch.cuda.synchronize()
+    bm, bn, splits = int4_plan(rows, out_f, in_pad, sm_count(x.device))
+    label = key.replace("_", " ")
+    err = compare(f"int4_matmul {label} rows={rows} in={in_pad} out={out_f} "
+                  f"scales {scales.dtype}", got, want)
+    del got, want
+    log(f"    {label}: tile {bm} x {bn}, {splits} split(s) of the input; "
+        f"two more launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"int4_matmul {label}: reruns differ")
+    ms = cuda_ms(torch, lambda: int4_matmul(x, packed, scales), iters)
+    plain = cuda_ms(torch, lambda: int4_matmul_plain(x, packed, scales),
+                    iters)
+    w16 = dequantize_int4(packed, scales, torch.bfloat16)
+    lib = cuda_ms(torch, lambda: torch.matmul(x, w16.t()), iters)
+    del w16
+    n_bytes, flops = int4_work(x, packed, scales)
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"    {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}; {flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} "
+        f"MB; kernel at {bms / ms:.3f} of it), torch.matmul on the "
+        f"bf16-dequantised weight {lib:.4f} ms")
+    row = dict(rows=rows, in_pad=in_pad, out=out_f, max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+               tile=[bm, bn], splits=splits, reruns_bitwise_equal=same)
+    entry = results.setdefault("int4_matmul", {"name": "int4_matmul"})
+    if "source" not in entry:   # the first row: GPT-2-medium's decode c_attn
+        entry.update(
+            route="cuda", source="image2text_torch/csrc/int4_matmul.cu",
+            replaces="image2text_tpu/ops/int4_matmul.py:102",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")})
+    entry[f"{key}_shape"] = row
+    defer_device_ms(f"int4_matmul {label}", row,
+                    lambda x_, p=packed, sc=scales: int4_matmul(x_, p, sc),
+                    held=x)
+    return row
 
 
 def phase_int4_kernels(torch, model, results):
     """int4_matmul against its plain version at the GPT-2-medium decoder's
     four quantized Linear shapes, at the serving batch (256 decode rows)
     and at the training step's rows (12 x 112), bf16 x and the bf16 scales
-    the model's cast leaves, with the plan (tile, splits of the input) and
-    two more launches bitwise equal; beside it torch.matmul on the weight
-    dequantised once to bf16, a yardstick the port never calls."""
-    from image2text_torch.ops.int4_matmul import (dequantize_int4,
-                                                  int4_matmul,
-                                                  int4_matmul_plain, int4_plan)
-    from image2text_torch.utils.device import sm_count
-
+    the model's cast leaves (``int4_case``)."""
     dev, bf = model.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     blk = model.decoder.blocks[0]
@@ -2208,51 +2362,9 @@ def phase_int4_kernels(torch, model, results):
                                       + GPT2M_TRAIN_SEQ)
     for phase, rows in (("decode", BATCH), ("train", train_rows)):
         for label, lin in linears:
-            packed, scales = lin.weight, lin.weight_scales
             x = torch.randn(rows, lin.in_pad, device=dev, generator=gen).to(bf)
-            got = int4_matmul(x, packed, scales)
-            want = int4_matmul_plain(x, packed, scales)
-            same = all(torch.equal(got, int4_matmul(x, packed, scales))
-                       for _ in range(2))
-            torch.cuda.synchronize()
-            bm, bn, splits = int4_plan(rows, lin.out_features, lin.in_pad,
-                                       sm_count(dev))
-            shape = (f"rows={rows} in={lin.in_pad} out={lin.out_features} "
-                     f"scales {scales.dtype}")
-            err = compare(f"int4_matmul {phase} {label} {shape}", got, want)
-            log(f"    {phase} {label}: tile {bm} x {bn}, {splits} split(s) of "
-                f"the input; two more launches bitwise equal: {same}")
-            if not same:
-                raise AssertionError(f"int4_matmul {phase} {label}: reruns "
-                                     "differ")
-            ms = cuda_ms(torch, lambda: int4_matmul(x, packed, scales), 20)
-            plain = cuda_ms(torch, lambda: int4_matmul_plain(x, packed,
-                                                             scales), 20)
-            w16 = dequantize_int4(packed, scales, bf)
-            lib = cuda_ms(torch, lambda: torch.matmul(x, w16.t()), 20)
-            n_bytes, flops = int4_work(lin, x)
-            bms, by = bound_ms(n_bytes, flops)
-            log(f"    {phase} {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
-                f"ms, bound {bms:.5f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-                f"{n_bytes / 1e6:.2f} MB; kernel at {bms / ms:.3f} of it), "
-                f"torch.matmul on the bf16-dequantised weight {lib:.4f} ms")
-            row = dict(rows=rows, in_pad=lin.in_pad, out=lin.out_features,
-                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, library_ms=lib, tile=[bm, bn],
-                       splits=splits, reruns_bitwise_equal=same)
-            entry = results.setdefault("int4_matmul",
-                                       {"name": "int4_matmul"})
-            if "source" not in entry:   # the first row: decode c_attn
-                entry.update(
-                    route="cuda", source="image2text_torch/csrc/int4_matmul.cu",
-                    replaces="image2text_tpu/ops/int4_matmul.py:102",
-                    **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")})
-            entry[f"{phase}_{label}_shape"] = row
-            defer_device_ms(f"int4_matmul {phase} {label}", row,
-                            lambda x=x, p=packed, sc=scales: int4_matmul(
-                                x, p, sc))
+            int4_case(torch, results, f"{phase}_{label}", x, lin.weight,
+                      lin.weight_scales)
 
 
 def gpt2m_model(torch):
@@ -2846,6 +2958,7 @@ def nano_model(torch, name: str, dtype, depth=None, device="cuda"):
 def describe(torch, model, label: str, built: float, surgery: float) -> None:
     enc, dec = model.vision_encoder, model.decoder
     n = sum(p.numel() for p in model.parameters())
+    size = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"[{label}-model] {type(enc).__name__} ({len(enc.blocks)} ViT "
         f"blocks, head {'PEER' if enc.use_peer else 'LSH' if enc.use_lsh else 'positional MLP'}"
         f", {enc.num_outputs} x {enc.output_embed_dim}), "
@@ -2853,7 +2966,7 @@ def describe(torch, model, label: str, built: float, surgery: float) -> None:
         f"{len(dec.blocks)}-layer d-{dec.n_embd} decoder "
         f"({dec.blocks[0].attn.__class__.__name__}, vocab "
         f"{dec.transformer.wte.stored_shape[0]}); {n:,} parameters "
-        f"({n * 2 / 2 ** 30:.2f} GiB in bf16), built in {built:.1f} s"
+        f"({size / 2 ** 30:.2f} GiB in {dec.dtype}), built in {built:.1f} s"
         + (f" (the GPT-2 surgery {surgery:.1f} s)" if surgery else ""))
 
 
@@ -2969,6 +3082,265 @@ def phase_nano(torch, args, results):
     phase_nano_cpu(torch)
 
 
+# -- the HF decoder families: Llama-2, Qwen-2, Falcon, GPT-2-xl --------------
+
+HF_YAML = {"llama13b": "training_configs/tpu/llama2-13b.yaml",
+           "falcon7b": "training_configs/tpu/falcon-7b.yaml",
+           "qwen": "training_configs/local/qwen-1.5b-deepseek-distill.yaml",
+           "llama7b": "training_configs/local/llama2-7b.yaml",
+           "gpt2xl": "training_configs/tpu/gpt2-xl.yaml"}
+# the tokenizers' BOS ids: each caption's one-token prompt
+HF_BOS = {"llama13b": 1, "llama7b": 1, "falcon7b": 11, "qwen": 151646,
+          "gpt2xl": 50256}
+# int4_matmul on this slice's path: (model, prefill rows an image (the
+# soft prompt's CLS rows + the prompt), its Linear shapes (label, in, out))
+HF_INT4 = (
+    ("llama13b", 16 + 1, (("q_k_v_o_proj", 5120, 5120),
+                          ("gate_up_proj", 5120, 13824),
+                          ("down_proj", 13824, 5120))),
+    ("falcon7b", 64 + 1, (("query_key_value", 4544, 4672),
+                          ("dense", 4544, 4544),
+                          ("dense_h_to_4h", 4544, 18176),
+                          ("dense_4h_to_h", 18176, 4544))),
+    ("gpt2xl", 64 + 1, (("c_attn", 1600, 4800), ("attn_c_proj", 1600, 1600),
+                        ("c_fc", 1600, 6400), ("mlp_c_proj", 6400, 1600))))
+HF_CPU_BATCH = 4    # [hf-cpu]'s images
+
+
+def phase_hf_kernels(torch, results):
+    """int4_matmul against its plain version at every Linear shape of the
+    Llama-2-13B, Falcon-7B and GPT-2-xl decoders, at the serving batch's
+    256 decode rows and its prefill rows (``int4_case``; bf16 x, bf16
+    scales as the models' cast leaves them); then the f32 form of moe_ffn
+    at nano-mini's decode shape (256 rows, 1024 → 2048 → 1024) on a block
+    of nano-mini's decoder built alone in f32."""
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models.layers import _MoEMLP
+    from image2text_torch.models.quantization import quantize_blockwise
+    from image2text_torch.nn.core import init_parameters
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    for model, per_image, shapes in HF_INT4:
+        for label, in_f, out_f in shapes:
+            w = torch.empty(out_f, in_f, device=dev).normal_(
+                0.0, 0.02, generator=gen)
+            packed, scales = quantize_blockwise(w)
+            scales = scales.to(bf)
+            del w
+            for phase, rows in (("decode", BATCH),
+                                ("prefill", BATCH * per_image)):
+                x = torch.randn(rows, packed.shape[1] * 2, device=dev,
+                                generator=gen).to(bf)
+                int4_case(torch, results, f"{model}_{phase}_{label}", x,
+                          packed, scales, iters=20 if phase == "decode"
+                          else 5)
+                del x
+            del packed, scales
+            torch.cuda.empty_cache()
+    dcfg = load_training_config(NANO_YAML["nano-mini"]).model.decoder_config
+    tc = dcfg.transformer_config
+    mlp = _MoEMLP(tc.attn_config.n_embd, tc.attn_config.bias,
+                  tc.rotator_config, device=dev)
+    init_parameters(mlp, gen)
+    results.setdefault("moe_ffn", {"name": "moe_ffn"})[
+        "nano_mini_decode_f32_shape"] = moe_case(
+            torch, mlp, BATCH, gen, "nano-mini decode", dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def hf_depth(name: str, depth):
+    """Build ``name``'s decoder ``depth`` layers deep (None: as its table
+    says), and a pretrained ViT encoder as deep."""
+    import dataclasses
+
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models import encoder as tenc
+    from image2text_torch.models.hf_decoders import factory
+
+    s = load_training_config(HF_YAML[name]).model.decoder_config.model_str
+    table = next(t for t in (factory.GPT2_TABLE, factory.LLAMA_TABLE,
+                             factory.QWEN_TABLE, factory.FALCON_TABLE)
+                 if s in t)
+    saved, vit = table[s], tenc.VIT_B16_ARGS
+    if depth is not None:
+        table[s] = (dict(saved, n_layer=depth) if isinstance(saved, dict)
+                    else dataclasses.replace(saved, n_layer=depth))
+        tenc.VIT_B16_ARGS = dict(num_layers=depth)
+    try:
+        yield
+    finally:
+        table[s], tenc.VIT_B16_ARGS = saved, vit
+
+
+def hf_model(torch, name: str, depth=None, device="cuda", int4=None,
+             dtype=None):
+    """``name``'s model from its YAML at full width, at full depth or
+    ``depth`` layers (decoder, and a scratch or pretrained encoder), with
+    random weights from SEED (the int4 weights and LoRA B as
+    ``randomize_gpt2m`` makes them), in its precision's dtype (bf16, or f32
+    for 'no') unless ``dtype``; ``int4`` overrides ``load_in_4bit``.
+    Returns (model, seconds to build, the build's peak device bytes)."""
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+
+    t0 = time.perf_counter()
+    cfg = load_training_config(HF_YAML[name])
+    mcfg = cfg.model
+    if int4 is not None:
+        mcfg.decoder_config.load_in_4bit = int4
+    if depth is not None and hasattr(mcfg.vision_encoder_config, "n_layer"):
+        mcfg.vision_encoder_config.n_layer = depth
+    if dtype is None:
+        dtype = torch.float32 if cfg.precision == "no" else torch.bfloat16
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with hf_depth(name, depth):
+        model = VisionEncoderDecoder(mcfg, device=device).init_weights(SEED)
+    randomize_gpt2m(torch, model, SEED)
+    model = model.to(dtype).eval()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return model, time.perf_counter() - t0, peak
+
+
+def describe_hf(torch, model, label: str, built: float, peak: int) -> None:
+    from image2text_torch.models.quantization import QuantizedLinear
+
+    enc, dec = model.vision_encoder, model.decoder
+    n = sum(p.numel() for p in model.parameters())
+    n_q = sum(isinstance(m, QuantizedLinear) for m in dec.modules())
+    resident = torch.cuda.memory_allocated()
+    log(f"[{label}-model] {HF_YAML[label]}: {type(enc).__name__} "
+        f"({len(enc.blocks)} blocks, {enc.num_outputs} x "
+        f"{enc.output_embed_dim}), "
+        f"{'bridge, ' if model.encoder is not enc else ''}"
+        f"{type(dec).__name__} {dec.config.model_str} ({len(dec.blocks)} "
+        f"layers, d {dec.n_embd}, vocab {vocab_rows(model)}, "
+        f"{n_q} int4 Linears, {dec.dtype}); {n:,} parameter elements (int4 "
+        f"bytes not counted), built in {built:.1f} s; device memory "
+        f"resident {resident / 2 ** 30:.2f} GiB, the build's peak "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / max(resident, 1):.2f}x)")
+    return resident
+
+
+def phase_hf(torch, args, results):
+    """The five configurations at full width and depth, batch 256, one at
+    a time: [llama13b], [falcon7b], [qwen], [llama7b], [gpt2xl] (each:
+    build, the serving path as [main] with launches held to
+    serving_launches, peak memory; the kernel path against the
+    plain-version path where the model launches a kernel); then [hf-cpu]."""
+    for name in ("llama13b", "falcon7b", "qwen", "llama7b", "gpt2xl"):
+        model, built, peak = hf_model(torch, name)
+        resident = describe_hf(torch, model, name, built, peak)
+        if name == "llama13b" and peak > 2 * resident:
+            raise AssertionError(f"llama13b: the build's peak {peak} is "
+                                 f"more than twice its resident {resident}")
+        log(f"[{name}] {HF_YAML[name]} serving path at full width and "
+            f"depth ({CARD})")
+        torch.cuda.reset_peak_memory_stats()
+        phase_serve(torch, model, args, results, f"{name}_caption",
+                    HF_BOS[name])
+        log(f"  peak device memory over the serving calls "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            f"(resident {resident / 2 ** 30:.2f} GiB)")
+        if any(serving_launches(model).values()):
+            log(f"[{name}-parity] kernel path vs plain-version path at full "
+                "width")
+            phase_parity(torch, model, f"{name}-parity", HF_BOS[name],
+                         sensitivity=True)
+        del model
+        torch.cuda.empty_cache()
+    log(f"[hf-cpu] each family at depth 2, card against a CPU copy ({CARD})")
+    phase_hf_cpu(torch)
+
+
+def card_against_cpu(torch, m, label: str, bos: int, tol: float,
+                     ids_equal: bool, cpu_encoder: bool = False) -> None:
+    """``m`` on the card against a CPU copy of it: the encoder output,
+    first-step logits (a one-token prefill's last row) within ``tol``
+    (relative L2) and greedy ids over MAX_NEW_TOKENS, HF_CPU_BATCH images;
+    with ``ids_equal`` the ids must be equal, else a parting is reported.
+    ``cpu_encoder``: both decoders take the CPU copy's encoder output (an
+    f32 form whose scratch encoder's sparse blocks the card's bf16 kernel
+    does not take: the decoder alone is compared)."""
+    from image2text_torch.models.generation import (generate, prefill,
+                                                    preprocess_frames)
+
+    cpu = cpu_copy(m)
+    frames, prompt = serving_inputs(torch, m, HF_CPU_BATCH, SEED + 41, bos)
+    images = preprocess_frames(m, frames, m.decoder.dtype)
+    cenc = cpu.encoder(images.cpu())
+    enc = cenc.to(m.device) if cpu_encoder else m.encoder(images)
+    got = prefill(m, enc, prompt, 1 + MAX_NEW_TOKENS)[0][:, -1].float()
+    want = prefill(cpu, cenc, prompt.cpu(),
+                   1 + MAX_NEW_TOKENS)[0][:, -1].float()
+    ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                   temperature=0.0, encoder_output=enc)
+    cids = generate(cpu, images.cpu(), prompt.cpu(),
+                    max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+                    encoder_output=cenc)
+    enc_err = rel_l2(torch, enc.float().cpu(), cenc.float())
+    err = rel_l2(torch, got.cpu(), want)
+    parting = first_parting(torch, ids, cids)
+    log(f"  {label} ({len(m.decoder.blocks)}-layer decoder, "
+        f"{str(m.decoder.dtype).split('.')[-1]}), card against CPU, "
+        f"{HF_CPU_BATCH} images: encoder output "
+        + ("the CPU's, on both" if cpu_encoder
+           else f"relative L2 {enc_err:.6g}")
+        + f", first-step logits {err:.6g} (limit {tol}); greedy ids over "
+        f"{MAX_NEW_TOKENS} steps equal: {parting is None}"
+        + ("" if parting is None else
+           f" (first parting at row, step {parting})"))
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: logits {err} > {tol}")
+    if ids_equal and parting is not None:
+        raise AssertionError(f"{label}: greedy ids part at {parting}")
+    del cpu
+
+
+def phase_hf_cpu(torch):
+    """Depth-2 forms (decoder and encoder) at full width, card against a
+    CPU copy (``card_against_cpu``): each family in f32 with TF32 off
+    (Llama-2-7B as configured; Qwen-2; Falcon and GPT-2-xl with their
+    Linears in float, their decoders alone on the CPU's encoder output)
+    within NANO_CPU_TOL and the ids equal; and Llama-2-13B as configured,
+    int4 in bf16 (the kernel against the CPU's plain version) within
+    CPU_MODE_TOL."""
+    f32 = torch.float32
+    for name, kw, tol, exact in (
+            ("llama7b", {}, NANO_CPU_TOL, True),
+            ("qwen", dict(dtype=f32), NANO_CPU_TOL, True),
+            ("falcon7b", dict(int4=False, dtype=f32), NANO_CPU_TOL, True),
+            ("gpt2xl", dict(int4=False, dtype=f32), NANO_CPU_TOL, True),
+            ("llama13b", {}, CPU_MODE_TOL, False)):
+        m, _, _ = hf_model(torch, name, depth=2, **kw)
+        card_against_cpu(torch, m, name, HF_BOS[name], tol, exact,
+                         cpu_encoder=name in ("falcon7b", "gpt2xl"))
+        del m
+        torch.cuda.empty_cache()
+
+
+def phase_nano_f32(torch, args, results):
+    """local/nano-mini.yaml at its own precision 'no' (f32) at full width and
+    depth: the serving path (moe_ffn's f32 form, launches as derived);
+    then its depth-2 form on the card against a CPU copy in f32 (logits
+    within NANO_CPU_TOL, ids equal, as [nano-cpu] holds the f32 forms)."""
+    f32 = torch.float32
+    model, built, surgery = nano_model(torch, "nano-mini", f32)
+    describe(torch, model, "nano-f32", built, surgery)
+    log(f"[nano-f32] local/nano-mini.yaml serving path in f32 at full width "
+        f"and depth ({CARD})")
+    phase_serve(torch, model, args, results, "nano_mini_f32_caption",
+                NANO_BOS)
+    del model
+    torch.cuda.empty_cache()
+    m, _, _ = nano_model(torch, "nano-mini", f32, depth=2)
+    card_against_cpu(torch, m, "nano-mini f32", NANO_BOS, NANO_CPU_TOL, True)
+    del m
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2990,9 +3362,11 @@ def main() -> int:
         VisionEncoderDecoder)
     from image2text_torch.ops import _build
 
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3146,6 +3520,12 @@ def main() -> int:
 
     with torch.no_grad():
         phase_nano(torch, args, results)
+        phase_nano_f32(torch, args, results)
+        log(f"[hf-kernels] int4_matmul vs plain version at the Llama-2-13B, "
+            f"Falcon-7B and GPT-2-xl decoders' shapes (decode and prefill "
+            f"rows); moe_ffn's f32 form at nano-mini's decode shape ({CARD})")
+        phase_hf_kernels(torch, results)
+        phase_hf(torch, args, results)
 
     log("[offline-kernels] the f32 kernels of the offline path (flash at "
         "synthetic-smoke.yaml's training shapes, the front at the evaluate "

@@ -152,7 +152,10 @@ class TransformerDecoderConfig:
 
 @dataclass
 class HuggingfaceDecoderConfig:
-    """A decoder of the HF family by ``model_str`` (only GPT-2 is ported)."""
+    """A decoder of the HF family by ``model_str``: a GPT-2, Llama-2, Qwen-2
+    or Falcon id of the tables in ``models/hf_decoders/factory.py``, or a
+    local HF checkpoint directory or ``config.json`` of one of those
+    families."""
 
     use_cross_attn: bool
     model_str: str

@@ -45,6 +45,10 @@
 // many-rows kernel 0.1917; at 8,192 rows 0.2704 and 0.2420; at 2,048
 // 0.1246 and 0.1980; at 40,960 1.0183 and 0.5768.  Any row count works:
 // ragged tiles are masked.
+//
+// The f32 form (moe_ffn_launch_f32, at the end of this file) computes the
+// same FFN on f32 operands with SIMT FFMA products, nothing rounded
+// narrower; see its own note.
 #include "common.cuh"
 
 using namespace i2t;
@@ -572,5 +576,398 @@ extern "C" int moe_ffn_launch(const void* x, void* out, int n, int fin, int hidd
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   moe_finish_kernel<<<dim3(row_tiles, col_blocks), 32 * warps, smem, st>>>(a, slices);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The f32 form: the same FFN for f32 operands (the configurations served at
+// precision 'no', e.g. local/nano-mini.yaml), every product a true f32 FFMA
+// on the SIMT cores (wgmma takes f32 only as TF32) and nothing rounded
+// narrower.  One regime at every row count: the hidden dimension split over
+// blocks, three kernels, no atomics.
+//
+// * moe32_first_kernel (block: 16 rows): [LN →] x·[g0w | l1w], MoELinear 1's
+//   gate, softmax, top-k and combine c1; writes hw1 = z ∘ expand(c1) (n, e·r)
+//   and c1 (n, e) to the scratch buffer.
+// * moe32_hidden_kernel (block: 16 rows x a slice of the hidden dimension):
+//   for each 32-wide chunk, h = gelu(hw1·l2w1 + c1·l2b1), then its part of
+//   MoELinear 2's product h·[g0w2 | l1w2], written (slices, n, g + e·r).
+// * moe32_finish_kernel (block: 16 rows x 128 output columns): sums the
+//   slices' parts in slice order, MoELinear 2's gate, top-k and combine c2,
+//   y = hw2·l2w2 + c2·l2b2 [+ residual] through the output row map.
+//
+// Widths: any fin and hidden, g + e·r and e·r up to 128, e up to 8.  What
+// bounds it at nano-mini's decode (256 rows, 1024 → 2048): operations, 0.25
+// GFLOP, 3.9 µs at 67 TFLOP/s of f32 FFMA, over its ~4 MB of bytes (1.2
+// µs); the launches and filling the card decide at such sizes.
+
+namespace {
+
+constexpr int F_ROWS = 16;    // rows a block
+constexpr int F_THREADS = 128;
+constexpr int F_K = 32;       // depth of a staged x / weight chunk
+constexpr int F_CHUNK = 32;   // hidden columns a chunk of the hidden kernel
+constexpr int F_MAXA = 128;   // most g + e·r (and e·r)
+constexpr int F_COLS = 128;   // output columns a finishing block
+
+struct Args32 {
+  const float* x;
+  float* out;
+  int n, fin, hidden;
+  const float* ln_w;
+  const float* ln_b;
+  const float* res;
+  int rpi, orpi;
+  const float *wa1, *ba1, *g1w1, *g1b1, *l2w1, *l2b1;
+  const float *wa2, *ba2, *g1w2, *g1b2, *l2w2, *l2b2;
+  int g, e, r, k;
+  float sqrt_fin, sqrt_hidden;
+  uint8_t* routes;
+  float* hw1;   // (n, e·r)
+  float* c1;    // (n, e)
+  float* part;  // (slices, n, g + e·r)
+  int chunks_per_slice;
+};
+
+// One row's gate from its f32 accumulators ``acc`` (g + e·r values): the
+// gate MLP, softmax(lg / sqrt_in), top-k with lowest-index ties; the kept
+// gate values (unnormalised) go to ``comb`` (e values), the bit mask is
+// returned.
+__device__ unsigned gate32(const float* acc, const float* ba, const float* g1w,
+                           const float* g1b, int g, int e, int k, float sqrt_in,
+                           float* comb) {
+  float lg[MAXE];
+#pragma unroll
+  for (int q = 0; q < MAXE; ++q) lg[q] = 0.f;
+  for (int j = 0; j < g; ++j) {
+    const float a = act(acc[j] + ba[j]);
+#pragma unroll
+    for (int q = 0; q < MAXE; ++q)
+      if (q < e) lg[q] = fmaf(a, g1w[j * e + q], lg[q]);
+  }
+  float v[MAXE], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAXE; ++q) {
+    if (q < e) {
+      v[q] = (lg[q] + g1b[q]) / sqrt_in;
+      mx = fmaxf(mx, v[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < MAXE; ++q) {
+    if (q < e) {
+      v[q] = expf(v[q] - mx);
+      sum += v[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < MAXE; ++q)
+    if (q < e) v[q] = v[q] / sum;
+  unsigned bits = 0;
+#pragma unroll
+  for (int q = 0; q < MAXE; ++q) {
+    if (q < e) {
+      int rank = 0;
+#pragma unroll
+      for (int j = 0; j < MAXE; ++j)
+        if (j < e) rank += (v[j] > v[q]) || (v[j] == v[q] && j < q);
+      const bool keep = rank < k;
+      comb[q] = keep ? v[q] : 0.f;
+      bits |= keep ? (1u << q) : 0u;
+    }
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(F_THREADS) moe32_first_kernel(Args32 p) {
+  __shared__ float xs[F_K][F_ROWS + 1];   // an x chunk, transposed: [k][row]
+  __shared__ float ws[F_K][F_MAXA];       // a [g0w | l1w] chunk
+  __shared__ float accs[F_ROWS][F_MAXA + 1];
+  __shared__ float stat[2][F_ROWS];       // LayerNorm mean and rstd
+  __shared__ float cs[F_ROWS][MAXE];
+  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
+  const int A = p.g + p.e * p.r, ER = p.e * p.r, fin = p.fin;
+  const bool ln = p.ln_w != nullptr;
+  if (ln) {
+    // two-pass statistics, one warp a row (rows ty, ty + 4, ...)
+    for (int rr = ty; rr < F_ROWS; rr += F_THREADS / 32) {
+      const int row = row0 + rr;
+      if (row >= p.n) continue;
+      const float* xr = p.x + (size_t)row * fin;
+      float s = 0.f;
+      for (int c = tx; c < fin; c += 32) s += xr[c];
+      const float mean = warp_sum(s) / fin;
+      float v = 0.f;
+      for (int c = tx; c < fin; c += 32) {
+        const float d = xr[c] - mean;
+        v = fmaf(d, d, v);
+      }
+      v = warp_sum(v) / fin;
+      if (tx == 0) {
+        stat[0][rr] = mean;
+        stat[1][rr] = rsqrtf(v + 1e-5f);
+      }
+    }
+    __syncthreads();
+  }
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < fin; k0 += F_K) {
+    for (int i = t; i < F_ROWS * F_K; i += F_THREADS) {
+      const int rr = i / F_K, kk = i % F_K, row = row0 + rr, gk = k0 + kk;
+      float v = 0.f;
+      if (row < p.n && gk < fin) {
+        v = p.x[(size_t)row * fin + gk];
+        if (ln) {
+          v = (v - stat[0][rr]) * stat[1][rr] * p.ln_w[gk];
+          if (p.ln_b != nullptr) v += p.ln_b[gk];
+        }
+      }
+      xs[kk][rr] = v;
+    }
+    for (int i = t; i < F_K * F_MAXA; i += F_THREADS) {
+      const int kk = i / F_MAXA, c = i % F_MAXA, gk = k0 + kk;
+      ws[kk][c] = gk < fin && c < A ? p.wa1[(size_t)gk * A + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < F_K; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = xs[kk][ty + 4 * i];
+        b[i] = ws[kk][tx + 32 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) accs[ty + 4 * i][tx + 32 * j] = acc[i][j];
+  __syncthreads();
+  if (t < F_ROWS && row0 + t < p.n) {
+    const int row = row0 + t;
+    const unsigned bits = gate32(accs[t], p.ba1, p.g1w1, p.g1b1, p.g, p.e, p.k, p.sqrt_fin,
+                                 cs[t]);
+    if (p.routes != nullptr) p.routes[(size_t)row * 2] = (uint8_t)bits;
+    for (int q = 0; q < p.e; ++q) p.c1[(size_t)row * p.e + q] = cs[t][q];
+  }
+  __syncthreads();
+  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
+    const int rr = i / ER, c = i % ER, row = row0 + rr;
+    if (row < p.n)
+      p.hw1[(size_t)row * ER + c] = act(accs[rr][p.g + c] + p.ba1[p.g + c]) * cs[rr][c / p.r];
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS) moe32_hidden_kernel(Args32 p) {
+  __shared__ float hws[F_ROWS][F_MAXA];     // hw1 of the block's rows
+  __shared__ float c1s[F_ROWS][MAXE];
+  __shared__ float l2ws[F_MAXA][F_CHUNK];   // l2w1's chunk columns
+  __shared__ float l2bs[MAXE][F_CHUNK];
+  __shared__ float hs[F_ROWS][F_CHUNK + 1];
+  __shared__ float was[F_CHUNK][F_MAXA];    // [g0w2 | l1w2]'s chunk rows
+  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
+  const int A = p.g + p.e * p.r, ER = p.e * p.r, hidden = p.hidden;
+  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
+    const int rr = i / ER, c = i % ER, row = row0 + rr;
+    hws[rr][c] = row < p.n ? p.hw1[(size_t)row * ER + c] : 0.f;
+  }
+  for (int i = t; i < F_ROWS * MAXE; i += F_THREADS) {
+    const int rr = i / MAXE, q = i % MAXE, row = row0 + rr;
+    c1s[rr][q] = row < p.n && q < p.e ? p.c1[(size_t)row * p.e + q] : 0.f;
+  }
+  const int chunks = (hidden + F_CHUNK - 1) / F_CHUNK;
+  const int c0 = blockIdx.y * p.chunks_per_slice;
+  const int c1 = min(c0 + p.chunks_per_slice, chunks);
+  float acc[4][4] = {};
+  for (int ch = c0; ch < c1; ++ch) {
+    const int h0 = ch * F_CHUNK;
+    for (int i = t; i < ER * F_CHUNK; i += F_THREADS) {
+      const int q = i / F_CHUNK, jj = i % F_CHUNK;
+      l2ws[q][jj] = h0 + jj < hidden ? p.l2w1[(size_t)q * hidden + h0 + jj] : 0.f;
+    }
+    for (int i = t; i < p.e * F_CHUNK; i += F_THREADS) {
+      const int q = i / F_CHUNK, jj = i % F_CHUNK;
+      l2bs[q][jj] = h0 + jj < hidden ? p.l2b1[(size_t)q * hidden + h0 + jj] : 0.f;
+    }
+    for (int i = t; i < F_CHUNK * F_MAXA; i += F_THREADS) {
+      const int jj = i / F_MAXA, c = i % F_MAXA;
+      was[jj][c] = h0 + jj < hidden && c < A ? p.wa2[(size_t)(h0 + jj) * A + c] : 0.f;
+    }
+    __syncthreads();
+    // h = gelu(hw1·l2w1 + c1·l2b1): rows ty + 4i, column tx of the chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = ty + 4 * i;
+      float y = 0.f, yb = 0.f;
+      for (int q = 0; q < ER; ++q) y = fmaf(hws[rr][q], l2ws[q][tx], y);
+      for (int q = 0; q < p.e; ++q) yb = fmaf(c1s[rr][q], l2bs[q][tx], yb);
+      hs[rr][tx] = h0 + tx < hidden ? act(y + yb) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int jj = 0; jj < F_CHUNK; ++jj) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = hs[ty + 4 * i][jj];
+        b[i] = was[jj][tx + 32 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 4 * i;
+    if (row >= p.n) continue;
+    float* dst = p.part + ((size_t)blockIdx.y * p.n + row) * A;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (tx + 32 * j < A) dst[tx + 32 * j] = acc[i][j];
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS) moe32_finish_kernel(Args32 p, int slices) {
+  __shared__ float accs[F_ROWS][F_MAXA + 1];
+  __shared__ float hws[F_ROWS][F_MAXA];
+  __shared__ float cs[F_ROWS][MAXE];
+  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
+  const int A = p.g + p.e * p.r, ER = p.e * p.r, fin = p.fin;
+  for (int i = t; i < F_ROWS * A; i += F_THREADS) {
+    const int rr = i / A, c = i % A, row = row0 + rr;
+    float s = 0.f;
+    if (row < p.n)
+      for (int sl = 0; sl < slices; ++sl) s += p.part[((size_t)sl * p.n + row) * A + c];
+    accs[rr][c] = s;
+  }
+  __syncthreads();
+  if (t < F_ROWS && row0 + t < p.n) {
+    const unsigned bits = gate32(accs[t], p.ba2, p.g1w2, p.g1b2, p.g, p.e, p.k,
+                                 p.sqrt_hidden, cs[t]);
+    if (p.routes != nullptr && blockIdx.y == 0)
+      p.routes[(size_t)(row0 + t) * 2 + 1] = (uint8_t)bits;
+  }
+  __syncthreads();
+  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
+    const int rr = i / ER, c = i % ER;
+    hws[rr][c] = row0 + rr < p.n ? act(accs[rr][p.g + c] + p.ba2[p.g + c]) * cs[rr][c / p.r]
+                                 : 0.f;
+  }
+  __syncthreads();
+  const int n0 = blockIdx.y * F_COLS;
+  float y[4][4] = {}, yb[4][4] = {};
+  for (int q = 0; q < ER; ++q) {
+    float b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 32 * j;
+      b[j] = col < fin ? p.l2w2[(size_t)q * fin + col] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[i][j] = fmaf(hws[ty + 4 * i][q], b[j], y[i][j]);
+  }
+  for (int q = 0; q < p.e; ++q) {
+    float b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 32 * j;
+      b[j] = col < fin ? p.l2b2[(size_t)q * fin + col] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yb[i][j] = fmaf(cs[ty + 4 * i][q], b[j], yb[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = row0 + ty + 4 * i;
+    if (m >= p.n) continue;
+    const size_t orow = (size_t)(m / p.rpi) * p.orpi + m % p.rpi;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 32 * j;
+      if (col >= fin) continue;
+      float o = y[i][j] + yb[i][j];
+      if (p.res != nullptr) o = p.res[(size_t)m * fin + col] + o;
+      p.out[orow * fin + col] = o;
+    }
+  }
+}
+
+}  // namespace
+
+// The f32 form.  ``scratch`` holds n·e·r + n·e + slices·n·(g + e·r) floats:
+// hw1, c1 and the hidden slices' parts.
+extern "C" int moe_ffn_launch_f32(const void* x, void* out, int n, int fin, int hidden,
+                                  const void* ln_w, const void* ln_b, const void* res,
+                                  int rpi, int orpi,
+                                  const void* wa1, const void* ba1, const void* g1w1,
+                                  const void* g1b1, const void* l2w1, const void* l2b1,
+                                  const void* wa2, const void* ba2, const void* g1w2,
+                                  const void* g1b2, const void* l2w2, const void* l2b2,
+                                  int g, int e, int r, int k, void* routes, int slices,
+                                  void* scratch, void* stream) {
+  if (n <= 0 || fin <= 0 || hidden <= 0 || g < 1 || e < 1 || e > MAXE || r < 1 ||
+      g + e * r > F_MAXA || k < 1 || rpi <= 0 || orpi < rpi || slices < 1 ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args32 a;
+  a.x = static_cast<const float*>(x);
+  a.out = static_cast<float*>(out);
+  a.n = n;
+  a.fin = fin;
+  a.hidden = hidden;
+  a.ln_w = static_cast<const float*>(ln_w);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.res = static_cast<const float*>(res);
+  a.rpi = rpi;
+  a.orpi = orpi;
+  a.wa1 = static_cast<const float*>(wa1);
+  a.ba1 = static_cast<const float*>(ba1);
+  a.g1w1 = static_cast<const float*>(g1w1);
+  a.g1b1 = static_cast<const float*>(g1b1);
+  a.l2w1 = static_cast<const float*>(l2w1);
+  a.l2b1 = static_cast<const float*>(l2b1);
+  a.wa2 = static_cast<const float*>(wa2);
+  a.ba2 = static_cast<const float*>(ba2);
+  a.g1w2 = static_cast<const float*>(g1w2);
+  a.g1b2 = static_cast<const float*>(g1b2);
+  a.l2w2 = static_cast<const float*>(l2w2);
+  a.l2b2 = static_cast<const float*>(l2b2);
+  a.g = g;
+  a.e = e;
+  a.r = r;
+  a.k = k;
+  a.sqrt_fin = (float)sqrt((double)fin);
+  a.sqrt_hidden = (float)sqrt((double)hidden);
+  a.routes = static_cast<uint8_t*>(routes);
+  float* s = static_cast<float*>(scratch);
+  a.hw1 = s;
+  a.c1 = s + (size_t)n * e * r;
+  a.part = a.c1 + (size_t)n * e;
+  const int chunks = (hidden + F_CHUNK - 1) / F_CHUNK;
+  a.chunks_per_slice = (chunks + slices - 1) / slices;
+  slices = (chunks + a.chunks_per_slice - 1) / a.chunks_per_slice;
+  const int row_tiles = (n + F_ROWS - 1) / F_ROWS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  moe32_first_kernel<<<row_tiles, F_THREADS, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe32_hidden_kernel<<<dim3(row_tiles, slices), F_THREADS, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe32_finish_kernel<<<dim3(row_tiles, (fin + F_COLS - 1) / F_COLS), F_THREADS, 0, st>>>(a,
+                                                                                      slices);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from image2text_torch.models.hf_decoders.common import import_hf_state_dict
 from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
 from image2text_torch.nn.modules import (Embedding, LayerNorm, Linear,
                                          QuantizedKV, gelu_tanh, quantize_kv)
@@ -195,38 +196,23 @@ GPT2_HF_TRANSPOSED = (
 )
 
 
-@torch.no_grad()
-def import_hf_gpt2(decoder: nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+def import_hf_gpt2(decoder: nn.Module, sd: Mapping[str, np.ndarray],
+                   loose: bool = False) -> None:
     """Fill ``decoder`` from an HF ``GPT2LMHeadModel`` state dict (numpy
-    arrays by key): Conv1D weights transposed, ``lm_head.weight`` into the
-    tied ``transformer.wte.weight``, float weights quantized where the
+    arrays by key; JAX ``gpt2.py::import_hf_gpt2``): the causal-mask
+    buffers skipped, Conv1D weights transposed, ``lm_head.weight`` into
+    the tied ``transformer.wte.weight``, float weights quantized where the
     destination is an int4 weight, and a vocabulary grown by extra tokens
     keeping its new rows.  A key the decoder lacks, or a shape it does not
-    take, raises (the JAX importer's strict matching; its loose mode waits
-    for ``loose_match_decoder_state_dict`` to be ported)."""
-    from image2text_torch.models.quantization import assign_imported
-
-    tensors = dict(decoder.named_parameters())
-    tensors.update(decoder.named_buffers())
-    for k, v in sd.items():
-        if k.endswith((".attn.masked_bias", ".attn.bias",
-                       ".crossattention.masked_bias", ".crossattention.bias")):
-            continue
-        v = np.asarray(v)
-        if k.endswith(GPT2_HF_TRANSPOSED):
-            v = v.T
-        if k == "lm_head.weight":
-            k = "transformer.wte.weight"
-        if k not in tensors:
-            raise ValueError(f"{k} is not present in state dict!!!")
-        if assign_imported(tensors, k, v):
-            continue
-        dst = tensors[k]
-        if (k == "transformer.wte.weight" and dst.shape[0] >= v.shape[0]
-                and dst.shape[1] == v.shape[1]):
-            dst[:v.shape[0]] = torch.from_numpy(v).to(dst.dtype)
-        else:
-            raise ValueError(f"{k} is not the same shape in state dict!!!")
+    take, raises unless ``loose`` (then it is skipped)."""
+    wte = "transformer.wte.weight"
+    import_hf_state_dict(
+        decoder, sd, lambda k: wte if k == "lm_head.weight" else k, (wte,),
+        loose,
+        skip=lambda k: k.endswith((".attn.masked_bias", ".attn.bias",
+                                   ".crossattention.masked_bias",
+                                   ".crossattention.bias")),
+        transform=lambda k, v: v.T if k.endswith(GPT2_HF_TRANSPOSED) else v)
 
 
 __all__ = ["GPT2Backbone", "GPT2_HF_TRANSPOSED", "import_hf_gpt2"]

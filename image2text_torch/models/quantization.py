@@ -78,11 +78,12 @@ class QuantizedLinear(nn.Module):
 
 
 def quantize_module_structure(module: nn.Module,
-                              skip_paths: Iterable[str] = ()) -> None:
+                              skip_paths: Iterable[str] = (),
+                              device=None) -> None:
     """Swap every plain ``Linear`` under ``module`` whose path contains none
-    of ``skip_paths`` for a :class:`QuantizedLinear` (structure only, before
-    the weights are set; run before ``apply_lora`` so adapters wrap the
-    quantized base)."""
+    of ``skip_paths`` for a :class:`QuantizedLinear` on ``device`` (default:
+    the Linear's own) (structure only, before the weights are set; run
+    before ``apply_lora`` so adapters wrap the quantized base)."""
     skip = tuple(skip_paths)
 
     def walk(parent: nn.Module, prefix: str):
@@ -94,11 +95,36 @@ def quantize_module_structure(module: nn.Module,
                 out_f, in_f = child.weight.shape
                 setattr(parent, name, QuantizedLinear(
                     in_f, out_f, bias=child.bias is not None,
-                    device=child.weight.device))
+                    device=child.weight.device if device is None
+                    else device))
             else:
                 walk(child, path)
 
     walk(module, "")
+
+
+def build_int4(build, device=None,
+               skip_paths: Iterable[str] = ()) -> nn.Module:
+    """``build(dev)`` (a module constructor taking its device) with its
+    frozen Linears int4 from the start: the module is built on the meta
+    device (no memory), every plain ``Linear`` outside ``skip_paths``
+    becomes a :class:`QuantizedLinear` on ``device``, and every other
+    tensor is then allocated there, uninitialised as a new module's
+    tensors are until ``init_parameters``.  So a model's float copy of its
+    int4 weights (51 GB for Llama-2-13B in f32) never exists."""
+    device = torch.device("cpu" if device is None else device)
+    module = build("meta")
+    quantize_module_structure(module, skip_paths, device)
+    for mod in module.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None and p.is_meta:
+                mod._parameters[name] = nn.Parameter(
+                    torch.empty_like(p, device=device),
+                    requires_grad=p.requires_grad)
+        for name, b in list(mod._buffers.items()):
+            if b is not None and b.is_meta:
+                mod._buffers[name] = torch.empty_like(b, device=device)
+    return module
 
 
 @torch.no_grad()
@@ -176,6 +202,7 @@ def fill_random_int4(module: nn.Module, generator: torch.Generator) -> None:
             mod.weight_scales.copy_(s.to(mod.weight_scales.dtype))
 
 
-__all__ = ["QuantizedLinear", "assign_imported", "dequantize_blockwise",
+__all__ = ["QuantizedLinear", "assign_imported", "build_int4",
+           "dequantize_blockwise",
            "fill_random_int4", "int8_serving_params", "quantize_blockwise",
            "quantize_module_structure"]

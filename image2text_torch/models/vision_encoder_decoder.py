@@ -73,7 +73,8 @@ class VisionEncoderDecoder(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.transformer.ln_f.weight.device
+        """The device of the model's tensors (one device for all)."""
+        return next(self.parameters()).device
 
     def init_weights(self, seed: int = 0,
                      gpt2_state_dict=None) -> "VisionEncoderDecoder":

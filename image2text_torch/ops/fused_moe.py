@@ -35,8 +35,15 @@ order before the gate, top-k, combine and output.  The switch point
 optional LayerNorm prologue and residual epilogue let the encoder blocks
 reuse it for ``x1 + ffn(ln_2(x1))``.
 
+f32 operands (the configurations served at precision 'no', such as
+``local/nano-mini.yaml``) take the kernel's f32 form
+(:func:`launch_moe_ffn_f32`): SIMT FFMA products in true f32, nothing
+rounded narrower, one regime at every row count (the hidden dimension
+split over :func:`moe_slices_f32` blocks, the slices summed in order by a
+finishing kernel); any fin and hidden, g + e·r up to 128, e up to 8.
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel (bf16 or f32) or raises.
 """
 from __future__ import annotations
 
@@ -212,35 +219,42 @@ def _moe_shape_error(fin: int, hidden: int, g: int, e: int, r: int,
     return None
 
 
-def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
-                   proj: MoELinearWeights, out: torch.Tensor,
-                   ln_w=None, ln_b=None, residual=None,
-                   rows_per_img: Optional[int] = None,
-                   out_rows_per_img: Optional[int] = None,
-                   routes: Optional[torch.Tensor] = None,
-                   defines: Tuple[str, ...] = (),
-                   slices: Optional[int] = None) -> None:
-    """Launch the kernel on (n, fin) rows.  Output row m goes to
-    ``out`` row (m // rows_per_img) * out_rows_per_img + m % rows_per_img
-    (identity by default).  ``defines`` picks a probe build of the kernel
-    (``image2text_torch/probes/``; none on every serving path); ``slices``
-    overrides :func:`moe_slices` (to time both regimes at one row
-    count).  Counts
-    nothing: the counting wrappers are :func:`moe_ffn` and the blocks'."""
+# The f32 form's tiling, read from ``csrc/fused_moe.cu``: rows a block,
+# hidden columns a chunk of the hidden kernel, most g + e·r.
+F32_ROWS, F32_CHUNK, F32_MAXA = _build.kernel_constants(
+    "fused_moe", "F_ROWS", "F_CHUNK", "F_MAXA")
+
+
+def moe_slices_f32(n: int, hidden: int, n_sms: int) -> int:
+    """Hidden slices of the f32 form at ``n`` rows: about two blocks an SM
+    over its ``ceil(n / F32_ROWS)`` row tiles, each slice at least one
+    chunk of F32_CHUNK hidden columns (the kernel sums the slices' parts
+    in slice order)."""
+    chunks = -(-hidden // F32_CHUNK)
+    want = min(chunks, max(1, -(-2 * n_sms // -(-n // F32_ROWS))))
+    return -(-chunks // -(-chunks // want))
+
+
+def _check_square(fin: int, fc: MoELinearWeights,
+                  proj: MoELinearWeights) -> Optional[str]:
+    if proj.l2w.shape[1] != fin or (
+            proj.g, proj.e, proj.r, proj.k) != (fc.g, fc.e, fc.r, fc.k):
+        return "the FFN must be square (fin → hidden → fin, one gate shape)"
+    return None
+
+
+def _check_launch(x2d, fc, proj, out, ln_w, ln_b, residual, routes,
+                  rows_per_img, out_rows_per_img, dtype, err):
+    """The operand, shape and row-map checks both forms share; returns the
+    row map (rows_per_img, out_rows_per_img)."""
     n, fin = x2d.shape
-    hidden = fc.l2w.shape[1]
     for name, t in [("x", x2d), ("out", out), ("ln_w", ln_w), ("ln_b", ln_b),
                     ("residual", residual)] + [
                         (f"fc.{f}", getattr(fc, f)) for f in fc._fields[:6]] + [
                         (f"proj.{f}", getattr(proj, f))
                         for f in proj._fields[:6]]:
-        _build.check_operand("moe_ffn", name, t, torch.bfloat16)
-    slices = (moe_slices(n, hidden, sm_count(x2d.device)) if slices is None
-              else slices)
-    err = _moe_shape_error(fin, hidden, fc.g, fc.e, fc.r, slices)
-    if err is None and (proj.l2w.shape[1] != fin or (
-            proj.g, proj.e, proj.r, proj.k) != (fc.g, fc.e, fc.r, fc.k)):
-        err = "the FFN must be square (fin → hidden → fin, one gate shape)"
+        _build.check_operand("moe_ffn", name, t, dtype)
+    err = err or _check_square(fin, fc, proj)
     if err is not None:
         raise ValueError(f"moe_ffn kernel: {err}")
     if residual is not None and residual.shape != x2d.shape:
@@ -252,6 +266,81 @@ def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
     orpi = out_rows_per_img or rpi
     if out.numel() < ((n - 1) // rpi * orpi + (n - 1) % rpi + 1) * fin:
         raise ValueError("moe_ffn kernel: output too small for the row map")
+    return rpi, orpi
+
+
+# moe_ffn_launch_f32(x, out, n, fin, hidden, ln_w, ln_b, res, rpi, orpi,
+# 12 weights, g, e, r, k, routes, slices, scratch, stream)
+_ARGTYPES_F32 = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+
+
+def launch_moe_ffn_f32(x2d: torch.Tensor, fc: MoELinearWeights,
+                       proj: MoELinearWeights, out: torch.Tensor,
+                       ln_w=None, ln_b=None, residual=None,
+                       rows_per_img: Optional[int] = None,
+                       out_rows_per_img: Optional[int] = None,
+                       routes: Optional[torch.Tensor] = None,
+                       slices: Optional[int] = None) -> None:
+    """The f32 form on (n, fin) f32 rows, with :func:`launch_moe_ffn`'s row
+    map and routes; ``slices`` overrides :func:`moe_slices_f32`.  Counts
+    nothing."""
+    n, fin = x2d.shape
+    hidden = fc.l2w.shape[1]
+    slices = (moe_slices_f32(n, hidden, sm_count(x2d.device))
+              if slices is None else slices)
+    err = None
+    if (fc.e > 8 or fc.g < 1 or fc.g + fc.e * fc.r > F32_MAXA
+            or slices < 1):
+        err = (f"unsupported shape g={fc.g} e={fc.e} r={fc.r} "
+               f"slices={slices} (the f32 form needs g + e*r <= "
+               f"{F32_MAXA}, e <= 8, at least one slice)")
+    rpi, orpi = _check_launch(x2d, fc, proj, out, ln_w, ln_b, residual,
+                              routes, rows_per_img, out_rows_per_img,
+                              torch.float32, err)
+    a = fc.g + fc.e * fc.r
+    scratch = torch.empty(n * (fc.e * fc.r + fc.e + slices * a),
+                          dtype=torch.float32, device=x2d.device)
+    fn = _build.entry_point("fused_moe", "moe_ffn_launch_f32", _ARGTYPES_F32)
+    P = _build.ptr
+    err = fn(P(x2d), P(out), n, fin, hidden, P(ln_w), P(ln_b), P(residual),
+             rpi, orpi, *[P(getattr(w, f)) for w in (fc, proj)
+                          for f in w._fields[:6]],
+             fc.g, fc.e, fc.r, fc.k, P(routes), slices, P(scratch),
+             _build.stream(x2d.device))
+    _build.check(err, "moe_ffn_launch_f32")
+
+
+def launch_moe_ffn(x2d: torch.Tensor, fc: MoELinearWeights,
+                   proj: MoELinearWeights, out: torch.Tensor,
+                   ln_w=None, ln_b=None, residual=None,
+                   rows_per_img: Optional[int] = None,
+                   out_rows_per_img: Optional[int] = None,
+                   routes: Optional[torch.Tensor] = None,
+                   defines: Tuple[str, ...] = (),
+                   slices: Optional[int] = None) -> None:
+    """Launch the kernel on (n, fin) rows (bf16; f32 rows take
+    :func:`launch_moe_ffn_f32`).  Output row m goes to
+    ``out`` row (m // rows_per_img) * out_rows_per_img + m % rows_per_img
+    (identity by default).  ``defines`` picks a probe build of the kernel
+    (``image2text_torch/probes/``; none on every serving path); ``slices``
+    overrides :func:`moe_slices` (to time both regimes at one row
+    count).  Counts
+    nothing: the counting wrappers are :func:`moe_ffn` and the blocks'."""
+    if x2d.dtype == torch.float32 and not defines:
+        launch_moe_ffn_f32(x2d, fc, proj, out, ln_w, ln_b, residual,
+                           rows_per_img, out_rows_per_img, routes, slices)
+        return
+    n, fin = x2d.shape
+    hidden = fc.l2w.shape[1]
+    slices = (moe_slices(n, hidden, sm_count(x2d.device)) if slices is None
+              else slices)
+    rpi, orpi = _check_launch(
+        x2d, fc, proj, out, ln_w, ln_b, residual, routes, rows_per_img,
+        out_rows_per_img, torch.bfloat16,
+        _moe_shape_error(fin, hidden, fc.g, fc.e, fc.r, slices))
     part = (None if slices == 1 else
             torch.empty(slices, n, 96, dtype=torch.float32, device=x2d.device))
     lib = _build.load("fused_moe", defines)
@@ -275,10 +364,12 @@ def moe_ffn(x: torch.Tensor, fc: MoELinearWeights, proj: MoELinearWeights,
             ln_w=None, ln_b=None, residual: Optional[torch.Tensor] = None,
             routes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The eval MoE FFN of ``x`` (..., fin): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor (bf16, or its f32 form for f32), the plain version for a CPU
+    tensor."""
     if x.device.type == "cpu":
         return moe_ffn_plain(x, fc, proj, ln_w, ln_b, residual, routes)
-    _build.check_operand("moe_ffn", "x", x, torch.bfloat16)
+    _build.check_operand("moe_ffn", "x", x, torch.float32
+                         if x.dtype == torch.float32 else torch.bfloat16)
     x2d = x.reshape(-1, x.shape[-1])
     out = torch.empty_like(x2d)
     launch_moe_ffn(x2d, fc, proj, out, ln_w, ln_b,

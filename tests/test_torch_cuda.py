@@ -1529,3 +1529,232 @@ def test_nano_family_card_equals_cpu(dev, name, monkeypatch):
         assert rel < 1e-4
         assert torch.equal(ids.cpu(), cids)
         assert launched == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 17, 256, 4097])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("slices", [None, 1])
+def test_moe_ffn_f32_form_matches_plain(dev, rows, prologue, slices):
+    """The f32 form (f32 operands: the configurations at precision 'no')
+    at nano-mini's FFN widths (1024 → 2048 → 1024), ragged rows, with and
+    without the LN2 prologue and residual, at the planned slices and
+    unsplit; held at the f32 limits on the kernel's own routes, reruns
+    bitwise equal, one counted launch a call."""
+    from image2text_torch.ops.fused_moe import launch_moe_ffn
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    blk = _block(dev, 1024, 8, 32, True)
+    fc = blk.mlp.c_fc.packed(torch.float32)
+    proj = blk.mlp.c_proj.packed(torch.float32)
+    x = torch.randn(rows, 1024, device=dev, generator=_gen(dev, 6))
+    extra = (dict(ln_w=blk.ln_2.weight.float(), ln_b=blk.ln_2.bias.float(),
+                  residual=x) if prologue else {})
+    routes = torch.zeros(rows, 2, dtype=torch.uint8, device=dev)
+    gates = torch.zeros(rows, 2, fc.e, dtype=torch.float32, device=dev)
+    if slices is None:
+        before = moe_ffn.launches
+        got = moe_ffn(x, fc, proj, routes=routes, **extra)
+        again = moe_ffn(x, fc, proj, **extra)
+        assert moe_ffn.launches == before + 2
+    else:
+        got, again = torch.empty_like(x), torch.empty_like(x)
+        for out, r in ((got, routes), (again, None)):
+            launch_moe_ffn(x, fc, proj, out, routes=r, slices=slices, **extra)
+    want = moe_ffn_plain(x, fc, proj, force_routes=routes, gates=gates,
+                         **extra)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    check_routes("moe_ffn f32", routes, gates, fc.k)
+    check_output(f"moe_ffn f32 rows={rows}", got, want, F32_LIMITS)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_raises_on_dtypes_neither_form_takes(dev):
+    blk = _block(dev, 256, 2, 32, True)
+    fc32 = blk.mlp.c_fc.packed(torch.float32)
+    proj32 = blk.mlp.c_proj.packed(torch.float32)
+    x = torch.randn(4, 256, device=dev)
+    before = moe_ffn.launches
+    for args in ((x.half(), blk.mlp.c_fc.packed(torch.float16),
+                  blk.mlp.c_proj.packed(torch.float16)),
+                 (x, blk.mlp.c_fc.packed(torch.bfloat16), proj32),
+                 (x.to(torch.bfloat16), fc32, proj32)):
+        with pytest.raises(ValueError):
+            moe_ffn(*args)
+    assert moe_ffn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_f,out_f", [
+    (256, 4544, 4672), (300, 4544, 4544), (256, 18176, 4544),
+    (1040, 4544, 18176), (256, 1600, 4800), (1040, 6400, 1600),
+    (272, 5120, 13824)])
+def test_int4_matmul_at_the_hf_decoders_widths(dev, rows, in_f, out_f):
+    """Falcon-7B's widths (in 4,544: 71 strip pairs, an odd count, so the
+    last pipeline stage is half empty; out 4,672 and 18,176), GPT-2-xl's
+    (in 1,600: 25 pairs) and Llama-2-13B's MLP, at decode and prefill-like
+    rows: within the limits of the plain version, reruns bitwise equal."""
+    from image2text_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain,
+                                                  quantize_pack_int4)
+
+    g = _gen(dev, rows + in_f + out_f)
+    w = torch.randn(out_f, in_f, device=dev, generator=g) * 0.02
+    packed, scales = quantize_pack_int4(w)
+    scales = scales.to(torch.bfloat16)
+    x = torch.randn(rows, in_f, device=dev, generator=g).to(torch.bfloat16)
+    got = int4_matmul(x, packed, scales)
+    want = int4_matmul_plain(x, packed, scales)
+    again = int4_matmul(x, packed, scales)
+    torch.cuda.synchronize()
+    check_output(f"int4_matmul {rows} x {in_f} -> {out_f}", got, want)
+    assert torch.equal(got, again)
+
+
+def _hf_tiny(name, dev, monkeypatch, int4=None):
+    """A tiny form of an HF-family configuration from its YAML: a 2-layer
+    decoder of width 64 (Qwen: 96, 6 query heads on 2 KV heads), the
+    pretrained ViT at depth 2 on 32² images or the scratch encoder at
+    depth 2 and width 64; uninitialised."""
+    import dataclasses
+
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models import encoder as tenc
+    from image2text_torch.models.hf_decoders import factory
+
+    path = {"llama": "training_configs/local/llama2-7b.yaml",
+            "llama13b": "training_configs/tpu/llama2-13b.yaml",
+            "qwen": "training_configs/local/qwen-1.5b-deepseek-distill.yaml",
+            "falcon": "training_configs/tpu/falcon-7b.yaml"}[name]
+    cfg = load_training_config(path).model
+    enc, dec = cfg.vision_encoder_config, cfg.decoder_config
+    if int4 is not None:
+        dec.load_in_4bit = int4
+    width = 96 if name == "qwen" else 64
+    for table in (factory.LLAMA_TABLE, factory.QWEN_TABLE,
+                  factory.FALCON_TABLE):
+        if dec.model_str in table:
+            kw = dict(n_layer=2, n_embd=width, n_head=4)
+            if name == "qwen":
+                kw.update(n_head=6, n_kv_head=2, intermediate=128)
+            elif table is not factory.FALCON_TABLE:
+                kw.update(n_kv_head=4, intermediate=128)
+            monkeypatch.setitem(table, dec.model_str, dataclasses.replace(
+                table[dec.model_str], **kw))
+    if hasattr(enc, "n_embd_out_vit"):
+        enc.n_cls, enc.gate_sizes, enc.n_embd_out_vit = 4, (32,), 64
+        monkeypatch.setattr(tenc, "VIT_B16_ARGS",
+                            dict(image_size=32, num_layers=2))
+    else:
+        enc.n_layer = 2
+        enc.transformer_config.attn_config.n_embd = 64
+        enc.transformer_config.attn_config.n_head = 4
+    return VisionEncoderDecoder(cfg, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama", "qwen", "falcon"])
+def test_tiny_hf_families_card_equals_cpu(dev, name, monkeypatch):
+    """The decoders of Llama (multi-head), Qwen (grouped: 6 query heads on
+    2 KV heads) and Falcon (multi-query, parallel attention; its Linears
+    in float) in f32 on the card against a CPU copy, TF32 off, both on the
+    CPU copy's encoder output (Falcon's scratch encoder has sparse blocks,
+    whose kernel takes bf16): a cached prefill's logits within 1e-4
+    relative L2, greedy ids equal over 16 steps."""
+    import copy
+
+    from image2text_torch.models.generation import prefill
+
+    m = _hf_tiny(name, dev, monkeypatch, int4=False).init_weights(0).eval()
+    cpu = copy.deepcopy(m).cpu()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    size = 32 if name != "falcon" else 128
+    img = torch.randn(4, 3, size, size, generator=_gen(dev), device=dev).cpu()
+    prompt = torch.ones(4, 1, dtype=torch.long)
+    with torch.no_grad():
+        cenc = cpu.encoder(img)
+        enc = cenc.to(dev)
+        got = prefill(m, enc, prompt.to(dev), 4)[0][:, -1].cpu()
+        want = prefill(cpu, cenc, prompt, 4)[0][:, -1]
+        ids = m.generate(img, prompt, max_new_tokens=16, temperature=0.0,
+                         encoder_output=enc)
+        cids = cpu.generate(img, prompt, max_new_tokens=16, temperature=0.0,
+                            encoder_output=cenc)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    assert rel < 1e-4
+    assert torch.equal(ids.cpu(), cids)
+
+
+@pytest.mark.cuda
+def test_tiny_int4_llama_and_falcon_captions_launch_int4(dev, monkeypatch):
+    """The tiny int4 + LoRA Llama-2-13B and Falcon-7B forms in bf16: one
+    int4_matmul launch per quantized Linear per decoder forward, the
+    Falcon form's scratch encoder one fused_frontend and a sparse_block
+    per block; first-step logits against the plain-version path."""
+    from image2text_torch.models.generation import prefill
+    from image2text_torch.models.quantization import (QuantizedLinear,
+                                                      fill_random_int4)
+    from image2text_torch.ops import int4_matmul as i4
+    from image2text_torch.ops.fused_frontend import fused_frontend
+
+    for name, size in (("llama13b", 32), ("falcon", 128)):
+        m = _hf_tiny(name, dev, monkeypatch).init_weights(0)
+        fill_random_int4(m, _gen(dev, 7))
+        m = m.to(torch.bfloat16).eval()
+        img = torch.randn(2, 3, size, size, generator=_gen(dev), device=dev
+                          ).to(torch.bfloat16)
+        prompt = torch.ones(2, 1, dtype=torch.long, device=dev)
+        n_q = sum(isinstance(x, QuantizedLinear) for x in m.decoder.modules())
+        before = i4.int4_matmul.launches, fused_frontend.launches
+        with torch.no_grad():
+            m.generate(img, prompt, max_new_tokens=6, temperature=0.0)
+            got = prefill(m, m.encoder(img), prompt, 4)[0][:, -1]
+        torch.cuda.synchronize()
+        assert i4.int4_matmul.launches - before[0] == (7 + 1) * n_q > 0
+        assert fused_frontend.launches - before[1] == (2 if name == "falcon"
+                                                       else 0)
+        kernel = i4.int4_matmul
+        monkeypatch.setattr(i4, "int4_matmul", i4.int4_matmul_plain)
+        with torch.no_grad():
+            want = prefill(m, m.encoder(img), prompt, 4)[0][:, -1]
+        monkeypatch.setattr(i4, "int4_matmul", kernel)
+        rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(
+            want)
+        assert float(rel) <= TOL
+
+
+@pytest.mark.cuda
+def test_tiny_nano_mini_f32_card_equals_cpu(dev, monkeypatch):
+    """nano-mini at its own precision 'no' (f32): its decoder's MoE FFNs
+    launch moe_ffn's f32 form on the card, once per cached forward of a
+    block that runs its body; a cached prefill's logits within 1e-4 of a
+    CPU copy's, greedy ids equal."""
+    import copy
+
+    from image2text_torch.models.generation import prefill
+
+    m = _nano_tiny("nano-mini", dev, monkeypatch).init_weights(0).eval()
+    cpu = copy.deepcopy(m).cpu()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    img = torch.randn(4, 3, 32, 32, generator=_gen(dev), device=dev)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        got = prefill(m, m.encoder(img), prompt, 4)[0][:, -1].cpu()
+        want = prefill(cpu, cpu.encoder(img.cpu()), prompt.cpu(), 4)[0][:, -1]
+        moe_ffn.launches = 0
+        ids = m.generate(img, prompt, max_new_tokens=6, temperature=0.0)
+        launched = moe_ffn.launches
+        cids = cpu.generate(img.cpu(), prompt.cpu(), max_new_tokens=6,
+                            temperature=0.0)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    off = m.space_for_prompt
+    assert rel < 1e-4
+    assert torch.equal(ids.cpu(), cids)
+    assert launched == sum(m.decoder.ffn_evaluations(off + i, 1)
+                           for i in range(7)) > 0
