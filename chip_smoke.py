@@ -144,6 +144,21 @@ GPT-2-initialised decoder imports a GPT-2-layout state dict of seeded
 numpy normals in HF names and Conv1D layout through
 ``import_gpt2_state_dict``, loose as its config says):
 
+Each family of the nano and HF parts is trained first, at full width and
+depth from f32 masters (train-<family>), and the trained model then
+serves, so that nothing builds twice:
+
+   train-<family>  nano-mini, nano, nano-lsh, gpt2 (local/gpt2.yaml),
+            llama13b, falcon7b, qwen, llama7b, gpt2xl: the YAML's batch x
+            256 labels, precision, optimizer groups (unmatched paths
+            frozen), SNRAdam or AdamW, gradient accumulation (Falcon-7B's
+            4 / 8 and GPT-2-xl's 12 / 8, refused by both packages, with
+            accumulation 1), checkpointing, LoRA; launches in the warm step
+            held to train_launches (per micro-batch, the recompute where a
+            stack checkpoints), the flash and int4 shapes recorded; then 3
+            timed steps: step ms, tokens/s, peak memory, losses finite and
+            lower at the end, every frozen tensor unchanged (a digest on
+            the card).
    nano-mini  training_configs/local/nano-mini.yaml: positional-MLP head
             (16 x 768), bridge 768 → 1024, 6 sparse MQA/MoE decoder
             layers with the positional-MLP embedding, soft prompt +
@@ -190,6 +205,21 @@ weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
             within 1e-4, ids equal; Falcon's and GPT-2-xl's decoders on the
             CPU's encoder output), and the int4 Llama-2-13B form in bf16.
 
+   train-parity  each family's depth-2 form at full width, batch 2,
+            dropout 0: one training step on the card against one on a CPU
+            copy (loss 1e-2 and gradients 2e-2 relative L2 in bf16, 1e-5
+            in f32; tpu/nano.yaml in f32, its PEER top-k parting at bf16
+            near ties; a bf16 form beyond them within twice the CPU bf16
+            step's distance from the CPU's f32 step).
+   remat    tpu/llama2-13b.yaml at depth 4 under full, dots, nothing and
+            everything: loss and gradients against full's, step ms and
+            peak memory of each.
+   train-kernels  the flash forward and backward at each family's largest
+            training call of each dtype (the tiled bf16 pair past 160
+            keys, the f32 kernels) and int4_matmul at every training shape,
+            against their plain versions, beside the bound, SDPA and bf16
+            torch.matmul.
+
 Then the offline end-to-end path (training_configs/local/synthetic-*.yaml:
 f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
 
@@ -222,6 +252,12 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             --int8_serving and with --approx_topk: greedy, card = CPU token
             for token and in BLEU-4 and CIDEr-D; each mode's change
             against exact, greedy and sampled (candidate 0, 5 references).
+   local-data  64 images from the seed (.npy, and PNG where PIL is
+            importable) and a captions.json in a directory: the trainer
+            twin's CLI on derived local/nano-mini.yaml (the ViT's
+            transform) and synthetic-smoke.yaml at 128 px (the C++ core,
+            its library built by that run); the first batch of each route
+            against the plain versions.
 18. reforward  the fallback on quality2_ck.npz: force_no_cache greedy ids
             equal to the cached path's and to the CPU's.
 
@@ -286,7 +322,14 @@ SEED = 0         # weights, frames and sampling noise derive from it
 CARD = ""        # the card's nvidia-smi name and power limit, set by main()
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading line ("[phase] ...") ends with the
+    seconds since the start."""
+    if msg.startswith("["):
+        msg += f" [{time.perf_counter() - T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -1267,6 +1310,30 @@ def int4_reordered(torch):
         i4.int4_matmul = saved
 
 
+@contextlib.contextmanager
+def int4_dequantised_once(torch):
+    """The int4 plain version with each weight dequantised at its first
+    call and kept for the rest of the context: the same products, bit for
+    bit, for CPU copies whose int4 weights do not change meanwhile (the
+    plain version dequantises at every call: a CPU Llama-2-13B decode spent
+    209 s of the smoke so, measured on one H100)."""
+    from image2text_torch.ops import int4_matmul as i4
+
+    kept, plain = {}, i4.int4_matmul_plain
+
+    def once(x, packed, scales):
+        if id(packed) not in kept:   # the tensor is held: its id stays its
+            kept[id(packed)] = (packed, i4.dequantize_int4(
+                packed, scales, torch.float32))
+        return torch.matmul(x.float(), kept[id(packed)][1].t()).to(x.dtype)
+
+    i4.int4_matmul_plain = once
+    try:
+        yield
+    finally:
+        i4.int4_matmul_plain = plain
+
+
 def logits_error(torch, got, want):
     """(relative L2 error, max abs error, max |want|, within the limits) of
     whole-stack logits.  Through 24 bf16 layers, rounding-order differences
@@ -2099,82 +2166,154 @@ def train_setup(torch, n_layer=None):
 
 def flash_launches_per_step(cfg, model, seq_len: int):
     """Launches of each flash kernel in one training step on ``seq_len``
-    labels: one forward, backward and (both stacks checkpointing every
-    block) recomputed forward per self-attention call of the model."""
-    stacks = (cfg.model.vision_encoder_config, cfg.model.decoder_config)
-    if not all(c.enable_gradient_checkpointing for c in stacks):
-        raise ValueError("the launch count assumes full gradient "
-                         "checkpointing in both stacks")
-    calls = model.sdpa_calls(seq_len)
-    return {"flash_fwd": 2 * calls, "flash_bwd": calls}
+    labels: per micro-batch (``gradient_accumulation_steps`` of them) one
+    forward and one backward per self-attention call of the model
+    (``sdpa_calls``: every call lies upstream of a trainable parameter in
+    each configuration run here), and a second forward, the recompute, per
+    call of a stack that checkpoints its blocks."""
+    dec = model.decoder
+    n_dec = dec.sdpa_calls(min(dec.block_size,
+                               model.space_for_prompt + seq_len))
+    n_enc = model.sdpa_calls(seq_len) - n_dec
+    m = cfg.model
+    remat = (n_enc * bool(getattr(m.vision_encoder_config,
+                                  "enable_gradient_checkpointing", False))
+             + n_dec * bool(m.decoder_config.enable_gradient_checkpointing))
+    k = cfg.gradient_accumulation_steps
+    return {"flash_fwd": k * (n_enc + n_dec + remat),
+            "flash_bwd": k * (n_enc + n_dec)}
 
 
 def train_launches(cfg, model, seq_len: int):
     """Launches of each kernel wrapper in one training step: the flash
-    kernels as ``flash_launches_per_step``, one int4_matmul per quantized
-    Linear in the forward and again in the checkpoint recompute, and no
-    serving kernel."""
+    kernels as ``flash_launches_per_step``; per micro-batch one
+    int4_matmul per quantized Linear in the forward and, where the decoder
+    checkpoints its blocks, again in the recompute; no serving kernel."""
     from image2text_torch.models.quantization import QuantizedLinear
 
     n_q = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    remat = bool(cfg.model.decoder_config.enable_gradient_checkpointing)
     want = {kern.__name__: 0 for kern in kernel_wrappers()}
-    want.update(int4_matmul=2 * n_q,
+    want.update(int4_matmul=cfg.gradient_accumulation_steps * n_q
+                * (1 + remat),
                 **flash_launches_per_step(cfg, model, seq_len))
     return want
 
 
-def phase_train(torch, args, results, path: str, setup, inputs):
+def tensor_digest(torch, t, chunk: int = 1 << 26):
+    """A digest of ``t``'s bits computed on its device, chunk by chunk (no
+    copy of the tensor): the sum and a position-weighted sum of its 32-,
+    16- or 8-bit words as int64."""
+    flat = t.detach().reshape(-1).view(torch.uint8)
+    for dt, size in ((torch.int32, 4), (torch.int16, 2)):
+        if flat.numel() % size == 0:
+            flat = flat.view(dt)
+            break
+    total = weighted = 0
+    for start in range(0, flat.numel(), chunk):
+        w = flat[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start, start + w.numel(), device=w.device)
+        total += int(w.sum())
+        weighted += int((w * (pos % 1_000_003 + 1)).sum())
+    return total, weighted
+
+
+@contextlib.contextmanager
+def kernel_shapes(flash: dict, int4: set):
+    """Record what the kernel autograd Functions are given while inside:
+    each flash forward's (q shape, K/V heads, causal, rate, dtype) with its
+    bias, each int4_matmul's (rows, in, out)."""
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops import int4_matmul as im
+
+    f0, i0 = fa.FlashSDPA.forward, im.Int4Matmul.forward
+
+    def flash_forward(ctx, q, k, v, bias, causal, rate, seed):
+        key = (tuple(q.shape), k.shape[1], k.shape[2], causal, rate, q.dtype)
+        if key not in flash:
+            flash[key] = None if bias is None else bias.detach().cpu()
+        return f0(ctx, q, k, v, bias, causal, rate, seed)
+
+    def int4_forward(ctx, x, packed, scales):
+        int4.add((x.numel() // x.shape[-1], x.shape[-1], packed.shape[0]))
+        return i0(ctx, x, packed, scales)
+
+    fa.FlashSDPA.forward = staticmethod(flash_forward)
+    im.Int4Matmul.forward = staticmethod(int4_forward)
+    try:
+        yield
+    finally:
+        fa.FlashSDPA.forward = staticmethod(f0)
+        im.Int4Matmul.forward = staticmethod(i0)
+
+
+def phase_train(torch, args, results, path: str, setup, inputs,
+                steps_per_window: int = 4, keep: bool = False,
+                shapes=None):
     """A training step at full width and depth (``setup()`` gives the
     config, the wrapper and its Trainer; ``inputs(cfg)`` the batch):
-    launches in one step held to ``train_launches``, then 3 windows of 4
-    steps on the batch: step ms, tokens/s, peak memory, the loss of every
-    step (finite and lower at the end), frozen tensors bitwise unchanged."""
+    launches in one step held to ``train_launches`` (and, given
+    ``shapes`` = (flash dict, int4 set), the kernels' shapes recorded),
+    then 3 windows of ``steps_per_window`` steps on the batch: step ms,
+    tokens/s, peak memory, the loss of every step (finite and lower at the
+    end), every frozen tensor (a parameter no optimizer moves, the int4
+    weights) unchanged by a digest taken on the card.  ``keep``: return
+    the model (its gradients dropped) instead of freeing it."""
     from image2text_torch.nn.core import frozen_param_paths
 
     cfg, wrapper, trainer = setup()
     model = wrapper.model
-    n_params = sum(p.numel() for p in model.parameters())
-    n_trainable = sum(p.numel() for p in model.parameters()
-                      if p.requires_grad)
-    tensors = dict(model.named_parameters()) | dict(model.named_buffers())
-    frozen = {k: tensors[k].detach().clone()
-              for k in frozen_param_paths(model)}
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    n_trainable = sum(p.numel() for p in named.values() if p.requires_grad)
+    tensors = named | dict(model.named_buffers())
+    frozen_names = sorted({k for k, p in named.items() if not p.requires_grad}
+                          | (set(frozen_param_paths(model)) & set(tensors)))
+    n_frozen = sum(tensors[k].numel() for k in frozen_names)
+    frozen = {k: tensor_digest(torch, tensors[k]) for k in frozen_names}
     images, labels = inputs(cfg)
     batch, seq = labels.shape
     step = trainer._train_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counts, metrics = launch_counts(lambda: step(images, labels, cfg.seed,
-                                                 0))
+    record = (kernel_shapes(*shapes) if shapes is not None
+              else contextlib.nullcontext())
+    with record:
+        counts, metrics = launch_counts(
+            lambda: step(images, labels, cfg.seed, 0))
     losses = [metrics["train_loss_lm"]]
     record_launches(results, path, counts)
     want = train_launches(cfg, model, seq)
     log(f"  training step ({n_params:,} float parameters, {n_trainable:,} "
-        f"trainable, {len(frozen)} frozen tensors; batch {batch} x {seq} "
-        f"labels, bf16 compute from f32 masters, gradient checkpointing): "
-        f"launches in one step {counts} (want {want})")
+        f"trainable; {len(frozen)} frozen tensors, {n_frozen:,} elements; "
+        f"batch {batch} x {seq} labels, gradient accumulation "
+        f"{cfg.gradient_accumulation_steps}, precision {cfg.precision!r}, "
+        f"{'SNRAdam' if cfg.use_snr_optim else 'AdamW'}, remat policy "
+        f"{cfg.remat_policy or 'full'}): launches in one step {counts} "
+        f"(want {want})")
     if counts != want:
         raise AssertionError(f"{path} launch counts {counts} != {want}")
     windows = []
     for w in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(4):
-            losses.append(step(images, labels, cfg.seed, 1 + 4 * w + i)[
-                "train_loss_lm"])
+        for i in range(steps_per_window):
+            losses.append(step(images, labels, cfg.seed,
+                               1 + steps_per_window * w + i)["train_loss_lm"])
         torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / 4)
+        windows.append((time.perf_counter() - t0) / steps_per_window)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     step_s = statistics.median(windows)
-    log(f"  step ms (median of 3 windows of 4 steps): {step_s * 1e3:.2f}; "
-        f"windows {[round(x * 1e3, 2) for x in windows]}; tokens/s (label "
-        f"positions) {batch * seq / step_s:.1f}; peak memory "
-        f"{peak:.3f} GiB on {torch.cuda.get_device_name(0)}")
+    log(f"  step ms (median of 3 windows of {steps_per_window} steps): "
+        f"{step_s * 1e3:.2f}; windows {[round(x * 1e3, 2) for x in windows]}; "
+        f"tokens/s (label positions) {batch * seq / step_s:.1f}; peak memory "
+        f"{peak:.3f} GiB on {torch.cuda.get_device_name(0)} ({CARD})")
     log(f"  loss by step: {[round(x, 5) for x in losses]}")
-    moved = [k for k, v in frozen.items() if not torch.equal(tensors[k], v)]
-    log(f"  frozen tensors changed by the steps: {len(moved)} of "
-        f"{len(frozen)}")
+    moved = [k for k, v in frozen.items()
+             if tensor_digest(torch, tensors[k]) != v]
+    log(f"  frozen tensors changed by the steps (digest on the card): "
+        f"{len(moved)} of {len(frozen)}")
     if (moved or not all(math.isfinite(x) for x in losses)
             or losses[-1] >= losses[0]):
         raise AssertionError(f"{path}: frozen moved {moved[:3]} or loss not "
@@ -2183,8 +2322,14 @@ def phase_train(torch, args, results, path: str, setup, inputs):
         log("  device time by kernel, one training step:")
         device_profile(torch, lambda: step(images, labels, cfg.seed, 99),
                        top=16)
-    del trainer, wrapper, model, tensors, frozen
+    del trainer, tensors, frozen, named, images, labels
+    for p in model.parameters():
+        p.grad = None
+    if keep:
+        return model
+    del wrapper, model
     torch.cuda.empty_cache()
+    return None
 
 
 def phase_train_parity(torch, phase: str, setup, inputs, focus):
@@ -3003,6 +3148,7 @@ def phase_nano_cpu(torch):
     from image2text_torch.models.layers import _unit_rows
 
     for name in ("nano", "nano-lsh", "nano-mini"):
+        t0 = time.perf_counter()
         dtype = torch.bfloat16 if name == "nano-mini" else torch.float32
         m, _, _ = nano_model(torch, name, dtype, depth=2)
         cpu = cpu_copy(m)
@@ -3053,20 +3199,33 @@ def phase_nano_cpu(torch):
         if name != "nano-mini" and not flips and parting is not None:
             raise AssertionError(f"nano-cpu {name}: greedy ids part at "
                                  f"{parting}")
+        log(f"    {name}: {time.perf_counter() - t0:.1f} s")
         del m, cpu
         torch.cuda.empty_cache()
 
 
 def phase_nano(torch, args, results):
-    """The three nano configurations at full width and depth, batch 256:
-    [nano-mini] (with its moe_ffn row and [nano-mini-parity]), [nano],
-    [nano-lsh]; then [nano-cpu]."""
+    """The nano configurations at full width and depth, each trained first
+    ([train-<name>], its f32 masters) and its trained model then serving at
+    batch 256, so that nothing builds twice: nano-mini in f32 ([nano-f32],
+    its precision 'no') and in bf16 ([nano-mini], with its moe_ffn row and
+    [nano-mini-parity]); [nano]; [nano-lsh]; then [train-gpt2]
+    (local/gpt2.yaml, which has no serving phase) and [nano-cpu]."""
     bf = torch.bfloat16
     for name, path in (("nano-mini", "nano_mini_caption"),
                        ("nano", "nano_caption"),
                        ("nano-lsh", "nano_lsh_caption")):
-        model, built, surgery = nano_model(torch, name, bf)
-        describe(torch, model, name, built, surgery)
+        with torch.enable_grad():
+            model = phase_train_family(torch, args, results, name)
+        if name == "nano-mini":
+            model.eval()
+            describe(torch, model, "nano-f32", model.built_s, 0.0)
+            log(f"[nano-f32] local/nano-mini.yaml serving path in f32 at "
+                f"full width and depth ({CARD})")
+            phase_serve(torch, model, args, results, "nano_mini_f32_caption",
+                        NANO_BOS)
+        model = model.to(bf).eval()
+        describe(torch, model, name, model.built_s, 0.0)
         log(f"[{name}] {NANO_YAML[name]} serving path at full width and "
             "depth")
         if name == "nano-mini":
@@ -3078,6 +3237,9 @@ def phase_nano(torch, args, results):
             phase_parity(torch, model, "nano-mini-parity", NANO_BOS)
         del model
         torch.cuda.empty_cache()
+    with torch.enable_grad():
+        phase_train_family(torch, args, results, "gpt2")
+    torch.cuda.empty_cache()
     log("[nano-cpu] depth-reduced forms, card against CPU")
     phase_nano_cpu(torch)
 
@@ -3150,27 +3312,32 @@ def phase_hf_kernels(torch, results):
 
 @contextlib.contextmanager
 def hf_depth(name: str, depth):
-    """Build ``name``'s decoder ``depth`` layers deep (None: as its table
-    says), and a pretrained ViT encoder as deep."""
+    """Build ``name``'s HF decoder ``depth`` layers deep (None: as its table
+    says), and a pretrained ViT encoder as deep (a scratch decoder's depth
+    is its config's)."""
     import dataclasses
 
     from image2text_torch.configs.reader import load_training_config
     from image2text_torch.models import encoder as tenc
     from image2text_torch.models.hf_decoders import factory
 
-    s = load_training_config(HF_YAML[name]).model.decoder_config.model_str
-    table = next(t for t in (factory.GPT2_TABLE, factory.LLAMA_TABLE,
-                             factory.QWEN_TABLE, factory.FALCON_TABLE)
-                 if s in t)
-    saved, vit = table[s], tenc.VIT_B16_ARGS
+    s = getattr(load_training_config(FAMILY_YAML[name]).model.decoder_config,
+                "model_str", None)
+    table = next((t for t in (factory.GPT2_TABLE, factory.LLAMA_TABLE,
+                              factory.QWEN_TABLE, factory.FALCON_TABLE)
+                  if s in t), {})
+    saved, vit = table.get(s), tenc.VIT_B16_ARGS
     if depth is not None:
-        table[s] = (dict(saved, n_layer=depth) if isinstance(saved, dict)
-                    else dataclasses.replace(saved, n_layer=depth))
+        if saved is not None:
+            table[s] = (dict(saved, n_layer=depth) if isinstance(saved, dict)
+                        else dataclasses.replace(saved, n_layer=depth))
         tenc.VIT_B16_ARGS = dict(num_layers=depth)
     try:
         yield
     finally:
-        table[s], tenc.VIT_B16_ARGS = saved, vit
+        if saved is not None:
+            table[s] = saved
+        tenc.VIT_B16_ARGS = vit
 
 
 def hf_model(torch, name: str, depth=None, device="cuda", int4=None,
@@ -3225,17 +3392,26 @@ def describe_hf(torch, model, label: str, built: float, peak: int) -> None:
 
 
 def phase_hf(torch, args, results):
-    """The five configurations at full width and depth, batch 256, one at
-    a time: [llama13b], [falcon7b], [qwen], [llama7b], [gpt2xl] (each:
-    build, the serving path as [main] with launches held to
-    serving_launches, peak memory; the kernel path against the
-    plain-version path where the model launches a kernel); then [hf-cpu]."""
+    """The five configurations at full width and depth, one at a time,
+    each trained first ([train-<name>]: f32 masters, its YAML's batch,
+    precision, optimizer and accumulation) and its trained model then, in
+    its precision's dtype, serving at batch 256: [llama13b], [falcon7b],
+    [qwen], [llama7b], [gpt2xl] (the serving path as [main] with launches
+    held to serving_launches, peak memory; the kernel path against the
+    plain-version path where the model launches a kernel); then
+    [hf-cpu]."""
     for name in ("llama13b", "falcon7b", "qwen", "llama7b", "gpt2xl"):
-        model, built, peak = hf_model(torch, name)
-        resident = describe_hf(torch, model, name, built, peak)
-        if name == "llama13b" and peak > 2 * resident:
+        with torch.enable_grad():
+            model = phase_train_family(torch, args, results, name)
+        precision = load_precision(name)
+        model = model.to(torch.float32 if precision == "no"
+                         else torch.bfloat16).eval()
+        peak, built_resident = model.build_peak, model.build_resident
+        resident = describe_hf(torch, model, name, model.built_s, peak)
+        if name == "llama13b" and peak > 2 * built_resident:
             raise AssertionError(f"llama13b: the build's peak {peak} is "
-                                 f"more than twice its resident {resident}")
+                                 f"more than twice its resident "
+                                 f"{built_resident}")
         log(f"[{name}] {HF_YAML[name]} serving path at full width and "
             f"depth ({CARD})")
         torch.cuda.reset_peak_memory_stats()
@@ -3253,6 +3429,12 @@ def phase_hf(torch, args, results):
         torch.cuda.empty_cache()
     log(f"[hf-cpu] each family at depth 2, card against a CPU copy ({CARD})")
     phase_hf_cpu(torch)
+
+
+def load_precision(name: str) -> str:
+    from image2text_torch.configs.reader import load_training_config
+
+    return load_training_config(FAMILY_YAML[name]).precision
 
 
 def card_against_cpu(torch, m, label: str, bos: int, tol: float,
@@ -3306,7 +3488,8 @@ def phase_hf_cpu(torch):
     Linears in float, their decoders alone on the CPU's encoder output)
     within NANO_CPU_TOL and the ids equal; and Llama-2-13B as configured,
     int4 in bf16 (the kernel against the CPU's plain version) within
-    CPU_MODE_TOL."""
+    CPU_MODE_TOL.  The CPU copies dequantise each int4 weight once
+    (``int4_dequantised_once``)."""
     f32 = torch.float32
     for name, kw, tol, exact in (
             ("llama7b", {}, NANO_CPU_TOL, True),
@@ -3314,31 +3497,579 @@ def phase_hf_cpu(torch):
             ("falcon7b", dict(int4=False, dtype=f32), NANO_CPU_TOL, True),
             ("gpt2xl", dict(int4=False, dtype=f32), NANO_CPU_TOL, True),
             ("llama13b", {}, CPU_MODE_TOL, False)):
+        t0 = time.perf_counter()
         m, _, _ = hf_model(torch, name, depth=2, **kw)
-        card_against_cpu(torch, m, name, HF_BOS[name], tol, exact,
-                         cpu_encoder=name in ("falcon7b", "gpt2xl"))
+        with int4_dequantised_once(torch):
+            card_against_cpu(torch, m, name, HF_BOS[name], tol, exact,
+                             cpu_encoder=name in ("falcon7b", "gpt2xl"))
+        log(f"    {name}: {time.perf_counter() - t0:.1f} s")
         del m
         torch.cuda.empty_cache()
 
 
-def phase_nano_f32(torch, args, results):
-    """local/nano-mini.yaml at its own precision 'no' (f32) at full width and
-    depth: the serving path (moe_ffn's f32 form, launches as derived);
-    then its depth-2 form on the card against a CPU copy in f32 (logits
-    within NANO_CPU_TOL, ids equal, as [nano-cpu] holds the f32 forms)."""
-    f32 = torch.float32
-    model, built, surgery = nano_model(torch, "nano-mini", f32)
-    describe(torch, model, "nano-f32", built, surgery)
-    log(f"[nano-f32] local/nano-mini.yaml serving path in f32 at full width "
-        f"and depth ({CARD})")
-    phase_serve(torch, model, args, results, "nano_mini_f32_caption",
-                NANO_BOS)
-    del model
-    torch.cuda.empty_cache()
-    m, _, _ = nano_model(torch, "nano-mini", f32, depth=2)
+def phase_nano_f32(torch):
+    """local/nano-mini.yaml at its own precision 'no' (f32), its depth-2
+    form on the card against a CPU copy in f32 (logits within
+    NANO_CPU_TOL, ids equal, as [nano-cpu] holds the f32 forms); its
+    full-depth serving path is [nano-f32] in ``phase_nano``."""
+    m, _, _ = nano_model(torch, "nano-mini", torch.float32, depth=2)
     card_against_cpu(torch, m, "nano-mini f32", NANO_BOS, NANO_CPU_TOL, True)
     del m
     torch.cuda.empty_cache()
+
+
+# -- training of the nano and HF families ------------------------------------
+
+FAMILY_YAML = dict(NANO_YAML, gpt2="training_configs/local/gpt2.yaml",
+                   **HF_YAML)
+# the tokenizers' EOS and BOS ids (the labels are synthetic token ids)
+FAMILY_EOS = {"nano-mini": 50256, "nano": 50256, "nano-lsh": 50256,
+              "gpt2": 50256, "llama13b": 2, "llama7b": 2, "falcon7b": 11,
+              "qwen": 151643, "gpt2xl": 50256}
+FAMILY_BOS = dict(HF_BOS, **{n: NANO_BOS for n in ("nano-mini", "nano",
+                                                   "nano-lsh", "gpt2")})
+FAMILY_SEQ = 256        # the text block: 256 label positions
+FAMILY_STEPS = 1        # timed steps a window (3 windows), one warm step
+FAMILY_PARITY_BATCH = 2
+F32_PARITY_TOL = 1e-5   # [train-parity] f32: loss and gradients, relative
+REMAT_FAMILY, REMAT_DEPTH = "llama13b", 4
+# kernel shapes each family's step gave (kernel_shapes), for [train-kernels]
+TRAIN_FLASH = {}
+TRAIN_INT4 = {}
+
+
+def no_dropout(model_cfg) -> None:
+    """Attention, residual and LoRA dropout of ``model_cfg`` set to 0."""
+    for sub in (model_cfg.vision_encoder_config, model_cfg.decoder_config):
+        tc = getattr(sub, "transformer_config", None)
+        if tc is not None:
+            tc.attn_config.dropout = tc.attn_config.attn_dropout = 0.0
+        if getattr(sub, "lora_spec", None) is not None:
+            sub.lora_spec.lora_dropout = 0.0
+
+
+def family_setup(torch, name: str, depth=None, device="cuda",
+                 dropout: bool = True, batch=None, init: bool = True):
+    """(cfg, wrapper, Trainer) of ``name``'s YAML at full width, at full
+    depth or ``depth`` layers (decoder and encoder), on ``device``: f32
+    masters with random weights from SEED (a GPT-2-initialised decoder
+    imports a GPT-2-layout state dict of its size; the int4 weights and
+    LoRA B as ``randomize_gpt2m`` makes them), the YAML's batch,
+    precision, optimizer groups and accumulation.  A YAML whose batch its
+    accumulation does not divide (Falcon-7B's 4 / 8, GPT-2-xl's 12 / 8;
+    both packages refuse it) runs with accumulation 1, as gpt2-medium.yaml
+    does.  ``dropout`` False zeroes every dropout; ``batch`` overrides the
+    batch (and then accumulation is 1); ``init`` False leaves the weights
+    as allocated (for a copy that loads another's).  The build's time and
+    peak device memory go on the wrapper (``built_s``, ``build_peak``)."""
+    from image2text_torch.configs.models import GPT2_MODEL_TABLE
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.training.loop import Trainer
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    cfg = load_training_config(FAMILY_YAML[name])
+    enc, dec = cfg.model.vision_encoder_config, cfg.model.decoder_config
+    if depth is not None:
+        if hasattr(enc, "n_layer"):
+            enc.n_layer = depth
+        if getattr(dec, "model_str", None) is None:
+            dec.n_layer = depth
+    if batch is not None:
+        cfg.batch_size, cfg.gradient_accumulation_steps = batch, 1
+    if cfg.batch_size % cfg.gradient_accumulation_steps:
+        log(f"  {FAMILY_YAML[name]}: batch {cfg.batch_size} is not divisible "
+            f"by gradient_accumulation_steps "
+            f"{cfg.gradient_accumulation_steps}; run with accumulation 1")
+        cfg.gradient_accumulation_steps = 1
+    if not dropout:
+        no_dropout(cfg.model)
+    tok = TokenizerInfo(eos_token_id=FAMILY_EOS[name],
+                        bos_token_id=FAMILY_BOS[name], mask_token_id=None,
+                        vocab_size=dec.vocab_size)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with hf_depth(name, depth):
+        wrapper = ModelTrainerWrapper(cfg.model, tok, cfg.trainer,
+                                      device=device)
+    model = wrapper.model
+    if init:
+        sd = None
+        if getattr(dec, "pretrained_model", None) is not None:
+            sd = gpt2_layout_state_dict(
+                dec.n_layer, GPT2_MODEL_TABLE[dec.pretrained_model]["n_embd"])
+        model.init_weights(SEED, gpt2_state_dict=sd)
+        del sd
+        randomize_gpt2m(torch, model, SEED)
+    if not dropout:
+        for mod in model.modules():
+            if hasattr(mod, "dropout_rate"):
+                mod.dropout_rate = 0.0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        wrapper.build_peak = torch.cuda.max_memory_allocated()
+        wrapper.build_resident = torch.cuda.memory_allocated()
+    wrapper.built_s = time.perf_counter() - t0
+    return cfg, wrapper, Trainer(cfg, wrapper)
+
+
+def family_inputs(torch, cfg, batch: int, seed: int, device="cuda"):
+    """Images (the ViT's 224² or the scratch encoder's input) and
+    FAMILY_SEQ labels: 8–254 synthetic token ids, then -100."""
+    import numpy as np
+
+    from image2text_torch.configs.models import PretrainedViTConfig
+
+    rng = np.random.default_rng(seed)
+    enc = cfg.model.vision_encoder_config
+    size = 224 if isinstance(enc, PretrainedViTConfig) else enc.input.width
+    vocab = cfg.model.decoder_config.vocab_size
+    images = rng.standard_normal((batch, 3, size, size), dtype=np.float32)
+    labels = np.full((batch, FAMILY_SEQ), -100, np.int64)
+    for i, n in enumerate(rng.integers(8, FAMILY_SEQ - 1, batch)):
+        labels[i, :n] = rng.integers(3, vocab - 1, n)
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def phase_train_family(torch, args, results, name: str):
+    """[train-<name>]: the family's training step at full width and depth
+    through its Trainer (``phase_train``, 3 windows of FAMILY_STEPS steps
+    after the warm step that counts the launches); the kernels' shapes
+    kept for [train-kernels].  Returns the model (f32 masters), for the
+    family's serving phase to reuse."""
+    holder = {}
+
+    def setup():
+        cfg, wrapper, trainer = family_setup(torch, name)
+        holder["wrapper"] = wrapper
+        return cfg, wrapper, trainer
+
+    flash, int4 = TRAIN_FLASH.setdefault(name, {}), TRAIN_INT4.setdefault(
+        name, set())
+    log(f"[train-{name}] {FAMILY_YAML[name]} training step at full width "
+        f"and depth ({CARD})")
+    model = phase_train(
+        torch, args, results, f"{name}_train_step", setup,
+        lambda cfg: family_inputs(torch, cfg, cfg.batch_size, SEED + 50),
+        steps_per_window=FAMILY_STEPS, keep=True, shapes=(flash, int4))
+    w = holder.pop("wrapper")
+    calls = sorted((q, hk, skv, causal, str(dt).split(".")[-1])
+                   for q, hk, skv, causal, _, dt in flash)
+    log(f"  built in {w.built_s:.1f} s, the build's peak device memory "
+        f"{w.build_peak / 2 ** 30:.2f} GiB; flash forward (q, K/V heads, "
+        f"keys, causal, dtype) {calls}; int4_matmul (rows, in, out) "
+        f"{sorted(int4)}")
+    model.build_peak, model.build_resident = w.build_peak, w.build_resident
+    model.built_s = w.built_s
+    return model
+
+
+def grads_of(wrapper) -> dict:
+    return {n: p.grad.detach().float().cpu()
+            for n, p in wrapper.model.named_parameters()
+            if p.grad is not None}
+
+
+def grad_error(torch, got: dict, want: dict) -> float:
+    num = sum(float((got[n] - want[n]).double().square().sum()) for n in want)
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    return math.sqrt(num / den)
+
+
+def phase_train_cpu(torch):
+    """[train-parity]: each family's depth-2 form (decoder and encoder) at
+    full width, one training step on the card against one on a CPU copy
+    of the same weights (batch FAMILY_PARITY_BATCH, dropout 0: the card's
+    and the CPU's generators draw different masks): the loss and the
+    trainable gradients (relative L2 over all of them) within
+    TRAIN_LOSS_TOL and TRAIN_GRAD_TOL in bf16, F32_PARITY_TOL in f32.
+    ``tpu/nano.yaml`` runs in f32, as [nano-cpu] holds it: its PEER head's
+    bf16 top-k picks other experts on the card than on the CPU at near
+    ties, and a pick apart moves a table row's gradient whole.  A bf16
+    form beyond those limits is held to the reference's own bf16 error,
+    as ``phase_attention_sensitivity`` holds the chain: the CPU step in f32
+    from the same weights is the measure, and the card's bf16 step must
+    lie within twice the CPU's bf16 step's distance from it (loss and
+    gradients).  Llama-2-13B's int4 form needs it: its bf16 steps on the
+    card and on the CPU part by more than 2e-2.  The CPU copy is
+    built without weights of its own (it loads the card's) and dequantises
+    each int4 weight once (``int4_dequantised_once``)."""
+    from image2text_torch.training.loop import Trainer, make_train_step
+
+    failed = []
+    for name in FAMILY_YAML:
+        t0 = time.perf_counter()
+        cfg, w, tr = family_setup(torch, name, depth=2, dropout=False,
+                                  batch=FAMILY_PARITY_BATCH)
+        ccfg, cw, ctr = family_setup(torch, name, depth=2, device="cpu",
+                                     dropout=False, init=False,
+                                     batch=FAMILY_PARITY_BATCH)
+        if name == "nano":
+            cfg.precision = ccfg.precision = "no"
+            tr._train_step = make_train_step(w, tr.optimizer, 1, "no")
+            ctr._train_step = make_train_step(cw, ctr.optimizer, 1, "no")
+        start = {k: v.cpu().clone() for k, v in w.state_dict().items()}
+        cw.load_state_dict(start)
+        images, labels = family_inputs(torch, cfg, FAMILY_PARITY_BATCH,
+                                       SEED + 51)
+        cpu_in = (images.cpu(), labels.cpu(), cfg.seed, 0)
+        loss = float(tr._train_step(images, labels, cfg.seed, 0)[
+            "train_loss_lm"])
+        with int4_dequantised_once(torch):
+            closs = float(ctr._train_step(*cpu_in)["train_loss_lm"])
+        g, cg = grads_of(w), grads_of(cw)
+        f32 = cfg.precision == "no"
+        ltol, gtol = ((F32_PARITY_TOL, F32_PARITY_TOL) if f32
+                      else (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL))
+        lerr = abs(loss - closs) / abs(closs)
+        gerr = grad_error(torch, g, cg) if set(g) == set(cg) else math.inf
+        worst = sorted(((grad_error(torch, {n: g[n]}, {n: cg[n]}), n)
+                        for n in cg if n in g and float(
+                            cg[n].square().sum()) > 0), reverse=True)[:3]
+        line = (f"  {name} (depth 2 + 2, {cfg.precision!r}, batch "
+                f"{FAMILY_PARITY_BATCH}): loss card {loss:.7f} vs CPU "
+                f"{closs:.7f} (relative error {lerr:.3g}, limit {ltol}); "
+                f"gradients relative L2 {gerr:.3g} over {len(cg)} trainable "
+                f"tensors (limit {gtol}); the largest by tensor "
+                f"{[(n, float(f'{e:.3g}')) for e, n in worst]}")
+        ok = bool(cg) and lerr <= ltol and gerr <= gtol
+        if cg and not f32 and not ok:
+            cw.load_state_dict(start)
+            ref_step = make_train_step(cw, Trainer(ccfg, cw).optimizer, 1,
+                                       "no")
+            with int4_dequantised_once(torch):
+                rloss = float(ref_step(*cpu_in)["train_loss_lm"])
+            rg = grads_of(cw)
+            e_card, e_cpu = grad_error(torch, g, rg), grad_error(torch, cg, rg)
+            l_card = abs(loss - rloss) / abs(rloss)
+            l_cpu = abs(closs - rloss) / abs(rloss)
+            ok = (e_card <= 2 * e_cpu
+                  and l_card <= max(TRAIN_LOSS_TOL, 2 * l_cpu))
+            line += (f"; against the CPU's f32 step: card's bf16 gradients "
+                     f"{e_card:.3g}, the CPU's {e_cpu:.3g} (limit twice "
+                     f"that), loss {l_card:.3g} and {l_cpu:.3g}")
+        log(line + f" [{time.perf_counter() - t0:.1f} s]")
+        if not ok:
+            failed.append(name)
+        del cfg, w, tr, ccfg, cw, ctr, g, cg, start
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"train-parity: card and CPU differ: {failed}")
+
+
+def phase_remat(torch):
+    """[remat]: REMAT_FAMILY at REMAT_DEPTH layers, full width, the YAML's
+    batch and accumulation, under each remat policy from the same weights:
+    the first step's loss and gradients against ``full``'s, then the step
+    ms (median of 3 more steps) and the peak device memory of each."""
+    cfg, w, _ = family_setup(torch, REMAT_FAMILY, depth=REMAT_DEPTH)
+    start = {k: v.clone() for k, v in w.state_dict().items()}
+    images, labels = family_inputs(torch, cfg, cfg.batch_size, SEED + 52)
+    from image2text_torch.training.loop import Trainer
+
+    base = None
+    for policy in ("full", "dots", "nothing", "everything"):
+        w.load_state_dict(start)
+        cfg.remat_policy = policy
+        trainer = Trainer(cfg, w)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer._train_step(images, labels, cfg.seed, 0)[
+            "train_loss_lm"])
+        g = grads_of(w)
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._train_step(images, labels, cfg.seed, 1 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if base is None:
+            base = (loss, g)
+        err = grad_error(torch, g, base[1])
+        same = all(torch.equal(g[n], base[1][n]) for n in g)
+        log(f"  {policy}: loss {loss:.7f} (full {base[0]:.7f}); gradients "
+            f"relative L2 against full {err:.3g}, bitwise equal {same}; step "
+            f"ms {statistics.median(times) * 1e3:.2f}, peak memory "
+            f"{peak:.3f} GiB ({CARD})")
+        if loss != base[0] or err > 1e-6 or set(g) != set(base[1]):
+            raise AssertionError(f"remat {policy}: gradients differ from "
+                                 "full's")
+        del trainer, g
+    for p in w.parameters():
+        p.grad = None
+    del w, start
+    torch.cuda.empty_cache()
+
+
+def largest_flash_calls(name: str):
+    """The largest flash forward (b·h·sq·skv) of each dtype that
+    ``name``'s training step ran, as (key, bias)."""
+    best = {}
+    for key, bias in TRAIN_FLASH.get(name, {}).items():
+        (b, h, sq, d), hk, skv, causal, rate, dt = key
+        if dt not in best or b * h * sq * skv > best[dt][0]:
+            best[dt] = (b * h * sq * skv, key, bias)
+    return [(k, bias) for _, k, bias in best.values()]
+
+
+def flash_case(torch, results, label: str, key, bias, gen):
+    """The flash forward and backward at one training call's shape against
+    their plain versions (same dropout seed; the backward rerun bitwise
+    equal), with ms, the bound (the f32 FFMA peak for f32), SDPA's forward
+    and backward alone as the yardstick; kept as ``<label>_shape``."""
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops.attention import causal_bias
+    from image2text_torch.utils.device import sm_count
+
+    (b, h, sq, d), hk, skv, causal, rate, dt = key
+    dev, f32, seed = torch.device("cuda"), dt == torch.float32, -123456789
+    q, dout = (torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn(b, hk, skv, d, device=dev, generator=gen).to(dt)
+            for _ in range(2))
+    bias = None if bias is None else bias.to(dev)
+    a = (q, k, v, bias, causal)
+    out, lse = fa.flash_fwd(*a, rate, seed)
+    want, want_lse = fa.flash_forward_plain(*a, rate, seed)
+    dvec = (dout.float() * want.float()).sum(-1)
+    g = (dout, want_lse, dvec, rate, seed)
+    got = fa.flash_bwd(*a, *g)
+    again = fa.flash_bwd(*a, *g)
+    plain = fa.flash_backward_plain(*a, *g)
+    torch.cuda.synchronize()
+    shape = (f"b={b} h={h} hk={hk} sq={sq} skv={skv} d={d} causal={causal} "
+             f"bias={None if bias is None else tuple(bias.shape)} "
+             f"dropout={rate} {str(dt).split('.')[-1]}")
+    errs = {"fwd": compare(f"flash_fwd out {label} {shape}", out, want,
+                           f32=f32)}
+    compare(f"flash_fwd lse {label}", lse, want_lse, f32=f32)
+    errs["bwd"] = max(compare(f"flash_bwd {n} {label}", x, y, f32=f32)
+                      for n, x, y in zip(("dq", "dk", "dv"), got, plain))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    if not same:
+        raise AssertionError(f"flash_bwd {label}: reruns differ")
+    del out, lse, got, again, plain, want, want_lse
+    n_sms = sm_count(dev)
+    routes = ("f32" if f32 else
+              f"fwd {fa.fwd_plan(b, h, hk, sq, skv, n_sms)[0]}, bwd "
+              f"{fa.bwd_plan(b, h, hk, sq, skv, n_sms)[0]}")
+    ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
+          "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
+    plain_ms = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
+        *a, rate, seed), 3),
+        "bwd": cuda_ms(torch, lambda: fa.flash_backward_plain(*a, *g), 3)}
+    mask = None
+    if bias is not None or causal:
+        mask = ((0 if bias is None else bias) + (
+            causal_bias(sq, skv, dev) if causal else 0)).to(dt)
+    lib = sdpa_times(torch, q, k, v, dout, mask, rate)
+    log(f"  flash {label} ({routes}): fwd {ms['fwd']:.4f} ms (plain "
+        f"{plain_ms['fwd']:.4f}, SDPA {lib['fwd']:.4f}), bwd (dq dk dv) "
+        f"{ms['bwd']:.4f} ms (plain {plain_ms['bwd']:.4f}; SDPA backward "
+        f"alone {lib['bwd']:.4f})")
+    for kind in ("fwd", "bwd"):
+        n_bytes, flops = flash_work(q, k, bias, causal, kind)
+        bms, by = bound_ms(n_bytes, flops,
+                           F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+        log(f"    flash_{kind} {label}: bound {bms:.5f} ms ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), kernel at "
+            f"{bms / ms[kind]:.3f} of it")
+        results.setdefault(f"flash_{kind}", {"name": f"flash_{kind}"})[
+            f"{label}_shape"] = dict(
+                b=b, h=h, hk=hk, sq=sq, skv=skv, d=d, causal=causal,
+                dtype=str(dt).split(".")[-1], route=routes,
+                max_abs_err=errs[kind], ms=ms[kind], plain_ms=plain_ms[kind],
+                bound_ms=bms, bound_by=by, library_ms=lib[kind])
+
+
+def phase_train_kernels(torch, results):
+    """[train-kernels]: each family's largest flash call of each dtype and
+    every int4_matmul shape its training step ran, against the plain
+    versions, timed beside the bound and the yardsticks (SDPA; bf16
+    torch.matmul on the weight dequantised once)."""
+    from image2text_torch.models.quantization import quantize_blockwise
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    for name in FAMILY_YAML:
+        for key, bias in largest_flash_calls(name):
+            dt = "f32" if key[5] == torch.float32 else "bf16"
+            flash_case(torch, results, f"train_{name}_{dt}".replace("-", "_"),
+                       key, bias, gen)
+        for rows, in_f, out_f in sorted(TRAIN_INT4.get(name, ())):
+            w = torch.empty(out_f, in_f, device=dev).normal_(
+                0.0, 0.02, generator=gen)
+            packed, scales = quantize_blockwise(w)
+            del w
+            x = torch.randn(rows, in_f, device=dev, generator=gen).to(bf)
+            int4_case(torch, results, f"train_{name}_{in_f}x{out_f}", x,
+                      packed, scales.to(bf), iters=5)
+            del x, packed, scales
+        torch.cuda.empty_cache()
+
+
+LOCAL_IMAGES = 64
+
+
+def write_image_dir(root: Path, n: int, seed: int) -> str:
+    """``n`` images of random sizes made from ``seed`` (uint8 ``.npy``,
+    and every other one a PNG where PIL is importable) and a captions.json
+    of 1–5 captions each (synthetic token ids); returns which formats."""
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    rng = np.random.default_rng(seed)
+    mapping = {}
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(160, 400, 2))
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if Image is not None and i % 2:
+            name = f"img_{i:03d}.png"
+            Image.fromarray(arr).save(root / name)
+        else:
+            name = f"img_{i:03d}.npy"
+            np.save(root / name, arr)
+        mapping[name] = [" ".join(str(int(t)) for t in rng.integers(
+            3, 50000, int(rng.integers(6, 20)))) for _ in range(1 + i % 5)]
+    (root / "captions.json").write_text(json.dumps(mapping))
+    return "npy and png" if Image is not None else "npy (no PIL)"
+
+
+def local_yaml(src: str, out: Path, image_dir: Path, extra: dict) -> Path:
+    """``src`` on ``image_dir`` (dataset: local, the synthetic tokenizer)
+    with ``extra`` lines replaced: a copy of the YAML's text."""
+    text = (REPO / src).read_text()
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(("tokenizer_str:", "dataset:",
+                                   "dataset_dir:", "max_loop_epochs:"))]
+    text = "\n".join(lines) + "\n"
+    for old, new in extra.items():
+        if old not in text:
+            raise AssertionError(f"{src}: no {old!r}")
+        text = text.replace(old, new)
+    text = (f"tokenizer_str: 'synthetic'\ndataset: 'local'\n"
+            f"dataset_dir: '{image_dir}'\nmax_loop_epochs: 1\n") + text
+    out.write_text(text)
+    return out
+
+
+def run_trainer_cli(yaml: Path, ck: Path) -> list:
+    """``python -m image2text_torch.trainer`` on ``yaml``: its exit code
+    must be 0; returns the losses it printed."""
+    import ast
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "image2text_torch.trainer",
+                           "--config_file", str(yaml), "--chkpt_file",
+                           str(ck)], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"trainer CLI on {yaml.name}: exit "
+                             f"{proc.returncode}")
+    losses = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("epoch ") and "{" in line:
+            d = ast.literal_eval(line[line.index("{"):line.index("}") + 1])
+            losses += [v for k, v in d.items() if "loss" in k]
+        elif line.startswith("Epoch:"):
+            losses.append(float(line.split("loss:")[1].split(",")[0]))
+    log(f"  python -m image2text_torch.trainer --config_file {yaml.name}: "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s; losses printed "
+        f"{losses}; checkpoint {ck.stat().st_size:,} bytes")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer CLI on {yaml.name}: losses {losses}")
+    return losses
+
+
+def phase_local_data(torch, work: Path):
+    """[local-data]: LOCAL_IMAGES images from SEED in a directory; the
+    trainer twin's CLI on a derived local/nano-mini.yaml (dataset: local,
+    the synthetic tokenizer, 3 steps, one val step: the ViT's transforms)
+    and on a derived synthetic-smoke.yaml with its scratch encoder at the
+    loader's 128 px (the Flickr resize: the C++ core, its library removed
+    first so that this run builds it); the first batch of each route
+    against the plain versions: the tokens bit for bit, the ViT's images
+    bit for bit against the same transform, the C++ resize within 2e-5
+    of the numpy resize."""
+    import numpy as np
+
+    from image2text_torch.training import data as tdata
+    from image2text_torch.training import native
+    from image2text_torch.training.tokenizer import SyntheticTokenizer
+
+    image_dir = work / "images"
+    image_dir.mkdir()
+    formats = write_image_dir(image_dir, LOCAL_IMAGES, SEED + 60)
+    try:
+        import PIL  # noqa: F401
+        vit_route = "PIL bicubic"
+    except ImportError:
+        vit_route = "the bilinear host resize (no PIL)"
+    log(f"  {LOCAL_IMAGES} images ({formats}) in {image_dir}; the ViT "
+        f"transform's resize here: {vit_route}")
+    lib = native.lib_path()
+    lib.unlink(missing_ok=True)
+    nano = local_yaml(NANO_YAML["nano-mini"], work / "nano-mini-local.yaml",
+                      image_dir, {"num_steps: 200": "num_steps: 3",
+                                  "num_val_steps: 20": "num_val_steps: 1"})
+    run_trainer_cli(nano, work / "nano-mini-local.npz")
+    built_by_vit = lib.exists()
+    smoke = local_yaml(SMOKE_YAML, work / "smoke-local.yaml", image_dir, {
+        "width: 64": "width: 128", "height: 64": "height: 128",
+        "num_steps: 20": "num_steps: 3", "num_val_steps: 4":
+        "num_val_steps: 1"})
+    run_trainer_cli(smoke, work / "smoke-local.npz")
+    log(f"  the C++ core's library {lib.name}: built by the ViT run "
+        f"{built_by_vit} (its transform does not use it), by the 128-px "
+        f"run {lib.exists()}")
+    if built_by_vit or not lib.exists():
+        raise AssertionError("local-data: the C++ core was not built by the "
+                             "run that uses it")
+    for is_vit in (True, False):
+        tok = SyntheticTokenizer(50259)
+        train, _ = tdata.get_local_dataloader(tok, 8, False, is_vit,
+                                              dataset_dir=str(image_dir))
+        batch = next(iter(train))
+        rows = train.rows
+        max_err = 0.0
+        for i in range(8):
+            row = rows[i]
+            img = np.asarray(row["image"])
+            if is_vit:
+                want = tdata.preprocess_image_vit(img)
+                if not np.array_equal(batch["image"][i], want):
+                    raise AssertionError("local-data: ViT image differs")
+            else:
+                want = ((tdata._resize_bilinear(img, 128) / 255.0
+                         - tdata.FLICKR_MEAN[:, None, None])
+                        / tdata.FLICKR_STD[:, None, None]).astype(np.float32)
+                max_err = max(max_err, float(np.abs(
+                    batch["image"][i] - want).max()))
+            for k in range(5):
+                enc = tok(text=row[f"caption_{k}"][0], max_length=256,
+                          truncation="longest_first", padding="max_length")
+                if not (np.array_equal(batch[f"input_ids_{k}"][i],
+                                       enc["input_ids"])
+                        and np.array_equal(batch[f"attn_mask_{k}"][i],
+                                           enc["attention_mask"])):
+                    raise AssertionError("local-data: tokens differ")
+        log(f"  first batch ({'ViT 224' if is_vit else 'Flickr 128'}): "
+            f"{tuple(batch['image'].shape)}, tokens and masks bit for bit; "
+            + ("images bit for bit against the transform" if is_vit else
+               f"the C++ resize against the numpy resize: max abs error "
+               f"{max_err:.3g} (limit 2e-5)"))
+        if max_err > 2e-5:
+            raise AssertionError(f"local-data: C++ resize {max_err}")
 
 
 def main() -> int:
@@ -3520,12 +4251,23 @@ def main() -> int:
 
     with torch.no_grad():
         phase_nano(torch, args, results)
-        phase_nano_f32(torch, args, results)
+        phase_nano_f32(torch)
         log(f"[hf-kernels] int4_matmul vs plain version at the Llama-2-13B, "
             f"Falcon-7B and GPT-2-xl decoders' shapes (decode and prefill "
             f"rows); moe_ffn's f32 form at nano-mini's decode shape ({CARD})")
         phase_hf_kernels(torch, results)
         phase_hf(torch, args, results)
+    log(f"[train-parity] each family's depth-2 form at full width, one "
+        f"training step on the card against a CPU copy ({CARD})")
+    phase_train_cpu(torch)
+    log(f"[remat] {FAMILY_YAML[REMAT_FAMILY]} at depth {REMAT_DEPTH}, "
+        f"gradients and cost under each remat policy ({CARD})")
+    phase_remat(torch)
+    log(f"[train-kernels] the flash kernels and int4_matmul at the shapes "
+        f"the families' training steps ran, vs their plain versions "
+        f"({CARD})")
+    with torch.no_grad():
+        phase_train_kernels(torch, results)
 
     log("[offline-kernels] the f32 kernels of the offline path (flash at "
         "synthetic-smoke.yaml's training shapes, the front at the evaluate "
@@ -3540,6 +4282,9 @@ def main() -> int:
         log("[offline-eval] the evaluate twin, greedy, card vs CPU: the "
             "smoke checkpoint and artifacts/quality2_ck.npz")
         phase_offline_eval(torch, results, smoke_ck)
+        log(f"[local-data] the trainer twin's CLI on a local image "
+            f"directory ({CARD})")
+        phase_local_data(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("[offline-beam] greedy beam ids on quality2_ck.npz, card vs CPU, "

@@ -126,6 +126,7 @@ class TransformerDecoder(nn.Module):
         self.dropout_rate = config.transformer_config.attn_config.dropout
         self.enable_gradient_checkpointing = (
             config.enable_gradient_checkpointing)
+        self._remat_policy = None   # training/remat.py::set_remat_policy
         self._gpt2_init_policy()
 
     def _gpt2_init_policy(self):
@@ -243,7 +244,8 @@ class TransformerDecoder(nn.Module):
                 return out[0] if lazy else out
 
             ci = None if ckv is not None else cross_inputs
-            x = (checkpoint_block(run, x, ci, attn_msk) if remat
+            x = (checkpoint_block(run, x, ci, attn_msk,
+                                  policy=self._remat_policy) if remat
                  else run(x, ci, attn_msk))
             layout = new_layout
         if layout is not None:

@@ -178,6 +178,7 @@ class VisionTransformerEncoder(nn.Module):
         self.dropout_rate = acfg.dropout
         self.enable_gradient_checkpointing = (
             config.enable_gradient_checkpointing)
+        self._remat_policy = None   # training/remat.py::set_remat_policy
         self._front = _Cached()
 
     @property
@@ -233,7 +234,8 @@ class VisionTransformerEncoder(nn.Module):
                 return blk_(x_, layout=layout_, want_lazy=True, ctx=ctx_,
                             use_flash=use_flash)[0]
 
-            x = checkpoint_block(run, x) if remat else run(x)
+            x = (checkpoint_block(run, x, policy=self._remat_policy) if remat
+                 else run(x))
             layout = new_layout
         if layout is None:
             cls = x[:, :self.n_cls]

@@ -107,13 +107,14 @@ class FalconBackbone(nn.Module):
         self.ln_f = LayerNorm(arch.n_embd, bias=True, eps=arch.ln_eps,
                               device=device)
         self.enable_gradient_checkpointing = False
+        self._remat_policy = None   # training/remat.py::set_remat_policy
 
     def forward(self, inputs_embeds, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True, kv_cache=None, pos_offset: int = 0):
         pos = positions(inputs_embeds.shape[-2], pos_offset,
                         inputs_embeds.device)
         x = run_blocks(self.h, inputs_embeds, pos, ctx, use_flash, kv_cache,
-                       self.enable_gradient_checkpointing)
+                       self.enable_gradient_checkpointing, self._remat_policy)
         return self.ln_f(x)
 
 

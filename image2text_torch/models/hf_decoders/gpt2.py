@@ -159,6 +159,7 @@ class GPT2Backbone(nn.Module):
             for _ in range(n_layer)])
         self.ln_f = LayerNorm(n_embd, bias=True, device=device)
         self.enable_gradient_checkpointing = False
+        self._remat_policy = None   # training/remat.py::set_remat_policy
 
     def forward(self, inputs_embeds, enc=None, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True, kv_cache=None, pos_offset: int = 0,
@@ -180,7 +181,7 @@ class GPT2Backbone(nn.Module):
                 def run(x_, enc_, blk_=blk, ctx_=bctx):
                     return blk_(x_, enc=enc_, ctx=ctx_, use_flash=use_flash)
 
-                x = checkpoint_block(run, x, enc)
+                x = checkpoint_block(run, x, enc, policy=self._remat_policy)
             else:
                 ckv = cross_kv.get(depth) if cross_kv is not None else None
                 x = blk(x, enc=None if ckv is not None else enc, ctx=bctx,

@@ -10,7 +10,8 @@ decoder raises for it); the image conditions through the soft prompt.
 Grouped K/V go to ``ops/attention.py::sdpa`` as they are: it folds the
 ``n_head / n_kv_head`` query heads of a group into the sequence axis (HF
 ``repeat_kv``'s grouping: query head i reads KV head i // group), so the
-cache is read once, never copied per query head.
+cache is read once, never copied per query head.  Training attention on
+the flash kernels takes them repeated to full heads (``sdpa`` does it).
 """
 from __future__ import annotations
 
@@ -132,16 +133,17 @@ class _LlamaBlock(nn.Module):
 
 
 def run_blocks(blocks: nn.ModuleList, x, pos, ctx: Ctx, use_flash: bool,
-               kv_cache, remat: bool):
+               kv_cache, remat: bool, policy):
     """The blocks in order, each recomputed in the backward under
-    ``remat`` (training only: never with a cache)."""
+    ``remat`` (training only: never with a cache), keeping what the remat
+    ``policy`` keeps."""
     for depth, blk in enumerate(blocks):
         bctx = ctx.fold(depth)
         if remat and ctx.train and kv_cache is None:
             def run(x_, blk_=blk, ctx_=bctx):
                 return blk_(x_, pos, ctx=ctx_, use_flash=use_flash)
 
-            x = checkpoint_block(run, x)
+            x = checkpoint_block(run, x, policy=policy)
         else:
             x = blk(x, pos, ctx=bctx, use_flash=use_flash, kv_cache=kv_cache)
     return x
@@ -160,13 +162,15 @@ class LlamaBackbone(nn.Module):
                                      for _ in range(arch.n_layer)])
         self.norm = RMSNorm(arch.n_embd, arch.rms_eps, device)
         self.enable_gradient_checkpointing = False
+        self._remat_policy = None   # training/remat.py::set_remat_policy
 
     def forward(self, inputs_embeds, ctx: Ctx = EVAL_CTX,
                 use_flash: bool = True, kv_cache=None, pos_offset: int = 0):
         pos = positions(inputs_embeds.shape[-2], pos_offset,
                         inputs_embeds.device)
         x = run_blocks(self.layers, inputs_embeds, pos, ctx, use_flash,
-                       kv_cache, self.enable_gradient_checkpointing)
+                       kv_cache, self.enable_gradient_checkpointing,
+                       self._remat_policy)
         return self.norm(x)
 
 

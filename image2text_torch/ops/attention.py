@@ -13,9 +13,11 @@ by folding the query heads into the sequence axis.
 Training (``ctx.train``) with ``use_flash`` goes through the flash kernels
 (``ops/flash_attention.py``) on every device: on the card their CUDA
 kernels, on the CPU their plain versions, with the in-kernel hash dropout
-on the probabilities.  The explicit-product path below is what
-``disable_flash`` asks for (the JAX package's parity mode); in training it
-drops the probabilities with a seeded generator.
+on the probabilities.  Grouped K/V (1 < hk < h, Qwen-2's) are repeated to
+full heads first, as the JAX package's flash gate does.  The
+explicit-product path below is what ``disable_flash`` asks for (the JAX
+package's parity mode); in training it drops the probabilities with a
+seeded generator.
 """
 from __future__ import annotations
 
@@ -45,9 +47,18 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          causal: bool = False, dropout_rate: float = 0.0,
          ctx: Ctx = EVAL_CTX, use_flash: bool = False) -> torch.Tensor:
     """Attention with an additive mask; q (b, h, s, d), k/v (b, hk, l, d)
-    with hk ∈ {h, 1}.  ``dropout_rate`` drops probabilities in training."""
+    with hk dividing h.  ``dropout_rate`` drops probabilities in training."""
     rate = dropout_rate if ctx.train else 0.0
     if use_flash and ctx.train:
+        hk = k.shape[1]
+        if hk not in (1, q.shape[1]):
+            # grouped K/V: the flash kernels take one K/V head or all of
+            # them, so repeat each K/V head over its group (JAX's gate,
+            # ops/flash_attention.py:645-655); autograd sums the group's
+            # gradients back
+            g = q.shape[1] // hk
+            k = k.repeat_interleave(g, dim=1)
+            v = v.repeat_interleave(g, dim=1)
         # the seed comes from the ctx stream, as every dropout's does; its
         # low 32 bits are the flash hash's seed word
         seed = ctx.split()[1] if rate > 0.0 else None

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 from image2text_torch.ops import _build
+from image2text_torch.ops.functions import kernel_scope
 from image2text_torch.utils.device import sm_count
 
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
@@ -357,8 +358,9 @@ class FlashSDPA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal: bool, rate: float, seed: int):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_fwd(q, k, v, bias, causal, rate, seed)
+        with kernel_scope():
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = flash_fwd(q, k, v, bias, causal, rate, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.args = (causal, rate, seed)
         return out

@@ -18,11 +18,34 @@ it is ``torch._int_mm``, whose shape rules the operands are zero-padded
 to here (zero rows and columns add nothing to an integer sum, so the
 product stays exact); a CPU tensor takes the plain version, an exact f64
 product.
+
+``kernel_scope``: marks the forward of an autograd Function around a
+hand-written kernel (flash attention, ``int4_matmul``), so that the remat
+policies (``training/remat.py``) keep nothing from inside it.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_scope():
+    """The body of a kernel Function's forward."""
+    _SCOPE.depth = getattr(_SCOPE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _SCOPE.depth -= 1
+
+
+def in_kernel_scope() -> bool:
+    return getattr(_SCOPE, "depth", 0) > 0
 
 
 class _NormalizeGradients(torch.autograd.Function):

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from image2text_torch.ops import _build
+from image2text_torch.ops.functions import kernel_scope
 from image2text_torch.utils.device import sm_count
 
 QBLOCK = 64          # columns per scale (a 32 + 32 strip pair)
@@ -190,7 +191,8 @@ class Int4Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, packed, scales):
         ctx.save_for_backward(packed, scales)
-        return int4_matmul(x.contiguous(), packed, scales)
+        with kernel_scope():
+            return int4_matmul(x.contiguous(), packed, scales)
 
     @staticmethod
     def backward(ctx, g):

@@ -8,8 +8,10 @@ the same epoch loop (train → qualitative eval → val).
 
 It runs on the card.  A caller may pass ``device='cpu'`` to :func:`main`
 (the tests do); there is no flag for it.  The datasets are the offline
-ones (``dataset: synthetic`` and ``synthetic-composite``); the local and
-Deep Lake loaders are not ported (ROADMAP queue 1 item 1) and raise.
+ones (``dataset: synthetic`` and ``synthetic-composite``) and a local
+image directory (``dataset: local`` with ``dataset_dir``: images and a
+``captions.json``, ``training/data.py::get_local_dataloader``); the Deep
+Lake loader (``flickr30k``) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ from image2text_torch.configs.trainer import TrainingConfig
 from image2text_torch.training.data import (Prefetcher,
                                             SyntheticCompositeDataset,
                                             SyntheticFlickrDataset,
-                                            WrapperDataLoader, process_index)
+                                            WrapperDataLoader,
+                                            get_local_dataloader,
+                                            process_index)
 from image2text_torch.training.loop import Trainer
 from image2text_torch.training.tokenizer import get_tokenizer
 from image2text_torch.training.wrapper import ModelTrainerWrapper, TokenizerInfo
@@ -69,14 +73,17 @@ def build_inner_datasets(config: TrainingConfig, tokenizer):
     its rank)."""
     seed = config.seed + process_index() * 1_000_003
     inner_bs = config.dataloader_buffer_size * config.batch_size
+    enc = config.model.vision_encoder_config
+    is_vit = isinstance(enc, PretrainedViTConfig)
+    if config.dataset == "local":
+        return get_local_dataloader(tokenizer, inner_bs, config.shuffle,
+                                    is_vit, dataset_dir=config.dataset_dir)
     if config.dataset not in ("synthetic", "synthetic-composite"):
         raise NotImplementedError(
-            f"dataset {config.dataset!r}: the local and Deep Lake loaders are "
-            "not ported (ROADMAP queue 1 item 1); use dataset: synthetic or "
-            "synthetic-composite")
-    enc = config.model.vision_encoder_config
-    image_size = (224 if isinstance(enc, PretrainedViTConfig)
-                  else enc.input.width)
+            f"dataset {config.dataset!r}: the Deep Lake loader is not ported "
+            "(it needs the network); use dataset: synthetic, "
+            "synthetic-composite or local")
+    image_size = 224 if is_vit else enc.input.width
     vocab = config.model.decoder_config.vocab_size
     cls = (SyntheticCompositeDataset if config.dataset == "synthetic-composite"
            else SyntheticFlickrDataset)

@@ -12,18 +12,38 @@ numpy, so the same seed gives the same batches bit for bit):
   Flickr30K-shaped offline batches (``dataset: synthetic`` and
   ``synthetic-composite``);
 * :class:`Prefetcher` — batches assembled on a background thread;
-* :func:`process_index` — this process's rank in ``torch.distributed``
-  (0 without a process group), where the JAX package reads
-  ``jax.process_index()``.
+* :func:`process_index` / :func:`process_count` — this process's rank and
+  the world size in ``torch.distributed`` (0 and 1 without a process
+  group), where the JAX package reads ``jax.process_index()`` /
+  ``jax.process_count()``;
+* the local image-directory loader (``dataset: local``):
+  :func:`preprocess_image` (the Flickr resize through the C++ core,
+  ``training/native.py``, for uint8 frames), :func:`preprocess_image_vit`
+  (the SWAG ViT's bicubic resize and centre crop through PIL where PIL is
+  importable, else the bilinear host resize, as JAX),
+  :func:`make_row_transform`, :class:`RowBatcher`, :class:`_StridedRows`,
+  :func:`_host_shard`, :class:`_LocalRows` and
+  :func:`get_local_dataloader`.
 
-Not ported (ROADMAP queue 1 item 1's remainder): ``RowBatcher``,
-``get_local_dataloader`` and the Deep Lake loader.
+Not ported: the Deep Lake loader (``get_flickr30k_dataloader``: it needs
+the network and the ``deeplake`` package).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from image2text_torch.ops.preprocess import (FLICKR_MEAN as _FLICKR_MEAN,
+                                             FLICKR_STD as _FLICKR_STD,
+                                             IMAGENET_MEAN as _IMAGENET_MEAN,
+                                             IMAGENET_STD as _IMAGENET_STD)
+
+FLICKR_MEAN = np.asarray(_FLICKR_MEAN, np.float32)
+FLICKR_STD = np.asarray(_FLICKR_STD, np.float32)
+# SWAG ViT-B/16 eval transforms normalise with ImageNet statistics
+IMAGENET_MEAN = np.asarray(_IMAGENET_MEAN, np.float32)
+IMAGENET_STD = np.asarray(_IMAGENET_STD, np.float32)
 
 
 def process_index() -> int:
@@ -32,6 +52,14 @@ def process_index() -> int:
 
     return dist.get_rank() if dist.is_available() and dist.is_initialized() \
         else 0
+
+
+def process_count() -> int:
+    """The world size (1 without an initialised process group)."""
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
 
 
 def normalize_label(input_ids: np.ndarray, attn_mask: np.ndarray,
@@ -274,3 +302,231 @@ class Prefetcher:
                 raise self._err
             raise StopIteration
         return item
+
+
+# -- the local image-directory loader ---------------------------------------
+
+def _resize_bilinear(img: np.ndarray, size: int,
+                     size_w: int = None) -> np.ndarray:
+    """Host bilinear resize with half-pixel centres (HWC uint8/float → CHW
+    float): the plain version of the C++ core's resize."""
+    h, w = img.shape[:2]
+    size_w = size if size_w is None else size_w
+    ys = (np.arange(size) + 0.5) * h / size - 0.5
+    xs = (np.arange(size_w) + 0.5) * w / size_w - 0.5
+    y0 = np.clip(np.floor(ys).astype(int), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    wy = np.clip(ys - y0, 0, 1)[:, None, None]
+    wx = np.clip(xs - x0, 0, 1)[None, :, None]
+    im = img.astype(np.float32)
+    out = (im[y0][:, x0] * (1 - wy) * (1 - wx) + im[y0][:, x1] * (1 - wy) * wx
+           + im[y1][:, x0] * wy * (1 - wx) + im[y1][:, x1] * wy * wx)
+    return out.transpose(2, 0, 1)
+
+
+def preprocess_image(img: np.ndarray, size: int = 128) -> np.ndarray:
+    """ToTensor + Resize + Normalize with the Flickr statistics: uint8 HWC
+    frames through the C++ core (``training/native.py``, which raises
+    where it cannot be built), anything else through the numpy resize."""
+    if img.dtype == np.uint8 and img.ndim == 3:
+        from image2text_torch.training.native import resize_normalize_batch
+
+        return resize_normalize_batch(img[None], size, FLICKR_MEAN,
+                                      FLICKR_STD)[0]
+    chw = _resize_bilinear(img, size) / 255.0
+    return ((chw - FLICKR_MEAN[:, None, None]) / FLICKR_STD[:, None, None]
+            ).astype(np.float32)
+
+
+def preprocess_image_vit(img: np.ndarray, size: int = 224) -> np.ndarray:
+    """The pretrained ViT's eval transforms (the SWAG checkpoint's): the
+    shorter side resized to ``size`` bicubic (PIL's, antialiased), a
+    centre crop of ``size``, ImageNet normalisation.  Where PIL is not
+    importable the bilinear host resize takes its place, as in the JAX
+    package."""
+    h, w = img.shape[:2]
+    scale = size / min(h, w)
+    nh = max(size, int(round(h * scale)))
+    nw = max(size, int(round(w * scale)))
+    try:
+        from PIL import Image
+
+        pil = Image.fromarray(img.astype(np.uint8))
+        chw = (np.asarray(pil.resize((nw, nh), Image.BICUBIC),
+                          np.float32).transpose(2, 0, 1)) / 255.0
+    except ImportError:
+        chw = _resize_bilinear(img, nh, nw) / 255.0
+    top, left = (nh - size) // 2, (nw - size) // 2
+    chw = chw[:, top:top + size, left:left + size]
+    return ((chw - IMAGENET_MEAN[:, None, None])
+            / IMAGENET_STD[:, None, None]).astype(np.float32)
+
+
+def make_row_transform(tokenizer, is_vit: bool, max_length: int = 256):
+    """A row's transform: the image preprocessed (128 px with the Flickr
+    statistics, or the ViT's transforms) and its 5 captions tokenized to
+    ``max_length``, padded.  A row is ``{"image": (H, W, 3) uint8,
+    "caption_k": [text, ...]}``; element 0 of each caption entry is
+    tokenized."""
+    def _transform(row):
+        img = np.asarray(row["image"])
+        out = {"image": preprocess_image_vit(img) if is_vit
+               else preprocess_image(img, 128)}
+        for k in range(5):
+            tokenized = tokenizer(
+                text=row[f"caption_{k}"][0], max_length=max_length,
+                truncation="longest_first", padding="max_length")
+            out[f"input_ids_{k}"] = np.asarray(tokenized["input_ids"])
+            out[f"attn_mask_{k}"] = np.asarray(tokenized["attention_mask"])
+        return out
+
+    return _transform
+
+
+class RowBatcher:
+    """Shuffle, transform and stack a row-indexable dataset into batch
+    dicts; with ``workers`` > 1 the rows are fetched and transformed on a
+    thread pool with a bounded window, in order."""
+
+    def __init__(self, rows, transform, batch_size: int, shuffle: bool,
+                 seed: int, workers: int = 1):
+        self.rows = rows
+        self.transform = transform
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.workers = workers
+        self._epoch = 0
+
+    def __len__(self):
+        # every batch is full: a short tail wraps around the epoch's row
+        # order, as in the JAX package (one batch shape)
+        return -(-len(self.rows) // self.batch_size)
+
+    def __iter__(self):
+        order = np.arange(len(self.rows))
+        if self.shuffle:
+            # a fresh permutation per pass, seeded
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+            self._epoch += 1
+        tail = len(order) % self.batch_size
+        if tail and len(order) >= self.batch_size:
+            order = np.concatenate([order, order[:self.batch_size - tail]])
+        elif tail:  # fewer rows than one batch: cycle up to batch_size
+            order = np.resize(order, self.batch_size)
+        if self.workers <= 1:
+            buf = []
+            for i in order:
+                buf.append(self.transform(self.rows[int(i)]))
+                if len(buf) == self.batch_size:
+                    yield {k: np.stack([r[k] for r in buf]) for k in buf[0]}
+                    buf = []
+            return
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        from itertools import islice
+
+        def fetch(i):
+            return self.transform(self.rows[int(i)])
+
+        with ThreadPoolExecutor(self.workers) as ex:
+            it = iter(order.tolist())
+            window = self.workers * 4
+            pending = deque(ex.submit(fetch, i) for i in islice(it, window))
+            buf = []
+            while pending:
+                buf.append(pending.popleft().result())
+                nxt = next(it, None)
+                if nxt is not None:
+                    pending.append(ex.submit(fetch, nxt))
+                if len(buf) == self.batch_size:
+                    yield {k: np.stack([r[k] for r in buf])
+                           for k in buf[0]}
+                    buf = []
+
+
+class _StridedRows:
+    """Every ``count``-th row from ``offset``: each process of a group
+    reads its own disjoint rows.  The length is the common
+    ``len(rows) // count``, so every process yields as many batches."""
+
+    def __init__(self, rows, offset: int, count: int):
+        self.rows = rows
+        self.offset = offset
+        self.count = count
+
+    def __len__(self):
+        return len(self.rows) // self.count
+
+    def __getitem__(self, i):
+        return self.rows[self.offset + int(i) * self.count]
+
+
+def _host_shard(rows):
+    """This process's rows (all of them without a process group)."""
+    if process_count() == 1:
+        return rows
+    return _StridedRows(rows, process_index(), process_count())
+
+
+class _LocalRows:
+    """Rows of an image directory: ``(relative path, captions)`` entries,
+    ``.npy`` arrays or image files (read with PIL), the captions cycled
+    to 5."""
+
+    def __init__(self, entries, root):
+        self.entries = entries  # list of (image_path, [captions])
+        self.root = root
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        import os
+
+        path, captions = self.entries[i]
+        full = os.path.join(self.root, path)
+        if full.endswith(".npy"):
+            img = np.load(full)
+        else:
+            from PIL import Image
+
+            img = np.asarray(Image.open(full).convert("RGB"))
+        row = {"image": img}
+        for k in range(5):
+            row[f"caption_{k}"] = [captions[k % len(captions)]]
+        return row
+
+
+def get_local_dataloader(tokenizer, batch_size: int, shuffle: bool,
+                         is_vit: bool, dataset_dir: str,
+                         max_length: int = 256,
+                         val_fraction: float = 0.1):
+    """(train, val) :class:`RowBatcher` s over a directory of images and a
+    ``captions.json`` mapping each relative image path to its captions
+    (1–5, cycled to 5): the entries sorted by path, the last
+    ``val_fraction`` of them (at least one) the validation rows."""
+    import json
+    import os
+
+    if not dataset_dir:
+        raise ValueError(
+            "dataset: local requires dataset_dir to point at a directory "
+            "containing images and a captions.json")
+    with open(os.path.join(dataset_dir, "captions.json")) as f:
+        mapping = json.load(f)
+    entries = sorted((path, caps if isinstance(caps, list) else [caps])
+                     for path, caps in mapping.items())
+    if not entries:
+        raise ValueError(f"no rows in {dataset_dir}/captions.json")
+    n_val = (max(1, int(len(entries) * val_fraction))
+             if val_fraction > 0 and len(entries) > 1 else 0)
+    n_train = len(entries) - n_val
+    tokenizer.pad_token = tokenizer.eos_token
+    transform = make_row_transform(tokenizer, is_vit, max_length)
+    train = _LocalRows(entries[:n_train], dataset_dir)
+    val = _LocalRows(entries[n_train:] if n_val else entries[:], dataset_dir)
+    return (RowBatcher(_host_shard(train), transform, batch_size, shuffle, 0),
+            RowBatcher(_host_shard(val), transform, batch_size, shuffle, 1))

@@ -34,7 +34,7 @@ from torch.func import functional_call
 from image2text_torch.configs.trainer import TrainingConfig
 from image2text_torch.nn.core import Ctx
 from image2text_torch.training.optimizer import build_optimizer
-from image2text_torch.training.remat import check_remat_policy
+from image2text_torch.training.remat import set_remat_policy
 from image2text_torch.training.wrapper import ModelTrainerWrapper
 from image2text_torch.utils.patterns import PatternMatcher
 
@@ -121,7 +121,7 @@ class Trainer:
         self.wrapper = wrapper
         self.logging_callback = logging_callback
         self.device = wrapper.model.device
-        check_remat_policy(config.remat_policy)
+        set_remat_policy(wrapper.model, config.remat_policy)
         self.optimizer, self.labels = build_optimizer(
             wrapper, config.optimizers, use_snr=config.use_snr_optim)
         use_flash = not config.disable_flash

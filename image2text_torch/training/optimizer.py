@@ -10,7 +10,8 @@ of ``image2text_tpu/training/optimizer.py``).
   ``OptimizerConfig`` whose ``target_modules`` patterns match its path
   with the leading component stripped; the EMA teacher (``model_m.*``),
   the module's frozen paths (``nn.core.frozen_param_paths``) and
-  unmatched parameters get no update (JAX's ``set_to_zero``).  SNRAdam groups
+  unmatched parameters get no update (JAX's ``set_to_zero``) and stop
+  requiring gradients.  SNRAdam groups
   when ``use_snr``, else AdamW groups (``optax.adamw``'s rule: eps 1e-8,
   decoupled weight decay).
 
@@ -127,6 +128,12 @@ def build_optimizer(module: torch.nn.Module,
              for path, template in split_specs(module).items()}
     frozen = frozen_param_paths(module) + list(extra_frozen)
     labels = assign_param_labels(list(params), optim_configs, frozen, specs)
+    for path, label in labels.items():
+        # no optimizer moves it, so no backward computes its gradient (the
+        # JAX step computes one and drops it); this is what keeps the
+        # frozen weights of the large decoders free of gradient memory
+        if label == "frozen":
+            params[path].requires_grad_(False)
     groups: List[dict] = []
     for i, oc in enumerate(optim_configs):
         members = [params[p] for p, lab in labels.items()

@@ -216,6 +216,11 @@ def _flash_bias(kind, b, h, sq, skv, dev, g):
     (2, 8, 1, 160, 160, 128, "soft_prompt", True, 0.1),  # 160 keys exactly
     (2, 4, 1, 256, 1024, 64, None, True, 0.1),       # long keys: tiled
     (1, 2, 2, 300, 1024, 128, "per_head", False, 0.1),  # tiled, MHA
+    # the families' training planes (batch cut): nano's d 64 full heads,
+    # Llama-2-13B's 272 keys, Falcon-7B's 71 heads on one K/V head
+    (2, 20, 20, 256, 256, 64, None, True, 0.1),
+    (1, 40, 40, 272, 272, 128, "soft_prompt", True, 0.0),
+    (1, 71, 1, 320, 320, 64, "soft_prompt", True, 0.0),
 ])
 def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
                                    rate):
@@ -1758,3 +1763,84 @@ def test_tiny_nano_mini_f32_card_equals_cpu(dev, monkeypatch):
     assert torch.equal(ids.cpu(), cids)
     assert launched == sum(m.decoder.ffn_evaluations(off + i, 1)
                            for i in range(7)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_grouped_kv_training_attention_on_the_card(dev, rate):
+    """Qwen-2's grouped K/V (12 query heads on 2 K/V heads, 272 keys, the
+    soft-prompt bias) in a training ``sdpa``: repeated to full heads into
+    the flash kernels on the card; forward and the q, k, v gradients
+    against the same call on CPU copies (the plain versions, the same
+    dropout mask), at the kernels' limits."""
+    from image2text_torch.nn.core import Ctx
+    from image2text_torch.ops.attention import sdpa
+
+    g = _gen(dev, 21)
+    b, h, hk, s, d = 2, 12, 2, 272, 128
+    q, dout = (torch.randn(b, h, s, d, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hk, s, d, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    bias = _soft_prompt_bias(s, 16, dev)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        tq, tk, tv = (t.to(device).detach().requires_grad_()
+                      for t in (q, k, v))
+        before = fa.flash_fwd.launches
+        out = sdpa(tq, tk, tv, bias.to(device), causal=True,
+                   dropout_rate=rate, ctx=Ctx(5, True), use_flash=True)
+        out.backward(dout.to(device))
+        launched = fa.flash_fwd.launches - before
+        assert launched == (1 if device.type == "cuda" else 0)
+        assert tk.grad.shape == (b, hk, s, d)
+        outs.append([t.float().cpu() for t in (out, tq.grad, tk.grad,
+                                               tv.grad)])
+    for name, mine, ref in zip(("out", "dq", "dk", "dv"), *outs):
+        check_output(f"grouped sdpa {name}", mine, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["dots", "nothing", "everything"])
+def test_remat_policies_give_the_gradients_of_full_on_the_card(dev, policy):
+    """The tiny flagship's training forward and backward on the card (bf16
+    compute, dropout 0.1, both stacks checkpointing) under each remat
+    policy: the loss and every gradient bitwise equal to ``full``'s, the
+    flash kernels launched as often (their launches are recomputed under
+    every policy)."""
+    from torch.func import functional_call
+
+    from image2text_torch.configs.trainer import flagship_training_config
+    from image2text_torch.training.loop import cast_for_compute
+    from image2text_torch.training.remat import set_remat_policy
+    from image2text_torch.training.wrapper import (ModelTrainerWrapper,
+                                                   TokenizerInfo)
+
+    cfg = flagship_training_config(tiny=True)
+    for sub in (cfg.model.vision_encoder_config, cfg.model.decoder_config):
+        sub.enable_gradient_checkpointing = True
+    tok = TokenizerInfo(eos_token_id=0, bos_token_id=1, mask_token_id=2,
+                        vocab_size=cfg.model.decoder_config.vocab_size)
+    tw = ModelTrainerWrapper(cfg.model, tok, cfg.trainer,
+                             device=dev).init_weights(0)
+    g = _gen(dev, 22)
+    images = torch.randn(2, 3, 64, 64, device=dev, generator=g)
+    labels = torch.randint(3, 500, (2, 24), device=dev, generator=g)
+    runs = []
+    for name in ("full", policy):
+        set_remat_policy(tw.model, name)
+        for p in tw.parameters():
+            p.grad = None
+        before = fa.flash_fwd.launches
+        loss, _ = functional_call(
+            tw, cast_for_compute(tw, torch.bfloat16),
+            (images.to(torch.bfloat16), labels),
+            dict(seed=77, backward=True))
+        runs.append((loss, {n: p.grad.clone() for n, p in
+                            tw.named_parameters() if p.grad is not None},
+                     fa.flash_fwd.launches - before))
+    (l0, g0, n0), (l1, g1, n1) = runs
+    assert torch.equal(l0, l1) and n0 == n1 > 0
+    assert set(g0) == set(g1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n

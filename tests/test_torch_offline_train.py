@@ -153,7 +153,8 @@ def test_trainer_and_evaluate_twins_end_to_end_on_cpu(tmp_path, capsys):
         "--num_images", "2", "--num_candidates", "2", "--max_new_tokens",
         "8"]), device="cpu")
     assert len(result["candidates"]) == 2 and 0.0 <= result["bleu"] <= 1.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError,
+                       match="Deep Lake loader is not ported"):
         cfg = load_training_config(cfg_file)
         cfg.dataset = "flickr30k"
         twin.build_inner_datasets(cfg, twin.config_tokenizer(cfg))

@@ -502,8 +502,8 @@ def test_self_attention_calls_count_the_training_forward(seq, monkeypatch):
 
 def test_trainer_loops_count_steps_and_refuse_unported_remat():
     """``train_loop`` stops when the iterator runs out, ``val_loop``
-    averages its batches (bf16 compute, dropout on), and a remat policy
-    other than full raises."""
+    averages its batches (bf16 compute, dropout on); a ported remat policy
+    tags the model, an unknown one raises."""
     _, _, tw = _pair(dropout=0.1, remat=True)
     cfg = flagship_training_config(tiny=True)
     cfg.num_steps, cfg.num_val_steps, cfg.use_snr_optim = 3, 2, True
@@ -514,7 +514,10 @@ def test_trainer_loops_count_steps_and_refuse_unported_remat():
     loss, metrics = trainer.val_loop(iter([batch] * 2), epoch=0)
     assert np.isfinite(loss) and set(metrics) == {"val_loss_lm"}
     cfg.remat_policy = "dots"
-    with pytest.raises(ValueError, match="not ported"):
+    Trainer(cfg, tw)
+    assert tw.model.decoder._remat_policy == "dots"
+    cfg.remat_policy = "selective"
+    with pytest.raises(ValueError, match="unknown remat_policy"):
         Trainer(cfg, tw)
 
 
