@@ -261,6 +261,31 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
 18. reforward  the fallback on quality2_ck.npz: force_no_cache greedy ids
             equal to the cached path's and to the CPU's.
 
+   chain-rows  fused_block past the resident attention's 432 rows (448,
+            1,024: the K/V-tiled attention) and at head dim 256, against
+            the plain version on the kernel's routes; times, bound,
+            torch.matmul + SDPA.  f32-chain: an f32 sparse encoder block
+            takes the composed forward on the card (moe_ffn's f32 form, no
+            chain kernel), against a CPU copy.  The flash kernels at head
+            dims 80 and 192 (zero-padded) and 256 (the rows' ``head_dim_*``
+            shapes).  flash-planes: one rank's slice of a dp2 × tp2
+            training call with its dropout planes, bit for bit the whole
+            call's slice (bf16, f32).
+   dist     the mesh over NCCL on every card (one here: world size 1,
+            in-process): the full flagship step through parallel/mesh.py
+            and the mesh Trainer (zero_sharded_optimizer set) bit for bit
+            the one-device step, flash launches 48/24, step ms and peak
+            memory of both, greedy generate's tokens equal; what a data
+            rank's dropout pays for drawing the global mask
+            (dropout_cost); on two or more cards also the dp × tp mesh
+            dryrun_multichip picks.
+   dist-tp  with one card, 2 gloo ranks sharing it (dp1 × tp2 with SP,
+            the flagship at full width and depth 2): a train step, a val
+            step and greedy generate against one device (losses within
+            TRAIN_LOSS_TOL, launches equal, 3/4 of the tokens equal).
+   dryrun   graft_entry.entry() on the card, then
+            graft_entry.dryrun_multichip(4): 4 gloo ranks on the CPU (a CPU
+            phase), JAX's two phases and lines.
 19. device-times  the device time of the flash forward, int4_matmul,
             fused_frontend (both routes) and topk_ban_mask rows, in all and
             by kernel (torch.profiler's kernel durations, free of the
@@ -2063,13 +2088,14 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
                           for n, x, y in zip(("dq", "dk", "dv"), got, plain))
         same = all(torch.equal(x, y) for run in again
                    for x, y in zip(got, run))
-        fwd_route, fwd_groups = fa.fwd_plan(b, h, hk, sq, s, n_sms)
+        dk = fa.kernel_head_dim(d)   # the padded head dim
+        fwd_route, fwd_groups = fa.fwd_plan(b, h, hk, sq, s, n_sms, dk)
         regs, spills = _build.resources("flash_attention", (
             "flash_fwd_res_kernel" if fwd_route == "resident"
-            else "flash_fwd_kernel") + f"ILi{d}E")
+            else "flash_fwd_kernel") + f"ILi{dk}E")
         log(f"    flash_fwd {label}: route {fwd_route}, G {fwd_groups}; "
             f"{regs} registers, {spills} bytes spilled a thread")
-        route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms)
+        route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms, dk)
         resident = route == "resident"
         want_pairs = fa.bwd_pairs(b, h, sq, s, causal) if resident else 0
         full = fa.bwd_pairs(b, h, sq, s, False) if resident else 0
@@ -2228,11 +2254,11 @@ def kernel_shapes(flash: dict, int4: set):
 
     f0, i0 = fa.FlashSDPA.forward, im.Int4Matmul.forward
 
-    def flash_forward(ctx, q, k, v, bias, causal, rate, seed):
+    def flash_forward(ctx, q, k, v, bias, causal, rate, seed, planes=None):
         key = (tuple(q.shape), k.shape[1], k.shape[2], causal, rate, q.dtype)
         if key not in flash:
             flash[key] = None if bias is None else bias.detach().cpu()
-        return f0(ctx, q, k, v, bias, causal, rate, seed)
+        return f0(ctx, q, k, v, bias, causal, rate, seed, planes)
 
     def int4_forward(ctx, x, packed, scales):
         int4.add((x.numel() // x.shape[-1], x.shape[-1], packed.shape[0]))
@@ -2769,7 +2795,7 @@ def phase_offline_train(torch, args, results, work: Path) -> Path:
     record_launches(results, "offline_train", counts)
     cfg = trainer.config
     train_dl, _ = twin.build_dataloaders(cfg, twin.config_tokenizer(cfg))
-    images, labels = trainer._batch(*next(iter(train_dl)))
+    images, labels = trainer._on_device(*next(iter(train_dl)))
     want = offline_train_launches(cfg, trainer, labels.shape[1])
     losses = [float(m["train_loss_lm"]) for m in trainer.history]
     sd = load_state_dict(str(ck))
@@ -3854,10 +3880,10 @@ def flash_case(torch, results, label: str, key, bias, gen):
     if not same:
         raise AssertionError(f"flash_bwd {label}: reruns differ")
     del out, lse, got, again, plain, want, want_lse
-    n_sms = sm_count(dev)
+    n_sms, kd = sm_count(dev), fa.kernel_head_dim(d)
     routes = ("f32" if f32 else
-              f"fwd {fa.fwd_plan(b, h, hk, sq, skv, n_sms)[0]}, bwd "
-              f"{fa.bwd_plan(b, h, hk, sq, skv, n_sms)[0]}")
+              f"fwd {fa.fwd_plan(b, h, hk, sq, skv, n_sms, kd)[0]}, bwd "
+              f"{fa.bwd_plan(b, h, hk, sq, skv, n_sms, kd)[0]}")
     ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
           "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
     plain_ms = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
@@ -4072,6 +4098,416 @@ def phase_local_data(torch, work: Path):
             raise AssertionError(f"local-data: C++ resize {max_err}")
 
 
+# -- fault (d)'s shapes, the flash planes, the mesh --------------------------
+
+# Head dims the flash kernels pad (80 → 128, 192 → 256) or take (256): the
+# flagship's encoder call at 4 images, 8 heads on one K/V head
+FLASH_HEAD_DIMS = (
+    ("head_dim_80", 4, 8, 1, 160, 160, 80, False, None, DROPOUT),
+    ("head_dim_192", 4, 8, 1, 160, 160, 192, True, None, DROPOUT),
+    ("head_dim_256", 4, 8, 1, 160, 160, 256, False, None, DROPOUT))
+# (label, images, rows an image, heads): the chain past the resident
+# attention's 432 rows at the flagship's width (head dim 128), and at head
+# dim 256 (4 heads of d 1024) below and past it
+CHAIN_ROWS = (("rows_448", 4, 448, 8), ("rows_1024", 4, 1024, 8),
+              ("head_dim_256", 8, 320, 4), ("head_dim_256_rows_1024", 4,
+                                             1024, 4))
+MESH_GEN_BATCH = 8   # [dist]'s generate: images, 4 new tokens
+
+
+def dense_block(torch, n_head: int, dtype):
+    """A dense flagship encoder block (d 1024, MQA, the MoE FFN) with
+    ``n_head`` heads and random weights from SEED, on the card."""
+    from image2text_torch.configs.models import FLAGSHIP
+    from image2text_torch.models.layers import TransformerBlock
+    from image2text_torch.nn.core import generator, init_parameters
+
+    cfg = copy.deepcopy(FLAGSHIP.vision_encoder_config.transformer_config)
+    cfg.is_sparse_attn = False
+    cfg.attn_config.n_head = n_head
+    blk = TransformerBlock(cfg, device="cuda")
+    init_parameters(blk, generator(SEED + 7, "cuda"))
+    return blk.to(dtype).eval()
+
+
+def route_ties(routes, gates, k) -> dict:
+    """``kernel_check.check_routes``'s statistics held to its tie limit
+    alone: every row routed apart from the plain top-k crosses a gap
+    within TIE of its largest gate; no limit on how many there are."""
+    import torch
+
+    from image2text_torch.ops.fused_moe import topk_mask, unpack_mask
+    from image2text_torch.utils.kernel_check import TIE
+
+    n, _, e = gates.shape
+    took = unpack_mask(routes.reshape(n, 2), e)
+    lowest = torch.where(took, gates, torch.inf).amin(-1)
+    highest = torch.where(took, -torch.inf, gates).amax(-1)
+    gap = float(((highest - lowest).clamp_min(0) / gates.amax(-1)).amax())
+    apart = int((took != topk_mask(gates, k)).any(-1).any(-1).sum())
+    if gap > TIE or not bool((took.sum(-1) == min(k, e)).all()):
+        raise AssertionError(f"chain routes: tie gap {gap} or expert count")
+    return {"rows_apart": apart, "rows": n, "max_tie_gap": gap, "limit": TIE}
+
+
+def phase_chain_rows(torch, results):
+    """fused_block past the resident attention's shared memory (448 and
+    1,024 rows an image: its K/V-tiled route) and at head dim 256, against
+    the plain version on the kernel's own routes; kernel, plain, bound,
+    the two projections' ``torch.matmul`` + SDPA, and the attention kernel
+    alone beside SDPA on the folded query."""
+    import torch.nn.functional as F
+
+    from image2text_torch.ops.fused_block import (attn_route, fused_block,
+                                                  fused_block_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for label, b, t, n_head in CHAIN_ROWS:
+        blk = dense_block(torch, n_head, torch.bfloat16)
+        w = blk.block_weights(torch.bfloat16)
+        d = w.w_o.shape[0]
+        hd = d // n_head
+        x = torch.randn(b, t, d, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        n, e, k = b * t, w.fc.e, w.fc.k
+        before = fused_block.launches
+        got, want, rk, gv = run_pair(torch, fused_block, fused_block_plain,
+                                     (x, w), n, e)
+        assert fused_block.launches == before + 1
+        err = compare(f"fused_block {label} b={b} t={t} d={d} heads "
+                      f"{n_head} (attention route {attn_route(t, hd)})",
+                      got, want)
+        # the plain version ran on the kernel's routes; a row routed apart
+        # from the plain top-k must be a near tie (random gates at d 1024
+        # put a few of these b·t rows within 1e-6 of one)
+        rt = route_ties(rk, gv, k)
+        log(f"    routes: {rt['rows_apart']} of {rt['rows']} rows apart "
+            f"from the plain top-k, largest tie gap {rt['max_tie_gap']:.3g} "
+            f"(limit {rt['limit']})")
+        del got, want
+        ms = cuda_ms(torch, lambda: fused_block(x, w))
+        plain = cuda_ms(torch, lambda: fused_block_plain(x, w))
+        ffn_flops, _ = moe_flops_bytes(x.reshape(n, d), w.fc, w.proj)
+        flops = (2 * n * d * (d + 2 * hd) + 4 * b * n_head * t * t * hd
+                 + 2 * n * d * d + ffn_flops)
+        wbytes = sum(nbytes(getattr(w, f)) for f in w._fields[:8]) + nbytes(
+            w.fc, w.proj)
+        bms, by = bound_ms(2 * nbytes(x) + wbytes, flops)
+        a = torch.randn(n, d, device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+        q = torch.randn(b, n_head, t, hd, device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+        kv = torch.randn(b, 1, t, hd, device="cuda", dtype=torch.bfloat16,
+                         generator=gen)
+        lib = cuda_ms(torch, lambda: (
+            torch.matmul(a, w.w_qkv), torch.matmul(a, w.w_o),
+            F.scaled_dot_product_attention(q, kv, kv, enable_gqa=True)))
+        stages = chain_stage_ms(torch, w, b, t, 0, gen)
+        log(f"  fused_block {label}: kernel {ms:.4f} ms, plain {plain:.4f}, "
+            f"bound {bms:.4f} ({by}; at {bms / ms:.3f} of it), torch.matmul "
+            f"x2 + SDPA {lib:.4f}; attention kernel {stages['attention_ms']:.4f}"
+            f" ms, SDPA on the folded query "
+            f"{stages['attention_library_ms']:.4f} ({CARD})")
+        kernel_row(results, "fused_block", label, None, None,
+                   dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                        bound_by=by, library_ms=lib,
+                        route=attn_route(t, hd), **stages),
+                   b=b, t=t, d=d, n_head=n_head)
+        del blk, w, x, a, q, kv
+        torch.cuda.empty_cache()
+
+
+def phase_f32_chain(torch):
+    """An f32 sparse flagship encoder block's eval forward on the card
+    takes the composed route (JAX's gate on hardware declines f32): no
+    chain kernel, one ``moe_ffn`` launch (its f32 form); against a CPU
+    copy, which takes the chain's plain version, at the f32 limits."""
+    from image2text_torch.configs.models import FLAGSHIP
+    from image2text_torch.models.layers import TransformerBlock
+    from image2text_torch.nn.core import generator, init_parameters
+    from image2text_torch.ops.fused_block import fused_block, sparse_block
+    from image2text_torch.ops.fused_moe import moe_ffn
+
+    cfg = FLAGSHIP.vision_encoder_config
+    blk = TransformerBlock(cfg.transformer_config, seed=1, device="cuda")
+    init_parameters(blk, generator(SEED + 9, "cuda"))
+    blk.eval()
+    t = cfg.transformer_config.max_block_size
+    x = torch.randn(8, t, blk.attn.n_embd, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    counts, (got, layout) = launch_counts(lambda: blk(x, want_lazy=True))
+    cpu = copy.deepcopy(blk).cpu()
+    want, layout_cpu = cpu(x.cpu(), want_lazy=True)
+    log(f"  f32 sparse block (b 8, t {t}, d {blk.attn.n_embd}): launches "
+        f"{ {k: v for k, v in counts.items() if v} } (want moe_ffn 1, no "
+        f"chain kernel)")
+    if (counts["sparse_block"] or counts["fused_block"]
+            or counts["moe_ffn"] != 1 or got.dtype != torch.float32
+            or not (layout == layout_cpu).all()):
+        raise AssertionError(f"f32 chain route: {counts}")
+    compare("f32 sparse block card (composed) vs CPU (chain plain)",
+            got.cpu(), want, f32=True)
+
+
+def phase_flash_planes(torch, results):
+    """One rank's slice of a dp2 × tp2 flagship training attention call
+    (rows 48–95 of 96, heads 4–7 of 8, the encoder's 160 keys, dropout
+    0.1): with its planes (``planes_of``) the forward's output and lse and
+    the backward's dQ are bit for bit the whole call's slice, and its dK,
+    dV match the plain version with the same planes; bf16 and f32."""
+    from image2text_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    B, H, s, d, rate, seed = 2 * TRAIN_BATCH, 8, 160, 128, DROPOUT, 20240
+    b0, h0 = TRAIN_BATCH, 4
+    for dtype in (torch.bfloat16, torch.float32):
+        q, dout = (torch.randn(B, H, s, d, device="cuda", generator=gen
+                               ).to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, 1, s, d, device="cuda", generator=gen
+                            ).to(dtype) for _ in range(2))
+        out_w, lse_w = fa.flash_fwd(q, k, v, None, False, rate, seed)
+        dvec_w = (dout.float() * out_w.float()).sum(-1)
+        dq_w = fa.flash_bwd(q, k, v, None, False, dout, lse_w, dvec_w, rate,
+                            seed)[0]
+        mine = (slice(b0, B), slice(h0, H))
+        ql, doutl = (t[mine].contiguous() for t in (q, dout))
+        kl, vl = (t[b0:].contiguous() for t in (k, v))
+        planes = fa.planes_of(B - b0, H - h0, rows=(b0, B), heads=(h0, H))
+        out, lse = fa.flash_fwd(ql, kl, vl, None, False, rate, seed, planes)
+        g = (doutl, lse, dvec_w[mine].contiguous(), rate, seed)
+        got = fa.flash_bwd(ql, kl, vl, None, False, *g, planes=planes)
+        plain = fa.flash_backward_plain(ql, kl, vl, None, False, *g,
+                                        planes=planes)
+        unplaced, _ = fa.flash_fwd(ql, kl, vl, None, False, rate, seed)
+        torch.cuda.synchronize()
+        same = (torch.equal(out, out_w[mine]), torch.equal(lse, lse_w[mine]),
+                torch.equal(got[0], dq_w[mine]))
+        log(f"  flash {str(dtype)[6:]} b {B - b0} of {B}, heads {H - h0} of "
+            f"{H}, planes {planes}: out, lse, dQ bit for bit the whole "
+            f"call's slice {same}; without the planes the output differs: "
+            f"{not torch.equal(unplaced, out)}")
+        if not all(same) or torch.equal(unplaced, out):
+            raise AssertionError(f"flash planes {dtype}: {same}")
+        for name, x, y in zip(("dk", "dv"), got[1:], plain[1:]):
+            compare(f"flash_bwd {name} with planes ({str(dtype)[6:]})", x, y,
+                    f32=dtype == torch.float32)
+        del q, k, v, dout, out_w, lse_w, dq_w, got, plain
+
+
+def _dist_flagship(torch, zero: bool):
+    """The flagship's training setup (as ``train_setup``) with ZeRO-1 set
+    as asked."""
+    cfg, wrapper, _ = train_setup(torch)
+    cfg.zero_sharded_optimizer = zero
+    return cfg, wrapper
+
+
+def step_windows(torch, trainer, images, labels):
+    """(median step ms of 3 windows of 2 steps, peak GiB since the last
+    reset)."""
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 2)
+    log(f"    windows (ms): {[round(x * 1e3, 2) for x in windows]}")
+    return (statistics.median(windows) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _greedy(torch, model, images):
+    prompt = torch.full((images.shape[0], 1), FLAGSHIP_BOS,
+                        dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        return model.generate(images, prompt, max_new_tokens=4,
+                              temperature=0.0)
+
+
+def phase_dist(torch, results):
+    """The mesh on the card, NCCL over every card there is.  In this
+    process (world size 1): the full-width flagship step (b 48, full
+    depth, bf16, SNRAdam, dropout 0.1, ``zero_sharded_optimizer`` set:
+    with one data rank ZeRO-1 stays off, as JAX's rule has it) through
+    ``parallel/mesh.py`` and the mesh Trainer, bit for bit the one-device
+    Trainer's step (every parameter's digest, the loss), flash launches
+    48/24; its step ms and peak memory; greedy generate under the mesh
+    with the one-device tokens.  With two or more cards, also the
+    dp × tp mesh ``dryrun_multichip`` picks, one rank a card."""
+    import torch.distributed as dist
+
+    from image2text_torch.parallel.mesh import make_mesh
+    from image2text_torch.training.loop import Trainer
+
+    n = torch.cuda.device_count()
+    cfg, wrapper = _dist_flagship(torch, zero=True)
+    images, labels = train_inputs(torch, cfg, TRAIN_BATCH, SEED + 5)
+    gen_images = torch.as_tensor(images[:MESH_GEN_BATCH], device="cuda")
+    tokens = _greedy(torch, wrapper.model, gen_images)
+    trainer = Trainer(cfg, wrapper)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, m = launch_counts(lambda: trainer.train_step(images, labels))
+    want = {k: float(v) for k, v in m.items()}
+    digests = {k: tensor_digest(torch, p)
+               for k, p in wrapper.named_parameters()}
+    one_ms, one_peak = step_windows(torch, trainer, images, labels)
+    log(f"  one device: launches {counts}; metrics {want}; step ms "
+        f"{one_ms:.2f}, peak memory {one_peak:.3f} GiB")
+    del trainer, wrapper
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="dist-", dir=REPO / "build")
+    dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        cfg, wrapper = _dist_flagship(torch, zero=True)
+        mesh = make_mesh(cfg.mesh, "cuda")
+        trainer = Trainer(cfg, wrapper, mesh=mesh)
+        tokens_mesh = _greedy(torch, wrapper.model, gen_images)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_m, m = launch_counts(lambda: trainer.train_step(images,
+                                                               labels))
+        got = {k: float(v) for k, v in m.items()}
+        moved = [k for k, p in wrapper.named_parameters()
+                 if tensor_digest(torch, p) != digests[k]]
+        record_launches(results, "mesh_train_step", counts_m)
+        log(f"  mesh {mesh} over NCCL ({dist.get_backend()}), ZeRO-1 "
+            f"{'on' if trainer.zero else 'off (one data rank)'}: launches "
+            f"{counts_m}; metrics {got}; parameters not bit for bit the "
+            f"one-device step's: {len(moved)}; generate's tokens equal: "
+            f"{torch.equal(tokens, tokens_mesh)}")
+        if (got != want or moved or counts_m != counts
+                or counts_m["flash_fwd"] != 48 or counts_m["flash_bwd"] != 24
+                or not torch.equal(tokens, tokens_mesh)):
+            raise AssertionError(f"[dist] mesh step differs: {moved[:3]}")
+        step_ms, peak = step_windows(torch, trainer, images, labels)
+        log(f"  mesh step ms (median of 3 windows of 2 steps after the "
+            f"compared one): {step_ms:.2f} (one device {one_ms:.2f}); peak "
+            f"memory {peak:.3f} GiB (one device {one_peak:.3f}) on "
+            f"{torch.cuda.get_device_name(0)} ({CARD})")
+        del trainer, wrapper
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    dropout_cost(torch)
+    if n < 2:
+        log(f"  one card ({n}): NCCL ran at world size 1; the ranks of a "
+            f"mesh meet on this card over gloo ([dist-tp]) and on CPU gloo "
+            f"ranks ([dryrun])")
+        return
+    from image2text_torch.parallel import checks
+    from image2text_torch.parallel.launch import run_ranks
+
+    out = run_ranks(checks.card_mesh_step, n, backend="nccl")[0]
+    cfg = checks.card_flagship_config(2, 8)
+    w = checks.build(cfg, device="cuda")
+    one = Trainer(cfg, w).train_step(*checks.batches(
+        1, 8, seed=5, image=128, vocab=cfg.model.decoder_config.vocab_size
+    )[0])
+    ref = {k: float(v) for k, v in one.items()}
+    log(f"  {n} cards, mesh dp{out['mesh'][0]} x tp{out['mesh'][1]}, depth "
+        f"2: {out['metrics']} against one card's {ref}")
+    for k, v in ref.items():
+        if abs(out["metrics"][k] - v) > TRAIN_LOSS_TOL * abs(v):
+            raise AssertionError(f"[dist] {n} cards: {k}")
+
+
+def dropout_cost(torch, data: int = 8, batch: int = TRAIN_BATCH,
+                 t: int = TRAIN_SEQ, d: int = 1024):
+    """What a data rank pays for a dropout under a mesh of ``data`` data
+    ranks: ``nn.core.dropout`` draws the mask of the global batch and keeps
+    the rank's rows.  Its ms and transient peak on the rank's ``batch /
+    data`` rows of a bf16 (rows, t, d) residual, beside the same rows
+    drawn alone (one device at that batch)."""
+    from image2text_torch.nn.core import Ctx, dropout
+
+    x = torch.randn(batch // data, t, d, device="cuda").to(torch.bfloat16)
+    out = {}
+    for name, rows in (("global draw", (0, batch)), ("local draw", (0, 0))):
+        ctx = Ctx(SEED, True, rows)
+        dropout(x, 0.1, ctx)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: dropout(x, 0.1, ctx))
+        out[name] = (ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    (g_ms, g_mb), (l_ms, l_mb) = out["global draw"], out["local draw"]
+    log(f"  dropout on one data rank's {batch // data} of {batch} rows of a "
+        f"bf16 ({t}, {d}) residual (dp{data}): the global draw "
+        f"{g_ms:.4f} ms, {g_mb:.1f} MiB transient, against {l_ms:.4f} ms, "
+        f"{l_mb:.1f} MiB drawn alone ({g_ms / l_ms:.1f}x) on {CARD}")
+
+
+def phase_dist_tp(torch):
+    """The ranks of a mesh on this card: ``parallel/checks.py::
+    card_tp_check`` on 2 gloo ranks (dp1 x tp2 with SP, the flagship at
+    full width and depth 2, bf16, SNRAdam, dropout 0.1): a train step, a
+    val step and greedy generate, held against ``card_reference`` (one
+    device, in this process meanwhile): losses within TRAIN_LOSS_TOL (a
+    bf16 split sum reorders additions), the same kernel launches, and at
+    least 3/4 of the tokens equal (a near-tie the bf16 sums flip changes
+    a row's later tokens)."""
+    from image2text_torch.parallel import checks
+    from image2text_torch.parallel.launch import Ranks
+
+    t0 = time.perf_counter()
+    ranks = Ranks(checks.card_tp_check, 2)
+    try:
+        ref = checks.card_reference()
+    finally:
+        got = ranks.join()[0]
+    log(f"  {got['mesh']} on 2 gloo ranks sharing {CARD} "
+        f"({time.perf_counter() - t0:.1f} s with the reference)")
+    bad = []
+    for part in ("train", "val"):
+        log(f"  {part}: {got[part]} against one device's {ref[part]}")
+        bad += [f"{part} {k}" for k, v in ref[part].items()
+                if abs(got[part][k] - v) > TRAIN_LOSS_TOL * abs(v)]
+    for part, counts in got["launches"].items():
+        log(f"  {part} launches on rank 0: {counts} (one device: "
+            f"{ref['launches'][part]})")
+        if counts != ref["launches"][part]:
+            bad.append(f"{part} launches")
+    used = {k for c in got["launches"].values() for k, n in c.items() if n}
+    if not {"sparse_block", "moe_ffn", "flash_fwd", "flash_bwd"} <= used:
+        bad.append(f"kernels launched: {sorted(used)}")
+    agree = float((got["tokens"] == ref["tokens"]).mean())
+    log(f"  generate: tokens {got['tokens'].tolist()}, equal to one "
+        f"device's: {agree:.4f}")
+    if agree < 0.75:
+        bad.append("generate")
+    if bad:
+        raise AssertionError(f"[dist-tp] differs: {bad}")
+
+
+def phase_dryrun(torch):
+    """``graft_entry.dryrun_multichip(4)``: 4 gloo ranks on the CPU, the
+    tiny dp2 × tp2 phase and the flagship widths at depth 2 with ZeRO-1
+    and SP (train, val, generate, checkpoint); a CPU phase."""
+    from image2text_torch.graft_entry import dryrun_multichip, entry
+
+    forward, example = entry()
+    logits = forward(*example)
+    log(f"  graft_entry.entry(): the flagship forward on the card, logits "
+        f"{tuple(logits.shape)} {logits.dtype}, finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("[dryrun] entry() logits not finite")
+    del forward, example, logits
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4)
+    log(f"  dryrun_multichip(4) on CPU gloo ranks: {out[0]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not out[0] or not all(math.isfinite(v) for v in out[0].values()):
+        raise AssertionError(f"[dryrun] {out}")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4201,6 +4637,26 @@ def main() -> int:
         phase_parity(torch, model, "dense-parity", FLAGSHIP_BOS)
     del model
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        log(f"[chain-rows] fused_block past the resident attention's 432 "
+            f"rows and at head dim 256, vs plain version ({CARD})")
+        phase_chain_rows(torch, results)
+        log("[f32-chain] an f32 sparse encoder block: the composed route, "
+            "card vs CPU")
+        phase_f32_chain(torch)
+        log("  flash-attention kernels at head dims the kernels pad (80, "
+            "192) or take (256) vs plain versions")
+        phase_flash_kernels(torch, args, results, FLASH_HEAD_DIMS)
+        log("[flash-planes] the flash kernels on one rank's slice of a "
+            "dp2 x tp2 call: bit for bit the whole call's slice")
+        phase_flash_planes(torch, results)
+    log(f"[dist] the mesh over NCCL: the flagship step through the mesh "
+        f"Trainer against the one-device step ({CARD})")
+    phase_dist(torch, results)
+    if torch.cuda.device_count() < 2:
+        log(f"[dist-tp] the mesh's ranks on one card: dp1 x tp2 with SP "
+            f"over gloo against one device ({CARD})")
+        phase_dist_tp(torch)
     log("[train] flagship training step at full width and depth")
     phase_train(torch, args, results, "flagship_train_step",
                 lambda: train_setup(torch),
@@ -4296,6 +4752,10 @@ def main() -> int:
     log("[reforward] the fallback on quality2_ck.npz: card vs its cached "
         "path and vs the CPU")
     phase_reforward_quality2(torch, results)
+
+    log("[dryrun] dryrun_multichip(4): the mesh's multi-rank path on 4 CPU "
+        "gloo ranks (a CPU phase)")
+    phase_dryrun(torch)
 
     log("[device-times] kernel device times (torch.profiler), taken after "
         "every CUDA-event time of the run")

@@ -1,8 +1,10 @@
 """Trainer configuration for the PyTorch port: plain dataclasses.
 
 The fields of ``image2text_tpu/configs/trainer.py`` under the same names,
-but for the JAX package's mesh, ZeRO and sequence-parallel fields (one
-device: ROADMAP queue 1 item 7).  ``configs/reader.py`` reads a
+the mesh (:class:`MeshConfig`), ``zero_sharded_optimizer`` and
+``sequence_parallel`` among them (``parallel/``; a run without a
+``torch.distributed`` group is one device whatever they say).
+``configs/reader.py`` reads a
 ``training_configs/`` YAML file into :class:`TrainingConfig`;
 :data:`FLAGSHIP_TRAINING` transcribes
 ``training_configs/tpu/nano-mini.yaml`` and :data:`GPT2_MEDIUM_TRAINING`
@@ -11,7 +13,7 @@ device: ROADMAP queue 1 item 7).  ``configs/reader.py`` reads a
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 from image2text_torch.configs.models import (VisionEncoderDecoderConfig,
@@ -41,6 +43,15 @@ class OptimizerConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The device mesh of a run: ``data`` × ``model`` ranks, ``-1`` on the
+    data axis meaning every remaining rank (``parallel/mesh.py``)."""
+
+    data: int = -1
+    model: int = 1
+
+
+@dataclass
 class TrainingConfig:
     model: VisionEncoderDecoderConfig
     batch_size: int
@@ -64,6 +75,12 @@ class TrainingConfig:
     profile_dir: Optional[str] = None  # torch.profiler trace output dir
     remat_policy: Optional[str] = None
     max_loop_epochs: Optional[int] = None
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # ZeRO-1: the optimizer's moments split over the mesh's data axis
+    zero_sharded_optimizer: bool = False
+    # the residual stream's sequence axis split over the model axis at the
+    # blocks' boundaries in training (needs mesh.model > 1)
+    sequence_parallel: bool = False
 
 
 FLAGSHIP_TRAINING = TrainingConfig(
@@ -104,6 +121,7 @@ def gpt2_medium_training_config(tiny: bool = False) -> TrainingConfig:
     return cfg
 
 
-__all__ = ["FLAGSHIP_TRAINING", "GPT2_MEDIUM_TRAINING", "OptimizerConfig",
+__all__ = ["FLAGSHIP_TRAINING", "GPT2_MEDIUM_TRAINING", "MeshConfig",
+           "OptimizerConfig",
            "TrainerWrapperConfig", "TrainingConfig",
            "flagship_training_config", "gpt2_medium_training_config"]

@@ -77,19 +77,27 @@ __device__ __forceinline__ unsigned keep_hash(int row, int col, int plane, unsig
 // kernels and flash_attention_f32.cu's f32 ones: ops/flash_attention.py
 // passes the same list to both), their Params built by the including
 // file's make_params, and the dispatch on the head dim.
+// The dropout hash's plane of (batch i, head j) is plane_off + i·plane_h +
+// j: under a mesh a rank holding rows [b0, b0 + b) and heads [h0, h0 + h)
+// of H hashes the global (b0 + i)·H + h0 + j (plane_h = H, plane_off =
+// b0·H + h0); one device passes (h, 0).
 #define I2T_FLASH_ARGS                                                                        \
   const void *bias, long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq, \
       int skv, int d, int causal, float scale, int dropout, unsigned seed, unsigned threshold, \
-      float inv_keep, void *stream
+      float inv_keep, int plane_h, int plane_off, void *stream
 #define I2T_FLASH_PARAMS \
   make_params(q, k, v, bias, bsb, bsh, bsr, b, h, hk, sq, skv, causal, scale, dropout, seed, \
-              threshold, inv_keep)
+              threshold, inv_keep, plane_h, plane_off)
+// The kernels' head dims (256: JAX's flash takes any head dim up to 256;
+// the host pads a head dim to the next of these with zero lanes).  The
+// resident kernels take those up to 128 and refuse 256 themselves.
 #define I2T_DISPATCH(X) \
   switch (d) {          \
     case 16: X(16);     \
     case 32: X(32);     \
     case 64: X(64);     \
     case 128: X(128);   \
+    case 256: X(256);   \
     default: return (int)cudaErrorInvalidValue; \
   }
 

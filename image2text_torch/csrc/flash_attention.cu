@@ -123,10 +123,16 @@ struct Params {
   int dropout;
   unsigned seed, threshold;
   float inv_keep;
+  int plane_h, plane_off;  // the hash's plane of (batch i, head j): plane_off + i·plane_h + j
 };
 
+// ``plane`` is the hash's (global) plane: hash_plane(p, batch, head).
 __device__ __forceinline__ float keep_scale(const Params& p, int row, int col, int plane) {
   return keep_hash(row, col, plane, p.seed) < p.threshold ? p.inv_keep : 0.f;
+}
+
+__device__ __forceinline__ int hash_plane(const Params& p, int bi, int hi) {
+  return p.plane_off + bi * p.plane_h + hi;
 }
 
 // Rows [r0, r0 + 64) of a (rows, D) bf16 matrix into shared memory (row
@@ -241,8 +247,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       float p0 = expf(s0 - m_safe), p1 = expf(s1 - m_safe);
       const float psum = warp_sum(p0 + p1);
       if (p.dropout) {
-        p0 *= keep_scale(p, row, k0 + lane, bh);
-        p1 *= keep_scale(p, row, k0 + lane + 32, bh);
+        p0 *= keep_scale(p, row, k0 + lane, hash_plane(p, bi, hi));
+        p1 *= keep_scale(p, row, k0 + lane + 32, hash_plane(p, bi, hi));
       }
       P[lr * PLD + lane] = to_bf(p0);
       P[lr * PLD + lane + 32] = to_bf(p1);
@@ -287,14 +293,24 @@ struct BwdSmem {
   static constexpr int LD = D + 8;
   static constexpr size_t bytes = 4 * 64 * LD * sizeof(bf16) + 2 * BQ * SLD * sizeof(float) +
                                   2 * BQ * PLD * sizeof(bf16) + 2 * BQ * sizeof(float);
-  // the f32 staging of a warp's 16 x D output fits in the score tiles
-  static_assert(4 * 16 * (D + 4) <= 2 * BQ * SLD, "staging must fit the score tiles");
+  // the f32 staging of a warp's 16 x D output fits in the score tiles up
+  // to D 128, at D 256 in the four bf16 tiles (both read no more by then)
+  static_assert(D > 128 ? 4 * 16 * (D + 4) * 4 <= 4 * 64 * LD * 2
+                        : 4 * 16 * (D + 4) <= 2 * BQ * SLD,
+                "staging must fit");
 };
+
 
 struct BwdTiles {
   bf16 *Qs, *dOs, *Ks, *Vs, *Pt, *dS;
   float *S, *dP, *lse, *dvec;
 };
+
+// Where a warp stages its 16 x D f32 output rows once its tiles are read.
+template <int D>
+__device__ float* stage_of(unsigned char* smem, const BwdTiles& t, int warp) {
+  return (D > 128 ? reinterpret_cast<float*>(smem) : t.S) + warp * 16 * (D + 4);
+}
 
 template <int D>
 __device__ BwdTiles bwd_tiles(unsigned char* smem) {
@@ -327,9 +343,10 @@ __device__ void load_q_side(const Params& p, const BwdTiles& t, int bh, int q0) 
   }
 }
 
-// One warp: its 16 q rows of p̃ and dS (bf16) for the tile (q0, k0).
+// One warp: its 16 q rows of p̃ and dS (bf16) for the tile (q0, k0);
+// ``plane`` is the hash's.
 template <int D>
-__device__ void warp_p_ds(const Params& p, const BwdTiles& t, const float* bias, int bh,
+__device__ void warp_p_ds(const Params& p, const BwdTiles& t, const float* bias, int plane,
                           int q0, int k0, bool want_p) {
   constexpr int LD = BwdSmem<D>::LD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -347,7 +364,7 @@ __device__ void warp_p_ds(const Params& p, const BwdTiles& t, const float* bias,
       float pr = row < p.sq ? expf(s - t.lse[lr]) : 0.f;
       float dp = dPw[r * SLD + c];
       if (p.dropout) {
-        const float ks = keep_scale(p, row, col, bh);
+        const float ks = keep_scale(p, row, col, plane);
         dp *= ks;
         if (want_p) t.Pt[lr * PLD + c] = to_bf(pr * ks);
       } else if (want_p) {
@@ -410,7 +427,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
       __syncthreads();
       load_q_side<D>(p, t, bh, q0);
       __syncthreads();
-      warp_p_ds<D>(p, t, bias, bh, q0, k0, true);
+      warp_p_ds<D>(p, t, bias, hash_plane(p, bi, hi), q0, k0, true);
       __syncthreads();
       // this warp's 16 kv rows: dV += p̃ᵀ dO, dK += dSᵀ Q
 #pragma unroll
@@ -430,7 +447,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     }
   }
   __syncthreads();
-  float* stage = t.S + warp * 16 * (D + 4);
+  float* stage = stage_of<D>(smem, t, warp);
   store_rows<D>(dk, p.scale, stage, p.dk + (size_t)kvp * p.skv * D, k0 + warp * 16, p.skv);
   store_rows<D>(dv, 1.f, stage, p.dv + (size_t)kvp * p.skv * D, k0 + warp * 16, p.skv);
 }
@@ -455,7 +472,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     load_tile<D>(t.Ks, LD, p.k + (size_t)kvp * p.skv * D, k0, p.skv);
     load_tile<D>(t.Vs, LD, p.v + (size_t)kvp * p.skv * D, k0, p.skv);
     __syncthreads();
-    warp_p_ds<D>(p, t, bias, bh, q0, k0, false);
+    warp_p_ds<D>(p, t, bias, hash_plane(p, bi, hi), q0, k0, false);
     __syncwarp();
     // this warp's 16 q rows: dQ += dS K
 #pragma unroll
@@ -471,7 +488,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     }
   }
   __syncthreads();
-  store_rows<D>(dq, p.scale, t.S + warp * 16 * (D + 4), p.dq + (size_t)bh * p.sq * D,
+  store_rows<D>(dq, p.scale, stage_of<D>(smem, t, warp), p.dq + (size_t)bh * p.sq * D,
                 q0 + warp * 16, p.sq);
 }
 
@@ -640,7 +657,7 @@ __global__ void __launch_bounds__(MAX_KW * 32, 1) flash_bwd_kernel(Params p) {
           }
           float dp = pa[n][u];
           if (p.dropout) {
-            const float ks = keep_scale(p, row, col, bh);
+            const float ks = keep_scale(p, row, col, hash_plane(p, bi, hi));
             dp *= ks;
             sa[n][u] = pr * ks;
           } else {
@@ -830,7 +847,7 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
       in[hh] = fr < nrows;
       const int head = h0 + (in[hh] ? fr / p.sq : 0);
       row[hh] = fr % p.sq;
-      plane[hh] = bi * p.h + head;
+      plane[hh] = hash_plane(p, bi, head);
       lim[hh] = row[hh] + p.skv - p.sq;
       brow[hh] = (p.bias != nullptr && in[hh])
                      ? p.bias + bi * p.bsb + head * p.bsh + row[hh] * p.bsr
@@ -985,8 +1002,10 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const float* part
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq,
                    int skv, int causal, float scale, int dropout, unsigned seed,
-                   unsigned threshold, float inv_keep) {
+                   unsigned threshold, float inv_keep, int plane_h, int plane_off) {
   Params p = {};
+  p.plane_h = plane_h;
+  p.plane_off = plane_off;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
@@ -1031,17 +1050,36 @@ int launch_tiled_bwd(const Params& p, void* stream) {
 template <int D>
 int launch_bwd(const Params& p, int groups, void* stream) {
   if (groups == 0) return launch_tiled_bwd<D>(p, stream);
-  if (groups < 0 || p.skv > SKV_MAX || (groups > 1 && p.part == nullptr))
+  if constexpr (D > 128) {  // the resident kernels take d <= 128
     return (int)cudaErrorInvalidValue;
-  const int nw = (p.skv + KW - 1) / KW;
-  int err = launch(flash_bwd_kernel<D>, res_smem<D>(nw), dim3(groups, p.b * p.hk), p, stream,
-                   32 * nw);
-  if (err != 0 || groups == 1) return err;
-  const long long elems = (long long)p.b * p.hk * p.skv * D;
-  const long long threads = (2 * elems / 4 + 255) / 256;
-  flash_bwd_reduce_kernel<<<(unsigned)threads, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      p.part, p.dk, p.dv, groups, elems, p.scale);
-  return (int)cudaGetLastError();
+  } else {
+    if (groups < 0 || p.skv > SKV_MAX || (groups > 1 && p.part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const int nw = (p.skv + KW - 1) / KW;
+    int err = launch(flash_bwd_kernel<D>, res_smem<D>(nw), dim3(groups, p.b * p.hk), p,
+                     stream, 32 * nw);
+    if (err != 0 || groups == 1) return err;
+    const long long elems = (long long)p.b * p.hk * p.skv * D;
+    const long long threads = (2 * elems / 4 + 255) / 256;
+    flash_bwd_reduce_kernel<<<(unsigned)threads, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(p.part, p.dk, p.dv, groups,
+                                                                   elems, p.scale);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The forward: the tiled kernel for groups = 0, else the resident one.
+template <int D>
+int launch_fwd(const Params& p, int groups, void* stream) {
+  if (groups == 0)
+    return launch(flash_fwd_kernel<D>, FwdSmem<D>::bytes,
+                  dim3((p.sq + BQ - 1) / BQ, p.b * p.h), p, stream);
+  if constexpr (D > 128) {  // the resident kernels take d <= 128
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return launch(flash_fwd_res_kernel<D>, fwd_smem(D, p.skv), dim3(groups, p.b * p.hk), p,
+                  stream, FWD_WARPS * 32);
+  }
 }
 
 bool valid(int b, int h, int hk, int sq, int skv) {
@@ -1060,17 +1098,9 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
   Params p = I2T_FLASH_PARAMS;
   p.o = static_cast<bf16*>(o);
   p.lse_out = static_cast<float*>(lse);
-  if (groups == 0) {
-    const dim3 grid((sq + BQ - 1) / BQ, b * h);
-#define FWD(D) return launch(flash_fwd_kernel<D>, FwdSmem<D>::bytes, grid, p, stream)
-    I2T_DISPATCH(FWD)
+#define FWD(D) return launch_fwd<D>(p, groups, stream)
+  I2T_DISPATCH(FWD)
 #undef FWD
-  }
-  const dim3 grid(groups, b * hk);
-#define FWD_RES(D) \
-  return launch(flash_fwd_res_kernel<D>, fwd_smem(D, skv), grid, p, stream, FWD_WARPS * 32)
-  I2T_DISPATCH(FWD_RES)
-#undef FWD_RES
 }
 
 // dQ, dK and dV of one backward call: the K/V-resident kernel (skv <=

@@ -75,7 +75,12 @@ struct Params32 {
   int dropout;
   unsigned seed, threshold;
   float inv_keep;
+  int plane_h, plane_off;  // the hash's plane of (batch i, head j): plane_off + i·plane_h + j
 };
+
+__device__ __forceinline__ int hash_plane(const Params32& p, int batch, int head) {
+  return p.plane_off + batch * p.plane_h + head;
+}
 
 // The masked, scaled score of (row, col) from the product ``s``; the
 // caller passes row < sq and col < skv.  ``bias`` is the plane's.
@@ -181,7 +186,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(Params32 p) 
       const int col = quad + 4 * j;
       float pj = expf(s[j] - m_new);  // 0 for a column past skv
       sum += pj;
-      if (p.dropout && pj != 0.f) pj *= keep(p, row, k0 + col, bh);
+      if (p.dropout && pj != 0.f) pj *= keep(p, row, k0 + col, hash_plane(p, batch, head));
       ps[r * F32_PLD + col] = pj;
     }
     l = l * alpha + quad_sum(sum);
@@ -276,7 +281,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dkv_f32_kernel(Params32
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int rr = quad + 4 * j;
-        grads_of(p, bias, s[j], dp[j], q0 + rr, key, plane, lse_s[rr], dvec_s[rr],
+        grads_of(p, bias, s[j], dp[j], q0 + rr, key, hash_plane(p, batch, hh), lse_s[rr],
+                 dvec_s[rr],
                  pts[kr * F32_PLD + rr], dss[kr * F32_PLD + rr]);
       }
       __syncwarp();  // a key's four threads are one warp's
@@ -343,7 +349,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(Params32 
     for (int j = 0; j < 8; ++j) {
       const int col = quad + 4 * j;
       float pt;
-      grads_of(p, bias, s[j], dp[j], row, k0 + col, bh, lse, dvec, pt, dss[r * F32_PLD + col]);
+      grads_of(p, bias, s[j], dp[j], row, k0 + col, hash_plane(p, batch, head), lse, dvec, pt,
+               dss[r * F32_PLD + col]);
     }
     __syncwarp();
     for (int j = 0; j < F32_KEYS; ++j) {
@@ -386,8 +393,10 @@ int launch_bwd(const Params32& p, void* stream) {
 Params32 make_params(const void* q, const void* k, const void* v, const void* bias, long long bsb,
                      long long bsh, long long bsr, int b, int h, int hk, int sq, int skv,
                      int causal, float scale, int dropout, unsigned seed, unsigned threshold,
-                     float inv_keep) {
+                     float inv_keep, int plane_h, int plane_off) {
   Params32 p = {};
+  p.plane_h = plane_h;
+  p.plane_off = plane_off;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);

@@ -35,8 +35,8 @@ from image2text_torch.configs.models import (GPT2_MODEL_TABLE,
 from image2text_torch.models.kv_cache import KVCache
 from image2text_torch.models.layers import (AdvancedPositionalBiasMLP,
                                             MoELinear, TransformerBlock)
-from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, normal_init,
-                                      zeros_init)
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, SequenceParallel,
+                                      dropout, normal_init, zeros_init)
 from image2text_torch.nn.modules import Embedding, LayerNorm, Linear
 from image2text_torch.ops.static_gather import canonicalize
 from image2text_torch.training.remat import checkpoint_block
@@ -229,11 +229,14 @@ class TransformerDecoder(nn.Module):
         remat = (self.enable_gradient_checkpointing and ctx.train
                  and kv_cache is None)
         layout = None
+        sp = SequenceParallel.of(self.blocks, x, ctx, kv_cache)
+        if sp is not None:
+            x = sp.split(x)
         for depth, blk in enumerate(self.blocks):
             cross_inputs = cross_attn_embeds if self._cross_depth(depth) \
                 else None
             ckv = cross_kv.get(depth) if cross_kv is not None else None
-            new_layout = blk.next_layout(layout, x.shape[1]) if lazy else None
+            new_layout = blk.next_layout(layout, t) if lazy else None
 
             def run(x_, ci_, am_, blk_=blk, ckv_=ckv, layout_=layout,
                     ctx_=ctx.fold(100 + depth)):
@@ -244,10 +247,14 @@ class TransformerDecoder(nn.Module):
                 return out[0] if lazy else out
 
             ci = None if ckv is not None else cross_inputs
+            if sp is not None:
+                run = sp.wrap(run)
             x = (checkpoint_block(run, x, ci, attn_msk,
                                   policy=self._remat_policy) if remat
                  else run(x, ci, attn_msk))
             layout = new_layout
+        if sp is not None:
+            x = sp.gather(x)
         if layout is not None:
             x = canonicalize(x, layout)
         x = self.transformer.ln_f(x)

@@ -35,8 +35,8 @@ from image2text_torch.models.layers import (AdvancedPositionalBiasMLP,
                                             ConvMLP, PeerLookup,
                                             TransformerBlock, _Cached)
 from image2text_torch.models.vit import VisionTransformerB16
-from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
-                                      normal_init)
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, SequenceParallel,
+                                      dropout, new_param, normal_init)
 from image2text_torch.nn.modules import (Embedding, LayerNorm, LayerNormND,
                                          Linear)
 from image2text_torch.ops.fused_frontend import FrontendWeights, fused_frontend
@@ -227,16 +227,24 @@ class VisionTransformerEncoder(nn.Module):
             x, ctx = dropout(x, self.dropout_rate, ctx)
         remat = self.enable_gradient_checkpointing and ctx.train
         layout = None
+        t = x.shape[1]
+        sp = SequenceParallel.of(self.blocks, x, ctx)
+        if sp is not None:
+            x = sp.split(x)
         for depth, blk in enumerate(self.blocks):
-            new_layout = blk.next_layout(layout, x.shape[1])
+            new_layout = blk.next_layout(layout, t)
 
             def run(x_, blk_=blk, layout_=layout, ctx_=ctx.fold(100 + depth)):
                 return blk_(x_, layout=layout_, want_lazy=True, ctx=ctx_,
                             use_flash=use_flash)[0]
 
+            if sp is not None:
+                run = sp.wrap(run)
             x = (checkpoint_block(run, x, policy=self._remat_policy) if remat
                  else run(x))
             layout = new_layout
+        if sp is not None:
+            x = sp.gather(x)
         if layout is None:
             cls = x[:, :self.n_cls]
         else:  # only the CLS rows need canonical reassembly

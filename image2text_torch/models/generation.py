@@ -31,6 +31,16 @@ ban + top-k sampler where it applies (greedy, or top-k without nucleus),
 else the bans into the f32 logits, then greedy argmax or
 ``sampling.sample_logits`` (top-k, nucleus).  ``approx_top_k`` is passed
 to the fused sampler, which takes it as exact (``models/sampling.py``).
+
+Under a model split (``parallel/sharding_rules.py::place_params``) every
+rank of a model group generates for the same rows and gets the same
+tokens (JAX ``tests/test_generation.py:543``): the attention and MLP
+projections compute on their shards with the model group's collectives,
+the KV caches hold the rank's heads (``kv_shape``), and the eval kernels
+(``sparse_block``/``fused_block``, ``moe_ffn``, the front), which read
+whole operands, take the layers they read gathered whole (once per
+parameter version, ``nn/modules.py::whole_param``) and run on every rank:
+no eval kernel is bypassed.  Beam search under a mesh is not ported.
 """
 from __future__ import annotations
 

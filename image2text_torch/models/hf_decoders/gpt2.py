@@ -19,16 +19,20 @@ import torch
 from torch import nn
 
 from image2text_torch.models.hf_decoders.common import import_hf_state_dict
-from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
+from image2text_torch.nn.core import (EVAL_CTX, Ctx, SequenceParallel,
+                                      dropout)
 from image2text_torch.nn.modules import (Embedding, LayerNorm, Linear,
-                                         QuantizedKV, gelu_tanh, quantize_kv)
+                                         QuantizedKV, gelu_tanh, local_heads,
+                                         quantize_kv, tp_heads)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.training.remat import checkpoint_block
 
 
-def _heads(z: torch.Tensor, n_head: int) -> torch.Tensor:
-    b, t, c = z.shape
-    return z.reshape(b, t, n_head, c // n_head).transpose(1, 2)
+def _heads(z: torch.Tensor, hd: int) -> torch.Tensor:
+    """(b, t, n·hd) → (b, n, t, hd): n is this rank's heads under a model
+    split."""
+    b, t, _ = z.shape
+    return z.reshape(b, t, -1, hd).transpose(1, 2)
 
 
 def _merge(y: torch.Tensor) -> torch.Tensor:
@@ -46,18 +50,21 @@ class _GPT2SelfAttention(nn.Module):
         self.c_proj = Linear(n_embd, n_embd, device=device)
 
     def kv_shape(self, batch: int, max_len: int):
-        return (batch, self.n_head, max_len, self.n_embd // self.n_head)
+        return (batch, local_heads(self.c_attn, self.n_head), max_len,
+                self.n_embd // self.n_head)
 
     def forward(self, x, ctx: Ctx = EVAL_CTX, use_flash: bool = True,
                 kv_cache=None):
-        q, k, v = (_heads(z, self.n_head)
-                   for z in self.c_attn(x).split(self.n_embd, dim=-1))
+        hd = self.n_embd // self.n_head
+        q, k, v = (_heads(z, hd) for z in self.c_attn(x).chunk(3, dim=-1))
         if kv_cache is not None:
             k, v, mask = kv_cache.update(k, v, None)
             causal = False
         else:
             mask, causal = None, True
-        y = sdpa(q, k, v, mask=mask, causal=causal, ctx=ctx,
+        y = sdpa(q, k, v, mask=mask, causal=causal,
+                 ctx=ctx.with_heads(*tp_heads(self.c_attn, q.shape[1],
+                                              self.n_head)),
                  use_flash=use_flash)
         y = self.c_proj(_merge(y))
         return dropout(y, self.dropout_rate, ctx.fold(1))[0]
@@ -81,7 +88,7 @@ class _GPT2CrossAttention(nn.Module):
         """Split-head K/V of a fixed encoder output (decode time: once per
         sequence, not once per token); ``quant='int8'`` gives them as a
         ``QuantizedKV``."""
-        k, v = (_heads(z, self.n_head)
+        k, v = (_heads(z, self.n_embd // self.n_head)
                 for z in self.c_attn(enc).split(self.n_embd, dim=-1))
         return quantize_kv((k, v), quant)
 
@@ -97,7 +104,8 @@ class _GPT2CrossAttention(nn.Module):
             k, v = precomputed_kv
         else:
             k, v = self.project_kv(enc)
-        y = sdpa(_heads(self.q_attn(x), self.n_head), k, v, ctx=ctx,
+        y = sdpa(_heads(self.q_attn(x), self.n_embd // self.n_head), k, v,
+                 ctx=ctx,
                  use_flash=use_flash)
         y = self.c_proj(_merge(y))
         return dropout(y, self.dropout_rate, ctx.fold(1))[0]
@@ -175,17 +183,25 @@ class GPT2Backbone(nn.Module):
         # per-block recompute in training; cached decode and eval never
         remat = (self.enable_gradient_checkpointing and ctx.train
                  and kv_cache is None)
+        sp = SequenceParallel.of(self.h, x, ctx, kv_cache)
+        if sp is not None:
+            x = sp.split(x)
         for depth, blk in enumerate(self.h):
             bctx = ctx.fold(depth)
-            if remat:
+            if remat or sp is not None:
                 def run(x_, enc_, blk_=blk, ctx_=bctx):
                     return blk_(x_, enc=enc_, ctx=ctx_, use_flash=use_flash)
 
-                x = checkpoint_block(run, x, enc, policy=self._remat_policy)
+                if sp is not None:
+                    run = sp.wrap(run)
+                x = (checkpoint_block(run, x, enc, policy=self._remat_policy)
+                     if remat else run(x, enc))
             else:
                 ckv = cross_kv.get(depth) if cross_kv is not None else None
                 x = blk(x, enc=None if ckv is not None else enc, ctx=bctx,
                         use_flash=use_flash, kv_cache=kv_cache, cross_kv=ckv)
+        if sp is not None:
+            x = sp.gather(x)
         return self.ln_f(x)
 
 

@@ -27,9 +27,11 @@ from image2text_torch.models.hf_decoders.common import (RMSNorm, apply_rope,
                                                         import_hf_state_dict,
                                                         positions,
                                                         rope_cos_sin)
-from image2text_torch.nn.core import EVAL_CTX, Ctx
-from image2text_torch.nn.modules import Embedding, Linear
+from image2text_torch.nn.core import EVAL_CTX, Ctx, SequenceParallel
+from image2text_torch.nn.modules import (Embedding, Linear, local_heads,
+                                         tp_heads)
 from image2text_torch.ops.attention import sdpa
+from image2text_torch.parallel.collectives import copy_to
 from image2text_torch.training.remat import checkpoint_block
 
 
@@ -53,7 +55,7 @@ class LlamaArch:
 
 
 def heads(z: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(b, t, n·hd) → (b, n, t, hd)."""
+    """(b, t, n·hd) → (b, n, t, hd); n may be -1 (this rank's heads)."""
     b, t, _ = z.shape
     return z.reshape(b, t, n, hd).transpose(1, 2)
 
@@ -90,14 +92,21 @@ class _LlamaAttention(nn.Module):
         self.o_proj = Linear(a.n_head * hd, a.n_embd, False, device)
 
     def kv_shape(self, batch: int, max_len: int):
-        return (batch, self.arch.n_kv_head, max_len, self.arch.head_dim)
+        return (batch, local_heads(self.k_proj, self.arch.n_kv_head),
+                max_len, self.arch.head_dim)
 
     def forward(self, x, pos, ctx: Ctx = EVAL_CTX, use_flash: bool = True,
                 kv_cache=None):
         a, hd = self.arch, self.arch.head_dim
-        y = rotary_attention(heads(self.q_proj(x), a.n_head, hd),
-                             heads(self.k_proj(x), a.n_kv_head, hd),
-                             heads(self.v_proj(x), a.n_kv_head, hd), pos,
+        q = heads(self.q_proj(x), -1, hd)
+        k, v = self.k_proj(x), self.v_proj(x)
+        tp = getattr(self.q_proj, "tp", None)
+        if tp is not None and getattr(self.k_proj, "tp", None) is None:
+            # one K/V head that every query head reads, replicated: its
+            # gradient is a partial sum over the model group
+            k, v = copy_to(k, tp[1]), copy_to(v, tp[1])
+        ctx = ctx.with_heads(*tp_heads(self.q_proj, q.shape[1], a.n_head))
+        y = rotary_attention(q, heads(k, -1, hd), heads(v, -1, hd), pos,
                              a.rope_theta, ctx, use_flash, kv_cache)
         return self.o_proj(merge(y))
 
@@ -137,16 +146,23 @@ def run_blocks(blocks: nn.ModuleList, x, pos, ctx: Ctx, use_flash: bool,
     """The blocks in order, each recomputed in the backward under
     ``remat`` (training only: never with a cache), keeping what the remat
     ``policy`` keeps."""
+    sp = SequenceParallel.of(blocks, x, ctx, kv_cache)
+    if sp is not None:
+        x = sp.split(x)
     for depth, blk in enumerate(blocks):
         bctx = ctx.fold(depth)
-        if remat and ctx.train and kv_cache is None:
+        remat_this = remat and ctx.train and kv_cache is None
+        if remat_this or sp is not None:
             def run(x_, blk_=blk, ctx_=bctx):
                 return blk_(x_, pos, ctx=ctx_, use_flash=use_flash)
 
-            x = checkpoint_block(run, x, policy=policy)
+            if sp is not None:
+                run = sp.wrap(run)
+            x = checkpoint_block(run, x, policy=policy) if remat_this \
+                else run(x)
         else:
             x = blk(x, pos, ctx=bctx, use_flash=use_flash, kv_cache=kv_cache)
-    return x
+    return x if sp is None else sp.gather(x)
 
 
 class LlamaBackbone(nn.Module):

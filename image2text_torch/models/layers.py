@@ -16,6 +16,16 @@ training every block computes from its parameters directly, with the
 dropout sites of the JAX package, and its self-attention goes through the
 flash kernels (``ops/attention.py::sdpa``).  The heads and the positional
 MLP run no kernel (JAX computes them outside any Pallas kernel).
+
+Under a model split (``parallel/sharding_rules.py``) the attentions
+compute their rank's heads (column-split projections, the shared K/V of
+multi-query attention replicated with its gradient summed over the model
+group), the MLPs their rank's neurons and the MoE linears their rank's
+experts (``MoELinear.tp``); the output projections' partial sums are
+reduced over the model group.  The dropout of an attention's
+probabilities hashes the global (batch, head) planes (``Ctx.rows``,
+``Ctx.heads``).  The eval kernels read the whole block
+(``block_weights``, ``MoELinear.packed`` gather split tensors).
 """
 from __future__ import annotations
 
@@ -35,15 +45,18 @@ from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       normal_init, uniform_init)
 from image2text_torch.nn.modules import (Conv2d, Embedding, LayerNorm,
                                          Linear, MultiheadAttention,
-                                         gelu_tanh)
+                                         gelu_tanh, local_heads, tp_heads,
+                                         whole_param)
 from image2text_torch.ops.attention import sdpa
 from image2text_torch.ops.functions import normalize_gradients
-from image2text_torch.ops.fused_block import (BlockWeights, fused_block,
-                                              sparse_block)
+from image2text_torch.ops.fused_block import (BlockWeights, chain_takes,
+                                              fused_block, sparse_block)
 from image2text_torch.ops.fused_moe import (MoELinearWeights, moe_ffn,
                                             pack_moe_linear, topk_mask)
 from image2text_torch.ops.static_gather import (canonicalize, layout_rows,
                                                 static_combine, static_take)
+from image2text_torch.parallel.collectives import (copy_to, reduce_from,
+                                                   scatter_to)
 
 
 class _Cached:
@@ -132,7 +145,15 @@ class MoELinear(nn.Module):
     """Top-k MoE over low-rank experts, every expert on every token and a
     dense combine of the *unnormalised* top-k gate values (lowest-index
     ties).  Experts are stored stacked; the checkpoint bridge splits them
-    into ``experts.{i}.l1/l2.weight/bias`` keys (``split_specs``)."""
+    into ``experts.{i}.l1/l2.weight/bias`` keys (``split_specs``).
+
+    Expert-parallel under a model split (``tp``, the model Axis): this
+    rank holds a contiguous slice of the experts, the gate stays whole
+    (every rank routes every token the same way), the combine weights are
+    cut to the rank's experts and the output is a partial sum over the
+    model group."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int,
                  proj_features: int, num_experts: int, bias: bool = True,
@@ -167,13 +188,15 @@ class MoELinear(nn.Module):
         return not any(lin.is_int8 for lin in self.expert_gates.linears)
 
     def packed(self, dtype) -> MoELinearWeights:
+        """The ``moe_ffn`` operands: every expert (gathered under a model
+        split: the kernel reads them whole)."""
         g0, g1 = self.expert_gates.linears
         return self._packed.get(
             list(self.parameters()), dtype,
-            lambda: pack_moe_linear(self.l1_weight, self.l1_bias,
-                                    self.l2_weight, self.l2_bias, g0.weight,
-                                    g0.bias, g1.weight, g1.bias, self.top_k,
-                                    dtype))
+            lambda: pack_moe_linear(
+                *(whole_param(self, n) for n in ("l1_weight", "l1_bias",
+                                                 "l2_weight", "l2_bias")),
+                g0.weight, g0.bias, g1.weight, g1.bias, self.top_k, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """From the parameters, as the JAX module: the top-k gate values
@@ -184,12 +207,16 @@ class MoELinear(nn.Module):
                            dim=-1)
         combine = torch.where(topk_mask(gv.detach(), self.top_k), gv,
                               torch.zeros_like(gv))
+        if self.tp is not None:
+            combine = scatter_to(combine, self.tp, -1)
+            x = copy_to(x, self.tp)
         h = torch.matmul(x, self.l1_weight.reshape(e * r, fin).t().to(dt))
         h = gelu_tanh(h + self.l1_bias.reshape(e * r).to(dt))
         c = combine.to(dt)
         hw = h * c.repeat_interleave(r, dim=-1)
         w2 = self.l2_weight.permute(0, 2, 1).reshape(e * r, -1).to(dt)
-        return torch.matmul(hw, w2) + torch.matmul(c, self.l2_bias.to(dt))
+        y = torch.matmul(hw, w2) + torch.matmul(c, self.l2_bias.to(dt))
+        return y if self.tp is None else reduce_from(y, self.tp)
 
 
 class _MoEMLP(nn.Module):
@@ -273,10 +300,12 @@ class _SelfAttention(nn.Module):
                                                      (v_do, v)))
         if kv_cache is not None:
             k, v, mask = kv_cache.update(k, v, mask)
+        hctx = ctx.fold(3).with_heads(
+            *tp_heads(self._q_linear, q.shape[1], self.n_head))
         y = sdpa(q, k, v, mask=mask, causal=causal,
-                 dropout_rate=self.resid_dropout, ctx=ctx.fold(3),
+                 dropout_rate=self.resid_dropout, ctx=hctx,
                  use_flash=use_flash)
-        y = self._out(y.transpose(1, 2).reshape(b, t, c))
+        y = self._out(y.transpose(1, 2).reshape(b, t, -1))
         return dropout(y, self.resid_dropout, ctx.fold(4))[0]
 
 
@@ -303,13 +332,19 @@ class MultiHeadAttention(_SelfAttention):
         self.c_proj = Linear(config.n_embd, config.n_embd, config.bias,
                              device)
 
+    @property
+    def _q_linear(self):
+        return self.c_attn
+
     def kv_shape(self, batch: int, max_len: int):
-        return (batch, self.n_head, max_len, self.n_embd // self.n_head)
+        return (batch, local_heads(self.c_attn, self.n_head), max_len,
+                self.n_embd // self.n_head)
 
     def _heads(self, x):
         b, t, c = x.shape
-        return tuple(z.reshape(b, t, self.n_head, c // self.n_head)
-                     .transpose(1, 2) for z in self.c_attn(x).split(c, -1))
+        hd = c // self.n_head
+        return tuple(z.reshape(b, t, -1, hd).transpose(1, 2)
+                     for z in self.c_attn(x).chunk(3, -1))
 
     def _out(self, y):
         return self.c_proj(y)
@@ -326,14 +361,22 @@ class MultiQueryAttention(_SelfAttention):
         self.out_proj = Linear(config.n_embd, config.n_embd, config.bias,
                                device)
 
+    @property
+    def _q_linear(self):
+        return self.q_proj
+
     def kv_shape(self, batch: int, max_len: int):
         return (batch, 1, max_len, self.n_embd // self.n_head)
 
     def _heads(self, x):
         b, t, c = x.shape
         hd = c // self.n_head
-        q = self.q_proj(x).reshape(b, t, self.n_head, hd).transpose(1, 2)
+        q = self.q_proj(x).reshape(b, t, -1, hd).transpose(1, 2)
         kv = self.kv_proj(x)
+        if self.q_proj.tp is not None:
+            # this rank's query heads on the shared K/V head: its K/V
+            # gradient is a partial sum over the model group
+            kv = copy_to(kv, self.q_proj.tp[1])
         k = kv[..., :hd].reshape(b, t, 1, hd).transpose(1, 2)
         v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
         return q, k, v
@@ -454,13 +497,13 @@ class TransformerBlock(nn.Module):
         """The block's operands of ``fused_block`` (dense) or
         ``sparse_block`` (sparse: with the null connector's)."""
         def wt(*lins):      # (in, out) weight of one or more Linears
-            return torch.cat([lin.weight for lin in lins]).t().to(dtype) \
-                .contiguous()
+            return torch.cat([whole_param(lin, "weight") for lin in lins]) \
+                .t().to(dtype).contiguous()
 
         def make():
             a, dt, nc = self.attn, dtype, self.null_connector
             b_qkv = None if a.q_proj.bias is None else torch.cat(
-                [a.q_proj.bias, a.kv_proj.bias])
+                [whole_param(a.q_proj, "bias"), a.kv_proj.bias])
             return BlockWeights(
                 ln1_w=self.ln_1.weight.to(dt), ln1_b=_opt(self.ln_1.bias, dt),
                 w_qkv=wt(a.q_proj, a.kv_proj), b_qkv=_opt(b_qkv, dt),
@@ -498,7 +541,7 @@ class TransformerBlock(nn.Module):
                                     cross_attn_inputs, precomputed_kv=cross_kv,
                                     ctx=ctx.fold(2))
         x = x + self.mlp(self.ln_2(x), ctx=ctx.fold(3))
-        return normalize_gradients(x)
+        return normalize_gradients(x, ctx.data_axis)
 
     def _null_path(self, z):
         return z + self.null_connector(z)
@@ -550,7 +593,7 @@ class TransformerBlock(nn.Module):
         # index tensors cached on the device: a fresh host→device copy
         # would synchronise the stream at every block
         rows_sel, rows_byp = self.layout_rows(layout, t, x_orig.device)
-        if (want_lazy and self._serving(attn_mask, cross_attn_inputs,
+        if (want_lazy and self._serving(x_orig, attn_mask, cross_attn_inputs,
                                         cross_kv, ctx, use_flash)):
             return (sparse_block(x_orig, rows_sel, rows_byp,
                                  self.block_weights(x_orig.dtype)),
@@ -566,18 +609,27 @@ class TransformerBlock(nn.Module):
             return torch.cat([x.to(x_orig.dtype), bypass], dim=1), new_layout
         return static_combine(x.to(x_orig.dtype), bypass, idx, not_idx)
 
-    def _serving(self, attn_mask, cross_attn_inputs, cross_kv, ctx,
+    def _serving(self, x, attn_mask, cross_attn_inputs, cross_kv, ctx,
                  use_flash) -> bool:
         """Whether a non-cached forward takes the eval block kernel: eval,
         no mask, no cross-attention, not causal (JAX layers.py:569-571),
         multi-query attention and an MoE FFN (the JAX gates take such
         blocks only, behind ``_gate_and_weights``; an ``_MLP`` or
-        multi-head block runs the plain body)."""
+        multi-head block runs the plain body).  On the card, as JAX's
+        gate on hardware (``ops/fused_block.py:219-224``), bf16 only and
+        the head dims the chain takes: an f32 block runs its composed
+        forward, whose MoE FFN is ``moe_ffn``'s f32 kernel.  A CPU tensor
+        takes the chain's plain version in either dtype, as JAX's
+        interpret mode does."""
+        a = self.attn
         return (use_flash and not ctx.train and attn_mask is None
                 and cross_attn_inputs is None and cross_kv is None
                 and not self.is_causal and isinstance(self.mlp, _MoEMLP)
-                and isinstance(self.attn, MultiQueryAttention)
-                and self.plain_weights)
+                and isinstance(a, MultiQueryAttention)
+                and self.plain_weights
+                and (x.device.type == "cpu"
+                     or (x.dtype == torch.bfloat16
+                         and chain_takes(a.n_embd, a.n_head))))
 
     @property
     def plain_weights(self) -> bool:
@@ -605,7 +657,7 @@ class TransformerBlock(nn.Module):
                               use_flash=use_flash)
         if layout is not None:
             x = canonicalize(x, layout)
-        if self._serving(attn_mask, cross_attn_inputs, cross_kv, ctx,
+        if self._serving(x, attn_mask, cross_attn_inputs, cross_kv, ctx,
                          use_flash):
             out = fused_block(x, self.block_weights(x.dtype))
         else:

@@ -20,6 +20,15 @@ from its derived seed.  A forward recomputed under
 an explicit generator) therefore draws exactly the masks it drew the
 first time.
 
+Under a mesh (``parallel/``) a ``Ctx`` also carries this rank's rows of
+the global batch (``rows = (first, global batch)``) and, for one
+attention call, its heads (``heads = (first, all heads)``): a dropout
+draws the mask of the global shape from its seed and keeps its slice, so
+every mask equals the one-device run's; and the data axis, over which a
+batch-wide reduction (``ops.functions.normalize_gradients``) sums.  :class:`SequenceParallel` is the
+counterpart of JAX's ``sp_constrain``: a tagged model's block loop keeps
+the stream as this rank's chunk of the sequence between blocks.
+
 :func:`frozen_param_paths` is the trainable/frozen state of the JAX
 ``Module``: a module may name frozen tensors of its own (``_frozen``),
 freeze its whole subtree but the LoRA adapters (``_lora_freeze_all``) and
@@ -32,7 +41,7 @@ count among the parameter paths as they do in the JAX tree.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -153,21 +162,29 @@ def _mix(seed: int, data: int) -> int:
 
 @dataclass(frozen=True)
 class Ctx:
-    """Immutable forward-pass context: a seed stream and the train flag."""
+    """Immutable forward-pass context: a seed stream, the train flag and,
+    under a mesh, this rank's slice of the global batch rows and of an
+    attention's heads (``(0, 0)``: the tensor's own)."""
 
     seed: Optional[int] = None
     train: bool = False
+    rows: Tuple[int, int] = (0, 0)
+    heads: Tuple[int, int] = (0, 0)
+    data_axis: Optional[object] = None   # the mesh's data Axis
 
     def split(self) -> Tuple["Ctx", int]:
         """(the advanced context, a seed to use now)."""
         if self.seed is None:
             raise ValueError("Ctx has no seed but randomness was requested")
-        return (Ctx(_mix(self.seed, 1), self.train), _mix(self.seed, 3))
+        return (replace(self, seed=_mix(self.seed, 1)), _mix(self.seed, 3))
 
     def fold(self, data: int) -> "Ctx":
         if self.seed is None:
             return self
-        return Ctx(_mix(self.seed, 2 * data), self.train)
+        return replace(self, seed=_mix(self.seed, 2 * data))
+
+    def with_heads(self, first: int, total: int) -> "Ctx":
+        return replace(self, heads=(first, total))
 
 
 EVAL_CTX = Ctx()
@@ -177,14 +194,68 @@ def generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def dropout(x: torch.Tensor, rate: float, ctx: Ctx
-            ) -> Tuple[torch.Tensor, Ctx]:
+def dropout(x: torch.Tensor, rate: float, ctx: Ctx,
+            head_dim: Optional[int] = None) -> Tuple[torch.Tensor, Ctx]:
     """Inverted dropout, the identity at eval or rate 0; returns
-    (y, advanced ctx)."""
+    (y, advanced ctx).  Dim 0 is the batch: under ``ctx.rows`` the mask
+    is drawn for the global batch and this rank's rows kept; likewise dim
+    ``head_dim`` under ``ctx.heads``."""
     if not ctx.train or rate <= 0.0:
         return x, ctx
     ctx, seed = ctx.split()
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator(seed, x.device),
+    shape, index = list(x.shape), [slice(None)] * x.dim()
+    first, total = ctx.rows
+    if total:
+        shape[0], index[0] = total, slice(first, first + x.shape[0])
+    if head_dim is not None and ctx.heads[1]:
+        first, total = ctx.heads
+        shape[head_dim] = total
+        index[head_dim] = slice(first, first + x.shape[head_dim])
+    u = torch.rand(shape, generator=generator(seed, x.device),
                    device=x.device)
+    if shape != list(x.shape):
+        u = u[tuple(index)]
     return torch.where(u < keep, x / keep, torch.zeros_like(x)), ctx
+
+
+class SequenceParallel:
+    """A block loop's sequence parallelism (JAX ``nn/core.py::
+    sp_constrain`` at the blocks' boundaries): between blocks the (b, t,
+    d) stream is this rank's chunk of the t axis over the model group, so
+    a remat-saved block input is 1/model the size; a block gathers the
+    whole sequence on entry and keeps its chunk on exit (the stream is
+    the same on every model rank, so the backward of each is the other).
+    Off (:meth:`of` returns None) outside training, in cached decode,
+    without a tagged block, and where t does not divide the model size."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    @classmethod
+    def of(cls, blocks, x: torch.Tensor, ctx: Ctx, kv_cache=None
+           ) -> Optional["SequenceParallel"]:
+        blocks = list(blocks)
+        axis = getattr(blocks[0], "_sp_axis", None) if blocks else None
+        if (axis is None or axis.size == 1 or not ctx.train
+                or kv_cache is not None or x.dim() != 3
+                or x.shape[1] % axis.size):
+            return None
+        return cls(axis)
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        from image2text_torch.parallel.collectives import scatter_to
+
+        return scatter_to(x, self.axis, 1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        from image2text_torch.parallel.collectives import gather_from
+
+        return gather_from(x, self.axis, 1)
+
+    def wrap(self, run: Callable) -> Callable:
+        """``run`` (stream first) on the gathered stream, its output
+        chunked."""
+        def chunked(x, *rest):
+            return self.split(run(self.gather(x), *rest))
+        return chunked

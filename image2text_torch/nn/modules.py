@@ -15,6 +15,15 @@ the original storage dtype) as buffers instead of its ``weight``.  A Linear
 then runs W8A8 (:func:`int8_dot_rows`), an Embedding dequantises only the
 rows it gathers (:func:`embedding_rows`).  :class:`QuantizedKV` is the int8
 cross-attention memory of ``generate(cross_kv_quant='int8')``.
+
+Under a mesh (``parallel/sharding_rules.py::place_params``) a ``Linear``
+may hold a column shard (``tp = ('col', axis)``: its input enters
+through ``collectives.copy_to``) or a row shard (``tp = ('row', axis)``:
+a whole input is first cut to its slice, the partial products are
+summed over the axis and the bias added once); the cross-attention's
+packed ``in_proj`` may hold its heads' rows of q, k and v.  A module's
+record ``_tp_place`` ({name: (dim, sections)}) lets :func:`whole_param`
+gather a split tensor for the eval kernels, which read whole operands.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       torch_linear_weight_init,
                                       xavier_uniform_init, zeros_init)
 from image2text_torch.ops.functions import dot_f32, int8_mm, int8_mm_weight
+from image2text_torch.parallel.collectives import (copy_to, gather_whole,
+                                                   reduce_from, scatter_to)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -171,10 +182,38 @@ class _Int8Form:
         return self._padded[2]
 
 
+def whole_param(module: nn.Module, name: str):
+    """``module.<name>`` whole: gathered over the model axis when the
+    placement split it (no gradient: for the eval kernels)."""
+    t = getattr(module, name)
+    place = getattr(module, "_tp_place", {}).get(name)
+    if place is None or t is None:
+        return t
+    return gather_whole(t, module._tp_axis, *place)
+
+
+def local_heads(lin: nn.Module, n: int) -> int:
+    """This rank's share of the ``n`` heads a Linear projects (all of
+    them unless the placement split its out dim)."""
+    tp = getattr(lin, "tp", None)
+    return n // tp[1].size if tp is not None and tp[0] == "col" else n
+
+
+def tp_heads(module: nn.Module, local: int, total: int) -> Tuple[int, int]:
+    """(first, total) heads of this rank when ``local`` of ``total`` heads
+    are here (the model axis's split of ``module``; (0, 0) whole)."""
+    axis = getattr(module, "_tp_axis", None)
+    if axis is None or local == total:
+        return (0, 0)
+    return (axis.rank * local, total)
+
+
 class Linear(_Int8Form, nn.Module):
     """y = x @ W.T + b with torch layout W:(out, in); f32 accumulation,
     output and bias add in ``x``'s dtype.  The int8 form computes
     :func:`int8_dot_rows`, rounded to ``x``'s dtype."""
+
+    tp = None   # ('col' | 'row', Axis) once the placement split it
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -187,11 +226,19 @@ class Linear(_Int8Form, nn.Module):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            if tp[0] == "col":
+                x = copy_to(x, tp[1])
+            elif x.shape[-1] != self.stored_shape[1]:
+                x = scatter_to(x, tp[1], -1)
         if self.is_int8:
             y = int8_dot_rows(x, self.int8_operand(),
                               self.qscale).to(x.dtype)
         else:
             y = torch.matmul(x, self.weight.to(x.dtype).t())
+        if tp is not None and tp[0] == "row":
+            y = reduce_from(y, tp[1])
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -314,14 +361,20 @@ class MultiheadAttention(nn.Module):
         # torch._reset_parameters zeroes the out_proj bias
         self.out_proj._init_fns["bias"] = zeros_init()
 
+    tp = None   # the model Axis once the placement split its heads
+
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
-        return t.reshape(*t.shape[:-1], self.num_heads,
+        return t.reshape(*t.shape[:-1], -1,
                          self.head_dim).transpose(-3, -2)
 
     def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
-        e = self.embed_dim
+        """Section ``part`` of the packed projection (this rank's heads'
+        rows of it under a model split)."""
+        e = self.in_proj_weight.shape[0] // 3
         w = self.in_proj_weight[part * e:(part + 1) * e].to(x.dtype)
         b = self.in_proj_bias[part * e:(part + 1) * e].to(x.dtype)
+        if self.tp is not None:
+            x = copy_to(x, self.tp)
         return torch.matmul(x, w.t()) + b
 
     def project_kv(self, key: torch.Tensor, value: torch.Tensor,
@@ -346,9 +399,11 @@ class MultiheadAttention(nn.Module):
             k, v = self.project_kv(key, value)
         scores = divide(dot_f32(q, k), math.sqrt(self.head_dim))
         probs = torch.softmax(scores, dim=-1).to(query.dtype)
-        probs, _ = dropout(probs, self.dropout_rate, ctx)
+        hctx = ctx.with_heads(*tp_heads(self, q.shape[-3], self.num_heads))
+        probs, _ = dropout(probs, self.dropout_rate, hctx,
+                           head_dim=probs.dim() - 3)
         y = torch.matmul(probs, v)
-        y = y.transpose(-3, -2).reshape(*query.shape[:-1], self.embed_dim)
+        y = y.transpose(-3, -2).reshape(*query.shape[:-1], -1)
         return self.out_proj(y)
 
     def _int8_kv_attention(self, q, kv: QuantizedKV, query, ctx: Ctx):
@@ -365,4 +420,4 @@ class MultiheadAttention(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         pv = (probs * vs[..., None, :]).to(q.dtype)
         y = torch.matmul(pv, vq.to(q.dtype)).to(query.dtype)
-        return y.transpose(-3, -2).reshape(*query.shape[:-1], self.embed_dim)
+        return y.transpose(-3, -2).reshape(*query.shape[:-1], -1)

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from image2text_torch.nn.core import EVAL_CTX, Ctx, dropout
-from image2text_torch.ops.flash_attention import flash_sdpa
+from image2text_torch.ops.flash_attention import flash_sdpa, planes_of
 from image2text_torch.ops.functions import dot_f32
 
 
@@ -62,7 +62,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # the seed comes from the ctx stream, as every dropout's does; its
         # low 32 bits are the flash hash's seed word
         seed = ctx.split()[1] if rate > 0.0 else None
-        return flash_sdpa(q, k, v, mask, causal, rate, seed)
+        planes = planes_of(q.shape[0], q.shape[1], ctx.rows, ctx.heads)
+        return flash_sdpa(q, k, v, mask, causal, rate, seed, planes)
     if causal:
         cb = causal_bias(q.shape[-2], k.shape[-2], q.device)
         mask = cb if mask is None else mask + cb
@@ -83,7 +84,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        torch.zeros_like(m), m))
     probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     if rate > 0.0:
-        probs, ctx = dropout(probs, rate, ctx)
+        probs, ctx = dropout(probs, rate, ctx, head_dim=1)
     pf = probs.to(q.dtype)
     if g > 1:
         pf = pf.reshape(b, hk, g * s, -1)

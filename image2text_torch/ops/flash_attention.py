@@ -31,6 +31,16 @@ Dropout is a counter hash of (row, col, plane = batch·h + head, seed):
 :func:`dropout_keep_mask` is bit for bit the JAX package's, so the kernels,
 the plain versions and the JAX kernels all drop the same probabilities,
 and the backward regenerates the forward's mask from the seed alone.
+The plane is over *global* coordinates: under a mesh a rank holding rows
+[b0, b0 + b) of the batch and heads [h0, h0 + h) of H passes ``planes =
+(H, b0·H + h0)`` and hashes (b0 + i)·H + h0 + j for its (i, j), as the
+one-device call would (:func:`planes_of`; one integer pair a launch).
+
+Head dims: the kernels take 16, 32, 64, 128 and 256; any other head dim
+up to 256 (JAX's flash limit) is padded with zero lanes to the next of
+them, with the scale of the true head dim, and the output cut back (zero
+lanes add nothing to a score, and give zero output lanes).  Head dim 256
+takes the tiled kernels (forward and backward) and the f32 kernels.
 
 The wrappers dispatch on the dtype, as the JAX kernels are generic in it:
 bf16 operands take the kernels of ``csrc/flash_attention.cu`` (their
@@ -41,8 +51,8 @@ route for every shape; they count no visited pairs).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises on what the kernel does not take (a head
-dim other than 16, 32, 64 or 128, K/V heads other than 1 or h, a bias
-whose query axis is neither 1 nor sq, a dtype other than bf16 or f32).
+dim above 256, K/V heads other than 1 or h, a bias whose query axis is
+neither 1 nor sq, a dtype other than bf16 or f32).
 """
 from __future__ import annotations
 
@@ -57,7 +67,9 @@ from image2text_torch.ops.functions import kernel_scope
 from image2text_torch.utils.device import sm_count
 
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the resident kernels' (bf16; flash's and the chain's attention's)
+RESIDENT_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _M32 = 0xFFFFFFFF
 
@@ -114,11 +126,31 @@ def dropout_keep_mask(rows, cols, plane, seed: int, rate: float
     return (x < keep_threshold(rate)).float()
 
 
-def _keep(b, h, sq, skv, seed, rate, device) -> torch.Tensor:
+def planes_of(b: int, h: int, rows=(0, 0), heads=(0, 0)) -> Tuple[int, int]:
+    """(plane_h, plane_off) of the dropout hash for a call on ``b`` rows
+    and ``h`` heads that are rows ``rows = (first, total)`` of the global
+    batch and heads ``heads = (first, total)`` of all (``(0, 0)``: the
+    call's own): plane (i, j) = plane_off + i·plane_h + j."""
+    h_all = heads[1] or h
+    return h_all, rows[0] * h_all + heads[0]
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernels' head dim a head dim ``d`` is padded to."""
+    for k in KERNEL_HEAD_DIMS:
+        if d <= k:
+            return k
+    raise ValueError(f"flash kernels: head dim {d} above "
+                     f"{KERNEL_HEAD_DIMS[-1]}")
+
+
+def _keep(b, h, sq, skv, seed, rate, device, planes=None) -> torch.Tensor:
     """(b, h, sq, skv) keep mask of one attention call."""
+    plane_h, plane_off = planes if planes is not None else (h, 0)
     rows = torch.arange(sq, device=device)[:, None]
     cols = torch.arange(skv, device=device)[None, :]
-    plane = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    plane = (plane_off + torch.arange(b, device=device)[:, None] * plane_h
+             + torch.arange(h, device=device)[None, :]).reshape(b, h, 1, 1)
     return dropout_keep_mask(rows, cols, plane, seed, rate)
 
 
@@ -137,7 +169,7 @@ def _scores(q, k, bias, causal: bool) -> torch.Tensor:
 
 
 def flash_forward_plain(q, k, v, bias=None, causal: bool = False,
-                        rate: float = 0.0, seed: int = 0
+                        rate: float = 0.0, seed: int = 0, planes=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: (out in q's dtype, lse (b, h,
     sq) f32).  q (b, h, sq, d); k/v (b, hk, skv, d), hk ∈ {1, h}."""
@@ -147,14 +179,14 @@ def flash_forward_plain(q, k, v, bias=None, causal: bool = False,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if rate > 0.0:
-        p = p * _keep(b, h, sq, k.shape[-2], seed, rate, q.device) * (
-            1.0 / (1.0 - rate))
+        p = p * _keep(b, h, sq, k.shape[-2], seed, rate, q.device,
+                      planes) * (1.0 / (1.0 - rate))
     out = torch.matmul(p.to(q.dtype).float(), v.float()) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def flash_backward_plain(q, k, v, bias, causal: bool, g, lse, dvec,
-                         rate: float = 0.0, seed: int = 0):
+                         rate: float = 0.0, seed: int = 0, planes=None):
     """Plain version of the backward kernels: (dq, dk, dv) in the inputs'
     dtypes, from the forward's ``lse`` and ``dvec = rowsum(g ∘ out)``."""
     b, h, sq, _ = q.shape
@@ -163,8 +195,8 @@ def flash_backward_plain(q, k, v, bias, causal: bool, g, lse, dvec,
     gf = g.float()
     dp = torch.matmul(gf, v.float().transpose(-1, -2))
     if rate > 0.0:
-        keep = _keep(b, h, sq, k.shape[-2], seed, rate, q.device) * (
-            1.0 / (1.0 - rate))
+        keep = _keep(b, h, sq, k.shape[-2], seed, rate, q.device,
+                     planes) * (1.0 / (1.0 - rate))
         ds = p * (keep * dp - dvec[..., None])
         p = p * keep
     else:
@@ -187,7 +219,7 @@ def _check(kernel: str, q, k, v, bias):
     hk, skv = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} kernel: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS} (pad it: kernel_head_dim)")
     if hk not in (1, h) or k.shape != (b, hk, skv, d) or v.shape != k.shape:
         raise ValueError(f"{kernel} kernel: k/v {tuple(k.shape)} must be "
                          f"(b, 1 or h, skv, d) for q {tuple(q.shape)}")
@@ -204,19 +236,21 @@ def _check(kernel: str, q, k, v, bias):
     return bias, strides
 
 
-def _common_args(q, k, bias, strides, causal, rate, seed):
+def _common_args(q, k, bias, strides, causal, rate, seed, scale, planes):
     """The C entry points' trailing arguments (``I2T_FLASH_ARGS``), as the
     plain Python values their argtypes convert."""
     b, h, sq, d = q.shape
+    plane_h, plane_off = planes if planes is not None else (h, 0)
     return [0 if bias is None else bias.data_ptr(), *strides, b, h,
-            k.shape[1], sq, k.shape[2], d, int(causal), 1.0 / d ** 0.5,
+            k.shape[1], sq, k.shape[2], d, int(causal), scale,
             int(rate > 0.0), int(seed) & _M32, keep_threshold(rate),
-            1.0 / (1.0 - rate), _build.stream(q.device)]
+            1.0 / (1.0 - rate), plane_h, plane_off, _build.stream(q.device)]
 
 
 _COMMON_TYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
-                 + [ctypes.c_uint] * 2 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_uint] * 2 + [ctypes.c_float]
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 # leading arguments of each entry point: its pointers, then the groups
 # (the f32 kernels take none)
 _LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int],
@@ -234,7 +268,7 @@ def _launch(name: str, *args):
 
 @functools.lru_cache(maxsize=256)
 def fwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
-             n_sms: int) -> Tuple[str, int]:
+             n_sms: int, d: int = 128) -> Tuple[str, int]:
     """(route, groups) of one forward call, the kernel's launch argument
     G.  ``"resident"`` while a K/V plane fits one block (skv <=
     RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's 16-row tiles (h
@@ -242,47 +276,62 @@ def fwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
     block's warps, and G·b·hk at most FWD_BLOCKS_PER_SM·n_sms, one wave:
     a block's shared memory (the K/V plane and a Q tile a warp: at most
     104,448 bytes, at d 128 and 160 keys) fits that many times in an SM;
-    else ``"tiled"`` (groups 0)."""
-    if skv > RESIDENT_MAX_KEYS:
+    else, and for a (padded) head dim ``d`` past RESIDENT_HEAD_DIMS,
+    ``"tiled"`` (groups 0)."""
+    if skv > RESIDENT_MAX_KEYS or d not in RESIDENT_HEAD_DIMS:
         return "tiled", 0
     tiles = -(-(h if hk == 1 else 1) * sq // FWD_TILE_ROWS)
     return "resident", max(1, min(-(-tiles // FWD_WARPS),
                                   FWD_BLOCKS_PER_SM * n_sms // (b * hk)))
 
 
+def _pad(d: int, *ts):
+    """The tensors with their last dim zero-padded to ``d``."""
+    return tuple(t if t.shape[-1] == d else
+                 torch.nn.functional.pad(t, (0, d - t.shape[-1])).contiguous()
+                 for t in ts)
+
+
 def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
-              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              seed: int = 0, planes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: (out, lse).  The CUDA kernels (bf16: :func:`fwd_plan`;
     f32: the f32 kernel) for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.  ``planes``: :func:`planes_of`."""
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, bias, causal, rate, seed)
+        return flash_forward_plain(q, k, v, bias, causal, rate, seed, planes)
+    d_true = q.shape[-1]
+    dk = kernel_head_dim(d_true)
+    q, k, v = _pad(dk, q, k, v)
     bias, strides = _check("flash_fwd", q, k, v, bias)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
-    common = _common_args(q, k, bias, strides, causal, rate, seed)
+    common = _common_args(q, k, bias, strides, causal, rate, seed,
+                          1.0 / d_true ** 0.5, planes)
     if q.dtype == torch.float32:
         _launch("flash_fwd_f32_launch", *ptrs, *common)
     else:
-        _, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
-                             sm_count(q.device))
+        groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
+                          sm_count(q.device), d)[1]
         _launch("flash_fwd_launch", *ptrs, groups, *common)
     flash_fwd.launches += 1
+    if d != d_true:
+        out = out[..., :d_true].contiguous()
     return out, lse
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
-             n_sms: int) -> Tuple[str, int]:
+             n_sms: int, d: int = 128) -> Tuple[str, int]:
     """(route, groups) of one backward call, the kernel's launch argument
     G.  ``"resident"`` while a K/V plane fits one block (skv <=
     RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's query tiles, as
     many as the SMs left over by the b·hk planes allow without a second
-    wave (at most one per tile); else ``"tiled"`` (groups 0)."""
-    if skv > RESIDENT_MAX_KEYS:
+    wave (at most one per tile); else, and for a head dim ``d`` past
+    RESIDENT_HEAD_DIMS, ``"tiled"`` (groups 0)."""
+    if skv > RESIDENT_MAX_KEYS or d not in RESIDENT_HEAD_DIMS:
         return "tiled", 0
     tiles = (h if hk == 1 else 1) * -(-sq // BWD_TILE_ROWS)
     return "resident", max(1, min(tiles, n_sms // (b * hk)))
@@ -305,7 +354,7 @@ def bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
 
 
 def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
-              rate: float = 0.0, seed: int = 0, pairs=None):
+              rate: float = 0.0, seed: int = 0, pairs=None, planes=None):
     """(dq, dk, dv) from the forward's ``lse`` and ``dvec = rowsum(g ∘
     out)``; multi-query dK/dV summed over the query heads.  The CUDA
     kernels (:func:`bwd_plan`) for CUDA tensors, the plain version for CPU
@@ -314,7 +363,19 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
     tiled and the f32 kernels add none)."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
-                                    rate, seed)
+                                    rate, seed, planes)
+    d_true = q.shape[-1]
+    grads = _flash_bwd(*_pad(kernel_head_dim(d_true), q, k, v, g), bias,
+                       causal, lse, dvec, rate, seed, pairs, planes,
+                       1.0 / d_true ** 0.5)
+    if grads[0].shape[-1] == d_true:
+        return grads
+    return tuple(t[..., :d_true].contiguous() for t in grads)
+
+
+def _flash_bwd(q, k, v, g, bias, causal, lse, dvec, rate, seed, pairs,
+               planes, scale):
+    """:func:`flash_bwd` on operands of a kernel head dim."""
     bias, strides = _check("flash_bwd", q, k, v, bias)
     _build.check_operand("flash_bwd", "g", g, q.dtype)
     _build.check_operand("flash_bwd", "lse", lse, torch.float32)
@@ -326,17 +387,19 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
         P = _build.ptr
         _launch("flash_bwd_f32_launch", P(q), P(k), P(v), P(g), P(lse),
                 P(dvec), P(dq), P(dk), P(dv),
-                *_common_args(q, k, bias, strides, causal, rate, seed))
+                *_common_args(q, k, bias, strides, causal, rate, seed, scale,
+                              planes))
         flash_bwd.launches += 1
         return dq, dk, dv
-    _, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
-                         sm_count(q.device))
+    groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
+                      sm_count(q.device), q.shape[-1])[1]
     part = (torch.empty(2 * groups * k.numel(), dtype=torch.float32,
                         device=q.device) if groups > 1 else None)
     P = _build.ptr
     _launch("flash_bwd_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
             P(dq), P(dk), P(dv), P(part), P(pairs), ctypes.c_int(groups),
-            *_common_args(q, k, bias, strides, causal, rate, seed))
+            *_common_args(q, k, bias, strides, causal, rate, seed, scale,
+                          planes))
     flash_bwd.launches += 1
     return dq, dk, dv
 
@@ -344,12 +407,14 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
 flash_fwd.launches = flash_bwd.launches = 0
 
 
-def flash_backward(q, k, v, bias, causal, out, lse, g, rate, seed):
+def flash_backward(q, k, v, bias, causal, out, lse, g, rate, seed,
+                   planes=None):
     """(dq, dk, dv): ``D = rowsum(g ∘ out)`` in f32, then the backward
     wrapper."""
     g = g.contiguous()
     dvec = (g.float() * out.float()).sum(-1).contiguous()
-    return flash_bwd(q, k, v, bias, causal, g, lse, dvec, rate, seed)
+    return flash_bwd(q, k, v, bias, causal, g, lse, dvec, rate, seed,
+                     planes=planes)
 
 
 class FlashSDPA(torch.autograd.Function):
@@ -357,28 +422,31 @@ class FlashSDPA(torch.autograd.Function):
     dropout mask from ``seed``.  No gradient for the bias."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal: bool, rate: float, seed: int):
+    def forward(ctx, q, k, v, bias, causal: bool, rate: float, seed: int,
+                planes=None):
         with kernel_scope():
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = flash_fwd(q, k, v, bias, causal, rate, seed)
+            out, lse = flash_fwd(q, k, v, bias, causal, rate, seed, planes)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.args = (causal, rate, seed)
+        ctx.args = (causal, rate, seed, planes)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        causal, rate, seed = ctx.args
+        causal, rate, seed, planes = ctx.args
         dq, dk, dv = flash_backward(q, k, v, bias, causal, out, lse, g, rate,
-                                    seed)
-        return dq, dk, dv, None, None, None, None
+                                    seed, planes)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
                causal: bool = False, rate: float = 0.0,
-               seed: Optional[int] = None) -> torch.Tensor:
+               seed: Optional[int] = None, planes=None) -> torch.Tensor:
     """Differentiable flash attention; ``seed`` is required when
-    ``rate > 0`` (a fixed seed would drop the same entries every step)."""
+    ``rate > 0`` (a fixed seed would drop the same entries every step).
+    ``planes`` places the call's dropout planes in the global batch and
+    heads (:func:`planes_of`)."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"flash dropout rate must be in [0, 1), got {rate}")
     if rate > 0.0 and seed is None:
@@ -386,12 +454,12 @@ def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
     if bias is not None:
         bias = bias.detach()
     return FlashSDPA.apply(q, k, v, bias, causal, rate,
-                           0 if seed is None else int(seed))
+                           0 if seed is None else int(seed), planes)
 
 
 __all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan",
            "dropout_keep_mask", "flash_bwd", "flash_forward_plain",
-           "fwd_plan",
+           "fwd_plan", "kernel_head_dim", "planes_of",
            "flash_backward_plain",
            "flash_fwd", "flash_sdpa", "keep_threshold"]
 

@@ -50,17 +50,31 @@ def in_kernel_scope() -> bool:
 
 class _NormalizeGradients(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, data_axis):
+        ctx.data_axis = data_axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g32 = g.float()
-        return (g32 / (torch.linalg.vector_norm(g32) + 1e-6)).to(g.dtype)
+        axis = ctx.data_axis
+        if axis is None or axis.size == 1:
+            norm = torch.linalg.vector_norm(g32)
+        else:   # the norm of the global batch's gradient
+            import torch.distributed as dist
+
+            sq = g32.square().sum()
+            dist.all_reduce(sq, group=axis.group)
+            norm = sq.sqrt()
+        return (g32 / (norm + 1e-6)).to(g.dtype), None
 
 
-def normalize_gradients(x: torch.Tensor) -> torch.Tensor:
-    return _NormalizeGradients.apply(x)
+def normalize_gradients(x: torch.Tensor, data_axis=None) -> torch.Tensor:
+    """Identity forward; the backward divides the gradient by its norm
+    over the whole batch: under a mesh (``data_axis``, this rank's rows
+    of the global batch) the norm of every data rank's rows, as the JAX
+    step's global array has it."""
+    return _NormalizeGradients.apply(x, data_axis)
 
 
 def _abt_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,10 @@ for many thread blocks in flight:
 (c) a multi-query attention kernel with the heads folded into the rows:
     a block stages one image's K and Vᵀ in shared memory once, its warps
     run 16 folded query rows at a time through mma.sync, an exact softmax
-    in registers (``MAX_ATTN_ROWS`` keys at most);
+    in registers (``MAX_ATTN_ROWS`` keys at most at head dims up to 128);
+    past that, and at head dim 256, the K/V-tiled form of the same kernel
+    (:func:`attn_route`), which stages 64 keys at a time and takes any
+    row count;
 (d) the MoE FFN kernel with the LN2 prologue and residual epilogue,
     writing the chain's rows of the output.
 
@@ -56,6 +59,7 @@ import torch
 from image2text_torch.nn.modules import layer_norm
 from image2text_torch.ops import _build
 from image2text_torch.ops.attention import sdpa
+from image2text_torch.ops.flash_attention import RESIDENT_HEAD_DIMS
 from image2text_torch.ops.fused_moe import (MoELinearWeights, launch_moe_ffn,
                                             moe_ffn_plain)
 from image2text_torch.utils.device import sm_count
@@ -143,13 +147,13 @@ def _gemm(lib, stream, A, a_rows, a_T, B, bias, R, r_rows, r_T, C, c_T,
     _build.check(err, "gemm_launch")
 
 
-# The attention kernel stages one image's K (tp x (hd + 8) bf16) and Vᵀ
-# (hd x (tp + 8)) in shared memory, tp = t rounded up to 16; a block may
-# take 227 KB (232,448 bytes).  At the largest head dim it takes (128)
-# that is tp <= 432; smaller head dims fit more, but one limit holds for
-# all.
+# The resident attention kernel stages one image's K (tp x (hd + 8) bf16)
+# and Vᵀ (hd x (tp + 8)) in shared memory, tp = t rounded up to 16; a block
+# may take 227 KB (232,448 bytes).  At head dim 128 that is tp <= 432;
+# smaller head dims fit more, but one limit holds for all.  Longer rows,
+# and head dim 256, take the K/V-tiled kernel.
 ATTN_SMEM_LIMIT = 232448
-ATTN_HEAD_DIMS = (16, 32, 64, 128)
+ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _attn_smem(tp: int, hd: int = 128) -> int:
@@ -160,17 +164,31 @@ MAX_ATTN_ROWS = max(tp for tp in range(16, 4096, 16)
                     if _attn_smem(tp) <= ATTN_SMEM_LIMIT)
 
 
+def attn_route(t: int, hd: int) -> str:
+    """``"resident"`` (K/V of an image in one block's shared memory) for
+    head dims up to 128 and at most ``MAX_ATTN_ROWS`` rows, else
+    ``"tiled"``."""
+    return ("resident" if hd in RESIDENT_HEAD_DIMS and t <= MAX_ATTN_ROWS
+            else "tiled")
+
+
+def chain_takes(d: int, n_head: int) -> bool:
+    """Whether the chain's kernels take a block of width ``d`` and
+    ``n_head`` heads (any row count from 2)."""
+    hd = d // n_head
+    return d % 64 == 0 and hd in ATTN_HEAD_DIMS and n_head * hd == d
+
+
 def _chain_shape_error(b: int, t: int, d: int, n_head: int, ts: int,
                        w_qkv_shape) -> Optional[str]:
     """Why the chain's kernels refuse these shapes (``ts`` rows per image
     through the chain), or None."""
     hd = d // n_head
-    if (ts < 2 or d % 64 or hd not in ATTN_HEAD_DIMS or n_head * hd != d
-            or tuple(w_qkv_shape) != (d, d + 2 * hd) or ts > MAX_ATTN_ROWS):
+    if (ts < 2 or not chain_takes(d, n_head)
+            or tuple(w_qkv_shape) != (d, d + 2 * hd)):
         return (f"unsupported shape b={b} t={t} rows through the chain {ts} "
                 f"d={d} n_head={n_head} (needs d % 64 == 0, a head dim of "
-                f"16, 32, 64 or 128, and at most {MAX_ATTN_ROWS} rows for "
-                "the attention's shared memory)")
+                f"16, 32, 64, 128 or 256, and at least 2 rows)")
     return None
 
 
@@ -204,7 +222,7 @@ def _attention(lib, stream, qkv, b: int, t: int, n_head: int,
         ctypes.c_int(n_head), ctypes.c_int(hd),
         ctypes.c_float(1.0 / math.sqrt(hd)),
         ctypes.c_int(_attn_blocks(b, n_head, t, sm_count(qkv.device))),
-        stream)
+        ctypes.c_int(attn_route(t, hd) == "tiled"), stream)
     _build.check(err, "mqa_attention_launch")
     return o
 

@@ -15,7 +15,9 @@ numpy, so the same seed gives the same batches bit for bit):
 * :func:`process_index` / :func:`process_count` — this process's rank and
   the world size in ``torch.distributed`` (0 and 1 without a process
   group), where the JAX package reads ``jax.process_index()`` /
-  ``jax.process_count()``;
+  ``jax.process_count()``; :func:`data_shard` — the (data index, data
+  size) of this process, which the trainer passes from its mesh and by
+  which a loader strides its rows (model peers read the same rows);
 * the local image-directory loader (``dataset: local``):
   :func:`preprocess_image` (the Flickr resize through the C++ core,
   ``training/native.py``, for uint8 frames), :func:`preprocess_image_vit`
@@ -464,11 +466,22 @@ class _StridedRows:
         return self.rows[self.offset + int(i) * self.count]
 
 
-def _host_shard(rows):
-    """This process's rows (all of them without a process group)."""
-    if process_count() == 1:
+def data_shard(shard=None) -> Tuple[int, int]:
+    """(data index, data size) of this process: ``shard`` where the caller
+    gives it (the trainer, from its mesh), else (process index, process
+    count)."""
+    return tuple(shard) if shard is not None else (process_index(),
+                                                   process_count())
+
+
+def _host_shard(rows, shard=None):
+    """This data rank's rows (all of them with one data rank): every
+    ``count``-th from its index of ``data_shard(shard)``, the same for the
+    model peers of a mesh."""
+    index, count = data_shard(shard)
+    if count == 1:
         return rows
-    return _StridedRows(rows, process_index(), process_count())
+    return _StridedRows(rows, index, count)
 
 
 class _LocalRows:
@@ -503,11 +516,12 @@ class _LocalRows:
 def get_local_dataloader(tokenizer, batch_size: int, shuffle: bool,
                          is_vit: bool, dataset_dir: str,
                          max_length: int = 256,
-                         val_fraction: float = 0.1):
+                         val_fraction: float = 0.1, shard=None):
     """(train, val) :class:`RowBatcher` s over a directory of images and a
     ``captions.json`` mapping each relative image path to its captions
     (1–5, cycled to 5): the entries sorted by path, the last
-    ``val_fraction`` of them (at least one) the validation rows."""
+    ``val_fraction`` of them (at least one) the validation rows; each
+    loader this data rank's rows of them (``shard``: :func:`data_shard`)."""
     import json
     import os
 
@@ -528,5 +542,7 @@ def get_local_dataloader(tokenizer, batch_size: int, shuffle: bool,
     transform = make_row_transform(tokenizer, is_vit, max_length)
     train = _LocalRows(entries[:n_train], dataset_dir)
     val = _LocalRows(entries[n_train:] if n_val else entries[:], dataset_dir)
-    return (RowBatcher(_host_shard(train), transform, batch_size, shuffle, 0),
-            RowBatcher(_host_shard(val), transform, batch_size, shuffle, 1))
+    return (RowBatcher(_host_shard(train, shard), transform, batch_size,
+                       shuffle, 0),
+            RowBatcher(_host_shard(val, shard), transform, batch_size,
+                       shuffle, 1))

@@ -21,6 +21,19 @@ serving); its frozen ones (``nn.core.frozen_param_paths``: a LoRA-wrapped
 decoder's base, the int4 scales) stay off, so no gradient is computed for
 them — the JAX step computes and discards theirs.
 
+Under a mesh (``training/loop.py``) a rank holds rows ``rows = (first,
+global batch)`` of each batch: the masked-LM corruption is drawn for the
+global batch and sliced, every dropout likewise (``nn.core.Ctx``), and the
+contrastive loss scores this rank's positions against the *global*
+batch's targets, gathered over the data group (``data_axis``) with their
+gradient.  The LM loss needs nothing: ``get_weights`` divides by the
+rank's batch, so the mean of the ranks' equal-sized losses is the global
+loss.  Its gradient is not DDP's mean of theirs: every block output
+divides its gradient by the norm over the whole batch
+(``normalize_gradients``), so the backward runs on the rank's share of
+the global loss (``loss_scale = 1/data``) and the step sums the ranks'
+gradients.
+
 ``forward`` is what the training step calls through
 ``torch.func.functional_call`` on bf16 copies of the f32 parameters
 (``training/loop.py``).  With ``backward=True`` it also runs the backward
@@ -41,6 +54,7 @@ from image2text_torch.configs.trainer import TrainerWrapperConfig
 from image2text_torch.models.vision_encoder_decoder import VisionEncoderDecoder
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, frozen_param_paths,
                                       generator)
+from image2text_torch.parallel.collectives import LOCAL, gather_data
 
 
 class TokenizerInfo:
@@ -90,6 +104,7 @@ class ModelTrainerWrapper(nn.Module):
         self.momentum = trainer_config.moco_momentum
         self.alpha = trainer_config.moco_alpha
         self.add_contrastive_loss = trainer_config.add_contrastive_loss
+        self.data_axis = LOCAL   # the mesh's data axis (training/loop.py)
 
     # -- teacher state ------------------------------------------------------
     def init_weights(self, seed: int = 0) -> "ModelTrainerWrapper":
@@ -166,21 +181,32 @@ class ModelTrainerWrapper(nn.Module):
         d = hidden_state.shape[-1]
         h = hidden_state.reshape(-1, d).float()
         t = hidden_target.reshape(-1, d).float()
-        predictions = torch.where(attn_mask.reshape(1, -1), h @ t.T,
+        mask = attn_mask.reshape(-1)
+        first = 0
+        if self.data_axis.size > 1:   # every data rank's targets
+            t = gather_data(t, self.data_axis)
+            mask = gather_data(mask.float(), self.data_axis) > 0
+            first = self.data_axis.rank * h.shape[0]
+        predictions = torch.where(mask.reshape(1, -1), h @ t.T,
                                   torch.full((), float("-inf"),
                                              device=h.device))
         logp = F.log_softmax(predictions / self.contrastive_temperature, -1)
-        losses = -torch.diagonal(logp)
+        n = h.shape[0]
+        losses = -logp[torch.arange(n, device=h.device),
+                       torch.arange(first, first + n, device=h.device)]
         losses = torch.where(torch.isinf(losses), torch.zeros_like(losses),
                              losses)
         return torch.sum(losses * weights.reshape(-1))
 
     # -- step helpers -------------------------------------------------------
     def build_inputs(self, labels: torch.Tensor, is_train: bool,
-                     seed: Optional[int] = None, noise=None):
+                     seed: Optional[int] = None, noise=None,
+                     rows: Tuple[int, int] = (0, 0)):
         """labels → (corrupted BOS-prepended input ids, bool mask).
         ``noise`` = (u1, u2, random_ids) replaces the draws from ``seed``
-        (tests feed both packages the same numbers)."""
+        (tests feed both packages the same numbers); under ``rows`` =
+        (first, global batch) they are drawn for the global batch and this
+        rank's rows kept."""
         tok = self.tokenizer
         keep = labels != self.ignore_index
         eos = torch.full_like(labels, tok.eos_token_id)
@@ -192,12 +218,15 @@ class ModelTrainerWrapper(nn.Module):
                     raise ValueError("mask corruption needs a seed and a "
                                      "mask token")
                 g = generator(Ctx(seed).fold(17).seed, labels.device)
-                u1 = torch.rand(labels.shape, generator=g,
-                                device=labels.device)
-                u2 = torch.rand(labels.shape, generator=g,
-                                device=labels.device)
-                random_ids = torch.randint(0, tok.vocab_size, labels.shape,
+                shape = ((rows[1], labels.shape[1]) if rows[1]
+                         else labels.shape)
+                u1 = torch.rand(shape, generator=g, device=labels.device)
+                u2 = torch.rand(shape, generator=g, device=labels.device)
+                random_ids = torch.randint(0, tok.vocab_size, shape,
                                            generator=g, device=labels.device)
+                if rows[1]:
+                    mine = slice(rows[0], rows[0] + labels.shape[0])
+                    u1, u2, random_ids = u1[mine], u2[mine], random_ids[mine]
             else:
                 u1, u2, random_ids = noise
             masked = torch.where(u2 <= self.random_mask_fraction,
@@ -216,19 +245,23 @@ class ModelTrainerWrapper(nn.Module):
 
     def forward(self, images, labels, seed: Optional[int] = None,
                 is_train: bool = True, use_flash: bool = True,
-                backward: bool = False, noise=None
+                backward: bool = False, noise=None,
+                rows: Tuple[int, int] = (0, 0), loss_scale: float = 1.0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of one batch; a train step passes ``seed`` (the
-        dropout and corruption stream) and ``backward=True``."""
-        corrupted, _ = self.build_inputs(labels, is_train, seed, noise)
+        dropout and corruption stream) and ``backward=True``, and under a
+        mesh this rank's ``rows`` of the global batch."""
+        corrupted, _ = self.build_inputs(labels, is_train, seed, noise, rows)
         train = is_train and seed is not None
-        ctx = Ctx(seed, True).fold(23) if train else EVAL_CTX
+        ctx = (Ctx(seed, True, rows, data_axis=self.data_axis).fold(23)
+               if train else EVAL_CTX)
         out = self.model(images, corrupted, ctx=ctx, use_flash=use_flash)
         logits_moco = None
         if self.is_momentum and is_train:
             # the reference keeps the teacher in train mode: its dropout
             # stays on, on a stream of its own
-            mctx = Ctx(seed, True).fold(29) if train else EVAL_CTX
+            mctx = (Ctx(seed, True, rows, data_axis=self.data_axis).fold(29)
+                    if train else EVAL_CTX)
             with torch.no_grad():
                 logits_moco = self.model_m(images, corrupted, ctx=mctx,
                                            use_flash=use_flash).logits
@@ -240,5 +273,5 @@ class ModelTrainerWrapper(nn.Module):
             metrics[f"{step}_loss_contrastive"] = loss_c.detach()
             loss = loss + loss_c
         if backward:
-            loss.backward()
+            (loss if loss_scale == 1.0 else loss * loss_scale).backward()
         return loss.detach(), metrics

@@ -20,6 +20,11 @@ form is not written, as in JAX's export.  The port's modules must already
 hold the int8 form (the transform is a function of shapes and
 ``min_elems``) before such a tree loads into them.
 
+Under a mesh (``parallel/sharding_rules.py::place_params``) the tensors
+a rank holds are shards: :func:`state_dict_numpy` gathers them whole (a
+collective: every rank calls it), so a file written from a mesh run is
+the one-device run's.
+
 :func:`save_checkpoint` writes that key set as the ``.npz`` the JAX
 package's ``load_state_dict`` reads (optionally only the parameters the
 optimizer's ``target_modules`` patterns name, and the buffers), and
@@ -86,6 +91,17 @@ def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _whole(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (``p`` or its gradient) whole when the placement split ``p``
+    over the model axis."""
+    place = getattr(p, "_tp", None)
+    if place is None:
+        return t
+    from image2text_torch.parallel.collectives import gather_whole
+
+    return gather_whole(t, p._tp_axis, *place)
+
+
 def state_dict_numpy(model: nn.Module,
                      grads: bool = False) -> Dict[str, np.ndarray]:
     """The port's weights under the JAX export's keys (float tensors as
@@ -95,10 +111,11 @@ def state_dict_numpy(model: nn.Module,
     flat = {}
     tensors = (dict(model.named_parameters()) if grads
                else _tensors(model))
-    for k, t in tensors.items():
+    for k, p in tensors.items():
+        t = p
         if grads:
             t = torch.zeros_like(t) if t.grad is None else t.grad
-        t = t.detach().cpu()
+        t = _whole(p, t.detach()).cpu()
         if k.rsplit(".", 1)[-1] == QDTYPE:
             flat[k] = _marker_numpy(t)
             continue
@@ -183,13 +200,13 @@ def save_checkpoint(model: nn.Module, path: str,
                     matchers: Optional[List] = None) -> None:
     """Write ``model``'s weights as the JAX export's ``.npz``; with
     ``matchers`` (``utils/patterns.PatternMatcher``s) only the keys one of
-    them matches, and every buffer.  Only process 0 of a process group
-    writes."""
+    them matches, and every buffer.  Every process of a process group calls
+    it (a split weight is gathered whole); only process 0 writes."""
     import torch.distributed as dist
 
+    sd = state_dict_numpy(model)
     if dist.is_available() and dist.is_initialized() and dist.get_rank():
         return
-    sd = state_dict_numpy(model)
     if matchers:
         buffers = {k for k, _ in model.named_buffers()}
         sd = {k: v for k, v in sd.items()

@@ -422,7 +422,7 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     def t(*shape, dtype=torch.bfloat16):
         return torch.zeros(*shape, device=dev, dtype=dtype)
 
-    cases = [(t(1, 2, 8, 256), t(1, 1, 8, 256), None),       # head dim
+    cases = [(t(1, 2, 8, 320), t(1, 1, 8, 320), None),       # head dim
              (t(1, 4, 8, 64), t(1, 2, 8, 64), None),          # grouped K/V
              (t(1, 2, 8, 64), t(1, 1, 8, 64),
               t(1, 1, 3, 8, dtype=torch.float32)),              # bias rows
@@ -755,19 +755,27 @@ def test_fused_block_kernel_matches_plain(dev, n_embd, n_head, t, bias):
 
 
 @pytest.mark.cuda
-def test_fused_block_raises_past_the_attention_shared_memory(dev):
-    """More rows than the attention kernel's scores fit in a block's
-    shared memory: a ValueError before any launch, not a refused launch."""
-    from image2text_torch.ops.fused_block import MAX_ATTN_ROWS, fused_block
+@pytest.mark.parametrize("t", [448, 1024])
+def test_fused_block_raises_past_the_attention_shared_memory(dev, t):
+    """More rows than the resident attention kernel holds in a block's
+    shared memory (432 at head dim 128): the chain's K/V-tiled attention
+    takes them, one launch, against the plain version on its routes.  The
+    name is the one the test had while the chain raised there."""
+    from image2text_torch.ops.fused_block import (MAX_ATTN_ROWS, attn_route,
+                                                  fused_block,
+                                                  fused_block_plain)
 
-    blk = _dense_block(dev, 64, 4, False)
+    assert t > MAX_ATTN_ROWS and attn_route(t, 128) == "tiled"
+    blk = _dense_block(dev, 256, 2, True)
     w = blk.block_weights(torch.bfloat16)
-    x = torch.zeros(1, MAX_ATTN_ROWS + 16, 64, device=dev,
-                    dtype=torch.bfloat16)
+    x = torch.randn(2, t, 256, device=dev, generator=_gen(dev, 15)
+                    ).to(torch.bfloat16)
     before = fused_block.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_block(x, w)
-    assert fused_block.launches == before
+    got, want, rk, gv = _run_pair(fused_block, fused_block_plain, (x, w),
+                                  2 * t, w.fc.e)
+    assert fused_block.launches == before + 1
+    check_routes("fused_block", rk, gv, w.fc.k)
+    check_output(f"fused_block t={t}", got, want)
 
 
 def _ban_cases(dev, rows, vocab):
@@ -1844,3 +1852,177 @@ def test_remat_policies_give_the_gradients_of_full_on_the_card(dev, policy):
     assert set(g0) == set(g1)
     for n in g0:
         assert torch.equal(g0[n], g1[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,sq,skv,causal", [
+    (80, 160, 160, False),     # padded to 128: the resident pair (bf16)
+    (48, 40, 300, True),       # padded to 64, tiled keys
+    (192, 136, 136, True),     # padded to 256: the tiled pair
+    (256, 160, 160, False),    # 256 itself
+])
+def test_flash_kernels_pad_head_dims(dev, dtype, d, sq, skv, causal):
+    """Head dims the kernels do not take pad with zero lanes to the next
+    they do (scaled by the true head dim), 256 included: forward and
+    backward against the plain versions with dropout, in bf16 and f32."""
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 31)
+    b, h = 2, 4
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g).to(dtype)
+                     for shape in ((b, h, sq, d), (b, 1, skv, d),
+                                   (b, 1, skv, d), (b, h, sq, d)))
+    rate, seed = 0.1, 77
+    out, lse = fa.flash_fwd(q, k, v, None, causal, rate, seed)
+    want, want_lse = fa.flash_forward_plain(q, k, v, None, causal, rate, seed)
+    gr = (dout, want_lse, (dout.float() * want.float()).sum(-1), rate, seed)
+    got = fa.flash_bwd(q, k, v, None, causal, *gr)
+    plain = fa.flash_backward_plain(q, k, v, None, causal, *gr)
+    torch.cuda.synchronize()
+    limits = F32_LIMITS if dtype == torch.float32 else None
+    assert out.shape == q.shape and got[1].shape == k.shape
+    for name, mine, ref in (("out", out, want), ("lse", lse, want_lse),
+                            *zip(("dq", "dk", "dv"), got, plain)):
+        if limits is None:
+            check_output(f"flash d={d} {name}", mine, ref)
+        else:
+            check_output(f"flash f32 d={d} {name}", mine, ref, limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("skv", [160, 300])
+def test_flash_kernels_with_planes_equal_the_whole_calls_slice(dev, dtype,
+                                                              skv):
+    """Rows 2–3 of 4 and heads 2–3 of 4 with their planes (``planes_of``):
+    the forward's output and lse and the backward's dQ are bit for bit the
+    whole call's slice (both routes), dK and dV match the plain version
+    with the same planes."""
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 33)
+    B, H, s, d, rate, seed = 4, 4, 136, 64, 0.1, 5150
+    q, dout = (torch.randn(B, H, s, d, device=dev, generator=g).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(B, 1, skv, d, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    out_w, lse_w = fa.flash_fwd(q, k, v, None, True, rate, seed)
+    dvec = (dout.float() * out_w.float()).sum(-1)
+    dq_w = fa.flash_bwd(q, k, v, None, True, dout, lse_w, dvec, rate, seed)[0]
+    mine = (slice(2, 4), slice(2, 4))
+    planes = fa.planes_of(2, 2, rows=(2, B), heads=(2, H))
+    ql, doutl = q[mine].contiguous(), dout[mine].contiguous()
+    kl, vl = k[2:].contiguous(), v[2:].contiguous()
+    out, lse = fa.flash_fwd(ql, kl, vl, None, True, rate, seed, planes)
+    gr = (doutl, lse, dvec[mine].contiguous(), rate, seed)
+    got = fa.flash_bwd(ql, kl, vl, None, True, *gr, planes=planes)
+    plain = fa.flash_backward_plain(ql, kl, vl, None, True, *gr,
+                                    planes=planes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_w[mine]) and torch.equal(lse, lse_w[mine])
+    assert torch.equal(got[0], dq_w[mine])
+    limits = F32_LIMITS if dtype == torch.float32 else None
+    for name, mine_, ref in zip(("dk", "dv"), got[1:], plain[1:]):
+        if limits is None:
+            check_output(f"flash planes {name}", mine_, ref)
+        else:
+            check_output(f"flash planes f32 {name}", mine_, ref, limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,hd", [(160, 128), (432, 64), (448, 128),
+                                  (1000, 64), (40, 256), (320, 256)])
+def test_mqa_attention_tiled_route_matches_plain(dev, t, hd):
+    """The chain's K/V-tiled attention (past 432 rows, and at head dim 256)
+    against ops.attention.sdpa; where the resident kernel also runs, the
+    two routes bit for bit (the same keys in the same order)."""
+    import ctypes
+    import math
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops.attention import sdpa
+    from image2text_torch.ops.fused_block import (_attn_blocks, _fn,
+                                                  attn_route)
+    from image2text_torch.utils.device import sm_count
+
+    b, h = 2, 1024 // hd if hd == 256 else 8
+    qkv, q, k, v = _mqa_case(dev, b, t, h, hd, 1.0, 9)
+    lib = _build.load("fused_block")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(tiled):
+        o = torch.empty(b * t, h * hd, dtype=qkv.dtype, device=dev)
+        err = _fn(lib, "mqa_attention_launch")(
+            _build.ptr(qkv), _build.ptr(o), ctypes.c_int(b), ctypes.c_int(t),
+            ctypes.c_int(h), ctypes.c_int(hd),
+            ctypes.c_float(1.0 / math.sqrt(hd)),
+            ctypes.c_int(_attn_blocks(b, h, t, sm_count(dev))),
+            ctypes.c_int(tiled), stream)
+        _build.check(err, "mqa_attention_launch")
+        return o
+
+    got = launch(1)
+    want = sdpa(q, k, v).transpose(1, 2).reshape(b * t, h * hd)
+    torch.cuda.synchronize()
+    check_output(f"mqa tiled t={t} hd={hd}", got, want)
+    if attn_route(t, hd) == "resident":
+        assert torch.equal(got, launch(0))
+
+
+@pytest.mark.cuda
+def test_f32_block_takes_the_composed_forward_on_the_card(dev):
+    """An f32 sparse eval block on the card: JAX's gate on hardware
+    declines f32, so no chain kernel runs and the FFN is ``moe_ffn``'s f32
+    form (one launch); the output matches a CPU copy (the chain's plain
+    version) at the f32 limits.  bf16 still launches ``sparse_block``."""
+    import copy
+
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    blk = _block(dev, 256, 2, 64, True).float().eval()
+    x = torch.randn(3, 64, 256, device=dev, generator=_gen(dev, 35))
+    counts = sparse_block.launches, moe_ffn.launches
+    with torch.no_grad():
+        got, layout = blk(x, want_lazy=True)
+        want, _ = copy.deepcopy(blk).cpu()(x.cpu(), want_lazy=True)
+    assert (sparse_block.launches, moe_ffn.launches) == (counts[0],
+                                                         counts[1] + 1)
+    check_output("f32 block", got.cpu(), want, F32_LIMITS)
+    with torch.no_grad():
+        blk.to(torch.bfloat16)(x.to(torch.bfloat16), want_lazy=True)
+    assert sparse_block.launches == counts[0] + 1
+
+
+@pytest.mark.cuda
+def test_mesh_trainer_at_one_rank_equals_the_trainer(dev, tmp_path):
+    """The tiny flagship's bf16 step through an NCCL mesh of one rank
+    (``parallel/mesh.py``, the mesh Trainer: gradients and metrics through
+    the all-reduces) is bit for bit the one-device Trainer's."""
+    import torch.distributed as dist
+
+    from image2text_torch.parallel import checks
+    from image2text_torch.parallel.mesh import make_mesh
+    from image2text_torch.training.loop import Trainer
+
+    cfg = checks.tiny_config()
+    cfg.precision = "bf16"
+    cfg.mesh = checks.MeshConfig()
+    data = checks.batches(2)
+    w = checks.build(cfg, device="cuda")
+    tr = Trainer(cfg, w)
+    want = [{k: float(v) for k, v in tr.train_step(*b).items()} for b in data]
+    params = {k: p.detach().clone() for k, p in w.named_parameters()}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/r",
+                            rank=0, world_size=1)
+    try:
+        w2 = checks.build(cfg, device="cuda")
+        tr2 = Trainer(cfg, w2, mesh=make_mesh(cfg.mesh, "cuda"))
+        assert tr2.mesh.distributed
+        got = [{k: float(v) for k, v in tr2.train_step(*b).items()}
+               for b in data]
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    for k, p in w2.named_parameters():
+        assert torch.equal(p, params[k]), k

@@ -180,6 +180,21 @@ def test_serving_mode_modules_are_covered(name):
                          path.read_text(), re.M)
 
 
+@pytest.mark.parametrize("name", [
+    "image2text_torch.parallel.collectives", "image2text_torch.parallel.mesh",
+    "image2text_torch.parallel.sharding_rules",
+    "image2text_torch.parallel.launch", "image2text_torch.parallel.checks",
+    "image2text_torch.graft_entry"])
+def test_parallel_slice_modules_are_covered(name):
+    """The mesh's modules and the twin of ``__graft_entry__.py`` are among
+    those the no-JAX import check walks, and none names JAX or the JAX
+    package (the spawned ranks import them alone)."""
+    assert name in _submodules()
+    path = REPO / (name.replace(".", "/") + ".py")
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|image2text_tpu)\b",
+                         path.read_text(), re.M)
+
+
 def test_int8_product_takes_plain_version_only_on_cpu():
     """``int8_mm`` (the W8A8 product): the exact plain product on CPU
     tensors, counting no launch; on another device ``torch._int_mm`` or a

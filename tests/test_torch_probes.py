@@ -16,10 +16,10 @@ probes, on the CPU.
   ``bench_kernels``); the fixture puts them back as they were.
 * The wide probe's groupings equal the whole batch bit for bit on the
   plain path, in f32 and bf16.
-* The shape rules the redesign brought: the attention's row limit (432,
-  the shared memory of one image's K and Vᵀ at head dim 128) and the MoE
-  FFN's regimes, pinned here; a CUDA tensor past them raises ValueError
-  before any launch (the card's own test:
+* The shape rules the redesign brought: the resident attention's row
+  limit (432, the shared memory of one image's K and Vᵀ at head dim 128;
+  longer rows and head dim 256 take the K/V-tiled kernel) and the MoE
+  FFN's regimes, pinned here (the card's own test of the tiled route:
   ``tests/test_torch_cuda.py::test_fused_block_raises_past_the_attention_shared_memory``).
 """
 import importlib.util
@@ -155,14 +155,22 @@ def test_wide_grouping_equals_the_whole_batch_bit_for_bit(blocks, variant,
 
 def test_attention_row_limit_is_pinned():
     """One image's K (tp x 136 bf16) and Vᵀ (128 x tp + 8) in 227 KB:
-    tp 432 fits, 448 does not; every encoder length of the port's configs
-    (320 at most) is within it."""
+    tp 432 fits the resident kernel, 448 does not and takes the K/V-tiled
+    one, as head dim 256 does at any length; every encoder length of the
+    port's configs (320 at most) stays resident.  The chain refuses only
+    widths and head dims its kernels lack, and a single row."""
     assert fb.MAX_ATTN_ROWS == 432
     assert fb._attn_smem(432) <= fb.ATTN_SMEM_LIMIT < fb._attn_smem(448)
     assert fb._attn_smem(160) == 86528 and fb._attn_smem(320) == 171008
-    assert fb._chain_shape_error(2, 432, 1024, 8, 432, (1024, 1280)) is None
-    for ts, n_head, d in ((433, 8, 1024), (160, 4, 1024), (160, 8, 1000),
-                          (1, 8, 1024)):
+    assert [fb.attn_route(t, hd) for t, hd in (
+        (320, 128), (432, 128), (433, 128), (1024, 64), (160, 256))] == [
+            "resident", "resident", "tiled", "tiled", "tiled"]
+    for ts, n_head, d in ((432, 8, 1024), (433, 8, 1024), (1024, 8, 1024),
+                          (160, 4, 1024)):
+        assert fb._chain_shape_error(2, ts, d, n_head, ts,
+                                     (d, d + 2 * (d // n_head))) is None
+    for ts, n_head, d in ((160, 8, 1000), (1, 8, 1024), (160, 2, 1024),
+                          (160, 16, 1280)):
         assert fb._chain_shape_error(2, ts, d, n_head, ts,
                                      (d, d + 2 * (d // n_head))) is not None
 
