@@ -8,7 +8,8 @@ Phases, each printing its lines:
 
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
 2. build    nvcc builds every kernel source from the checkout, and the
-            probes' ablation builds of two of them, in parallel.
+            probes' ablation builds of two of them, in parallel; the
+            dryrun's CPU ranks run beside it.
 3. kernels  each CUDA kernel against its plain PyTorch version, in bf16 at
             the flagship shapes, the plain version run on the kernel's own
             expert routes and held at the output's scale
@@ -201,17 +202,18 @@ weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
             serving_launches), peak memory; for the models that launch a
             kernel, parity as [parity], the plain path also run with its
             int4 products summed in another f32 order (its own spread).
-   hf-cpu   depth-2 forms card against CPU: each family in f32 (logits
+   hf-cpu   depth-1 forms card against CPU: each family in f32 (logits
             within 1e-4, ids equal; Falcon's and GPT-2-xl's decoders on the
-            CPU's encoder output), and the int4 Llama-2-13B form in bf16.
+            CPU's encoder output), and the int4 Llama-2-13B form in bf16
+            (its logits alone).
 
-   train-parity  each family's depth-2 form at full width, batch 2,
+   train-parity  each family's depth-1 form at full width, batch 1,
             dropout 0: one training step on the card against one on a CPU
             copy (loss 1e-2 and gradients 2e-2 relative L2 in bf16, 1e-5
             in f32; tpu/nano.yaml in f32, its PEER top-k parting at bf16
             near ties; a bf16 form beyond them within twice the CPU bf16
             step's distance from the CPU's f32 step).
-   remat    tpu/llama2-13b.yaml at depth 4 under full, dots, nothing and
+   remat    tpu/llama2-13b.yaml at depth 2 under full, dots, nothing and
             everything: loss and gradients against full's, step ms and
             peak memory of each.
    train-kernels  the flash forward and backward at each family's largest
@@ -240,7 +242,7 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             from the model, the loss of every step (finite, lower at the
             end), peak memory, step ms (--profile: device time by kernel of
             one step).
-15. offline-eval  the evaluate twin, greedy, 32 images, on the new
+15. offline-eval  the evaluate twin, greedy, 8 images, on the new
             checkpoint and on artifacts/quality2_ck.npz: the card's tokens,
             BLEU-4 and CIDEr-D equal to the CPU run's in this process; the
             sampled metrics beside them.
@@ -283,9 +285,31 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             the flagship at full width and depth 2): a train step, a val
             step and greedy generate against one device (losses within
             TRAIN_LOSS_TOL, launches equal, 3/4 of the tokens equal).
-   dryrun   graft_entry.entry() on the card, then
-            graft_entry.dryrun_multichip(4): 4 gloo ranks on the CPU (a CPU
-            phase), JAX's two phases and lines.
+   dist-tp-int4  llama2-13b.yaml's int4 + LoRA decoder at full width,
+            split over tp2 (2 gloo ranks sharing the card, SP) against
+            one device on the same seeded weights (parallel/checks.py's
+            Llama form), captions of the initial weights, then a step:
+            in f32 on the int4 plain version at INT4_TP_DEPTH layers the
+            same losses, gradients, greedy tokens and beam ids; in bf16
+            on the kernel at INT4_TP_SHALLOW and INT4_TP_DEPTH layers the
+            loss within 1e-3 (gradients within 2e-2 at INT4_TP_SHALLOW),
+            and no further from the f32 truth than twice one device's
+            bf16 run; int4_matmul at the shard shapes as often as one
+            device, half the int4 bytes a rank, beams checked alike over
+            the group; int4_matmul at the shard shapes against its plain
+            version, bf16 and f32 output.
+   dryrun   graft_entry.entry() on the card, then the result of
+            graft_entry.dryrun_multichip(4), started beside the build: 4
+            gloo ranks on the CPU (a CPU phase), JAX's two phases and
+            lines.
+   lora-vit, lora-decoder  local/gpt2.yaml's pretrained ViT and
+            tpu/nano.yaml's GPT-2-initialised decoder with a LoRA spec set
+            in code, at full width and depth: a training step (frozen
+            digests kept, every adapter moved), a caption call, and the
+            depth-2 form card against CPU.
+   moe-gates  the flagship's blocks with gates of no and of two hidden
+            layers: no sparse_block, fused_block or moe_ffn launch; card
+            against CPU at depth 2 in f32.
 19. device-times  the device time of the flash forward, int4_matmul,
             fused_frontend (both routes) and topk_ban_mask rows, in all and
             by kernel (torch.profiler's kernel durations, free of the
@@ -307,11 +331,13 @@ import contextlib
 import copy
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1179,19 +1205,22 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
     call (it builds caches and per-block index tensors), one call with
     every launch count set to 0 just before it, kept under ``path`` and
     held to ``want()`` (read just after it), then captions/s over 3 warm
-    windows of one call on ``b`` images each (the median reported) and,
-    with ``--profile``, device time by kernel of one more call.  Returns
-    the counted call's output and the captions/s."""
+    windows of one call on ``b`` images each, the counted call the first
+    of them (the median reported) and, with ``--profile``, device time by
+    kernel of one more call.  Returns the counted call's output and the
+    captions/s."""
     run(0)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     counts, out = launch_counts(lambda: run(1))
+    torch.cuda.synchronize()
+    windows = [b / (time.perf_counter() - t0)]
     record_launches(results, path, counts)
     want = want()
     log(f"  launches in {what}: {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"{path} launch counts {counts} != {want}")
-    windows = []
-    for w in range(3):
+    for w in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(10 + w)
@@ -1283,7 +1312,7 @@ def phase_parity(torch, model, phase: str, bos: int,
         want, ids_p = first_logits(), greedy()
         if sensitivity:
             with int4_reordered(torch):
-                other, ids_o = first_logits(), greedy()
+                other = first_logits()
     torch.cuda.synchronize()
     n_layers = len(model.vision_encoder.blocks) + len(model.decoder.blocks)
     rel_l2, err, scale, ok = logits_error(torch, got, want)
@@ -1299,11 +1328,9 @@ def phase_parity(torch, model, phase: str, bos: int,
         f"{MAX_NEW_TOKENS} steps {agree:.4f}")
     if sensitivity:
         s_rel, s_err, _, _ = logits_error(torch, other, want)
-        s_agree = float((ids_o[:, 1:] == ids_p[:, 1:]).float().mean())
         log(f"  the plain path against itself with its int4 products summed "
             f"in another f32 order: relative L2 {s_rel:.6g}, max_abs_err "
-            f"{s_err:.6g}, greedy tokens agreeing over {MAX_NEW_TOKENS} "
-            f"steps {s_agree:.4f}; the kernel path's limits: relative L2 "
+            f"{s_err:.6g}; the kernel path's limits: relative L2 "
             f"{max(TOL, 2 * s_rel):.6g}, max_abs_err "
             f"{max(TOL * scale, 2 * s_err):.6g}")
         ok = ok or (bool(torch.isfinite(got).all()) and rel_l2 <= 2 * s_rel
@@ -1321,11 +1348,12 @@ def int4_reordered(torch):
     sensitivity)."""
     from image2text_torch.ops import int4_matmul as i4
 
-    def reordered(x, packed, scales):
+    def reordered(x, packed, scales, out_dtype=None):
         w = i4.dequantize_int4(packed, scales, torch.float32)
         h, xf = w.shape[1] // 2, x.float()
         return (torch.matmul(xf[..., :h], w[:, :h].t())
-                + torch.matmul(xf[..., h:], w[:, h:].t())).to(x.dtype)
+                + torch.matmul(xf[..., h:], w[:, h:].t())).to(
+                    out_dtype or x.dtype)
 
     saved = i4.int4_matmul
     i4.int4_matmul = reordered
@@ -1346,11 +1374,12 @@ def int4_dequantised_once(torch):
 
     kept, plain = {}, i4.int4_matmul_plain
 
-    def once(x, packed, scales):
+    def once(x, packed, scales, out_dtype=None):
         if id(packed) not in kept:   # the tensor is held: its id stays its
             kept[id(packed)] = (packed, i4.dequantize_int4(
                 packed, scales, torch.float32))
-        return torch.matmul(x.float(), kept[id(packed)][1].t()).to(x.dtype)
+        return torch.matmul(x.float(), kept[id(packed)][1].t()).to(
+            out_dtype or x.dtype)
 
     i4.int4_matmul_plain = once
     try:
@@ -2260,9 +2289,9 @@ def kernel_shapes(flash: dict, int4: set):
             flash[key] = None if bias is None else bias.detach().cpu()
         return f0(ctx, q, k, v, bias, causal, rate, seed, planes)
 
-    def int4_forward(ctx, x, packed, scales):
+    def int4_forward(ctx, x, packed, scales, *rest):
         int4.add((x.numel() // x.shape[-1], x.shape[-1], packed.shape[0]))
-        return i0(ctx, x, packed, scales)
+        return i0(ctx, x, packed, scales, *rest)
 
     fa.FlashSDPA.forward = staticmethod(flash_forward)
     im.Int4Matmul.forward = staticmethod(int4_forward)
@@ -2463,13 +2492,17 @@ def int4_work(x, packed, scales):
 
 
 def int4_case(torch, results, key: str, x, packed, scales,
-              iters: int = 20) -> dict:
+              iters: int = 20, f32_out: bool = False) -> dict:
     """int4_matmul on ``x`` against its plain version, with the plan (tile,
     splits of the input) and two more launches bitwise equal; beside it
     torch.matmul on the weight dequantised once to bf16, a yardstick the
-    port never calls.  Kept as the int4_matmul row's ``<key>_shape`` (the
-    first case also gives the row's own numbers); its device time is read
-    at the end of the run, with x held on the host meanwhile."""
+    port never calls.  ``f32_out``: also the f32 output (``out_dtype``
+    f32, a row shard's unrounded partial product, written by the tile
+    kernel or, with splits, by the reduce kernel) against the plain
+    version's f32 output at the f32 limits, and its time.  Kept as the
+    int4_matmul row's ``<key>_shape`` (the first case also gives the
+    row's own numbers); its device time is read at the end of the run,
+    with x held on the host meanwhile."""
     from image2text_torch.ops.int4_matmul import (dequantize_int4,
                                                   int4_matmul,
                                                   int4_matmul_plain, int4_plan)
@@ -2505,6 +2538,27 @@ def int4_case(torch, results, key: str, x, packed, scales,
     row = dict(rows=rows, in_pad=in_pad, out=out_f, max_abs_err=err, ms=ms,
                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
                tile=[bm, bn], splits=splits, reruns_bitwise_equal=same)
+    if f32_out:
+        f32 = torch.float32
+        got = int4_matmul(x, packed, scales, out_dtype=f32)
+        want = int4_matmul_plain(x, packed, scales, out_dtype=f32)
+        same = all(torch.equal(got, int4_matmul(x, packed, scales,
+                                                out_dtype=f32))
+                   for _ in range(2))
+        torch.cuda.synchronize()
+        row["f32_max_abs_err"] = compare(
+            f"int4_matmul {label} out_dtype f32 ({splits} split(s))", got,
+            want, f32=True)
+        del got, want
+        if not same:
+            raise AssertionError(f"int4_matmul {label} f32: reruns differ")
+        row["f32_ms"] = cuda_ms(torch, lambda: int4_matmul(
+            x, packed, scales, out_dtype=f32), iters)
+        row["f32_plain_ms"] = cuda_ms(torch, lambda: int4_matmul_plain(
+            x, packed, scales, out_dtype=f32), iters)
+        log(f"    {label} out_dtype f32: kernel {row['f32_ms']:.4f} ms, "
+            f"plain {row['f32_plain_ms']:.4f} ms; two more launches bitwise "
+            f"equal: {same}")
     entry = results.setdefault("int4_matmul", {"name": "int4_matmul"})
     if "source" not in entry:   # the first row: GPT-2-medium's decode c_attn
         entry.update(
@@ -2587,7 +2641,7 @@ def gpt2m_train_inputs(torch, batch: int, seed: int):
 SMOKE_YAML = "training_configs/local/synthetic-smoke.yaml"
 QUALITY2_YAML = "training_configs/local/synthetic-quality2.yaml"
 QUALITY2_CK = "artifacts/quality2_ck.npz"
-OFFLINE_EVAL_IMAGES = 32
+OFFLINE_EVAL_IMAGES = 8    # evaluate.py's default 20, cut for time
 OFFLINE_BEAM_BATCH = 8
 # The offline configs' training attention (as FLASH_FLAGSHIP's fields):
 # synthetic-smoke.yaml's batch 8, 4 heads of 16, one K/V head; the encoder's
@@ -3293,6 +3347,7 @@ HF_INT4 = (
     ("gpt2xl", 64 + 1, (("c_attn", 1600, 4800), ("attn_c_proj", 1600, 1600),
                         ("c_fc", 1600, 6400), ("mlp_c_proj", 6400, 1600))))
 HF_CPU_BATCH = 4    # [hf-cpu]'s images
+HF_CPU_DEPTH = 1    # [hf-cpu]'s layers, cut for time
 
 
 def phase_hf_kernels(torch, results):
@@ -3453,7 +3508,8 @@ def phase_hf(torch, args, results):
                          sensitivity=True)
         del model
         torch.cuda.empty_cache()
-    log(f"[hf-cpu] each family at depth 2, card against a CPU copy ({CARD})")
+    log(f"[hf-cpu] each family at depth {HF_CPU_DEPTH}, card against a CPU "
+        f"copy ({CARD})")
     phase_hf_cpu(torch)
 
 
@@ -3465,10 +3521,12 @@ def load_precision(name: str) -> str:
 
 def card_against_cpu(torch, m, label: str, bos: int, tol: float,
                      ids_equal: bool, cpu_encoder: bool = False) -> None:
-    """``m`` on the card against a CPU copy of it: the encoder output,
+    """``m`` on the card against a CPU copy of it: the encoder output and
     first-step logits (a one-token prefill's last row) within ``tol``
-    (relative L2) and greedy ids over MAX_NEW_TOKENS, HF_CPU_BATCH images;
-    with ``ids_equal`` the ids must be equal, else a parting is reported.
+    (relative L2), HF_CPU_BATCH images; with ``ids_equal`` also greedy ids
+    over MAX_NEW_TOKENS, which must be equal (a bf16 form, whose ids part
+    at near ties, is held to its logits alone: its greedy decode on the
+    CPU is the slowest part of the check on a host without bf16 units).
     ``cpu_encoder``: both decoders take the CPU copy's encoder output (an
     f32 form whose scratch encoder's sparse blocks the card's bf16 kernel
     does not take: the decoder alone is compared)."""
@@ -3483,23 +3541,24 @@ def card_against_cpu(torch, m, label: str, bos: int, tol: float,
     got = prefill(m, enc, prompt, 1 + MAX_NEW_TOKENS)[0][:, -1].float()
     want = prefill(cpu, cenc, prompt.cpu(),
                    1 + MAX_NEW_TOKENS)[0][:, -1].float()
-    ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                   temperature=0.0, encoder_output=enc)
-    cids = generate(cpu, images.cpu(), prompt.cpu(),
-                    max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
-                    encoder_output=cenc)
+    parting = None
+    if ids_equal:
+        ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
+                       temperature=0.0, encoder_output=enc)
+        cids = generate(cpu, images.cpu(), prompt.cpu(),
+                        max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+                        encoder_output=cenc)
+        parting = first_parting(torch, ids, cids)
     enc_err = rel_l2(torch, enc.float().cpu(), cenc.float())
     err = rel_l2(torch, got.cpu(), want)
-    parting = first_parting(torch, ids, cids)
     log(f"  {label} ({len(m.decoder.blocks)}-layer decoder, "
         f"{str(m.decoder.dtype).split('.')[-1]}), card against CPU, "
         f"{HF_CPU_BATCH} images: encoder output "
         + ("the CPU's, on both" if cpu_encoder
            else f"relative L2 {enc_err:.6g}")
-        + f", first-step logits {err:.6g} (limit {tol}); greedy ids over "
-        f"{MAX_NEW_TOKENS} steps equal: {parting is None}"
-        + ("" if parting is None else
-           f" (first parting at row, step {parting})"))
+        + f", first-step logits {err:.6g} (limit {tol})"
+        + (f"; greedy ids over {MAX_NEW_TOKENS} steps equal: "
+           f"{parting is None}" if ids_equal else ""))
     if not (err <= tol and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{label}: logits {err} > {tol}")
     if ids_equal and parting is not None:
@@ -3508,13 +3567,13 @@ def card_against_cpu(torch, m, label: str, bos: int, tol: float,
 
 
 def phase_hf_cpu(torch):
-    """Depth-2 forms (decoder and encoder) at full width, card against a
-    CPU copy (``card_against_cpu``): each family in f32 with TF32 off
-    (Llama-2-7B as configured; Qwen-2; Falcon and GPT-2-xl with their
-    Linears in float, their decoders alone on the CPU's encoder output)
-    within NANO_CPU_TOL and the ids equal; and Llama-2-13B as configured,
-    int4 in bf16 (the kernel against the CPU's plain version) within
-    CPU_MODE_TOL.  The CPU copies dequantise each int4 weight once
+    """HF_CPU_DEPTH-layer forms (decoder and encoder) at full width, card
+    against a CPU copy (``card_against_cpu``): each family in f32 with
+    TF32 off (Llama-2-7B as configured; Qwen-2; Falcon and GPT-2-xl with
+    their Linears in float, their decoders alone on the CPU's encoder
+    output) within NANO_CPU_TOL and the ids equal; and Llama-2-13B as
+    configured, int4 in bf16 (the kernel against the CPU's plain version)
+    within CPU_MODE_TOL, its logits alone.  The CPU copies dequantise each int4 weight once
     (``int4_dequantised_once``)."""
     f32 = torch.float32
     for name, kw, tol, exact in (
@@ -3524,7 +3583,7 @@ def phase_hf_cpu(torch):
             ("gpt2xl", dict(int4=False, dtype=f32), NANO_CPU_TOL, True),
             ("llama13b", {}, CPU_MODE_TOL, False)):
         t0 = time.perf_counter()
-        m, _, _ = hf_model(torch, name, depth=2, **kw)
+        m, _, _ = hf_model(torch, name, depth=HF_CPU_DEPTH, **kw)
         with int4_dequantised_once(torch):
             card_against_cpu(torch, m, name, HF_BOS[name], tol, exact,
                              cpu_encoder=name in ("falcon7b", "gpt2xl"))
@@ -3556,9 +3615,11 @@ FAMILY_BOS = dict(HF_BOS, **{n: NANO_BOS for n in ("nano-mini", "nano",
                                                    "nano-lsh", "gpt2")})
 FAMILY_SEQ = 256        # the text block: 256 label positions
 FAMILY_STEPS = 1        # timed steps a window (3 windows), one warm step
-FAMILY_PARITY_BATCH = 2
+FAMILY_PARITY_BATCH = 1   # cut for time
+FAMILY_PARITY_DEPTH = 1   # [train-parity]'s layers (decoder and encoder),
+                          # cut for time; the LoRA phases run 2
 F32_PARITY_TOL = 1e-5   # [train-parity] f32: loss and gradients, relative
-REMAT_FAMILY, REMAT_DEPTH = "llama13b", 4
+REMAT_FAMILY, REMAT_DEPTH = "llama13b", 2   # depth cut for time
 # kernel shapes each family's step gave (kernel_shapes), for [train-kernels]
 TRAIN_FLASH = {}
 TRAIN_INT4 = {}
@@ -3575,7 +3636,8 @@ def no_dropout(model_cfg) -> None:
 
 
 def family_setup(torch, name: str, depth=None, device="cuda",
-                 dropout: bool = True, batch=None, init: bool = True):
+                 dropout: bool = True, batch=None, init: bool = True,
+                 edit=None):
     """(cfg, wrapper, Trainer) of ``name``'s YAML at full width, at full
     depth or ``depth`` layers (decoder and encoder), on ``device``: f32
     masters with random weights from SEED (a GPT-2-initialised decoder
@@ -3586,8 +3648,10 @@ def family_setup(torch, name: str, depth=None, device="cuda",
     both packages refuse it) runs with accumulation 1, as gpt2-medium.yaml
     does.  ``dropout`` False zeroes every dropout; ``batch`` overrides the
     batch (and then accumulation is 1); ``init`` False leaves the weights
-    as allocated (for a copy that loads another's).  The build's time and
-    peak device memory go on the wrapper (``built_s``, ``build_peak``)."""
+    as allocated (for a copy that loads another's); ``edit(cfg)`` changes
+    the config before the build (a LoRA spec set in code).  The build's
+    time and peak device memory go on the wrapper (``built_s``,
+    ``build_peak``)."""
     from image2text_torch.configs.models import GPT2_MODEL_TABLE
     from image2text_torch.configs.reader import load_training_config
     from image2text_torch.training.loop import Trainer
@@ -3595,6 +3659,8 @@ def family_setup(torch, name: str, depth=None, device="cuda",
                                                    TokenizerInfo)
 
     cfg = load_training_config(FAMILY_YAML[name])
+    if edit is not None:
+        edit(cfg)
     enc, dec = cfg.model.vision_encoder_config, cfg.model.decoder_config
     if depth is not None:
         if hasattr(enc, "n_layer"):
@@ -3705,85 +3771,104 @@ def grad_error(torch, got: dict, want: dict) -> float:
     return math.sqrt(num / den)
 
 
+def grad_sums(torch, got: dict, want: dict) -> dict:
+    """{name: (squared L2 of got - want, squared L2 of want)} in f64 over
+    the names both hold, one pass over each tensor."""
+    return {n: (float((got[n] - want[n]).double().square().sum()),
+                float(want[n].double().square().sum()))
+            for n in want if n in got}
+
+
 def phase_train_cpu(torch):
-    """[train-parity]: each family's depth-2 form (decoder and encoder) at
-    full width, one training step on the card against one on a CPU copy
-    of the same weights (batch FAMILY_PARITY_BATCH, dropout 0: the card's
-    and the CPU's generators draw different masks): the loss and the
-    trainable gradients (relative L2 over all of them) within
+    """[train-parity]: each family's FAMILY_PARITY_DEPTH-layer form (decoder
+    and encoder) at full width, one training step on the card against one on
+    a CPU copy of the same weights (batch FAMILY_PARITY_BATCH, dropout 0:
+    the card's and the CPU's generators draw different masks): the loss and
+    the trainable gradients (relative L2 over all of them) within
     TRAIN_LOSS_TOL and TRAIN_GRAD_TOL in bf16, F32_PARITY_TOL in f32.
     ``tpu/nano.yaml`` runs in f32, as [nano-cpu] holds it: its PEER head's
-    bf16 top-k picks other experts on the card than on the CPU at near
-    ties, and a pick apart moves a table row's gradient whole.  A bf16
-    form beyond those limits is held to the reference's own bf16 error,
-    as ``phase_attention_sensitivity`` holds the chain: the CPU step in f32
-    from the same weights is the measure, and the card's bf16 step must
-    lie within twice the CPU's bf16 step's distance from it (loss and
-    gradients).  Llama-2-13B's int4 form needs it: its bf16 steps on the
-    card and on the CPU part by more than 2e-2.  The CPU copy is
-    built without weights of its own (it loads the card's) and dequantises
-    each int4 weight once (``int4_dequantised_once``)."""
-    from image2text_torch.training.loop import Trainer, make_train_step
-
-    failed = []
-    for name in FAMILY_YAML:
-        t0 = time.perf_counter()
-        cfg, w, tr = family_setup(torch, name, depth=2, dropout=False,
-                                  batch=FAMILY_PARITY_BATCH)
-        ccfg, cw, ctr = family_setup(torch, name, depth=2, device="cpu",
-                                     dropout=False, init=False,
-                                     batch=FAMILY_PARITY_BATCH)
-        if name == "nano":
-            cfg.precision = ccfg.precision = "no"
-            tr._train_step = make_train_step(w, tr.optimizer, 1, "no")
-            ctr._train_step = make_train_step(cw, ctr.optimizer, 1, "no")
-        start = {k: v.cpu().clone() for k, v in w.state_dict().items()}
-        cw.load_state_dict(start)
-        images, labels = family_inputs(torch, cfg, FAMILY_PARITY_BATCH,
-                                       SEED + 51)
-        cpu_in = (images.cpu(), labels.cpu(), cfg.seed, 0)
-        loss = float(tr._train_step(images, labels, cfg.seed, 0)[
-            "train_loss_lm"])
-        with int4_dequantised_once(torch):
-            closs = float(ctr._train_step(*cpu_in)["train_loss_lm"])
-        g, cg = grads_of(w), grads_of(cw)
-        f32 = cfg.precision == "no"
-        ltol, gtol = ((F32_PARITY_TOL, F32_PARITY_TOL) if f32
-                      else (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL))
-        lerr = abs(loss - closs) / abs(closs)
-        gerr = grad_error(torch, g, cg) if set(g) == set(cg) else math.inf
-        worst = sorted(((grad_error(torch, {n: g[n]}, {n: cg[n]}), n)
-                        for n in cg if n in g and float(
-                            cg[n].square().sum()) > 0), reverse=True)[:3]
-        line = (f"  {name} (depth 2 + 2, {cfg.precision!r}, batch "
-                f"{FAMILY_PARITY_BATCH}): loss card {loss:.7f} vs CPU "
-                f"{closs:.7f} (relative error {lerr:.3g}, limit {ltol}); "
-                f"gradients relative L2 {gerr:.3g} over {len(cg)} trainable "
-                f"tensors (limit {gtol}); the largest by tensor "
-                f"{[(n, float(f'{e:.3g}')) for e, n in worst]}")
-        ok = bool(cg) and lerr <= ltol and gerr <= gtol
-        if cg and not f32 and not ok:
-            cw.load_state_dict(start)
-            ref_step = make_train_step(cw, Trainer(ccfg, cw).optimizer, 1,
-                                       "no")
-            with int4_dequantised_once(torch):
-                rloss = float(ref_step(*cpu_in)["train_loss_lm"])
-            rg = grads_of(cw)
-            e_card, e_cpu = grad_error(torch, g, rg), grad_error(torch, cg, rg)
-            l_card = abs(loss - rloss) / abs(rloss)
-            l_cpu = abs(closs - rloss) / abs(rloss)
-            ok = (e_card <= 2 * e_cpu
-                  and l_card <= max(TRAIN_LOSS_TOL, 2 * l_cpu))
-            line += (f"; against the CPU's f32 step: card's bf16 gradients "
-                     f"{e_card:.3g}, the CPU's {e_cpu:.3g} (limit twice "
-                     f"that), loss {l_card:.3g} and {l_cpu:.3g}")
-        log(line + f" [{time.perf_counter() - t0:.1f} s]")
-        if not ok:
-            failed.append(name)
-        del cfg, w, tr, ccfg, cw, ctr, g, cg, start
-        torch.cuda.empty_cache()
+    bf16 top-k picks other experts on the card than on the CPU at near ties,
+    and a pick apart moves a table row's gradient whole.  A bf16 form beyond
+    those limits is held to the reference's own bf16 error, as
+    ``phase_attention_sensitivity`` holds the chain: the CPU step in f32
+    from the same weights is the measure, and the card's bf16 step must lie
+    within twice the CPU's bf16 step's distance from it (loss and
+    gradients).  Llama-2-13B's int4 form needed it at depth 2: its bf16
+    steps on the card and on the CPU parted by more than 2e-2.  The CPU copy
+    is built without weights of its own (it loads the card's) and
+    dequantises each int4 weight once (``int4_dequantised_once``)."""
+    failed = [name for name in FAMILY_YAML
+              if not family_card_vs_cpu(torch, name,
+                                        depth=FAMILY_PARITY_DEPTH)]
     if failed:
         raise AssertionError(f"train-parity: card and CPU differ: {failed}")
+
+
+def family_card_vs_cpu(torch, name: str, edit=None, label=None,
+                       depth: int = 2) -> bool:
+    """One family's training step at ``depth`` layers (decoder and
+    encoder) on the card against a CPU copy (``phase_train_cpu``'s
+    limits); ``edit`` changes the config before both builds.  Whether it
+    held."""
+    from image2text_torch.training.loop import Trainer, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, w, tr = family_setup(torch, name, depth=depth, dropout=False,
+                              batch=FAMILY_PARITY_BATCH, edit=edit)
+    ccfg, cw, ctr = family_setup(torch, name, depth=depth, device="cpu",
+                                 dropout=False, init=False,
+                                 batch=FAMILY_PARITY_BATCH, edit=edit)
+    if name == "nano":
+        cfg.precision = ccfg.precision = "no"
+        tr._train_step = make_train_step(w, tr.optimizer, 1, "no")
+        ctr._train_step = make_train_step(cw, ctr.optimizer, 1, "no")
+    start = {k: v.cpu().clone() for k, v in w.state_dict().items()}
+    cw.load_state_dict(start)
+    images, labels = family_inputs(torch, cfg, FAMILY_PARITY_BATCH,
+                                   SEED + 51)
+    cpu_in = (images.cpu(), labels.cpu(), cfg.seed, 0)
+    loss = float(tr._train_step(images, labels, cfg.seed, 0)[
+        "train_loss_lm"])
+    with int4_dequantised_once(torch):
+        closs = float(ctr._train_step(*cpu_in)["train_loss_lm"])
+    g, cg = grads_of(w), grads_of(cw)
+    f32 = cfg.precision == "no"
+    ltol, gtol = ((F32_PARITY_TOL, F32_PARITY_TOL) if f32
+                  else (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL))
+    lerr = abs(loss - closs) / abs(closs)
+    sums = grad_sums(torch, g, cg)
+    gerr = (math.sqrt(sum(a for a, _ in sums.values())
+                      / sum(b for _, b in sums.values()))
+            if set(g) == set(cg) else math.inf)
+    worst = sorted(((math.sqrt(a / b), n) for n, (a, b) in sums.items()
+                    if b > 0), reverse=True)[:3]
+    line = (f"  {label or name} (depth {depth} + {depth}, "
+            f"{cfg.precision!r}, batch "
+            f"{FAMILY_PARITY_BATCH}): loss card {loss:.7f} vs CPU "
+            f"{closs:.7f} (relative error {lerr:.3g}, limit {ltol}); "
+            f"gradients relative L2 {gerr:.3g} over {len(cg)} trainable "
+            f"tensors (limit {gtol}); the largest by tensor "
+            f"{[(n, float(f'{e:.3g}')) for e, n in worst]}")
+    ok = bool(cg) and lerr <= ltol and gerr <= gtol
+    if cg and not f32 and not ok:
+        cw.load_state_dict(start)
+        ref_step = make_train_step(cw, Trainer(ccfg, cw).optimizer, 1,
+                                   "no")
+        with int4_dequantised_once(torch):
+            rloss = float(ref_step(*cpu_in)["train_loss_lm"])
+        rg = grads_of(cw)
+        e_card, e_cpu = grad_error(torch, g, rg), grad_error(torch, cg, rg)
+        l_card = abs(loss - rloss) / abs(rloss)
+        l_cpu = abs(closs - rloss) / abs(rloss)
+        ok = (e_card <= 2 * e_cpu
+              and l_card <= max(TRAIN_LOSS_TOL, 2 * l_cpu))
+        line += (f"; against the CPU's f32 step: card's bf16 gradients "
+                 f"{e_card:.3g}, the CPU's {e_cpu:.3g} (limit twice "
+                 f"that), loss {l_card:.3g} and {l_cpu:.3g}")
+    log(line + f" [{time.perf_counter() - t0:.1f} s]")
+    del cfg, w, tr, ccfg, cw, ctr, g, cg, start
+    torch.cuda.empty_cache()
+    return ok
 
 
 def phase_remat(torch):
@@ -4457,38 +4542,502 @@ def phase_dist_tp(torch):
     t0 = time.perf_counter()
     ranks = Ranks(checks.card_tp_check, 2)
     try:
-        ref = checks.card_reference()
+        ref = checks.card_reference()[0]
     finally:
-        got = ranks.join()[0]
+        got = ranks.join()[0][0]
     log(f"  {got['mesh']} on 2 gloo ranks sharing {CARD} "
         f"({time.perf_counter() - t0:.1f} s with the reference)")
     bad = []
     for part in ("train", "val"):
-        log(f"  {part}: {got[part]} against one device's {ref[part]}")
-        bad += [f"{part} {k}" for k, v in ref[part].items()
-                if abs(got[part][k] - v) > TRAIN_LOSS_TOL * abs(v)]
-    for part, counts in got["launches"].items():
+        g, r = got[part]["result"], ref[part]["result"]
+        log(f"  {part}: {g} against one device's {r}")
+        bad += [f"{part} {k}" for k, v in r.items()
+                if abs(g[k] - v) > TRAIN_LOSS_TOL * abs(v)]
+    for part in ("train", "val", "greedy"):
+        counts = got[part]["launches"]
         log(f"  {part} launches on rank 0: {counts} (one device: "
-            f"{ref['launches'][part]})")
-        if counts != ref["launches"][part]:
+            f"{ref[part]['launches']})")
+        if counts != ref[part]["launches"]:
             bad.append(f"{part} launches")
-    used = {k for c in got["launches"].values() for k, n in c.items() if n}
+    used = {k for p in ("train", "val", "greedy")
+            for k, n in got[p]["launches"].items() if n}
     if not {"sparse_block", "moe_ffn", "flash_fwd", "flash_bwd"} <= used:
         bad.append(f"kernels launched: {sorted(used)}")
-    agree = float((got["tokens"] == ref["tokens"]).mean())
-    log(f"  generate: tokens {got['tokens'].tolist()}, equal to one "
-        f"device's: {agree:.4f}")
+    tokens, want = got["greedy"]["result"], ref["greedy"]["result"]
+    agree = float((tokens == want).mean())
+    distinct = len({tuple(row) for row in want[:, 1:].tolist()})
+    log(f"  generate on images of distinct means: tokens {tokens.tolist()}, "
+        f"equal to one device's: {agree:.4f}; {distinct} distinct captions "
+        f"of {len(want)} on one device")
     if agree < 0.75:
         bad.append("generate")
     if bad:
         raise AssertionError(f"[dist-tp] differs: {bad}")
 
 
-def phase_dryrun(torch):
-    """``graft_entry.dryrun_multichip(4)``: 4 gloo ranks on the CPU, the
-    tiny dp2 × tp2 phase and the flagship widths at depth 2 with ZeRO-1
-    and SP (train, val, generate, checkpoint); a CPU phase."""
-    from image2text_torch.graft_entry import dryrun_multichip, entry
+# -- the int4 + LoRA model split, LoRA on the ViT and the scratch decoder,
+# MoE gates of other depths -------------------------------------------------
+
+INT4_TP_DEPTH = 4       # llama2-13b.yaml's 40 layers cut for time (PERF.md)
+INT4_TP_SHALLOW = 2     # the bf16 kernel run held to one device exactly
+INT4_TP_BATCH = 8       # its training batch (accumulation 2 cut to 1)
+INT4_TP_NEW = 8         # new tokens of the greedy and beam calls
+INT4_TP_LOSS_TOL = 1e-3     # bf16, tp2 against one device: loss, relative
+INT4_TP_GRAD_TOL = 2e-2     # adapter gradients, relative L2
+INT4_TP_F32_TOL = 1e-6      # f32: loss, relative
+# phase → (family, the part its LoRA spec goes on, the spec's targets, the
+# modules it keeps trainable: the decoder's that tpu/nano.yaml's groups
+# train, as local/gpt2.yaml's spec keeps its cross-attention)
+LORA_PHASES = {
+    "lora-vit": ("gpt2", "encoder", ["out_proj", "mlp.0", "mlp.3"], None),
+    "lora-decoder": ("nano", "decoder", ["c_attn", "c_proj", "c_fc"],
+                     ["*.cross_attn.*", "*.ln_3.*", "*.wpe.*"]),
+}
+LORA_BATCH = 64         # the caption call's images
+MOE_GATES = (None, (32, 16))
+
+
+def _int4_tp_diffs(torch, got, ref) -> dict:
+    """What parts two runs of ``checks._card_run``: loss (relative),
+    adapter gradients and first-token logits (relative L2), the share of
+    greedy tokens and beam ids equal, the beam's worst log-score gap."""
+    import numpy as np
+
+    gl = got["train"]["result"]["train_loss_lm"]
+    rl = ref["train"]["result"]["train_loss_lm"]
+    grads = {k: torch.from_numpy(v) for k, v in got["adapter_grads"].items()}
+    rgrads = {k: torch.from_numpy(v) for k, v in ref["adapter_grads"].items()}
+    lg, rlg = (torch.from_numpy(x["logits"]["result"]) for x in (got, ref))
+    gb, rb = got["beam"]["result"], ref["beam"]["result"]
+    return dict(
+        loss=abs(gl - rl) / abs(rl),
+        grads=(grad_error(torch, grads, rgrads) if set(grads) == set(rgrads)
+               else math.inf),
+        logits=rel_l2(torch, lg, rlg),
+        greedy=float((got["greedy"]["result"]
+                      == ref["greedy"]["result"]).mean()),
+        beam=float((gb["ids"] == rb["ids"]).mean()),
+        scores=float(np.abs(gb["scores"] - rb["scores"]).max()),
+        rounds=rb["rounds"])
+
+
+def _fmt(d: dict) -> str:
+    return (f"loss {d['loss']:.3g}, adapter gradients {d['grads']:.3g}, "
+            f"first-token logits {d['logits']:.3g} (relative), greedy "
+            f"tokens equal {d['greedy']:.3f}, beam ids equal {d['beam']:.3f}, "
+            f"log-scores worst {d['scores']:.4g} over {d['rounds']} rounds")
+
+
+def _exact(d: dict) -> bool:
+    """A split that computes the unsplit model in f32: loss within
+    INT4_TP_F32_TOL, adapter gradients and logits within NANO_CPU_TOL,
+    every greedy token and beam id equal, log-scores within
+    BEAM_SCORE_TOL a round."""
+    return (d["loss"] <= INT4_TP_F32_TOL and d["grads"] <= NANO_CPU_TOL
+            and d["logits"] <= NANO_CPU_TOL and d["greedy"] == 1.0
+            and d["beam"] == 1.0
+            and d["scores"] <= BEAM_SCORE_TOL * max(d["rounds"], 1))
+
+
+def _within_twice(split: dict, one: dict) -> list:
+    """The keys on which the split's bf16 run is further from the f32
+    truth than twice one device's bf16 run: gradients and logits by
+    their relative error, greedy tokens and beam ids by the share that
+    differs."""
+    bad = [k for k in ("grads", "logits") if split[k] > 2 * one[k]]
+    return bad + [k for k in ("greedy", "beam")
+                  if 1 - split[k] > 2 * (1 - one[k])]
+
+
+def phase_dist_tp_int4(torch, results):
+    """[dist-tp-int4]: ``parallel/checks.py``'s Llama form at
+    ``training_configs/tpu/llama2-13b.yaml``'s full width (int4 + LoRA,
+    SNRAdam): each run on one device (in this process), then the same
+    runs on dp1 x tp2 with SP on 2 gloo ranks sharing the card (one
+    spawn), on the same seeded weights: a greedy caption call, the first
+    token's logits and a greedy beam call (width 3, expansion 4) on
+    images of distinct means, all of the initial weights, then a train
+    step.
+
+    * f32 at INT4_TP_DEPTH layers on the int4 product's plain version
+      (the kernel takes bf16 only): the split computes the unsplit model
+      (``_exact``).
+    * bf16 on the kernel at INT4_TP_SHALLOW and at INT4_TP_DEPTH layers:
+      held against one device, the loss within INT4_TP_LOSS_TOL (and at
+      INT4_TP_SHALLOW layers the adapter gradients within
+      INT4_TP_GRAD_TOL); held against the f32 truth (one device's f32
+      run at that depth), the split no further from it than twice one
+      device's bf16 run (``_within_twice``).  Tokens are not held equal
+      in bf16: on these random weights any change of the f32 sums' order
+      parts some of them at near ties, one device's kernel against its
+      own plain version (at INT4_TP_SHALLOW layers, reported) as much as
+      the split.
+      int4_matmul launches as many times at the shard shapes as one
+      device at the whole ones, each rank half of the int4 bytes, the
+      beams checked alike over the model group every round.  Step,
+      greedy and beam ms of rank 0 beside one device's.
+    Then int4_matmul at the rank's shard shapes (training and greedy
+    decode rows) against its plain version, in bf16 and with its f32
+    output (``int4_case``)."""
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models.quantization import quantize_blockwise
+    from image2text_torch.parallel import checks
+    from image2text_torch.parallel.launch import Ranks
+
+    base = dict(depth=INT4_TP_DEPTH, batch=INT4_TP_BATCH,
+                n_gen=INT4_TP_BATCH, n_new=INT4_TP_NEW)
+    f32 = dict(precision="no", plain=True)
+    runs = [dict(base, **f32), dict(base), dict(base, depth=INT4_TP_SHALLOW)]
+    t0 = time.perf_counter()
+    refs = checks.card_reference("llama", runs + [
+        dict(runs[2], plain=True), dict(runs[2], **f32)])
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    outs = Ranks(checks.card_tp_check, 2, "llama", runs).join()
+    log(f"  one device {t1 - t0:.1f} s, 2 gloo ranks sharing the card "
+        f"{time.perf_counter() - t1:.1f} s (f32 on the int4 plain version "
+        f"and bf16 on the kernel at {INT4_TP_DEPTH} layers, bf16 on the "
+        f"kernel at {INT4_TP_SHALLOW}; one device also bf16 on the plain "
+        f"version and f32 at {INT4_TP_SHALLOW}; build, captions, step "
+        f"each)")
+    (f_ref, ref, s_ref, s_plain, s_f32), (f_got, got, s_got) = (
+        refs, outs[0])
+    bad = []
+    d = _int4_tp_diffs(torch, f_got, f_ref)
+    log(f"  f32, {INT4_TP_DEPTH} layers, tp2 against one device: {_fmt(d)}")
+    if not _exact(d):
+        bad.append("f32")
+    log(f"  bf16, {INT4_TP_SHALLOW} layers, one device's kernel against "
+        f"its plain version: {_fmt(_int4_tp_diffs(torch, s_plain, s_ref))}")
+    for depth, g, r, truth in ((INT4_TP_SHALLOW, s_got, s_ref, s_f32),
+                               (INT4_TP_DEPTH, got, ref, f_ref)):
+        one = _int4_tp_diffs(torch, g, r)
+        g_t = _int4_tp_diffs(torch, g, truth)
+        r_t = _int4_tp_diffs(torch, r, truth)
+        log(f"  bf16 kernel, {depth} layers, tp2 against one device: "
+            f"{_fmt(one)}")
+        log(f"  bf16 kernel, {depth} layers, against the f32 truth: tp2 "
+            f"{_fmt(g_t)}; one device {_fmt(r_t)}")
+        if one["loss"] > INT4_TP_LOSS_TOL:
+            bad.append(f"bf16 {depth} layers loss")
+        if depth == INT4_TP_SHALLOW and one["grads"] > INT4_TP_GRAD_TOL:
+            bad.append(f"bf16 {depth} layers grads")
+        bad += [f"bf16 {depth} layers {k} (truth)"
+                for k in _within_twice(g_t, r_t)]
+    log(f"  int4 weights (in_pad, out) on rank 0 {got['int4_shapes']}, one "
+        f"device {ref['int4_shapes']}")
+    for label, g_run, r_run in (("", got, ref),
+                                (f" at {INT4_TP_SHALLOW} layers", s_got,
+                                 s_ref)):
+        for part in ("train", "greedy", "beam"):
+            g, r = g_run[part], r_run[part]
+            n, want = (g["launches"]["int4_matmul"],
+                       r["launches"]["int4_matmul"])
+            log(f"  bf16{label} {part}: {g['ms']:.1f} ms on rank 0 against "
+                f"{r['ms']:.1f} ms on one device; launches on rank 0 "
+                f"{g['launches']} (one device {r['launches']})")
+            if n != want or not n:
+                bad.append(f"{part}{label} launches")
+            if not label:
+                record_launches(results, f"llama13b_tp2_{part}",
+                                {"int4_matmul": n})
+    for label, g_run, r_run in (("f32", f_got, f_ref), ("bf16", got, ref),
+                                (f"bf16 at {INT4_TP_SHALLOW} layers", s_got,
+                                 s_ref)):
+        ri = r_run["greedy"]["result"]
+        distinct = len({tuple(row) for row in ri[:, 1:].tolist()})
+        gb = g_run["beam"]["result"]
+        log(f"  {label}: {distinct} distinct captions of {len(ri)} images; "
+            f"beam rounds checked alike over the model group {gb['agreed']} "
+            f"of {gb['rounds']}")
+        if distinct < 2 or gb["agreed"] != gb["rounds"] or not gb["rounds"]:
+            bad.append(f"{label} captions")
+    whole = ref["int4_bytes"]
+    per_rank = [o[1]["int4_bytes"] for o in outs]
+    log(f"  int4 bytes (packed + f32 scales): one device "
+        f"{whole / 2 ** 30:.3f} GiB, ranks "
+        f"{[round(b / 2 ** 30, 3) for b in per_rank]} GiB; resident device "
+        f"bytes after the run: one device {ref['resident'] / 2 ** 30:.2f} "
+        f"GiB, ranks {[round(o[1]['resident'] / 2 ** 30, 2) for o in outs]} "
+        f"GiB")
+    if any(2 * b != whole for b in per_rank):
+        bad.append("int4 bytes")
+    if bad:
+        raise AssertionError(f"[dist-tp-int4] differs: {bad}")
+    log("  int4_matmul at the rank's shard shapes (training rows and "
+        "greedy decode rows) vs its plain version, bf16 and f32 output:")
+    n_cls = load_training_config(
+        checks.LLAMA_YAML).model.vision_encoder_config.n_cls
+    rows = (INT4_TP_BATCH * (n_cls + checks.FORMS["llama"].card_seq),
+            INT4_TP_BATCH)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    for r in sorted(rows):
+        for in_pad, out in got["int4_shapes"]:
+            w = torch.empty(out, in_pad, device=dev).normal_(
+                0.0, 0.02, generator=gen)
+            packed, scales = quantize_blockwise(w)
+            del w
+            x = torch.randn(r, in_pad, device=dev, generator=gen).to(bf16)
+            int4_case(torch, results, f"llama13b_tp2_{r}x{in_pad}x{out}", x,
+                      packed, scales.to(bf16), f32_out=True)
+            del x, packed, scales
+    torch.cuda.empty_cache()
+
+
+def lora_edit(phase: str):
+    """The config edit of a LoRA phase: its spec on the encoder or the
+    decoder (r 16, alpha 64, dropout 0.1, as the YAMLs' decoder specs), and
+    an optimizer group on ``*lora*`` ahead of the YAML's."""
+    from image2text_torch.configs.models import LoraSpec
+    from image2text_torch.configs.trainer import OptimizerConfig
+
+    _, part, targets, enabled = LORA_PHASES[phase]
+
+    def edit(cfg):
+        sub = (cfg.model.vision_encoder_config if part == "encoder"
+               else cfg.model.decoder_config)
+        sub.lora_spec = LoraSpec(r=16, lora_alpha=64, lora_dropout=0.1,
+                                 target_modules=targets,
+                                 force_enable_update_modules=enabled)
+        groups = [g for g in cfg.optimizers if g.target_modules]
+        lr = cfg.optimizers[0].lr if cfg.optimizers else 6e-4
+        # a catch-all group must be alone: the spec's group replaces it
+        cfg.optimizers = [OptimizerConfig(lr=lr, target_modules=["*lora*"])
+                          ] + groups
+    return edit
+
+
+def phase_lora(torch, args, results, phase: str):
+    """[lora-vit] / [lora-decoder]: the family's YAML at full width and
+    depth with the phase's LoRA spec set in code (``lora_edit``): a
+    training step (``phase_train``: launches as derived, frozen tensors
+    keep their digests, the loss falls) after which every adapter of the
+    spec has moved; then a caption call in bf16 (greedy, LORA_BATCH
+    images, MAX_NEW_TOKENS) with its launches held to
+    ``serving_launches``; then the depth-2 form's training step, card
+    against a CPU copy (``family_card_vs_cpu``)."""
+    name, part, _, _ = LORA_PHASES[phase]
+    holder = {}
+    prefix = f"model.{part}."
+
+    def setup():
+        cfg, wrapper, trainer = family_setup(torch, name,
+                                             edit=lora_edit(phase))
+        holder["adapters"] = {
+            k: tensor_digest(torch, p)
+            for k, p in wrapper.named_parameters()
+            if ".lora_" in k and k.startswith(prefix)}
+        holder["wrapper"] = wrapper
+        return cfg, wrapper, trainer
+
+    with torch.enable_grad():
+        model = phase_train(
+            torch, args, results, f"{phase.replace('-', '_')}_train_step",
+            setup, lambda cfg: family_inputs(torch, cfg, cfg.batch_size,
+                                             SEED + 60),
+            steps_per_window=1, keep=True)
+    wrapper, adapters = holder.pop("wrapper"), holder.pop("adapters")
+    named = dict(wrapper.named_parameters())
+    moved = sum(tensor_digest(torch, named[k]) != v
+                for k, v in adapters.items())
+    log(f"  {len(adapters)} adapters of the spec on the {part}; moved by "
+        f"the steps: {moved}")
+    if not adapters or moved != len(adapters):
+        raise AssertionError(f"[{phase}] adapters moved {moved} of "
+                             f"{len(adapters)}")
+    del wrapper, named
+    model = model.to(torch.bfloat16).eval()
+    bos = FAMILY_BOS[name]
+    with torch.no_grad():
+        frames, prompt = serving_inputs(torch, model, LORA_BATCH, SEED + 61,
+                                        bos)
+        from image2text_torch.models.generation import caption
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts, ids = launch_counts(lambda: caption(
+            model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
+            temperature=0.0, top_k=None))
+        ms = (time.perf_counter() - t0) * 1e3
+    record_launches(results, f"{phase.replace('-', '_')}_caption", counts)
+    want = serving_launches(model)
+    vocab = vocab_rows(model)
+    log(f"  caption call, {LORA_BATCH} images, greedy, {MAX_NEW_TOKENS} new "
+        f"tokens: {ms:.1f} ms; launches {counts} (want {want}); ids in "
+        f"range {bool(((ids >= 0) & (ids < vocab)).all())}")
+    if counts != want or not bool(((ids >= 0) & (ids < vocab)).all()):
+        raise AssertionError(f"[{phase}] caption call")
+    del model, ids
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        ok = family_card_vs_cpu(torch, name, edit=lora_edit(phase),
+                                label=f"{phase} {name}")
+    if not ok:
+        raise AssertionError(f"[{phase}] depth 2: card and CPU differ")
+
+
+def moe_gates_model(torch, gates, depth: int, dtype, device="cuda"):
+    """The flagship with every block's MoE gates at ``gates`` (None: one
+    linear gate), ``depth`` encoder and decoder layers, random weights
+    from SEED."""
+    from image2text_torch.configs.models import flagship_config
+    from image2text_torch.models.vision_encoder_decoder import (
+        VisionEncoderDecoder)
+
+    cfg = flagship_config()
+    for sub in (cfg.vision_encoder_config, cfg.decoder_config):
+        sub.transformer_config.rotator_config.gate_sizes = gates
+        sub.n_layer = depth
+    return VisionEncoderDecoder(cfg, device=device).init_weights(SEED).to(
+        dtype).eval()
+
+
+@contextlib.contextmanager
+def moe_routes(record=None, replay=None, flips=None):
+    """Every MoE linear's top-k route while inside: appended to
+    ``record`` (the mask and the gate values, on the host), or taken from
+    ``replay`` in call order, ``flips`` getting (rows whose own route
+    differs, the largest k-th to (k+1)-th gate gap among them)."""
+    from image2text_torch.models import layers
+
+    own_topk = layers.topk_mask
+    it = iter(replay) if replay is not None else None
+
+    def topk_mask(gv, k):
+        mask = own_topk(gv, k)
+        if record is not None:
+            record.append((mask.cpu(), gv.float().cpu()))
+        if it is None:
+            return mask
+        forced, _ = next(it)
+        differ = (forced != mask.cpu()).any(-1)
+        top = gv.float().cpu().topk(k + 1, dim=-1).values
+        gap = (top[..., k - 1] - top[..., k])[differ]
+        flips.append((int(differ.sum()), float(gap.max()) if gap.numel()
+                      else 0.0))
+        return forced.to(mask.device)
+
+    layers.topk_mask = topk_mask
+    try:
+        yield
+    finally:
+        layers.topk_mask = own_topk
+
+
+def moe_gates_against_cpu(torch, m, label: str) -> None:
+    """``m`` (f32) on the card against a CPU copy, the CPU on the card's
+    expert routes (as the kernel checks run the plain version on the
+    kernel's routes): a deep gate's softmax values lie within ~1e-5 of
+    each other at random init, so f32 rounding order picks another
+    expert at near ties.  Held: the encoder output and first-step logits
+    within NANO_CPU_TOL (relative L2), greedy ids over MAX_NEW_TOKENS
+    equal; the rows whose own route differs are reported with their
+    largest near-tie gap (limit 1e-5)."""
+    from image2text_torch.models.generation import generate, prefill
+
+    cpu = cpu_copy(m)
+    frames, prompt = serving_inputs(torch, m, HF_CPU_BATCH, SEED + 63,
+                                    FLAGSHIP_BOS)
+    from image2text_torch.models.generation import preprocess_frames
+
+    images = preprocess_frames(m, frames, m.decoder.dtype)
+    routes, flips = [], []
+    outs = []
+    for model, imgs, p, kw in ((m, images, prompt, dict(record=routes)),
+                               (cpu, images.cpu(), prompt.cpu(),
+                                dict(replay=routes, flips=flips))):
+        with moe_routes(**kw):
+            enc = model.encoder(imgs)
+            logits = prefill(model, enc, p, 1 + MAX_NEW_TOKENS)[0][:, -1]
+            ids = generate(model, imgs, p, max_new_tokens=MAX_NEW_TOKENS,
+                           temperature=0.0, encoder_output=enc)
+        outs.append((enc.float().cpu(), logits.float().cpu(), ids.cpu()))
+    (enc, lg, ids), (cenc, clg, cids) = outs
+    enc_err, err = rel_l2(torch, enc, cenc), rel_l2(torch, lg, clg)
+    rows = sum(n for n, _ in flips)
+    gap = max((g for _, g in flips), default=0.0)
+    log(f"  {label} (f32), card against CPU on the card's routes, "
+        f"{HF_CPU_BATCH} images: encoder output relative L2 {enc_err:.6g}, "
+        f"first-step logits {err:.6g} (limit {NANO_CPU_TOL}); greedy ids "
+        f"over {MAX_NEW_TOKENS} steps equal {bool(torch.equal(ids, cids))}; "
+        f"{len(flips)} MoE routings, rows whose CPU route differed {rows} "
+        f"(largest gap {gap:.3g}, limit 1e-5)")
+    if (enc_err > NANO_CPU_TOL or err > NANO_CPU_TOL
+            or not torch.equal(ids, cids) or gap > 1e-5):
+        raise AssertionError(f"[moe-gates] {label}: card and CPU differ")
+    del cpu
+
+
+def phase_moe_gates(torch, results):
+    """[moe-gates]: the flagship's blocks with gates of no hidden layer and
+    of two (32, 16), at full width and depth in bf16: a caption call
+    (PROBE_BATCH images) launches no sparse_block, fused_block or moe_ffn
+    (the gates decline them, as JAX's) and its ids are in range; the
+    depth-2 forms in f32 card against a CPU copy (logits within
+    NANO_CPU_TOL, ids equal); the one-hidden-layer gate of
+    the flagship at depth 2 still launches both kernels."""
+    from image2text_torch.configs.models import FLAGSHIP
+    from image2text_torch.models.generation import caption
+
+    n_layers = FLAGSHIP.decoder_config.n_layer
+    for gates in MOE_GATES + ((32,),):
+        depth = n_layers if gates != (32,) else 2
+        m = moe_gates_model(torch, gates, depth, torch.bfloat16)
+        frames, prompt = serving_inputs(torch, m, PROBE_BATCH, SEED + 62,
+                                        FLAGSHIP_BOS)
+        counts, ids = launch_counts(lambda: caption(
+            m, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
+            temperature=0.0, top_k=None))
+        vocab = vocab_rows(m)
+        ok_ids = bool(((ids >= 0) & (ids < vocab)).all())
+        log(f"  gates {gates} ({depth} + {depth} layers, bf16): caption "
+            f"launches {counts}; ids in range {ok_ids}")
+        kernels = counts["sparse_block"] + counts["moe_ffn"] + counts[
+            "fused_block"]
+        if not ok_ids or (kernels != 0) != (gates == (32,)):
+            raise AssertionError(f"[moe-gates] gates {gates}: {counts}")
+        if gates != (32,):
+            record_launches(results, f"moe_gates_{len(gates or ())}_caption",
+                            counts)
+        del m
+        torch.cuda.empty_cache()
+        if gates == (32,):
+            continue
+        m = moe_gates_model(torch, gates, 2, torch.float32)
+        moe_gates_against_cpu(torch, m, f"gates {gates} depth 2")
+        del m
+        torch.cuda.empty_cache()
+
+
+def start_dryrun():
+    """``graft_entry.dryrun_multichip(4)`` on a thread (its 4 gloo ranks
+    are CPU processes, so it runs beside the kernels' build); returns
+    the thread and the dict its result, error and seconds go into."""
+    from image2text_torch.graft_entry import dryrun_multichip
+
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = dryrun_multichip(4)
+        except BaseException as e:   # re-raised by phase_dryrun
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="dryrun", daemon=True)
+    thread.start()
+    return thread, box
+
+
+def phase_dryrun(torch, dryrun):
+    """``graft_entry.entry()`` on the card, then the result of
+    ``graft_entry.dryrun_multichip(4)`` (``start_dryrun``): 4 gloo ranks
+    on the CPU, the tiny dp2 × tp2 phase and the flagship widths at depth
+    2 with ZeRO-1 and SP (train, val, generate, checkpoint); a CPU
+    phase."""
+    from image2text_torch.graft_entry import entry
 
     forward, example = entry()
     logits = forward(*example)
@@ -4499,10 +5048,13 @@ def phase_dryrun(torch):
         raise AssertionError("[dryrun] entry() logits not finite")
     del forward, example, logits
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = dryrun_multichip(4)
+    thread, box = dryrun
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    out = box["out"]
     log(f"  dryrun_multichip(4) on CPU gloo ranks: {out[0]} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{box['s']:.1f} s (beside the build)")
     if not out[0] or not all(math.isfinite(v) for v in out[0].values()):
         raise AssertionError(f"[dryrun] {out}")
 
@@ -4514,14 +5066,23 @@ def main() -> int:
                     help="also print device time by kernel (torch.profiler)")
     args = ap.parse_args()
 
+    if not (REPO / "image2text_torch" / "csrc").is_dir():
+        print("chip_smoke: image2text_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    # Where Python runs with PYTHONDONTWRITEBYTECODE beside site-packages
+    # holding no bytecode, every process (each rank, each CLI run)
+    # compiles torch's sources again, seconds each: the bytecode goes
+    # under build/, written by this process and read by its children.
+    prefix = str(REPO / "build" / "pycache")
+    sys.pycache_prefix, sys.dont_write_bytecode = prefix, False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (REPO / "image2text_torch" / "csrc").is_dir():
-        print("chip_smoke: image2text_torch not found beside this script",
-              file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     from image2text_torch.configs.models import FLAGSHIP, FLAGSHIP_DENSE
@@ -4544,11 +5105,13 @@ def main() -> int:
 
     from image2text_torch.probes.block_ablate import build_units
 
+    dryrun = start_dryrun()
     t0 = time.perf_counter()
     logs = _build.build_all(build_units())
     log(f"[build] {len(logs)} libraries compiled in "
         f"{time.perf_counter() - t0:.1f} s (every source, and "
-        f"fused_block.cu and fused_moe.cu once per probe variant)")
+        f"fused_block.cu and fused_moe.cu once per probe variant; the "
+        f"[dryrun] ranks beside it)")
     for text in logs:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -4644,6 +5207,9 @@ def main() -> int:
         log("[f32-chain] an f32 sparse encoder block: the composed route, "
             "card vs CPU")
         phase_f32_chain(torch)
+        log(f"[moe-gates] the flagship's blocks with MoE gates of other "
+            f"depths: no chain or MoE kernel, card against CPU ({CARD})")
+        phase_moe_gates(torch, results)
         log("  flash-attention kernels at head dims the kernels pad (80, "
             "192) or take (256) vs plain versions")
         phase_flash_kernels(torch, args, results, FLASH_HEAD_DIMS)
@@ -4657,6 +5223,10 @@ def main() -> int:
         log(f"[dist-tp] the mesh's ranks on one card: dp1 x tp2 with SP "
             f"over gloo against one device ({CARD})")
         phase_dist_tp(torch)
+    log(f"[dist-tp-int4] llama2-13b.yaml's int4 + LoRA decoder split over "
+        f"tp2: 2 gloo ranks sharing the card against one device, "
+        f"{INT4_TP_DEPTH} layers at full width ({CARD})")
+    phase_dist_tp_int4(torch, results)
     log("[train] flagship training step at full width and depth")
     phase_train(torch, args, results, "flagship_train_step",
                 lambda: train_setup(torch),
@@ -4707,13 +5277,18 @@ def main() -> int:
 
     with torch.no_grad():
         phase_nano(torch, args, results)
+        for phase, (name, part, targets, _) in LORA_PHASES.items():
+            log(f"[{phase}] {FAMILY_YAML[name]} with LoRA on its {part} "
+                f"({targets}, set in code) at full width and depth ({CARD})")
+            phase_lora(torch, args, results, phase)
         phase_nano_f32(torch)
         log(f"[hf-kernels] int4_matmul vs plain version at the Llama-2-13B, "
             f"Falcon-7B and GPT-2-xl decoders' shapes (decode and prefill "
             f"rows); moe_ffn's f32 form at nano-mini's decode shape ({CARD})")
         phase_hf_kernels(torch, results)
         phase_hf(torch, args, results)
-    log(f"[train-parity] each family's depth-2 form at full width, one "
+    log(f"[train-parity] each family's depth-{FAMILY_PARITY_DEPTH} form at "
+        f"full width, one "
         f"training step on the card against a CPU copy ({CARD})")
     phase_train_cpu(torch)
     log(f"[remat] {FAMILY_YAML[REMAT_FAMILY]} at depth {REMAT_DEPTH}, "
@@ -4754,8 +5329,8 @@ def main() -> int:
     phase_reforward_quality2(torch, results)
 
     log("[dryrun] dryrun_multichip(4): the mesh's multi-rank path on 4 CPU "
-        "gloo ranks (a CPU phase)")
-    phase_dryrun(torch)
+        "gloo ranks (a CPU phase, run beside [build])")
+    phase_dryrun(torch, dryrun)
 
     log("[device-times] kernel device times (torch.profiler), taken after "
         "every CUDA-event time of the run")

@@ -5,7 +5,7 @@
 //                                           + x[r, in/2 + c] · (hi(W[o, c]) − 8) )
 //
 // W is (out, in/2) packed bytes, s (out, in/64) f32 or bf16 scales, x
-// (rows, in) bf16, y (rows, out) bf16; accumulation in f32.
+// (rows, in) bf16, y (rows, out) bf16 or f32; accumulation in f32.
 //
 // What bounds it on the H100: operations at the GPT-2-medium shapes (256
 // decode rows, in 1,024, out 3,072: 1.6 GFLOP, 1.6 µs at the bf16 peak,
@@ -115,7 +115,8 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // Grid (⌈out/BN⌉, ⌈rows/BM⌉, splits), BM/64 warpgroups.  Split z takes
 // strip pairs [z·nb/splits, (z+1)·nb/splits), nb = in_pad/64; with one
-// split it writes y, else f32 partials part[z][rows][out].  Stage st's
+// split and a bf16 y it writes y, else f32 partials part[z][rows][out]
+// (with one split and no y: the f32 product itself).  Stage st's
 // products run on the tensor cores while the block issues the x copies of
 // stage st + 2 and unpacks stage st + 1's bytes, which it loaded into
 // registers one stage before.
@@ -265,7 +266,7 @@ __global__ void __launch_bounds__(BM * 2, 1)
       const int r = m0 + wrow + g + 8 * hh, c = n0 + jn * 8 + 2 * c4;
       if (r >= rows || c >= out) continue;
       const float v0 = acc[4 * jn + 2 * hh], v1 = acc[4 * jn + 2 * hh + 1];
-      if (splits == 1) {
+      if (splits == 1 && y != nullptr) {
         bf16* dst = y + (size_t)r * out + c;
         if (pairs) {
           *reinterpret_cast<uint32_t*>(dst) = pack_bf2(v0, v1);
@@ -285,15 +286,20 @@ __global__ void __launch_bounds__(BM * 2, 1)
     }
 }
 
-// y = Σ_z part[z] in split order, as bf16; ``n`` = rows·out elements.
+__device__ __forceinline__ void store(bf16* y, float v) { *y = to_bf(v); }
+__device__ __forceinline__ void store(float* y, float v) { *y = v; }
+
+// y = Σ_z part[z] in split order, as bf16 or f32; ``n`` = rows·out
+// elements.
+template <typename T>
 __global__ void __launch_bounds__(256) int4_reduce_kernel(const float* __restrict__ part,
-                                                          bf16* __restrict__ y, long long n,
+                                                          T* __restrict__ y, long long n,
                                                           int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = part[i];
   for (int z = 1; z < splits; ++z) s += part[z * n + i];
-  y[i] = to_bf(s);
+  store(y + i, s);
 }
 
 template <int BM, int BN, bool SCALE_BF16>
@@ -321,18 +327,20 @@ int launch(const bf16* x, const uint8_t* w, const void* scales, bf16* y, float* 
 // One int4 dequant-matmul: tile (bm, bn) one of (DEC_BM, DEC_BN) and
 // (TRAIN_BM, TRAIN_BN); ``splits`` blocks over the strip pairs of each
 // tile (1 to in_pad/64; above 1 ``part`` holds splits·rows·out f32
-// partials, summed by a second kernel).
+// partials, summed by a second kernel).  ``y_f32``: y is f32, the sums
+// never rounded to bf16 (a row shard's partial product, which the model
+// group sums before the one rounding of the unsplit product).
 extern "C" int int4_matmul_launch(const void* x, const void* w, const void* scales, int scale_bf16,
                                   void* y, void* part, int rows, int out, int in_pad, int bm,
-                                  int bn, int splits, void* stream) {
+                                  int bn, int splits, int y_f32, void* stream) {
   if (rows <= 0 || out <= 0 || in_pad <= 0 || in_pad % 64 || splits < 1 ||
       splits > in_pad / 64 || splits > 65535 || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const uint8_t* wb = static_cast<const uint8_t*>(w);
-  bf16* yb = static_cast<bf16*>(y);
-  float* pb = static_cast<float*>(part);
+  bf16* yb = y_f32 ? nullptr : static_cast<bf16*>(y);
+  float* pb = static_cast<float*>(y_f32 && splits == 1 ? y : part);
   int err;
   if (bm == DEC_BM && bn == DEC_BN)
     err = scale_bf16 ? launch<DEC_BM, DEC_BN, true>(xb, wb, scales, yb, pb, rows, out, in_pad, splits, st)
@@ -345,6 +353,10 @@ extern "C" int int4_matmul_launch(const void* x, const void* w, const void* scal
     return (int)cudaErrorInvalidValue;
   if (err != 0 || splits == 1) return err;
   const long long n = (long long)rows * out;
-  int4_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(pb, yb, n, splits);
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  if (y_f32)
+    int4_reduce_kernel<float><<<blocks, 256, 0, st>>>(pb, static_cast<float*>(y), n, splits);
+  else
+    int4_reduce_kernel<bf16><<<blocks, 256, 0, st>>>(pb, yb, n, splits);
   return (int)cudaGetLastError();
 }

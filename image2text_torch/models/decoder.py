@@ -56,16 +56,26 @@ def decoder_from_config(config, space_for_prompt: int = 0, device=None,
     """The decoder a config describes (JAX ``Decoder.from_config``): a
     GPT-2-initialised scratch decoder is checked against its GPT-2 size
     unless ``loose`` (the composite config's
-    ``loose_match_decoder_state_dict``); its vocabulary never shrinks."""
+    ``loose_match_decoder_state_dict``); its vocabulary never shrinks,
+    and a ``lora_spec`` wraps it (``models/lora.py``)."""
     if isinstance(config, TransformerDecoderConfig):
+        if config.pretrained_model is None:
+            # LoRA only on GPT-2 weights: a from-scratch decoder's
+            # lora_spec is ignored, as in JAX (decoder.py:57-58)
+            return TransformerDecoder(config, space_for_prompt, device,
+                                      loose=loose)
+        check_gpt2_shapes(config, loose)
+        model = TransformerDecoder(config, space_for_prompt, device,
+                                   loose=loose)
         if config.lora_spec is not None:
-            raise NotImplementedError(
-                "LoRA on the scratch decoder is not ported yet (ROADMAP "
-                "queue 1 item 5)")
-        if config.pretrained_model is not None:
-            check_gpt2_shapes(config, loose)
-        return TransformerDecoder(config, space_for_prompt, device,
-                                  loose=loose)
+            from image2text_torch.models.lora import apply_lora
+
+            model = apply_lora(model, config.lora_spec)
+            # the wrapped bases keep the GPT-2 draws (JAX keeps their
+            # owner class for its init policy, lora.py:37-41); the
+            # adapters keep theirs
+            model._gpt2_init_policy()
+        return model
     if isinstance(config, HuggingfaceDecoderConfig):
         from image2text_torch.models.hf_decoders.factory import (
             build_hf_decoder)

@@ -54,12 +54,15 @@ VIT_WIDTH = 768
 def encoder_from_config(config, device=None) -> nn.Module:
     """The encoder a config describes (JAX ``Encoder.from_config``)."""
     if isinstance(config, PretrainedViTConfig):
+        model = PretrainedViT(config, device)
         if config.lora_spec is not None:
-            raise NotImplementedError(
-                "LoRA on the pretrained ViT is not ported yet (ROADMAP "
-                "queue 1 item 5)")
-        return PretrainedViT(config, device)
+            from image2text_torch.models.lora import apply_lora
+
+            model = apply_lora(model, config.lora_spec)
+        return model
     if isinstance(config, VisionTransformerEncoderConfig):
+        # LoRA only on pretrained weights: a scratch encoder's lora_spec
+        # is ignored, as in JAX
         return VisionTransformerEncoder(config, device)
     raise ValueError("Unknown config")
 
@@ -72,8 +75,14 @@ class PretrainedViT(nn.Module):
     """ViT-B/16 backbone + projection head; forward (b, 3, 224, 224) →
     (b, n_cls, n_embd_out_vit).  Without ``refine_base_model`` (or with
     the LSH head) the backbone's output is detached and its parameters
-    are frozen (:meth:`frozen_param_paths` through ``_freeze_all``), so
-    no optimizer step, weight decay included, moves them.  The PEER-less
+    are frozen (``nn.core.frozen_param_paths`` through ``_freeze_all``), so
+    no optimizer step, weight decay included, moves them.  A ``lora_spec``
+    wraps its Linears (the backbone's ``self_attention.out_proj``,
+    ``mlp.0``, ``mlp.3`` and the heads'; not the packed ``in_proj``) and
+    freezes everything but the adapters, as JAX ``encoder.py:54-58``;
+    the backbone's adapters stay frozen, and get no gradient through the
+    detached output, unless ``refine_base_model`` (JAX
+    ``encoder.py:125-139``).  The PEER-less
     heads keep a zero ``(1,)`` ``peer_proj_wt`` buffer, as the reference
     registers one, so checkpoints round-trip."""
 

@@ -40,7 +40,8 @@ the KV caches hold the rank's heads (``kv_shape``), and the eval kernels
 (``sparse_block``/``fused_block``, ``moe_ffn``, the front), which read
 whole operands, take the layers they read gathered whole (once per
 parameter version, ``nn/modules.py::whole_param``) and run on every rank:
-no eval kernel is bypassed.  Beam search under a mesh is not ported.
+no eval kernel is bypassed.  Beam search under a mesh:
+``models/generation_utils.py``.
 """
 from __future__ import annotations
 

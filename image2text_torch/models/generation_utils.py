@@ -28,6 +28,17 @@ under ``sparse_rule_len`` and reads the logits at ``cur_len - 1``
 in JAX.  Logits reach the scorer in f32, as in the JAX generator.
 :meth:`BeamSearchTokenGenerator.caption` is the serving path from raw
 uint8 frames; ``rounds`` holds the decode rounds of the last call.
+
+Under a model split (``parallel/sharding_rules.py::place_params``)
+every rank of the model group searches the same rows: each rank's KV
+cache holds its own heads and is gathered along the beam axis by the
+same order.  The ranks must choose the same beams, or their caches
+part: the logits are the same on every rank (the row splits' sums are
+all-reduced), the stochastic noise is drawn from one seed on every rank
+(a generator the caller gives, or one seeded from the group's first
+rank), and every round the chosen beams and ids are all-gathered over
+the group and compared (``agreed`` counts the rounds checked), so a tie
+broken differently on two ranks raises instead of splitting the caches.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from image2text_torch.models.generation import (decoder_step, prefill,
                                                 precompute_cross_kv,
@@ -44,6 +56,28 @@ from image2text_torch.models.sampling import (apply_no_repeat_ngram,
                                               apply_top_k,
                                               beam_candidates_with_ngram,
                                               gumbel_topk_sample, topk)
+from image2text_torch.nn.modules import model_axis
+
+
+def group_generator(axis, device) -> torch.Generator:
+    """A generator seeded alike on every rank of ``axis``'s group: the
+    seed is drawn on the group's first rank and broadcast."""
+    seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64).to(device)
+    dist.broadcast(seed, src=dist.get_global_rank(axis.group, 0),
+                   group=axis.group)
+    return torch.Generator(device=device).manual_seed(int(seed.item()))
+
+
+def beams_agree(axis, *tensors: torch.Tensor) -> None:
+    """Raise unless every rank of ``axis``'s group holds the same integer
+    ``tensors`` (one all-gather)."""
+    t = torch.cat([x.reshape(-1).to(torch.int64) for x in tensors])
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t, group=axis.group)
+    for r, p in enumerate(parts[1:], 1):
+        if not torch.equal(p, parts[0]):
+            raise RuntimeError(f"beam search: model rank {r} chose other "
+                               "beams than rank 0; the KV caches would part")
 
 
 class BeamSearchTokenGenerator:
@@ -67,6 +101,7 @@ class BeamSearchTokenGenerator:
         self.length_boost = math.log(length_boost)
         self.no_repeat_n_grams = tuple(no_repeat_n_grams)
         self.rounds = 0     # decode rounds the last call ran
+        self.agreed = 0     # of them, checked alike over the model group
 
     # -- per-round candidate scoring ------------------------------------------
     def _candidates(self, last_logits, ids_flat, cur_len, generator,
@@ -137,6 +172,10 @@ class BeamSearchTokenGenerator:
                 "leak unwritten future slots. Use generate (which has an "
                 "exact growing-sequence path) for such models.")
         bw, bef = self.beam_width, self.beam_expansion_factor
+        axis = model_axis(model)
+        if axis is not None and generator is None and (
+                self.temperature > 0 or self.consolidation_temperature > 0):
+            generator = group_generator(axis, dev)
         decoded_ids = decoded_ids.to(dev)
         if decoded_ids.dim() == 1:
             decoded_ids = decoded_ids[None]
@@ -167,7 +206,7 @@ class BeamSearchTokenGenerator:
             last = self._full_logits(ids_buf, t0, encoder_output)
         beam_rows = torch.arange(bs, device=dev)[None, :]
         cur_len = t0
-        self.rounds = 0
+        self.rounds = self.agreed = 0
         while cur_len < total and not self._all_done(ids_buf, cur_len):
             next_ids, next_scores = self._candidates(
                 last, ids_buf.reshape(bw * bs, total), cur_len, generator)
@@ -176,6 +215,9 @@ class BeamSearchTokenGenerator:
                 next_scores.reshape(bw, bs, bef), generator)
             # new beam (nb, b) takes old beam beams_idx[b, nb]
             src = beams_idx.T
+            if axis is not None:
+                beams_agree(axis, src, chosen_ids)
+                self.agreed += 1
             ids_buf = ids_buf.gather(0, src[:, :, None].expand(bw, bs, total))
             cum = cum.gather(0, src) + chosen_scores
             ids_buf[:, :, cur_len] = chosen_ids

@@ -89,7 +89,7 @@ class _GPT2CrossAttention(nn.Module):
         sequence, not once per token); ``quant='int8'`` gives them as a
         ``QuantizedKV``."""
         k, v = (_heads(z, self.n_embd // self.n_head)
-                for z in self.c_attn(enc).split(self.n_embd, dim=-1))
+                for z in self.c_attn(enc).chunk(2, dim=-1))
         return quantize_kv((k, v), quant)
 
     def forward(self, x, enc, ctx: Ctx = EVAL_CTX, use_flash: bool = True,

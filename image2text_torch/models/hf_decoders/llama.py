@@ -12,6 +12,13 @@ Grouped K/V go to ``ops/attention.py::sdpa`` as they are: it folds the
 ``repeat_kv``'s grouping: query head i reads KV head i // group), so the
 cache is read once, never copied per query head.  Training attention on
 the flash kernels takes them repeated to full heads (``sdpa`` does it).
+
+Under a model split a rank computes its heads and neurons
+(``parallel/sharding_rules.py``); with int4 projections those are two
+halves, heads ``[r·n/2m, …) ∪ [n/2 + r·n/2m, …)`` of ``n`` over ``m``
+ranks, the order the int4 row split's bytes read them in.  RoPE acts on
+each head alone, the K/V cache holds the rank's K/V heads (``kv_shape``)
+and beam search gathers it row by row as a whole cache.
 """
 from __future__ import annotations
 

@@ -160,10 +160,6 @@ class MoELinear(nn.Module):
                  top_k: int = 1, gate_sizes: Optional[Tuple[int, ...]] = None,
                  device=None):
         super().__init__()
-        if gate_sizes is None or len(gate_sizes) != 1:
-            raise NotImplementedError(
-                "the port's MoELinear takes a gate MLP with one hidden layer "
-                "(the flagship's); other gate depths are not ported yet")
         self.top_k = top_k
         self.expert_gates = MLP(in_features, num_experts, gate_sizes, bias,
                                 device)
@@ -183,13 +179,22 @@ class MoELinear(nn.Module):
 
     @property
     def plain_gates(self) -> bool:
-        """Whether the gate Linears hold float weights (not the int8
-        serving form, which the ``moe_ffn`` kernel does not take)."""
-        return not any(lin.is_int8 for lin in self.expert_gates.linears)
+        """Whether ``moe_ffn`` takes this gate (JAX ``ops/fused_moe.py::
+        _supported``): one hidden layer, and both Linears plain — no int8
+        serving form, no LoRA adapters, which the kernel would drop.  A
+        gate of another depth (none, or two hidden layers) runs the
+        module path."""
+        lins = self.expert_gates.linears
+        return len(lins) == 2 and not any(
+            lin.is_int8 or hasattr(lin, "lora_A") for lin in lins)
 
     def packed(self, dtype) -> MoELinearWeights:
         """The ``moe_ffn`` operands: every expert (gathered under a model
-        split: the kernel reads them whole)."""
+        split: the kernel reads them whole).  Only for a gate that
+        :attr:`plain_gates` takes."""
+        if not self.plain_gates:
+            raise ValueError("moe_ffn takes a plain gate of one hidden "
+                             "layer only")
         g0, g1 = self.expert_gates.linears
         return self._packed.get(
             list(self.parameters()), dtype,
@@ -239,8 +244,9 @@ class _MoEMLP(nn.Module):
 
     @property
     def plain_weights(self) -> bool:
-        """Whether ``moe_ffn`` takes this FFN's weights: no int8 gate (JAX
-        ``ops/fused_moe.py:_supported`` declines W8A8 gates likewise)."""
+        """Whether ``moe_ffn`` takes this FFN's weights: both gates
+        plain and of one hidden layer (:attr:`MoELinear.plain_gates`, JAX
+        ``ops/fused_moe.py:_supported``)."""
         return self.c_fc.plain_gates and self.c_proj.plain_gates
 
     def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
@@ -265,7 +271,8 @@ class _MLP(nn.Module):
         self.c_proj = Linear(hidden, n_embd, bias, device)
 
     def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
-        h = self.c_proj(gelu_tanh(self.c_fc(x)))
+        h = gelu_tanh(self.c_fc(x, ctx=ctx.fold(11)))
+        h = self.c_proj(h, ctx=ctx.fold(12))
         return dropout(h, self.dropout_rate, ctx)[0]
 
 
@@ -290,7 +297,7 @@ class _SelfAttention(nn.Module):
         of the reference, kept) and resid dropout after the output
         projection."""
         b, t, c = x.shape
-        q, k, v = self._heads(x)
+        q, k, v = self._heads(x, ctx)
         if ctx.train and self.attn_dropout > 0.0:
             ones = torch.ones(b, 1, t, 1, device=x.device)
             k_do, ctx = dropout(ones, self.attn_dropout, ctx)
@@ -305,7 +312,7 @@ class _SelfAttention(nn.Module):
         y = sdpa(q, k, v, mask=mask, causal=causal,
                  dropout_rate=self.resid_dropout, ctx=hctx,
                  use_flash=use_flash)
-        y = self._out(y.transpose(1, 2).reshape(b, t, -1))
+        y = self._out(y.transpose(1, 2).reshape(b, t, -1), ctx)
         return dropout(y, self.resid_dropout, ctx.fold(4))[0]
 
 
@@ -340,14 +347,14 @@ class MultiHeadAttention(_SelfAttention):
         return (batch, local_heads(self.c_attn, self.n_head), max_len,
                 self.n_embd // self.n_head)
 
-    def _heads(self, x):
+    def _heads(self, x, ctx: Ctx = EVAL_CTX):
         b, t, c = x.shape
         hd = c // self.n_head
         return tuple(z.reshape(b, t, -1, hd).transpose(1, 2)
-                     for z in self.c_attn(x).chunk(3, -1))
+                     for z in self.c_attn(x, ctx=ctx.fold(11)).chunk(3, -1))
 
-    def _out(self, y):
-        return self.c_proj(y)
+    def _out(self, y, ctx: Ctx = EVAL_CTX):
+        return self.c_proj(y, ctx=ctx.fold(12))
 
 
 class MultiQueryAttention(_SelfAttention):
@@ -368,11 +375,12 @@ class MultiQueryAttention(_SelfAttention):
     def kv_shape(self, batch: int, max_len: int):
         return (batch, 1, max_len, self.n_embd // self.n_head)
 
-    def _heads(self, x):
+    def _heads(self, x, ctx: Ctx = EVAL_CTX):
         b, t, c = x.shape
         hd = c // self.n_head
-        q = self.q_proj(x).reshape(b, t, -1, hd).transpose(1, 2)
-        kv = self.kv_proj(x)
+        q = self.q_proj(x, ctx=ctx.fold(11)).reshape(b, t, -1, hd)
+        q = q.transpose(1, 2)
+        kv = self.kv_proj(x, ctx=ctx.fold(13))
         if self.q_proj.tp is not None:
             # this rank's query heads on the shared K/V head: its K/V
             # gradient is a partial sum over the model group
@@ -381,8 +389,8 @@ class MultiQueryAttention(_SelfAttention):
         v = kv[..., hd:].reshape(b, t, 1, hd).transpose(1, 2)
         return q, k, v
 
-    def _out(self, y):
-        return self.out_proj(y)
+    def _out(self, y, ctx: Ctx = EVAL_CTX):
+        return self.out_proj(y, ctx=ctx.fold(12))
 
 
 def sparse_attention_indices(max_block_size: int, sparsity_factor: float,
@@ -633,14 +641,17 @@ class TransformerBlock(nn.Module):
 
     @property
     def plain_weights(self) -> bool:
-        """Whether every Linear the block kernels read holds float
-        weights: an int8 serving form takes the module path (JAX
-        ``ops/fused_block.py:232-233`` declines W8A8 forms to XLA)."""
+        """Whether every Linear the block kernels read is plain: an int8
+        serving form or LoRA adapters (which the kernels would drop) take
+        the module path, as JAX ``ops/fused_block.py:232-233`` and
+        ``:316-318`` decline them to XLA; so does an FFN whose gates
+        ``moe_ffn`` declines."""
         a = self.attn
         lins = [a.q_proj, a.kv_proj, a.out_proj]
         if self.null_connector is not None:
             lins.append(self.null_connector)
-        return (not any(lin.is_int8 for lin in lins)
+        return (not any(lin.is_int8 or hasattr(lin, "lora_A")
+                        for lin in lins)
                 and (not isinstance(self.mlp, _MoEMLP)
                      or self.mlp.plain_weights))
 

@@ -9,8 +9,18 @@ subtree but the adapters, and ``force_enable_update_modules`` patterns
 re-enable paths (``nn.core.frozen_param_paths``).
 
 ``y = base(x) + (alpha/r) · B(A · dropout(x))``, the adapter product in
-x's dtype.  The GPT-2 modules call their Linears without a context, as
-the JAX ones do, so the adapter dropout is never active on that path.
+x's dtype.  The HF decoders and the ViT call their Linears without a
+context, as the JAX ones do, so the adapter dropout is never active on
+those paths; the scratch blocks pass theirs (JAX ``layers.py``).
+
+Under a model split the adapters follow their base
+(``parallel/sharding_rules.py`` module docstring, 3): on a column split
+A is whole and ``A·x`` enters the split through ``copy_to`` (A's
+gradient is then the one-device gradient on every rank), B keeps the
+base's rows; on a row split A keeps the base's input columns, ``A·x`` is
+summed over the model group in f32 and ``B(A·x)``, B whole, is added once
+to the summed output.  The dropout mask of a row shard's input is the
+rank's slice of the whole input's.
 """
 from __future__ import annotations
 
@@ -24,7 +34,8 @@ from image2text_torch.configs.models import LoraSpec
 from image2text_torch.models.quantization import QuantizedLinear
 from image2text_torch.nn.core import (EVAL_CTX, Ctx, dropout, new_param,
                                       uniform_init, zeros_init)
-from image2text_torch.nn.modules import Linear
+from image2text_torch.nn.modules import Linear, tp_enter
+from image2text_torch.parallel.collectives import copy_to, reduce_from
 from image2text_torch.utils.patterns import PatternMatcher
 
 
@@ -45,10 +56,26 @@ class _LoRAMixin:
 
     def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
         y = super().forward(x)
-        xd, _ = dropout(x, self.lora_dropout, ctx)
         a = self.lora_A.weight.to(x.dtype)
         b = self.lora_B.weight.to(x.dtype)
-        return y + torch.matmul(torch.matmul(xd, a.t()), b.t()) * self.scaling
+        tp = self.tp
+        if tp is not None and tp[0] == "row":
+            width = a.shape[1]
+            if x.shape[-1] != width:    # whole: dropped, then cut
+                x = tp_enter(self, dropout(x, self.lora_dropout, ctx)[0],
+                             width)
+            else:
+                x = dropout(x, self.lora_dropout, ctx,
+                            last=(tp[2], tp[1]))[0]
+            # the partials summed in f32, rounded once as the unsplit A·x
+            h = reduce_from(torch.matmul(x.float(), a.float().t()),
+                            tp[1]).to(x.dtype)
+        else:
+            xd, _ = dropout(x, self.lora_dropout, ctx)
+            h = torch.matmul(xd, a.t())
+            if tp is not None:
+                h = copy_to(h, tp[1])
+        return y + torch.matmul(h, b.t()) * self.scaling
 
 
 class LoRALinear(_LoRAMixin, Linear):

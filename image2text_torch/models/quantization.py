@@ -25,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image2text_torch.nn.core import new_param, zeros_init
-from image2text_torch.nn.modules import Embedding, Linear
+from image2text_torch.nn.core import EVAL_CTX, Ctx, new_param, zeros_init
+from image2text_torch.nn.modules import Embedding, Linear, tp_enter, tp_exit
 from image2text_torch.ops import int4_matmul as int4_ops
 from image2text_torch.ops.int4_matmul import (QBLOCK, Int4Matmul,
                                               dequantize_int4,
@@ -45,7 +45,16 @@ def dequantize_blockwise(packed, scales, in_features: int,
 
 
 class QuantizedLinear(nn.Module):
-    """Linear with a packed blockwise-int4 frozen weight and an f32 bias."""
+    """Linear with a packed blockwise-int4 frozen weight and an f32 bias.
+
+    Under a model split (``parallel/sharding_rules.py`` module docstring,
+    3) ``tp`` is set as a ``Linear``'s: a column shard holds its rows of
+    the bytes, the scales and the bias; a row shard holds byte columns
+    ``[r·P/m, (r+1)·P/m)`` with their scales, so it reads this rank's
+    chunk of each half of the input, and the kernel runs on the shard as
+    on any (rows, in_pad/2) weight."""
+
+    tp = None   # ('col' | 'row', Axis, sections) once the placement split it
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -64,16 +73,28 @@ class QuantizedLinear(nn.Module):
             self.bias = None
         self._frozen = {"weight", "weight_scales"}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.in_pad != self.in_features:
-            x = F.pad(x, (0, self.in_pad - self.in_features))
-        if torch.is_grad_enabled():
-            y = Int4Matmul.apply(x, self.weight, self.weight_scales)
+    def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
+        """Under a split the shard computes the unsplit product up to
+        summation order: a row shard's partial product stays f32 until the
+        model group has summed it, and in training a column shard's input
+        enters in f32, so that the group sums the shards' dx unrounded;
+        each is rounded once, as the unsplit product and dx are."""
+        width = 2 * self.weight.shape[1]   # the (shard's) in_pad
+        dtype, grad = x.dtype, torch.is_grad_enabled()
+        kind = None if self.tp is None else self.tp[0]
+        x = tp_enter(self, x.float() if kind == "col" and grad else x, width)
+        if x.shape[-1] != width:
+            x = F.pad(x, (0, width - x.shape[-1]))
+        f32_out = {"out_dtype": torch.float32} if kind == "row" else {}
+        if grad:
+            y = Int4Matmul.apply(x, self.weight, self.weight_scales, dtype,
+                                 f32_out.get("out_dtype"))
         else:   # serving: the kernel without an autograd node
             y = int4_ops.int4_matmul(x.contiguous(), self.weight,
-                                     self.weight_scales)
+                                     self.weight_scales, **f32_out)
+        y = tp_exit(self, y).to(dtype)
         if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
+            y = y + self.bias.to(dtype)
         return y
 
 

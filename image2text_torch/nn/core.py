@@ -132,8 +132,13 @@ def frozen_param_paths(module: nn.Module, path: str = "") -> List[str]:
     if getattr(module, "_freeze_all", False):
         out = _param_paths(module, path)
     elif getattr(module, "_lora_freeze_all", False):
+        # every path but the adapters, and the adapters too under a
+        # _freeze_all module (JAX PretrainedViT.frozen_param_paths)
+        held = [_join(path, n) + "." for n, m in module.named_modules()
+                if n and getattr(m, "_freeze_all", False)]
         out = [p for p in _param_paths(module, path)
-               if ".lora_A." not in p and ".lora_B." not in p]
+               if (".lora_A." not in p and ".lora_B." not in p)
+               or any(p.startswith(h) for h in held)]
     else:
         frozen = getattr(module, "_frozen", ())
         out = [_join(path, n) for n in _own_param_names(module)
@@ -183,8 +188,11 @@ class Ctx:
             return self
         return replace(self, seed=_mix(self.seed, 2 * data))
 
-    def with_heads(self, first: int, total: int) -> "Ctx":
-        return replace(self, heads=(first, total))
+    def with_heads(self, *heads: int) -> "Ctx":
+        """``heads``: (first, total), or (first, total, first of the
+        second half) for heads split in two halves
+        (``nn/modules.py::tp_heads``)."""
+        return replace(self, heads=tuple(heads))
 
 
 EVAL_CTX = Ctx()
@@ -195,11 +203,15 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: Ctx,
-            head_dim: Optional[int] = None) -> Tuple[torch.Tensor, Ctx]:
+            head_dim: Optional[int] = None,
+            last=None) -> Tuple[torch.Tensor, Ctx]:
     """Inverted dropout, the identity at eval or rate 0; returns
     (y, advanced ctx).  Dim 0 is the batch: under ``ctx.rows`` the mask
     is drawn for the global batch and this rank's rows kept; likewise dim
-    ``head_dim`` under ``ctx.heads``."""
+    ``head_dim`` under ``ctx.heads``.  ``last = (sections, axis)``: the
+    last dim is this rank's shard of a whole dim (its chunk of each of
+    ``sections`` sections over the model ``axis``), and the mask is the
+    whole dim's, cut alike."""
     if not ctx.train or rate <= 0.0:
         return x, ctx
     ctx, seed = ctx.split()
@@ -209,12 +221,21 @@ def dropout(x: torch.Tensor, rate: float, ctx: Ctx,
     if total:
         shape[0], index[0] = total, slice(first, first + x.shape[0])
     if head_dim is not None and ctx.heads[1]:
+        if len(ctx.heads) != 2:
+            raise NotImplementedError("dropout over heads split in two "
+                                      "halves")
         first, total = ctx.heads
         shape[head_dim] = total
         index[head_dim] = slice(first, first + x.shape[head_dim])
+    if last is not None:
+        shape[-1] = x.shape[-1] * last[1].size
     u = torch.rand(shape, generator=generator(seed, x.device),
                    device=x.device)
-    if shape != list(x.shape):
+    if last is not None:
+        from image2text_torch.parallel.collectives import shard_of
+
+        u = shard_of(u, last[1], u.dim() - 1, last[0])
+    if list(u.shape) != list(x.shape):
         u = u[tuple(index)]
     return torch.where(u < keep, x / keep, torch.zeros_like(x)), ctx
 

@@ -17,10 +17,11 @@ rows it gathers (:func:`embedding_rows`).  :class:`QuantizedKV` is the int8
 cross-attention memory of ``generate(cross_kv_quant='int8')``.
 
 Under a mesh (``parallel/sharding_rules.py::place_params``) a ``Linear``
-may hold a column shard (``tp = ('col', axis)``: its input enters
-through ``collectives.copy_to``) or a row shard (``tp = ('row', axis)``:
-a whole input is first cut to its slice, the partial products are
-summed over the axis and the bias added once); the cross-attention's
+may hold a column shard (``tp = ('col', axis, sections)``: its input
+enters through ``collectives.copy_to``) or a row shard (``tp = ('row',
+axis, sections)``: a whole input is first cut to its slice of each of
+``sections`` sections, the partial products are summed over the axis and
+the bias added once; :func:`tp_enter`, :func:`tp_exit`); the cross-attention's
 packed ``in_proj`` may hold its heads' rows of q, k and v.  A module's
 record ``_tp_place`` ({name: (dim, sections)}) lets :func:`whole_param`
 gather a split tensor for the eval kernels, which read whole operands.
@@ -192,6 +193,36 @@ def whole_param(module: nn.Module, name: str):
     return gather_whole(t, module._tp_axis, *place)
 
 
+def tp_enter(lin: nn.Module, x: torch.Tensor, width: int) -> torch.Tensor:
+    """A split Linear's input as its shard reads it: the entry of a
+    column split (``copy_to``), or a whole input cut to a row split's
+    sections (``width``: the shard's input width)."""
+    tp = lin.tp
+    if tp is None:
+        return x
+    if tp[0] == "col":
+        return copy_to(x, tp[1])
+    if x.shape[-1] != width:
+        return scatter_to(x, tp[1], -1, tp[2])
+    return x
+
+
+def tp_exit(lin: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """A row split's partial products summed over the model group."""
+    tp = lin.tp
+    return y if tp is None or tp[0] != "row" else reduce_from(y, tp[1])
+
+
+def model_axis(module: nn.Module):
+    """The model Axis ``module``'s parameters are split over (None when
+    the placement split none of them)."""
+    for m in module.modules():
+        axis = getattr(m, "_tp_axis", None)
+        if axis is not None and axis.size > 1:
+            return axis
+    return None
+
+
 def local_heads(lin: nn.Module, n: int) -> int:
     """This rank's share of the ``n`` heads a Linear projects (all of
     them unless the placement split its out dim)."""
@@ -199,12 +230,19 @@ def local_heads(lin: nn.Module, n: int) -> int:
     return n // tp[1].size if tp is not None and tp[0] == "col" else n
 
 
-def tp_heads(module: nn.Module, local: int, total: int) -> Tuple[int, int]:
+def tp_heads(module: nn.Module, local: int, total: int) -> Tuple[int, ...]:
     """(first, total) heads of this rank when ``local`` of ``total`` heads
-    are here (the model axis's split of ``module``; (0, 0) whole)."""
+    are here (the model axis's split of ``module``; (0, 0) whole).  Heads
+    split in two halves (the column split before an int4 row split) give
+    (first, total, first of the second half): a dropout over such heads
+    has no contiguous planes (``nn/core.py::dropout`` and
+    ``ops/flash_attention.py::planes_of`` raise for one)."""
     axis = getattr(module, "_tp_axis", None)
     if axis is None or local == total:
         return (0, 0)
+    if getattr(module, "_tp_halves", False):
+        half = local // 2
+        return (axis.rank * half, total, total // 2 + axis.rank * half)
     return (axis.rank * local, total)
 
 
@@ -213,7 +251,7 @@ class Linear(_Int8Form, nn.Module):
     output and bias add in ``x``'s dtype.  The int8 form computes
     :func:`int8_dot_rows`, rounded to ``x``'s dtype."""
 
-    tp = None   # ('col' | 'row', Axis) once the placement split it
+    tp = None   # ('col' | 'row', Axis, sections) once the placement split it
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -225,20 +263,16 @@ class Linear(_Int8Form, nn.Module):
         else:
             self.bias = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        tp = self.tp
-        if tp is not None:
-            if tp[0] == "col":
-                x = copy_to(x, tp[1])
-            elif x.shape[-1] != self.stored_shape[1]:
-                x = scatter_to(x, tp[1], -1)
+    def forward(self, x: torch.Tensor, ctx: Ctx = EVAL_CTX) -> torch.Tensor:
+        """``ctx`` is taken and unused, as the JAX Linear's: the callers
+        that pass one reach a LoRA adapter's dropout through it."""
+        x = tp_enter(self, x, self.stored_shape[1])
         if self.is_int8:
             y = int8_dot_rows(x, self.int8_operand(),
                               self.qscale).to(x.dtype)
         else:
             y = torch.matmul(x, self.weight.to(x.dtype).t())
-        if tp is not None and tp[0] == "row":
-            y = reduce_from(y, tp[1])
+        y = tp_exit(self, y)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y

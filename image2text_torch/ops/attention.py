@@ -62,7 +62,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # the seed comes from the ctx stream, as every dropout's does; its
         # low 32 bits are the flash hash's seed word
         seed = ctx.split()[1] if rate > 0.0 else None
-        planes = planes_of(q.shape[0], q.shape[1], ctx.rows, ctx.heads)
+        planes = (planes_of(q.shape[0], q.shape[1], ctx.rows, ctx.heads)
+                  if rate > 0.0 else None)
         return flash_sdpa(q, k, v, mask, causal, rate, seed, planes)
     if causal:
         cb = causal_bias(q.shape[-2], k.shape[-2], q.device)

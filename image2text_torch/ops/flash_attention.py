@@ -131,6 +131,9 @@ def planes_of(b: int, h: int, rows=(0, 0), heads=(0, 0)) -> Tuple[int, int]:
     and ``h`` heads that are rows ``rows = (first, total)`` of the global
     batch and heads ``heads = (first, total)`` of all (``(0, 0)``: the
     call's own): plane (i, j) = plane_off + i·plane_h + j."""
+    if len(heads) != 2:
+        raise NotImplementedError("flash dropout over heads split in two "
+                                  "halves: their planes are not contiguous")
     h_all = heads[1] or h
     return h_all, rows[0] * h_all + heads[0]
 

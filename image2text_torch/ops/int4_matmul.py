@@ -13,7 +13,10 @@ package's, so one exported state dict feeds both:
 * scales (out, in_pad/64): one absmax/7 scale per 64-column block, the
   union of the paired 32-column strips [b·32, b·32 + 32) and
   [in_pad/2 + b·32, in_pad/2 + b·32 + 32);
-* f32 accumulation, the result in x's dtype.
+* f32 accumulation, the result in x's dtype, or in f32 where the caller
+  asks (``out_dtype``): a row shard's partial product, summed over the
+  model group before the one rounding the unsplit product takes
+  (``models/quantization.py``).
 
 What bounds it on the H100: at the decoder's widths and the serving batch
 (256 rows, in 1024, out 3072) about 2.3 MB and 1.6 GFLOP, so operations
@@ -33,8 +36,10 @@ in_pad a multiple of 64, with bf16 x and f32 or bf16 scales, and raises
 on anything else.  On a CPU tensor it runs the plain version.
 
 The backward (``Int4Matmul``) is the JAX custom VJP's: ``dx = g ·
-dequant(W)`` in f32, no gradient for the packed weight or the scales
-(they are frozen; the JAX package computes it outside Pallas too).
+dequant(W)`` in f32, returned in the dtype the input came in (an f32
+input, the column shard's, keeps dx in f32 until the model group has
+summed it), no gradient for the packed weight or the scales (they are
+frozen; the JAX package computes it outside Pallas too).
 """
 from __future__ import annotations
 
@@ -106,11 +111,11 @@ def dequantize_int4(packed, scales, dtype=torch.float32):
 
 
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
-                      scales: torch.Tensor) -> torch.Tensor:
-    """Plain version: dequantise in f32, an f32 product, x's dtype.
-    x (..., in_pad)."""
+                      scales: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Plain version: dequantise in f32, an f32 product, x's dtype (or
+    ``out_dtype``).  x (..., in_pad)."""
     w = dequantize_int4(packed, scales, torch.float32)
-    return torch.matmul(x.float(), w.t()).to(x.dtype)
+    return torch.matmul(x.float(), w.t()).to(out_dtype or x.dtype)
 
 
 def _check(x, packed, scales):
@@ -150,24 +155,30 @@ def int4_plan(rows: int, out: int, in_pad: int,
 
 
 # int4_matmul_launch(x, w, scales, scale_bf16, y, part, rows, out, in_pad,
-# bm, bn, splits, stream)
+# bm, bn, splits, y_f32, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
-                scales: torch.Tensor) -> torch.Tensor:
+                scales: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x (..., in_pad) · dequant(packed, scales)ᵀ → (..., out) in x's
-    dtype.  The CUDA kernel (:func:`int4_plan`) for CUDA tensors, the
-    plain version for CPU tensors; one launch counted per call (a split's
-    summing kernel included)."""
+    dtype, or in ``out_dtype`` f32 (the sums unrounded).  The CUDA kernel
+    (:func:`int4_plan`) for CUDA tensors, the plain version for CPU
+    tensors; one launch counted per call (a split's summing kernel
+    included)."""
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, packed, scales)
+        return int4_matmul_plain(x, packed, scales, out_dtype)
     _check(x, packed, scales)
+    y_f32 = out_dtype is not None and out_dtype != x.dtype
+    if y_f32 and out_dtype != torch.float32:
+        raise ValueError(f"int4_matmul kernel: out_dtype must be x's or "
+                         f"float32, got {out_dtype}")
     out_f, in_p = packed.shape[0], x.shape[-1]
     rows = x.numel() // in_p
     bm, bn, splits = int4_plan(rows, out_f, in_p, sm_count(x.device))
-    y = torch.empty(*x.shape[:-1], out_f, dtype=x.dtype, device=x.device)
+    y = torch.empty(*x.shape[:-1], out_f, dtype=out_dtype if y_f32
+                    else x.dtype, device=x.device)
     part = (torch.empty(splits * rows * out_f, dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     fn = _build.entry_point("int4_matmul", "int4_matmul_launch", _ARGTYPES)
@@ -175,7 +186,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         int(scales.dtype == torch.bfloat16), y.data_ptr(),
         0 if part is None else part.data_ptr(), rows, out_f, in_p, bm, bn,
-        splits, _build.stream(x.device)),
+        splits, int(y_f32), _build.stream(x.device)),
         "int4_matmul")
     int4_matmul.launches += 1
     return y
@@ -185,20 +196,27 @@ int4_matmul.launches = 0
 
 
 class Int4Matmul(torch.autograd.Function):
-    """The kernel forward; ``dx = g · dequant(W)`` in f32 backward, no
-    gradient for the packed weight or the scales."""
+    """The kernel forward on x in ``dtype`` (x's own where None; an f32 x
+    of bf16 values is the column shard's, ``models/quantization.py``),
+    the output in ``out_dtype`` (the kernel's dtype where None);
+    ``dx = g · dequant(W)`` in f32 backward, in x's dtype; no gradient for
+    the packed weight or the scales."""
 
     @staticmethod
-    def forward(ctx, x, packed, scales):
+    def forward(ctx, x, packed, scales, dtype=None, out_dtype=None):
         ctx.save_for_backward(packed, scales)
+        ctx.x_dtype = x.dtype
+        kw = {} if out_dtype is None else {"out_dtype": out_dtype}
         with kernel_scope():
-            return int4_matmul(x.contiguous(), packed, scales)
+            return int4_matmul(x.to(dtype or x.dtype).contiguous(), packed,
+                               scales, **kw)
 
     @staticmethod
     def backward(ctx, g):
         packed, scales = ctx.saved_tensors
         w = dequantize_int4(packed, scales, torch.float32)
-        return torch.matmul(g.float(), w).to(g.dtype), None, None
+        return (torch.matmul(g.float(), w).to(ctx.x_dtype), None, None, None,
+                None)
 
 
 __all__ = ["Int4Matmul", "QBLOCK", "STRIP", "dequantize_int4", "int4_matmul",

@@ -11,13 +11,15 @@ makes every function here the identity.
   the sum of the ranks' partial gradients) and the exit of a row-parallel
   one (forward the sum of the ranks' partial products, backward the
   identity).
-* :func:`scatter_to` keeps this rank's chunk of a dimension (backward:
-  the chunks' gradients gathered back), :func:`gather_from` joins the
+* :func:`scatter_to` keeps this rank's chunk of a dimension, or of each
+  of its ``sections`` equal sections (backward: the chunks' gradients
+  gathered back), :func:`gather_from` joins the
   ranks' chunks (backward: this rank's chunk of a gradient that is the
   same on every rank).  Sequence parallelism uses them on the sequence
   axis at the blocks' boundaries, the expert-parallel MoE on the expert
   axis of the combine weights, a row-parallel Linear on a replicated
-  input.
+  input (an int4 one takes its chunk of each half of its input: the
+  pairs of its packed bytes, ``sharding_rules`` module docstring).
 * :func:`gather_data` joins the data ranks' rows with the backward of a
   sum over ranks (a reduce-scatter): the contrastive loss scores every
   rank's rows against the global batch.
@@ -51,11 +53,18 @@ def _all_reduce(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     return t
 
 
-def _all_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, axis: Axis, dim: int,
+                sections: int = 1) -> torch.Tensor:
+    """The ranks' shards joined: of each of ``sections`` sections, every
+    rank's chunk in rank order (the inverse of :func:`shard_of`)."""
     t = t.contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(axis.size)]
     dist.all_gather(parts, t, group=axis.group)
-    return torch.cat(parts, dim=dim)
+    if sections == 1:
+        return torch.cat(parts, dim=dim)
+    per = [p.chunk(sections, dim=dim) for p in parts]
+    return torch.cat([per[r][s] for s in range(sections)
+                      for r in range(axis.size)], dim=dim)
 
 
 def chunk_of(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -67,6 +76,16 @@ def chunk_of(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
                          f"over {axis.size} ranks")
     c = n // axis.size
     return t.narrow(dim, axis.rank * c, c).contiguous()
+
+
+def shard_of(t: torch.Tensor, axis: Axis, dim: int,
+             sections: int = 1) -> torch.Tensor:
+    """This rank's shard of ``t`` along ``dim``: of each of ``sections``
+    equal sections, its chunk, concatenated."""
+    if sections == 1:
+        return chunk_of(t, axis, dim)
+    return torch.cat([chunk_of(s, axis, dim)
+                      for s in t.chunk(sections, dim=dim)], dim=dim)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -92,13 +111,14 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim):
-        ctx.axis, ctx.dim = axis, dim
-        return chunk_of(x, axis, dim)
+    def forward(ctx, x, axis, dim, sections):
+        ctx.axis, ctx.dim, ctx.sections = axis, dim, sections
+        return shard_of(x, axis, dim, sections)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.axis, ctx.dim), None, None
+        return (_all_gather(g, ctx.axis, ctx.dim, ctx.sections), None, None,
+                None)
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -134,8 +154,9 @@ def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return x if axis.size == 1 else _ReduceFrom.apply(x, axis)
 
 
-def scatter_to(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    return x if axis.size == 1 else _ScatterTo.apply(x, axis, dim)
+def scatter_to(x: torch.Tensor, axis: Axis, dim: int,
+               sections: int = 1) -> torch.Tensor:
+    return x if axis.size == 1 else _ScatterTo.apply(x, axis, dim, sections)
 
 
 def gather_from(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -154,14 +175,9 @@ def gather_whole(t: torch.Tensor, axis: Axis, dim: int,
     ``sharding_rules.shard``); no gradient."""
     if axis.size == 1:
         return t
-    parts = [torch.empty_like(t.contiguous()) for _ in range(axis.size)]
-    dist.all_gather(parts, t.contiguous(), group=axis.group)
-    if sections == 1:
-        return torch.cat(parts, dim=dim)
-    per = [p.chunk(sections, dim=dim) for p in parts]
-    return torch.cat([per[r][s] for s in range(sections)
-                      for r in range(axis.size)], dim=dim)
+    return _all_gather(t, axis, dim, sections)
 
 
 __all__ = ["Axis", "LOCAL", "chunk_of", "copy_to", "gather_data",
-           "gather_from", "gather_whole", "reduce_from", "scatter_to"]
+           "gather_from", "gather_whole", "reduce_from", "scatter_to",
+           "shard_of"]

@@ -6,19 +6,23 @@ The ranks are spawned processes (``torch.multiprocessing``, start method
 'spawn'): each imports only the module of the function it runs, so that
 module must be a port module (never a test file, whose conftest imports
 JAX).  The rendezvous is a ``file://`` in a temporary directory, so runs
-side by side never share a port; each rank runs one torch thread.  What
-a rank returns is saved with ``torch.save`` in that directory and read
-back by the caller.
+side by side never share a port; each rank runs one torch thread.  A
+collective that waits past ``COLLECTIVE_TIMEOUT`` raises, so ranks that
+fall out of step fail instead of hanging.  What a rank returns is saved
+with ``torch.save`` in that directory and read back by the caller.
 """
 from __future__ import annotations
 
 import os
 import tempfile
+from datetime import timedelta
 from typing import Any, Callable, List
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+COLLECTIVE_TIMEOUT = timedelta(seconds=300)
 
 
 def _rank_main(rank: int, world: int, workdir: str, fn: Callable,
@@ -28,7 +32,7 @@ def _rank_main(rank: int, world: int, workdir: str, fn: Callable,
         torch.cuda.set_device(rank)
     dist.init_process_group(
         backend, init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
-        rank=rank, world_size=world)
+        rank=rank, world_size=world, timeout=COLLECTIVE_TIMEOUT)
     try:
         result = fn(rank, world, workdir, *args)
         dist.barrier()

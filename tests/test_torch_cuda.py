@@ -518,6 +518,75 @@ def test_int4_matmul_kernel_matches_plain(dev, rows, in_f, out_f,
     assert all(torch.equal(got, y) for y in again)
 
 
+# Llama-2-13B's int4 Linears split over tp2 (parallel/sharding_rules.py,
+# 3): (in_pad, out) of a rank's shard — q/k/v and gate/up keep half their
+# rows, o_proj and down_proj half their byte columns — at 24 beam decode
+# rows and 384 training rows.
+INT4_LLAMA_TP2 = [(rows, in_f, out_f) for rows in (24, 384)
+                  for in_f, out_f in ((5120, 2560), (2560, 5120),
+                                      (5120, 6912), (6912, 5120))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_f,out_f", INT4_LLAMA_TP2)
+@pytest.mark.parametrize("f32_out", [False, True], ids=["bf16", "f32"])
+def test_int4_matmul_on_shard_operands_matches_plain(dev, rows, in_f, out_f,
+                                                     f32_out):
+    """A whole Linear's shards as the placement cuts them (two halves of
+    rows for a column shard, a contiguous run of byte columns and their
+    scale columns for a row shard): the kernel on each shard against its
+    plain version, bf16 scales as the model's cast leaves them; a column
+    shard's output is the whole product's columns of its halves, the row
+    shards' outputs sum to the whole product.  In x's bf16 at the kernel
+    check's limits, and with ``out_dtype`` f32 (a row shard's unrounded
+    partial product; one split and, at 24 rows of 5120 → 2560, three
+    summed by the reduce kernel) at the f32 limits."""
+    from image2text_torch.ops.int4_matmul import (int4_matmul,
+                                                  int4_matmul_plain,
+                                                  int4_plan,
+                                                  quantize_pack_int4)
+    from image2text_torch.parallel.sharding_rules import shard
+    from image2text_torch.utils.device import sm_count
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    col = in_f == 5120
+    whole_in, whole_out = (in_f, 2 * out_f) if col else (2 * in_f, out_f)
+    g = _gen(dev, rows + in_f + out_f)
+    w = torch.randn(whole_out, whole_in, device=dev, generator=g) * 0.02
+    packed, scales = quantize_pack_int4(w)
+    scales = scales.to(torch.bfloat16)
+    x = torch.randn(rows, whole_in, device=dev, generator=g).to(
+        torch.bfloat16)
+    kw = {"out_dtype": torch.float32} if f32_out else {}
+    limits = (F32_LIMITS,) if f32_out else ()
+    outs = []
+    for r in range(2):
+        if col:
+            p, s, xr = (shard(packed, 0, 2, r, 2), shard(scales, 0, 2, r, 2),
+                        x)
+        else:
+            p, s = shard(packed, 1, 1, r, 2), shard(scales, 1, 1, r, 2)
+            xr = shard(x, 1, 2, r, 2).contiguous()
+        assert tuple(p.shape) == (out_f, in_f // 2)
+        before = int4_matmul.launches
+        got = int4_matmul(xr, p, s, **kw)
+        torch.cuda.synchronize()
+        assert int4_matmul.launches == before + 1
+        assert got.dtype == (torch.float32 if f32_out else torch.bfloat16)
+        check_output("int4_matmul", got, int4_matmul_plain(xr, p, s, **kw),
+                     *limits)
+        outs.append(got.float())
+    whole = int4_matmul_plain(x, packed, scales, **kw).float()
+    if col:
+        for r in range(2):
+            check_output("int4_matmul", outs[r], shard(whole, 1, 2, r, 2),
+                         *limits)
+    else:
+        check_output("int4_matmul", outs[0] + outs[1], whole, *limits)
+    if (rows, in_f, out_f) == (24, 5120, 2560):
+        assert int4_plan(rows, out_f, in_f, sm_count(x.device))[2] > 1
+
+
 @pytest.mark.cuda
 def test_int4_matmul_raises_on_what_the_kernel_does_not_take(dev):
     from image2text_torch.ops.int4_matmul import int4_matmul

@@ -357,10 +357,17 @@ def test_pretrained_vit_detaches_a_frozen_backbone(tiny_vit):
 
 
 def test_encoder_lora_raises_with_its_roadmap_item():
+    """LoRA on the pretrained ViT is ported (JAX ``encoder.py:54-58``): a
+    spec that matches no Linear of it raises as JAX's ``apply_lora`` (and
+    peft) do, one that matches wraps the backbone's Linears."""
     cfg = _vit_config(tcm, "positional_mlp")
     cfg.lora_spec = tcm.LoraSpec(target_modules=["c_attn"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not found"):
         tenc.encoder_from_config(cfg, device="meta")
+    cfg.lora_spec = tcm.LoraSpec(target_modules=["out_proj", "mlp.0"])
+    enc = tenc.encoder_from_config(cfg, device="meta")
+    assert any(n.endswith("self_attention.out_proj.lora_A.weight")
+               for n, _ in enc.named_parameters())
 
 
 # -- multi-head self-attention -------------------------------------------------

@@ -64,35 +64,62 @@ def _jspec(path, shape, tp):
     return tuple(jrules._spec_for(path, shape, tp))
 
 
+def _row_of(mods, group):
+    """The row-split Linear of a group (None where it has none)."""
+    for mpath, m in mods.items():
+        if mpath.rpartition(".")[0] == group and \
+                rules._rule(f"{mpath}.weight") == "row":
+            return m
+    return None
+
+
 def _documented(model, path, tp) -> bool:
     """Whether the port may replicate ``path`` where JAX splits it: the
-    module docstring's cases 2 and 3."""
+    module docstring's cases 2 and 3 (an int4 row split with no exact
+    shard keeps its group whole)."""
     import fnmatch
 
     mods = dict(model.named_modules())
     owner_path, _, name = path.rpartition(".")
-    owner = mods[owner_path]
-    if rules._unsplittable(owner):
-        return True
+    group = rules._group_of(owner_path, name)
+    row = _row_of(mods, group)
+    pairs = 1
+    if row is not None and rules._is_int4(row):
+        if not rules.int4_splits_exactly(row, tp):
+            return True
+        pairs = 2
     wpath = path[:-len("bias")] + "weight" if path.endswith("bias") else path
     if any(fnmatch.fnmatch(wpath, p) for p in rules.UNSECTIONED):
         return True
-    attn = owner if name.startswith("in_proj") else mods.get(
-        owner_path.rpartition(".")[0])
+    attn = mods.get(group)
     hd = rules._head_dim(attn) if attn is not None else None
     if hd is None:
         return False
-    p = dict(model.named_parameters())[path]
-    rows = p.shape[0] // rules.sections_of(path)
+    p = dict(rules._tensors_of(model))[path]
+    rows = p.shape[0] // (rules.sections_of(path) * pairs)
     return ((rows // tp) % hd != 0
-            or rules._grouped_kv_replicated(attn, tp))
+            or rules._grouped_kv_replicated(attn, tp * pairs))
+
+
+def _follows_base(model, path, specs) -> bool:
+    """Whether the port may split ``path`` where JAX replicates it: an
+    int4 Linear's scales, or a LoRA adapter, carried with its split base
+    (module docstring, 3)."""
+    owner_path, _, name = path.rpartition(".")
+    mods = dict(model.named_modules())
+    if name == "weight_scales" and rules._is_int4(mods[owner_path]):
+        return specs[f"{owner_path}.weight"] != rules.REPLICATED
+    a = rules._adapter(path)
+    return a is not None and specs[f"{a[0]}.weight"] != rules.REPLICATED
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
 def test_specs_are_jaxs_but_for_the_documented_cases(pair, tp):
     """Every parameter path: the port's copy of the rule (``jax_spec``)
     is JAX's ``_spec_for``; the placement (``tp_param_shardings``) is
-    JAX's spec, or replicated where the module docstring says why."""
+    JAX's spec, or replicated where the module docstring says why, or
+    split where an int4 Linear's scales or a LoRA adapter follow their
+    split base (JAX replicates both)."""
     name, tm, jm = pair
     specs = rules.tp_param_shardings(tm, tp)
     differ = []
@@ -100,8 +127,11 @@ def test_specs_are_jaxs_but_for_the_documented_cases(pair, tp):
         want = _jspec(path, tuple(p.shape), tp)
         assert rules.jax_spec(path, tuple(p.shape), tp) == want, path
         if specs[path] != want:
-            assert specs[path] == rules.REPLICATED, path
-            assert _documented(tm, path, tp), path
+            if specs[path] == rules.REPLICATED:
+                assert _documented(tm, path, tp), path
+            else:
+                assert want == rules.REPLICATED, path
+                assert _follows_base(tm, path, specs), path
             differ.append(path)
     if name == "flagship" and tp == 8:   # 4 heads: 8 ranks split a head
         assert any(p.endswith("attn.q_proj.weight") for p in differ)
