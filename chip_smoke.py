@@ -18,11 +18,12 @@ Phases, each printing its lines:
             (dQ, dK and dV in one call) at the training step's encoder
             shape (batch 48, 8 heads, s 160, d 128, multi-query, dropout
             0.1) and a decoder shape (s 136, causal, soft-prompt bias),
-            with the same dropout seed as their plain versions; the
-            forward's route and groups (fwd_plan) and its registers and
-            spills (the build's -Xptxas -v); the
+            with the same dropout seed as their plain versions; each
+            call's routes and groups (fwd_plan, bwd_plan) and the kernels'
+            registers and spills (the build's -Xptxas -v); the
             backward launched three times, bitwise equal, and its visited
-            (query tile, key slice) pairs counted against the causal band;
+            (query tile, key slice or key tile) pairs counted against the
+            causal band;
             F.scaled_dot_product_attention's forward, backward alone and
             both as yardsticks the port never calls.  The chain
             attention's worst error at score standard deviations 1, 2 and
@@ -217,9 +218,10 @@ weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
             everything: loss and gradients against full's, step ms and
             peak memory of each.
    train-kernels  the flash forward and backward at each family's largest
-            training call of each dtype (the tiled bf16 pair past 160
-            keys, the f32 kernels) and int4_matmul at every training shape,
-            against their plain versions, beside the bound, SDPA and bf16
+            training call of each dtype (the tiled bf16 route past 160
+            keys, with its G, registers, spills and visited pairs; the f32
+            kernels) and int4_matmul at every training shape, against
+            their plain versions, beside the bound, SDPA and bf16
             torch.matmul.
 
 Then the offline end-to-end path (training_configs/local/synthetic-*.yaml:
@@ -2075,22 +2077,66 @@ def sdpa_times(torch, q, k, v, dout, mask, rate: float) -> dict:
             "bwd": bwd}
 
 
+def flash_plan(torch, label: str, q, k, causal: bool, pairs: int,
+               check: bool) -> dict:
+    """Log the bf16 flash kernels' plans at one call (routes, groups, each
+    kernel's registers and spill bytes from the build's -Xptxas -v) and
+    the backward's visited pairs against ``bwd_pairs`` (resident: query
+    tile × key slice) or ``tiled_bwd_pairs`` (tiled: query tile × key
+    tile); with ``check`` (no bias leaving a row keyless) raise where they
+    differ.  Returns them as a dict."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.utils.device import sm_count
+
+    (b, h, sq, d), hk, s = q.shape, k.shape[1], k.shape[2]
+    n_sms, dk = sm_count(q.device), fa.kernel_head_dim(d)
+    fwd_route, fwd_groups = fa.fwd_plan(b, h, hk, sq, s, n_sms, dk)
+    fwd_kernel = {"resident": "flash_fwd_res_kernel",
+                  "tiled": "flash_fwd_tiled_kernel"}[fwd_route]
+    regs, spills = _build.resources("flash_attention",
+                                    f"{fwd_kernel}ILi{dk}E")
+    log(f"    flash_fwd {label}: route {fwd_route}, G {fwd_groups}; "
+        f"{regs} registers, {spills} bytes spilled a thread")
+    route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms, dk)
+    if route == "resident":
+        count, unit = fa.bwd_pairs, (f"{fa.BWD_TILE_ROWS}-row query "
+                                     f"tile, {fa.BWD_KEY_SLICE}-key slice")
+        bwd_kernels = ("flash_bwd_kernel",)
+        extra = ""
+    else:
+        count, unit = fa.tiled_bwd_pairs, (f"{fa.DKV_ROWS}-row query "
+                                           f"tile, {fa.DKV_KEYS}-key tile")
+        bwd_kernels = ("flash_bwd_dkv_tiled_kernel",
+                       "flash_bwd_dq_tiled_kernel")
+        extra = f", dQ G {fa.tiled_groups(h, hk, sq)}"
+    want, full = count(b, h, sq, s, causal), count(b, h, sq, s, False)
+    bwd_res = [_build.resources("flash_attention", f"{kn}ILi{dk}E")
+               for kn in bwd_kernels]
+    log(f"    flash_bwd {label}: route {route}, G {groups}{extra}; "
+        f"registers, bytes spilled a thread {bwd_res}; ({unit}) pairs "
+        f"visited {pairs} (want {want}; {full} without the causal skip)")
+    if check and pairs != want:
+        raise AssertionError(f"flash_bwd {label}: pairs {pairs} != {want}")
+    return dict(fwd_route=fwd_route, fwd_groups=fwd_groups, registers=regs,
+                spill_bytes=spills, bwd_route=route, bwd_groups=groups,
+                bwd_resources=bwd_res, pairs=pairs)
+
+
 def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
     """The flash forward and the flash backward against their plain
     versions at training attention shapes, same inputs and dropout seed;
-    the backward twice more, bitwise equal; on the resident route its
-    visited (query tile, key slice) pairs held to ``bwd_pairs`` (the tiled
-    route counts none).  The first
-    flagship case fills the kernels' rows, every other case a
-    ``<label>_shape``."""
-    from image2text_torch.ops import _build
+    the backward twice more, bitwise equal; its visited (query tile, key
+    slice) pairs held to ``bwd_pairs`` on the resident route, its (query
+    tile, key tile) pairs to ``tiled_bwd_pairs`` on the tiled one; each
+    route's G, registers and spills logged.  The first flagship case fills
+    the kernels' rows, every other case a ``<label>_shape``."""
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.attention import causal_bias
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     seed = -987654321
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, b, h, hk, sq, s, d, causal, n_prefix, rate in cases:
         q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
                                      ).to(bf)
@@ -2117,24 +2163,16 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
                           for n, x, y in zip(("dq", "dk", "dv"), got, plain))
         same = all(torch.equal(x, y) for run in again
                    for x, y in zip(got, run))
-        dk = fa.kernel_head_dim(d)   # the padded head dim
-        fwd_route, fwd_groups = fa.fwd_plan(b, h, hk, sq, s, n_sms, dk)
-        regs, spills = _build.resources("flash_attention", (
-            "flash_fwd_res_kernel" if fwd_route == "resident"
-            else "flash_fwd_kernel") + f"ILi{dk}E")
-        log(f"    flash_fwd {label}: route {fwd_route}, G {fwd_groups}; "
-            f"{regs} registers, {spills} bytes spilled a thread")
-        route, groups = fa.bwd_plan(b, h, hk, sq, s, n_sms, dk)
-        resident = route == "resident"
-        want_pairs = fa.bwd_pairs(b, h, sq, s, causal) if resident else 0
-        full = fa.bwd_pairs(b, h, sq, s, False) if resident else 0
-        log(f"    flash_bwd {label}: route {route}, G {groups}; two more "
-            f"launches bitwise equal: {same}; ({fa.BWD_TILE_ROWS}-row query "
-            f"tile, {fa.BWD_KEY_SLICE}-key slice) pairs visited {int(pairs)} "
-            f"(want {want_pairs}; {full} without the causal skip)")
-        if not same or int(pairs) != want_pairs:
-            raise AssertionError(f"flash_bwd {label}: not deterministic or "
-                                 f"pairs {int(pairs)} != {want_pairs}")
+        plan = flash_plan(torch, label, q, k, causal, int(pairs), True)
+        log(f"    flash_bwd {label}: two more launches bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"flash_bwd {label}: not deterministic")
+        fwd_route, fwd_groups, regs, spills = (
+            plan[x] for x in ("fwd_route", "fwd_groups", "registers",
+                              "spill_bytes"))
+        route, groups, bwd_res = (plan[x] for x in ("bwd_route",
+                                                    "bwd_groups",
+                                                    "bwd_resources"))
         del out, lse, got, again, plain
         ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
               "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
@@ -2164,7 +2202,8 @@ def phase_flash_kernels(torch, args, results, cases=FLASH_FLAGSHIP):
             if kind == "bwd":
                 row.update(library_bwd_ms=lib["bwd"],
                            library_fwd_bwd_ms=lib["fwd_bwd"],
-                           pairs=int(pairs), groups=groups)
+                           pairs=int(pairs), groups=groups, plan_route=route,
+                           resources=bwd_res)
             else:
                 row.update(plan_route=fwd_route, groups=fwd_groups,
                            registers=regs, spill_bytes=spills)
@@ -3931,11 +3970,12 @@ def largest_flash_calls(name: str):
 def flash_case(torch, results, label: str, key, bias, gen):
     """The flash forward and backward at one training call's shape against
     their plain versions (same dropout seed; the backward rerun bitwise
-    equal), with ms, the bound (the f32 FFMA peak for f32), SDPA's forward
-    and backward alone as the yardstick; kept as ``<label>_shape``."""
+    equal; in bf16 the plans, registers, spills and visited pairs of
+    ``flash_plan``, the pairs held to their count where no bias is given),
+    with ms, the bound (the f32 FFMA peak for f32), SDPA's forward and
+    backward alone as the yardstick; kept as ``<label>_shape``."""
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.attention import causal_bias
-    from image2text_torch.utils.device import sm_count
 
     (b, h, sq, d), hk, skv, causal, rate, dt = key
     dev, f32, seed = torch.device("cuda"), dt == torch.float32, -123456789
@@ -3949,7 +3989,8 @@ def flash_case(torch, results, label: str, key, bias, gen):
     want, want_lse = fa.flash_forward_plain(*a, rate, seed)
     dvec = (dout.float() * want.float()).sum(-1)
     g = (dout, want_lse, dvec, rate, seed)
-    got = fa.flash_bwd(*a, *g)
+    pairs = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = fa.flash_bwd(*a, *g, pairs=pairs)
     again = fa.flash_bwd(*a, *g)
     plain = fa.flash_backward_plain(*a, *g)
     torch.cuda.synchronize()
@@ -3964,11 +4005,11 @@ def flash_case(torch, results, label: str, key, bias, gen):
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     if not same:
         raise AssertionError(f"flash_bwd {label}: reruns differ")
+    plan = {} if f32 else flash_plan(torch, label, q, k, causal, int(pairs),
+                                     bias is None)
     del out, lse, got, again, plain, want, want_lse
-    n_sms, kd = sm_count(dev), fa.kernel_head_dim(d)
     routes = ("f32" if f32 else
-              f"fwd {fa.fwd_plan(b, h, hk, sq, skv, n_sms, kd)[0]}, bwd "
-              f"{fa.bwd_plan(b, h, hk, sq, skv, n_sms, kd)[0]}")
+              f"fwd {plan['fwd_route']}, bwd {plan['bwd_route']}")
     ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
           "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
     plain_ms = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
@@ -3995,7 +4036,7 @@ def flash_case(torch, results, label: str, key, bias, gen):
                 b=b, h=h, hk=hk, sq=sq, skv=skv, d=d, causal=causal,
                 dtype=str(dt).split(".")[-1], route=routes,
                 max_abs_err=errs[kind], ms=ms[kind], plain_ms=plain_ms[kind],
-                bound_ms=bms, bound_by=by, library_ms=lib[kind])
+                bound_ms=bms, bound_by=by, library_ms=lib[kind], plan=plan)
 
 
 def phase_train_kernels(torch, results):

@@ -3,7 +3,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cmath>
@@ -11,14 +10,6 @@
 namespace i2t {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-// WMMA tile shape for bf16 inputs and f32 accumulators (the flash kernels).
-constexpr int TM = 16, TN = 16, TK = 16;
-using FragA = wmma::fragment<wmma::matrix_a, TM, TN, TK, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, TM, TN, TK, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, TM, TN, TK, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, TM, TN, TK, float>;
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 to_bf(float v) { return __float2bfloat16(v); }
@@ -104,12 +95,6 @@ __device__ __forceinline__ unsigned keep_hash(int row, int col, int plane, unsig
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -39,11 +39,13 @@
 // FWD_BLOCKS_PER_SM from this file).  Shared memory at d 128, 160 keys:
 // K and V 87,040 B, four warps' Q 17,408 B: 104,448 B, two blocks an SM.
 //
-// Forward, tiled (skv > 160): a thread block of four warps owns a 64-row
-// tile, each warp 16 rows, and loops over 64-row K/V tiles held in shared
-// memory; WMMA bf16 products with f32 accumulators; score tiles go through
-// shared memory in f32 so that plain threads apply bias, masks, softmax and
-// dropout; one block per (batch·head, q tile).
+// Forward, tiled (skv > 160, or head dim 256): the resident forward's
+// folded rows, register scores and A-fragment reuse, with a loop over K/V
+// stages (64 keys; 32 past d 64) through a two-stage cp.async ring and the
+// online softmax of FlashAttention-2 rescaling O in registers.  A block of
+// four warps takes 64-row tiles of a plane, G blocks a plane (the host's
+// fwd_plan), so one K/V stage serves every head that shares it; the causal
+// band is skipped on the device from the running row max, under a bias too.
 //
 // Backward, K/V resident (skv <= SKV_MAX = 160 keys: every ported training
 // shape).  One block holds a whole K/V plane in shared memory, one warp
@@ -75,13 +77,16 @@
 // and V 87,040 B, Q and dO two stages 34,816 B, dSᵀ 12,800 B, lse and D
 // 512 B: 135 KB, one block of 10 warps per SM.  The host picks the route
 // and G (ops/flash_attention.py::bwd_plan, which reads RB, KW and MAX_KW
-// from this file): G = 0 takes the tiled kernels.
+// from this file).
 //
-// Backward, tiled (skv > 160: K/V do not fit a block): two kernels.
-// dK/dV: one block of four warps per (K/V plane, 64-key tile) looping over
-// every query head and 64-row q tile (multi-query heads summed in f32
-// registers); dQ: one block per (batch·head, q tile) looping over key
-// tiles, recomputing S and dP.  Score tiles through f32 shared memory.
+// Backward, tiled (skv > 160, or head dim 256: K/V do not fit a block):
+// two kernels and the group sums.  dK/dV: a block holds a 64-key tile and
+// walks its group's share of the plane's 32-row query tiles (G groups a
+// key tile from bwd_plan, so that a multi-query plane's few key tiles still
+// fill the card), Sᵀ and dPᵀ once per pair in registers as the resident
+// backward computes them, f32 partials summed in group order.  dQ: the
+// tiled forward's grid and K/V ring, S and dP again in registers, dQ = dS·K
+// written whole.  Both skip the causal band from the saved lse.
 //
 // No float atomics anywhere: every output element is written by one block
 // (partials summed in a fixed order).  Key columns past skv take no part
@@ -94,12 +99,7 @@ using namespace i2t;
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, THREADS = 128;
-constexpr int SLD = BK + 4;  // f32 score tile row stride
-constexpr int PLD = BK + 8;  // bf16 probability tile row stride
 constexpr float NEG_BIG = -0.7f * 3.40282346638528859811704183484516925e38f;
-
-using FragAT = wmma::fragment<wmma::matrix_a, TM, TN, TK, bf16, wmma::col_major>;
 
 struct Params {
   const bf16* q;
@@ -115,8 +115,8 @@ struct Params {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* part;  // f32 dK/dV partials of the resident backward's groups
-  int* pairs;   // if set, the resident backward adds its visited pairs
+  float* part;  // f32 dK/dV partials of a backward's groups
+  int* pairs;   // if set, the backward adds its visited pairs
   int b, h, hk, sq, skv;
   int causal;
   float scale;
@@ -133,363 +133,6 @@ __device__ __forceinline__ float keep_scale(const Params& p, int row, int col, i
 
 __device__ __forceinline__ int hash_plane(const Params& p, int bi, int hi) {
   return p.plane_off + bi * p.plane_h + hi;
-}
-
-// Rows [r0, r0 + 64) of a (rows, D) bf16 matrix into shared memory (row
-// stride ld), zeros past ``rows``.
-template <int D>
-__device__ void load_tile(bf16* dst, int ld, const bf16* src, int r0, int rows) {
-  constexpr int VPR = D / 8;
-  for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    Bf16x8 val;
-    if (r0 + r < rows) {
-      val = *reinterpret_cast<const Bf16x8*>(src + (size_t)(r0 + r) * D + c);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) val.v[j] = to_bf(0.f);
-    }
-    *reinterpret_cast<Bf16x8*>(dst + r * ld + c) = val;
-  }
-}
-
-// One warp: S (16 x 64, f32, row stride SLD) = A (16 x D) · Bᵀ, B (64 x D).
-template <int D>
-__device__ void warp_abt(const bf16* A, const bf16* B, int ld, float* S) {
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBT bt;
-      wmma::load_matrix_sync(a, A + kk * 16, ld);
-      wmma::load_matrix_sync(bt, B + n * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(c, a, bt, c);
-    }
-    wmma::store_matrix_sync(S + n * 16, c, SLD, wmma::mem_row_major);
-  }
-}
-
-// The masked, scaled score of (row, col); -inf for a column past skv.
-__device__ __forceinline__ float score(const Params& p, const float* bias, float s, int row,
-                                       int col) {
-  if (col >= p.skv) return -INFINITY;
-  s *= p.scale;
-  if (bias != nullptr && row < p.sq) s += fmaxf(bias[row * p.bsr + col], NEG_BIG);
-  if (p.causal && col > row + p.skv - p.sq) s = NEG_BIG;
-  return s;
-}
-
-// Last kv tile a q tile starting at q0 needs: under ``causal`` without a
-// bias the band of its last row, else all of them (a row the bias or the
-// causal offset leaves without keys averages over every key).
-__device__ __forceinline__ int last_kv_tile(const Params& p, int q0) {
-  const int last = (p.skv + BK - 1) / BK - 1;
-  if (!p.causal || p.bias != nullptr || q0 + p.skv - p.sq < 0) return last;
-  return min(last, (q0 + BQ - 1 + p.skv - p.sq) / BK);
-}
-
-template <int D>
-struct FwdSmem {
-  static constexpr int LD = D + 8, OLD = D + 4;
-  static constexpr size_t bytes = 3 * 64 * LD * sizeof(bf16) + BQ * SLD * sizeof(float) +
-                                  BQ * PLD * sizeof(bf16) + BQ * OLD * sizeof(float) +
-                                  2 * BQ * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  using L = FwdSmem<D>;
-  constexpr int LD = L::LD, OLD = L::OLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* S = reinterpret_cast<float*>(Vs + BK * LD);
-  bf16* P = reinterpret_cast<bf16*>(S + BQ * SLD);
-  float* O = reinterpret_cast<float*>(P + BQ * PLD);
-  float* M = O + BQ * OLD;
-  float* Lsum = M + BQ;
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int bi = bh / p.h, hi = bh % p.h, kvp = p.hk == 1 ? bi : bh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* kp = p.k + (size_t)kvp * p.skv * D;
-  const bf16* vp = p.v + (size_t)kvp * p.skv * D;
-  const float* bias = p.bias ? p.bias + bi * p.bsb + hi * p.bsh : nullptr;
-
-  load_tile<D>(Qs, LD, p.q + (size_t)bh * p.sq * D, q0, p.sq);
-  for (int i = threadIdx.x; i < BQ * OLD; i += THREADS) O[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    M[threadIdx.x] = -INFINITY;
-    Lsum[threadIdx.x] = 0.f;
-  }
-  float* Sw = S + warp * 16 * SLD;
-  const int last = last_kv_tile(p, q0);
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();
-    load_tile<D>(Ks, LD, kp, k0, p.skv);
-    load_tile<D>(Vs, LD, vp, k0, p.skv);
-    __syncthreads();
-    warp_abt<D>(Qs + warp * 16 * LD, Ks, LD, Sw);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int lr = warp * 16 + r, row = q0 + lr;
-      const float s0 = score(p, bias, Sw[r * SLD + lane], row, k0 + lane);
-      const float s1 = score(p, bias, Sw[r * SLD + lane + 32], row, k0 + lane + 32);
-      const float m_prev = M[lr];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float m_safe = fmaxf(m_new, NEG_BIG);
-      const float alpha = expf(fmaxf(m_prev, NEG_BIG) - m_safe);
-      float p0 = expf(s0 - m_safe), p1 = expf(s1 - m_safe);
-      const float psum = warp_sum(p0 + p1);
-      if (p.dropout) {
-        p0 *= keep_scale(p, row, k0 + lane, hash_plane(p, bi, hi));
-        p1 *= keep_scale(p, row, k0 + lane + 32, hash_plane(p, bi, hi));
-      }
-      P[lr * PLD + lane] = to_bf(p0);
-      P[lr * PLD + lane + 32] = to_bf(p1);
-      for (int c = lane; c < D; c += 32) O[lr * OLD + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        M[lr] = m_new;
-        Lsum[lr] = alpha * Lsum[lr] + psum;
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC c;
-      wmma::load_matrix_sync(c, O + warp * 16 * OLD + n * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA a;
-        FragB bb;
-        wmma::load_matrix_sync(a, P + warp * 16 * PLD + kk * 16, PLD);
-        wmma::load_matrix_sync(bb, Vs + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(c, a, bb, c);
-      }
-      wmma::store_matrix_sync(O + warp * 16 * OLD + n * 16, c, OLD, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int lr = warp * 16 + r, row = q0 + lr;
-    if (row >= p.sq) break;
-    const float l = fmaxf(Lsum[lr], 1e-30f);
-    bf16* orow = p.o + ((size_t)bh * p.sq + row) * D;
-    for (int c = lane; c < D; c += 32) orow[c] = to_bf(O[lr * OLD + c] / l);
-    if (lane == 0) p.lse_out[(size_t)bh * p.sq + row] = fmaxf(M[lr], NEG_BIG) + logf(l);
-  }
-}
-
-// Shared memory of both backward kernels: four bf16 tiles (Q, dO, K, V),
-// the f32 score and dP tiles, the bf16 p̃ and dS tiles, lse and D.
-template <int D>
-struct BwdSmem {
-  static constexpr int LD = D + 8;
-  static constexpr size_t bytes = 4 * 64 * LD * sizeof(bf16) + 2 * BQ * SLD * sizeof(float) +
-                                  2 * BQ * PLD * sizeof(bf16) + 2 * BQ * sizeof(float);
-  // the f32 staging of a warp's 16 x D output fits in the score tiles up
-  // to D 128, at D 256 in the four bf16 tiles (both read no more by then)
-  static_assert(D > 128 ? 4 * 16 * (D + 4) * 4 <= 4 * 64 * LD * 2
-                        : 4 * 16 * (D + 4) <= 2 * BQ * SLD,
-                "staging must fit");
-};
-
-
-struct BwdTiles {
-  bf16 *Qs, *dOs, *Ks, *Vs, *Pt, *dS;
-  float *S, *dP, *lse, *dvec;
-};
-
-// Where a warp stages its 16 x D f32 output rows once its tiles are read.
-template <int D>
-__device__ float* stage_of(unsigned char* smem, const BwdTiles& t, int warp) {
-  return (D > 128 ? reinterpret_cast<float*>(smem) : t.S) + warp * 16 * (D + 4);
-}
-
-template <int D>
-__device__ BwdTiles bwd_tiles(unsigned char* smem) {
-  constexpr int LD = BwdSmem<D>::LD;
-  BwdTiles t;
-  t.Qs = reinterpret_cast<bf16*>(smem);
-  t.dOs = t.Qs + 64 * LD;
-  t.Ks = t.dOs + 64 * LD;
-  t.Vs = t.Ks + 64 * LD;
-  t.S = reinterpret_cast<float*>(t.Vs + 64 * LD);
-  t.dP = t.S + BQ * SLD;
-  t.Pt = reinterpret_cast<bf16*>(t.dP + BQ * SLD);
-  t.dS = t.Pt + BQ * PLD;
-  t.lse = reinterpret_cast<float*>(t.dS + BQ * PLD);
-  t.dvec = t.lse + BQ;
-  return t;
-}
-
-// Q, dO, lse and D of rows [q0, q0 + 64) of plane bh.
-template <int D>
-__device__ void load_q_side(const Params& p, const BwdTiles& t, int bh, int q0) {
-  constexpr int LD = BwdSmem<D>::LD;
-  load_tile<D>(t.Qs, LD, p.q + (size_t)bh * p.sq * D, q0, p.sq);
-  load_tile<D>(t.dOs, LD, p.dout + (size_t)bh * p.sq * D, q0, p.sq);
-  if (threadIdx.x < BQ) {
-    const int row = q0 + threadIdx.x;
-    const bool in = row < p.sq;
-    t.lse[threadIdx.x] = in ? p.lse[(size_t)bh * p.sq + row] : 0.f;
-    t.dvec[threadIdx.x] = in ? p.dvec[(size_t)bh * p.sq + row] : 0.f;
-  }
-}
-
-// One warp: its 16 q rows of p̃ and dS (bf16) for the tile (q0, k0);
-// ``plane`` is the hash's.
-template <int D>
-__device__ void warp_p_ds(const Params& p, const BwdTiles& t, const float* bias, int plane,
-                          int q0, int k0, bool want_p) {
-  constexpr int LD = BwdSmem<D>::LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Sw = t.S + warp * 16 * SLD;
-  float* dPw = t.dP + warp * 16 * SLD;
-  warp_abt<D>(t.Qs + warp * 16 * LD, t.Ks, LD, Sw);
-  warp_abt<D>(t.dOs + warp * 16 * LD, t.Vs, LD, dPw);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int lr = warp * 16 + r, row = q0 + lr;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + 32 * half, col = k0 + c;
-      const float s = score(p, bias, Sw[r * SLD + c], row, col);
-      float pr = row < p.sq ? expf(s - t.lse[lr]) : 0.f;
-      float dp = dPw[r * SLD + c];
-      if (p.dropout) {
-        const float ks = keep_scale(p, row, col, plane);
-        dp *= ks;
-        if (want_p) t.Pt[lr * PLD + c] = to_bf(pr * ks);
-      } else if (want_p) {
-        t.Pt[lr * PLD + c] = to_bf(pr);
-      }
-      t.dS[lr * PLD + c] = to_bf(pr * (dp - t.dvec[lr]));
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 accumulators, times ``mul``, as bf16 rows
-// [r0, r0 + 16) of dst (row count ``rows``), staged through ``stage``.
-template <int D>
-__device__ void store_rows(FragC (&acc)[D / 16], float mul, float* stage, bf16* dst, int r0,
-                           int rows) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= mul;
-    wmma::store_matrix_sync(stage + n * 16, acc[n], D + 4, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int r = 0; r < 16 && r0 + r < rows; ++r)
-    for (int c = lane; c < D; c += 32) dst[(size_t)(r0 + r) * D + c] = to_bf(stage[r * (D + 4) + c]);
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
-  constexpr int LD = BwdSmem<D>::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdTiles t = bwd_tiles<D>(smem);
-  const int kvp = blockIdx.y, k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32;
-  const int bi = p.hk == 1 ? kvp : kvp / p.h;
-  const int h0 = p.hk == 1 ? 0 : kvp % p.h, h1 = p.hk == 1 ? p.h : h0 + 1;
-  load_tile<D>(t.Ks, LD, p.k + (size_t)kvp * p.skv * D, k0, p.skv);
-  load_tile<D>(t.Vs, LD, p.v + (size_t)kvp * p.skv * D, k0, p.skv);
-  FragC dk[D / 16], dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-  // q tiles whose last row precedes this kv tile's first column see none of
-  // it, unless rows that see no key at all (a bias, or causal with sq >
-  // skv) spread their uniform weights over every column
-  int i0 = 0;
-  if (p.causal && p.bias == nullptr && p.sq <= p.skv) {
-    const int first_row = k0 - (p.skv - p.sq);
-    i0 = first_row <= 0 ? 0 : first_row / BQ;
-  }
-  const int nq = (p.sq + BQ - 1) / BQ;
-  for (int hi = h0; hi < h1; ++hi) {
-    const int bh = bi * p.h + hi;
-    const float* bias = p.bias ? p.bias + bi * p.bsb + hi * p.bsh : nullptr;
-    for (int i = i0; i < nq; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();
-      load_q_side<D>(p, t, bh, q0);
-      __syncthreads();
-      warp_p_ds<D>(p, t, bias, hash_plane(p, bi, hi), q0, k0, true);
-      __syncthreads();
-      // this warp's 16 kv rows: dV += p̃ᵀ dO, dK += dSᵀ Q
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        FragAT pt, dst;
-        wmma::load_matrix_sync(pt, t.Pt + kk * 16 * PLD + warp * 16, PLD);
-        wmma::load_matrix_sync(dst, t.dS + kk * 16 * PLD + warp * 16, PLD);
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          FragB dob, qb;
-          wmma::load_matrix_sync(dob, t.dOs + kk * 16 * LD + n * 16, LD);
-          wmma::mma_sync(dv[n], pt, dob, dv[n]);
-          wmma::load_matrix_sync(qb, t.Qs + kk * 16 * LD + n * 16, LD);
-          wmma::mma_sync(dk[n], dst, qb, dk[n]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* stage = stage_of<D>(smem, t, warp);
-  store_rows<D>(dk, p.scale, stage, p.dk + (size_t)kvp * p.skv * D, k0 + warp * 16, p.skv);
-  store_rows<D>(dv, 1.f, stage, p.dv + (size_t)kvp * p.skv * D, k0 + warp * 16, p.skv);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = BwdSmem<D>::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdTiles t = bwd_tiles<D>(smem);
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int bi = bh / p.h, hi = bh % p.h, kvp = p.hk == 1 ? bi : bh;
-  const int warp = threadIdx.x / 32;
-  const float* bias = p.bias ? p.bias + bi * p.bsb + hi * p.bsh : nullptr;
-  load_q_side<D>(p, t, bh, q0);
-  FragC dq[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.f);
-  const int last = last_kv_tile(p, q0);
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();
-    load_tile<D>(t.Ks, LD, p.k + (size_t)kvp * p.skv * D, k0, p.skv);
-    load_tile<D>(t.Vs, LD, p.v + (size_t)kvp * p.skv * D, k0, p.skv);
-    __syncthreads();
-    warp_p_ds<D>(p, t, bias, hash_plane(p, bi, hi), q0, k0, false);
-    __syncwarp();
-    // this warp's 16 q rows: dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, t.dS + warp * 16 * PLD + kk * 16, PLD);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        FragB kb;
-        wmma::load_matrix_sync(kb, t.Ks + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(dq[n], a, kb, dq[n]);
-      }
-    }
-  }
-  __syncthreads();
-  store_rows<D>(dq, p.scale, stage_of<D>(smem, t, warp), p.dq + (size_t)bh * p.sq * D,
-                q0 + warp * 16, p.sq);
 }
 
 // ------------------------------------------------- backward, K/V resident
@@ -999,6 +642,643 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const float* part
   *reinterpret_cast<uint2*>((is_v ? dv : dk) + j) = o;
 }
 
+// ------------------------------------------------- tiled route
+// Past the resident kernels' 160 keys, and at head dim 256.  The host's
+// plans (ops/flash_attention.py::fwd_plan, bwd_plan, tiled_bwd_pairs) read
+// TILE_ROWS, TILE_KEYS, DKV_KEYS and DKV_ROWS from this file.
+constexpr int TILE_WARPS = 4;  // warps of a forward or dQ block
+constexpr int TILE_ROWS = 64;  // folded query rows of their tiles: 16 a warp
+constexpr int TILE_KEYS = 64;  // keys of their K/V stages (tile_keys, fwd_keys: fewer)
+constexpr int TILE_STAGES = 2; // stages of their K/V ring
+constexpr int DKV_KEYS = 64;   // keys of a dK/dV block: 16 a warp (a warp pair at d 256)
+constexpr int DKV_ROWS = 32;   // query rows of a dK/dV block's tiles
+constexpr int DKV_STAGES = 2;  // stages of its Q/dO ring
+static_assert(TILE_ROWS == 16 * TILE_WARPS && DKV_ROWS == 32, "a warp's 16 rows; a lane a row");
+// (Three or four stages, and 128-key stages, measured no faster at the
+// families' shapes on the H100.)
+
+__host__ __device__ constexpr int tile_keys(int d) { return d > 128 ? TILE_KEYS / 2 : TILE_KEYS; }
+// The forward's K/V stages hold 32 keys past head dim 64, and it asks the
+// register allocator for four blocks an SM up to head dim 64 (128
+// registers a thread, 48 bytes spilled) and three at 128: at the
+// families' shapes that took 7–9% less device time at d 64 than three
+// blocks, and 24% less at d 128 than 64-key stages at two blocks
+// (probes/flash_variants.py on the H100).
+__host__ __device__ constexpr int fwd_keys(int d) { return d > 64 ? TILE_KEYS / 2 : TILE_KEYS; }
+__host__ __device__ constexpr int fwd_min_blocks(int d) { return d > 128 ? 1 : d > 64 ? 3 : 4; }
+// dK/dV: a warp holds 16 keys × at most 128 dims of both accumulators, so
+// at d 256 two warps share 16 keys, each half of the dims
+__host__ __device__ constexpr int dkv_split(int d) { return d > 128 ? 2 : 1; }
+
+constexpr size_t fwd_tiled_smem(int d) {  // Q; K and V of each stage
+  return (size_t)(TILE_ROWS + 2 * TILE_STAGES * fwd_keys(d)) * (d + 8) * sizeof(bf16);
+}
+constexpr size_t dq_tiled_smem(int d) {  // Q, dO; K and V of each stage
+  return (size_t)(2 * TILE_ROWS + 2 * TILE_STAGES * tile_keys(d)) * (d + 8) * sizeof(bf16);
+}
+constexpr size_t dkv_tiled_smem(int d) {  // K, V; Q, dO, lse and D of each stage
+  return (size_t)(2 * DKV_KEYS + 2 * DKV_STAGES * DKV_ROWS) * (d + 8) * sizeof(bf16) +
+         2 * DKV_STAGES * DKV_ROWS * sizeof(float);
+}
+static_assert(dq_tiled_smem(256) + 1024 <= SM_SMEM && dkv_tiled_smem(256) + 1024 <= SM_SMEM,
+              "a tiled block fits an SM at head dim 256");
+static_assert(fwd_min_blocks(64) * (fwd_tiled_smem(64) + 1024) <= SM_SMEM &&
+                  fwd_min_blocks(128) * (fwd_tiled_smem(128) + 1024) <= SM_SMEM,
+              "the forward's blocks an SM fit its shared memory");
+
+// Rows [r0, r0 + n) of a (rows, D) bf16 matrix starting at row ``base`` into
+// shared memory (row stride D + 8) by cp.async, zeros past ``rows``.
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t base, int r0,
+                                          int rows, int n) {
+  for (int i = threadIdx.x; i < n * (D / 8); i += blockDim.x) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool in = r0 + r < rows;
+    cp_async16(dst + r * (D + 8) + c, src + (in ? (base + r0 + r) * D + c : 0), in);
+  }
+}
+
+// A K/V plane: its batch row, first head and folded query rows (the h
+// heads' rows for one K/V head, else its own head's).
+struct Plane {
+  int bi, h0, nrows;
+  size_t base;  // first folded row of (b, h, sq)
+};
+
+__device__ __forceinline__ Plane plane_of(const Params& p, int kvp) {
+  Plane pl;
+  pl.bi = p.hk == 1 ? kvp : kvp / p.h;
+  pl.h0 = p.hk == 1 ? 0 : kvp % p.h;
+  pl.nrows = (p.hk == 1 ? p.h : 1) * p.sq;
+  pl.base = (size_t)(pl.bi * p.h + pl.h0) * p.sq;
+  return pl;
+}
+
+// A lane's two folded rows (f and f + 8) unfolded to (head, row): the
+// hash's plane, the causal limit (the last key the row sees), the bias row.
+struct LaneRows {
+  int row[2], lim[2], plane[2];
+  bool in[2];
+  const float* brow[2];
+  size_t at[2];  // the row of (b·h·sq) in out, lse, D and dQ
+};
+
+__device__ __forceinline__ LaneRows lane_rows(const Params& p, const Plane& pl, int f) {
+  LaneRows r;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int fr = f + 8 * hh;
+    r.in[hh] = fr < pl.nrows;
+    const int head = pl.h0 + (r.in[hh] ? fr / p.sq : 0);
+    r.row[hh] = r.in[hh] ? fr % p.sq : 0;
+    r.plane[hh] = hash_plane(p, pl.bi, head);
+    r.lim[hh] = r.row[hh] + p.skv - p.sq;
+    r.brow[hh] = (p.bias != nullptr && r.in[hh])
+                     ? p.bias + pl.bi * p.bsb + head * p.bsh + r.row[hh] * p.bsr
+                     : nullptr;
+    r.at[hh] = pl.base + fr;
+  }
+  return r;
+}
+
+// The score of (the lane's row hh, col): scaled, the bias clamped, the
+// causal mask; -inf past skv.
+__device__ __forceinline__ float masked_score(const Params& p, const LaneRows& r, int hh,
+                                              float s, int col) {
+  if (col >= p.skv) return -INFINITY;
+  float x = s * p.scale;
+  if (r.brow[hh] != nullptr) x += fmaxf(r.brow[hh][col], NEG_BIG);
+  if (p.causal && col > r.lim[hh]) x = NEG_BIG;
+  return x;
+}
+
+// The last key any of folded rows [f0, f1) sees under causal: the limit of
+// the largest row among them (sq − 1 where they cross a head's end).
+__device__ __forceinline__ int rows_band(const Params& p, int f0, int f1) {
+  const int last = f0 / p.sq != (f1 - 1) / p.sq ? p.sq - 1 : (f1 - 1) % p.sq;
+  return last + p.skv - p.sq;
+}
+
+// The last key every one of folded rows [f0, f1) sees under causal: the
+// limit of the smallest row among them (row 0 where they cross a head's end).
+__device__ __forceinline__ int rows_floor(const Params& p, int f0, int f1) {
+  const int first = f0 / p.sq != (f1 - 1) / p.sq ? 0 : f0 % p.sq;
+  return first + p.skv - p.sq;
+}
+
+// Keys [k0, k1) are real and seen by every row whose causal floor is
+// ``floor``, with no bias: their scores need only the scale.
+__device__ __forceinline__ bool unmasked(const Params& p, int k0, int k1, int floor) {
+  return p.bias == nullptr && k1 <= p.skv && (!p.causal || k1 - 1 <= floor);
+}
+
+// One warp's 16 × KT products of A (16 rows from A0, row stride D + 8) with
+// the KT rows of B: c[n] holds columns 8n..8n+7 (mma.sync accumulators).
+template <int D, int KT>
+__device__ __forceinline__ void warp_scores(float (&c)[KT / 8][4], const bf16* A0,
+                                            const bf16* B) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x % 32;
+  const int ar = (lane % 8) + ((lane / 8) % 2) * 8, ac = (lane / 16) * 8;
+  const int br = (lane % 8) + (lane / 16) * 8, bc = ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) c[n][u] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, A0 + ar * LD + kk * 16 + ac);
+#pragma unroll
+    for (int n = 0; n < KT / 16; ++n) {
+      uint32_t bk[4];
+      ldsm_x4(bk, B + (n * 16 + br) * LD + kk * 16 + bc);
+      mma16816(c[2 * n], a, bk[0], bk[1]);
+      mma16816(c[2 * n + 1], a, bk[2], bk[3]);
+    }
+  }
+}
+
+// acc (16 × D) += P (16 × KT, f32 registers rounded to bf16 A fragments) ·
+// B (a row-major (KT, D) stage).
+template <int D, int KT>
+__device__ __forceinline__ void warp_pv(float (&acc)[D / 8][4], const float (&pr)[KT / 8][4],
+                                        const bf16* B) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x % 32;
+  const int ar = (lane % 8) + ((lane / 8) % 2) * 8, ac = (lane / 16) * 8;
+#pragma unroll
+  for (int kq = 0; kq < KT / 16; ++kq) {
+    const uint32_t a[4] = {pack_bf2(pr[2 * kq][0], pr[2 * kq][1]),
+                           pack_bf2(pr[2 * kq][2], pr[2 * kq][3]),
+                           pack_bf2(pr[2 * kq + 1][0], pr[2 * kq + 1][1]),
+                           pack_bf2(pr[2 * kq + 1][2], pr[2 * kq + 1][3])};
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, B + (kq * 16 + ar) * LD + n * 16 + ac);
+      mma16816(acc[2 * n], a, bv[0], bv[1]);
+      mma16816(acc[2 * n + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
+// Forward, tiled.  Grid (G groups, b·hk K/V planes); TILE_WARPS warps.
+// Group g of a plane takes its TILE_ROWS-row tiles [g·T/G, (g+1)·T/G) of
+// the folded rows (T = ⌈nrows / TILE_ROWS⌉) one after another, warp w rows
+// 16w..16w+15 of each.  The block streams the plane's K/V through a
+// two-stage cp.async ring of KT-key stages, the copy of stage j + 1 under
+// the products of stage j, one block barrier a stage.  A warp's S = Q·Kᵀ
+// (16 × KT) is in registers, every lane knowing its (row, col); the online
+// softmax (FlashAttention-2) rescales O and the row sums there, p̃ = p·keep
+// feeds P̃·V as A fragments, and O (16 × D) accumulates in registers.  A
+// causal tile stops at the band of its last row once every row in it holds
+// a max above NEG_BIG / 2 (past the band p = exp(NEG_BIG − m) = 0); a tile
+// with a keyless row streams every stage.  A warp whose rows all saw a key
+// skips the stages past its own band (they would add exact zeros), and a
+// stage inside the band of all its rows, with no bias, takes the scale
+// alone.  The exponentials are __expf (ex2.approx: 2 ulp; exact 1 at 0 and
+// 0 at −inf, so the NEG_BIG rules hold).
+template <int D>
+__global__ void __launch_bounds__(TILE_WARPS * 32, fwd_min_blocks(D))
+    flash_fwd_tiled_kernel(Params p) {
+  constexpr int LD = D + 8, KT = fwd_keys(D), NST = TILE_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [TILE_ROWS][LD]
+  bf16* Ks = Qs + TILE_ROWS * LD;             // [NST][KT][LD]
+  bf16* Vs = Ks + NST * KT * LD;              // [NST][KT][LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int kvp = blockIdx.y, grp = blockIdx.x, groups = gridDim.x;
+  const Plane pl = plane_of(p, kvp);
+  const size_t kvbase = (size_t)kvp * p.skv;
+  const int ntiles = (pl.nrows + TILE_ROWS - 1) / TILE_ROWS, nkt = (p.skv + KT - 1) / KT;
+  const int t0 = (int)((long long)grp * ntiles / groups);
+  const int t1 = (int)((long long)(grp + 1) * ntiles / groups);
+  // stage j's K and V into ring slot j % NST, one commit group a stage
+  // (empty past the last)
+  auto load_stage = [&](int j) {
+    if (j < nkt) {
+      load_rows<D>(Ks + (j % NST) * KT * LD, p.k, kvbase, j * KT, p.skv, KT);
+      load_rows<D>(Vs + (j % NST) * KT * LD, p.v, kvbase, j * KT, p.skv, KT);
+    }
+    cp_async_commit();
+  };
+
+  for (int t = t0; t < t1; ++t) {
+    const int f0 = t * TILE_ROWS, f1 = min(f0 + TILE_ROWS, pl.nrows);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the previous tile's Q and stages
+    load_rows<D>(Qs, p.q, pl.base, f0, pl.nrows, TILE_ROWS);
+#pragma unroll
+    for (int j = 0; j < NST - 1; ++j) load_stage(j);
+    const LaneRows r = lane_rows(p, pl, f0 + warp * 16 + g);
+    const int band_stages = p.causal ? min(nkt, max(rows_band(p, f0, f1), 0) / KT + 1) : nkt;
+    const int wf0 = f0 + warp * 16;
+    const int wband = wf0 < f1 ? rows_band(p, wf0, min(wf0 + 16, f1)) : -1;
+    const int wfloor = wf0 < f1 ? rows_floor(p, wf0, min(wf0 + 16, f1)) : -1;
+
+    float o[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[n][u] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < nkt; ++j) {
+      cp_async_wait<NST - 2>();
+      const bool keyed =
+          (!r.in[0] || m[0] > 0.5f * NEG_BIG) && (!r.in[1] || m[1] > 0.5f * NEG_BIG);
+      // the barrier: stage j is in, and the slot of stage j + NST − 1 (stage
+      // j − 1's) is read by no one
+      if (__syncthreads_and(keyed) && j >= band_stages) break;
+      load_stage(j + NST - 1);
+      if (p.causal && j * KT > wband && __all_sync(0xffffffffu, keyed)) continue;
+      const bf16* Kt = Ks + (j % NST) * KT * LD;
+      const bf16* Vt = Vs + (j % NST) * KT * LD;
+      float s[KT / 8][4];
+      warp_scores<D, KT>(s, Qs + warp * 16 * LD, Kt);
+      // at (row g [+ 8], col j·KT + 8n + 2·c4 [+ 1]); a stage inside every
+      // row's band with no bias takes only the scale
+      const bool plain = unmasked(p, j * KT, (j + 1) * KT, wfloor);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int hh = u >> 1;
+          s[n][u] = plain ? s[n][u] * p.scale
+                          : masked_score(p, r, hh, s[n][u], j * KT + n * 8 + 2 * c4 + (u & 1));
+          mt[hh] = fmaxf(mt[hh], s[n][u]);
+        }
+      float ms[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float mn = fmaxf(m[hh], quad_max(mt[hh]));
+        ms[hh] = fmaxf(mn, NEG_BIG);
+        const float alpha = __expf(fmaxf(m[hh], NEG_BIG) - ms[hh]);
+        m[hh] = mn;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * hh] *= alpha;
+          o[n][2 * hh + 1] *= alpha;
+        }
+      }
+      // the denominator before dropout, then p̃ = p·keep/(1 − rate)
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int hh = u >> 1;
+          float pr = __expf(s[n][u] - ms[hh]);
+          l[hh] += pr;
+          if (p.dropout)
+            pr *= keep_scale(p, r.row[hh], j * KT + n * 8 + 2 * c4 + (u & 1), r.plane[hh]);
+          s[n][u] = pr;
+        }
+      warp_pv<D, KT>(o, s, Vt);
+    }
+    // O / l as bf16 and lse, rows past the plane's not written
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      if (!r.in[hh]) continue;
+      const float lc = fmaxf(l[hh], 1e-30f);
+      bf16* dst = p.o + r.at[hh] * D + 2 * c4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf2(o[n][2 * hh] / lc, o[n][2 * hh + 1] / lc);
+      if (c4 == 0) p.lse_out[r.at[hh]] = fmaxf(m[hh], NEG_BIG) + logf(lc);
+    }
+  }
+}
+
+// Backward dQ, tiled: the forward's grid, tiles and K/V ring.  A warp
+// computes S = Q·Kᵀ and dP = dO·Vᵀ (16 × KT) in registers, p = exp(s −
+// lse) and dS = p·(keep·dP − D) there, and dQ += dS·K with dS as A
+// fragments; a block sees every key of its rows, so it writes dQ whole (×
+// scale).  A causal tile stops at its last row's band when every row in it
+// saw a key (lse > NEG_BIG / 2, saved by the forward), else streams every
+// stage; a warp whose rows all saw a key skips the stages past its band,
+// and as in the forward an unmasked stage takes the scale alone.
+template <int D>
+__global__ void __launch_bounds__(TILE_WARPS * 32) flash_bwd_dq_tiled_kernel(Params p) {
+  constexpr int LD = D + 8, KT = tile_keys(D), NST = TILE_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [TILE_ROWS][LD]
+  bf16* dOs = Qs + TILE_ROWS * LD;            // [TILE_ROWS][LD]
+  bf16* Ks = dOs + TILE_ROWS * LD;            // [NST][KT][LD]
+  bf16* Vs = Ks + NST * KT * LD;              // [NST][KT][LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int kvp = blockIdx.y, grp = blockIdx.x, groups = gridDim.x;
+  const Plane pl = plane_of(p, kvp);
+  const size_t kvbase = (size_t)kvp * p.skv;
+  const int ntiles = (pl.nrows + TILE_ROWS - 1) / TILE_ROWS, nkt = (p.skv + KT - 1) / KT;
+  const int t0 = (int)((long long)grp * ntiles / groups);
+  const int t1 = (int)((long long)(grp + 1) * ntiles / groups);
+  // stage j's K and V into ring slot j % NST, one commit group a stage
+  // (empty from the tile's last visited stage on)
+  int last = nkt;
+  auto load_stage = [&](int j) {
+    if (j < last) {
+      load_rows<D>(Ks + (j % NST) * KT * LD, p.k, kvbase, j * KT, p.skv, KT);
+      load_rows<D>(Vs + (j % NST) * KT * LD, p.v, kvbase, j * KT, p.skv, KT);
+    }
+    cp_async_commit();
+  };
+
+  for (int t = t0; t < t1; ++t) {
+    const int f0 = t * TILE_ROWS, f1 = min(f0 + TILE_ROWS, pl.nrows);
+    cp_async_wait<0>();
+    __syncthreads();
+    load_rows<D>(Qs, p.q, pl.base, f0, pl.nrows, TILE_ROWS);
+    load_rows<D>(dOs, p.dout, pl.base, f0, pl.nrows, TILE_ROWS);
+    last = nkt;
+    load_stage(0);  // with Q and dO: one commit group
+    const LaneRows r = lane_rows(p, pl, f0 + warp * 16 + g);
+    float lse[2], dvec[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      lse[hh] = r.in[hh] ? p.lse[r.at[hh]] : 0.f;
+      dvec[hh] = r.in[hh] ? p.dvec[r.at[hh]] : 0.f;
+    }
+    const bool keyed =
+        (!r.in[0] || lse[0] > 0.5f * NEG_BIG) && (!r.in[1] || lse[1] > 0.5f * NEG_BIG);
+    const bool tile_keyed = __syncthreads_and(keyed);
+    const bool warp_keyed = __all_sync(0xffffffffu, keyed);
+    last = p.causal && tile_keyed ? min(nkt, max(rows_band(p, f0, f1), 0) / KT + 1) : nkt;
+    const int wf0 = f0 + warp * 16;
+    const int wband = wf0 < f1 ? rows_band(p, wf0, min(wf0 + 16, f1)) : -1;
+    const int wfloor = wf0 < f1 ? rows_floor(p, wf0, min(wf0 + 16, f1)) : -1;
+#pragma unroll
+    for (int j = 1; j < NST - 1; ++j) load_stage(j);
+
+    float dq[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dq[n][u] = 0.f;
+    for (int j = 0; j < last; ++j) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();  // stage j is in; stage j − 1's slot is read by no one
+      load_stage(j + NST - 1);
+      if (p.causal && j * KT > wband && warp_keyed) continue;
+      const bf16* Kt = Ks + (j % NST) * KT * LD;
+      const bf16* Vt = Vs + (j % NST) * KT * LD;
+      float s[KT / 8][4], dp[KT / 8][4];
+      warp_scores<D, KT>(s, Qs + warp * 16 * LD, Kt);
+      warp_scores<D, KT>(dp, dOs + warp * 16 * LD, Vt);
+      // rows are independent in dQ, so a row past the plane's (lse 0, not
+      // written) needs no care on the unmasked path
+      const bool plain = unmasked(p, j * KT, (j + 1) * KT, wfloor);
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int hh = u >> 1, col = j * KT + n * 8 + 2 * c4 + (u & 1);
+          const float pr =
+              plain ? __expf(s[n][u] * p.scale - lse[hh])
+                    : (r.in[hh] && col < p.skv
+                           ? __expf(masked_score(p, r, hh, s[n][u], col) - lse[hh])
+                           : 0.f);
+          float d = dp[n][u];
+          if (p.dropout) d *= keep_scale(p, r.row[hh], col, r.plane[hh]);
+          s[n][u] = pr * (d - dvec[hh]);
+        }
+      warp_pv<D, KT>(dq, s, Kt);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!r.in[hh]) continue;
+      bf16* dst = p.dq + r.at[hh] * D + 2 * c4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf2(dq[n][2 * hh] * p.scale, dq[n][2 * hh + 1] * p.scale);
+    }
+  }
+}
+
+// Backward dK/dV, tiled.  Grid (G groups, ⌈skv / DKV_KEYS⌉ key tiles, b·hk
+// K/V planes); 4·dkv_split(D) warps.  A block holds one key tile's K and V
+// (warp w: keys 16·(w / split)..+15, dims (w % split)·D / split..) and
+// walks group g's share [g·T/G, (g+1)·T/G) of the plane's T = nh·⌈sq/32⌉
+// query tiles (32 rows of one head; nh = h if hk = 1 else 1), each with
+// its lse and D copied by cp.async into a double buffer under the previous
+// tile.  Per pair, the resident backward's work in registers: Sᵀ = K·Qᵀ and
+// dPᵀ = V·dOᵀ (16 keys × 32 rows) once; bias, mask, exp(s − lse), the hash
+// and dS there; then dV += p̃ᵀ·dO and dK += dSᵀ·Q from the accumulators,
+// dK/dV in registers over the block's tiles (multi-query heads summed).
+// For G = 1 the block writes bf16 dK/dV, else f32 partials [dK: G][planes]
+// [skv][D] then dV, summed in group order by flash_bwd_reduce_kernel.  The
+// band: under causal a query tile whose last row sees no key of the tile
+// is skipped, unless its first row sees no key at all (sq > skv: it
+// averages over every key); with a bias, which can leave any row keyless,
+// the block first reads the lse of the tiles it would skip and walks all
+// of its tiles if one of them holds a keyless row.  A warp whose 16 keys
+// lie past the band of a tile in which every row saw a key adds nothing
+// there and skips it.  ``pairs`` counts the (query tile, key tile) pairs.
+template <int D>
+__global__ void __launch_bounds__(4 * dkv_split(D) * 32) flash_bwd_dkv_tiled_kernel(Params p) {
+  constexpr int LD = D + 8, SPLIT = dkv_split(D), DH = D / SPLIT, RW = DKV_ROWS;
+  constexpr int NST = DKV_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                    // [DKV_KEYS][LD]
+  bf16* Vs = Ks + DKV_KEYS * LD;                                // [DKV_KEYS][LD]
+  bf16* Qs = Vs + DKV_KEYS * LD;                                  // [NST][RW][LD]
+  bf16* dOs = Qs + NST * RW * LD;                                 // [NST][RW][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + NST * RW * LD);  // [NST][RW]
+  float* dvec_s = lse_s + NST * RW;                               // [NST][RW]
+
+  const int grp = blockIdx.x, groups = gridDim.x, kvp = blockIdx.z;
+  const int k0 = blockIdx.y * DKV_KEYS;
+  const int bi = p.hk == 1 ? kvp : kvp / p.h;
+  const int h0 = p.hk == 1 ? 0 : kvp % p.h, nh = p.hk == 1 ? p.h : 1;
+  const int nqt = (p.sq + RW - 1) / RW, ntiles = nh * nqt;
+  const int t0 = (int)((long long)grp * ntiles / groups);
+  const int t1 = (int)((long long)(grp + 1) * ntiles / groups);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int kv0 = (warp / SPLIT) * 16, d0 = (warp % SPLIT) * DH;
+  // ldmatrix lane addresses: A from a row-major (m, k) tile, and B
+  // (.trans) from a row-major (k, n) tile; B from an (n, k) tile
+  const int ar = (lane % 8) + ((lane / 8) % 2) * 8, ac = (lane / 16) * 8;
+  const int br = (lane % 8) + (lane / 16) * 8, bc = ((lane / 8) % 2) * 8;
+
+  // query tile t needs these keys unless causal hides all of them from
+  // every row of it, each of which sees some key
+  auto band_needed = [&](int t) {
+    const int q0 = (t % nqt) * RW, last = min(q0 + RW, p.sq) - 1;
+    return !p.causal || q0 + p.skv - p.sq < 0 || last + p.skv - p.sq >= k0;
+  };
+  bool all = !p.causal;
+  if (p.causal && p.bias != nullptr) {
+    int keyless = 0;
+    for (int x = threadIdx.x; x < (t1 - t0) * RW; x += blockDim.x) {
+      const int t = t0 + x / RW, row = (t % nqt) * RW + x % RW;
+      if (row < p.sq && !band_needed(t))
+        keyless |= p.lse[(size_t)(bi * p.h + h0 + t / nqt) * p.sq + row] <= 0.5f * NEG_BIG;
+    }
+    all = __syncthreads_or(keyless);
+  }
+  auto next_tile = [&](int t) {
+    while (t < t1 && !all && !band_needed(t)) ++t;
+    return t;
+  };
+  // Q, dO, lse and D of query tile t (if below t1) into ring slot st,
+  // zeros past sq; one commit group a tile
+  auto load_tile = [&](int st, int t) {
+    const int bh = bi * p.h + h0 + t / nqt, q0 = (t % nqt) * RW;
+    if (t >= t1) {
+      cp_async_commit();
+      return;
+    }
+    load_rows<D>(Qs + st * RW * LD, p.q, (size_t)bh * p.sq, q0, p.sq, RW);
+    load_rows<D>(dOs + st * RW * LD, p.dout, (size_t)bh * p.sq, q0, p.sq, RW);
+    for (int i = threadIdx.x; i < 2 * RW; i += blockDim.x) {
+      const int rr = i % RW;
+      const bool in = q0 + rr < p.sq;
+      const size_t off = (size_t)bh * p.sq + (in ? q0 + rr : 0);
+      if (i < RW)
+        cp_async4(lse_s + st * RW + rr, p.lse + off, in);
+      else
+        cp_async4(dvec_s + st * RW + rr, p.dvec + off, in);
+    }
+    cp_async_commit();
+  };
+
+  // the key tile with the first query tile; then NST − 2 more ahead
+  load_rows<D>(Ks, p.k, (size_t)kvp * p.skv, k0, p.skv, DKV_KEYS);
+  load_rows<D>(Vs, p.v, (size_t)kvp * p.skv, k0, p.skv, DKV_KEYS);
+  int t = next_tile(t0), tl = t;
+  load_tile(0, tl);
+#pragma unroll
+  for (int j = 1; j < NST - 1; ++j) {
+    tl = next_tile(min(tl + 1, t1));
+    load_tile(j, tl);
+  }
+
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dk[n][u] = dv[n][u] = 0.f;
+
+  for (int i = 0; t < t1; ++i) {
+    const int st = i % NST;
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile t is in; the previous tile's slot is read by no one
+    tl = next_tile(min(tl + 1, t1));
+    load_tile((i + NST - 1) % NST, tl);
+    if (p.pairs != nullptr && threadIdx.x == 0) atomicAdd(p.pairs, 1);
+    const int hi = h0 + t / nqt, q0 = (t % nqt) * RW;
+    const float* bias = p.bias ? p.bias + bi * p.bsb + hi * p.bsh : nullptr;
+    const bf16* Qt = Qs + st * RW * LD;
+    const bf16* dOt = dOs + st * RW * LD;
+    const float* lt = lse_s + st * RW;
+    const float* dt = dvec_s + st * RW;
+    const bool keyed = __all_sync(0xffffffffu, q0 + lane >= p.sq || lt[lane] > 0.5f * NEG_BIG);
+    const int last = min(q0 + RW, p.sq) - 1;
+    if (!(p.causal && keyed && last + p.skv - p.sq < k0 + kv0)) {
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warp's 16 keys × the tile's 32 rows
+      float sa[RW / 8][4], pa[RW / 8][4];
+#pragma unroll
+      for (int n = 0; n < RW / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sa[n][u] = pa[n][u] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, Ks + (kv0 + ar) * LD + kk * 16 + ac);
+        ldsm_x4(av, Vs + (kv0 + ar) * LD + kk * 16 + ac);
+#pragma unroll
+        for (int n = 0; n < RW / 16; ++n) {
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, Qt + (n * 16 + br) * LD + kk * 16 + bc);
+          ldsm_x4(bo, dOt + (n * 16 + br) * LD + kk * 16 + bc);
+          mma16816(sa[2 * n], ak, bq[0], bq[1]);
+          mma16816(sa[2 * n + 1], ak, bq[2], bq[3]);
+          mma16816(pa[2 * n], av, bo[0], bo[1]);
+          mma16816(pa[2 * n + 1], av, bo[2], bo[3]);
+        }
+      }
+      // p̃ (into sa) and dS (into pa) at (key k0 + kv0 + g [+ 8], row q0 +
+      // 8n + 2·c4 [+ 1])
+#pragma unroll
+      for (int n = 0; n < RW / 8; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = k0 + kv0 + g + 8 * (u >> 1);
+          const int rr = n * 8 + 2 * c4 + (u & 1), row = q0 + rr;
+          float pr = 0.f;
+          if (row < p.sq && col < p.skv) {
+            float sc = sa[n][u] * p.scale;
+            if (bias != nullptr) sc += fmaxf(bias[row * p.bsr + col], NEG_BIG);
+            if (p.causal && col > row + p.skv - p.sq) sc = NEG_BIG;
+            pr = expf(sc - lt[rr]);
+          }
+          float dp = pa[n][u];
+          if (p.dropout) {
+            const float ks = keep_scale(p, row, col, hash_plane(p, bi, hi));
+            dp *= ks;
+            sa[n][u] = pr * ks;
+          } else {
+            sa[n][u] = pr;
+          }
+          pa[n][u] = pr * (dp - dt[rr]);
+        }
+      // dV += p̃ᵀ·dO and dK += dSᵀ·Q over this warp's dims, A fragments
+      // from the accumulators
+#pragma unroll
+      for (int kq = 0; kq < RW / 16; ++kq) {
+        const uint32_t ap[4] = {pack_bf2(sa[2 * kq][0], sa[2 * kq][1]),
+                                pack_bf2(sa[2 * kq][2], sa[2 * kq][3]),
+                                pack_bf2(sa[2 * kq + 1][0], sa[2 * kq + 1][1]),
+                                pack_bf2(sa[2 * kq + 1][2], sa[2 * kq + 1][3])};
+        const uint32_t as[4] = {pack_bf2(pa[2 * kq][0], pa[2 * kq][1]),
+                                pack_bf2(pa[2 * kq][2], pa[2 * kq][3]),
+                                pack_bf2(pa[2 * kq + 1][0], pa[2 * kq + 1][1]),
+                                pack_bf2(pa[2 * kq + 1][2], pa[2 * kq + 1][3])};
+#pragma unroll
+        for (int n = 0; n < DH / 16; ++n) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(bo, dOt + (kq * 16 + ar) * LD + d0 + n * 16 + ac);
+          ldsm_x4_t(bq, Qt + (kq * 16 + ar) * LD + d0 + n * 16 + ac);
+          mma16816(dv[2 * n], ap, bo[0], bo[1]);
+          mma16816(dv[2 * n + 1], ap, bo[2], bo[3]);
+          mma16816(dk[2 * n], as, bq[0], bq[1]);
+          mma16816(dk[2 * n + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+    t = next_tile(t + 1);
+  }
+
+  // this warp's keys and dims of dK (scaled) and dV: bf16 when the block
+  // is its key tile's only group, else f32 partials
+  const size_t plane_elems = (size_t)gridDim.z * p.skv * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + kv0 + g + 8 * hh;
+    if (key >= p.skv) continue;
+    const size_t at = ((size_t)kvp * p.skv + key) * D + d0 + 2 * c4;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      if (groups == 1) {
+        *reinterpret_cast<uint32_t*>(p.dk + at + n * 8) =
+            pack_bf2(dk[n][2 * hh] * p.scale, dk[n][2 * hh + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(p.dv + at + n * 8) =
+            pack_bf2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      } else {
+        float* pk = p.part + grp * plane_elems + at + n * 8;
+        float* pv = pk + groups * plane_elems;
+        *reinterpret_cast<float2*>(pk) = make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
+        *reinterpret_cast<float2*>(pv) = make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    long long bsb, long long bsh, long long bsr, int b, int h, int hk, int sq,
                    int skv, int causal, float scale, int dropout, unsigned seed,
@@ -1028,8 +1308,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, void* stream,
-           int threads = THREADS) {
+int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, void* stream, int threads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1037,43 +1316,53 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, void* stream,
   return (int)cudaGetLastError();
 }
 
-// The tiled backward (skv > SKV_MAX): dK/dV, then dQ.
+// dK = scale·Σ part_dK, dV = Σ part_dV over ``groups`` groups, on the stream.
 template <int D>
-int launch_tiled_bwd(const Params& p, void* stream) {
-  int err = launch(flash_bwd_dkv_kernel<D>, BwdSmem<D>::bytes,
-                   dim3((p.skv + BK - 1) / BK, p.b * p.hk), p, stream);
-  if (err != 0) return err;
-  return launch(flash_bwd_dq_kernel<D>, BwdSmem<D>::bytes,
-                dim3((p.sq + BQ - 1) / BQ, p.b * p.h), p, stream);
+int launch_reduce(const Params& p, int groups, void* stream) {
+  const long long elems = (long long)p.b * p.hk * p.skv * D;
+  const long long threads = (2 * elems / 4 + 255) / 256;
+  flash_bwd_reduce_kernel<<<(unsigned)threads, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      p.part, p.dk, p.dv, groups, elems, p.scale);
+  return (int)cudaGetLastError();
 }
 
+// Routes of the entry points (ops/flash_attention.py::ROUTES).
+constexpr int ROUTE_RESIDENT = 0, ROUTE_TILED = 1;
+
+// The backward: the resident kernel with ``groups`` blocks a plane, or
+// the tiled dK/dV kernel with ``groups`` blocks a (plane, key tile) and the
+// tiled dQ kernel with ``dq_groups`` a plane; then, for groups > 1, the
+// group sums.
 template <int D>
-int launch_bwd(const Params& p, int groups, void* stream) {
-  if (groups == 0) return launch_tiled_bwd<D>(p, stream);
-  if constexpr (D > 128) {  // the resident kernels take d <= 128
+int launch_bwd(const Params& p, int route, int groups, int dq_groups, void* stream) {
+  if (groups < 1 || (groups > 1 && p.part == nullptr)) return (int)cudaErrorInvalidValue;
+  int err;
+  if (route == ROUTE_TILED) {
+    const int nkt = (p.skv + DKV_KEYS - 1) / DKV_KEYS;
+    if (dq_groups < 1 || nkt > 65535 || p.b * p.hk > 65535) return (int)cudaErrorInvalidValue;
+    err = launch(flash_bwd_dkv_tiled_kernel<D>, dkv_tiled_smem(D), dim3(groups, nkt, p.b * p.hk),
+                 p, stream, 4 * dkv_split(D) * 32);
+    if (err == 0)
+      err = launch(flash_bwd_dq_tiled_kernel<D>, dq_tiled_smem(D), dim3(dq_groups, p.b * p.hk),
+                   p, stream, TILE_WARPS * 32);
+  } else if constexpr (D > 128) {  // the resident kernels take d <= 128
     return (int)cudaErrorInvalidValue;
   } else {
-    if (groups < 0 || p.skv > SKV_MAX || (groups > 1 && p.part == nullptr))
-      return (int)cudaErrorInvalidValue;
+    if (p.skv > SKV_MAX) return (int)cudaErrorInvalidValue;
     const int nw = (p.skv + KW - 1) / KW;
-    int err = launch(flash_bwd_kernel<D>, res_smem<D>(nw), dim3(groups, p.b * p.hk), p,
-                     stream, 32 * nw);
-    if (err != 0 || groups == 1) return err;
-    const long long elems = (long long)p.b * p.hk * p.skv * D;
-    const long long threads = (2 * elems / 4 + 255) / 256;
-    flash_bwd_reduce_kernel<<<(unsigned)threads, 256, 0,
-                              static_cast<cudaStream_t>(stream)>>>(p.part, p.dk, p.dv, groups,
-                                                                   elems, p.scale);
-    return (int)cudaGetLastError();
+    err = launch(flash_bwd_kernel<D>, res_smem<D>(nw), dim3(groups, p.b * p.hk), p, stream,
+                 32 * nw);
   }
+  if (err != 0 || groups == 1) return err;
+  return launch_reduce<D>(p, groups, stream);
 }
 
-// The forward: the tiled kernel for groups = 0, else the resident one.
+// The forward: the resident or the tiled kernel, ``groups`` blocks a plane.
 template <int D>
-int launch_fwd(const Params& p, int groups, void* stream) {
-  if (groups == 0)
-    return launch(flash_fwd_kernel<D>, FwdSmem<D>::bytes,
-                  dim3((p.sq + BQ - 1) / BQ, p.b * p.h), p, stream);
+int launch_fwd(const Params& p, int route, int groups, void* stream) {
+  if (route == ROUTE_TILED)
+    return launch(flash_fwd_tiled_kernel<D>, fwd_tiled_smem(D), dim3(groups, p.b * p.hk), p,
+                  stream, TILE_WARPS * 32);
   if constexpr (D > 128) {  // the resident kernels take d <= 128
     return (int)cudaErrorInvalidValue;
   } else {
@@ -1082,36 +1371,40 @@ int launch_fwd(const Params& p, int groups, void* stream) {
   }
 }
 
-bool valid(int b, int h, int hk, int sq, int skv) {
-  return b > 0 && h > 0 && sq > 0 && skv > 0 && (hk == 1 || hk == h);
+bool valid(int b, int h, int hk, int sq, int skv, int route, int groups) {
+  return b > 0 && h > 0 && sq > 0 && skv > 0 && (hk == 1 || hk == h) && groups > 0 &&
+         b * hk <= 65535 && (route == ROUTE_TILED || (route == ROUTE_RESIDENT && skv <= SKV_MAX));
 }
 
 }  // namespace
 
-// Out and lse of one forward call: the K/V-resident kernel (skv <=
-// SKV_MAX) with ``groups`` blocks per K/V plane, or the tiled kernel for
-// groups = 0.
+// Out and lse of one forward call: ``route`` 0, the K/V-resident kernel
+// (skv <= SKV_MAX, d <= 128), or 1, the tiled kernel, with ``groups``
+// blocks per K/V plane.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                void* lse, int groups, I2T_FLASH_ARGS) {
-  if (!valid(b, h, hk, sq, skv) || groups < 0 || (groups > 0 && skv > SKV_MAX))
-    return (int)cudaErrorInvalidValue;
+                                void* lse, int route, int groups, I2T_FLASH_ARGS) {
+  if (!valid(b, h, hk, sq, skv, route, groups)) return (int)cudaErrorInvalidValue;
   Params p = I2T_FLASH_PARAMS;
   p.o = static_cast<bf16*>(o);
   p.lse_out = static_cast<float*>(lse);
-#define FWD(D) return launch_fwd<D>(p, groups, stream)
+#define FWD(D) return launch_fwd<D>(p, route, groups, stream)
   I2T_DISPATCH(FWD)
 #undef FWD
 }
 
-// dQ, dK and dV of one backward call: the K/V-resident kernel (skv <=
-// SKV_MAX; ``groups`` blocks per K/V plane; for groups > 1 ``part`` holds
-// 2·groups·b·hk·skv·d f32 partials, summed by a second kernel), or the
-// tiled kernels for groups = 0.  ``pairs`` (may be null) counts the
-// resident kernel's visited (32-row query tile, 16-key slice) pairs.
+// dQ, dK and dV of one backward call: ``route`` 0, the K/V-resident kernel
+// (skv <= SKV_MAX, d <= 128; ``groups`` blocks per K/V plane), or 1, the
+// tiled kernels (``groups`` dK/dV blocks per K/V plane and key tile,
+// ``dq_groups`` dQ blocks per K/V plane).  For groups > 1 ``part`` holds
+// 2·groups·b·hk·skv·d f32 partials, summed by a second kernel.  ``pairs``
+// (may be null) counts the visited pairs: (32-row query tile, 16-key
+// slice) on the resident route, (32-row query tile, 64-key tile) on the
+// tiled one.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* dvec, void* dq, void* dk, void* dv,
-                                void* part, void* pairs, int groups, I2T_FLASH_ARGS) {
-  if (!valid(b, h, hk, sq, skv)) return (int)cudaErrorInvalidValue;
+                                void* part, void* pairs, int route, int groups, int dq_groups,
+                                I2T_FLASH_ARGS) {
+  if (!valid(b, h, hk, sq, skv, route, groups)) return (int)cudaErrorInvalidValue;
   Params p = I2T_FLASH_PARAMS;
   p.dout = static_cast<const bf16*>(dout);
   p.lse = static_cast<const float*>(lse);
@@ -1121,7 +1414,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
   p.dv = static_cast<bf16*>(dv);
   p.part = static_cast<float*>(part);
   p.pairs = static_cast<int*>(pairs);
-#define BWD(D) return launch_bwd<D>(p, groups, stream)
+#define BWD(D) return launch_bwd<D>(p, route, groups, dq_groups, stream)
   I2T_DISPATCH(BWD)
 #undef BWD
 }

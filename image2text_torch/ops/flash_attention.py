@@ -9,7 +9,12 @@ over a loop of query tiles) with ``_bwd_dq_kernel`` (dQ over a loop of key
 tiles) by one backward, :func:`flash_bwd`, which computes the scores, the
 probabilities and dS once per (query, key) pair for all three gradients
 while a plane's K/V fit one block (``RESIDENT_MAX_KEYS``; the plan is
-:func:`bwd_plan`).  The function is the Pallas one, not its TPU layout:
+:func:`bwd_plan`).  Past that, and at head dim 256, the tiled route: a
+forward and a dQ kernel that stream K/V stages under 64-row tiles of the
+folded rows, and a dK/dV kernel that holds a 64-key tile and walks query
+tiles, G groups a key tile with f32 partials summed in group order; the
+same per-pair work in registers, and the causal band skipped on the
+device.  The function is the Pallas one, not its TPU layout:
 
 * scores ``q·kᵀ·scale`` in f32 plus an additive f32 bias clamped at
   ``NEG_BIG``, broadcast over (batch | 1, head | 1, query | 1, key);
@@ -94,6 +99,14 @@ RESIDENT_MAX_KEYS = BWD_KEY_SLICE * _MAX_KW
 FWD_TILE_ROWS, FWD_WARPS, FWD_KEY_SLICE, FWD_BLOCKS_PER_SM = (
     _kernel_constants("FWD_ROWS", "FWD_WARPS", "FWD_SLICE",
                       "FWD_BLOCKS_PER_SM"))
+# The tiled route's: the forward and dQ kernels take 64-row tiles of the
+# folded rows (TILE_ROWS) and stream K/V in stages of at most TILE_KEYS
+# keys; the dK/dV kernel holds DKV_KEYS keys a block and walks DKV_ROWS-row
+# query tiles.
+TILED_ROWS, TILED_KEYS, DKV_KEYS, DKV_ROWS = _kernel_constants(
+    "TILE_ROWS", "TILE_KEYS", "DKV_KEYS", "DKV_ROWS")
+# the entry points' ``route`` argument
+ROUTES = {"resident": 0, "tiled": 1}
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -254,10 +267,11 @@ _COMMON_TYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
                  + [ctypes.c_uint] * 2 + [ctypes.c_float]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-# leading arguments of each entry point: its pointers, then the groups
-# (the f32 kernels take none)
-_LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int],
-               "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int],
+# leading arguments of each entry point: its pointers, then the route and
+# the groups (the backward: the dK/dV kernel's, then the dQ kernel's; the
+# f32 kernels take none)
+_LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2,
+               "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3,
                "flash_fwd_f32_launch": [ctypes.c_void_p] * 5,
                "flash_bwd_f32_launch": [ctypes.c_void_p] * 9}
 
@@ -272,20 +286,30 @@ def _launch(name: str, *args):
 @functools.lru_cache(maxsize=256)
 def fwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
              n_sms: int, d: int = 128) -> Tuple[str, int]:
-    """(route, groups) of one forward call, the kernel's launch argument
-    G.  ``"resident"`` while a K/V plane fits one block (skv <=
-    RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's 16-row tiles (h
-    heads' rows folded for multi-query), at least a tile for each of a
-    block's warps, and G·b·hk at most FWD_BLOCKS_PER_SM·n_sms, one wave:
-    a block's shared memory (the K/V plane and a Q tile a warp: at most
-    104,448 bytes, at d 128 and 160 keys) fits that many times in an SM;
-    else, and for a (padded) head dim ``d`` past RESIDENT_HEAD_DIMS,
-    ``"tiled"`` (groups 0)."""
+    """(route, groups) of one forward call, the kernel's launch arguments.
+    ``"resident"`` while a K/V plane fits one block (skv <=
+    RESIDENT_MAX_KEYS and a head dim ``d`` in RESIDENT_HEAD_DIMS):
+    ``groups`` blocks share a plane's 16-row tiles (h heads' rows folded
+    for multi-query), at least a tile for each of a block's warps, and
+    G·b·hk at most FWD_BLOCKS_PER_SM·n_sms, one wave: a block's shared
+    memory (the K/V plane and a Q tile a warp: at most 104,448 bytes, at d
+    128 and 160 keys) fits that many times in an SM.  Else ``"tiled"``,
+    :func:`tiled_groups` blocks a plane."""
     if skv > RESIDENT_MAX_KEYS or d not in RESIDENT_HEAD_DIMS:
-        return "tiled", 0
+        return "tiled", tiled_groups(h, hk, sq)
     tiles = -(-(h if hk == 1 else 1) * sq // FWD_TILE_ROWS)
     return "resident", max(1, min(-(-tiles // FWD_WARPS),
                                   FWD_BLOCKS_PER_SM * n_sms // (b * hk)))
+
+
+def tiled_groups(h: int, hk: int, sq: int) -> int:
+    """Blocks a K/V plane of the tiled forward and of the tiled dQ kernel:
+    one for each TILED_ROWS-row tile of its folded rows (h heads' for one
+    K/V head).  A block reloads the K/V stages for every tile it takes, so
+    fewer blocks save nothing and lose the hardware's balancing of causal
+    tiles of unequal length: at the five families' training shapes every
+    smaller G measured slower (``probes/flash_groups.py``)."""
+    return -(-(h if hk == 1 else 1) * sq // TILED_ROWS)
 
 
 def _pad(d: int, *ts):
@@ -316,44 +340,82 @@ def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
     if q.dtype == torch.float32:
         _launch("flash_fwd_f32_launch", *ptrs, *common)
     else:
-        groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
-                          sm_count(q.device), d)[1]
-        _launch("flash_fwd_launch", *ptrs, groups, *common)
+        route, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
+                                 sm_count(q.device), d)
+        _launch("flash_fwd_launch", *ptrs, ROUTES[route], groups, *common)
     flash_fwd.launches += 1
     if d != d_true:
         out = out[..., :d_true].contiguous()
     return out, lse
 
 
+# blocks an SM the tiled dK/dV kernel's groups aim at: G for 1 to 8 blocks
+# an SM measured at Falcon-7B's call, the plan's 4 within 5% of the best
+# (probes/flash_groups.py)
+DKV_BLOCKS_AN_SM = 4
+
+
 @functools.lru_cache(maxsize=256)
 def bwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
              n_sms: int, d: int = 128) -> Tuple[str, int]:
-    """(route, groups) of one backward call, the kernel's launch argument
+    """(route, groups) of one backward call, the kernels' launch argument
     G.  ``"resident"`` while a K/V plane fits one block (skv <=
-    RESIDENT_MAX_KEYS): ``groups`` blocks share a plane's query tiles, as
-    many as the SMs left over by the b·hk planes allow without a second
-    wave (at most one per tile); else, and for a head dim ``d`` past
-    RESIDENT_HEAD_DIMS, ``"tiled"`` (groups 0)."""
+    RESIDENT_MAX_KEYS and a head dim ``d`` in RESIDENT_HEAD_DIMS):
+    ``groups`` blocks share a plane's query tiles, as many as the SMs left
+    over by the b·hk planes allow without a second wave (at most one per
+    tile).  Else ``"tiled"``: ``groups`` dK/dV blocks share each
+    (plane, DKV_KEYS-key tile)'s DKV_ROWS-row query tiles (h heads' for
+    one K/V head), as many as keep the b·hk·⌈skv/DKV_KEYS⌉ key tiles' G
+    blocks within DKV_BLOCKS_AN_SM an SM (at most one per query tile; at
+    least 1): a multi-query plane's few key tiles then fill the card
+    (Falcon-7B's 4 planes, 20 key tiles: G 26), and a call with blocks
+    enough already (every multi-head family) writes bf16 dK/dV with no
+    partial sums.  The dQ kernel takes :func:`tiled_groups`."""
     if skv > RESIDENT_MAX_KEYS or d not in RESIDENT_HEAD_DIMS:
-        return "tiled", 0
+        tiles = (h if hk == 1 else 1) * -(-sq // DKV_ROWS)
+        key_tiles = b * hk * -(-skv // DKV_KEYS)
+        return "tiled", max(1, min(tiles, DKV_BLOCKS_AN_SM * n_sms
+                                   // key_tiles))
     tiles = (h if hk == 1 else 1) * -(-sq // BWD_TILE_ROWS)
     return "resident", max(1, min(tiles, n_sms // (b * hk)))
 
 
-def bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
-    """(query tile, key slice) pairs the resident backward visits when no
-    bias leaves a row without keys: under ``causal`` the slices up to the
-    band of each tile's last row, but all of them for a tile holding a row
-    the causal offset leaves keyless (sq > skv: it averages over every
-    key); without ``causal`` all of them."""
-    slices = -(-skv // BWD_KEY_SLICE)
+def part_elems(groups: int, kv_elems: int) -> int:
+    """f32 elements of a backward's dK/dV partials for ``groups`` groups
+    of K/V with ``kv_elems`` elements (b·hk·skv·d): G partial dK, then G
+    partial dV, which the second kernel sums in group order; none for one
+    group (its blocks write bf16 dK/dV)."""
+    return 0 if groups == 1 else 2 * groups * kv_elems
+
+
+def _band_pairs(b: int, h: int, sq: int, skv: int, causal: bool, rows: int,
+                keys: int) -> int:
+    """(``rows``-row query tile, ``keys``-key tile) pairs of b·h planes a
+    backward visits when no bias leaves a row without keys: under
+    ``causal`` the key tiles up to the band of each query tile's last row,
+    but all of them for a query tile holding a row the causal offset leaves
+    keyless (sq > skv: it averages over every key); without ``causal`` all
+    of them."""
+    key_tiles = -(-skv // keys)
     per_plane = 0
-    for q0 in range(0, sq, BWD_TILE_ROWS):
-        last = min(q0 + BWD_TILE_ROWS, sq) - 1
+    for q0 in range(0, sq, rows):
+        last = min(q0 + rows, sq) - 1
         keyed = q0 + skv - sq >= 0
-        per_plane += (min(slices, (last + skv - sq) // BWD_KEY_SLICE + 1)
-                      if causal and keyed else slices)
+        per_plane += (min(key_tiles, (last + skv - sq) // keys + 1)
+                      if causal and keyed else key_tiles)
     return b * h * per_plane
+
+
+def bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
+    """(BWD_TILE_ROWS-row query tile, BWD_KEY_SLICE-key slice) pairs the
+    resident backward visits (:func:`_band_pairs`)."""
+    return _band_pairs(b, h, sq, skv, causal, BWD_TILE_ROWS, BWD_KEY_SLICE)
+
+
+def tiled_bwd_pairs(b: int, h: int, sq: int, skv: int, causal: bool) -> int:
+    """(DKV_ROWS-row query tile, DKV_KEYS-key tile) pairs the tiled dK/dV
+    kernel visits (:func:`_band_pairs`)."""
+    return _band_pairs(b, h, sq, skv, causal, DKV_ROWS, DKV_KEYS)
 
 
 def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
@@ -362,8 +424,9 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
     out)``; multi-query dK/dV summed over the query heads.  The CUDA
     kernels (:func:`bwd_plan`) for CUDA tensors, the plain version for CPU
     tensors.  ``pairs``, an int32 CUDA tensor of one element, gets the
-    resident kernel's visited (query tile, key slice) pairs added (the
-    tiled and the f32 kernels add none)."""
+    visited pairs added: the resident kernel's (query tile, key slice)
+    pairs, the tiled dK/dV kernel's (query tile, key tile) pairs (the f32
+    kernels add none)."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, bias, causal, g, lse, dvec,
                                     rate, seed, planes)
@@ -394,15 +457,18 @@ def _flash_bwd(q, k, v, g, bias, causal, lse, dvec, rate, seed, pairs,
                               planes))
         flash_bwd.launches += 1
         return dq, dk, dv
-    groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2],
-                      sm_count(q.device), q.shape[-1])[1]
-    part = (torch.empty(2 * groups * k.numel(), dtype=torch.float32,
-                        device=q.device) if groups > 1 else None)
+    n_sms = sm_count(q.device)
+    route, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2], n_sms,
+                             q.shape[-1])
+    dq_groups = tiled_groups(h, k.shape[1], sq) if route == "tiled" else 0
+    n_part = part_elems(groups, k.numel())
+    part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
+            if n_part else None)
     P = _build.ptr
     _launch("flash_bwd_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
-            P(dq), P(dk), P(dv), P(part), P(pairs), ctypes.c_int(groups),
-            *_common_args(q, k, bias, strides, causal, rate, seed, scale,
-                          planes))
+            P(dq), P(dk), P(dv), P(part), P(pairs), ROUTES[route], groups,
+            dq_groups, *_common_args(q, k, bias, strides, causal, rate, seed,
+                                     scale, planes))
     flash_bwd.launches += 1
     return dq, dk, dv
 
@@ -460,7 +526,8 @@ def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
                            0 if seed is None else int(seed), planes)
 
 
-__all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan",
+__all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan", "part_elems",
+           "tiled_bwd_pairs", "tiled_groups",
            "dropout_keep_mask", "flash_bwd", "flash_forward_plain",
            "fwd_plan", "kernel_head_dim", "planes_of",
            "flash_backward_plain",

@@ -1,7 +1,9 @@
 """Measurement probes on the card: of the encoder-block chain
 (counterparts of the TPU probes under ``tools/``: ``block_ablate`` and
-``block_wide``), and of two checkouts' kernel times in turns
-(``kernel_times``)."""
+``block_wide``), of two checkouts' kernel times in turns
+(``kernel_times``), and of the tiled flash route over its launch groups
+(``flash_groups``) and against build variants of its source
+(``flash_variants``)."""
 from __future__ import annotations
 
 import statistics

@@ -11,7 +11,9 @@ shapes (``phase_kernels``: fused_frontend, sparse_block, moe_ffn at
 decode and encoder rows) and the dense twin's (``phase_dense_kernel``:
 fused_block), then its flash phase (``phase_flash_kernels``) at the
 flagship's and GPT-2-medium's training shapes (``FLASH_FLAGSHIP``,
-``FLASH_GPT2M``), each kernel checked against its plain version as
+``FLASH_GPT2M``), the families' largest bf16 training calls
+(``FLASH_FAMILIES``) and the long-key call (``FLASH_LONG``), each
+kernel checked against its plain version as
 ``chip_smoke.py`` checks it; ``--flash-only`` runs the flash phase alone,
 ``--int4-only`` the int4 dequant-matmul's phase alone
 (``phase_int4_kernels``: the GPT-2-medium decoder's four quantized
@@ -31,7 +33,11 @@ summed) and, timed in the same process by this module's own code, SDPA's
 forward and its backward alone (``sdpa_fwd.<label>.ms``,
 ``sdpa_bwd.<label>.ms``).  A tree whose ``chip_smoke.py`` defers device
 times (``run_device_times``) also gives ``flash_fwd.<label>.device_ms`` and
-``int4_matmul.<...>.device_ms``, read after every CUDA-event time.  With the flash phase it
+``int4_matmul.<...>.device_ms``, read after every CUDA-event time; at the
+families' and the long-key calls this module's own code reads, in every
+tree, the device ms of the flash forward and backward and of SDPA's
+forward and backward alone (``<flash|sdpa>_<fwd|bwd>.<label>.device_ms``,
+this checkout's ``probes.device_kernel_ms``).  With the flash phase it
 also holds each tree's backward at a case whose rows 0–71 see no key
 (causal, sq 200 > skv 128, as the card test
 ``test_flash_kernels_give_keyless_rows_every_key``) against the plain
@@ -42,21 +48,36 @@ A A B, and take medians).
 """
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+# The families' largest bf16 training calls (chip_smoke.py's
+# [train-kernels], as its flash cases' fields): (label, b, h, K/V heads, sq,
+# skv, head dim, causal, soft-prompt prefix length or None, dropout rate).
+# Every one is causal with no bias (the HF decoders' self-attention takes
+# none; nano's decoder has no soft prompt), and only nano's scratch
+# decoder drops probabilities.
+FLASH_FAMILIES = (
+    ("train_nano", 24, 20, 20, 256, 256, 64, True, None, 0.1),
+    ("train_llama13b", 4, 40, 40, 272, 272, 128, True, None, 0.0),
+    ("train_falcon7b", 4, 71, 1, 320, 320, 64, True, None, 0.0),
+    ("train_qwen", 1, 12, 12, 272, 272, 128, True, None, 0.0),
+    ("train_gpt2xl", 12, 25, 25, 320, 320, 64, True, None, 0.0))
+
 _CHILD = r'''
 import importlib.util, json, sys, types
 tree, mode, own_probes = sys.argv[1], sys.argv[2], sys.argv[3]
+families = tuple(tuple(c) for c in json.loads(sys.argv[4]))
 sys.path.insert(0, tree)
 import torch
 import torch.nn.functional as F
 import chip_smoke as cs
+from image2text_torch.ops.attention import causal_bias
 from image2text_torch.configs.models import FLAGSHIP, FLAGSHIP_DENSE
 from image2text_torch.models.vision_encoder_decoder import (
     VisionEncoderDecoder)
-from image2text_torch.ops.attention import causal_bias
 torch.backends.cuda.matmul.allow_tf32 = False
 res, args = {}, types.SimpleNamespace(profile=False)
 out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
@@ -88,6 +109,51 @@ def sdpa_ms(b, h, hk, sq, s, d, causal, n_prefix, rate):
         o, (q, k, v), dout.detach(), retain_graph=True))
 
 
+def own_probes_module():
+    spec = importlib.util.spec_from_file_location("own_probes", own_probes)
+    probes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probes)
+    return probes
+
+
+def flash_device(cases):
+    """Device ms (this checkout's probes.device_kernel_ms, summed over the
+    kernels) of the tree's flash forward and backward and of SDPA's
+    forward and backward alone at each case, after every event time."""
+    from image2text_torch.ops import flash_attention as fa
+    probes = own_probes_module()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for label, b, h, hk, sq, s, d, causal, n_prefix, rate in cases:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen
+                                     ).to(torch.bfloat16)
+                         for shape in ((b, h, sq, d), (b, hk, s, d),
+                                       (b, hk, s, d), (b, h, sq, d)))
+        bias = (None if n_prefix is None
+                else cs.soft_prompt_bias(torch, s, n_prefix, dev))
+        a = (q, k, v, bias, causal)
+        o_, lse = fa.flash_fwd(*a, rate, 9)
+        g = (dout, lse, (dout.float() * o_.float()).sum(-1), rate, 9)
+        mask = None
+        if bias is not None or causal:
+            mask = ((0 if bias is None else bias) + (
+                causal_bias(sq, s, dev) if causal else 0)).to(torch.bfloat16)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               dropout_p=rate, enable_gqa=True)
+        calls = {"flash_fwd": lambda: fa.flash_fwd(*a, rate, 9),
+                 "flash_bwd": lambda: fa.flash_bwd(*a, *g),
+                 "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask, dropout_p=rate,
+                     enable_gqa=True),
+                 "sdpa_bwd": lambda: torch.autograd.grad(
+                     o, (qg, kg, vg), dout, retain_graph=True)}
+        for name, fn in calls.items():
+            out[f"{name}.{label}.device_ms"] = sum(
+                probes.device_kernel_ms(fn).values())
+
+
 def keyless_errors():
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.utils.kernel_check import output_error
@@ -110,9 +176,7 @@ def keyless_errors():
 def front_topk():
     """The front and the ban mask in both trees' own phases, device times
     by kernel from this checkout's probes."""
-    spec = importlib.util.spec_from_file_location("own_probes", own_probes)
-    probes = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probes)
+    probes = own_probes_module()
     from image2text_torch.models.sampling import _ngram_bans
     from image2text_torch.ops.fused_frontend import fused_frontend
     from image2text_torch.ops.topk_mask import topk_ban_mask
@@ -198,7 +262,8 @@ with torch.no_grad():
             del model
             torch.cuda.empty_cache()
     if mode in ("all", "flash"):
-        for cases in (cs.FLASH_FLAGSHIP, cs.FLASH_GPT2M):
+        for cases in (cs.FLASH_FLAGSHIP, cs.FLASH_GPT2M, families,
+                      cs.FLASH_LONG):
             cs.phase_flash_kernels(torch, args, res, cases)
             for case in cases:
                 label = case[0]
@@ -223,6 +288,7 @@ with torch.no_grad():
                 fwd = res["flash_fwd"]
                 fwd = fwd if label == "encoder" else fwd[f"{label}_shape"]
                 out[f"flash_fwd.{label}.device_ms"] = fwd["device_ms"]
+        flash_device(families + cs.FLASH_LONG)
 for name, r in res.items():
     if name.startswith("flash_"):
         continue
@@ -245,7 +311,8 @@ def main(argv) -> int:
     for tree in [a for a in argv if a not in MODES]:
         root = str(Path(tree).resolve())
         proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode,
-                               str(Path(__file__).with_name("__init__.py"))],
+                               str(Path(__file__).with_name("__init__.py")),
+                               json.dumps(FLASH_FAMILIES)],
                               cwd=root, capture_output=True, text=True)
         lines = [l for l in proc.stdout.splitlines()
                  if l.startswith("KERNEL_TIMES ")]

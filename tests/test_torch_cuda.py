@@ -21,8 +21,9 @@ residual; the head-folded attention from 16 keys to its shared-memory
 limit, and its error beside the sensitivity of the reference's bf16 score
 rounding at score standard deviations 1, 2 and 4; the MoE FFN in both
 regimes from 1 to 40,960 rows; and every block probe variant.  The flash
-backward on both routes (K/V resident up to 160 keys, tiled beyond), every
-bias broadcast form, bitwise-deterministic reruns and its causal band skip;
+kernels on both routes (K/V resident up to 160 keys, tiled beyond and at
+head dim 256), every bias broadcast form on each, bitwise-deterministic
+reruns and the causal band skip with its visited pairs on each;
 the lm_head and the eval attention without f32 copies.  The f32 forms of
 the flash kernels and the encoder front (the offline configs' precision
 'no') against their plain versions at the f32 limits.  The W8A8
@@ -221,6 +222,10 @@ def _flash_bias(kind, b, h, sq, skv, dev, g):
     (2, 20, 20, 256, 256, 64, None, True, 0.1),
     (1, 40, 40, 272, 272, 128, "soft_prompt", True, 0.0),
     (1, 71, 1, 320, 320, 64, "soft_prompt", True, 0.0),
+    # Falcon-7B's 71 heads on one K/V head with dropout; the tiled route at
+    # head dim 256 with the soft-prompt bias, causal, dropout
+    (1, 71, 1, 320, 320, 64, None, True, 0.1),
+    (2, 4, 1, 200, 200, 256, "soft_prompt", True, 0.1),
 ])
 def test_flash_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias, causal,
                                    rate):
@@ -317,10 +322,11 @@ def test_flash_fwd_dropout_mask_bit_for_bit_with_folded_heads(dev, sq):
 @pytest.mark.parametrize("kind", ["keys", "batch_keys", "rows", "head_rows",
                                   "full", "batch_head"])
 @pytest.mark.parametrize("hk", [1, 4])
-def test_flash_bwd_takes_every_bias_broadcast_form(dev, kind, hk):
+@pytest.mark.parametrize("skv", [160, 200])
+def test_flash_bwd_takes_every_bias_broadcast_form(dev, kind, hk, skv):
     """(1|b, 1|h, 1|sq, skv) biases, multi-query and not, causal, at the
-    resident route's 160-key limit."""
-    b, h, sq, skv, d, rate, seed = 2, 4, 150, 160, 64, 0.1, 321
+    resident route's 160-key limit and past it on the tiled route."""
+    b, h, sq, d, rate, seed = 2, 4, 150, 64, 0.1, 321
     g = _gen(dev, 13)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
                                  ).to(torch.bfloat16)
@@ -376,6 +382,8 @@ def test_flash_bwd_skips_the_causal_band_only_where_every_row_sees_a_key(
 @pytest.mark.parametrize("sq,skv,masked_rows", [
     (200, 128, None),              # causal offset: rows 0..71 see no key
     (137, 137, (5, 20, 70, 130)),  # the bias masks whole rows in every q tile
+    (400, 300, None),              # the tiled route: rows 0..99 keyless
+    (300, 300, (5, 70, 130, 290)),  # the tiled route, rows masked whole
 ])
 def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
                                                    masked_rows):
@@ -388,8 +396,10 @@ def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
     rounds to NEG_BIG in f32 (log skv is lost), so its recomputed p is 1,
     its dS terms are O(10), and their bf16 rounding in the kernel's
     tensor-core products leaves O(0.1) errors on sums that cancel to small
-    values.  Without a bias the visited (query tile, key slice) pairs are
-    ``bwd_pairs``'s: every slice for a tile holding a keyless row."""
+    values.  Without a bias the visited pairs are ``bwd_pairs``'s
+    (resident: query tile × key slice) or ``tiled_bwd_pairs``'s (tiled:
+    query tile × key tile): every key slice or tile for a query tile
+    holding a keyless row."""
     b, h, d, rate, seed = 1, 2, 64, 0.1, 12345
     g = _gen(dev, 12)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
@@ -407,14 +417,54 @@ def test_flash_kernels_give_keyless_rows_every_key(dev, sq, skv,
     gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
     pairs = torch.zeros(1, dtype=torch.int32, device=dev)
     got = fa.flash_bwd(*a, *gr, pairs=pairs)
+    count = (fa.bwd_pairs if fa.bwd_plan(b, h, 1, sq, skv, 132, d)[0]
+             == "resident" else fa.tiled_bwd_pairs)
     if masked_rows is None:
-        assert int(pairs) == fa.bwd_pairs(b, h, sq, skv, True)
+        assert int(pairs) == count(b, h, sq, skv, True)
     for name, mine, ref in zip(("dq", "dk", "dv"), got,
                                fa.flash_backward_plain(*a, *gr)):
         st = output_error(mine, ref)
         assert (st["finite"] and st["rel_l2"] <= REL_L2
                 and st["max_abs_err"] <= MAX_ABS_SHARE * st["max_plain"]), (
             name, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hk,sq,skv,d,bias", [
+    (20, 20, 256, 256, 64, None),          # nano's plane, one head a plane
+    (71, 1, 320, 320, 64, None),           # Falcon-7B's: G > 1, partials
+    (8, 1, 256, 1024, 128, None),          # FLASH_LONG's
+    (4, 4, 272, 272, 128, "soft_prompt"),  # a bias that leaves no row keyless
+    (8, 1, 160, 160, 256, None),           # head dim 256 at 160 keys
+])
+def test_flash_tiled_bwd_visits_the_pairs_the_band_leaves(dev, h, hk, sq,
+                                                          skv, d, bias):
+    """The tiled dK/dV kernel's visited (32-row query tile, 64-key tile)
+    pairs are ``tiled_bwd_pairs``'s, decided on the card from the causal
+    band and, under a bias, the saved lse; the gradients within the
+    kernel checks' limits and a rerun bitwise equal (batch cut to 1)."""
+    b, rate, seed = 1, 0.1, 2468
+    assert fa.bwd_plan(b, h, hk, sq, skv, 132, d)[0] == "tiled"
+    g = _gen(dev, 17)
+    q, k, v, dout = (torch.randn(*shape, device=dev, generator=g
+                                 ).to(torch.bfloat16)
+                     for shape in ((b, h, sq, d), (b, hk, skv, d),
+                                   (b, hk, skv, d), (b, h, sq, d)))
+    bias = _flash_bias(bias, b, h, sq, skv, dev, g)
+    a = (q, k, v, bias, True)
+    want, lse = fa.flash_forward_plain(*a, rate, seed)
+    gr = (dout, lse, (dout.float() * want.float()).sum(-1), rate, seed)
+    pairs = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = fa.flash_bwd(*a, *gr, pairs=pairs)
+    again = fa.flash_bwd(*a, *gr)
+    torch.cuda.synchronize()
+    band = fa.tiled_bwd_pairs(b, h, sq, skv, True)
+    assert int(pairs) == band < fa.tiled_bwd_pairs(b, h, sq, skv, False)
+    for name, mine, ref, rerun in zip(("dq", "dk", "dv"), got,
+                                      fa.flash_backward_plain(*a, *gr),
+                                      again):
+        check_output(f"flash_bwd {name}", mine, ref)
+        assert torch.equal(mine, rerun), name
 
 
 @pytest.mark.cuda

@@ -198,7 +198,9 @@ def test_flash_bwd_cpu_route_matches_jax_at_training_shapes(label):
     ((12, 8, 1, 80, 80, 132), ("resident", 11)),     # GPT-2-medium encoder
     ((12, 16, 16, 112, 112, 132), ("resident", 1)),  # GPT-2 self, 192 planes
     ((1, 2, 1, 40, 40, 132), ("resident", 4)),       # at most one per tile
-    ((2, 4, 1, 256, 1024, 132), ("tiled", 0)),       # long keys
+    # long keys: 4 heads' 8 query tiles, 2 planes × 16 key tiles, 4 blocks
+    # an SM: 528 // 32
+    ((2, 4, 1, 256, 1024, 132), ("tiled", 16)),
 ])
 def test_bwd_plan(args, want):
     assert fa.bwd_plan(*args) == want
@@ -207,12 +209,15 @@ def test_bwd_plan(args, want):
 def test_bwd_plan_resident_up_to_the_threshold():
     """The route switches past RESIDENT_MAX_KEYS (the kernel's SKV_MAX:
     ten warps of 16 keys, as read from the kernel source), whatever the
-    other sizes; the tiled route is the kernel's groups 0."""
+    other sizes; the tiled route's dK/dV groups are at least 1 and at
+    most one a query tile."""
     assert (fa.BWD_TILE_ROWS, fa.BWD_KEY_SLICE) == (32, 16)
     assert fa.RESIDENT_MAX_KEYS == 10 * fa.BWD_KEY_SLICE == 160
     for b, h, hk in ((1, 1, 1), (48, 8, 1), (12, 16, 16)):
         assert fa.bwd_plan(b, h, hk, 64, 160, 132)[0] == "resident"
-        assert fa.bwd_plan(b, h, hk, 64, 161, 132) == ("tiled", 0)
+        route, groups = fa.bwd_plan(b, h, hk, 64, 161, 132)
+        assert route == "tiled"
+        assert 1 <= groups <= (h if hk == 1 else 1) * 2
 
 
 @pytest.mark.parametrize("args,want", [
@@ -222,7 +227,7 @@ def test_bwd_plan_resident_up_to_the_threshold():
     ((12, 16, 16, 112, 112, 132), ("resident", 1)),  # GPT-2 self, 192 planes
     ((12, 16, 16, 112, 64, 132), ("resident", 1)),   # GPT-2 cross
     ((1, 2, 1, 40, 40, 132), ("resident", 2)),       # at least 4 tiles a block
-    ((4, 8, 1, 256, 1024, 132), ("tiled", 0)),       # long keys (FLASH_LONG)
+    ((4, 8, 1, 256, 1024, 132), ("tiled", 32)),      # long keys (FLASH_LONG)
 ])
 def test_fwd_plan(args, want):
     """The forward's route and groups at chip_smoke.py's flash shapes
@@ -245,7 +250,8 @@ def test_fwd_plan_reads_the_kernel_tiling_and_fills_one_wave():
             fa.FWD_BLOCKS_PER_SM) == (16, 4, 32, 2)
     for b, h, hk in ((1, 1, 1), (48, 8, 1), (12, 16, 16), (200, 16, 16)):
         assert fa.fwd_plan(b, h, hk, 64, 160, 132)[0] == "resident"
-        assert fa.fwd_plan(b, h, hk, 64, 161, 132) == ("tiled", 0)
+        assert fa.fwd_plan(b, h, hk, 64, 161, 132) == (
+            "tiled", fa.tiled_groups(h, hk, 64))
         for n_sms in (1, 66, 132, 144):
             _, g = fa.fwd_plan(b, h, hk, 160, 160, n_sms)
             assert g >= 1
@@ -273,3 +279,103 @@ def test_bwd_pairs_equal_the_slices_the_causal_mask_reaches(sq, skv, causal):
         assert want == 29 and fa.bwd_pairs(1, 1, sq, skv, False) == 45
     if (sq, skv) == (200, 128):   # 3 keyless tiles × 8 slices, then the band
         assert want == 3 * 8 + 4 + 6 + 8 + 8
+
+
+# The tiled route at chip_smoke.py's shapes past 160 keys or at head dim
+# 256 on the H100's 132 SMs: the families' largest bf16 training calls
+# (probes/kernel_times.py::FLASH_FAMILIES), FLASH_LONG and the head-dim-256
+# call of FLASH_HEAD_DIMS.  (b, h, hk, sq, skv, d): the forward's and dQ's
+# G (a block each 64-row tile of the folded rows), the dK/dV kernel's G and
+# the f32 partials' elements.
+TILED_CASES = {
+    "nano": ((24, 20, 20, 256, 256, 64), 4, 1, 0),
+    "llama13b": ((4, 40, 40, 272, 272, 128), 5, 1, 0),
+    # 71·320 rows: 355 tiles; 4 planes × 5 key tiles: G 528 // 20
+    "falcon7b": ((4, 71, 1, 320, 320, 64), 355, 26, 2 * 26 * 4 * 320 * 64),
+    "qwen": ((1, 12, 12, 272, 272, 128), 5, 8, 2 * 8 * 12 * 272 * 128),
+    "gpt2xl": ((12, 25, 25, 320, 320, 64), 5, 1, 0),
+    "long_keys": ((4, 8, 1, 256, 1024, 128), 32, 8, 2 * 8 * 4 * 1024 * 128),
+    # 40 query tiles (8 heads × 5) cap 528 // 12
+    "head_dim_256": ((4, 8, 1, 160, 160, 256), 20, 40,
+                     2 * 40 * 4 * 160 * 256),
+}
+
+
+@pytest.mark.parametrize("label", list(TILED_CASES))
+def test_tiled_plans_at_the_training_shapes(label):
+    """Both plans take the tiled route with G > 0; the dK/dV kernel's G
+    stays within DKV_BLOCKS_AN_SM blocks an SM over its key tiles (at
+    least 1, at most one a query tile), and the partial buffer holds G
+    dK and G dV planes when G > 1, none for G = 1."""
+    (b, h, hk, sq, skv, d), fwd_g, dkv_g, part = TILED_CASES[label]
+    assert fa.fwd_plan(b, h, hk, sq, skv, 132, d) == ("tiled", fwd_g)
+    assert fa.tiled_groups(h, hk, sq) == fwd_g
+    assert fa.bwd_plan(b, h, hk, sq, skv, 132, d) == ("tiled", dkv_g)
+    key_tiles = b * hk * -(-skv // fa.DKV_KEYS)
+    query_tiles = (h if hk == 1 else 1) * -(-sq // fa.DKV_ROWS)
+    assert 1 <= dkv_g <= query_tiles
+    assert dkv_g == 1 or dkv_g * key_tiles <= fa.DKV_BLOCKS_AN_SM * 132
+    assert fa.part_elems(dkv_g, b * hk * skv * d) == part
+
+
+def test_tiled_tiling_is_read_from_the_kernel_source():
+    """TILE_ROWS, TILE_KEYS, DKV_KEYS and DKV_ROWS have one owner, the
+    kernel source, which the plans and the pair counts read."""
+    src = (fa._build.CSRC / "flash_attention.cu").read_text()
+    for name, value in (("TILE_ROWS", fa.TILED_ROWS),
+                        ("TILE_KEYS", fa.TILED_KEYS),
+                        ("DKV_KEYS", fa.DKV_KEYS),
+                        ("DKV_ROWS", fa.DKV_ROWS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert (fa.TILED_ROWS, fa.TILED_KEYS, fa.DKV_KEYS, fa.DKV_ROWS) == (
+        64, 64, 64, 32)
+    assert fa.ROUTES == {"resident": 0, "tiled": 1}
+
+
+@pytest.mark.parametrize("sq,skv,causal", [
+    (256, 256, True), (272, 272, True), (320, 320, True), (256, 1024, True),
+    (160, 160, True), (160, 160, False), (161, 161, True), (400, 300, True),
+    (40, 300, True), (300, 200, False), (1, 161, True)])
+def test_tiled_bwd_pairs_equal_the_tiles_the_causal_mask_reaches(sq, skv,
+                                                                causal):
+    """tiled_bwd_pairs against a count from the mask itself: a (32-row
+    query tile, 64-key tile) pair is visited iff some row of the query
+    tile sees some key of the key tile, or some row of it sees no key at
+    all (causal with sq > skv: it averages over every key)."""
+    row = np.arange(sq)[:, None] + (skv - sq)
+    col = np.arange(skv)[None, :]
+    sees = (col <= row) if causal else np.ones((sq, skv), bool)
+    want = sum(bool(sees[r:r + 32, c:c + 64].any()
+                    or not sees[r:r + 32].any(-1).all())
+               for r in range(0, sq, 32) for c in range(0, skv, 64))
+    assert fa.tiled_bwd_pairs(3, 2, sq, skv, causal) == 3 * 2 * want
+    if (sq, skv, causal) == (320, 320, True):   # 10 query tiles: 30 of 50
+        assert want == 1 + 1 + 2 + 2 + 3 + 3 + 4 + 4 + 5 + 5
+    if (sq, skv) == (400, 300):   # rows 0–99 keyless: 4 tiles × 5, then
+        assert want == 4 * 5 + 1 + 2 + 2 + 3 + 3 + 4 + 4 + 5 + 5
+
+
+def test_tiled_cases_are_the_probe_families():
+    """TILED_CASES' family shapes are the probe's FLASH_FAMILIES (the
+    calls ``[train-kernels]`` records), and every one of those takes the
+    tiled route on both plans."""
+    from image2text_torch.probes.kernel_times import FLASH_FAMILIES
+
+    for label, b, h, hk, sq, skv, d, causal, n_prefix, rate in FLASH_FAMILIES:
+        assert TILED_CASES[label[len("train_"):]][0] == (b, h, hk, sq, skv, d)
+        assert fa.fwd_plan(b, h, hk, sq, skv, 132, d)[0] == "tiled"
+        assert fa.bwd_plan(b, h, hk, sq, skv, 132, d)[0] == "tiled"
+        assert causal and n_prefix is None and rate in (0.0, 0.1)
+
+
+def test_flash_variants_edit_the_shipped_source():
+    """Every text edit of ``probes/flash_variants.py`` finds its line in
+    the shipped kernel source, so each variant differs from it only by
+    what its name says."""
+    from image2text_torch.probes.flash_variants import VARIANTS
+
+    src = (fa._build.CSRC / "flash_attention.cu").read_text()
+    assert VARIANTS["shipped"] == ()
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert old in src and old != new, (name, old)
