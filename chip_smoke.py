@@ -220,7 +220,9 @@ weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
    train-kernels  the flash forward and backward at each family's largest
             training call of each dtype (the tiled bf16 route past 160
             keys, with its G, registers, spills and visited pairs; the f32
-            kernels) and int4_matmul at every training shape, against
+            kernels with their G, registers, spills, and the bound as 3 x
+            their FLOP at the TF32 peak beside the FFMA peak's) and
+            int4_matmul at every training shape, against
             their plain versions, beside the bound, SDPA and bf16
             torch.matmul.
 
@@ -234,7 +236,9 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             seed) and of the encoder front at the evaluate batch (4 images
             of quality2_ck.npz's val stream), against their plain versions
             at the f32 limits (utils/kernel_check.py F32_LIMITS): ms, the
-            bound at the f32 FFMA peak, F.scaled_dot_product_attention in
+            bound (flash: 3xTF32 at the TF32 peak, beside the f32 FFMA
+            peak's; the front: the FFMA peak), the flash kernels' G,
+            registers and spills, F.scaled_dot_product_attention in
             f32 and the projector's f32 torch.matmul as yardsticks; kept as
             ``offline_*_f32_shape`` in the kernels' rows.
 14. offline-train  the trainer twin (python -m image2text_torch.trainer)
@@ -365,6 +369,7 @@ TRAIN_SEQ = 256      # bench_train.py's padded caption length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores (FFMA)
+TF32_FLOP_PER_S = 495e12    # dense TF32 tensor-core peak (3xTF32: 3 a FLOP)
 MAX_NEW_TOKENS = 32
 BATCH = 256      # the main path's batch
 PROBE_BATCH = 64  # the block probes' batch (tools/ ran 256; cut for time)
@@ -2077,6 +2082,46 @@ def sdpa_times(torch, q, k, v, dout, mask, rate: float) -> dict:
             "bwd": bwd}
 
 
+def flash_f32_plan(torch, label: str, q, k) -> dict:
+    """Log the f32 flash kernels' plan at one call (the forward's and the
+    dQ kernel's groups a plane, the dK/dV kernel's groups a key tile, each
+    kernel's registers and spill bytes from the build's -Xptxas -v) and
+    return it."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.utils.device import sm_count
+
+    (b, h, sq, d), hk, s = q.shape, k.shape[1], k.shape[2]
+    dk = fa.kernel_head_dim(d)
+    groups = fa.f32_groups(h, hk, sq)
+    dkv_groups = fa.f32_bwd_plan(b, h, hk, sq, s, sm_count(q.device), dk)
+    res = {kind: _build.resources("flash_attention_f32",
+                                  f"flash_{kind}_f32_kernelILi{dk}E")
+           for kind in ("fwd", "bwd_dkv", "bwd_dq")}
+    key_tiles = b * hk * -(-s // fa.f32_dkv_keys(dk))
+    log(f"    flash f32 {label}: forward and dQ G {groups} ({groups * b * hk} "
+        f"blocks), dK/dV G {dkv_groups} ({dkv_groups * key_tiles} blocks, "
+        f"partials {fa.part_elems(dkv_groups, b * hk * s * dk):,} f32); "
+        f"(registers, bytes spilled) {res}")
+    return dict(fwd_groups=groups, dkv_groups=dkv_groups, dq_groups=groups,
+                resources=res)
+
+
+def f32_flash_bound(label: str, kind: str, q, k, bias, causal, ms: float):
+    """(bound ms, bound_by) of an f32 flash call: the larger of its bytes
+    at the memory rate and 3 × its FLOP at the TF32 peak (3xTF32: the least
+    time for f32-accurate products on the card), logged beside the bound
+    at the f32 FFMA peak."""
+    n_bytes, flops = flash_work(q, k, bias, causal, kind)
+    bms, by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    ffma, ffma_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+    log(f"    flash_{kind} {label}: bound {bms:.5f} ms ({by}; 3 x "
+        f"{flops / 1e9:.4f} GFLOP at the TF32 peak, {n_bytes / 1e6:.3f} MB), "
+        f"kernel at {bms / ms:.3f} of it; at the f32 FFMA peak {ffma:.5f} ms "
+        f"({ffma_by}), kernel at {ffma / ms:.3f} of that")
+    return bms, by
+
+
 def flash_plan(torch, label: str, q, k, causal: bool, pairs: int,
                check: bool) -> dict:
     """Log the bf16 flash kernels' plans at one call (routes, groups, each
@@ -2720,8 +2765,11 @@ def phase_offline_kernels(torch, results):
     limits): the flash forward and backward at the offline training
     shapes, the dropout seed shared, the backward rerun bitwise equal; the
     front at the evaluate batch on quality2_ck.npz's weights and val
-    images.  ms, plain ms, the bound (at the f32 FFMA peak), registers and
-    spills, and as yardsticks F.scaled_dot_product_attention in f32
+    images.  ms, plain ms, the bound (the flash pair: 3xTF32 at the TF32
+    peak beside the f32 FFMA peak's, ``f32_flash_bound``; the front: the
+    f32 FFMA peak), the flash plan's groups, registers and spills
+    (``flash_f32_plan``), and as yardsticks
+    F.scaled_dot_product_attention in f32
     (forward; backward alone) and the projector's f32 torch.matmul; kept
     as each kernel's ``<label>_f32_shape`` beside its bf16 numbers."""
     from image2text_torch.ops import _build
@@ -2759,11 +2807,9 @@ def phase_offline_kernels(torch, results):
                           for n, x, y in zip(("dq", "dk", "dv"), got, plain))
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"flash_bwd f32 {label}: reruns differ")
-        res = {kind: _build.resources("flash_attention_f32",
-                                      f"flash_{kind}_f32_kernelILi{d}E")
-               for kind in ("fwd", "bwd_dkv", "bwd_dq")}
-        log(f"    f32 kernels {label}: (registers, bytes spilled) {res}; "
-            f"backward rerun bitwise equal")
+        plan = flash_f32_plan(torch, label, q, k)
+        res = plan["resources"]
+        log(f"    f32 kernels {label}: backward rerun bitwise equal")
         del out, lse, got, again, plain
         ms = {"fwd": cuda_ms(torch, lambda: fa.flash_fwd(*a, rate, seed)),
               "bwd": cuda_ms(torch, lambda: fa.flash_bwd(*a, *g))}
@@ -2780,12 +2826,8 @@ def phase_offline_kernels(torch, results):
             f"dv) {ms['bwd']:.4f} ms (plain {plain_ms['bwd']:.4f}; SDPA f32 "
             f"backward alone {lib['bwd']:.4f})")
         for kind in ("fwd", "bwd"):
-            n_bytes, flops = flash_work(q, k, bias, causal, kind)
-            bms, by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
-            log(f"    flash_{kind} f32 {label}: bound {bms:.5f} ms ({by}; "
-                f"{flops / 1e9:.4f} GFLOP at the f32 peak, "
-                f"{n_bytes / 1e6:.3f} MB), kernel at {bms / ms[kind]:.3f} "
-                f"of it")
+            bms, by = f32_flash_bound(f"f32 {label}", kind, q, k, bias,
+                                      causal, ms[kind])
             regs = ([res["fwd"]] if kind == "fwd"
                     else [res["bwd_dkv"], res["bwd_dq"]])
             results.setdefault(f"flash_{kind}", {"name": f"flash_{kind}"})[
@@ -2796,6 +2838,8 @@ def phase_offline_kernels(torch, results):
                     max_abs_err=errs[kind], ms=ms[kind],
                     plain_ms=plain_ms[kind], bound_ms=bms, bound_by=by,
                     library_ms=lib[kind],
+                    groups=(plan["fwd_groups"] if kind == "fwd"
+                            else [plan["dkv_groups"], plan["dq_groups"]]),
                     registers=[r for r, _ in regs],
                     spill_bytes=[sp for _, sp in regs])
 
@@ -3971,9 +4015,11 @@ def flash_case(torch, results, label: str, key, bias, gen):
     """The flash forward and backward at one training call's shape against
     their plain versions (same dropout seed; the backward rerun bitwise
     equal; in bf16 the plans, registers, spills and visited pairs of
-    ``flash_plan``, the pairs held to their count where no bias is given),
-    with ms, the bound (the f32 FFMA peak for f32), SDPA's forward and
-    backward alone as the yardstick; kept as ``<label>_shape``."""
+    ``flash_plan``, the pairs held to their count where no bias is given;
+    in f32 ``flash_f32_plan``'s groups, registers and spills), with ms,
+    the bound (f32: ``f32_flash_bound``, 3xTF32 at the TF32 peak, logged
+    beside the f32 FFMA peak's), SDPA's forward and backward alone as the
+    yardstick; kept as ``<label>_shape``."""
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.ops.attention import causal_bias
 
@@ -4005,8 +4051,8 @@ def flash_case(torch, results, label: str, key, bias, gen):
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     if not same:
         raise AssertionError(f"flash_bwd {label}: reruns differ")
-    plan = {} if f32 else flash_plan(torch, label, q, k, causal, int(pairs),
-                                     bias is None)
+    plan = (flash_f32_plan(torch, label, q, k) if f32 else
+            flash_plan(torch, label, q, k, causal, int(pairs), bias is None))
     del out, lse, got, again, plain, want, want_lse
     routes = ("f32" if f32 else
               f"fwd {plan['fwd_route']}, bwd {plan['bwd_route']}")
@@ -4025,12 +4071,15 @@ def flash_case(torch, results, label: str, key, bias, gen):
         f"{ms['bwd']:.4f} ms (plain {plain_ms['bwd']:.4f}; SDPA backward "
         f"alone {lib['bwd']:.4f})")
     for kind in ("fwd", "bwd"):
-        n_bytes, flops = flash_work(q, k, bias, causal, kind)
-        bms, by = bound_ms(n_bytes, flops,
-                           F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
-        log(f"    flash_{kind} {label}: bound {bms:.5f} ms ({by}; "
-            f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), kernel at "
-            f"{bms / ms[kind]:.3f} of it")
+        if f32:
+            bms, by = f32_flash_bound(label, kind, q, k, bias, causal,
+                                      ms[kind])
+        else:
+            n_bytes, flops = flash_work(q, k, bias, causal, kind)
+            bms, by = bound_ms(n_bytes, flops)
+            log(f"    flash_{kind} {label}: bound {bms:.5f} ms ({by}; "
+                f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), kernel "
+                f"at {bms / ms[kind]:.3f} of it")
         results.setdefault(f"flash_{kind}", {"name": f"flash_{kind}"})[
             f"{label}_shape"] = dict(
                 b=b, h=h, hk=hk, sq=sq, skv=skv, d=d, causal=causal,

@@ -93,13 +93,11 @@
 // (p = 0); query rows past sq are computed on zeros and not written.  A row
 // that sees no key at all gets the uniform average over all skv keys (its
 // scores are all NEG_BIG).
-#include "common.cuh"
+#include "flash_common.cuh"
 
 using namespace i2t;
 
 namespace {
-
-constexpr float NEG_BIG = -0.7f * 3.40282346638528859811704183484516925e38f;
 
 struct Params {
   const bf16* q;
@@ -126,15 +124,6 @@ struct Params {
   int plane_h, plane_off;  // the hash's plane of (batch i, head j): plane_off + i·plane_h + j
 };
 
-// ``plane`` is the hash's (global) plane: hash_plane(p, batch, head).
-__device__ __forceinline__ float keep_scale(const Params& p, int row, int col, int plane) {
-  return keep_hash(row, col, plane, p.seed) < p.threshold ? p.inv_keep : 0.f;
-}
-
-__device__ __forceinline__ int hash_plane(const Params& p, int bi, int hi) {
-  return p.plane_off + bi * p.plane_h + hi;
-}
-
 // ------------------------------------------------- backward, K/V resident
 constexpr int RB = 32;                // query rows per tile
 constexpr int KW = 16;                // keys per warp
@@ -149,13 +138,6 @@ size_t res_smem(int nw) {
          + 2 * 2 * RB * LD * sizeof(bf16)          // Q, dO: two stages
          + nw * KW * RLD * sizeof(bf16)            // dSᵀ
          + 2 * 2 * RB * sizeof(float);             // lse, D: two stages
-}
-
-// 4-byte asynchronous copy; pred false zero-fills and reads nothing.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 4 : 0));
 }
 
 // Q, dO, lse and D of rows [q0, q0 + RB) of plane bh into one stage (zeros
@@ -398,12 +380,6 @@ constexpr int FWD_BLOCKS_PER_SM = 2;  // blocks an SM holds (launch bounds; shar
 constexpr int SM_SMEM = 233472;       // shared memory of an SM (228 KB), 1 KB a block reserved
 constexpr int FWD_SLICES = SKV_MAX / FWD_SLICE;  // score slices a warp holds
 static_assert(FWD_SLICES * FWD_SLICE == SKV_MAX, "the resident keys are whole slices");
-
-// Max over the 4 lanes of a quad (the lanes holding one accumulator row).
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
 
 constexpr size_t fwd_smem(int d, int skv) {
   return (size_t)(2 * ((skv + FWD_SLICE - 1) / FWD_SLICE * FWD_SLICE) + FWD_WARPS * FWD_ROWS) *
@@ -685,92 +661,6 @@ static_assert(dq_tiled_smem(256) + 1024 <= SM_SMEM && dkv_tiled_smem(256) + 1024
 static_assert(fwd_min_blocks(64) * (fwd_tiled_smem(64) + 1024) <= SM_SMEM &&
                   fwd_min_blocks(128) * (fwd_tiled_smem(128) + 1024) <= SM_SMEM,
               "the forward's blocks an SM fit its shared memory");
-
-// Rows [r0, r0 + n) of a (rows, D) bf16 matrix starting at row ``base`` into
-// shared memory (row stride D + 8) by cp.async, zeros past ``rows``.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t base, int r0,
-                                          int rows, int n) {
-  for (int i = threadIdx.x; i < n * (D / 8); i += blockDim.x) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool in = r0 + r < rows;
-    cp_async16(dst + r * (D + 8) + c, src + (in ? (base + r0 + r) * D + c : 0), in);
-  }
-}
-
-// A K/V plane: its batch row, first head and folded query rows (the h
-// heads' rows for one K/V head, else its own head's).
-struct Plane {
-  int bi, h0, nrows;
-  size_t base;  // first folded row of (b, h, sq)
-};
-
-__device__ __forceinline__ Plane plane_of(const Params& p, int kvp) {
-  Plane pl;
-  pl.bi = p.hk == 1 ? kvp : kvp / p.h;
-  pl.h0 = p.hk == 1 ? 0 : kvp % p.h;
-  pl.nrows = (p.hk == 1 ? p.h : 1) * p.sq;
-  pl.base = (size_t)(pl.bi * p.h + pl.h0) * p.sq;
-  return pl;
-}
-
-// A lane's two folded rows (f and f + 8) unfolded to (head, row): the
-// hash's plane, the causal limit (the last key the row sees), the bias row.
-struct LaneRows {
-  int row[2], lim[2], plane[2];
-  bool in[2];
-  const float* brow[2];
-  size_t at[2];  // the row of (b·h·sq) in out, lse, D and dQ
-};
-
-__device__ __forceinline__ LaneRows lane_rows(const Params& p, const Plane& pl, int f) {
-  LaneRows r;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int fr = f + 8 * hh;
-    r.in[hh] = fr < pl.nrows;
-    const int head = pl.h0 + (r.in[hh] ? fr / p.sq : 0);
-    r.row[hh] = r.in[hh] ? fr % p.sq : 0;
-    r.plane[hh] = hash_plane(p, pl.bi, head);
-    r.lim[hh] = r.row[hh] + p.skv - p.sq;
-    r.brow[hh] = (p.bias != nullptr && r.in[hh])
-                     ? p.bias + pl.bi * p.bsb + head * p.bsh + r.row[hh] * p.bsr
-                     : nullptr;
-    r.at[hh] = pl.base + fr;
-  }
-  return r;
-}
-
-// The score of (the lane's row hh, col): scaled, the bias clamped, the
-// causal mask; -inf past skv.
-__device__ __forceinline__ float masked_score(const Params& p, const LaneRows& r, int hh,
-                                              float s, int col) {
-  if (col >= p.skv) return -INFINITY;
-  float x = s * p.scale;
-  if (r.brow[hh] != nullptr) x += fmaxf(r.brow[hh][col], NEG_BIG);
-  if (p.causal && col > r.lim[hh]) x = NEG_BIG;
-  return x;
-}
-
-// The last key any of folded rows [f0, f1) sees under causal: the limit of
-// the largest row among them (sq − 1 where they cross a head's end).
-__device__ __forceinline__ int rows_band(const Params& p, int f0, int f1) {
-  const int last = f0 / p.sq != (f1 - 1) / p.sq ? p.sq - 1 : (f1 - 1) % p.sq;
-  return last + p.skv - p.sq;
-}
-
-// The last key every one of folded rows [f0, f1) sees under causal: the
-// limit of the smallest row among them (row 0 where they cross a head's end).
-__device__ __forceinline__ int rows_floor(const Params& p, int f0, int f1) {
-  const int first = f0 / p.sq != (f1 - 1) / p.sq ? 0 : f0 % p.sq;
-  return first + p.skv - p.sq;
-}
-
-// Keys [k0, k1) are real and seen by every row whose causal floor is
-// ``floor``, with no bias: their scores need only the scale.
-__device__ __forceinline__ bool unmasked(const Params& p, int k0, int k1, int floor) {
-  return p.bias == nullptr && k1 <= p.skv && (!p.causal || k1 - 1 <= floor);
-}
 
 // One warp's 16 × KT products of A (16 rows from A0, row stride D + 8) with
 // the KT rows of B: c[n] holds columns 8n..8n+7 (mma.sync accumulators).

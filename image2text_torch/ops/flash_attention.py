@@ -51,8 +51,13 @@ The wrappers dispatch on the dtype, as the JAX kernels are generic in it:
 bf16 operands take the kernels of ``csrc/flash_attention.cu`` (their
 plans :func:`fwd_plan`, :func:`bwd_plan`), f32 operands (the configs with
 ``precision: 'no'``) the f32 kernels of ``csrc/flash_attention_f32.cu``,
-which compute every product in true f32 and round nothing narrower (one
-route for every shape; they count no visited pairs).
+which run every product on the tensor cores as 3xTF32 (each operand split
+into two TF32 halves, three products: about f32's accuracy) and round
+nothing narrower.  Their tiling is the tiled route's: a forward and a dQ
+kernel on 64-row tiles of the folded rows (:func:`f32_groups` blocks a
+plane), and a dK/dV kernel with :func:`f32_bwd_plan` groups a key tile
+whose f32 partials a second kernel sums in group order; they count no
+visited pairs.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises on what the kernel does not take (a head
@@ -107,6 +112,12 @@ TILED_ROWS, TILED_KEYS, DKV_KEYS, DKV_ROWS = _kernel_constants(
     "TILE_ROWS", "TILE_KEYS", "DKV_KEYS", "DKV_ROWS")
 # the entry points' ``route`` argument
 ROUTES = {"resident": 0, "tiled": 1}
+# The f32 kernels' (csrc/flash_attention_f32.cu): the forward and dQ
+# kernels take F32_TILE_ROWS-row tiles of the folded rows; the dK/dV kernel
+# holds F32_DKV_KEYS keys a block (half past head dim 64) and walks
+# F32_DKV_ROWS-row query tiles.
+F32_TILE_ROWS, F32_DKV_KEYS, F32_DKV_ROWS = _build.kernel_constants(
+    "flash_attention_f32", "F32_TILE_ROWS", "F32_DKV_KEYS", "F32_DKV_ROWS")
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -267,13 +278,14 @@ _COMMON_TYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
                  + [ctypes.c_uint] * 2 + [ctypes.c_float]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-# leading arguments of each entry point: its pointers, then the route and
-# the groups (the backward: the dK/dV kernel's, then the dQ kernel's; the
-# f32 kernels take none)
+# leading arguments of each entry point: its pointers, then the route (the
+# bf16 kernels) and the groups (the backward: the dK/dV kernel's, then the
+# dQ kernel's)
 _LEAD_TYPES = {"flash_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2,
                "flash_bwd_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3,
-               "flash_fwd_f32_launch": [ctypes.c_void_p] * 5,
-               "flash_bwd_f32_launch": [ctypes.c_void_p] * 9}
+               "flash_fwd_f32_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int],
+               "flash_bwd_f32_launch": [ctypes.c_void_p] * 10
+               + [ctypes.c_int] * 2}
 
 
 def _launch(name: str, *args):
@@ -312,6 +324,38 @@ def tiled_groups(h: int, hk: int, sq: int) -> int:
     return -(-(h if hk == 1 else 1) * sq // TILED_ROWS)
 
 
+def f32_groups(h: int, hk: int, sq: int) -> int:
+    """Blocks a K/V plane of the f32 forward and of the f32 dQ kernel: one
+    for each F32_TILE_ROWS-row tile of its folded rows (h heads' for one
+    K/V head)."""
+    return -(-(h if hk == 1 else 1) * sq // F32_TILE_ROWS)
+
+
+def f32_dkv_keys(d: int) -> int:
+    """Keys of an f32 dK/dV block at head dim ``d``: past 64 two warps
+    share 16 keys, each half of the dims."""
+    return F32_DKV_KEYS // (2 if d > 64 else 1)
+
+
+# blocks an SM the f32 dK/dV kernel's groups aim at
+F32_DKV_BLOCKS_AN_SM = 2
+
+
+@functools.lru_cache(maxsize=256)
+def f32_bwd_plan(b: int, h: int, hk: int, sq: int, skv: int,
+                 n_sms: int, d: int = 128) -> int:
+    """Groups G of the f32 dK/dV kernel: G blocks share each (plane, key
+    tile)'s F32_DKV_ROWS-row query tiles (h heads' for one K/V head), as
+    many as keep the b·hk·⌈skv/keys⌉ key tiles' G blocks within
+    F32_DKV_BLOCKS_AN_SM an SM (at most one per query tile; at least 1):
+    a multi-query plane's few key tiles then fill the card (nano-mini's 12
+    key tiles: G 22, 264 blocks), and a call with blocks enough already
+    (every multi-head family) writes dK/dV with no partial sums."""
+    tiles = (h if hk == 1 else 1) * -(-sq // F32_DKV_ROWS)
+    key_tiles = b * hk * -(-skv // f32_dkv_keys(d))
+    return max(1, min(tiles, F32_DKV_BLOCKS_AN_SM * n_sms // key_tiles))
+
+
 def _pad(d: int, *ts):
     """The tensors with their last dim zero-padded to ``d``."""
     return tuple(t if t.shape[-1] == d else
@@ -338,7 +382,8 @@ def flash_fwd(q, k, v, bias=None, causal: bool = False, rate: float = 0.0,
     common = _common_args(q, k, bias, strides, causal, rate, seed,
                           1.0 / d_true ** 0.5, planes)
     if q.dtype == torch.float32:
-        _launch("flash_fwd_f32_launch", *ptrs, *common)
+        _launch("flash_fwd_f32_launch", *ptrs,
+                f32_groups(h, k.shape[1], sq), *common)
     else:
         route, groups = fwd_plan(b, h, k.shape[1], sq, k.shape[2],
                                  sm_count(q.device), d)
@@ -384,7 +429,7 @@ def part_elems(groups: int, kv_elems: int) -> int:
     """f32 elements of a backward's dK/dV partials for ``groups`` groups
     of K/V with ``kv_elems`` elements (b·hk·skv·d): G partial dK, then G
     partial dV, which the second kernel sums in group order; none for one
-    group (its blocks write bf16 dK/dV)."""
+    group (its blocks write dK/dV in the operands' dtype)."""
     return 0 if groups == 1 else 2 * groups * kv_elems
 
 
@@ -439,6 +484,14 @@ def flash_bwd(q, k, v, bias, causal: bool, g, lse, dvec,
     return tuple(t[..., :d_true].contiguous() for t in grads)
 
 
+def _partials(groups: int, k) -> Optional[torch.Tensor]:
+    """The f32 dK/dV partials of a backward with ``groups`` groups on
+    K/V like ``k`` (:func:`part_elems`), or None."""
+    n = part_elems(groups, k.numel())
+    return (torch.empty(n, dtype=torch.float32, device=k.device) if n
+            else None)
+
+
 def _flash_bwd(q, k, v, g, bias, causal, lse, dvec, rate, seed, pairs,
                planes, scale):
     """:func:`flash_bwd` on operands of a kernel head dim."""
@@ -449,26 +502,24 @@ def _flash_bwd(q, k, v, g, bias, causal, lse, dvec, rate, seed, pairs,
     _build.check_operand("flash_bwd", "pairs", pairs, torch.int32)
     b, h, sq, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_sms, hk, skv = sm_count(q.device), k.shape[1], k.shape[2]
+    common = _common_args(q, k, bias, strides, causal, rate, seed, scale,
+                          planes)
+    P = _build.ptr
     if q.dtype == torch.float32:
-        P = _build.ptr
+        groups = f32_bwd_plan(b, h, hk, sq, skv, n_sms, q.shape[-1])
+        part = _partials(groups, k)
         _launch("flash_bwd_f32_launch", P(q), P(k), P(v), P(g), P(lse),
-                P(dvec), P(dq), P(dk), P(dv),
-                *_common_args(q, k, bias, strides, causal, rate, seed, scale,
-                              planes))
+                P(dvec), P(dq), P(dk), P(dv), P(part), groups,
+                f32_groups(h, hk, sq), *common)
         flash_bwd.launches += 1
         return dq, dk, dv
-    n_sms = sm_count(q.device)
-    route, groups = bwd_plan(b, h, k.shape[1], sq, k.shape[2], n_sms,
-                             q.shape[-1])
-    dq_groups = tiled_groups(h, k.shape[1], sq) if route == "tiled" else 0
-    n_part = part_elems(groups, k.numel())
-    part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
-            if n_part else None)
-    P = _build.ptr
+    route, groups = bwd_plan(b, h, hk, sq, skv, n_sms, q.shape[-1])
+    dq_groups = tiled_groups(h, hk, sq) if route == "tiled" else 0
+    part = _partials(groups, k)
     _launch("flash_bwd_launch", P(q), P(k), P(v), P(g), P(lse), P(dvec),
             P(dq), P(dk), P(dv), P(part), P(pairs), ROUTES[route], groups,
-            dq_groups, *_common_args(q, k, bias, strides, causal, rate, seed,
-                                     scale, planes))
+            dq_groups, *common)
     flash_bwd.launches += 1
     return dq, dk, dv
 
@@ -527,6 +578,7 @@ def flash_sdpa(q, k, v, bias: Optional[torch.Tensor] = None,
 
 
 __all__ = ["NEG_BIG", "FlashSDPA", "bwd_pairs", "bwd_plan", "part_elems",
+           "f32_bwd_plan", "f32_groups",
            "tiled_bwd_pairs", "tiled_groups",
            "dropout_keep_mask", "flash_bwd", "flash_forward_plain",
            "fwd_plan", "kernel_head_dim", "planes_of",

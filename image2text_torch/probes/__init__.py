@@ -47,3 +47,47 @@ def device_kernel_ms(fn, iters: int = 20) -> dict:
     return {e.key: e.device_time_total / iters / 1e3
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def flash_f64_truth(fa, q, k, v, bias, causal, rate, seed, dout):
+    """(out, lse, dq, dk, dv) of the flash function in float64 on the
+    same f32 inputs and keep mask (a row that sees no key: the uniform
+    average forward, p = 1 backward), for the flash module ``fa`` of any
+    checkout: the truth the f32 kernels' errors are measured against."""
+    import torch
+
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, dout))
+    s = qd @ kd.transpose(-1, -2) / d ** 0.5
+    if bias is not None:
+        s = s + bias.double().clamp_min(fa.NEG_BIG)
+    if causal:
+        row = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        col = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(col <= row, s, torch.full_like(s, fa.NEG_BIG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    keep = (fa._keep(b, h, sq, skv, seed, rate, q.device).double()
+            / (1.0 - rate) if rate > 0 else torch.ones_like(p))
+    out = (p * keep) @ vd / l
+    # the backward's p = exp(s - lse): 1 at every key of a row that sees
+    # none (its lse rounds to NEG_BIG in f32), as the kernels specify
+    pn = torch.where(m <= fa.NEG_BIG / 2, torch.ones_like(p), p / l)
+    dvec = (gd * out).sum(-1, keepdim=True)
+    ds = pn * (keep * (gd @ vd.transpose(-1, -2)) - dvec)
+    dq = ds @ kd / d ** 0.5
+    dk = ds.transpose(-1, -2) @ qd / d ** 0.5
+    dv = (pn * keep).transpose(-1, -2) @ gd
+    if hk == 1 and h > 1:
+        dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
+    return out, (m + torch.log(l))[..., 0], dq, dk, dv
+
+
+def truth_error(x, truth) -> list:
+    """[max |x − truth| / max |truth|, relative L2] of ``x`` against a
+    float64 ``truth``."""
+    diff = (x.double() - truth).flatten()
+    return [float(diff.abs().max() / truth.abs().max()),
+            float(diff.norm() / truth.norm())]

@@ -1,7 +1,7 @@
 """Times of the tiled flash route against build variants of its source,
 on the card: the alternatives behind its shipped choices.
 
-    python -m image2text_torch.probes.flash_variants
+    python -m image2text_torch.probes.flash_variants [--f32]
 
 Each variant is ``csrc/flash_attention.cu`` with a few text edits
 (``VARIANTS``), built by ``nvcc`` with the shipping flags into its own
@@ -13,6 +13,14 @@ calls (``kernel_times.FLASH_FAMILIES``) and the long-key call
 backward's median CUDA-event ms over two passes (variants in order, then
 reversed) and their device ms (``probes.device_kernel_ms``, after every
 event time), with each build's registers and spill bytes a tiled kernel.
+
+``--f32``: the same for ``csrc/flash_attention_f32.cu`` (``F32_VARIANTS``:
+the shipped choices' alternatives and ablations that show where the time
+goes; an ablation computes another function and only its time counts) at
+the f32 calls (``kernel_times.FLASH_F32_FAMILIES``, f32 tensors, the
+soft-prompt bias where given), with each variant's errors against a
+float64 truth (``probes.flash_f64_truth``; ``err``: max error over max
+|truth|, relative L2, of out, lse, dq, dk and dv).
 """
 from __future__ import annotations
 
@@ -39,13 +47,43 @@ VARIANTS = {
     "expf": (("__expf(", "expf("),),
 }
 
+# The f32 kernels' variants.  Alternatives: every product straight into
+# its running sum (no zeroed accumulator a k-step, mma3's FRESH), the
+# forward's O fresh at head dim 128 too, the d-128 dK/dV block without its
+# split (64 keys, a warp all 128 dims: its fresh accumulators spill), half
+# the keys a forward stage past d 64 (three blocks an SM at d 128),
+# ``__expf``, the small half rounded by cvt.rna.tf32, the dQ kernel's
+# full-size stages (one block an SM at d 128).  Ablation (another
+# function, timed only): one TF32 product instead of three.
+F32_VARIANTS = {
+    "shipped": (),
+    "all_running": (
+        ("fresh_products(int d) { return d <= 128; }", "fresh_products(int d) { return false; }"),
+        ("fresh_o(int d) { return d <= 64; }", "fresh_o(int d) { return false; }"),
+        ("fresh_grads(int d) { return d <= 128; }", "fresh_grads(int d) { return false; }")),
+    "fresh_o_at_128": (("fresh_o(int d) { return d <= 64; }",
+                        "fresh_o(int d) { return d <= 128; }"),),
+    "no_split_at_128": (("return d > 64 ? 2 : 1; }", "return d > 128 ? 2 : 1; }"),),
+    "fwd_half_stages": (("constexpr int LD = D + 4, KT = stage_keys(D), NST = F32_STAGES;",
+                         "constexpr int LD = D + 4, KT = dq_keys(D), NST = F32_STAGES;"),
+                        ("return d > 128 ? 1 : 2; }", "return d > 128 ? 1 : 3; }")),
+    "fast_exp": (("expf(", "__expf("),),
+    "one_tf32": (("    mma_tf32(t, as, bb[0], bb[1]);\n    mma_tf32(t, ab, bs[0], bs[1]);\n", ""),
+                 ("    mma_tf32(c, as, bb[0], bb[1]);\n    mma_tf32(c, ab, bs[0], bs[1]);\n", "")),
+    "small_cvt_rna": (("  small = __float_as_uint(x - __uint_as_float(big));",
+                       "  small = to_tf32(x - __uint_as_float(big));"),),
+    "dq_full_stages": (("return d > 64 ? stage_keys(d) / 2 : stage_keys(d);",
+                        "return stage_keys(d);"),),
+}
+
 
 def _resources(log: str) -> dict:
     """{kernel<d>: (registers, spill store bytes)} of the tiled kernels in
     an ``-Xptxas -v`` log."""
     out, entry, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?(flash_\w+?_tiled_kernel)ILi(\d+)E", line)
+        m = re.search(r"entry function '\w*?(flash_\w+?_(?:tiled|f32)_kernel)ILi(\d+)E",
+                      line)
         if "entry function" in line:
             entry = f"{m.group(1)}<{m.group(2)}>" if m else None
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -57,29 +95,30 @@ def _resources(log: str) -> dict:
     return out
 
 
-def build(name: str, edits) -> tuple:
-    """(library, resources) of one variant, built under build/."""
+def build(name: str, edits, source: str = "flash_attention") -> tuple:
+    """(library, resources) of one variant of ``csrc/<source>.cu``, built
+    under build/."""
     from image2text_torch.ops import _build
 
-    out = _build.BUILD_DIR.parent / "flash_variants" / name
+    out = _build.BUILD_DIR.parent / "flash_variants" / source / name
     out.mkdir(parents=True, exist_ok=True)
     for f in _build.CSRC.glob("*.cuh"):
         shutil.copy(f, out)
-    text = (_build.CSRC / "flash_attention.cu").read_text()
+    text = (_build.CSRC / f"{source}.cu").read_text()
     for old, new in edits:
         if old not in text:
             raise KeyError(f"{name}: {old!r} not in the source")
         text = text.replace(old, new)
-    (out / "flash_attention.cu").write_text(text)
+    (out / f"{source}.cu").write_text(text)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(out / "lib.so"), str(out / "flash_attention.cu")],
+                           str(out / "lib.so"), str(out / f"{source}.cu")],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     return ctypes.CDLL(str(out / "lib.so")), _resources(proc.stdout + proc.stderr)
 
 
-def main() -> int:
+def main(argv=()) -> int:
     import statistics
 
     import torch
@@ -88,29 +127,40 @@ def main() -> int:
     import chip_smoke as cs
     from image2text_torch.ops import _build
     from image2text_torch.ops import flash_attention as fa
+    from image2text_torch import probes
     from image2text_torch.probes import device_kernel_ms, time_ms
-    from image2text_torch.probes.kernel_times import FLASH_FAMILIES
+    from image2text_torch.probes.kernel_times import (FLASH_F32_FAMILIES,
+                                                      FLASH_FAMILIES)
 
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs an NVIDIA GPU")
-    libs = {name: build(name, edits) for name, edits in VARIANTS.items()}
+    f32 = "--f32" in argv
+    source, variants, calls, dt = (
+        ("flash_attention_f32", F32_VARIANTS, FLASH_F32_FAMILIES, torch.float32)
+        if f32 else ("flash_attention", VARIANTS, FLASH_FAMILIES + cs.FLASH_LONG,
+                     torch.bfloat16))
+    libs = {name: build(name, edits, source) for name, edits in variants.items()}
 
     def use(name):
-        _build._loaded[("flash_attention", ())] = libs[name][0]
+        _build._loaded[(source, ())] = libs[name][0]
         _build._entry_points.clear()
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    cases = []
-    for label, b, h, hk, sq, s, d, causal, _, rate in FLASH_FAMILIES + cs.FLASH_LONG:
-        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+    cases, truths = [], {}
+    for label, b, h, hk, sq, s, d, causal, n_prefix, rate in calls:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen).to(dt)
                          for shape in ((b, h, sq, d), (b, hk, s, d), (b, hk, s, d),
                                        (b, h, sq, d)))
-        a = (q, k, v, None, causal)
+        bias = None if n_prefix is None else cs.soft_prompt_bias(torch, s, n_prefix, dev)
+        a = (q, k, v, bias, causal)
         out, lse = fa.flash_fwd(*a, rate, 77)
         g = (dout, lse, (dout.float() * out.float()).sum(-1), rate, 77)
         cases.append((label, lambda a=a, r=rate: fa.flash_fwd(*a, r, 77),
                       lambda a=a, g=g: fa.flash_bwd(*a, *g)))
+        if f32:   # the float64 truth of each variant's errors
+            truths[label] = (a, rate, dout, probes.flash_f64_truth(
+                fa, q, k, v, bias, causal, rate, 77, dout))
     ms = {n: {} for n in libs}
     for name in list(libs) + list(libs)[::-1]:
         use(name)
@@ -125,12 +175,20 @@ def main() -> int:
                 "fwd_ms": statistics.median(x[0] for x in ms[name][label]),
                 "bwd_ms": statistics.median(x[1] for x in ms[name][label]),
                 "fwd_device_ms": sum(device_kernel_ms(fwd).values()),
-                "bwd_device_ms": sum(device_kernel_ms(bwd).values())}
+                "bwd_device_kernels": device_kernel_ms(bwd)}
+            res[label]["bwd_device_ms"] = sum(res[label]["bwd_device_kernels"].values())
+            if label in truths:   # errors against the float64 truth
+                a, rate, dout, truth = truths[label]
+                o, lse = fa.flash_fwd(*a, rate, 77)
+                got = (o, lse) + tuple(fa.flash_bwd(
+                    *a, dout, lse, (dout * o).sum(-1), rate, 77))
+                res[label]["err"] = {n: probes.truth_error(x, t) for n, x, t in
+                                     zip(("out", "lse", "dq", "dk", "dv"), got, truth)}
         print(json.dumps(res), flush=True)
-    _build._loaded.pop(("flash_attention", ()), None)
+    _build._loaded.pop((source, ()), None)
     _build._entry_points.clear()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,7 +2,8 @@
 two trees in one process each, on one card, in turns.
 
     python -m image2text_torch.probes.kernel_times \
-        [--flash-only | --int4-only | --front-topk-only] TREE...
+        [--flash-only | --flash-f32-only | --int4-only |
+         --front-topk-only | --steps-only] TREE...
 
 For each TREE (the root of a checkout: this repository, or an unpacked
 ``git archive`` of another commit) a fresh process imports that tree's
@@ -45,6 +46,16 @@ version on the same inputs: ``keyless.<dq|dk|dv>`` are
 ``utils/kernel_check.py::output_error``'s statistics.  Prints one JSON
 line per tree, in the order given (name the trees alternately, e.g. A B B
 A A B, and take medians).
+
+``--flash-f32-only`` times the f32 flash kernels (the tree's
+``flash_fwd``/``flash_bwd`` on f32 tensors) at ``FLASH_F32_FAMILIES``
+beside f32 SDPA's forward and backward alone, CUDA-event ``ms`` and then
+``device_ms`` of all four, and holds the tree's kernels and plain
+versions to a float64 truth on the same inputs and keep mask
+(``err.<label>.<out|lse|dq|dk|dv>``, ``plain_err...``: max_abs_err over
+max |truth|, relative L2).  ``--steps-only`` times the training steps
+of ``STEP_FAMILIES`` (``step.<name>.ms``: the median of 5 windows of 2
+steps after a warm one; Llama-2-7B in f32 takes ~32 GiB of the card).
 """
 from __future__ import annotations
 
@@ -65,11 +76,27 @@ FLASH_FAMILIES = (
     ("train_falcon7b", 4, 71, 1, 320, 320, 64, True, None, 0.0),
     ("train_qwen", 1, 12, 12, 272, 272, 128, True, None, 0.0),
     ("train_gpt2xl", 12, 25, 25, 320, 320, 64, True, None, 0.0))
+# The f32 flash calls (the kernels of csrc/flash_attention_f32.cu), as
+# FLASH_FAMILIES' fields: the families' largest f32 training calls
+# (chip_smoke.py's [train-kernels]; the nano decoders' soft prompt of
+# n_cls 16 rows), GPT-2's cross-attention on its 16 encoder rows, and the
+# offline configs' (chip_smoke.py's FLASH_OFFLINE).
+FLASH_F32_FAMILIES = (
+    ("f32_llama7b", 1, 32, 32, 272, 272, 128, True, None, 0.0),
+    ("f32_nano_lsh", 2, 12, 12, 256, 256, 64, True, 16, 0.1),
+    ("f32_gpt2", 4, 12, 12, 272, 272, 64, True, None, 0.0),
+    ("f32_gpt2_cross", 4, 12, 12, 272, 16, 64, False, None, 0.0),
+    ("f32_nano_mini", 4, 8, 1, 92, 92, 128, True, 16, 0.1),
+    ("f32_offline_encoder", 8, 4, 1, 264, 264, 16, False, None, 0.1),
+    ("f32_offline_decoder", 8, 4, 1, 128, 128, 16, True, 8, 0.1))
+# The f32 families whose training steps ``--steps-only`` times.
+STEP_FAMILIES = ("llama7b", "gpt2")
 
 _CHILD = r'''
 import importlib.util, json, sys, types
 tree, mode, own_probes = sys.argv[1], sys.argv[2], sys.argv[3]
-families = tuple(tuple(c) for c in json.loads(sys.argv[4]))
+families = tuple(tuple(c) if isinstance(c, list) else c
+                 for c in json.loads(sys.argv[4]))
 sys.path.insert(0, tree)
 import torch
 import torch.nn.functional as F
@@ -154,6 +181,96 @@ def flash_device(cases):
                 probes.device_kernel_ms(fn).values())
 
 
+def soft_prompt(s, n_prefix, dev):
+    bias = torch.zeros(1, 1, s, s, device=dev)
+    bias[..., n_prefix:, :n_prefix] = float("-inf")
+    return bias
+
+
+def flash_f32(cases):
+    """The tree's f32 flash forward and backward and f32 SDPA's forward
+    and backward alone at each case: CUDA-event ms, then (after every
+    event time) device ms by this checkout's probes.device_kernel_ms; and
+    the tree's kernels' errors (and the plain version's) against a
+    float64 truth (this checkout's probes.flash_f64_truth):
+    ``err.<label>.<out|lse|dq|dk|dv>`` = probes.truth_error."""
+    from image2text_torch.ops import flash_attention as fa
+    from image2text_torch.ops.attention import causal_bias
+    probes = own_probes_module()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    seed, calls = 9, {}
+    err = probes.truth_error
+
+    for label, b, h, hk, sq, s, d, causal, n_prefix, rate in cases:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=gen)
+                         for shape in ((b, h, sq, d), (b, hk, s, d),
+                                       (b, hk, s, d), (b, h, sq, d)))
+        bias = None if n_prefix is None else soft_prompt(s, n_prefix, dev)
+        a = (q, k, v, bias, causal)
+        o_, lse = fa.flash_fwd(*a, rate, seed)
+        g = (dout, lse, (dout * o_).sum(-1), rate, seed)
+        truth = probes.flash_f64_truth(fa, q, k, v, bias, causal, rate,
+                                       seed, dout)
+        got = (o_, lse) + tuple(fa.flash_bwd(*a, *g))
+        po, pl = fa.flash_forward_plain(*a, rate, seed)
+        plain = (po, pl) + tuple(fa.flash_backward_plain(
+            *a, dout, pl, (dout * po).sum(-1), rate, seed))
+        for name, x, y, z in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                 plain, truth):
+            out[f"err.{label}.{name}"] = err(x, z)
+            out[f"plain_err.{label}.{name}"] = err(y, z)
+        mask = None
+        if bias is not None or causal:
+            mask = (0 if bias is None else bias) + (
+                causal_bias(sq, s, dev) if causal else 0)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               dropout_p=rate, enable_gqa=True)
+        fns = {"flash_fwd": lambda a=a, r=rate: fa.flash_fwd(*a, r, seed),
+               "flash_bwd": lambda a=a, g=g: fa.flash_bwd(*a, *g),
+               "sdpa_fwd": lambda q=q, k=k, v=v, m=mask, r=rate:
+                   F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                  dropout_p=r, enable_gqa=True),
+               "sdpa_bwd": lambda o=o, t=(qg, kg, vg), dout=dout:
+                   torch.autograd.grad(o, t, dout, retain_graph=True)}
+        for name, fn in fns.items():
+            out[f"{name}.{label}.ms"] = probes.time_ms(fn)
+        calls[label] = fns
+    for label, fns in calls.items():   # after every event time
+        for name, fn in fns.items():
+            out[f"{name}.{label}.device_ms"] = sum(
+                probes.device_kernel_ms(fn).values())
+
+
+def family_steps(names):
+    """Step ms of each family's training step (chip_smoke.py's
+    family_setup and family_inputs, as [train-<name>] runs it): a warm
+    step, then the median of 5 windows of 2 steps (the host's spread on
+    the card's machine reached 25% of a window with 3)."""
+    import statistics
+    import time
+    for name in names:
+        cfg, wrapper, trainer = cs.family_setup(torch, name)
+        images, labels = cs.family_inputs(torch, cfg, cfg.batch_size,
+                                          cs.SEED + 50)
+        step = trainer._train_step
+        step(images, labels, cfg.seed, 0)
+        windows = []
+        for w in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(2):
+                step(images, labels, cfg.seed, 1 + 2 * w + i)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / 2 * 1e3)
+        out[f"step.{name}.ms"] = statistics.median(windows)
+        out[f"step.{name}.windows"] = windows
+        del cfg, wrapper, trainer, images, labels, step
+        torch.cuda.empty_cache()
+
+
 def keyless_errors():
     from image2text_torch.ops import flash_attention as fa
     from image2text_torch.utils.kernel_check import output_error
@@ -236,7 +353,15 @@ def front_topk():
     out["sparse_block.gpt2m.ms"] = r["gpt2m_shape"]["ms"]
 
 
+if mode == "steps":
+    family_steps(families)
+    print("KERNEL_TIMES " + json.dumps(out), flush=True)
+    sys.exit(0)
 with torch.no_grad():
+    if mode == "flash_f32":
+        flash_f32(families)
+        print("KERNEL_TIMES " + json.dumps(out), flush=True)
+        sys.exit(0)
     if mode == "front_topk":
         front_topk()
     if mode == "int4":
@@ -303,16 +428,19 @@ print("KERNEL_TIMES " + json.dumps(out), flush=True)
 
 
 MODES = {"--flash-only": "flash", "--int4-only": "int4",
-         "--front-topk-only": "front_topk"}
+         "--front-topk-only": "front_topk", "--flash-f32-only": "flash_f32",
+         "--steps-only": "steps"}
 
 
 def main(argv) -> int:
     mode = next((MODES[a] for a in argv if a in MODES), "all")
+    cases = {"flash_f32": FLASH_F32_FAMILIES,
+             "steps": STEP_FAMILIES}.get(mode, FLASH_FAMILIES)
     for tree in [a for a in argv if a not in MODES]:
         root = str(Path(tree).resolve())
         proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode,
                                str(Path(__file__).with_name("__init__.py")),
-                               json.dumps(FLASH_FAMILIES)],
+                               json.dumps(cases)],
                               cwd=root, capture_output=True, text=True)
         lines = [l for l in proc.stdout.splitlines()
                  if l.startswith("KERNEL_TIMES ")]

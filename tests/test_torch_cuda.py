@@ -1311,13 +1311,28 @@ def test_block_wide_groupings_equal_the_whole_batch(dev):
     (1, 4, 1, 112, 64, 64, "per_head", False, 0.1),  # cross: sq > skv
     (2, 2, 1, 40, 33, 32, "full", False, 0.2),       # every bias element
     (1, 2, 2, 300, 1024, 64, "batch_keys", True, 0.1),  # long keys
+    # the families' f32 training calls at b 1 (nano-mini at b 2: a
+    # multi-query plane whose dK/dV kernel takes G > 1 groups)
+    (1, 32, 32, 272, 272, 128, None, True, 0.0),     # Llama-2-7B
+    (1, 12, 12, 256, 256, 64, "soft_prompt", True, 0.1),  # nano-lsh
+    (1, 12, 12, 272, 272, 64, None, True, 0.0),      # GPT-2
+    (2, 8, 1, 92, 92, 128, "soft_prompt", True, 0.1),  # nano-mini
+    (1, 2, 1, 100, 100, 256, "soft_prompt", True, 0.1),  # head dim 256
+    (1, 2, 2, 200, 128, 64, None, True, 0.1),        # causal sq > skv
 ])
 def test_flash_f32_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias,
                                        causal, rate):
     """The f32 forward and backward against the plain versions at the f32
     limits, the same dropout seed; the backward rerun bitwise equal; each
-    wrapper counts one launch a call."""
+    wrapper counts one launch a call.  The nano-mini case's dK/dV plan
+    takes more than one group (partials summed in group order)."""
+    from image2text_torch.utils.device import sm_count
     from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    groups = fa.f32_bwd_plan(b, h, hk, sq, skv, sm_count(dev),
+                             fa.kernel_head_dim(d))
+    if (b, h, hk, sq, d) == (2, 8, 1, 92, 128):
+        assert groups > 1
 
     g = _gen(dev, 21)
     q, k, v, dout = (torch.randn(*shape, device=dev, generator=g)
@@ -1345,18 +1360,24 @@ def test_flash_f32_kernels_match_plain(dev, b, h, hk, sq, skv, d, bias,
 
 
 @pytest.mark.cuda
-def test_flash_f32_gives_keyless_rows_every_key(dev):
+@pytest.mark.parametrize("b,h,sq,skv,d", [
+    (1, 2, 64, 48, 16),
+    (2, 8, 92, 92, 128),   # nano-mini's multi-query shape: G > 1 groups
+])
+def test_flash_f32_gives_keyless_rows_every_key(dev, b, h, sq, skv, d):
     """Rows that a bias leaves without a key average every key (p = 1 in
     the forward; in the backward p = exp(s - lse) = 1, lse rounding to
-    NEG_BIG), as the plain version does."""
+    NEG_BIG), as the plain version does; the dK/dV kernel in groups."""
+    from image2text_torch.utils.device import sm_count
     from image2text_torch.utils.kernel_check import F32_LIMITS
 
+    assert fa.f32_bwd_plan(b, h, 1, sq, skv, sm_count(dev), d) > 1
     g = _gen(dev, 22)
-    q, dout = (torch.randn(1, 2, 64, 16, device=dev, generator=g)
+    q, dout = (torch.randn(b, h, sq, d, device=dev, generator=g)
                for _ in range(2))
-    k, v = (torch.randn(1, 1, 48, 16, device=dev, generator=g)
+    k, v = (torch.randn(b, 1, skv, d, device=dev, generator=g)
             for _ in range(2))
-    bias = torch.zeros(1, 1, 64, 48, device=dev)
+    bias = torch.zeros(1, 1, sq, skv, device=dev)
     bias[..., 40:, :] = float("-inf")
     out, lse = fa.flash_fwd(q, k, v, bias, False)
     want, want_lse = fa.flash_forward_plain(q, k, v, bias, False)

@@ -7,6 +7,12 @@ packages must agree on it bit for bit; with the same seed they then drop
 the same probabilities, and the forward and the gradients agree to f32
 rounding.  Tolerance: 1e-5 absolute and relative, in f32 with JAX at full
 matmul precision (the two sum in different orders; values are O(1)).
+
+The port's side runs on one torch thread (``one_thread``): in a process
+that has just run JAX's interpret-mode kernels, torch's first two-thread
+``exp`` returned its second thread's half at ~1e-4 relative error in 3 of
+20 processes (``gpt2m_encoder``'s dQ, dK, dV then 1–3e-5 from a float64
+truth, JAX's 5e-7); on one thread 0 of 48.
 """
 import numpy as np
 import pytest
@@ -22,6 +28,16 @@ from image2text_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The port's CPU route on one torch thread for each test (restored
+    after): see the module docstring."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("seed", [0, 1234567, -1, -2 ** 31, 2 ** 31 - 1])
@@ -152,6 +168,11 @@ TRAIN_SHAPES = {
     "gpt2m_encoder": (8, 1, 80, 80, 64, False, None, 0.1),
     "gpt2m_self": (16, 16, 112, 112, 64, True, None, 0.0),
     "gpt2m_cross": (16, 16, 112, 64, 64, False, None, 0.0),
+    # the f32 kernels' family calls at h 2 (kernel_times.FLASH_F32_FAMILIES):
+    # nano-mini's multi-query decoder (92 keys, its 16-row soft prompt,
+    # dropout 0.1) and Llama-2-7B's (272 keys, causal, head dim 128)
+    "f32_nano_mini": (2, 1, 92, 92, 128, True, 16, 0.1),
+    "f32_llama7b": (2, 2, 272, 272, 128, True, None, 0.0),
 }
 
 
@@ -368,6 +389,101 @@ def test_tiled_cases_are_the_probe_families():
         assert causal and n_prefix is None and rate in (0.0, 0.1)
 
 
+# The f32 kernels' plans at the families' and the offline configs' f32
+# calls (kernel_times.FLASH_F32_FAMILIES) on the H100's 132 SMs: the
+# forward's and dQ's G (a block each 64-row tile of the folded rows), the
+# dK/dV kernel's G and the f32 partials' elements.
+F32_CASES = {
+    "f32_llama7b": ((1, 32, 32, 272, 272, 128), 5, 1, 0),
+    # 8 query tiles a plane; 24 planes × 4 key tiles: G 264 // 96
+    "f32_nano_lsh": ((2, 12, 12, 256, 256, 64), 4, 2, 2 * 2 * 24 * 256 * 64),
+    "f32_gpt2": ((4, 12, 12, 272, 272, 64), 5, 1, 0),
+    # 16 keys: 48 planes × 1 key tile, 9 query tiles: G 264 // 48
+    "f32_gpt2_cross": ((4, 12, 12, 272, 16, 64), 5, 5, 2 * 5 * 48 * 16 * 64),
+    # 8 heads × 3 query tiles, 4 planes × 3 key tiles of 32 (d 128): G
+    # 264 // 12, 264 blocks
+    "f32_nano_mini": ((4, 8, 1, 92, 92, 128), 12, 22, 2 * 22 * 4 * 92 * 128),
+    # 36 query tiles, 8 planes × 5 key tiles: G 264 // 40
+    "f32_offline_encoder": ((8, 4, 1, 264, 264, 16), 17, 6,
+                            2 * 6 * 8 * 264 * 16),
+    "f32_offline_decoder": ((8, 4, 1, 128, 128, 16), 8, 16,
+                            2 * 16 * 8 * 128 * 16),
+}
+
+
+@pytest.mark.parametrize("label", list(F32_CASES))
+def test_f32_plans_at_the_family_shapes(label):
+    """f32_groups is one block a 64-row tile of the folded rows; the
+    dK/dV G stays within F32_DKV_BLOCKS_AN_SM blocks an SM over its key
+    tiles (at least 1, at most one a query tile), and the partial buffer
+    holds G dK and G dV planes when G > 1, none for G = 1."""
+    from image2text_torch.probes.kernel_times import FLASH_F32_FAMILIES
+
+    (b, h, hk, sq, skv, d), groups, dkv_g, part = F32_CASES[label]
+    assert (label, b, h, hk, sq, skv, d) in {c[:7] for c in FLASH_F32_FAMILIES}
+    assert fa.f32_groups(h, hk, sq) == groups
+    assert fa.f32_bwd_plan(b, h, hk, sq, skv, 132, d) == dkv_g
+    key_tiles = b * hk * -(-skv // fa.f32_dkv_keys(d))
+    query_tiles = (h if hk == 1 else 1) * -(-sq // fa.F32_DKV_ROWS)
+    assert 1 <= dkv_g <= query_tiles
+    assert dkv_g == 1 or dkv_g * key_tiles <= fa.F32_DKV_BLOCKS_AN_SM * 132
+    assert fa.part_elems(dkv_g, b * hk * skv * d) == part
+
+
+F32_CONSTANTS = ("F32_TILE_ROWS", "F32_TILE_KEYS", "F32_STAGE_FLOATS",
+                 "F32_STAGES", "F32_DKV_KEYS", "F32_DKV_ROWS")
+
+
+def _f32_constants():
+    return dict(zip(F32_CONSTANTS, fa._build.kernel_constants(
+        "flash_attention_f32", *F32_CONSTANTS)))
+
+
+def test_f32_tiling_is_read_from_the_kernel_source():
+    """The f32 kernels' tiling has one owner, flash_attention_f32.cu,
+    whose constants the plans read; its per-head-dim rules (the stage keys
+    of the forward and of dQ, the dK/dV split) are the ones the shared
+    memory test below mirrors."""
+    c = _f32_constants()
+    assert c == dict(F32_TILE_ROWS=64, F32_TILE_KEYS=64,
+                     F32_STAGE_FLOATS=4096, F32_STAGES=2, F32_DKV_KEYS=64,
+                     F32_DKV_ROWS=32)
+    assert (fa.F32_TILE_ROWS, fa.F32_DKV_KEYS, fa.F32_DKV_ROWS) == (
+        c["F32_TILE_ROWS"], c["F32_DKV_KEYS"], c["F32_DKV_ROWS"])
+    src = (fa._build.CSRC / "flash_attention_f32.cu").read_text()
+    for rule in ("return F32_STAGE_FLOATS / d < F32_TILE_KEYS ? "
+                 "F32_STAGE_FLOATS / d : F32_TILE_KEYS;",
+                 "return d > 64 ? stage_keys(d) / 2 : stage_keys(d);",
+                 "return d > 64 ? 2 : 1; }",
+                 "return F32_DKV_KEYS / dkv_split(d); }"):
+        assert rule in src, rule
+    assert [fa.f32_dkv_keys(d) for d in fa.KERNEL_HEAD_DIMS] == [
+        64, 64, 64, 32, 32]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_f32_shared_memory_fits_an_sm(d):
+    """Each f32 kernel's block fits the 232,448 bytes a block may take at
+    every head dim (rows of d + 4 floats: Q; K and V stages; dO; lse and
+    D), from the source's constants and rules, and two forward blocks (as
+    the source's launch bounds ask) and two dQ blocks fit an SM (228 KB,
+    1 KB a block reserved) up to head dim 128."""
+    c = _f32_constants()
+    row = (d + 4) * 4
+    keys = min(c["F32_TILE_KEYS"], c["F32_STAGE_FLOATS"] // d)
+    dq_keys = keys // 2 if d > 64 else keys
+    stages, rows = c["F32_STAGES"], c["F32_DKV_ROWS"]
+    smem = {"fwd": (c["F32_TILE_ROWS"] + 2 * stages * keys) * row,
+            "dq": (2 * c["F32_TILE_ROWS"] + 2 * stages * dq_keys) * row,
+            "dkv": (2 * fa.f32_dkv_keys(d) + 2 * stages * rows) * row
+            + 2 * stages * rows * 4}
+    assert max(smem.values()) <= 232448
+    if d <= 128:
+        assert 2 * (max(smem["fwd"], smem["dq"]) + 1024) <= 233472
+    if d == 128:   # the launch bound's comment
+        assert smem["fwd"] == 101376
+
+
 def test_flash_variants_edit_the_shipped_source():
     """Every text edit of ``probes/flash_variants.py`` finds its line in
     the shipped kernel source, so each variant differs from it only by
@@ -377,5 +493,17 @@ def test_flash_variants_edit_the_shipped_source():
     src = (fa._build.CSRC / "flash_attention.cu").read_text()
     assert VARIANTS["shipped"] == ()
     for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert old in src and old != new, (name, old)
+
+
+def test_f32_flash_variants_edit_the_shipped_source():
+    """Every text edit of ``probes/flash_variants.py``'s f32 variants finds
+    its text in the shipped f32 kernel source."""
+    from image2text_torch.probes.flash_variants import F32_VARIANTS
+
+    src = (fa._build.CSRC / "flash_attention_f32.cu").read_text()
+    assert F32_VARIANTS["shipped"] == ()
+    for name, edits in F32_VARIANTS.items():
         for old, new in edits:
             assert old in src and old != new, (name, old)
