@@ -9,7 +9,10 @@ Phases, each printing its lines:
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
 2. build    nvcc builds every kernel source from the checkout, and the
             probes' ablation builds of two of them, in parallel; the
-            dryrun's CPU ranks run beside it.
+            dryrun's CPU ranks run beside it.  tf32-sass: every 3xTF32
+            kernel (the f32 flash pair, the f32 MoE FFN, the f32 front's
+            cluster kernel) has HMMA.1688.F32.TF32 in its SASS
+            (cuobjdump -sass).
 3. kernels  each CUDA kernel against its plain PyTorch version, in bf16 at
             the flagship shapes, the plain version run on the kernel's own
             expert routes and held at the output's scale
@@ -182,9 +185,10 @@ serves, so that nothing builds twice:
             a grid point.
 
    nano-f32 local/nano-mini.yaml at its own precision 'no' (f32): the
-            serving path through moe_ffn's f32 form (launches as derived),
-            then its depth-2 form card against CPU (f32 logits within
-            1e-4, greedy ids equal).
+            serving path through moe_ffn's f32 form (launches as derived;
+            the rows of each f32 moe_ffn call recorded), then its depth-2
+            form card against CPU (f32 logits within 1e-4, greedy ids
+            equal).
 
 Then the HF decoder families at full width and depth, batch 256, random
 weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
@@ -193,8 +197,14 @@ weights from the seed (int4 weights and LoRA B as for GPT-2-medium):
             shape of the Llama-2-13B, Falcon-7B and GPT-2-xl decoders, at
             256 decode rows and at their prefill rows (256 x 17, 256 x
             65), reruns bitwise equal, torch.matmul on the dequantised
-            weight as a yardstick; moe_ffn's f32 form at nano-mini's
-            decode shape (f32 limits).
+            weight as a yardstick; moe_ffn's f32 form (3xTF32) on
+            nano-mini's FFN at every row count the paths gave it
+            ([nano-f32], [f32-chain]) and at 1, 17 and 4,097 rows, each
+            with and without the LN2 prologue and residual: f32 limits on
+            its own routes, errors against a float64 truth beside the
+            plain version's, reruns bitwise equal, ms, device ms by kernel,
+            kernels a call, the bound at the 3xTF32 and FFMA peaks,
+            registers and spills.
    llama13b, falcon7b, qwen, llama7b, gpt2xl  tpu/llama2-13b.yaml,
             tpu/falcon-7b.yaml, local/qwen-1.5b-deepseek-distill.yaml,
             local/llama2-7b.yaml, tpu/gpt2-xl.yaml: parameters, build
@@ -233,14 +243,17 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             synthetic-smoke.yaml's training shapes (b 8, 4 heads, one K/V
             head, d 16; the encoder's 264 rows, the decoder's 128, causal,
             with the soft-prompt bias; dropout 0.1, the plain version's
-            seed) and of the encoder front at the evaluate batch (4 images
-            of quality2_ck.npz's val stream), against their plain versions
-            at the f32 limits (utils/kernel_check.py F32_LIMITS): ms, the
-            bound (flash: 3xTF32 at the TF32 peak, beside the f32 FFMA
-            peak's; the front: the FFMA peak), the flash kernels' G,
-            registers and spills, F.scaled_dot_product_attention in
-            f32 and the projector's f32 torch.matmul as yardsticks; kept as
-            ``offline_*_f32_shape`` in the kernels' rows.
+            seed) and of the encoder front at the evaluate batch and the
+            trainer's eval batch (4 and 8 images of quality2_ck.npz's val
+            stream; its cluster route, the slab route and the other
+            cluster sizes forced), against their plain versions at the f32
+            limits (utils/kernel_check.py F32_LIMITS), the front also
+            against a float64 truth: ms, device ms, the bound (3xTF32 at
+            the TF32 peak, beside the f32 FFMA peak's), the flash
+            kernels' G, registers and spills,
+            F.scaled_dot_product_attention in f32 and the projector's f32
+            torch.matmul as yardsticks; kept as ``offline_*_f32_shape`` in
+            the kernels' rows.
 14. offline-train  the trainer twin (python -m image2text_torch.trainer)
             on synthetic-smoke.yaml, 20 steps x 2 loop epochs with eval and
             val, --chkpt_file and --resume_dir into a directory under
@@ -338,6 +351,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -410,15 +424,19 @@ DEVICE_TIMES = []
 
 
 def defer_device_ms(label: str, row: dict, fn, key: str = "device",
-                    held=None) -> None:
+                    held=None, launches=None) -> None:
     """Have ``row[key + "_ms"]`` measured at the end of the run: ``fn``'s
     device time in ms, the host's launch overhead excluded (torch.profiler's
     kernel durations), and ``row[key + "_kernels"]`` the same by kernel.
     With ``held`` (a tensor), ``fn`` takes it as its argument: the run
     keeps a host copy and puts it back on the device only to measure, so
-    that it does not count in later phases' peak memory."""
+    that it does not count in later phases' peak memory.  With
+    ``launches``, the device launches the profiler records a call (kept as
+    ``row[prefix + "kernels_a_call"]``, the prefix being ``key`` without
+    its "device") must be that number, rounded (a profiler session can
+    miss an event): the run fails otherwise."""
     if held is None:
-        DEVICE_TIMES.append((label, row, lambda: fn, key))
+        DEVICE_TIMES.append((label, row, lambda: fn, key, launches))
         return
     host, device = held.cpu(), held.device
 
@@ -426,7 +444,7 @@ def defer_device_ms(label: str, row: dict, fn, key: str = "device",
         arg = host.to(device)
         return lambda: fn(arg)
 
-    DEVICE_TIMES.append((label, row, make, key))
+    DEVICE_TIMES.append((label, row, make, key, launches))
 
 
 DEVICE_TRIES = 3   # profiler sessions a deferred device time may take
@@ -437,25 +455,81 @@ def run_device_times() -> None:
     A profiler session on the card's machine can record no kernel at all
     (every other session, in a run of many): such a session is taken
     again, up to DEVICE_TRIES times, and a time never recorded is kept as
-    None ("not measured"), never as 0."""
-    from image2text_torch.probes import device_kernel_ms
+    None ("not measured"), never as 0.  Where launches a call were asked
+    for (defer_device_ms), a count other than that, or none, fails."""
+    from image2text_torch.probes import device_kernels
 
-    for label, row, make, key in DEVICE_TIMES:
+    for label, row, make, key, want in DEVICE_TIMES:
         fn = make()
         for _ in range(DEVICE_TRIES):
-            split = device_kernel_ms(fn)
-            if split:
+            seen = device_kernels(fn)
+            if seen:
                 break
+        split = {name: ms for name, (ms, _) in seen.items()}
+        calls = sum(n for _, n in seen.values()) if seen else None
+        prefix = key[:-len("device")]
         row[f"{key}_ms"] = sum(split.values()) if split else None
         row[f"{key}_kernels"] = split
-        events = row["ms" if key == "device" else key[:-len("device")] + "ms"]
+        row[f"{prefix}kernels_a_call"] = calls
         shown = ("not measured (no kernel recorded in "
                  f"{DEVICE_TRIES} profiler sessions)" if not split
                  else f"{row[f'{key}_ms']:.4f} ms")
-        log(f"  {label}: device {shown} (CUDA events {events:.4f}); by "
+        log(f"  {label}: device {shown} (CUDA events "
+            f"{row[prefix + 'ms']:.4f}), {calls} launches a call; by "
             "kernel " + ", ".join(f"{name[:60]} {ms:.4f}"
                                   for name, ms in split.items()))
+        if want is not None and (calls is None or round(calls) != want):
+            raise AssertionError(f"{label}: {calls} device launches a call "
+                                 f"(torch.profiler), not {want}")
     DEVICE_TIMES.clear()
+
+
+# The kernels whose products run as 3xTF32 on the tensor cores, by source:
+# parts of their (mangled) names; every instantiation's SASS must hold the
+# TF32 tensor-core product HMMA.1688.F32.TF32.
+TF32_KERNELS = {
+    "fused_moe": ("moe32_kernel",),
+    "fused_frontend": ("front32_cluster_kernel",),
+    "flash_attention_f32": ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                            "flash_bwd_dq_f32_kernel")}
+
+
+def sass_tf32_counts(source: str) -> dict:
+    """{kernel (mangled name): its HMMA ... TF32 instructions} in the SASS
+    of ``csrc/<source>.cu``'s shipping build (``cuobjdump -sass``)."""
+    from image2text_torch.ops import _build
+
+    _build.load(source)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    return counts
+
+
+def phase_tf32_sass() -> dict:
+    """Every kernel of TF32_KERNELS, each instantiation, has the TF32
+    tensor-core product in its SASS; raises otherwise.  Returns the
+    counts."""
+    found = {}
+    for source, names in TF32_KERNELS.items():
+        counts = sass_tf32_counts(source)
+        for name in names:
+            fns = {f: n for f, n in counts.items() if name in f}
+            if not fns or not all(fns.values()):
+                raise AssertionError(f"{source}.cu: {name} without an HMMA "
+                                     f"TF32 product in its SASS: {fns}")
+            found.update(fns)
+    log("  HMMA ... TF32 instructions a kernel: " + ", ".join(
+        f"{f[:48]} {n}" for f, n in found.items()))
+    return found
 
 
 def nbytes(*ts) -> int:
@@ -998,41 +1072,144 @@ def phase_kernels(torch, model, args, results, tag=None):
             results.setdefault("moe_ffn", {"name": "moe_ffn"})[key] = row
 
 
-def moe_case(torch, mlp, rows: int, gen, label: str, ln=None,
-             dtype=None) -> dict:
-    """``moe_ffn`` on ``mlp``'s weights and ``rows`` random rows of
-    ``dtype`` (bf16 by default; f32: the kernel's f32 form, held at the f32
-    limits, its bound at the f32 FFMA peak) against its plain version on
-    the kernel's routes (``ln``: the LN2 prologue's weights), timed beside
-    the plain version; its bound."""
+def moe_case(torch, mlp, rows: int, gen, label: str, ln=None) -> dict:
+    """``moe_ffn`` on ``mlp``'s weights and ``rows`` random bf16 rows
+    against its plain version on the kernel's routes (``ln``: the LN2
+    prologue's weights), timed beside the plain version; its bound.  (The
+    f32 form: ``phase_moe_f32``.)"""
     from image2text_torch.ops.fused_moe import moe_ffn, moe_ffn_plain
 
-    ln, dt = ln or {}, dtype or torch.bfloat16
-    f32 = dt == torch.float32
+    ln, dt = ln or {}, torch.bfloat16
     fc, proj = mlp.c_fc.packed(dt), mlp.c_proj.packed(dt)
     xm = torch.randn(rows, fc.wa.shape[0], device=gen.device, dtype=dt,
                      generator=gen)
     got, want, rk, gv = run_pair(torch, moe_ffn, moe_ffn_plain,
                                  (xm, fc, proj), rows, fc.e, **ln)
     hidden = fc.l2w.shape[1]
-    err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}"
-                  + (" (f32 form)" if f32 else ""), got, want, rk, gv, fc.k,
-                  f32=f32)
+    err = compare(f"moe_ffn {label} rows={rows} hidden={hidden}", got, want,
+                  rk, gv, fc.k)
     ms = cuda_ms(torch, lambda: moe_ffn(xm, fc, proj, **ln), iters=20)
     plain = cuda_ms(torch, lambda: moe_ffn_plain(xm, fc, proj, **ln),
                     iters=20)
     flops, byts = moe_flops_bytes(xm, fc, proj)
-    bms, by = bound_ms(byts + nbytes(*ln.values()), flops,
-                       F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    bms, by = bound_ms(byts + nbytes(*ln.values()), flops)
     log(f"  moe_ffn {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
         f"{byts / 1e6:.2f} MB)")
-    row = dict(rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by)
-    if f32:
-        defer_device_ms(f"moe_ffn {label} (f32)", row,
-                        lambda: moe_ffn(xm, fc, proj, **ln))
-    return row
+    return dict(rows=rows, hidden=hidden, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+# Rows of every f32 ``moe_ffn`` call the model layers made on a path
+# ({path: {rows: calls}}, record_moe_rows), and the row counts held beside
+# them in phase_moe_f32.
+MOE_F32_PATH_ROWS = {}
+MOE_F32_EXTRA_ROWS = (1, 17, 4097)
+
+
+@contextlib.contextmanager
+def record_moe_rows(path: str):
+    """Record the rows of every f32 ``moe_ffn`` call the model layers make
+    inside the block under ``MOE_F32_PATH_ROWS[path]`` (the wrapper itself
+    runs, and counts, as ever)."""
+    import torch
+
+    from image2text_torch.models import layers
+
+    kernel, seen = layers.moe_ffn, MOE_F32_PATH_ROWS.setdefault(path, {})
+
+    def recording(x, *args, **kw):
+        if x.dtype == torch.float32:
+            n = x.numel() // x.shape[-1]
+            seen[n] = seen.get(n, 0) + 1
+        return kernel(x, *args, **kw)
+
+    layers.moe_ffn = recording
+    try:
+        yield seen
+    finally:
+        layers.moe_ffn = kernel
+
+
+def phase_moe_f32(torch, mlp, gen, results) -> None:
+    """moe_ffn's f32 form (csrc/fused_moe.cu's 3xTF32 kernels) on ``mlp``'s
+    weights (nano-mini's decoder FFN, 1024 → 2048 → 1024) at every row
+    count the paths gave it (MOE_F32_PATH_ROWS: the nano-mini f32 caption
+    call, [f32-chain]) and at MOE_F32_EXTRA_ROWS, each without and with the
+    LN2 prologue and residual: against its plain version on its own routes
+    (F32_LIMITS) and both against a float64 truth (max error over max
+    |truth|, relative L2), reruns bitwise equal; ms beside the plain
+    version's, its plan, the bound at the 3xTF32 peak beside the FFMA
+    peak's, registers and spills; device ms by kernel and the launches a
+    call read at the end (torch.profiler; the run fails unless each call
+    is one launch).  256 rows without the prologue is kept as
+    ``nano_mini_decode_f32_shape``, every case in ``f32_rows``."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import fused_moe as fm
+    from image2text_torch.probes import moe_f64_truth, truth_error
+    from image2text_torch.utils.device import sm_count
+
+    f32, dev = torch.float32, gen.device
+    fc, proj = mlp.c_fc.packed(f32), mlp.c_proj.packed(f32)
+    fin, hidden, width = fc.wa.shape[0], fc.l2w.shape[1], fc.g + fc.e * fc.r
+    nt = next(n for n in (4, 8, 12, 16) if width <= 8 * n)
+    res = _build.resources("fused_moe", f"moe32_kernelILi{nt}E")
+    path_rows = {n for seen in MOE_F32_PATH_ROWS.values() for n in seen}
+    if not path_rows:
+        raise AssertionError("no path launched moe_ffn's f32 form")
+    log(f"  rows a call the paths gave moe_ffn's f32 form ({{path: {{rows: "
+        f"calls}}}}): {MOE_F32_PATH_ROWS}; (registers, spill bytes) of the "
+        f"kernel (NT {nt}): {res}")
+    ln = dict(ln_w=1 + 0.1 * torch.randn(fin, device=dev, generator=gen),
+              ln_b=0.1 * torch.randn(fin, device=dev, generator=gen))
+    sweep = []
+    for n in sorted(path_rows | set(MOE_F32_EXTRA_ROWS)):
+        for prologue in (False, True):
+            x = torch.randn(n, fin, device=dev, generator=gen)
+
+            def call(x, prologue=prologue):
+                extra = dict(ln, residual=x) if prologue else {}
+                return fm.moe_ffn(x, fc, proj, **extra)
+
+            extra = dict(ln, residual=x) if prologue else {}
+            label = f"rows={n}" + (" LN2 + residual" if prologue else "")
+            got, want, rk, gv = run_pair(torch, fm.moe_ffn, fm.moe_ffn_plain,
+                                         (x, fc, proj), n, fc.e, **extra)
+            err = compare(f"moe_ffn f32 {label}", got, want, rk, gv, fc.k,
+                          f32=True)
+            if not torch.equal(got, call(x)):
+                raise AssertionError(f"moe_ffn f32 {label}: reruns differ")
+            truth = moe_f64_truth(fm, x, fc, proj, rk, **extra)
+            errs = truth_error(got, truth), truth_error(want, truth)
+            del got, want, truth
+            ms = cuda_ms(torch, lambda: call(x), iters=20)
+            plain = cuda_ms(torch, lambda: fm.moe_ffn_plain(
+                x, fc, proj, **extra), iters=20)
+            flops, byts = moe_flops_bytes(x, fc, proj)
+            byts += nbytes(*extra.values())
+            bms, by = bound_ms(byts, 3 * flops, TF32_FLOP_PER_S)
+            ffma, ffma_by = bound_ms(byts, flops, F32_FLOP_PER_S)
+            plan = fm.moe_plan_f32(n, fin, hidden, sm_count(dev))
+            log(f"  moe_ffn f32 {label}: {ms:.4f} ms (plain {plain:.4f}), "
+                f"{plan}: {-(-n // fm.F32_ROWS) * plan.slices} blocks, bound "
+                f"{bms:.5f} ms ({by}; 3xTF32: 3 x {flops / 1e9:.3f} GFLOP at "
+                f"495 TFLOP/s, {byts / 1e6:.2f} MB), at the FFMA peak "
+                f"{ffma:.5f} ({ffma_by}); error against float64 (max / "
+                f"max|truth|, rel L2): kernel {errs[0][0]:.3g} "
+                f"{errs[0][1]:.3g}, plain {errs[1][0]:.3g} {errs[1][1]:.3g}")
+            row = dict(rows=n, hidden=hidden, prologue=prologue,
+                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, ffma_bound_ms=ffma, plan=list(plan), truth_err=errs[0],
+                       plain_truth_err=errs[1], registers=res[0],
+                       spill_bytes=res[1])
+            defer_device_ms(f"moe_ffn f32 {label}", row, call, held=x,
+                            launches=1)
+            sweep.append(row)
+            del x, extra
+    kept = results.setdefault("moe_ffn", {"name": "moe_ffn"})
+    kept["nano_mini_decode_f32_shape"] = next(
+        r for r in sweep if r["rows"] == BATCH and not r["prologue"])
+    kept["f32_rows"] = sweep
 
 
 MOE_SWEEP_ROWS = (256, 512, 1024, 2048, 4096, 8192, 40960)
@@ -2735,6 +2912,7 @@ FLASH_OFFLINE = (
     ("offline_encoder", 8, 4, 1, 264, 264, 16, False, None, DROPOUT),
     ("offline_decoder", 8, 4, 1, 128, 128, 16, True, 8, DROPOUT))
 OFFLINE_FRONT_BATCH = 4   # evaluate.py's --num_candidates: a call's images
+OFFLINE_EVAL_BATCH = 8    # synthetic-smoke.yaml's batch: the trainer's eval calls
 
 
 def offline_model(torch, yaml: str, ck: str, device: str):
@@ -2764,13 +2942,12 @@ def phase_offline_kernels(torch, results):
     """The f32 kernels against their plain versions (kernel_check's f32
     limits): the flash forward and backward at the offline training
     shapes, the dropout seed shared, the backward rerun bitwise equal; the
-    front at the evaluate batch on quality2_ck.npz's weights and val
-    images.  ms, plain ms, the bound (the flash pair: 3xTF32 at the TF32
-    peak beside the f32 FFMA peak's, ``f32_flash_bound``; the front: the
-    f32 FFMA peak), the flash plan's groups, registers and spills
-    (``flash_f32_plan``), and as yardsticks
-    F.scaled_dot_product_attention in f32
-    (forward; backward alone) and the projector's f32 torch.matmul; kept
+    front at the evaluate batch and the trainer's eval batch on
+    quality2_ck.npz's weights and val images (``front_f32_case``).  ms,
+    plain ms, the bound (3xTF32 at the TF32 peak beside the f32 FFMA
+    peak's, ``f32_flash_bound``), the flash plan's groups, registers and
+    spills (``flash_f32_plan``), and as yardsticks
+    F.scaled_dot_product_attention in f32 (forward; backward alone); kept
     as each kernel's ``<label>_f32_shape`` beside its bf16 numbers."""
     from image2text_torch.ops import _build
     from image2text_torch.ops import flash_attention as fa
@@ -2845,42 +3022,92 @@ def phase_offline_kernels(torch, results):
 
     model, cfg = offline_model(torch, QUALITY2_YAML, QUALITY2_CK, "cuda")
     enc = model.vision_encoder
-    x = enc.feature_extractor(offline_images(torch, cfg, OFFLINE_FRONT_BATCH,
-                                             dev))
-    x = x.reshape(x.shape[0], enc.n_patches ** 2, enc.input_d)
-    w = enc.frontend_weights(x.dtype)
+    w = enc.frontend_weights(torch.float32)
+    for b, key in ((OFFLINE_FRONT_BATCH, "offline_f32_shape"),
+                   (OFFLINE_EVAL_BATCH, "offline_b8_f32_shape")):
+        x = enc.feature_extractor(offline_images(torch, cfg, b, dev))
+        front_f32_case(torch, x.reshape(b, enc.n_patches ** 2, enc.input_d),
+                       w, results, key)
+    del model
+
+
+def front_f32_case(torch, x, w, results, key: str) -> None:
+    """The f32 front on ``x`` (b, t, din) and ``w``: on the route
+    front_plan_f32 gives the shape, against its plain version (F32_LIMITS)
+    and both against a float64 truth; CLS rows exact, reruns bitwise
+    equal; ms beside the plain version's and the projector's f32
+    torch.matmul (a yardstick the port never calls), the bound (bytes, or
+    3xTF32 operations at the TF32 peak) beside the FFMA peak's, registers
+    and spills; the slab route (the first f32 design's two kernels) forced
+    and timed in the same process; device ms and launches a call of each
+    read at the end (torch.profiler; the run fails unless the cluster route
+    is one launch and the slab route two).  Kept as
+    ``results["fused_frontend"][key]``."""
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import fused_frontend as ff
+    from image2text_torch.probes import front_f64_truth, truth_error
+
     b, t, din = x.shape
     d, n_cls = w.w_p.shape[1], w.cls.shape[0]
-    got, again = fused_frontend(x, w), fused_frontend(x, w)
-    want = fused_frontend_plain(x, w)
+    plan = ff.front_plan_f32(t, din, d)
+    got, again = ff.fused_frontend(x, w), ff.fused_frontend(x, w)
+    want = ff.fused_frontend_plain(x, w)
     torch.cuda.synchronize()
-    err = compare(f"fused_frontend f32 b={b} t={t} din={din} d={d} "
-                  f"n_cls={n_cls}", got, want, f32=True)
+    label = f"fused_frontend f32 b={b} t={t} din={din} d={d} n_cls={n_cls}"
+    err = compare(f"{label} ({plan.route} route, cluster {plan.cluster} of "
+                  f"{plan.rows} rows)", got, want, f32=True)
     if not torch.equal(got[:, :n_cls], want[:, :n_cls]):
-        raise AssertionError("fused_frontend f32: CLS rows differ")
+        raise AssertionError(f"{label}: CLS rows differ")
     if not torch.equal(got, again):
-        raise AssertionError("fused_frontend f32: reruns differ")
-    ms = cuda_ms(torch, lambda: fused_frontend(x, w))
-    plain = cuda_ms(torch, lambda: fused_frontend_plain(x, w))
-    lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p))
+        raise AssertionError(f"{label}: reruns differ")
+    truth = front_f64_truth(ff, x, w)
+    errs = truth_error(got, truth), truth_error(want, truth)
+    ms = cuda_ms(torch, lambda: ff.fused_frontend(x, w), iters=20)
+    plain = cuda_ms(torch, lambda: ff.fused_frontend_plain(x, w))
+    lib = cuda_ms(torch, lambda: torch.matmul(x, w.w_p), iters=20)
+    others = {"slab": ff.FrontPlanF32("slab", 0, 0)}
+    other_ms = {}
+    for name, p in others.items():
+        out = ff.launch_front_f32(x, w, p)
+        torch.cuda.synchronize()
+        compare(f"{label} forced {p}", out, want, f32=True)
+        if not torch.equal(out, ff.launch_front_f32(x, w, p)):
+            raise AssertionError(f"{label} {p}: reruns differ")
+        other_ms[name] = cuda_ms(
+            torch, lambda p=p: ff.launch_front_f32(x, w, p), iters=20)
     flops = 2 * b * t * din * d
     n_bytes = nbytes(x, *w) + b * (n_cls + t) * d * x.element_size()
-    bms, by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
-    regs = [_build.resources("fused_frontend", k)
-            for k in ("gemm_f32_kernel", "slab_kernelIfE")]
-    log(f"  fused_frontend f32: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bms:.5f} ms ({by}; {flops / 1e6:.1f} MFLOP at the f32 peak, "
-        f"{n_bytes / 1e6:.2f} MB; kernels at {bms / ms:.3f} of it), f32 "
-        f"torch.matmul of the projector alone {lib:.4f} ms; (registers, "
-        f"bytes spilled) of the GEMM and the slab kernel {regs}")
-    results.setdefault("fused_frontend", {"name": "fused_frontend"})[
-        "offline_f32_shape"] = dict(
-            b=b, t=t, din=din, d=d, dtype="float32",
-            source="image2text_torch/csrc/fused_frontend.cu",
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-            bound_by=by, library_ms=lib, registers=[r for r, _ in regs],
-            spill_bytes=[sp for _, sp in regs])
-    del model
+    bms, by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    ffma, ffma_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+    regs = [_build.resources("fused_frontend", k) for k in (
+        "front32_cluster_kernel", "gemm_f32_kernel", "slab_kernelIfE")]
+    log(f"  {label}: {plan.route} route {ms:.4f} ms (plain {plain:.4f}); "
+        f"forced "
+        f"{ {k: round(v, 4) for k, v in other_ms.items()} }; bound "
+        f"{bms:.5f} ms ({by}; {n_bytes / 1e6:.3f} MB, 3 x "
+        f"{flops / 1e6:.1f} MFLOP at 495 TFLOP/s), at the FFMA peak "
+        f"{ffma:.5f} ({ffma_by}); f32 torch.matmul of the projector alone "
+        f"{lib:.4f} ms; error against float64 (max / max|truth|, rel L2): "
+        f"kernel {errs[0][0]:.3g} {errs[0][1]:.3g}, plain {errs[1][0]:.3g} "
+        f"{errs[1][1]:.3g}; (registers, bytes spilled) of the cluster "
+        f"kernel, the slab route's GEMM and slab kernel {regs}")
+    row = dict(b=b, t=t, din=din, d=d, dtype="float32",
+               source="image2text_torch/csrc/fused_frontend.cu",
+               plan=list(plan), max_abs_err=err, ms=ms, plain_ms=plain,
+               bound_ms=bms, bound_by=by, ffma_bound_ms=ffma,
+               library_ms=lib, truth_err=errs[0], plain_truth_err=errs[1],
+               registers=[r for r, _ in regs],
+               spill_bytes=[sp for _, sp in regs],
+               **{f"{k}_ms": v for k, v in other_ms.items()})
+    results.setdefault("fused_frontend", {"name": "fused_frontend"})[key] = row
+    kernels = {"cluster": 1, "slab": 2}
+    defer_device_ms(label, row, lambda xx: ff.fused_frontend(xx, w), held=x,
+                    launches=kernels[plan.route])
+    for name, p in others.items():
+        defer_device_ms(f"{label} forced {p}", row,
+                        lambda xx, p=p: ff.launch_front_f32(xx, w, p),
+                        key=f"{name}_device", held=x,
+                        launches=kernels[p.route])
 
 
 def offline_train_launches(cfg, trainer, seq_len: int):
@@ -3385,8 +3612,9 @@ def phase_nano(torch, args, results):
             describe(torch, model, "nano-f32", model.built_s, 0.0)
             log(f"[nano-f32] local/nano-mini.yaml serving path in f32 at "
                 f"full width and depth ({CARD})")
-            phase_serve(torch, model, args, results, "nano_mini_f32_caption",
-                        NANO_BOS)
+            with record_moe_rows("nano_mini_f32_caption"):
+                phase_serve(torch, model, args, results,
+                            "nano_mini_f32_caption", NANO_BOS)
         model = model.to(bf).eval()
         describe(torch, model, name, model.built_s, 0.0)
         log(f"[{name}] {NANO_YAML[name]} serving path at full width and "
@@ -3438,8 +3666,8 @@ def phase_hf_kernels(torch, results):
     Llama-2-13B, Falcon-7B and GPT-2-xl decoders, at the serving batch's
     256 decode rows and its prefill rows (``int4_case``; bf16 x, bf16
     scales as the models' cast leaves them); then the f32 form of moe_ffn
-    at nano-mini's decode shape (256 rows, 1024 → 2048 → 1024) on a block
-    of nano-mini's decoder built alone in f32."""
+    (``phase_moe_f32``) on the FFN of a block of nano-mini's decoder built
+    alone in f32 (1024 → 2048 → 1024)."""
     from image2text_torch.configs.reader import load_training_config
     from image2text_torch.models.layers import _MoEMLP
     from image2text_torch.models.quantization import quantize_blockwise
@@ -3469,9 +3697,7 @@ def phase_hf_kernels(torch, results):
     mlp = _MoEMLP(tc.attn_config.n_embd, tc.attn_config.bias,
                   tc.rotator_config, device=dev)
     init_parameters(mlp, gen)
-    results.setdefault("moe_ffn", {"name": "moe_ffn"})[
-        "nano_mini_decode_f32_shape"] = moe_case(
-            torch, mlp, BATCH, gen, "nano-mini decode", dtype=torch.float32)
+    phase_moe_f32(torch, mlp, gen, results)
 
 
 @contextlib.contextmanager
@@ -4410,7 +4636,9 @@ def phase_f32_chain(torch):
     t = cfg.transformer_config.max_block_size
     x = torch.randn(8, t, blk.attn.n_embd, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(3))
-    counts, (got, layout) = launch_counts(lambda: blk(x, want_lazy=True))
+    with record_moe_rows("f32_chain"):
+        counts, (got, layout) = launch_counts(
+            lambda: blk(x, want_lazy=True))
     cpu = copy.deepcopy(blk).cpu()
     want, layout_cpu = cpu(x.cpu(), want_lazy=True)
     log(f"  f32 sparse block (b 8, t {t}, d {blk.attn.n_embd}): launches "
@@ -5206,6 +5434,9 @@ def main() -> int:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
+    log(f"[tf32-sass] the 3xTF32 kernels' products on the tensor cores "
+        f"(cuobjdump -sass; {CARD})")
+    phase_tf32_sass()
 
     t0 = time.perf_counter()
     model = VisionEncoderDecoder(FLAGSHIP, device="cuda").init_weights(
@@ -5433,7 +5664,7 @@ def main() -> int:
              "device_kernels", "chunk", "resident_clusters", "other_route",
              "other_route_ms", "other_route_device_ms",
              "other_route_device_kernels", "sensitivity",
-             "launches_by_path")
+             "launches_by_path", "f32_rows")
     # a kernel no path launches (topk_ban_mask, the probes) has 0 launches
     kernels = [{k: r.get(k, 0) if k == "launches" else r[k] for k in keys}
                | {k: r[k] for k in extra if k in r}

@@ -165,58 +165,6 @@ struct Params32 {
   int plane_h, plane_off;  // the hash's plane of (batch i, head j): plane_off + i·plane_h + j
 };
 
-// -- 3xTF32 products ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = big + small to about 21 bits: big rounded to TF32, small the exact
-// remainder, whose low 13 bits the tensor core ignores (a cvt.rna of it
-// measured slower with no smaller errors against a float64 truth:
-// probes/flash_variants.py --f32, small_cvt_rna).
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-// mma.sync m16n8k8, TF32 in, f32 accumulate: c += a·b.  Fragments (g =
-// lane / 4, c = lane % 4): a0 (row g, k c), a1 (row g + 8, k c), a2 (row
-// g, k c + 4), a3 (row g + 8, k c + 4); b0 (k c, col g), b1 (k c + 4, col
-// g); c0, c1 (row g, cols 2c, 2c + 1), c2, c3 (row g + 8).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// c += a·b in 3xTF32: the small terms first, then big·big.  FRESH: into a
-// zeroed accumulator that one f32 add (rounded to nearest) then adds to c.
-// The tensor cores' accumulation truncates the sum of an mma's products
-// and its accumulator to the accumulator's precision, so on a long running
-// sum those truncations add up with one sign (all_running in
-// probes/flash_variants.py: up to 12× the errors at Llama-2-7B's call);
-// FRESH keeps them to one k-step's partial, at the cost of a zeroed
-// accumulator for each product in flight (registers).
-template <bool FRESH>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  if constexpr (FRESH) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(t, as, bb[0], bb[1]);
-    mma_tf32(t, ab, bs[0], bs[1]);
-    mma_tf32(t, ab, bb[0], bb[1]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) c[u] += t[u];
-  } else {
-    mma_tf32(c, as, bb[0], bb[1]);
-    mma_tf32(c, ab, bs[0], bs[1]);
-    mma_tf32(c, ab, bb[0], bb[1]);
-  }
-}
-
 // One warp's 16 × N products of A (16 rows, row stride LD) with the N rows
 // of B (row stride LD) over D columns: c[n] holds columns 8n..8n+7.
 template <int D, int N, bool FRESH>

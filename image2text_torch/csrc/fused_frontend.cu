@@ -53,15 +53,40 @@
 // take that (PERF.md, row 8).
 //
 // The f32 form (frontend_launch_f32: configs with ``precision: 'no'``, the
-// offline synthetic ones, d 64, t 256, din 128): the JAX kernel is
-// dtype-generic, so it runs in f32 here too.  The projector is a SIMT f32
-// tile product (gemm_f32_kernel; wgmma takes f32 only as TF32), then the
-// slab route's kernel instantiated for f32, nothing rounded narrower.
-// What bounds it there: operations and bytes about equal (an image's 4.2
-// MFLOP take 0.063 µs at 67 TFLOP/s of f32 FFMA, its 195 KB in and out
-// 0.058 µs); the tables, read once a call, tip it to bytes at the
-// evaluate batch of 4.
-#include "common.cuh"
+// offline synthetic ones, d 64, t 256, din 128; the JAX kernel is
+// dtype-generic, so it runs in f32 here too), nothing rounded narrower than
+// f32.  Two routes, chosen by shape (ops/fused_frontend.py::front_plan_f32):
+//
+// Cluster route (front32_cluster_kernel), where an image's slab rows split
+// over a cluster of at most F32_CLUSTER blocks of at most F32_FRONT_ROWS
+// rows (16, 32 or 64) and a block's operands fit F32_FRONT_SMEM bytes of
+// shared memory (the offline front: 8 blocks of 32 rows): one launch, a
+// cluster an image.  A block stages the projector Wp (din x d), its rows of
+// x and its rows of the tables lnw, lnb and wpe by cp.async, computes its
+// rows of z = x·Wp + bp on the tensor cores
+// as 3xTF32 mma.sync (flash_common.cuh's mma3x: each k-step's three products
+// into zeroed accumulators) into
+// shared memory, and takes each LayerNorm's statistics over the cluster:
+// its sum and its sum of squares about its own mean (two passes over its
+// rows) go to every block of the cluster through distributed shared memory
+// behind a cluster barrier, and every block combines them in rank order
+// (Chan et al.'s pairwise update: the two-pass variance of the slab, the
+// same bits in every block and every run).  y = LN(z)·lnw + lnb + wpe
+// overwrites z in shared memory; the output is written once, z never.
+// The first f32 design's two launches (below) ran the slab passes on one
+// block an image: 4 SMs at the evaluate batch of 4.
+//
+// Slab route, every other shape: the projector as a SIMT f32 tile product
+// (gemm_f32_kernel) writing z into the output's token rows, then the slab
+// route's kernel instantiated for f32 (slab_kernel<float>).
+//
+// What bounds it at the offline shapes: bytes, 1.0 MB at the evaluate batch
+// of 4 (x, the tables, Wp and the output: 0.31 µs at 3.35 TB/s), against
+// 16.8 MFLOP (0.10 µs at 495 TFLOP/s as three TF32 products).  Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W (device time): 0.0146 ms at b 4 and b
+// 8, where the slab route's two kernels took 0.0315.  Other cluster sizes
+// (build variants, probes/flash_variants.py --front-f32) are in PERF.md.
+#include "flash_common.cuh"
 #include "gemm.cuh"
 
 using namespace i2t;
@@ -78,6 +103,13 @@ constexpr int SLAB_MAX_CHUNK = 32768;
 // 32,768, 0.36 against 0.24).
 constexpr int CLUSTER_MIN_CHUNK = 24576;
 static_assert(SLAB_MAX_CHUNK == CLUSTER_THREADS * SLAB_VECS * 8, "a block's chunk");
+// The f32 cluster route: the most blocks an image (a portable cluster),
+// the most slab rows a block, its block and the shared memory a block may
+// take.
+constexpr int F32_CLUSTER = 8;
+constexpr int F32_FRONT_ROWS = 64;
+constexpr int F32_FRONT_THREADS = 128;
+constexpr int F32_FRONT_SMEM = 230400;
 
 namespace {
 
@@ -278,17 +310,6 @@ __global__ void __launch_bounds__(G32_THREADS) gemm_f32_kernel(const float* x, c
   }
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 // ``v`` into the f32 at ``slot`` in the shared memory of the cluster's
 // block ``rank``.
 __device__ __forceinline__ void store_remote(float* slot, uint32_t rank, float v) {
@@ -455,6 +476,192 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) cluster_slab_kernel(SlabAr
   }
 }
 
+
+// The f32 cluster route's operands.
+struct Front32 {
+  const float* x;    // (b, t, din)
+  const float* wp;   // (din, d)
+  const float* bp;   // (d) or null
+  const float* lnw;  // (t, d)
+  const float* lnb;  // (t, d) or null
+  const float* wpe;  // (t, d)
+  const float* cls;  // (n_cls, d)
+  float* out;        // (b, n_cls + t, d)
+  int b, t, din, d, n_cls;
+  int rows;          // slab rows a block: 16, 32 or 64
+  int dinp, ldw;     // din rounded up to 8; Wp's shared-memory row stride
+};
+
+// Wp's shared-memory row stride at width d: the least stride >= d that is 8
+// modulo 32 (a warp's B fragment reads fall on 32 distinct banks); x's is
+// dinp + 4.  A block holds Wp, its x rows, and z and its rows of lnw, lnb
+// and wpe (rows x d each).
+__host__ __device__ constexpr int front32_ldw(int d) { return (d + 23) / 32 * 32 + 8; }
+__host__ __device__ constexpr size_t front32_smem(int rows, int dinp, int d) {
+  return ((size_t)dinp * front32_ldw(d) + (size_t)rows * (dinp + 4) + (size_t)4 * rows * d) *
+         sizeof(float);
+}
+static_assert(front32_smem(32, 128, 64) <= F32_FRONT_SMEM, "the offline front fits");
+
+// Grid (cluster, b), a cluster an image: block rank r takes slab rows
+// [r·rows, (r + 1)·rows) of image blockIdx.y.
+__global__ void __launch_bounds__(F32_FRONT_THREADS) front32_cluster_kernel(Front32 p) {
+  constexpr int WARPS = F32_FRONT_THREADS / 32;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ float slots[2][2][F32_CLUSTER];  // [statistic pair][sum, M2][rank]
+  __shared__ float red[2][WARPS];
+  // every block of the cluster has started before one writes into
+  // another's slots: waited on before the first exchange
+  cluster_arrive();
+  const int rank = (int)cluster_rank(), csize = gridDim.x, d = p.d, ldx = p.dinp + 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  float* ws = fsm;                             // Wp: dinp x ldw
+  float* xs = ws + (size_t)p.dinp * p.ldw;     // the block's x rows: rows x ldx
+  float* zs = xs + (size_t)p.rows * ldx;       // z, then y: rows x d
+  float* lw = zs + (size_t)p.rows * d;         // the block's rows of lnw,
+  float* lb = lw + (size_t)p.rows * d;         // lnb (where given)
+  float* pe = lb + (size_t)p.rows * d;         // and wpe
+  const int img = blockIdx.y, r0 = rank * p.rows;
+  const int nr = max(0, min(p.rows, p.t - r0));  // the block's rows of the slab
+  // Wp, the block's rows of x and of the tables; rows and columns past din,
+  // and rows past t, zero-filled
+  for (int i = threadIdx.x; i < p.dinp * (d / 4); i += F32_FRONT_THREADS) {
+    const int r = i / (d / 4), c = (i % (d / 4)) * 4;
+    cp_async16(ws + r * p.ldw + c, p.wp + (r < p.din ? (size_t)r * d + c : 0), r < p.din);
+  }
+  for (int i = threadIdx.x; i < nr * d / 4; i += F32_FRONT_THREADS) {
+    const size_t at = (size_t)r0 * d + 4 * i;
+    cp_async16(lw + 4 * i, p.lnw + at, true);
+    cp_async16(pe + 4 * i, p.wpe + at, true);
+    if (p.lnb != nullptr) cp_async16(lb + 4 * i, p.lnb + at, true);
+  }
+  const float* xi = p.x + ((size_t)img * p.t + min(r0, p.t)) * p.din;
+  if (p.din % 4 == 0) {
+    for (int i = threadIdx.x; i < p.rows * (p.dinp / 4); i += F32_FRONT_THREADS) {
+      const int r = i / (p.dinp / 4), c = (i % (p.dinp / 4)) * 4;
+      const bool in = r < nr && c < p.din;
+      cp_async16(xs + r * ldx + c, in ? xi + (size_t)r * p.din + c : p.x, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < p.rows * p.dinp; i += F32_FRONT_THREADS) {
+      const int r = i / p.dinp, c = i % p.dinp;
+      const bool in = r < nr && c < p.din;
+      cp_async4(xs + r * ldx + c, in ? xi + (size_t)r * p.din + c : p.x, in);
+    }
+  }
+  cp_async_commit();
+  // the CLS rows, spread over the cluster
+  float* head = p.out + (size_t)img * (p.n_cls + p.t) * d;
+  for (int i = rank * F32_FRONT_THREADS + threadIdx.x; i < p.n_cls * d;
+       i += csize * F32_FRONT_THREADS)
+    head[i] = p.cls[i];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // z = x·Wp + bp: warp w takes m16 tile w % mt and its share of the n8
+  // tiles, up to 8 at a time in registers
+  const int mt = p.rows / 16, groups = WARPS / mt, nt = d / 8;
+  const int per = (nt + groups - 1) / groups, m0 = (warp % mt) * 16;
+  const int j0 = (warp / mt) * per, j1 = min(j0 + per, nt);
+  const float* a = xs + (m0 + g) * ldx + c4;
+  for (int jb = j0; jb < j1; jb += 8) {
+    float c[8][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < p.dinp; k0 += 8) {
+      uint32_t ab[4], as[4];
+      split(a[k0], ab[0], as[0]);
+      split(a[8 * ldx + k0], ab[1], as[1]);
+      split(a[k0 + 4], ab[2], as[2]);
+      split(a[8 * ldx + k0 + 4], ab[3], as[3]);
+      const float* b = ws + (k0 + c4) * p.ldw + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (jb + j >= j1) break;
+        uint32_t bb[2], bs[2];
+        split(b[8 * (jb + j)], bb[0], bs[0]);
+        split(b[4 * p.ldw + 8 * (jb + j)], bb[1], bs[1]);
+        mma3x(c[j], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (jb + j >= j1) break;
+      const int col = 8 * (jb + j) + 2 * c4;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int cc = col + (u & 1);
+        const float v = c[j][u];
+        zs[(m0 + g + 8 * (u >> 1)) * d + cc] = p.bp != nullptr ? v + p.bp[cc] : v;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int ne = nr * d;  // the block's elements of the slab
+  const float inv_n = 1.f / ((float)p.t * (float)d);
+  // Σ of every thread's v over the block, warps in order
+  auto block_sum = [&](float v, int k) {
+    v = warp_sum(v);
+    if (lane == 0) red[k][warp] = v;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += red[k][w];
+    return total;
+  };
+  // The slab's mean and 1 / sqrt(variance + eps) from zs: the block's sum
+  // and its sum of squares about its own mean, exchanged through slot pair
+  // ``s`` of every block of the cluster, combined in rank order.
+  auto slab_stats = [&](int s, float& mean, float& rstd) {
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < ne; i += F32_FRONT_THREADS) acc += zs[i];
+    const float sum = block_sum(acc, 0);
+    const float own = ne > 0 ? sum / (float)ne : 0.f;
+    acc = 0.f;
+    for (int i = threadIdx.x; i < ne; i += F32_FRONT_THREADS) {
+      const float e = zs[i] - own;
+      acc = fmaf(e, e, acc);
+    }
+    const float m2 = block_sum(acc, 1);
+    if ((int)threadIdx.x < csize) {
+      store_remote(&slots[s][0][rank], threadIdx.x, sum);
+      store_remote(&slots[s][1][rank], threadIdx.x, m2);
+    }
+    cluster_arrive();
+    cluster_wait();
+    float total = 0.f;
+    for (int r = 0; r < csize; ++r) total += slots[s][0][r];
+    mean = total * inv_n;
+    float sq = 0.f;
+    for (int r = 0; r < csize; ++r) {
+      const float cnt = (float)(max(0, min(p.rows, p.t - r * p.rows)) * d);
+      if (cnt > 0.f) {
+        const float dm = slots[s][0][r] / cnt - mean;
+        sq += slots[s][1][r] + cnt * dm * dm;
+      }
+    }
+    rstd = rsqrtf(sq * inv_n + 1e-5f);
+  };
+
+  const bool has_lnb = p.lnb != nullptr;
+  cluster_wait();
+  float mean1, rstd1, mean2, rstd2;
+  slab_stats(0, mean1, rstd1);
+  // y = LN(z) + wpe in place (each thread its own elements)
+  for (int i = threadIdx.x; i < ne; i += F32_FRONT_THREADS) {
+    float u = (zs[i] - mean1) * rstd1 * lw[i];
+    if (has_lnb) u += lb[i];
+    zs[i] = u + pe[i];
+  }
+  slab_stats(1, mean2, rstd2);
+  float* o = head + (size_t)(p.n_cls + r0) * d;
+  for (int i = threadIdx.x; i < ne; i += F32_FRONT_THREADS) {
+    float u = (zs[i] - mean2) * rstd2 * lw[i];
+    if (has_lnb) u += lb[i];
+    o[i] = u;
+  }
+}
+
 }  // namespace
 
 static int cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int chunk,
@@ -533,20 +740,66 @@ extern "C" int frontend_launch(const void* x, const void* wp, const void* bp, co
 }
 
 // The f32 front: x (b, t, din) → out (b, n_cls + t, d), all f32; operands
-// as frontend_launch's.  gemm_f32_kernel, then the slab route's kernel
-// instantiated for f32 (d a multiple of 8).
+// as frontend_launch's.  ``cluster`` > 0: the cluster route, ``cluster``
+// blocks an image (at most F32_CLUSTER) of ``rows`` slab rows each (16,
+// 32 or 64, at most F32_FRONT_ROWS, covering t, their operands within
+// F32_FRONT_SMEM); ``cluster`` 0: the slab route (d a multiple of 8 either
+// way).
 extern "C" int frontend_launch_f32(const void* x, const void* wp, const void* bp,
                                    const void* lnw, const void* lnb, const void* wpe,
                                    const void* cls, void* out, int b, int t, int din, int d,
-                                   int n_cls, void* stream) {
-  if (b <= 0 || t <= 0 || din <= 0 || n_cls < 0 || d <= 0 || d % 8)
+                                   int n_cls, int cluster, int rows, void* stream) {
+  if (b <= 0 || t <= 0 || din <= 0 || n_cls < 0 || d <= 0 || d % 8 || cluster < 0 ||
+      cluster > F32_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b * t;
-  gemm_f32_kernel<<<dim3((d + G32_TILE - 1) / G32_TILE, (rows + G32_TILE - 1) / G32_TILE),
+  if (cluster > 0) {
+    const int dinp = (din + 7) / 8 * 8;
+    const size_t smem = front32_smem(rows, dinp, d);
+    if ((rows != 16 && rows != 32 && rows != 64) || rows > F32_FRONT_ROWS ||
+        (long long)cluster * rows < t || (cluster - 1) * rows >= t || smem > F32_FRONT_SMEM)
+      return (int)cudaErrorInvalidValue;
+    Front32 p;
+    p.x = static_cast<const float*>(x);
+    p.wp = static_cast<const float*>(wp);
+    p.bp = static_cast<const float*>(bp);
+    p.lnw = static_cast<const float*>(lnw);
+    p.lnb = static_cast<const float*>(lnb);
+    p.wpe = static_cast<const float*>(wpe);
+    p.cls = static_cast<const float*>(cls);
+    p.out = static_cast<float*>(out);
+    p.b = b;
+    p.t = t;
+    p.din = din;
+    p.d = d;
+    p.n_cls = n_cls;
+    p.rows = rows;
+    p.dinp = dinp;
+    p.ldw = front32_ldw(d);
+    cudaError_t err = cudaFuncSetAttribute(
+        front32_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    cfg.gridDim = dim3(cluster, b, 1);
+    cfg.blockDim = dim3(F32_FRONT_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, front32_cluster_kernel, p);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  const int n_rows = b * t;
+  gemm_f32_kernel<<<dim3((d + G32_TILE - 1) / G32_TILE, (n_rows + G32_TILE - 1) / G32_TILE),
                     G32_THREADS, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bp),
-      static_cast<float*>(out), rows, t, n_cls, din, d);
+      static_cast<float*>(out), n_rows, t, n_cls, din, d);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   SlabArgsT<float> p;

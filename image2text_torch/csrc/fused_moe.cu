@@ -47,9 +47,9 @@
 // ragged tiles are masked.
 //
 // The f32 form (moe_ffn_launch_f32, at the end of this file) computes the
-// same FFN on f32 operands with SIMT FFMA products, nothing rounded
-// narrower; see its own note.
-#include "common.cuh"
+// same FFN on f32 operands with 3xTF32 tensor-core products, nothing
+// rounded narrower, in one launch; see its own note.
+#include "flash_common.cuh"
 
 using namespace i2t;
 
@@ -579,36 +579,84 @@ extern "C" int moe_ffn_launch(const void* x, void* out, int n, int fin, int hidd
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// The f32 form: the same FFN for f32 operands (the configurations served at
-// precision 'no', e.g. local/nano-mini.yaml), every product a true f32 FFMA
-// on the SIMT cores (wgmma takes f32 only as TF32) and nothing rounded
-// narrower.  One regime at every row count: the hidden dimension split over
-// blocks, three kernels, no atomics.
+// The f32 form: the same FFN on f32 operands (the configurations served at
+// precision 'no', e.g. local/nano-mini.yaml, and the f32 encoder blocks'
+// composed forward), nothing rounded narrower than f32.  Every product runs
+// on the tensor cores as 3xTF32 mma.sync m16n8k8 (flash_common.cuh's mma3:
+// each operand split into two TF32 halves, three products, each k-step into
+// a zeroed accumulator that an f32 add then adds to the running sum, since
+// the tensor cores truncate their accumulation).
 //
-// * moe32_first_kernel (block: 16 rows): [LN →] x·[g0w | l1w], MoELinear 1's
-//   gate, softmax, top-k and combine c1; writes hw1 = z ∘ expand(c1) (n, e·r)
-//   and c1 (n, e) to the scratch buffer.
-// * moe32_hidden_kernel (block: 16 rows x a slice of the hidden dimension):
-//   for each 32-wide chunk, h = gelu(hw1·l2w1 + c1·l2b1), then its part of
-//   MoELinear 2's product h·[g0w2 | l1w2], written (slices, n, g + e·r).
-// * moe32_finish_kernel (block: 16 rows x 128 output columns): sums the
-//   slices' parts in slice order, MoELinear 2's gate, top-k and combine c2,
-//   y = hw2·l2w2 + c2·l2b2 [+ residual] through the output row map.
+// What held the first design back (three SIMT FFMA kernels on 16-row
+// blocks): at nano-mini's decode (256 rows, 1024 → 2048) its first kernel
+// ran 16 blocks on 132 SMs.  Here one kernel, moe32_kernel: a block of
+// F_WARPS warps owns F_ROWS rows, its warps splitting each product's depth
+// (16 of every 64 deep chunk of x·[g0w | l1w]; 16 of every 64 columns of a
+// hidden or output chunk), so every weight is read once a block and split
+// into its TF32 halves once.  The hidden dimension is split over the
+// ``slices`` blocks of a thread-block cluster (ops/fused_moe.py::
+// moe_plan_f32: about a block an SM, at most F_MAX_SLICES; 16 row tiles x
+// 8 slices at 256 rows), and the cluster shares the rest of the FFN:
 //
-// Widths: any fin and hidden, g + e·r and e·r up to 128, e up to 8.  What
-// bounds it at nano-mini's decode (256 rows, 1024 → 2048): operations, 0.25
-// GFLOP, 3.9 µs at 67 TFLOP/s of f32 FFMA, over its ~4 MB of bytes (1.2
-// µs); the launches and filling the card decide at such sizes.
+// * MoELinear 1: block r takes the r-th share of x·[g0w | l1w]'s depth
+//   ([LN →] x staged by cp.async), its warps' partial accumulators summed in
+//   warp order, and every block sums the cluster's partials in rank order
+//   from their shared memory (distributed shared memory, behind a cluster
+//   barrier): the same f32 bits in every block.  Then the gate (its steps
+//   spread over the block), softmax, top-k and combine, and hw1 = z ∘
+//   expand(c1) in shared memory.
+// * the hidden slice: per 64-wide chunk h = gelu(hw1·l2w1 + c1·l2b1) in
+//   registers, fed from the accumulator layout as the A operand of
+//   h·[g0w2 | l1w2] (the accumulator's columns 2c, 2c + 1 are the A
+//   fragment's k c, c + 4: the weight's rows are read in that order); the
+//   slices' parts of MoELinear 2's accumulators summed in rank (slice)
+//   order as above.
+// * MoELinear 2's gate, top-k and combine, then block r's share of the
+//   output columns, y = hw2·l2w2 + c2·l2b2 [+ residual] through the output
+//   row map.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (probes/kernel_times.py
+// --moe-front-f32-only, device time): 0.0531 ms at 256 rows, where the
+// three SIMT kernels took 0.1768; 0.137 at 1,280 rows (0.294), 0.045 at 1
+// and 17 (0.129, 0.159), 0.224 at 4,097 (0.573).  Tried in throwaway
+// builds and slower: every slice's block recomputing MoELinear 1, with a
+// second kernel summing the slices' parts; 8-warp blocks (one a SM: 16
+// clusters of 8 then take two waves); the gate a warp a row; the three
+// products of a k-step chained into one accumulator in the 16-column
+// products (only two chains a warp to overlap; hence mma3x there).
+// Weights and x are staged in shared memory by cp.async, double-buffered
+// (16-byte copies where fin, hidden and g + e·r are multiples of 4, else
+// 4-byte ones), rows and columns past the operands zero-filled; the
+// hidden-wide activation never leaves the SM.  No atomics: partials are
+// summed in a fixed order, so reruns are bitwise equal.  Widths: any fin
+// and hidden, g + e·r up to F_MAXA, e up to MAXE; the accumulators' width
+// (NT n8 tiles: g + e·r up to 32, 64, 96 or 128) is a template parameter.
+// The host's plan reads F_ROWS, F_CHUNK and F_MAX_SLICES from this file.
+//
+// What bounds it at nano-mini's decode: 0.25 GFLOP (three TF32 products a
+// FLOP: 1.6 µs at 495 TFLOP/s) against 4.1 MB of bytes (1.2 µs).
 
 namespace {
 
-constexpr int F_ROWS = 16;    // rows a block
-constexpr int F_THREADS = 128;
-constexpr int F_K = 32;       // depth of a staged x / weight chunk
-constexpr int F_CHUNK = 32;   // hidden columns a chunk of the hidden kernel
-constexpr int F_MAXA = 128;   // most g + e·r (and e·r)
-constexpr int F_COLS = 128;   // output columns a finishing block
+constexpr int F_WARPS = 4;              // warps of an f32 block
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_ROWS = 16;              // rows a block: one m16 tile
+constexpr int F_KD = 64;                // depth of a staged x / [g0w | l1w] chunk: 16 a warp
+constexpr int F_CHUNK = 64;             // hidden or output columns a stage: 16 a warp
+constexpr int F_MAXA = 128;             // most g + e·r
+constexpr int F_MAX_SLICES = 8;         // most hidden slices: a cluster (the portable size)
+constexpr int F_LDX = F_KD + 4;         // shared-memory row strides (floats) of A operands,
+constexpr int F_LDC = F_CHUNK + 8;      // of an l2w chunk (B read in k order),
+constexpr int F_LDA = F_MAXA + 1;       // of the summed accumulators (a row a thread)
+static_assert(F_KD == 16 * F_WARPS && F_CHUNK == 16 * F_WARPS, "16 of a chunk a warp");
+
+// Row strides of the [g0w | l1w] stage (B read in k order) and of the
+// [g0w2 | l1w2] stage (B read in the accumulator's column order) for NT n8
+// tiles: a warp's fragment reads fall on 32 distinct banks.
+__host__ __device__ constexpr int ldw1(int nt) { return 8 * nt + 8; }
+__host__ __device__ constexpr int ldw2(int nt) { return 8 * nt + 4; }
 
 struct Args32 {
   const float* x;
@@ -621,35 +669,202 @@ struct Args32 {
   const float *wa1, *ba1, *g1w1, *g1b1, *l2w1, *l2b1;
   const float *wa2, *ba2, *g1w2, *g1b2, *l2w2, *l2b2;
   int g, e, r, k;
+  int A, ER, ERP;        // g + e·r; e·r; e·r rounded up to 8
+  int A4;                // g + e·r rounded up to 4: a partial's row stride
   float sqrt_fin, sqrt_hidden;
   uint8_t* routes;
-  float* hw1;   // (n, e·r)
-  float* c1;    // (n, e)
-  float* part;  // (slices, n, g + e·r)
-  int chunks_per_slice;
+  int slices;            // blocks of a cluster: hidden slices, and shares of the rest
+  int kchunks_per_slice; // depth chunks of F_KD of MoELinear 1 a block
+  int chunks_per_slice;  // hidden chunks of F_CHUNK columns a block
+  int cols_per_block;    // output columns a block (a multiple of F_CHUNK)
+  int vec;               // 16-byte copies: fin, hidden and A multiples of 4
+  int stage;             // floats of a pipeline stage
 };
 
-// One row's gate from its f32 accumulators ``acc`` (g + e·r values): the
-// gate MLP, softmax(lg / sqrt_in), top-k with lowest-index ties; the kept
-// gate values (unnormalised) go to ``comb`` (e values), the bit mask is
-// returned.
-__device__ unsigned gate32(const float* acc, const float* ba, const float* g1w,
-                           const float* g1b, int g, int e, int k, float sqrt_in,
-                           float* comb) {
-  float lg[MAXE];
-#pragma unroll
-  for (int q = 0; q < MAXE; ++q) lg[q] = 0.f;
-  for (int j = 0; j < g; ++j) {
-    const float a = act(acc[j] + ba[j]);
-#pragma unroll
-    for (int q = 0; q < MAXE; ++q)
-      if (q < e) lg[q] = fmaf(a, g1w[j * e + q], lg[q]);
+// Floats of a stage: the larger of MoELinear 1's (an x chunk, a [g0w |
+// l1w] chunk) and a hidden chunk's (l2w1 then l2b1: ERP + 8 rows, [g0w2 |
+// l1w2]); an output chunk's (l2w2 then l2b2) is smaller.
+__host__ __device__ constexpr int stage32(int nt, int erp) {
+  return F_ROWS * F_LDX + F_KD * ldw1(nt) > (erp + 8) * F_LDC + F_CHUNK * ldw2(nt)
+             ? F_ROWS * F_LDX + F_KD * ldw1(nt)
+             : (erp + 8) * F_LDC + F_CHUNK * ldw2(nt);
+}
+// A block's shared memory: two stages, then hw (F_ROWS x (ERP + 12)), the
+// combine weights (F_ROWS x MAXE), the LayerNorm statistics (2 x F_ROWS)
+// and, in a cluster, the block's two partials the cluster reads (2 x F_ROWS
+// x A4).  Between pipelines the first stage holds the warps' partial
+// accumulators (F_WARPS x F_ROWS x (8·NT + 8) floats) and the gate's
+// scratch (F_ROWS x (g + 1), g x e, F_ROWS x MAXE, A + e floats; g <
+// F_MAXA), the second the summed accumulators (F_ROWS x F_LDA): two blocks
+// of the nano-mini widths (NT 12) fit an SM.
+__host__ __device__ constexpr size_t smem32(int stage, int erp, int a4, bool cluster) {
+  return ((size_t)2 * stage + F_ROWS * (erp + 12) + F_ROWS * MAXE + 2 * F_ROWS +
+          (cluster ? 2 * F_ROWS * a4 : 0)) *
+         sizeof(float);
+}
+static_assert(smem32(stage32(16, 128), 128, 128, true) <= 232448,
+              "the widest block fits an SM");
+static_assert(2 * (smem32(stage32(12, 64), 64, 96, true) + 1024) <= 233472,
+              "two blocks of the nano-mini widths fit an SM");
+constexpr int GATE_FLOATS = F_ROWS * F_MAXA + F_MAXA * MAXE + F_ROWS * MAXE + F_MAXA + MAXE;
+static_assert(F_WARPS * F_ROWS == F_KD && GATE_FLOATS <= stage32(4, 8) &&
+                  F_ROWS * F_LDA <= stage32(4, 8),
+              "the warps' partials and the gate's scratch fit the first stage, the sums "
+              "the second");
+
+// The block's shared memory.  Plain pointers into the one extern array,
+// never an array of pointers indexed at run time: such an array goes to
+// local memory, and every pointer read from it loses its address space
+// (generic loads where shared ones belong).
+struct Smem32 {
+  float* stage;  // the two stages: stage i at stage + i·stride
+  int stride;    // floats of a stage
+  float* hw;     // F_ROWS x (ERP + 12): [hw | c] of MoELinear 1, then 2 (the A operands)
+  float* acc;    // F_ROWS x F_LDA, in the second stage: a MoELinear's accumulators, summed
+  float* c;      // F_ROWS x MAXE: its combine weights
+  float* st;     // LayerNorm mean (F_ROWS), then rstd (F_ROWS)
+  float* part;   // in a cluster: the block's partials of MoELinear 1, then 2 (F_ROWS x A4 each)
+};
+
+__device__ __forceinline__ Smem32 carve32(float* sm, const Args32& p) {
+  Smem32 s;
+  s.stage = sm;
+  s.stride = p.stage;
+  s.hw = sm + 2 * p.stage;
+  s.acc = sm + p.stage;
+  s.c = s.hw + F_ROWS * (p.ERP + 12);
+  s.st = s.c + F_ROWS * MAXE;
+  s.part = s.st + 2 * F_ROWS;
+  return s;
+}
+
+// rows x COLS floats of a row-major matrix (row stride lds) from its
+// (r0, c0) into dst (row stride ldd) by cp.async, zeros past row nrows and
+// column ncols.  vec: 16-byte copies (lds, c0 and ncols multiples of 4).
+template <int COLS>
+__device__ __forceinline__ void copy32(float* dst, int ldd, const float* src, size_t lds, int r0,
+                                       int c0, int rows, int nrows, int ncols, bool vec) {
+  if (vec) {
+    constexpr int PER = COLS / 4;
+    for (int i = threadIdx.x; i < rows * PER; i += F_THREADS) {
+      const int r = i / PER, c = (i % PER) * 4;
+      const bool in = r0 + r < nrows && c0 + c < ncols;
+      cp_async16(dst + r * ldd + c, in ? src + (size_t)(r0 + r) * lds + c0 + c : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * COLS; i += F_THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const bool in = r0 + r < nrows && c0 + c < ncols;
+      cp_async4(dst + r * ldd + c, in ? src + (size_t)(r0 + r) * lds + c0 + c : src, in);
+    }
   }
+}
+
+// The double-buffered pipeline: for chunk i of n, ``load(i, buf)`` issues
+// its cp.async copies and ``use(i, buf)`` computes on them.
+template <class Load, class Use>
+__device__ __forceinline__ void pipeline32(const Smem32& s, int n, Load load, Use use) {
+  if (n <= 0) return;
+  load(0, s.stage);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      load(i + 1, s.stage + ((i + 1) & 1) * s.stride);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    use(i, s.stage + (i & 1) * s.stride);
+    __syncthreads();
+  }
+}
+
+// Four floats at ``local`` in the shared memory of the cluster's block
+// ``rank``.
+__device__ __forceinline__ float4 ld_cluster4(const float* local, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(local))), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// A MoELinear's accumulators on the block's rows into s.acc: the warps'
+// partials (16 x 8·NT each, the mma layout) summed in warp order through the
+// stage area; in a cluster the block's sum goes to s.part[which], and every
+// block sums the cluster's in rank order from their shared memory, behind
+// a cluster barrier (every block's partial is in).
+template <int NT>
+__device__ __forceinline__ void sum_partials(const Args32& p, const Smem32& s,
+                                             const float (&acc)[NT][4], int which) {
+  constexpr int W = 8 * NT + 8;  // 8 modulo 32: a warp's float2 stores on distinct banks
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  float* red = s.stage;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(red + (warp * F_ROWS + g + 8 * h) * W + 8 * n + 2 * c4) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  __syncthreads();
+  const bool cluster = p.slices > 1;
+  float* dst = cluster ? s.part + which * F_ROWS * p.A4 : s.acc;
+  const int ld = cluster ? p.A4 : F_LDA;
+  for (int i = threadIdx.x; i < F_ROWS * p.A; i += F_THREADS) {
+    const int rr = i / p.A, col = i % p.A;
+    float v = red[rr * W + col];
+#pragma unroll
+    for (int w = 1; w < F_WARPS; ++w) v += red[(w * F_ROWS + rr) * W + col];
+    dst[rr * ld + col] = v;
+  }
+  if (!cluster) {
+    __syncthreads();
+    return;
+  }
+  cluster_arrive();
+  cluster_wait();
+  const float* mine = s.part + which * F_ROWS * p.A4;
+  for (int i = threadIdx.x; i < F_ROWS * p.A4 / 4; i += F_THREADS) {
+    const int at = 4 * i, rr = at / p.A4, col = at % p.A4;
+    float4 u[F_MAX_SLICES];
+#pragma unroll
+    for (int r = 0; r < F_MAX_SLICES; ++r)
+      if (r < p.slices) u[r] = ld_cluster4(mine + at, r);
+    float4 v = u[0];
+#pragma unroll
+    for (int r = 1; r < F_MAX_SLICES; ++r) {
+      if (r < p.slices) {
+        v.x += u[r].x;
+        v.y += u[r].y;
+        v.z += u[r].z;
+        v.w += u[r].w;
+      }
+    }
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < p.A) s.acc[rr * F_LDA + col + j] = vs[j];
+  }
+  __syncthreads();
+}
+
+// A row's softmax and top-k (lowest-index ties) of its e scaled gate
+// logits ``lg``: the kept gate values (unnormalised) to ``comb`` (e
+// values); returns the bit mask.
+__device__ __forceinline__ unsigned topk_gate(const float (&lg)[MAXE], int e, int k,
+                                              float (&comb)[MAXE]) {
   float v[MAXE], mx = -INFINITY, sum = 0.f;
 #pragma unroll
   for (int q = 0; q < MAXE; ++q) {
     if (q < e) {
-      v[q] = (lg[q] + g1b[q]) / sqrt_in;
+      v[q] = lg[q];
       mx = fmaxf(mx, v[q]);
     }
   }
@@ -666,6 +881,7 @@ __device__ unsigned gate32(const float* acc, const float* ba, const float* g1w,
   unsigned bits = 0;
 #pragma unroll
   for (int q = 0; q < MAXE; ++q) {
+    comb[q] = 0.f;
     if (q < e) {
       int rank = 0;
 #pragma unroll
@@ -679,236 +895,299 @@ __device__ unsigned gate32(const float* acc, const float* ba, const float* g1w,
   return bits;
 }
 
-__global__ void __launch_bounds__(F_THREADS) moe32_first_kernel(Args32 p) {
-  __shared__ float xs[F_K][F_ROWS + 1];   // an x chunk, transposed: [k][row]
-  __shared__ float ws[F_K][F_MAXA];       // a [g0w | l1w] chunk
-  __shared__ float accs[F_ROWS][F_MAXA + 1];
-  __shared__ float stat[2][F_ROWS];       // LayerNorm mean and rstd
-  __shared__ float cs[F_ROWS][MAXE];
-  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
-  const int A = p.g + p.e * p.r, ER = p.e * p.r, fin = p.fin;
+// A MoELinear's gate on the block's rows from s.acc (rows past n too, on
+// their zero input, never written out), its steps spread over the block:
+// ba, g1w and g1b copied to the first stage (free between pipelines), a =
+// gelu(acc[j] + ba[j]) for every (row, j < g), lg = (a·g1w + g1b) /
+// sqrt_in for every (row, expert), then a thread a row: softmax, top-k,
+// the combine weights to s.c and routes to column ``which`` (>= 0) of
+// p.routes; then [hw | c] into s.hw: hw = gelu(acc[g + q] + ba[g + q]) ·
+// c[q / r] (zeros from e·r to ERP), then c (zeros from e to 8), so that
+// one product gives hw·l2w + c·l2b.  (A warp a row, and these loops
+// unrolled to fixed counts, both measured slower.)
+__device__ __forceinline__ void gate_block(const Args32& p, const Smem32& s, const float* ba,
+                                           const float* g1w, const float* g1b, float sqrt_in,
+                                           int row0, int which) {
+  const int t = threadIdx.x, g = p.g, e = p.e;
+  float* ga = s.stage;                   // F_ROWS x (g + 1)
+  float* gw = ga + F_ROWS * (g + 1);     // g x e
+  float* lg = gw + g * e;                // F_ROWS x MAXE
+  float* bs = lg + F_ROWS * MAXE;        // ba (A), then g1b (e)
+  for (int i = t; i < p.A; i += F_THREADS) bs[i] = ba[i];
+  for (int i = t; i < e; i += F_THREADS) bs[p.A + i] = g1b[i];
+  for (int i = t; i < g * e; i += F_THREADS) gw[i] = g1w[i];
+  __syncthreads();
+  for (int i = t; i < F_ROWS * g; i += F_THREADS) {
+    const int rr = i / g, j = i % g;
+    ga[rr * (g + 1) + j] = act(s.acc[rr * F_LDA + j] + bs[j]);
+  }
+  __syncthreads();
+  for (int i = t; i < F_ROWS * e; i += F_THREADS) {
+    const int rr = i / e, q = i % e;
+    float v = 0.f;
+    for (int j = 0; j < g; ++j) v = fmaf(ga[rr * (g + 1) + j], gw[j * e + q], v);
+    lg[rr * MAXE + q] = (v + bs[p.A + q]) / sqrt_in;
+  }
+  __syncthreads();
+  if (t < F_ROWS) {
+    float v[MAXE], c[MAXE];
+#pragma unroll
+    for (int q = 0; q < MAXE; ++q) v[q] = lg[t * MAXE + q];
+    const unsigned bits = topk_gate(v, e, p.k, c);
+#pragma unroll
+    for (int q = 0; q < MAXE; ++q) s.c[t * MAXE + q] = c[q];
+    if (which >= 0 && p.routes != nullptr && row0 + t < p.n)
+      p.routes[(size_t)(row0 + t) * 2 + which] = (uint8_t)bits;
+  }
+  __syncthreads();
+  const int kh = p.ERP + 8, ldh = kh + 4;
+  for (int i = t; i < F_ROWS * kh; i += F_THREADS) {
+    const int rr = i / kh, q = i % kh;
+    s.hw[rr * ldh + q] =
+        q < p.ER    ? act(s.acc[rr * F_LDA + g + q] + bs[g + q]) * s.c[rr * MAXE + q / p.r]
+        : q < p.ERP ? 0.f
+        : q - p.ERP < e ? s.c[rr * MAXE + q - p.ERP]
+                        : 0.f;
+  }
+  __syncthreads();
+}
+
+// y (16 x 16: two n8 tiles) = hw (16 x kh, row stride ldh) · B (kh rows of
+// stride F_LDC from its column 0), 3xTF32, the three products of a k-step
+// independent (mma3x: two tiles give few chains to overlap otherwise).
+__device__ __forceinline__ void chunk_product(float (&y)[2][4], const float* hw, int ldh, int kh,
+                                              const float* B) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const float* a = hw + g * ldh + c4;
+  const float* b = B + c4 * F_LDC + g;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kh; k0 += 8) {
+    uint32_t ab[4], as[4];
+    split(a[k0], ab[0], as[0]);
+    split(a[8 * ldh + k0], ab[1], as[1]);
+    split(a[k0 + 4], ab[2], as[2]);
+    split(a[8 * ldh + k0 + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t bb[2], bs[2];
+      split(b[k0 * F_LDC + 8 * j], bb[0], bs[0]);
+      split(b[(k0 + 4) * F_LDC + 8 * j], bb[1], bs[1]);
+      mma3x(y[j], ab, as, bb, bs);
+    }
+  }
+}
+
+// MoELinear 1's product on the block's rows, its depth chunks [k0, k1) of
+// F_KD: the warps' partial accumulators of [LN(]x[)]·[g0w | l1w].
+template <int NT>
+__device__ __forceinline__ void first_product32(const Args32& p, const Smem32& s, int row0,
+                                                int k0, int k1, float (&acc)[NT][4]) {
+  constexpr int LDW = ldw1(NT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int fin = p.fin;
   const bool ln = p.ln_w != nullptr;
-  if (ln) {
-    // two-pass statistics, one warp a row (rows ty, ty + 4, ...)
-    for (int rr = ty; rr < F_ROWS; rr += F_THREADS / 32) {
+  if (ln) {  // two-pass statistics of the whole row, a warp a row
+    for (int rr = warp; rr < F_ROWS; rr += F_WARPS) {
       const int row = row0 + rr;
-      if (row >= p.n) continue;
-      const float* xr = p.x + (size_t)row * fin;
-      float s = 0.f;
-      for (int c = tx; c < fin; c += 32) s += xr[c];
-      const float mean = warp_sum(s) / fin;
-      float v = 0.f;
-      for (int c = tx; c < fin; c += 32) {
-        const float d = xr[c] - mean;
-        v = fmaf(d, d, v);
-      }
-      v = warp_sum(v) / fin;
-      if (tx == 0) {
-        stat[0][rr] = mean;
-        stat[1][rr] = rsqrtf(v + 1e-5f);
-      }
-    }
-    __syncthreads();
-  }
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < fin; k0 += F_K) {
-    for (int i = t; i < F_ROWS * F_K; i += F_THREADS) {
-      const int rr = i / F_K, kk = i % F_K, row = row0 + rr, gk = k0 + kk;
-      float v = 0.f;
-      if (row < p.n && gk < fin) {
-        v = p.x[(size_t)row * fin + gk];
-        if (ln) {
-          v = (v - stat[0][rr]) * stat[1][rr] * p.ln_w[gk];
-          if (p.ln_b != nullptr) v += p.ln_b[gk];
+      float mean = 0.f, rstd = 0.f;
+      if (row < p.n) {
+        const float* xr = p.x + (size_t)row * fin;
+        float sum = 0.f;
+        for (int c = lane; c < fin; c += 32) sum += xr[c];
+        mean = warp_sum(sum) / fin;
+        float v = 0.f;
+        for (int c = lane; c < fin; c += 32) {
+          const float d = xr[c] - mean;
+          v = fmaf(d, d, v);
         }
+        rstd = rsqrtf(warp_sum(v) / fin + 1e-5f);
       }
-      xs[kk][rr] = v;
-    }
-    for (int i = t; i < F_K * F_MAXA; i += F_THREADS) {
-      const int kk = i / F_MAXA, c = i % F_MAXA, gk = k0 + kk;
-      ws[kk][c] = gk < fin && c < A ? p.wa1[(size_t)gk * A + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < F_K; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = xs[kk][ty + 4 * i];
-        b[i] = ws[kk][tx + 32 * i];
+      if (lane == 0) {
+        s.st[rr] = mean;
+        s.st[F_ROWS + rr] = rstd;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int kw = 16 * warp;  // the warp's depth in each chunk
+  pipeline32(
+      s, k1 - k0,
+      [&](int i, float* buf) {
+        const int d0 = (k0 + i) * F_KD;
+        copy32<F_KD>(buf, F_LDX, p.x, fin, row0, d0, F_ROWS, p.n, fin, p.vec);
+        copy32<8 * NT>(buf + F_ROWS * F_LDX, LDW, p.wa1, p.A, d0, 0, F_KD, fin, p.A, p.vec);
+      },
+      [&](int i, float* buf) {
+        float* xs = buf;
+        const float* ws = buf + F_ROWS * F_LDX;
+        if (ln) {  // the warp's 16 columns of the chunk, in place
+          for (int v = lane; v < F_ROWS * 16; v += 32) {
+            const int rr = v / 16, kk = kw + v % 16, col = (k0 + i) * F_KD + kk;
+            if (row0 + rr < p.n && col < fin) {
+              float y = (xs[rr * F_LDX + kk] - s.st[rr]) * s.st[F_ROWS + rr] * p.ln_w[col];
+              if (p.ln_b != nullptr) y += p.ln_b[col];
+              xs[rr * F_LDX + kk] = y;
+            }
+          }
+          __syncwarp();
+        }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) accs[ty + 4 * i][tx + 32 * j] = acc[i][j];
-  __syncthreads();
-  if (t < F_ROWS && row0 + t < p.n) {
-    const int row = row0 + t;
-    const unsigned bits = gate32(accs[t], p.ba1, p.g1w1, p.g1b1, p.g, p.e, p.k, p.sqrt_fin,
-                                 cs[t]);
-    if (p.routes != nullptr) p.routes[(size_t)row * 2] = (uint8_t)bits;
-    for (int q = 0; q < p.e; ++q) p.c1[(size_t)row * p.e + q] = cs[t][q];
-  }
-  __syncthreads();
-  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
-    const int rr = i / ER, c = i % ER, row = row0 + rr;
-    if (row < p.n)
-      p.hw1[(size_t)row * ER + c] = act(accs[rr][p.g + c] + p.ba1[p.g + c]) * cs[rr][c / p.r];
-  }
+        for (int kk = kw; kk < kw + 16; kk += 8) {
+          uint32_t ab[4], as[4];
+          split(xs[g * F_LDX + kk + c4], ab[0], as[0]);
+          split(xs[(g + 8) * F_LDX + kk + c4], ab[1], as[1]);
+          split(xs[g * F_LDX + kk + c4 + 4], ab[2], as[2]);
+          split(xs[(g + 8) * F_LDX + kk + c4 + 4], ab[3], as[3]);
+          const float* b = ws + (kk + c4) * LDW + g;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            uint32_t bb[2], bs[2];
+            split(b[8 * n], bb[0], bs[0]);
+            split(b[4 * LDW + 8 * n], bb[1], bs[1]);
+            mma3<true>(acc[n], ab, as, bb, bs);
+          }
+        }
+      });
 }
 
-__global__ void __launch_bounds__(F_THREADS) moe32_hidden_kernel(Args32 p) {
-  __shared__ float hws[F_ROWS][F_MAXA];     // hw1 of the block's rows
-  __shared__ float c1s[F_ROWS][MAXE];
-  __shared__ float l2ws[F_MAXA][F_CHUNK];   // l2w1's chunk columns
-  __shared__ float l2bs[MAXE][F_CHUNK];
-  __shared__ float hs[F_ROWS][F_CHUNK + 1];
-  __shared__ float was[F_CHUNK][F_MAXA];    // [g0w2 | l1w2]'s chunk rows
-  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
-  const int A = p.g + p.e * p.r, ER = p.e * p.r, hidden = p.hidden;
-  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
-    const int rr = i / ER, c = i % ER, row = row0 + rr;
-    hws[rr][c] = row < p.n ? p.hw1[(size_t)row * ER + c] : 0.f;
-  }
-  for (int i = t; i < F_ROWS * MAXE; i += F_THREADS) {
-    const int rr = i / MAXE, q = i % MAXE, row = row0 + rr;
-    c1s[rr][q] = row < p.n && q < p.e ? p.c1[(size_t)row * p.e + q] : 0.f;
-  }
-  const int chunks = (hidden + F_CHUNK - 1) / F_CHUNK;
-  const int c0 = blockIdx.y * p.chunks_per_slice;
-  const int c1 = min(c0 + p.chunks_per_slice, chunks);
-  float acc[4][4] = {};
-  for (int ch = c0; ch < c1; ++ch) {
-    const int h0 = ch * F_CHUNK;
-    for (int i = t; i < ER * F_CHUNK; i += F_THREADS) {
-      const int q = i / F_CHUNK, jj = i % F_CHUNK;
-      l2ws[q][jj] = h0 + jj < hidden ? p.l2w1[(size_t)q * hidden + h0 + jj] : 0.f;
-    }
-    for (int i = t; i < p.e * F_CHUNK; i += F_THREADS) {
-      const int q = i / F_CHUNK, jj = i % F_CHUNK;
-      l2bs[q][jj] = h0 + jj < hidden ? p.l2b1[(size_t)q * hidden + h0 + jj] : 0.f;
-    }
-    for (int i = t; i < F_CHUNK * F_MAXA; i += F_THREADS) {
-      const int jj = i / F_MAXA, c = i % F_MAXA;
-      was[jj][c] = h0 + jj < hidden && c < A ? p.wa2[(size_t)(h0 + jj) * A + c] : 0.f;
-    }
-    __syncthreads();
-    // h = gelu(hw1·l2w1 + c1·l2b1): rows ty + 4i, column tx of the chunk
+// Hidden chunks [c0, c1): acc2 (the warp's part) += gelu([hw1 | c1]·[l2w1;
+// l2b1]) · [g0w2 | l1w2], 16 columns of each chunk a warp.
+template <int NT>
+__device__ __forceinline__ void hidden_slice32(const Args32& p, const Smem32& s, int c0, int c1,
+                                               float (&acc2)[NT][4]) {
+  constexpr int LDW = ldw2(NT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int hidden = p.hidden, erp = p.ERP, off_w = (erp + 8) * F_LDC;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rr = ty + 4 * i;
-      float y = 0.f, yb = 0.f;
-      for (int q = 0; q < ER; ++q) y = fmaf(hws[rr][q], l2ws[q][tx], y);
-      for (int q = 0; q < p.e; ++q) yb = fmaf(c1s[rr][q], l2bs[q][tx], yb);
-      hs[rr][tx] = h0 + tx < hidden ? act(y + yb) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int jj = 0; jj < F_CHUNK; ++jj) {
-      float a[4], b[4];
+  for (int n = 0; n < NT; ++n) acc2[n][0] = acc2[n][1] = acc2[n][2] = acc2[n][3] = 0.f;
+  pipeline32(
+      s, c1 - c0,
+      [&](int i, float* buf) {
+        const int h0 = (c0 + i) * F_CHUNK;
+        copy32<F_CHUNK>(buf, F_LDC, p.l2w1, hidden, 0, h0, erp, p.ER, hidden, p.vec);
+        copy32<F_CHUNK>(buf + erp * F_LDC, F_LDC, p.l2b1, hidden, 0, h0, 8, p.e, hidden, p.vec);
+        copy32<8 * NT>(buf + off_w, LDW, p.wa2, p.A, h0, 0, F_CHUNK, hidden, p.A, p.vec);
+      },
+      [&](int, float* buf) {
+        float y[2][4] = {};
+        chunk_product(y, s.hw, erp + 12, erp + 8, buf + 16 * warp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = hs[ty + 4 * i][jj];
-        b[i] = was[jj][tx + 32 * i];
-      }
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int u = 0; u < 4; ++u) y[j][u] = act(y[j][u]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t ab[4], as[4];
+          split(y[kq][0], ab[0], as[0]);
+          split(y[kq][2], ab[1], as[1]);
+          split(y[kq][1], ab[2], as[2]);
+          split(y[kq][3], ab[3], as[3]);
+          const float* b = buf + off_w + (16 * warp + 8 * kq + 2 * c4) * LDW + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 4 * i;
-    if (row >= p.n) continue;
-    float* dst = p.part + ((size_t)blockIdx.y * p.n + row) * A;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (tx + 32 * j < A) dst[tx + 32 * j] = acc[i][j];
-  }
+          for (int n = 0; n < NT; ++n) {
+            uint32_t bb[2], bs[2];
+            split(b[8 * n], bb[0], bs[0]);
+            split(b[LDW + 8 * n], bb[1], bs[1]);
+            mma3<true>(acc2[n], ab, as, bb, bs);
+          }
+        }
+      });
 }
 
-__global__ void __launch_bounds__(F_THREADS) moe32_finish_kernel(Args32 p, int slices) {
-  __shared__ float accs[F_ROWS][F_MAXA + 1];
-  __shared__ float hws[F_ROWS][F_MAXA];
-  __shared__ float cs[F_ROWS][MAXE];
-  const int t = threadIdx.x, tx = t % 32, ty = t / 32, row0 = blockIdx.x * F_ROWS;
-  const int A = p.g + p.e * p.r, ER = p.e * p.r, fin = p.fin;
-  for (int i = t; i < F_ROWS * A; i += F_THREADS) {
-    const int rr = i / A, c = i % A, row = row0 + rr;
-    float s = 0.f;
-    if (row < p.n)
-      for (int sl = 0; sl < slices; ++sl) s += p.part[((size_t)sl * p.n + row) * A + c];
-    accs[rr][c] = s;
+// Output columns [n0, n1) of the block's rows from s.acc (MoELinear 2's
+// accumulators): its gate (routes where ``routes_here``), then
+// y = [hw2 | c2]·[l2w2; l2b2] [+ residual] through the row map, 16 columns
+// of each chunk a warp.
+__device__ __forceinline__ void output32(const Args32& p, const Smem32& s, int row0, int n0,
+                                         int n1, bool routes_here) {
+  gate_block(p, s, p.ba2, p.g1w2, p.g1b2, p.sqrt_hidden, row0, routes_here ? 1 : -1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c4 = lane % 4;
+  const int fin = p.fin, erp = p.ERP;
+  pipeline32(
+      s, (n1 - n0 + F_CHUNK - 1) / F_CHUNK,
+      [&](int i, float* buf) {
+        const int c0 = n0 + i * F_CHUNK;
+        copy32<F_CHUNK>(buf, F_LDC, p.l2w2, fin, 0, c0, erp, p.ER, fin, p.vec);
+        copy32<F_CHUNK>(buf + erp * F_LDC, F_LDC, p.l2b2, fin, 0, c0, 8, p.e, fin, p.vec);
+      },
+      [&](int i, float* buf) {
+        const int c0 = n0 + i * F_CHUNK;
+        float y[2][4] = {};
+        chunk_product(y, s.hw, erp + 12, erp + 8, buf + 16 * warp);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = g + 8 * h, m = row0 + rr;
+          if (m >= p.n) continue;
+          const size_t orow = (size_t)(m / p.rpi) * p.orpi + m % p.rpi;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu) {
+              const int col = c0 + 16 * warp + 8 * j + 2 * c4 + uu;
+              if (col >= n1) continue;
+              float o = y[j][2 * h + uu];
+              if (p.res != nullptr) o = p.res[(size_t)m * fin + col] + o;
+              p.out[orow * fin + col] = o;
+            }
+        }
+      });
+}
+
+// Grid (row tiles, slices), a cluster (1, slices, 1) a row tile: block
+// (row tile, r) takes MoELinear 1's r-th share of depth, hidden slice r and
+// the r-th share of the output columns.
+template <int NT>
+__global__ void __launch_bounds__(F_THREADS) moe32_kernel(Args32 p) {
+  extern __shared__ __align__(16) float smem32_raw[];
+  const Smem32 s = carve32(smem32_raw, p);
+  const int row0 = blockIdx.x * F_ROWS, r = blockIdx.y;
+  const int kchunks = (p.fin + F_KD - 1) / F_KD, chunks = (p.hidden + F_CHUNK - 1) / F_CHUNK;
+  float acc[NT][4];
+  const int k0 = r * p.kchunks_per_slice;
+  first_product32<NT>(p, s, row0, min(k0, kchunks), min(k0 + p.kchunks_per_slice, kchunks), acc);
+  sum_partials<NT>(p, s, acc, 0);
+  gate_block(p, s, p.ba1, p.g1w1, p.g1b1, p.sqrt_fin, row0, r == 0 ? 0 : -1);
+  const int c0 = r * p.chunks_per_slice;
+  hidden_slice32<NT>(p, s, c0, min(c0 + p.chunks_per_slice, chunks), acc);
+  sum_partials<NT>(p, s, acc, 1);
+  if (p.slices > 1) {  // every block has read the cluster's partials before any goes on
+    cluster_arrive();
+    cluster_wait();
   }
-  __syncthreads();
-  if (t < F_ROWS && row0 + t < p.n) {
-    const unsigned bits = gate32(accs[t], p.ba2, p.g1w2, p.g1b2, p.g, p.e, p.k,
-                                 p.sqrt_hidden, cs[t]);
-    if (p.routes != nullptr && blockIdx.y == 0)
-      p.routes[(size_t)(row0 + t) * 2 + 1] = (uint8_t)bits;
-  }
-  __syncthreads();
-  for (int i = t; i < F_ROWS * ER; i += F_THREADS) {
-    const int rr = i / ER, c = i % ER;
-    hws[rr][c] = row0 + rr < p.n ? act(accs[rr][p.g + c] + p.ba2[p.g + c]) * cs[rr][c / p.r]
-                                 : 0.f;
-  }
-  __syncthreads();
-  const int n0 = blockIdx.y * F_COLS;
-  float y[4][4] = {}, yb[4][4] = {};
-  for (int q = 0; q < ER; ++q) {
-    float b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 32 * j;
-      b[j] = col < fin ? p.l2w2[(size_t)q * fin + col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[i][j] = fmaf(hws[ty + 4 * i][q], b[j], y[i][j]);
-  }
-  for (int q = 0; q < p.e; ++q) {
-    float b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 32 * j;
-      b[j] = col < fin ? p.l2b2[(size_t)q * fin + col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yb[i][j] = fmaf(cs[ty + 4 * i][q], b[j], yb[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = row0 + ty + 4 * i;
-    if (m >= p.n) continue;
-    const size_t orow = (size_t)(m / p.rpi) * p.orpi + m % p.rpi;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 32 * j;
-      if (col >= fin) continue;
-      float o = y[i][j] + yb[i][j];
-      if (p.res != nullptr) o = p.res[(size_t)m * fin + col] + o;
-      p.out[orow * fin + col] = o;
-    }
-  }
+  const int n0 = r * p.cols_per_block;
+  output32(p, s, row0, min(n0, p.fin), min(n0 + p.cols_per_block, p.fin), r == 0);
+}
+
+template <int NT>
+int launch32(Args32 a, int row_tiles, cudaStream_t st) {
+  a.stage = stage32(NT, a.ERP);
+  const size_t smem = smem32(a.stage, a.ERP, a.A4, a.slices > 1);
+  cudaError_t err = cudaFuncSetAttribute(moe32_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(row_tiles, a.slices, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = a.slices;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, moe32_kernel<NT>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The f32 form.  ``scratch`` holds n·e·r + n·e + slices·n·(g + e·r) floats:
-// hw1, c1 and the hidden slices' parts.
+// The f32 form: one launch, ``slices`` (1 to F_MAX_SLICES) blocks a row
+// tile in a cluster, trimmed so that no hidden slice is empty.
 extern "C" int moe_ffn_launch_f32(const void* x, void* out, int n, int fin, int hidden,
                                   const void* ln_w, const void* ln_b, const void* res,
                                   int rpi, int orpi,
@@ -917,10 +1196,10 @@ extern "C" int moe_ffn_launch_f32(const void* x, void* out, int n, int fin, int 
                                   const void* wa2, const void* ba2, const void* g1w2,
                                   const void* g1b2, const void* l2w2, const void* l2b2,
                                   int g, int e, int r, int k, void* routes, int slices,
-                                  void* scratch, void* stream) {
+                                  void* stream) {
   if (n <= 0 || fin <= 0 || hidden <= 0 || g < 1 || e < 1 || e > MAXE || r < 1 ||
       g + e * r > F_MAXA || k < 1 || rpi <= 0 || orpi < rpi || slices < 1 ||
-      scratch == nullptr)
+      slices > F_MAX_SLICES)
     return (int)cudaErrorInvalidValue;
   Args32 a;
   a.x = static_cast<const float*>(x);
@@ -949,25 +1228,24 @@ extern "C" int moe_ffn_launch_f32(const void* x, void* out, int n, int fin, int 
   a.e = e;
   a.r = r;
   a.k = k;
+  a.A = g + e * r;
+  a.A4 = (a.A + 3) / 4 * 4;
+  a.ER = e * r;
+  a.ERP = (a.ER + 7) / 8 * 8;
   a.sqrt_fin = (float)sqrt((double)fin);
   a.sqrt_hidden = (float)sqrt((double)hidden);
   a.routes = static_cast<uint8_t*>(routes);
-  float* s = static_cast<float*>(scratch);
-  a.hw1 = s;
-  a.c1 = s + (size_t)n * e * r;
-  a.part = a.c1 + (size_t)n * e;
+  a.vec = fin % 4 == 0 && hidden % 4 == 0 && a.A % 4 == 0;
   const int chunks = (hidden + F_CHUNK - 1) / F_CHUNK;
   a.chunks_per_slice = (chunks + slices - 1) / slices;
-  slices = (chunks + a.chunks_per_slice - 1) / a.chunks_per_slice;
+  a.slices = slices = (chunks + a.chunks_per_slice - 1) / a.chunks_per_slice;
+  a.kchunks_per_slice = ((fin + F_KD - 1) / F_KD + slices - 1) / slices;
+  a.cols_per_block = ((fin + F_CHUNK - 1) / F_CHUNK + slices - 1) / slices * F_CHUNK;
   const int row_tiles = (n + F_ROWS - 1) / F_ROWS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  moe32_first_kernel<<<row_tiles, F_THREADS, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  moe32_hidden_kernel<<<dim3(row_tiles, slices), F_THREADS, 0, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  moe32_finish_kernel<<<dim3(row_tiles, (fin + F_COLS - 1) / F_COLS), F_THREADS, 0, st>>>(a,
-                                                                                      slices);
-  return (int)cudaGetLastError();
+  const int nt = a.A <= 32 ? 4 : a.A <= 64 ? 8 : a.A <= 96 ? 12 : 16;
+  return nt == 4    ? launch32<4>(a, row_tiles, st)
+         : nt == 8  ? launch32<8>(a, row_tiles, st)
+         : nt == 12 ? launch32<12>(a, row_tiles, st)
+                    : launch32<16>(a, row_tiles, st);
 }

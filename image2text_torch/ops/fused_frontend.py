@@ -24,8 +24,14 @@ device memory) elsewhere.  A plan of the cluster route runs any slab of
 at most SLAB_CLUSTER x SLAB_MAX_CHUNK elements, the slab route any.
 
 f32 operands (the configs with ``precision: 'no'``; the JAX kernel is
-generic in the dtype) take the f32 form: a SIMT f32 projector product and
-the slab route's kernel instantiated for f32 (:func:`launch_front_f32`).
+generic in the dtype) take the f32 form (:func:`launch_front_f32`), two
+routes chosen by shape (:func:`front_plan_f32`): the cluster route, one
+launch, a thread-block cluster an image whose blocks each compute their
+slab rows' projector product on the tensor cores as 3xTF32 and exchange
+both LayerNorms' statistics through distributed shared memory (z never
+in device memory), wherever a block's operands fit its shared memory (the
+offline configs' front); else the slab route, a SIMT f32 projector
+product and the slab route's kernel instantiated for f32.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernels or raises.
@@ -45,6 +51,10 @@ from image2text_torch.ops import _build
 # most slab elements it gives a block, read from the source, their owner.
 SLAB_CLUSTER, CLUSTER_MIN_CHUNK, SLAB_MAX_CHUNK = _build.kernel_constants(
     "fused_frontend", "SLAB_CLUSTER", "CLUSTER_MIN_CHUNK", "SLAB_MAX_CHUNK")
+# The f32 cluster route's most blocks an image, most slab rows a block and
+# shared memory a block may take.
+F32_CLUSTER, F32_FRONT_ROWS, F32_FRONT_SMEM = _build.kernel_constants(
+    "fused_frontend", "F32_CLUSTER", "F32_FRONT_ROWS", "F32_FRONT_SMEM")
 
 
 class FrontendWeights(NamedTuple):
@@ -134,23 +144,62 @@ def launch_front(x: torch.Tensor, w: FrontendWeights,
     return out
 
 
+class FrontPlanF32(NamedTuple):
+    """How an f32 call runs: ``route`` "cluster" (``cluster`` blocks an
+    image, ``rows`` slab rows each) or "slab" (cluster and rows 0)."""
+
+    route: str
+    cluster: int
+    rows: int
+
+
+def front32_smem(rows: int, din: int, d: int) -> int:
+    """Shared memory of a cluster-route block (``csrc/fused_frontend.cu``'s
+    ``front32_smem``): Wp (din rounded up to 8 rows, a row stride >= d that
+    is 8 modulo 32), its x rows (stride din + 4), and its rows of z and of
+    the tables lnw, lnb and wpe, in f32."""
+    dinp = -(-din // 8) * 8
+    ldw = (d + 23) // 32 * 32 + 8
+    return 4 * (dinp * ldw + rows * (dinp + 4) + 4 * rows * d)
+
+
+@functools.lru_cache(maxsize=64)
+def front_plan_f32(t: int, din: int, d: int) -> FrontPlanF32:
+    """The f32 route for images of t patches of din values and width d: the
+    cluster route with up to F32_CLUSTER blocks an image (at most one a
+    16-row tile) of 16, 32 or 64 rows, as few blocks as those rows need,
+    where a block's operands fit F32_FRONT_SMEM (the offline configs' front:
+    8 blocks of 32 rows); else the slab route."""
+    want = max(1, min(F32_CLUSTER, -(-t // 16)))
+    rows = 16
+    while rows < -(-t // want):
+        rows *= 2
+    if (rows <= F32_FRONT_ROWS
+            and front32_smem(rows, din, d) <= F32_FRONT_SMEM):
+        return FrontPlanF32("cluster", -(-t // rows), rows)
+    return FrontPlanF32("slab", 0, 0)
+
+
 # frontend_launch_f32(x, wp, bp, lnw, lnb, wpe, cls, out, b, t, din, d,
-# n_cls, stream)
-_ARGTYPES_F32 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# n_cls, cluster, rows, stream): cluster 0 is the slab route
+_ARGTYPES_F32 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def launch_front_f32(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
-    """The f32 form on checked CUDA operands (see :func:`fused_frontend`):
-    the SIMT projector product, then the slab kernel in f32."""
+def launch_front_f32(x: torch.Tensor, w: FrontendWeights,
+                     plan: Optional[FrontPlanF32] = None) -> torch.Tensor:
+    """The f32 form on checked CUDA operands (see :func:`fused_frontend`),
+    on ``plan``'s route (by default :func:`front_plan_f32`'s)."""
     b, t, din = x.shape
     d, n_cls = w.w_p.shape[1], w.cls.shape[0]
+    plan = plan or front_plan_f32(t, din, d)
     out = torch.empty(b, n_cls + t, d, dtype=x.dtype, device=x.device)
     fn = _build.entry_point("fused_frontend", "frontend_launch_f32",
                             _ARGTYPES_F32)
     err = fn(*[_build.ptr(a) for a in (x, w.w_p, w.b_p, w.ln_w, w.ln_b, w.wpe,
                                        w.cls, out)],
-             b, t, din, d, n_cls, _build.stream(x.device))
-    _build.check(err, "fused_frontend (f32)")
+             b, t, din, d, n_cls, plan.cluster, plan.rows,
+             _build.stream(x.device))
+    _build.check(err, f"fused_frontend (f32, {plan.route} route)")
     fused_frontend.launches += 1
     return out
 
@@ -158,7 +207,7 @@ def launch_front_f32(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
 def fused_frontend(x: torch.Tensor, w: FrontendWeights) -> torch.Tensor:
     """The (b, n_cls + t, d) block-loop input from the (b, t, din) patch
     stream ``x``: the CUDA kernels for a CUDA tensor (bf16: the route of
-    :func:`front_plan`; f32: :func:`launch_front_f32`), the plain version
+    :func:`front_plan`; f32: of :func:`front_plan_f32`), the plain version
     for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_frontend_plain(x, w)

@@ -37,10 +37,15 @@ reuse it for ``x1 + ffn(ln_2(x1))``.
 
 f32 operands (the configurations served at precision 'no', such as
 ``local/nano-mini.yaml``) take the kernel's f32 form
-(:func:`launch_moe_ffn_f32`): SIMT FFMA products in true f32, nothing
-rounded narrower, one regime at every row count (the hidden dimension
-split over :func:`moe_slices_f32` blocks, the slices summed in order by a
-finishing kernel); any fin and hidden, g + e·r up to 128, e up to 8.
+(:func:`launch_moe_ffn_f32`): the same chain with every product on the
+tensor cores as 3xTF32 (each f32 operand split into two TF32 halves, three
+products, each k-step summed in f32), nothing rounded narrower than f32.
+One launch: a block of four warps owns 16 rows, its warps splitting each
+product's depth; a row tile's blocks form a thread-block cluster
+(:func:`moe_plan_f32`) that splits the hidden dimension, the first
+MoELinear's depth and the output columns between them, and every block
+sums the cluster's partial accumulators in rank order from their shared
+memory.  Any fin and hidden, g + e·r up to 128, e up to 8.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel (bf16 or f32) or raises.
@@ -220,19 +225,42 @@ def _moe_shape_error(fin: int, hidden: int, g: int, e: int, r: int,
 
 
 # The f32 form's tiling, read from ``csrc/fused_moe.cu``: rows a block,
-# hidden columns a chunk of the hidden kernel, most g + e·r.
-F32_ROWS, F32_CHUNK, F32_MAXA = _build.kernel_constants(
-    "fused_moe", "F_ROWS", "F_CHUNK", "F_MAXA")
+# hidden (or output) columns a chunk, most g + e·r, most hidden slices (the
+# blocks of a cluster).
+F32_ROWS, F32_CHUNK, F32_MAXA, F32_MAX_SLICES = _build.kernel_constants(
+    "fused_moe", "F_ROWS", "F_CHUNK", "F_MAXA", "F_MAX_SLICES")
 
 
-def moe_slices_f32(n: int, hidden: int, n_sms: int) -> int:
-    """Hidden slices of the f32 form at ``n`` rows: about two blocks an SM
-    over its ``ceil(n / F32_ROWS)`` row tiles, each slice at least one
-    chunk of F32_CHUNK hidden columns (the kernel sums the slices' parts
-    in slice order)."""
+class MoEPlanF32(NamedTuple):
+    """How the f32 form runs one call: each row tile of F32_ROWS rows takes
+    a cluster of ``slices`` blocks, block r hidden chunks [r·c, (r + 1)·c)
+    of F32_CHUNK columns (c = ``chunks_per_slice``), the r-th share of the
+    first MoELinear's depth and output columns [r·w, (r + 1)·w) (w =
+    ``cols_per_block``)."""
+
+    slices: int
+    chunks_per_slice: int
+    cols_per_block: int
+
+
+def moe_plan_f32(n: int, fin: int, hidden: int, n_sms: int,
+                 slices: Optional[int] = None) -> MoEPlanF32:
+    """The f32 form's launch plan at ``n`` rows on a card of ``n_sms`` SMs:
+    its ``ceil(n / F32_ROWS)`` row tiles each take ``ceil(n_sms / tiles)``
+    blocks, at most F32_MAX_SLICES (a portable cluster) and one a chunk of
+    F32_CHUNK hidden columns, so that the kernel runs about a block an SM:
+    16 tiles x 8 slices at 256 rows on 132 SMs, one block a tile from 132
+    tiles on.  ``slices`` overrides the count asked for.  The count is
+    trimmed so that no slice is empty, as the kernel trims it; the f32
+    sums run slice by slice in slice order, so two plans give bit-equal
+    rows only where they split alike."""
+    tiles = -(-n // F32_ROWS)
+    want = -(-n_sms // tiles) if slices is None else slices
     chunks = -(-hidden // F32_CHUNK)
-    want = min(chunks, max(1, -(-2 * n_sms // -(-n // F32_ROWS))))
-    return -(-chunks // -(-chunks // want))
+    per = -(-chunks // max(1, min(chunks, want, F32_MAX_SLICES)))
+    slices = -(-chunks // per)
+    return MoEPlanF32(slices, per, -(-(-(-fin // F32_CHUNK)) // slices)
+                      * F32_CHUNK)
 
 
 def _check_square(fin: int, fc: MoELinearWeights,
@@ -270,11 +298,11 @@ def _check_launch(x2d, fc, proj, out, ln_w, ln_b, residual, routes,
 
 
 # moe_ffn_launch_f32(x, out, n, fin, hidden, ln_w, ln_b, res, rpi, orpi,
-# 12 weights, g, e, r, k, routes, slices, scratch, stream)
+# 12 weights, g, e, r, k, routes, slices, stream)
 _ARGTYPES_F32 = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                  + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def launch_moe_ffn_f32(x2d: torch.Tensor, fc: MoELinearWeights,
@@ -285,30 +313,26 @@ def launch_moe_ffn_f32(x2d: torch.Tensor, fc: MoELinearWeights,
                        routes: Optional[torch.Tensor] = None,
                        slices: Optional[int] = None) -> None:
     """The f32 form on (n, fin) f32 rows, with :func:`launch_moe_ffn`'s row
-    map and routes; ``slices`` overrides :func:`moe_slices_f32`.  Counts
+    map and routes; ``slices`` overrides :func:`moe_plan_f32`'s.  Counts
     nothing."""
     n, fin = x2d.shape
     hidden = fc.l2w.shape[1]
-    slices = (moe_slices_f32(n, hidden, sm_count(x2d.device))
-              if slices is None else slices)
     err = None
     if (fc.e > 8 or fc.g < 1 or fc.g + fc.e * fc.r > F32_MAXA
-            or slices < 1):
+            or (slices is not None and not 1 <= slices <= F32_MAX_SLICES)):
         err = (f"unsupported shape g={fc.g} e={fc.e} r={fc.r} "
                f"slices={slices} (the f32 form needs g + e*r <= "
-               f"{F32_MAXA}, e <= 8, at least one slice)")
+               f"{F32_MAXA}, e <= 8, 1 to {F32_MAX_SLICES} slices)")
     rpi, orpi = _check_launch(x2d, fc, proj, out, ln_w, ln_b, residual,
                               routes, rows_per_img, out_rows_per_img,
                               torch.float32, err)
-    a = fc.g + fc.e * fc.r
-    scratch = torch.empty(n * (fc.e * fc.r + fc.e + slices * a),
-                          dtype=torch.float32, device=x2d.device)
+    plan = moe_plan_f32(n, fin, hidden, sm_count(x2d.device), slices)
     fn = _build.entry_point("fused_moe", "moe_ffn_launch_f32", _ARGTYPES_F32)
     P = _build.ptr
     err = fn(P(x2d), P(out), n, fin, hidden, P(ln_w), P(ln_b), P(residual),
              rpi, orpi, *[P(getattr(w, f)) for w in (fc, proj)
                           for f in w._fields[:6]],
-             fc.g, fc.e, fc.r, fc.k, P(routes), slices, P(scratch),
+             fc.g, fc.e, fc.r, fc.k, P(routes), plan.slices,
              _build.stream(x2d.device))
     _build.check(err, "moe_ffn_launch_f32")
 

@@ -28,12 +28,12 @@ def time_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_kernel_ms(fn, iters: int = 20) -> dict:
-    """Device time of one ``fn()`` in ms by kernel name: the kernels'
-    durations that torch.profiler records over ``iters`` calls after
-    warm-up, summed per name and divided by ``iters``.  Free of the host's
-    launch overhead, which :func:`time_ms` includes wherever it exceeds
-    the kernels' time."""
+def device_kernels(fn, iters: int = 20) -> dict:
+    """``{kernel name: (ms, launches)}`` of one ``fn()``: the device time
+    and the number of launches that torch.profiler records of each kernel
+    over ``iters`` calls after warm-up, divided by ``iters``.  Free of the
+    host's launch overhead, which :func:`time_ms` includes wherever it
+    exceeds the kernels' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,9 +44,15 @@ def device_kernel_ms(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.device_time_total / iters / 1e3
+    return {e.key: (e.device_time_total / iters / 1e3, e.count / iters)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_kernel_ms(fn, iters: int = 20) -> dict:
+    """Device time of one ``fn()`` in ms by kernel name
+    (:func:`device_kernels`)."""
+    return {k: ms for k, (ms, _) in device_kernels(fn, iters).items()}
 
 
 def flash_f64_truth(fa, q, k, v, bias, causal, rate, seed, dout):
@@ -83,6 +89,29 @@ def flash_f64_truth(fa, q, k, v, bias, causal, rate, seed, dout):
     if hk == 1 and h > 1:
         dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
     return out, (m + torch.log(l))[..., 0], dq, dk, dv
+
+
+def moe_f64_truth(fm, x, fc, proj, routes, **extra):
+    """The MoE FFN in float64 on the same f32 inputs and the expert routes
+    ``routes`` (a kernel's own), for the MoE module ``fm`` of any checkout:
+    its plain version on float64 operands (the gate's softmax stays in f32,
+    as the function specifies): the truth the f32 forms' errors are
+    measured against.  ``extra``: ln_w, ln_b, residual."""
+    def f64(w):
+        return w._replace(**{f: getattr(w, f).double()
+                             for f in w._fields[:6]})
+
+    extra = {k: None if v is None else v.double() for k, v in extra.items()}
+    return fm.moe_ffn_plain(x.double(), f64(fc), f64(proj),
+                            force_routes=routes, **extra)
+
+
+def front_f64_truth(ff, x, w):
+    """The encoder front in float64 on the same f32 inputs (the plain
+    version of the front module ``ff`` of any checkout on float64
+    operands)."""
+    return ff.fused_frontend_plain(x.double(), type(w)(
+        *[None if t is None else t.double() for t in w]))
 
 
 def truth_error(x, truth) -> list:

@@ -1,7 +1,7 @@
 """Times of the tiled flash route against build variants of its source,
 on the card: the alternatives behind its shipped choices.
 
-    python -m image2text_torch.probes.flash_variants [--f32]
+    python -m image2text_torch.probes.flash_variants [--f32 | --front-f32]
 
 Each variant is ``csrc/flash_attention.cu`` with a few text edits
 (``VARIANTS``), built by ``nvcc`` with the shipping flags into its own
@@ -21,13 +21,22 @@ the f32 calls (``kernel_times.FLASH_F32_FAMILIES``, f32 tensors, the
 soft-prompt bias where given), with each variant's errors against a
 float64 truth (``probes.flash_f64_truth``; ``err``: max error over max
 |truth|, relative L2, of out, lse, dq, dk and dv).
+
+``--front-f32``: the f32 front's cluster route (``csrc/fused_frontend.cu``)
+built at other cluster sizes (``FRONT_F32_VARIANTS``: the most blocks an
+image, F32_CLUSTER, and the least rows a block that fits them) at the
+offline configs' front (t 256, din 128, d 64, 8 CLS rows) at the
+evaluate CLI's and the offline trainer's eval batch (b 4, 8), on random
+weights: per variant its plan, the median CUDA-event ms over two passes
+(variants in order, then reversed), device ms and launches a call
+(``probes.device_kernels``) and the largest difference from the plain
+version.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import re
-import shutil
 import subprocess
 import sys
 
@@ -77,6 +86,21 @@ F32_VARIANTS = {
 }
 
 
+# The f32 front's cluster sizes: (F32_CLUSTER, edits).  Past 8 blocks a
+# cluster needs the non-portable cluster attribute.
+_NON_PORTABLE = (
+    "        front32_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\n",
+    "        front32_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\n"
+    "    if (err == cudaSuccess) err = cudaFuncSetAttribute(\n"
+    "        front32_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n")
+FRONT_F32_VARIANTS = {
+    "shipped": (8, ()),
+    "cluster4": (4, (("constexpr int F32_CLUSTER = 8;", "constexpr int F32_CLUSTER = 4;"),)),
+    "cluster16": (16, (("constexpr int F32_CLUSTER = 8;", "constexpr int F32_CLUSTER = 16;"),
+                       _NON_PORTABLE)),
+}
+
+
 def _resources(log: str) -> dict:
     """{kernel<d>: (registers, spill store bytes)} of the tiled kernels in
     an ``-Xptxas -v`` log."""
@@ -102,20 +126,86 @@ def build(name: str, edits, source: str = "flash_attention") -> tuple:
 
     out = _build.BUILD_DIR.parent / "flash_variants" / source / name
     out.mkdir(parents=True, exist_ok=True)
-    for f in _build.CSRC.glob("*.cuh"):
-        shutil.copy(f, out)
-    text = (_build.CSRC / f"{source}.cu").read_text()
+    # the source first, then its headers (the 3xTF32 helpers live in
+    # flash_common.cuh): each edit applies to the first file holding it
+    files = [f"{source}.cu"] + sorted(f.name for f in _build.CSRC.glob("*.cuh"))
+    texts = {f: (_build.CSRC / f).read_text() for f in files}
     for old, new in edits:
-        if old not in text:
-            raise KeyError(f"{name}: {old!r} not in the source")
-        text = text.replace(old, new)
-    (out / f"{source}.cu").write_text(text)
+        where = next((f for f in files if old in texts[f]), None)
+        if where is None:
+            raise KeyError(f"{name}: {old!r} not in the source or its headers")
+        texts[where] = texts[where].replace(old, new)
+    for f, text in texts.items():
+        (out / f).write_text(text)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                            str(out / "lib.so"), str(out / f"{source}.cu")],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     return ctypes.CDLL(str(out / "lib.so")), _resources(proc.stdout + proc.stderr)
+
+
+def front_f32_main() -> int:
+    """``--front-f32``: see the module docstring."""
+    import statistics
+
+    import torch
+
+    from image2text_torch.ops import _build
+    from image2text_torch.ops import fused_frontend as ff
+    from image2text_torch.probes import device_kernels, time_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: needs an NVIDIA GPU")
+    source, t, din, d, n_cls = "fused_frontend", 256, 128, 64, 8
+    libs = {name: build(name, edits, source)[0]
+            for name, (_, edits) in FRONT_F32_VARIANTS.items()}
+
+    def use(name):
+        _build._loaded[(source, ())] = libs[name]
+        _build._entry_points.clear()
+
+    def plan(cluster):   # front_plan_f32's rule at another cluster size
+        rows = next(r for r in (16, 32, 64) if r * cluster >= t)
+        return ff.FrontPlanF32("cluster", -(-t // rows), rows)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    cases = []
+    for b in (4, 8):
+        w = ff.FrontendWeights(r(din, d, scale=din ** -0.5), r(d, scale=0.1),
+                               1 + r(t, d, scale=0.1), r(t, d, scale=0.1),
+                               r(t, d), r(n_cls, d))
+        x = r(b, t, din)
+        cases.append((f"b{b}", x, w, ff.fused_frontend_plain(x, w)))
+    ms = {n: {} for n in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        use(name)
+        p = plan(FRONT_F32_VARIANTS[name][0])
+        for label, x, w, _ in cases:
+            ms[name].setdefault(label, []).append(
+                time_ms(lambda x=x, w=w: ff.launch_front_f32(x, w, p), 20))
+    for name in libs:
+        use(name)
+        p = plan(FRONT_F32_VARIANTS[name][0])
+        res = {"variant": name, "device": torch.cuda.get_device_name(0),
+               "plan": list(p)}
+        for label, x, w, want in cases:
+            seen = device_kernels(lambda x=x, w=w: ff.launch_front_f32(x, w, p))
+            res[label] = {
+                "ms": statistics.median(ms[name][label]),
+                "device_ms": sum(v for v, _ in seen.values()),
+                "launches": sum(n for _, n in seen.values()),
+                "max_diff_vs_plain": (ff.launch_front_f32(x, w, p) - want)
+                .abs().max().item()}
+        print(json.dumps(res), flush=True)
+    _build._loaded.pop((source, ()), None)
+    _build._entry_points.clear()
+    return 0
 
 
 def main(argv=()) -> int:
@@ -132,6 +222,8 @@ def main(argv=()) -> int:
     from image2text_torch.probes.kernel_times import (FLASH_F32_FAMILIES,
                                                       FLASH_FAMILIES)
 
+    if "--front-f32" in argv:
+        return front_f32_main()
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs an NVIDIA GPU")
     f32 = "--f32" in argv

@@ -3,7 +3,7 @@ two trees in one process each, on one card, in turns.
 
     python -m image2text_torch.probes.kernel_times \
         [--flash-only | --flash-f32-only | --int4-only |
-         --front-topk-only | --steps-only] TREE...
+         --front-topk-only | --steps-only | --moe-front-f32-only] TREE...
 
 For each TREE (the root of a checkout: this repository, or an unpacked
 ``git archive`` of another commit) a fresh process imports that tree's
@@ -56,6 +56,26 @@ versions to a float64 truth on the same inputs and keep mask
 max |truth|, relative L2).  ``--steps-only`` times the training steps
 of ``STEP_FAMILIES`` (``step.<name>.ms``: the median of 5 windows of 2
 steps after a warm one; Llama-2-7B in f32 takes ~32 GiB of the card).
+
+``--moe-front-f32-only`` times the f32 forms of ``moe_ffn`` (the tree's
+wrapper on f32 tensors, on a nano-mini decoder block's MoE FFN built alone,
+at ``MOE_F32_ROWS``, with the LN2 prologue and residual where the path has
+them) and of ``fused_frontend`` (the offline front's shapes at
+``FRONT_F32_BATCHES``, random weights, beside the projector's f32
+``torch.matmul``): CUDA-event ``ms``; ``host_ms``, the host's time to
+issue one call (100 calls issued back to back, no wait); then
+``device_ms``, ``device_kernels`` (by kernel name) and ``launches`` (a
+call) by this checkout's ``probes.device_kernels``, and each tree's
+errors and its plain version's against a float64 truth
+(``probes.moe_f64_truth`` on the kernel's own routes,
+``probes.front_f64_truth``; ``err.<label>`` and ``plain_err.<label>`` =
+``probes.truth_error``).  Then a nano-mini f32 caption call at batch 256:
+``nano_mini_f32.walls_ms``, the walls of three calls after a warm one
+with no profiler on (``wall_ms`` their median); then the busy ms of one
+profiled call (the device's own events, as ``chip_smoke.py --profile``
+counts them), ``nano_mini_f32.busy_ms``, that call's wall
+(``profiled_wall_ms``) and its MoE kernels' part,
+``nano_mini_f32.moe_ms``.
 """
 from __future__ import annotations
 
@@ -91,6 +111,16 @@ FLASH_F32_FAMILIES = (
     ("f32_offline_decoder", 8, 4, 1, 128, 128, 16, True, 8, 0.1))
 # The f32 families whose training steps ``--steps-only`` times.
 STEP_FAMILIES = ("llama7b", "gpt2")
+# The f32 MoE FFN's calls ``--moe-front-f32-only`` times: (label, rows, LN2
+# prologue and residual): every launch of a nano-mini f32 caption call
+# (256 rows), the f32 sparse encoder block's (chip_smoke.py's [f32-chain]:
+# b 8 x 160 selected rows), and 1, 17 and 4,097 rows.
+MOE_F32_ROWS = (("decode", 256, False), ("f32_chain", 1280, True),
+                ("rows1", 1, False), ("rows17", 17, False),
+                ("rows4097", 4097, False))
+# The f32 front's batches: the evaluate CLI's and the offline trainer's
+# eval batch (chip_smoke.py's OFFLINE_FRONT_BATCH and synthetic-smoke.yaml).
+FRONT_F32_BATCHES = (4, 8)
 
 _CHILD = r'''
 import importlib.util, json, sys, types
@@ -353,6 +383,135 @@ def front_topk():
     out["sparse_block.gpt2m.ms"] = r["gpt2m_shape"]["ms"]
 
 
+def moe_front_f32(cases):
+    """The tree's f32 moe_ffn and fused_frontend at ``cases`` (rows, then
+    front batches): event and host ms first, then device ms, launches and
+    the errors against a float64 truth, then a nano-mini f32 caption
+    call's walls and busy ms."""
+    import statistics
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from image2text_torch.configs.reader import load_training_config
+    from image2text_torch.models.generation import caption
+    from image2text_torch.models.layers import _MoEMLP
+    from image2text_torch.nn.core import init_parameters
+    from image2text_torch.ops import fused_frontend as ff
+    from image2text_torch.ops import fused_moe as fm
+    probes = own_probes_module()
+    rows_cases, batches = cases
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 40)
+    f32 = torch.float32
+    tc = load_training_config(cs.NANO_YAML["nano-mini"]).model \
+        .decoder_config.transformer_config
+    mlp = _MoEMLP(tc.attn_config.n_embd, tc.attn_config.bias,
+                  tc.rotator_config, device=dev)
+    init_parameters(mlp, gen)
+    fc, proj = mlp.c_fc.packed(f32), mlp.c_proj.packed(f32)
+    fin = fc.wa.shape[0]
+    calls, checks = {}, {}
+
+    def host_ms(fn, iters=100):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return issued / iters * 1e3
+
+    for label, n, prologue in rows_cases:
+        x = torch.randn(n, fin, device=dev, generator=gen)
+        extra = (dict(ln_w=1 + 0.1 * torch.randn(fin, device=dev,
+                                                 generator=gen),
+                      ln_b=0.1 * torch.randn(fin, device=dev, generator=gen),
+                      residual=x) if prologue else {})
+        fn = (lambda x=x, extra=extra: fm.moe_ffn(x, fc, proj, **extra))
+        out[f"moe_ffn.{label}.ms"] = probes.time_ms(fn, 20)
+        out[f"moe_ffn.{label}.host_ms"] = host_ms(fn)
+        calls[f"moe_ffn.{label}"] = fn
+        checks[f"moe_ffn.{label}"] = ("moe", x, extra)
+    t, din, d, n_cls = 256, 128, 64, 8
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    for b in batches:
+        w = ff.FrontendWeights(r(din, d, scale=din ** -0.5), r(d, scale=0.1),
+                               1 + r(t, d, scale=0.1), r(t, d, scale=0.1),
+                               r(t, d), r(n_cls, d))
+        x = r(b, t, din)
+        fn = (lambda x=x, w=w: ff.fused_frontend(x, w))
+        out[f"fused_frontend.b{b}.ms"] = probes.time_ms(fn, 20)
+        out[f"fused_frontend.b{b}.host_ms"] = host_ms(fn)
+        out[f"fused_frontend.b{b}.library_ms"] = probes.time_ms(
+            lambda x=x, w=w: torch.matmul(x, w.w_p), 20)
+        calls[f"fused_frontend.b{b}"] = fn
+        checks[f"fused_frontend.b{b}"] = ("front", x, w)
+    for label, fn in calls.items():   # after every event time
+        seen = probes.device_kernels(fn)
+        out[f"{label}.device_ms"] = sum(ms for ms, _ in seen.values())
+        out[f"{label}.device_kernels"] = {k: ms for k, (ms, _) in seen.items()}
+        out[f"{label}.launches"] = sum(n for _, n in seen.values())
+    for label, (kind, x, a) in checks.items():
+        if kind == "moe":
+            routes = torch.zeros(x.shape[0], 2, dtype=torch.uint8, device=dev)
+            got = fm.moe_ffn(x, fc, proj, routes=routes, **a)
+            truth = probes.moe_f64_truth(fm, x, fc, proj, routes, **a)
+            plain = fm.moe_ffn_plain(x, fc, proj, force_routes=routes, **a)
+        else:
+            got = ff.fused_frontend(x, a)
+            truth = probes.front_f64_truth(ff, x, a)
+            plain = ff.fused_frontend_plain(x, a)
+        out[f"err.{label}"] = probes.truth_error(got, truth)
+        out[f"plain_err.{label}"] = probes.truth_error(plain, truth)
+    del calls, checks
+    torch.cuda.empty_cache()
+    model, _, _ = cs.nano_model(torch, "nano-mini", f32)
+    frames, prompt = cs.serving_inputs(torch, model, cs.BATCH, cs.SEED + 2,
+                                       cs.NANO_BOS)
+
+    def run():
+        g = torch.Generator(device=dev).manual_seed(1)
+        return caption(model, frames, prompt,
+                       max_new_tokens=cs.MAX_NEW_TOKENS, temperature=0.7,
+                       top_k=16, generator=g)
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["nano_mini_f32.walls_ms"] = walls
+    out["nano_mini_f32.wall_ms"] = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    events = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in host
+              and not getattr(e, "is_user_annotation", False)]
+    out["nano_mini_f32.busy_ms"] = sum(
+        e.self_device_time_total for e in events) / 1e3
+    out["nano_mini_f32.profiled_wall_ms"] = wall * 1e3
+    out["nano_mini_f32.moe_ms"] = sum(
+        e.self_device_time_total for e in events if "moe32" in e.key) / 1e3
+
+
+if mode == "moe_front_f32":
+    with torch.no_grad():
+        moe_front_f32(families)
+    print("KERNEL_TIMES " + json.dumps(out), flush=True)
+    sys.exit(0)
 if mode == "steps":
     family_steps(families)
     print("KERNEL_TIMES " + json.dumps(out), flush=True)
@@ -429,13 +588,14 @@ print("KERNEL_TIMES " + json.dumps(out), flush=True)
 
 MODES = {"--flash-only": "flash", "--int4-only": "int4",
          "--front-topk-only": "front_topk", "--flash-f32-only": "flash_f32",
-         "--steps-only": "steps"}
+         "--steps-only": "steps", "--moe-front-f32-only": "moe_front_f32"}
 
 
 def main(argv) -> int:
     mode = next((MODES[a] for a in argv if a in MODES), "all")
-    cases = {"flash_f32": FLASH_F32_FAMILIES,
-             "steps": STEP_FAMILIES}.get(mode, FLASH_FAMILIES)
+    cases = {"flash_f32": FLASH_F32_FAMILIES, "steps": STEP_FAMILIES,
+             "moe_front_f32": (MOE_F32_ROWS, FRONT_F32_BATCHES)}.get(
+                 mode, FLASH_FAMILIES)
     for tree in [a for a in argv if a not in MODES]:
         root = str(Path(tree).resolve())
         proc = subprocess.run([sys.executable, "-c", _CHILD, root, mode,

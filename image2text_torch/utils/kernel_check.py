@@ -32,10 +32,10 @@ from image2text_torch.ops.fused_moe import topk_mask, unpack_mask
 ELEMENT_TOL = 0.06    # per element: |got - want| <= tol + tol * |want|
 MAX_ABS_SHARE = 0.06  # largest error over the largest |plain| value
 REL_L2 = 1e-2         # ||got - want|| / ||want||
-# The f32 kernels (f32-accurate products: FFMA, or the flash pair's 3xTF32
-# on the tensor cores; their sums in another order than the plain
-# version's, a few f32 ulps): the same three limits, each hundreds of times
-# tighter.  (Measured on an H100 at the offline shapes: largest error 1e-7
+# The f32 kernels (f32-accurate products: FFMA, or 3xTF32 on the tensor
+# cores in the flash pair, the MoE FFN's and the front's f32 forms; their
+# sums in another order than the plain version's, a few f32 ulps): the
+# same three limits, each hundreds of times tighter.  (Measured on an H100 at the offline shapes: largest error 1e-7
 # of the largest plain value, relative L2 1e-7; the 3xTF32 flash pair
 # within 1e-6 of the largest float64-truth value at the f32 calls.)
 F32_LIMITS = (1e-4, 1e-5, 1e-5)  # ELEMENT_TOL, MAX_ABS_SHARE, REL_L2

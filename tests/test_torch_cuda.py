@@ -1393,18 +1393,30 @@ def test_flash_f32_gives_keyless_rows_every_key(dev, b, h, sq, skv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,din,d,n_cls,bias", [
-    (4, 256, 128, 64, 8, True),     # the offline configs' front
-    (3, 16, 40, 24, 2, False),      # ragged GEMM tiles, no biases
-    (2, 100, 200, 128, 0, True),    # no CLS rows
+@pytest.mark.parametrize("b,t,din,d,n_cls,bias,route", [
+    (4, 256, 128, 64, 8, True, "cluster"),   # the offline configs' front
+    (8, 256, 128, 64, 8, True, "cluster"),   # at the offline trainer's eval batch
+    (3, 16, 40, 24, 2, False, "cluster"),    # ragged tiles, no biases, one block
+    (2, 100, 200, 128, 0, True, "cluster"),  # no CLS rows, 7 blocks of 16 rows
+    (2, 300, 37, 64, 4, True, "cluster"),    # 5 blocks of 64 rows; din % 4 != 0
+    (2, 256, 1024, 256, 8, True, "slab"),    # Wp past a block's shared memory
 ])
-def test_fused_frontend_f32_matches_plain(dev, b, t, din, d, n_cls, bias):
-    """The f32 front (SIMT projector, the slab kernel in f32) against its
-    plain version at the f32 limits; CLS rows copied exactly; reruns
-    bitwise equal."""
+def test_fused_frontend_f32_matches_plain(dev, b, t, din, d, n_cls, bias,
+                                          route):
+    """The f32 front on the route ``front_plan_f32`` gives the shape, and
+    the slab route forced at every shape, the cluster route at each block
+    height of 16, 32 or 64 rows whose blocks fit (at most F32_CLUSTER an
+    image, their operands in F32_FRONT_SMEM), against its plain version
+    and against a float64 evaluation of it at the f32 limits; CLS rows
+    copied exactly; reruns bitwise equal."""
+    from image2text_torch.ops import fused_frontend as ff
     from image2text_torch.ops.fused_frontend import (FrontendWeights,
+                                                     FrontPlanF32,
+                                                     front_plan_f32,
                                                      fused_frontend,
-                                                     fused_frontend_plain)
+                                                     fused_frontend_plain,
+                                                     launch_front_f32)
+    from image2text_torch.probes import front_f64_truth
     from image2text_torch.utils.kernel_check import F32_LIMITS
 
     g = _gen(dev, 23)
@@ -1418,14 +1430,29 @@ def test_fused_frontend_f32_matches_plain(dev, b, t, din, d, n_cls, bias):
                         r(t, d, scale=0.1) if bias else None,
                         r(t, d), r(n_cls, d))
     x = r(b, t, din)
+    assert front_plan_f32(t, din, d).route == route
     before = fused_frontend.launches
     got, again = fused_frontend(x, w), fused_frontend(x, w)
     want = fused_frontend_plain(x, w)
     torch.cuda.synchronize()
     assert fused_frontend.launches == before + 2
+    truth = front_f64_truth(ff, x, w)
     check_output("fused_frontend f32", got, want, F32_LIMITS)
+    check_output("fused_frontend f32 vs float64", got, truth, F32_LIMITS)
     assert torch.equal(got[:, :n_cls], want[:, :n_cls])
     assert torch.equal(got, again)
+    plans = [FrontPlanF32("slab", 0, 0)] + [
+        FrontPlanF32("cluster", -(-t // rows), rows) for rows in (16, 32, 64)
+        if -(-t // rows) <= ff.F32_CLUSTER
+        and ff.front32_smem(rows, din, d) <= ff.F32_FRONT_SMEM]
+    for plan in plans:
+        out = launch_front_f32(x, w, plan)
+        torch.cuda.synchronize()
+        check_output(f"fused_frontend f32 {plan}", out, want, F32_LIMITS)
+        check_output(f"fused_frontend f32 {plan} vs float64", out, truth,
+                     F32_LIMITS)
+        assert torch.equal(out[:, :n_cls], want[:, :n_cls])
+        assert torch.equal(launch_front_f32(x, w, plan), out)
 
 
 @pytest.mark.cuda
@@ -1685,16 +1712,22 @@ def test_nano_family_card_equals_cpu(dev, name, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 17, 256, 4097])
+@pytest.mark.parametrize("rows", [1, 17, 256, 1280, 4097])
 @pytest.mark.parametrize("prologue", [False, True])
 @pytest.mark.parametrize("slices", [None, 1])
 def test_moe_ffn_f32_form_matches_plain(dev, rows, prologue, slices):
     """The f32 form (f32 operands: the configurations at precision 'no')
-    at nano-mini's FFN widths (1024 → 2048 → 1024), ragged rows, with and
+    at nano-mini's FFN widths (1024 → 2048 → 1024), ragged rows and the
+    paths' rows (256: a nano-mini f32 caption call's every launch; 1280:
+    the f32 sparse encoder block's b 8 x 160 selected rows), with and
     without the LN2 prologue and residual, at the planned slices and
-    unsplit; held at the f32 limits on the kernel's own routes, reruns
-    bitwise equal, one counted launch a call."""
+    unsplit; held at the f32 limits on the kernel's own routes, against
+    the plain version and against a float64 evaluation of it (3xTF32
+    products must keep f32's accuracy over the 1024- and 2048-deep sums),
+    reruns bitwise equal, one counted launch a call."""
+    from image2text_torch.ops import fused_moe
     from image2text_torch.ops.fused_moe import launch_moe_ffn
+    from image2text_torch.probes import moe_f64_truth
     from image2text_torch.utils.kernel_check import F32_LIMITS
 
     blk = _block(dev, 1024, 8, 32, True)
@@ -1720,7 +1753,62 @@ def test_moe_ffn_f32_form_matches_plain(dev, rows, prologue, slices):
     assert got.dtype == torch.float32
     check_routes("moe_ffn f32", routes, gates, fc.k)
     check_output(f"moe_ffn f32 rows={rows}", got, want, F32_LIMITS)
+    truth = moe_f64_truth(fused_moe, x, fc, proj, routes, **extra)
+    check_output(f"moe_ffn f32 rows={rows} vs float64", got, truth,
+                 F32_LIMITS)
     assert torch.equal(got, again)
+
+
+def _moe_linear(dev, g, fin, fout, gate, e, r, k, dtype=torch.float32):
+    from image2text_torch.ops.fused_moe import pack_moe_linear
+
+    def w(*shape, fan):
+        return torch.randn(*shape, device=dev, generator=g) * fan ** -0.5
+
+    return pack_moe_linear(w(e, r, fin, fan=fin), w(e, r, fan=4),
+                           w(e, fout, r, fan=r), w(e, fout, fan=4),
+                           w(gate, fin, fan=fin), w(gate, fan=4),
+                           w(e, gate, fan=gate), w(e, fan=4), k, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin,hidden,gate,e,r,k", [
+    (70, 150, 20, 3, 5, 2),      # no width a multiple of 4: 4-byte copies
+    (96, 200, 4, 2, 6, 1),       # g + e·r = 16: the narrowest accumulators
+    (1024, 2048, 64, 8, 8, 3),   # g + e·r = 128, e = 8: the widest
+])
+@pytest.mark.parametrize("rows", [33, 300])
+def test_moe_ffn_f32_form_at_other_widths(dev, fin, hidden, gate, e, r, k,
+                                          rows):
+    """The f32 form takes any fin and hidden, g + e·r up to 128 and e up to
+    8 (its accumulators' width a template parameter, ragged chunks
+    zero-filled): held to the plain version and its float64 evaluation at
+    the f32 limits with the LN2 prologue, split and unsplit."""
+    from image2text_torch.ops import fused_moe
+    from image2text_torch.ops.fused_moe import launch_moe_ffn
+    from image2text_torch.probes import moe_f64_truth
+    from image2text_torch.utils.kernel_check import F32_LIMITS
+
+    g = _gen(dev, 31)
+    fc = _moe_linear(dev, g, fin, hidden, gate, e, r, k)
+    proj = _moe_linear(dev, g, hidden, fin, gate, e, r, k)
+    x = torch.randn(rows, fin, device=dev, generator=g)
+    extra = dict(ln_w=1 + 0.1 * torch.randn(fin, device=dev, generator=g),
+                 ln_b=0.1 * torch.randn(fin, device=dev, generator=g))
+    for slices in (None, 1):
+        routes = torch.zeros(rows, 2, dtype=torch.uint8, device=dev)
+        gates = torch.zeros(rows, 2, e, dtype=torch.float32, device=dev)
+        got = torch.empty_like(x)
+        launch_moe_ffn(x, fc, proj, got, routes=routes, slices=slices,
+                       **extra)
+        want = fused_moe.moe_ffn_plain(x, fc, proj, force_routes=routes,
+                                       gates=gates, **extra)
+        torch.cuda.synchronize()
+        check_routes("moe_ffn f32", routes, gates, k)
+        check_output(f"moe_ffn f32 {fin} {hidden} slices={slices}", got,
+                     want, F32_LIMITS)
+        check_output("moe_ffn f32 vs float64", got, moe_f64_truth(
+            fused_moe, x, fc, proj, routes, **extra), F32_LIMITS)
 
 
 @pytest.mark.cuda

@@ -499,10 +499,13 @@ def test_flash_variants_edit_the_shipped_source():
 
 def test_f32_flash_variants_edit_the_shipped_source():
     """Every text edit of ``probes/flash_variants.py``'s f32 variants finds
-    its text in the shipped f32 kernel source."""
+    its text in the shipped f32 kernel source or the headers it includes
+    (the 3xTF32 helpers, shared with the MoE FFN's and the front's f32
+    forms, live in ``flash_common.cuh``)."""
     from image2text_torch.probes.flash_variants import F32_VARIANTS
 
-    src = (fa._build.CSRC / "flash_attention_f32.cu").read_text()
+    src = "".join((fa._build.CSRC / f).read_text() for f in (
+        "flash_attention_f32.cu", "flash_common.cuh", "common.cuh"))
     assert F32_VARIANTS["shipped"] == ()
     for name, edits in F32_VARIANTS.items():
         for old, new in edits:
