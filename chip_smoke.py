@@ -89,6 +89,28 @@ Phases, each printing its lines:
             shapes (256, 192 and 1 rows), the row scales and int8
             activations equal to the CPU's (0 ulp, 0 flips), and the W8A8
             lm_head's ms.
+   graph    the caption call as one captured CUDA graph
+            (image2text_torch/models/graphs.py; every serving phase of a
+            scratch MQA decoder takes that route by default, the others
+            stay eager by graph_plan and print their route).  Each graphed
+            serving path (main, the five serve-modes, dense, nano-mini)
+            holds its counted call, a replay, against an eager call of the
+            same key under torch.profiler: each kernel of the port as many
+            device records in both, the launch counts the replay adds the
+            eager call's, the ids equal.  The phase itself: the eager (E)
+            and graphed (G) routes in turns E G G E, greedy and sampled
+            under one seed, ids bit for bit (G no further from E than E
+            from itself), at batch 256 for the flagship and, in their own
+            phases, the dense twin and nano-mini; E G G greedy in the
+            flagship's four other serving modes; the capturing call's
+            wall, both routes' walls and captions/s (median of 3
+            windows), a replay's host calls (cudaGraphLaunch, launches,
+            copies) beside its device records, peak memory and the pool a
+            model's graphs share; on the flagship, after an in-place
+            write to a weight the next call captures anew and equals
+            eager, and right after the write that restores it a second
+            batch gets a graph of its own, equal to eager.
+            --profile: each route's device busy ms and share.
    beam-int8  beam search (batch 64, width 3, expansion 4) exact, with
             int8 cross-KV and with W8A8 + int8 cross-KV: captions/s,
             launches, greedy beam ids against exact's.
@@ -1361,18 +1383,25 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
     tokens, temperature 0.7, top-k 16, n-grams 2–5): launches of every
     kernel in one caption call, held to ``serving_launches``, and
     captions/s, the median of 3 warm windows."""
+    from image2text_torch.models import graphs
     from image2text_torch.models.generation import caption
 
     dev, b = model.device, BATCH
     frames, prompt = serving_inputs(torch, model, b, SEED + 2, bos)
+    route, why = graphs.graph_plan(model, dev, prompt_len=1,
+                                   max_new_tokens=MAX_NEW_TOKENS)
+    log(f"  route: {route} ({why})")
 
-    def run(seed):
+    def run(seed, use=True):
         g = torch.Generator(device=dev).manual_seed(seed)
         return caption(model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                       temperature=0.7, top_k=16, generator=g)
+                       temperature=0.7, top_k=16, generator=g, graphs=use)
 
     ids, _ = drive_serving(torch, args, results, path, run, b,
-                           lambda: serving_launches(model), "one caption call")
+                           lambda: serving_launches(model), "one caption call",
+                           eager=(lambda seed: run(seed, False))
+                           if route == "graph" else None)
+    log(f"  graphs held: {graphs.held_graphs(model)}")
     vocab = vocab_rows(model)
     if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
             or not bool(((ids >= 0) & (ids < vocab)).all())
@@ -1384,27 +1413,33 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
 
 
 def drive_serving(torch, args, results, path: str, run, b: int, want,
-                  what: str):
+                  what: str, eager=None):
     """What every serving phase does with its ``run(seed)``: a warm-up
-    call (it builds caches and per-block index tensors), one call with
-    every launch count set to 0 just before it, kept under ``path`` and
-    held to ``want()`` (read just after it), then captions/s over 3 warm
-    windows of one call on ``b`` images each, the counted call the first
-    of them (the median reported) and, with ``--profile``, device time by
-    kernel of one more call.  Returns the counted call's output and the
-    captions/s."""
+    call (it builds caches and per-block index tensors; on the graph
+    route it captures), one call with every launch count set to 0 just
+    before it, kept under ``path`` and held to ``want()`` (read just after
+    it), then captions/s over 3 warm windows of one call on ``b`` images
+    each and, with ``--profile``, device time by kernel of one more call.
+    With ``eager`` (the same call on the eager route, for a ``run`` on
+    the graph route) the counted call is a replay, held to an eager call
+    of the same key under torch.profiler (``replay_against_eager``).
+    Returns the counted call's output and the captions/s."""
     run(0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    counts, out = launch_counts(lambda: run(1))
-    torch.cuda.synchronize()
-    windows = [b / (time.perf_counter() - t0)]
+    windows = []
+    if eager is None:      # the counted call is the first window
+        t0 = time.perf_counter()
+        counts, out = launch_counts(lambda: run(1))
+        windows.append(b / (time.perf_counter() - t0))
+    else:
+        counts, out = replay_against_eager(torch, path, run, eager)
     record_launches(results, path, counts)
     want = want()
     log(f"  launches in {what}: {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"{path} launch counts {counts} != {want}")
-    for w in range(2):
+    while len(windows) < 3:
+        w = len(windows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(10 + w)
@@ -1420,6 +1455,130 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
         log(f"  device time by kernel, {what}:")
         device_profile(torch, lambda: run(20))
     return out, rate
+
+
+def port_kernel_pattern():
+    """A regex that finds the name of any ``__global__`` function of the
+    port's CUDA sources in a profiler's kernel name."""
+    names = set()
+    for src in sorted((REPO / "image2text_torch" / "csrc").glob("*.cu*")):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\s*"
+            r"\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)", src.read_text()))
+    return re.compile(r"(?<![\w])(" + "|".join(sorted(names)) + r")\s*[<(]")
+
+
+def device_records(torch, fn):
+    """(``fn()``, records) with torch.profiler's CUDA activity over one
+    ``fn()``, read from its raw events (no per-event Python objects):
+    ``host`` the runtime's and the driver's launch, graph-launch, copy and
+    memset calls by name; ``kernels`` and ``kernel_ms`` the device's kernel
+    records and their time by name; ``copies``, ``memsets`` and
+    ``device_ms`` the device's copy and memset records and the time of
+    all of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rec = dict(host={}, kernels={}, kernel_ms={}, copies=0, memsets=0,
+               device_ms=0.0)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:   # the runtime's, the driver's
+            name = name.split("_v")[0]      # cudaLaunchKernel_v7000 and kin
+            if name in COPY_CALLS or "Launch" in name:
+                rec["host"][name] = rec["host"].get(name, 0) + 1
+            continue
+        ms = e.duration_ns() / 1e6
+        rec["device_ms"] += ms
+        if name.startswith(("Memcpy", "Memset")):
+            rec["copies" if name.startswith("Memcpy") else "memsets"] += 1
+        else:
+            rec["kernels"][name] = rec["kernels"].get(name, 0) + 1
+            rec["kernel_ms"][name] = rec["kernel_ms"].get(name, 0.0) + ms
+    return out, rec
+
+
+# the host's kernel launch calls (torch.profiler's names, version cut)
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx")
+PROFILE_TRIES = 3
+
+
+def all_records(rec) -> int:
+    """Every device record: kernels, copies, memsets."""
+    return sum(rec["kernels"].values()) + rec["copies"] + rec["memsets"]
+
+
+def port_records(rec, port) -> dict:
+    """{kernel name: device records} of the port's kernels in ``rec``."""
+    return {n: k for n, k in rec["kernels"].items() if port.search(n)}
+
+
+def replay_against_eager(torch, path: str, run, eager):
+    """A replay (``run(1)``) against an eager call of the same key
+    (``eager(1)``), each under torch.profiler (``device_records``): each
+    kernel of the port must have as many device records in the replay as
+    in the eager call, the launch counts the replay added must be the
+    eager call's, the ids equal.  The profiler may lose records of a long
+    call (it kept 25,129 of 26,031 kernels of one eager call): where the
+    port's kernels' records part, both calls are profiled again, at most
+    ``PROFILE_TRIES`` times, and a difference that stays fails.  Logs
+    both calls' host calls and records (the eager call's kernel records
+    beside its host's kernel launch calls), the port's kernels' records,
+    and every other kernel whose records or time differ between them (a
+    graph runs some copy and memset nodes as kernels, ``memcpy32_post``
+    and ``memset32``).  Returns the replay's counts and output."""
+    port = port_kernel_pattern()
+    for attempt in range(PROFILE_TRIES):
+        eager_counts, (eager_out, eager_rec) = launch_counts(
+            lambda: device_records(torch, lambda: eager(1)))
+        counts, (out, rec) = launch_counts(
+            lambda: device_records(torch, lambda: run(1)))
+        ours = port_records(eager_rec, port)
+        if port_records(rec, port) == ours:
+            break
+        log(f"  {path}: the port's kernels' records part, eager {ours}, "
+            f"replay {port_records(rec, port)}; both again")
+    else:
+        raise AssertionError(f"{path}: the port's kernels' device records "
+                             f"differ between the eager call {ours} and a "
+                             f"replay {port_records(rec, port)}")
+    names = set(eager_rec["kernels"]) | set(rec["kernels"])
+    apart = {n: (eager_rec["kernels"].get(n, 0), rec["kernels"].get(n, 0),
+                 round(eager_rec["kernel_ms"].get(n, 0.0), 3),
+                 round(rec["kernel_ms"].get(n, 0.0), 3))
+             for n in sorted(names) if n not in ours and (
+                 eager_rec["kernels"].get(n, 0) != rec["kernels"].get(n, 0)
+                 or abs(eager_rec["kernel_ms"].get(n, 0.0)
+                        - rec["kernel_ms"].get(n, 0.0)) > 0.2)}
+    launched = sum(n for k, n in eager_rec["host"].items()
+                   if k in KERNEL_LAUNCHES)
+    for label, r in (("eager call", eager_rec), ("replay", rec)):
+        log(f"  {path} {label}: host calls {r['host']}; device records "
+            f"{all_records(r)}: {sum(r['kernels'].values())} kernels, "
+            f"{r['copies']} copies, {r['memsets']} memsets; device "
+            f"{r['device_ms']:.3f} ms")
+    log(f"  {path} eager kernel records against the host's kernel launch "
+        f"calls: {sum(eager_rec['kernels'].values())} of {launched}")
+    short = {n: re.match(r"\w+(<[^()]*>)?",
+                         n[port.search(n).start(1):]).group(0) for n in ours}
+    log(f"  {path} the port's kernels, records in both: "
+        f"{ {short[n]: k for n, k in ours.items()} }")
+    log(f"  {path} other kernels whose records or ms differ (eager, replay; "
+        f"ms eager, replay): { {n[:90]: v for n, v in apart.items()} }")
+    if not ours:
+        raise AssertionError(f"{path}: no kernel of the port ran")
+    if eager_counts != counts:
+        raise AssertionError(f"{path}: a replay counted {counts}, the eager "
+                             f"call {eager_counts}")
+    if not torch.equal(eager_out, out):
+        raise AssertionError(f"{path}: a replay's output is not the eager "
+                             f"call's under the same seed")
+    return counts, out
 
 
 def device_profile(torch, fn, top: int = 12) -> None:
@@ -1465,6 +1624,186 @@ def device_profile(torch, fn, top: int = 12) -> None:
             f"{e.key[:90]}")
 
 
+GRAPH_SETTINGS = (("greedy", 0.0), ("sampled", 0.7))
+GRAPH_SEED = SEED + 7      # the [graph] calls' generator seed
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def parted_rows(torch, a, b) -> int:
+    """Rows of two id buffers that differ anywhere."""
+    return int((a != b).any(-1).sum())
+
+
+def graph_runner(torch, model, frames, prompt, kw=None):
+    """``run(graphs, temperature, seed, b)``: one synchronised caption call
+    (32 new tokens, top-k 16) on the first ``b`` frames, its generator
+    seeded anew, on the graph route or the eager one."""
+    from image2text_torch.models.generation import caption
+
+    def run(use, temperature=0.7, seed=GRAPH_SEED, b=None):
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        ids = caption(model, frames[:b], prompt[:b],
+                      max_new_tokens=MAX_NEW_TOKENS, temperature=temperature,
+                      top_k=16, generator=g, graphs=use, **(kw or {}))
+        torch.cuda.synchronize()
+        return ids
+    return run
+
+
+def graph_against_eager(torch, run, label: str, again: bool = True,
+                        settings=GRAPH_SETTINGS) -> dict:
+    """E G G E under one seed, in each of ``settings`` (greedy and
+    sampled): the first G captures
+    where its key has no graph yet (returning its eager warm-up's ids),
+    the second replays.  The eager route against itself first; a graphed
+    call may part from the first eager call in no more rows than the
+    second eager call does (0 where eager is bit-reproducible).  With
+    ``again`` False, E G G, held to 0 rows (the model's eager route shown
+    bit-reproducible before).  Returns the first G call's wall (s) by
+    setting."""
+    walls = {}
+    for setting, temperature in settings:
+        e1 = run(False, temperature)
+        t0 = time.perf_counter()
+        g1 = run(True, temperature)
+        walls[setting] = time.perf_counter() - t0
+        g2 = run(True, temperature)
+        ee = parted_rows(torch, run(False, temperature), e1) if again else 0
+        ge = (parted_rows(torch, g1, e1), parted_rows(torch, g2, e1))
+        log(f"  {label} {setting}: rows parting from the first eager call: "
+            f"eager again {ee if again else '(not run)'}, first graphed call "
+            f"{ge[0]}, replay {ge[1]} of {e1.shape[0]}; first graphed call "
+            f"{walls[setting] * 1e3:.2f} ms")
+        if max(ge) > ee:
+            raise AssertionError(f"[graph] {label} {setting}: the graph "
+                                 f"route parts from eager in {ge} rows, "
+                                 f"eager from itself in {ee}")
+    return walls
+
+
+def phase_graph(torch, model, args, path: str, bos: int, w8=None):
+    """[graph] on ``model`` at batch 256: the route and its reason, E G G E
+    greedy and sampled (``graph_against_eager``), both routes' walls and
+    captions/s (median of 3 windows), a replay's host calls beside its
+    device records (``device_records``; the eager call's, and the per-kernel
+    check of a replay against it, are ``drive_serving``'s), peak memory
+    above the resident tensors (an eager call, a replay) and the pool the
+    model's graphs share.  The flagship (``w8``, its W8A8 copy, given)
+    also: an in-place weight write (ln_f's sign, flipped: the next call
+    captures anew and equals eager), then, right after the write that
+    restores it, a second batch size (captured anew under the restored
+    weights, its capturing call and a replay equal to eager), the full
+    batch again beside the first ids, and E G G greedy in each serving
+    mode past exact (sampled: ``drive_serving``'s replay against its eager
+    call in [serve-modes]).  Every captured call is released at the end."""
+    from image2text_torch.models import graphs
+    from image2text_torch.models.generation import preprocess_frames
+
+    dev, b = model.device, BATCH
+    frames, prompt = serving_inputs(torch, model, b, SEED + 2, bos)
+    route, why = graphs.graph_plan(model, dev, prompt_len=1,
+                                   max_new_tokens=MAX_NEW_TOKENS)
+    log(f"  {path}: route {route} ({why}); {CARD}")
+    if route != "graph":
+        raise AssertionError(f"[graph] {path}: the plan sends it {route}")
+    graphs.release(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    run = graph_runner(torch, model, frames, prompt)
+    capture = graph_against_eager(torch, run, path)
+    held = graphs.held_graphs(model)
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - reserved
+    row = {"capture_ms": {k: round(v * 1e3, 2) for k, v in capture.items()},
+           "graphs_held": held, "pool_gib": round(pool / 2 ** 30, 3)}
+    for use, name in ((False, "eager"), (True, "graph")):
+        walls = []
+        for w in range(3):
+            t0 = time.perf_counter()
+            run(use, seed=30 + w)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(use)
+        peak = torch.cuda.max_memory_allocated() - resident
+        row[name] = dict(wall_ms=round(wall * 1e3, 2),
+                         captions_per_s=round(b / wall, 2),
+                         walls_ms=[round(x * 1e3, 2) for x in walls],
+                         peak_above_resident_gib=round(peak / 2 ** 30, 3))
+        if use:
+            rec = device_records(torch, lambda: run(use))[1]
+            row[name].update(host_calls=rec["host"],
+                             device_kernels=sum(rec["kernels"].values()),
+                             device_copies=rec["copies"],
+                             device_memsets=rec["memsets"])
+        log(f"  {path} {name}: wall a call {row[name]['wall_ms']} ms "
+            f"(windows {row[name]['walls_ms']}), captions/s "
+            f"{row[name]['captions_per_s']}; peak "
+            f"{row[name]['peak_above_resident_gib']} GiB above the resident "
+            f"tensors" + (f"; host calls a call {rec['host']} beside "
+                          f"{row[name]['device_kernels']} device kernels"
+                          if use else ""))
+        if args.profile:
+            device_profile(torch, lambda: run(use))
+    rec = device_records(torch, lambda: preprocess_frames(
+        model, frames, model.decoder.dtype))[1]
+    row["preprocess_host_calls"] = rec["host"]
+    log(f"  of a call, the eager preprocessing outside the graph: host calls "
+        f"{rec['host']}, {sum(rec['kernels'].values())} device kernels; "
+        f"graphs held {held}, their pool {row['pool_gib']} GiB reserved")
+    if row["graph"]["host_calls"].get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"[graph] {path}: a replay is not one graph "
+                             f"launch: {row['graph']['host_calls']}")
+    if w8 is None:
+        graphs.release(model)
+        log(f"  [graph] {path} " + json.dumps(row))
+        return row
+    before = run(False)
+    w = model.decoder.transformer.ln_f.weight
+    with torch.no_grad():
+        w.neg_()
+    want = run(False)
+    got = run(True), run(True)
+    rewritten = graphs.held_graphs(model)
+    ok = (torch.equal(got[0], want) and torch.equal(got[1], want)
+          and not torch.equal(want, before) and rewritten == 1)
+    log(f"  {path}: ln_f's sign flipped in place: the next call captured "
+        f"anew ({rewritten} graph held), its ids and a replay's equal the "
+        f"eager route's on the new weights: {ok}")
+    with torch.no_grad():
+        w.neg_()        # restored: another in-place write
+    half = b // 2
+    want = run(False, b=half)
+    got = run(True, b=half), run(True, b=half)
+    second = graphs.held_graphs(model)
+    same = torch.equal(got[0], want) and torch.equal(got[1], want)
+    again = run(True), run(True)
+    full = graphs.held_graphs(model)
+    same_full = torch.equal(again[0], before) and torch.equal(again[1],
+                                                                before)
+    ok_half = same and second == 1 and same_full and full == 2
+    log(f"  {path}: right after the restoring write, batch {half}: captured "
+        f"anew ({second} held), its capturing call's and a replay's ids "
+        f"equal to eager: {same}; "
+        f"the full batch captured anew ({full} held), equal to its first "
+        f"ids: {same_full}")
+    if not (ok and ok_half):
+        raise AssertionError(f"[graph] {path}: recapture or second batch")
+    for mode, quant_weights, kw in SERVE_MODES[1:]:
+        m = w8 if quant_weights else model
+        mode_run = graph_runner(torch, m, frames, prompt, kw)
+        row[f"first_graphed_ms_{mode}"] = {
+            k: round(v * 1e3, 2) for k, v in graph_against_eager(
+                torch, mode_run, f"{path} {mode}", again=False,
+                settings=GRAPH_SETTINGS[:1]).items()}
+    graphs.release(model)
+    graphs.release(w8)
+    log(f"  [graph] {path} " + json.dumps(row))
+    return row
+
+
 def phase_parity(torch, model, phase: str, bos: int,
                  sensitivity: bool = False):
     """At batch 8: the first-step logits (the prefill's last row) and the
@@ -1487,9 +1826,9 @@ def phase_parity(torch, model, phase: str, bos: int,
         return prefill(model, model.encoder(images), prompt,
                        1 + MAX_NEW_TOKENS)[0][:, -1]
 
-    def greedy():
+    def greedy():    # eager: a replay would not see the plain versions
         return generate(model, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                        temperature=0.0)
+                        temperature=0.0, graphs=False)
 
     got, ids_k = first_logits(), greedy()
     with plain_versions():
@@ -1836,6 +2175,7 @@ def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
     ``approx`` must equal ``exact`` token for token under the same
     generator (the port takes approx top-k as exact)."""
     from image2text_torch.models.generation import caption, generate
+    from image2text_torch.models.graphs import graph_plan
     from image2text_torch.ops.functions import int8_mm
     from image2text_torch.ops.preprocess import resize_normalize_on_device
 
@@ -1852,13 +2192,17 @@ def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
     for mode, quant_weights, kw in modes:
         m = w8 if quant_weights else model
         quant = kw.get("cross_kv_quant")
+        route, why = graph_plan(m, dev, prompt_len=1,
+                                max_new_tokens=MAX_NEW_TOKENS)
+        graphed = route == "graph"
         log(f"  mode {mode}: {'W8A8 decoder, ' if quant_weights else ''}"
-            f"{kw or 'exact'}")
+            f"{kw or 'exact'}; route {route} ({why})")
 
-        def run(seed, m=m, kw=kw):
+        def run(seed, m=m, kw=kw, use=True):
             g = torch.Generator(device=dev).manual_seed(seed)
             return caption(m, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                           temperature=0.7, top_k=16, generator=g, **kw)
+                           temperature=0.7, top_k=16, generator=g,
+                           graphs=use, **kw)
 
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
@@ -1866,9 +2210,13 @@ def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
         products = int8_mm.launches
         ids, rate = drive_serving(torch, args, results, f"{tag}_{mode}", run,
                                   b, lambda: serving_launches(model),
-                                  f"one caption call ({mode})")
+                                  f"one caption call ({mode})",
+                                  eager=(lambda seed, run=run: run(
+                                      seed, use=False)) if graphed else None)
         peak = torch.cuda.max_memory_allocated()
-        calls = 6 if args.profile else 5
+        # drive_serving's calls (6; 4 on the eager route), the greedy call
+        # below, the profiled one
+        calls = (6 if graphed else 4) + 1 + bool(args.profile)
         per_call = (int8_mm.launches - products) / calls
         counted[mode] = ids
         greedy[mode] = generate(m, images, prompt,
@@ -2156,16 +2504,13 @@ def phase_reforward_flagship(torch, model, results, b: int = 16):
 
 
 def kernel_wrappers():
-    """Every kernel wrapper of the port, each with its launch count."""
-    from image2text_torch.ops import flash_attention as fa
-    from image2text_torch.ops.fused_block import fused_block, sparse_block
-    from image2text_torch.ops.fused_frontend import fused_frontend
-    from image2text_torch.ops.fused_moe import moe_ffn
-    from image2text_torch.ops.int4_matmul import int4_matmul
-    from image2text_torch.ops.topk_mask import topk_ban_mask
+    """Every kernel wrapper of the port, each with its launch count: the
+    counted wrappers but the W8A8 product (``torch._int_mm``, no kernel of
+    the port's)."""
+    from image2text_torch.models.graphs import counted_wrappers
+    from image2text_torch.ops.functions import int8_mm
 
-    return (sparse_block, moe_ffn, fa.flash_fwd, fa.flash_bwd, int4_matmul,
-            fused_frontend, fused_block, topk_ban_mask)
+    return tuple(w for w in counted_wrappers() if w is not int8_mm)
 
 
 def launch_counts(run):
@@ -3623,6 +3968,9 @@ def phase_nano(torch, args, results):
             phase_nano_moe_kernel(torch, model, results)
         phase_serve(torch, model, args, results, path, NANO_BOS)
         if name == "nano-mini":
+            log(f"[graph] nano-mini's caption call, graph against eager "
+                f"({CARD})")
+            phase_graph(torch, model, args, "nano-mini", NANO_BOS)
             log("[nano-mini-parity] kernel path vs plain-version path at "
                 "full width")
             phase_parity(torch, model, "nano-mini-parity", NANO_BOS)
@@ -5269,7 +5617,8 @@ def moe_gates_against_cpu(torch, m, label: str) -> None:
             enc = model.encoder(imgs)
             logits = prefill(model, enc, p, 1 + MAX_NEW_TOKENS)[0][:, -1]
             ids = generate(model, imgs, p, max_new_tokens=MAX_NEW_TOKENS,
-                           temperature=0.0, encoder_output=enc)
+                           temperature=0.0, encoder_output=enc,
+                           graphs=False)   # the routes are read on the host
         outs.append((enc.float().cpu(), logits.float().cpu(), ids.cpu()))
     (enc, lg, ids), (cenc, clg, cids) = outs
     enc_err, err = rel_l2(torch, enc, cenc), rel_l2(torch, lg, clg)
@@ -5489,6 +5838,10 @@ def main() -> int:
             "width and depth: exact, int8 cross-KV, W8A8 + int8 cross-KV, "
             "approx top-k, all")
         phase_serve_modes(torch, model, w8, args, results)
+        log(f"[graph] the flagship's caption call as one captured CUDA "
+            f"graph against the eager route, then the five serving modes "
+            f"({CARD})")
+        phase_graph(torch, model, args, "flagship", FLAGSHIP_BOS, w8)
         phase_encoder_w8a8(torch, w8, results)
         log("  the W8A8 product at the flagship's shapes, card against CPU")
         phase_int8_products(torch, w8)
@@ -5517,6 +5870,9 @@ def main() -> int:
         log("[dense] dense-twin serving path at full width and depth")
         phase_serve(torch, model, args, results, "dense_caption",
                     FLAGSHIP_BOS)
+        log(f"[graph] the dense twin's caption call, graph against eager "
+            f"({CARD})")
+        phase_graph(torch, model, args, "dense", FLAGSHIP_BOS)
         log("[dense-parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model, "dense-parity", FLAGSHIP_BOS)
     del model

@@ -26,6 +26,13 @@ The other branches of JAX's ``generate``:
   re-forwarded every step (every position sees the whole sequence, so a
   fixed buffer's unwritten slots would leak into the logits).
 
+On the card the cached branch is one captured CUDA graph (the
+counterpart of JAX's ``jax.jit`` around ``generate``;
+``models/graphs.py``): :func:`cached_call`, the whole branch from the
+images (or the encoder output) to the id buffer, is captured once per
+call shape and weights and replayed after.  ``graph_plan`` picks the
+route from the model's structure; ``graphs=False`` keeps the eager route.
+
 Each step samples as the JAX package's ``_sample_step``: the fused n-gram
 ban + top-k sampler where it applies (greedy, or top-k without nucleus),
 else the bans into the f32 logits, then greedy argmax or
@@ -125,6 +132,39 @@ def sample_step(model, ids_buf: torch.Tensor, cur_len: int,
     return sample_logits(logits, generator, temperature, top_k, nucleus_p)
 
 
+def cached_call(model, images: Optional[torch.Tensor],
+                encoder_output: Optional[torch.Tensor],
+                prompt_ids: torch.Tensor, ids_buf: torch.Tensor, step: dict,
+                cross_kv_quant: Optional[str] = None) -> torch.Tensor:
+    """The cached branch of :func:`generate`, from ``images`` (the encoder
+    runs here) or from ``encoder_output``: the prompt (B, t0) and then one
+    sampled id a step written into ``ids_buf`` (B, t0 + new), which it
+    returns.  It allocates everything else itself and reads nothing back
+    to the host, so the graph route captures it whole with its arguments
+    as the graph's static buffers (``models/graphs.py``); the eager route
+    calls it as it is.  ``step``: :func:`sample_step`'s keywords."""
+    if encoder_output is None:
+        encoder_output = model.encoder(images)
+    t0, total = prompt_ids.shape[-1], ids_buf.shape[-1]
+    ids_buf.zero_()
+    ids_buf[:, :t0] = prompt_ids
+    cdt = encoder_output.dtype
+    cross = encoder_output if model.use_cross_attn else None
+    off = model.space_for_prompt
+    cross_kv = precompute_cross_kv(model, cross)
+    logits, cache = prefill(model, encoder_output, prompt_ids, total,
+                            cross_kv)
+    cross_kv = quantize_cross_kv(cross_kv, cross_kv_quant)
+    last = logits[:, -1].to(cdt)
+    for cur in range(t0, total):
+        nxt = sample_step(model, ids_buf, cur, last, **step)
+        ids_buf[:, cur] = nxt
+        logits, cache = decoder_step(model, nxt[:, None], cache, off + cur,
+                                     cross, cross_kv)
+        last = logits[:, -1].to(cdt)
+    return ids_buf
+
+
 @torch.no_grad()
 def generate(model, images, prompt_ids: torch.Tensor,
              max_new_tokens: int = 128, temperature: float = 1.0,
@@ -133,12 +173,18 @@ def generate(model, images, prompt_ids: torch.Tensor,
              encoder_output: Optional[torch.Tensor] = None,
              nucleus_p: Optional[float] = None, force_no_cache: bool = False,
              cross_kv_quant: Optional[str] = None,
-             approx_top_k: bool = False) -> torch.Tensor:
+             approx_top_k: bool = False, graphs: bool = True) -> torch.Tensor:
     """Sample captions: (B, prompt_len + max_new_tokens) ids.  Runs on the
     model's device; inputs are moved there.  ``cross_kv_quant='int8'``
     (cached branch only) and ``approx_top_k`` are the serving modes of
     JAX's ``generate``; ``force_no_cache`` takes the full-reforward
-    fallback."""
+    fallback.  Where ``graphs.graph_plan`` allows it (the card, a
+    one-device scratch decoder, the cached branch) the call replays a
+    captured CUDA graph, the same ids bit for bit; ``graphs=False`` keeps
+    the eager route."""
+    # imported here: models/graphs.py imports this module
+    from image2text_torch.models.graphs import graph_plan, graphed_call
+
     dev = model.device
     prompt_ids = prompt_ids.to(dev)
     if prompt_ids.dim() == 1:
@@ -148,20 +194,22 @@ def generate(model, images, prompt_ids: torch.Tensor,
     if max_new_tokens > blk_size - t0:
         raise ValueError(f"max_new_tokens={max_new_tokens} exceeds the "
                          f"decoder window ({blk_size} - prompt {t0})")
+    step = dict(generator=generator, temperature=temperature, top_k=top_k,
+                nucleus_p=nucleus_p, approx_top_k=approx_top_k)
+    route, _ = graph_plan(model, dev, prompt_len=t0,
+                          max_new_tokens=max_new_tokens, graphs=graphs,
+                          force_no_cache=force_no_cache)
+    if route == "graph":
+        return graphed_call(model, images, encoder_output, prompt_ids,
+                            t0 + max_new_tokens, step, cross_kv_quant)
     if encoder_output is None:
         encoder_output = model.encoder(images.to(dev))
     bs = encoder_output.shape[0]
     prompt_ids = prompt_ids.expand(bs, t0)
-    step = dict(generator=generator, temperature=temperature, top_k=top_k,
-                nucleus_p=nucleus_p, approx_top_k=approx_top_k)
     if not getattr(model.decoder, "is_causal", True):
         return _generate_bidirectional(model, encoder_output, prompt_ids,
                                        max_new_tokens, blk_size, step)
     total = t0 + max_new_tokens
-    ids_buf = torch.zeros((bs, total), dtype=torch.long, device=dev)
-    ids_buf[:, :t0] = prompt_ids
-    cdt = encoder_output.dtype
-    cross = encoder_output if model.use_cross_attn else None
     off = model.space_for_prompt
     use_cache = (getattr(model.decoder, "supports_kv_cache", False)
                  and not force_no_cache)
@@ -171,26 +219,19 @@ def generate(model, images, prompt_ids: torch.Tensor,
         # the window changes earlier hidden states: only the fallback
         # reproduces that
         use_cache = exact(off + t0, off + total)
-    if not use_cache:
-        for i in range(max_new_tokens):
-            cur = t0 + i
-            out = model(None, ids_buf, encoder_output=encoder_output,
-                        sparse_rule_len=off + cur)
-            last = out.logits[:, cur - 1].to(cdt)
-            ids_buf[:, cur] = sample_step(model, ids_buf, cur, last, **step)
-        return ids_buf
-    cross_kv = precompute_cross_kv(model, cross)
-    logits, cache = prefill(model, encoder_output, prompt_ids, total,
-                            cross_kv)
-    cross_kv = quantize_cross_kv(cross_kv, cross_kv_quant)
-    last = logits[:, -1].to(cdt)
+    if use_cache:
+        ids_buf = torch.empty((bs, total), dtype=torch.long, device=dev)
+        return cached_call(model, None, encoder_output, prompt_ids, ids_buf,
+                           step, cross_kv_quant)
+    ids_buf = torch.zeros((bs, total), dtype=torch.long, device=dev)
+    ids_buf[:, :t0] = prompt_ids
+    cdt = encoder_output.dtype
     for i in range(max_new_tokens):
         cur = t0 + i
-        nxt = sample_step(model, ids_buf, cur, last, **step)
-        ids_buf[:, cur] = nxt
-        logits, cache = decoder_step(model, nxt[:, None], cache, off + cur,
-                                     cross, cross_kv)
-        last = logits[:, -1].to(cdt)
+        out = model(None, ids_buf, encoder_output=encoder_output,
+                    sparse_rule_len=off + cur)
+        last = out.logits[:, cur - 1].to(cdt)
+        ids_buf[:, cur] = sample_step(model, ids_buf, cur, last, **step)
     return ids_buf
 
 
@@ -231,15 +272,16 @@ def caption(model, frames_u8: torch.Tensor, prompt_ids: torch.Tensor,
             top_k: Optional[int] = 16,
             generator: Optional[torch.Generator] = None,
             cross_kv_quant: Optional[str] = None,
-            approx_top_k: bool = False) -> torch.Tensor:
+            approx_top_k: bool = False, graphs: bool = True) -> torch.Tensor:
     """The serving path: raw uint8 frames (B, H, W, 3) → resize/normalize
     on the model's device in the model's dtype (``preprocess_frames``) →
-    encoder → generate, in
-    the serving mode the last two arguments name (bench.py's modes; the
-    W8A8 weights are the model's own, ``int8_serving_params``)."""
+    encoder → generate, in the serving mode ``cross_kv_quant`` and
+    ``approx_top_k`` name (bench.py's modes; the W8A8 weights are the
+    model's own, ``int8_serving_params``), on the route ``graphs`` allows
+    (:func:`generate`)."""
     images = preprocess_frames(model, frames_u8.to(model.device),
                                model.decoder.dtype)
     return generate(model, images, prompt_ids, max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k,
                     generator=generator, cross_kv_quant=cross_kv_quant,
-                    approx_top_k=approx_top_k)
+                    approx_top_k=approx_top_k, graphs=graphs)

@@ -3,16 +3,27 @@
 
 The TPU package wrote these as one-hot matmuls; on the GPU they are plain
 index gathers and scatters, exact by construction.  Index tensors are
-built on the data's device (a small host→device copy per call).
+built on the data's device once per index set and kept: a host→device
+copy at every call would synchronise the stream, and a captured call
+(``models/graphs.py``) cannot contain one.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+_INDEX: Dict[Tuple[tuple, bytes, str], torch.Tensor] = {}
+
 
 def _index(idx, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    idx = np.asarray(idx, np.int64)
+    key = (idx.shape, idx.tobytes(), str(device))
+    t = _INDEX.get(key)
+    if t is None:
+        t = _INDEX[key] = torch.as_tensor(idx, device=device)
+    return t
 
 
 def static_take(x: torch.Tensor, idx) -> torch.Tensor:

@@ -70,9 +70,11 @@ def eval_model(trainer: Trainer, tokenizer, val_iter, epoch: int,
     max_new = min(128, window - decoded_ids.shape[-1])
     gen = torch.Generator(device=dev).manual_seed(
         trainer.seed * 1_000_003 + epoch)
+    # eager: every optimizer step writes the weights, so a captured call
+    # of this epoch would never be replayed
     result = model.generate(x, decoded_ids, temperature=0.7,
                             max_new_tokens=max_new, nucleus_p=0.6,
-                            generator=gen)
+                            generator=gen, graphs=False)
     result_txt = tokenizer.batch_decode(result.cpu().numpy()[:, 1:])
     reference = tokenizer.batch_decode([label_[label_ != ignore_index]])[0]
     say("truth", reference, "\n")

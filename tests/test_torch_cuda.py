@@ -28,7 +28,11 @@ the lm_head and the eval attention without f32 copies.  The f32 forms of
 the flash kernels and the encoder front (the offline configs' precision
 'no') against their plain versions at the f32 limits.  The W8A8
 product (``torch._int_mm`` on padded operands) bit for bit against the
-CPU's exact one, and the serving modes' launch counts.
+CPU's exact one, and the serving modes' launch counts.  The caption call's
+graph route (``models/graphs.py``): a replayed call's ids bit for bit the
+eager route's, greedy and sampled, through a run of calls on one
+generator; a weight written in place captures anew; a replay adds the
+launch counts of one eager call.
 """
 import pytest
 import torch
@@ -178,6 +182,126 @@ def test_tiny_flagship_on_card_kernel_path_vs_plain(dev):
     assert ids.shape == (4, 9) and bool((ids < 512).all())
     want = sum(model.decoder.ffn_evaluations(off + i, 1) for i in range(9))
     assert moe_ffn.launches - before == want > 0
+
+
+@pytest.mark.cuda
+def test_graphed_caption_call_equals_eager_and_counts_launches(dev):
+    """The tiny flagship's caption call on the graph route: the capturing
+    call and the replays give the eager route's ids bit for bit (greedy
+    and sampled, a generator's run of calls, the default generator), and
+    a replay adds what one eager call counts."""
+    from image2text_torch.models import graphs
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device=dev
+                                 ).init_weights(0).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+    assert graphs.graph_plan(model, dev, prompt_len=1,
+                             max_new_tokens=8)[0] == "graph"
+    wrappers = graphs.counted_wrappers()
+
+    def call(use, gen, temperature=0.7, x=images):
+        before = [w.launches for w in wrappers]
+        ids = model.generate(x, prompt[:x.shape[0]], max_new_tokens=8,
+                             temperature=temperature, top_k=16,
+                             generator=gen, graphs=use)
+        torch.cuda.synchronize()
+        return ids, [w.launches - n for w, n in zip(wrappers, before)]
+
+    for temperature in (0.0, 0.7):
+        want, counts = call(False, _gen(dev, 5), temperature)
+        assert sum(counts) > 0
+        for _ in range(2):     # the capturing call, then a replay
+            got, got_counts = call(True, _gen(dev, 5), temperature)
+            assert torch.equal(got, want) and got_counts == counts
+    assert graphs.held_graphs(model) == 2
+    g, h = _gen(dev, 9), _gen(dev, 9)
+    for _ in range(3):
+        assert torch.equal(call(True, g)[0], call(False, h)[0])
+    torch.cuda.manual_seed(3)
+    want = call(False, None)[0]
+    torch.cuda.manual_seed(3)
+    assert torch.equal(call(True, None)[0], want)
+    assert graphs.held_graphs(model) == 2
+    call(True, _gen(dev, 5), x=images[:2])     # another batch: its own
+    assert graphs.held_graphs(model) == 3
+
+
+@pytest.mark.cuda
+def test_graphed_caption_call_recaptures_after_a_weight_write(dev):
+    from image2text_torch.models import graphs
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device=dev
+                                 ).init_weights(0).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+
+    def call(use):
+        return model.generate(images, prompt, max_new_tokens=8,
+                              temperature=0.7, top_k=16,
+                              generator=_gen(dev, 6), graphs=use)
+
+    before = call(True)
+    assert torch.equal(call(True), before)
+    with torch.no_grad():      # the MoE FFNs' packed operands, and ln_f
+        for blk in model.decoder.blocks:
+            next(blk.mlp.parameters()).mul_(-1.0)
+        model.decoder.transformer.ln_f.weight.mul_(-1.0)
+    want = call(False)
+    assert not torch.equal(want, before)
+    assert torch.equal(call(True), want)      # captured anew
+    assert torch.equal(call(True), want)      # and replayed
+    assert graphs.held_graphs(model) == 1
+
+
+def _tensors(value):
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.cuda
+def test_graphed_caption_call_holds_the_cached_operands_it_reads(dev):
+    """A replay reads the packed operands its warm-up cached: dropping the
+    model's caches (as ``int8_serving_params`` does) and writing over
+    blocks of their sizes leaves a replay's ids the eager route's, and
+    the eager call that refills the caches does not disturb it."""
+    from image2text_torch.models import graphs
+    from image2text_torch.models.layers import _Cached
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device=dev
+                                 ).init_weights(0).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+
+    def call(use):
+        return model.generate(images, prompt, max_new_tokens=8,
+                              temperature=0.7, top_k=16,
+                              generator=_gen(dev, 6), graphs=use)
+
+    want = call(False)
+    assert torch.equal(call(True), want)             # captured
+    specs = [(t.shape, t.dtype)
+             for t in _tensors(graphs.cached_operands(model))]
+    assert specs
+    for mod in model.modules():
+        for value in vars(mod).values():
+            if isinstance(value, _Cached):
+                value.clear()
+        getattr(mod, "_rows", {}).clear()
+    torch.cuda.synchronize()
+    junk = [torch.full(shape, 7, dtype=dtype, device=dev)
+            for shape, dtype in specs]
+    assert torch.equal(call(True), want)             # a replay
+    assert torch.equal(call(False), want)            # refills the caches
+    del junk
+    assert torch.equal(call(True), want)
+    assert graphs.held_graphs(model) == 1
 
 
 def _soft_prompt_bias(s, n_prefix, dev):
