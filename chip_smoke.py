@@ -91,26 +91,43 @@ Phases, each printing its lines:
             lm_head's ms.
    graph    the caption call as one captured CUDA graph
             (image2text_torch/models/graphs.py; every serving phase of a
-            scratch MQA decoder takes that route by default, the others
-            stay eager by graph_plan and print their route).  Each graphed
-            serving path (main, the five serve-modes, dense, nano-mini)
-            holds its counted call, a replay, against an eager call of the
-            same key under torch.profiler: each kernel of the port as many
-            device records in both, the launch counts the replay adds the
-            eager call's, the ids equal.  The phase itself: the eager (E)
-            and graphed (G) routes in turns E G G E, greedy and sampled
-            under one seed, ids bit for bit (G no further from E than E
-            from itself), at batch 256 for the flagship and, in their own
-            phases, the dense twin and nano-mini; E G G greedy in the
-            flagship's four other serving modes; the capturing call's
-            wall, both routes' walls and captions/s (median of 3
+            scratch MQA decoder or an HF decoder, and every beam-search
+            call on one, takes that route by default, the others stay
+            eager by graph_plan and print their route).  Each graphed
+            serving path (main, beam, the five serve-modes and the three
+            beam modes, dense, nano-mini, gpt2m and its modes, each HF
+            family) holds its counted call, a replay, against an eager
+            call of the same key under torch.profiler: each kernel of the
+            port as many device records in both, the launch counts the
+            replay adds the eager call's, the outputs equal (beam search:
+            an eager call that ran every round).  The phase itself: the
+            eager (E) and graphed (G) routes in turns E G G E, greedy and
+            sampled under one seed, ids bit for bit (G no further from E
+            than E from itself), at batch 256 for the flagship and, in
+            their own phases, the dense twin and nano-mini; E G G greedy
+            in the flagship's four other serving modes; the capturing
+            call's wall, both routes' walls and captions/s (median of 3
             windows), a replay's host calls (cudaGraphLaunch, launches,
             copies) beside its device records, peak memory and the pool a
             model's graphs share; on the flagship, after an in-place
             write to a weight the next call captures anew and equals
             eager, and right after the write that restores it a second
-            batch gets a graph of its own, equal to eager.
+            batch gets a graph of its own, equal to eager; on GPT-2-medium
+            at batch 256 E G G E, then E G G in its int8 mode.
             --profile: each route's device busy ms and share.
+   graph-beam  beam search (batch 64, width 3, expansion 4, 31 rounds) as
+            one captured CUDA graph with its done flag on the device, on
+            the flagship, the dense twin and nano-mini: E G G E greedy
+            (temperature 0, consolidation 0) and sampled (bench.py's),
+            ids, scores and the rounds taken bit for bit; two calls in a
+            row from one generator on each route equal, the generators
+            left in one state; the capturing call's wall, both routes'
+            walls (median of 3), device busy ms and share (one profiled
+            call each), a replay's host calls, the pool; on the flagship
+            also E G G in int8 cross-KV and W8A8 + int8 cross-KV, and a
+            call where every beam finishes early (EOS's logit raised past
+            a position by a hook: the eager loop stops, the graph runs
+            every round frozen) with two calls in a row.
    beam-int8  beam search (batch 64, width 3, expansion 4) exact, with
             int8 cross-KV and with W8A8 + int8 cross-KV: captions/s,
             launches, greedy beam ids against exact's.
@@ -289,7 +306,9 @@ f32, precision 'no'; 2 + 2 dense blocks of d 64 with _MLP FFNs):
             sampled metrics beside them.
 16. offline-beam  greedy beam search on quality2_ck.npz, card against CPU:
             the rounds each sample's ids stay equal, and the margins where
-            they part.
+            they part; the rounds taken against the window's 31, and the
+            card's graph route (a capture, a replay) equal to its eager
+            call in ids, scores and rounds taken.
 
 17. offline-modes  the evaluate twin on quality2_ck.npz with
             --int8_serving and with --approx_topk: greedy, card = CPU token
@@ -1378,11 +1397,15 @@ def serving_inputs(torch, model, b: int, seed: int, bos: int):
                               device=model.device)
 
 
-def phase_serve(torch, model, args, results, path: str, bos: int):
+def phase_serve(torch, model, args, results, path: str, bos: int,
+                eager_wall: bool = False):
     """A serving path: raw uint8 frames → caption (batch 256, 32 new
     tokens, temperature 0.7, top-k 16, n-grams 2–5): launches of every
     kernel in one caption call, held to ``serving_launches``, and
-    captions/s, the median of 3 warm windows."""
+    captions/s, the median of 3 warm windows.  On the graph route also
+    the pool the model's graphs hold (reserved memory after the calls
+    beside before, caches emptied) and, with ``eager_wall``, the wall of
+    one call on the eager route (the paths no [graph] phase times)."""
     from image2text_torch.models import graphs
     from image2text_torch.models.generation import caption
 
@@ -1397,11 +1420,33 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
         return caption(model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
                        temperature=0.7, top_k=16, generator=g, graphs=use)
 
+    graphed = route == "graph"
+    if graphed:
+        graphs.release(model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
     ids, _ = drive_serving(torch, args, results, path, run, b,
                            lambda: serving_launches(model), "one caption call",
                            eager=(lambda seed: run(seed, False))
-                           if route == "graph" else None)
-    log(f"  graphs held: {graphs.held_graphs(model)}")
+                           if graphed else None,
+                           port_kernels=any(serving_launches(model).values()),
+                           graph=lambda: graphs.last_graph(model))
+    held = graphs.held_graphs(model)
+    if graphed:
+        torch.cuda.empty_cache()
+        log(f"  graphs held: {held}, their pool "
+            f"{(torch.cuda.memory_reserved() - reserved) / 2 ** 30:.3f} GiB "
+            f"reserved ({CARD})")
+    else:
+        log(f"  graphs held: {held}")
+    if graphed and eager_wall:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(30, False)
+        torch.cuda.synchronize()
+        log(f"  one call on the eager route: wall "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms ({CARD})")
     vocab = vocab_rows(model)
     if (tuple(ids.shape) != (b, 1 + MAX_NEW_TOKENS)
             or not bool(((ids >= 0) & (ids < vocab)).all())
@@ -1413,7 +1458,8 @@ def phase_serve(torch, model, args, results, path: str, bos: int):
 
 
 def drive_serving(torch, args, results, path: str, run, b: int, want,
-                  what: str, eager=None):
+                  what: str, eager=None, port_kernels: bool = True,
+                  graph=None):
     """What every serving phase does with its ``run(seed)``: a warm-up
     call (it builds caches and per-block index tensors; on the graph
     route it captures), one call with every launch count set to 0 just
@@ -1422,17 +1468,25 @@ def drive_serving(torch, args, results, path: str, run, b: int, want,
     each and, with ``--profile``, device time by kernel of one more call.
     With ``eager`` (the same call on the eager route, for a ``run`` on
     the graph route) the counted call is a replay, held to an eager call
-    of the same key under torch.profiler (``replay_against_eager``).
-    Returns the counted call's output and the captions/s."""
+    of the same key under torch.profiler (``replay_against_eager``; with
+    ``port_kernels`` False, a model that launches no kernel of the port;
+    ``graph`` returns the replayed call's CUDA graph).  The warm-up
+    call's wall is logged.  Returns the counted call's output and the
+    captions/s."""
+    t0 = time.perf_counter()
     run(0)
     torch.cuda.synchronize()
+    log(f"  the first call{' (it captures)' if eager is not None else ''}: "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
     windows = []
     if eager is None:      # the counted call is the first window
         t0 = time.perf_counter()
         counts, out = launch_counts(lambda: run(1))
         windows.append(b / (time.perf_counter() - t0))
     else:
-        counts, out = replay_against_eager(torch, path, run, eager)
+        counts, out = replay_against_eager(torch, path, run, eager,
+                                           port_kernels=port_kernels,
+                                           graph=graph)
     record_launches(results, path, counts)
     want = want()
     log(f"  launches in {what}: {counts} (want {want})")
@@ -1468,9 +1522,13 @@ def port_kernel_pattern():
     return re.compile(r"(?<![\w])(" + "|".join(sorted(names)) + r")\s*[<(]")
 
 
-def device_records(torch, fn):
+def device_records(torch, fn, pad: int = None):
     """(``fn()``, records) with torch.profiler's CUDA activity over one
-    ``fn()``, read from its raw events (no per-event Python objects):
+    ``fn()``, after ``pad`` (PROFILE_PAD where None) launches of torch's
+    ``spin_kernel`` in the same session, which the records leave out: a
+    session drops records at its start (the first kernels of a call, or
+    every kernel of a short one), and the pad takes those places; read
+    from its raw events (no per-event Python objects):
     ``host`` the runtime's and the driver's launch, graph-launch, copy and
     memset calls by name; ``kernels`` and ``kernel_ms`` the device's kernel
     records and their time by name; ``copies``, ``memsets`` and
@@ -1479,8 +1537,11 @@ def device_records(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    pad = PROFILE_PAD if pad is None else pad
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1)
         out = fn()
         torch.cuda.synchronize()
     rec = dict(host={}, kernels={}, kernel_ms={}, copies=0, memsets=0,
@@ -1492,6 +1553,8 @@ def device_records(torch, fn):
             if name in COPY_CALLS or "Launch" in name:
                 rec["host"][name] = rec["host"].get(name, 0) + 1
             continue
+        if PAD_KERNEL in name:
+            continue
         ms = e.duration_ns() / 1e6
         rec["device_ms"] += ms
         if name.startswith(("Memcpy", "Memset")):
@@ -1499,13 +1562,17 @@ def device_records(torch, fn):
         else:
             rec["kernels"][name] = rec["kernels"].get(name, 0) + 1
             rec["kernel_ms"][name] = rec["kernel_ms"].get(name, 0.0) + ms
+    if pad:
+        rec["host"]["cudaLaunchKernel"] -= pad
     return out, rec
 
 
 # the host's kernel launch calls (torch.profiler's names, version cut)
 KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                    "cuLaunchKernel", "cuLaunchKernelEx")
-PROFILE_TRIES = 3
+PROFILE_TRIES = 4
+PROFILE_PAD = 997   # pad kernels before an eager call's profile, a try's
+PAD_KERNEL = "spin_kernel"     # torch.cuda._sleep's
 
 
 def all_records(rec) -> int:
@@ -1513,45 +1580,147 @@ def all_records(rec) -> int:
     return sum(rec["kernels"].values()) + rec["copies"] + rec["memsets"]
 
 
-def port_records(rec, port) -> dict:
-    """{kernel name: device records} of the port's kernels in ``rec``."""
-    return {n: k for n, k in rec["kernels"].items() if port.search(n)}
+def same_outputs(torch, a, b) -> bool:
+    """Whether two calls' outputs (a tensor, or a tuple of them: beam
+    search's ids and scores) are equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def replay_against_eager(torch, path: str, run, eager):
+def graph_kernels(graph) -> dict:
+    """{demangled name: nodes} of the kernel nodes of a captured CUDA
+    graph (``graph.raw_cuda_graph()``; libcuda's ``cuGraphGetNodes``,
+    ``cuGraphKernelNodeGetParams_v2`` and ``cuFuncGetName`` or
+    ``cuKernelGetName``, names demangled by ``c++filt``): what one replay
+    runs, whatever a profiler keeps of it."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"graph_kernels: {what} returned {err}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    mangled = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:     # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern (a CUkernel) at 56
+        params = (ctypes.c_byte * 128)()
+        ok(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+           "cuGraphKernelNodeGetParams_v2")
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)),
+               "cuFuncGetName")
+        else:
+            ok(cuda.cuKernelGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(kern)), "cuKernelGetName")
+        key = name.value.decode()
+        mangled[key] = mangled.get(key, 0) + 1
+    names = list(mangled)
+    plain = subprocess.run(["c++filt", *names], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    out = {}
+    for m, d in zip(names, plain):
+        out[d] = out.get(d, 0) + mangled[m]
+    return out
+
+
+def short_name(port, name: str) -> str:
+    """A port kernel's record name cut to its function name (and template
+    arguments)."""
+    return re.match(r"\w+(<[^()]*>)?",
+                    name[port.search(name).start(1):]).group(0)
+
+
+def replay_against_eager(torch, path: str, run, eager, keep=None,
+                         port_kernels: bool = True, graph=None):
     """A replay (``run(1)``) against an eager call of the same key
     (``eager(1)``), each under torch.profiler (``device_records``): each
-    kernel of the port must have as many device records in the replay as
-    in the eager call, the launch counts the replay added must be the
-    eager call's, the ids equal.  The profiler may lose records of a long
-    call (it kept 25,129 of 26,031 kernels of one eager call): where the
-    port's kernels' records part, both calls are profiled again, at most
-    ``PROFILE_TRIES`` times, and a difference that stays fails.  Logs
-    both calls' host calls and records (the eager call's kernel records
-    beside its host's kernel launch calls), the port's kernels' records,
-    and every other kernel whose records or time differ between them (a
-    graph runs some copy and memset nodes as kernels, ``memcpy32_post``
-    and ``memset32``).  Returns the replay's counts and output."""
+    kernel of the port must run as often in the replay as the eager call's
+    device records show, the launch counts the replay added must be the
+    eager call's, the outputs equal.  The replay's side: with ``graph``
+    (it returns the replayed call's CUDA graph) the graph's own kernel
+    nodes (``graph_kernels``: what a replay runs), and the replay's device
+    records may not exceed them; else its device records.  The profiler
+    loses records of long calls (it kept 25,129 of 26,031 kernels of one
+    eager call; it dropped ``moe_split``/``moe_finish`` records of a W8A8
+    beam call's eager run at the same place in 3 sessions in a row, and
+    the same 8 ``int4_matmul`` records of GPT-2-xl's replay of 186,556
+    kernels in 4): where the sides part, both calls are profiled again, at
+    most ``PROFILE_TRIES`` times, each after ``PROFILE_PAD`` more pad
+    kernels than the last (``device_records``), and a side's records of a
+    kernel are its most over the sessions, which a dropped record can only
+    lower; a difference that stays fails.  Logs both calls' host calls
+    and records (the eager call's kernel records beside its host's kernel
+    launch calls), the port's kernels' counts, and every other kernel
+    whose records or time differ between them (a graph runs some copy and
+    memset nodes as kernels, ``memcpy32_post`` and ``memset32``).  Returns
+    the replay's counts and output; ``keep`` (a dict) takes both calls'
+    records under ``eager`` and ``replay``.  ``port_kernels`` False: a
+    model whose calls launch no kernel of the port (Qwen-2, the f32
+    Llama-2-7B), whose profiles must still hold kernels."""
     port = port_kernel_pattern()
+
+    def by_kernel(named: dict) -> dict:
+        return {short_name(port, n): k for n, k in named.items()
+                if port.search(n)}
+
+    most = ({}, {})     # each side's most records of each port kernel
+    nodes = None
     for attempt in range(PROFILE_TRIES):
+        pad = (attempt + 1) * PROFILE_PAD
         eager_counts, (eager_out, eager_rec) = launch_counts(
-            lambda: device_records(torch, lambda: eager(1)))
+            lambda: device_records(torch, lambda: eager(1), pad=pad))
         counts, (out, rec) = launch_counts(
-            lambda: device_records(torch, lambda: run(1)))
-        ours = port_records(eager_rec, port)
-        if port_records(rec, port) == ours:
+            lambda: device_records(torch, lambda: run(1), pad=pad))
+        for side, r in zip(most, (eager_rec, rec)):
+            for n, k in by_kernel(r["kernels"]).items():
+                side[n] = max(side.get(n, 0), k)
+        if graph is not None and nodes is None:
+            nodes = by_kernel(graph_kernels(graph()))
+        want = most[1] if nodes is None else nodes
+        over = {n: (k, want.get(n)) for n, k in most[1].items()
+                if k > want.get(n, 0)}
+        if over:
+            raise AssertionError(f"{path}: a replay's device records exceed "
+                                 f"its graph's kernel nodes: {over}")
+        if most[0] == want:
+            ours = want
             break
-        log(f"  {path}: the port's kernels' records part, eager {ours}, "
-            f"replay {port_records(rec, port)}; both again")
+        launched = sum(n for k, n in eager_rec["host"].items()
+                       if k in KERNEL_LAUNCHES)
+        parted = {n: (most[0].get(n), want.get(n), most[1].get(n))
+                  for n in set(most[0]) | set(want)
+                  if most[0].get(n) != want.get(n)}
+        side = "graph nodes" if nodes is not None else "most records"
+        log(f"  {path}: the port's kernels part (eager's most records, the "
+            f"replay's {side}, its most records): {parted}; this "
+            f"session's eager kernel "
+            f"records {sum(eager_rec['kernels'].values())} of its {launched} "
+            f"launch calls, counted launches equal {eager_counts == counts}; "
+            f"both again after {pad + PROFILE_PAD} pad kernels")
     else:
-        raise AssertionError(f"{path}: the port's kernels' device records "
-                             f"differ between the eager call {ours} and a "
-                             f"replay {port_records(rec, port)}")
+        raise AssertionError(f"{path}: the port's kernels differ between "
+                             f"the eager call's records {most[0]} and the "
+                             f"replay's {want}")
     names = set(eager_rec["kernels"]) | set(rec["kernels"])
     apart = {n: (eager_rec["kernels"].get(n, 0), rec["kernels"].get(n, 0),
                  round(eager_rec["kernel_ms"].get(n, 0.0), 3),
                  round(rec["kernel_ms"].get(n, 0.0), 3))
-             for n in sorted(names) if n not in ours and (
+             for n in sorted(names) if not port.search(n) and (
                  eager_rec["kernels"].get(n, 0) != rec["kernels"].get(n, 0)
                  or abs(eager_rec["kernel_ms"].get(n, 0.0)
                         - rec["kernel_ms"].get(n, 0.0)) > 0.2)}
@@ -1564,20 +1733,23 @@ def replay_against_eager(torch, path: str, run, eager):
             f"{r['device_ms']:.3f} ms")
     log(f"  {path} eager kernel records against the host's kernel launch "
         f"calls: {sum(eager_rec['kernels'].values())} of {launched}")
-    short = {n: re.match(r"\w+(<[^()]*>)?",
-                         n[port.search(n).start(1):]).group(0) for n in ours}
-    log(f"  {path} the port's kernels, records in both: "
-        f"{ {short[n]: k for n, k in ours.items()} }")
+    log(f"  {path} the port's kernels, runs in both (eager records, replay "
+        f"{'graph nodes' if nodes is not None else 'records'}): {ours}; "
+        f"the replay's records {most[1]}")
     log(f"  {path} other kernels whose records or ms differ (eager, replay; "
         f"ms eager, replay): { {n[:90]: v for n, v in apart.items()} }")
-    if not ours:
+    if port_kernels and not ours:
         raise AssertionError(f"{path}: no kernel of the port ran")
+    if not (eager_rec["kernels"] and rec["kernels"]):
+        raise AssertionError(f"{path}: a profile recorded no kernel")
     if eager_counts != counts:
         raise AssertionError(f"{path}: a replay counted {counts}, the eager "
                              f"call {eager_counts}")
-    if not torch.equal(eager_out, out):
+    if not same_outputs(torch, eager_out, out):
         raise AssertionError(f"{path}: a replay's output is not the eager "
                              f"call's under the same seed")
+    if keep is not None:
+        keep.update(eager=eager_rec, replay=rec)
     return counts, out
 
 
@@ -1804,6 +1976,175 @@ def phase_graph(torch, model, args, path: str, bos: int, w8=None):
     return row
 
 
+# [graph-beam]'s settings: greedy (temperature 0, consolidation 0) and
+# bench.py's sampled beam (temperature 0.7, consolidation 1.0)
+BEAM_GRAPH_SETTINGS = (
+    ("greedy", dict(temperature=0.0, consolidation_temperature=0.0)),
+    ("sampled", {}))
+BEAM_EOS_AFTER = 8     # [graph-beam]'s early finish: EOS pushed from here
+
+
+def beam_runner(torch, model, frames, prompt, **kw):
+    """``run(use, setting, gen=None)``: one synchronised beam-search call
+    (``beam_generator``'s, batch of ``frames``) in a setting of
+    BEAM_GRAPH_SETTINGS, on the graph route or the eager one, its
+    generator seeded anew unless ``gen``: (ids, scores, rounds taken, the
+    rounds the route ran)."""
+    beams = {name: beam_generator(model, **(kw | settings))
+             for name, settings in BEAM_GRAPH_SETTINGS}
+
+    def run(use, setting="sampled", gen=None):
+        beam = beams[setting]
+        if gen is None:
+            gen = torch.Generator(device=model.device).manual_seed(GRAPH_SEED)
+        ids, scores = beam.caption(frames, prompt, gen, graphs=use)
+        torch.cuda.synchronize()
+        return ids, scores, int(beam.rounds_taken), beam.rounds
+    return run
+
+
+def beam_against_eager(torch, run, label: str, again: bool = True,
+                       settings=BEAM_GRAPH_SETTINGS) -> dict:
+    """E G G E (``again`` False: E G G) under one seed in each setting: the
+    first G captures where its key has no graph yet, the second replays;
+    every call's ids, scores and rounds taken must equal the first eager
+    call's, bit for bit.  Returns {setting: (first graphed call's s, the
+    rounds the eager call took)}."""
+    out = {}
+    for setting, _ in settings:
+        e1 = run(False, setting)
+        t0 = time.perf_counter()
+        g1 = run(True, setting)
+        first = time.perf_counter() - t0
+        g2 = run(True, setting)
+        calls = [g1, g2] + ([run(False, setting)] if again else [])
+        same = [same_outputs(torch, c[:2], e1[:2]) and c[2] == e1[2]
+                for c in calls]
+        log(f"  {label} {setting}: ids, scores and rounds taken equal to the "
+            f"first eager call's (graph, replay{', eager' if again else ''}):"
+            f" {same}; rounds taken {e1[2]} (eager ran {e1[3]}, the graph "
+            f"{g1[3]}); first graphed call {first * 1e3:.2f} ms")
+        if not all(same):
+            raise AssertionError(f"[graph-beam] {label} {setting}: the "
+                                 f"routes part: {same}")
+        out[setting] = (first, e1[2])
+    return out
+
+
+def beam_in_a_row(torch, run, label: str) -> None:
+    """Two sampled calls in a row from one generator on each route: equal
+    outputs, the two generators left in one state."""
+    dev = torch.device("cuda")
+    gens = {use: torch.Generator(device=dev).manual_seed(GRAPH_SEED + 1)
+            for use in (False, True)}
+    calls = {use: [run(use, gen=gens[use]) for _ in range(2)]
+             for use in (False, True)}
+    same = [same_outputs(torch, g[:2], e[:2]) and g[2] == e[2]
+            for e, g in zip(calls[False], calls[True])]
+    state = torch.equal(gens[False].get_state(), gens[True].get_state())
+    log(f"  {label}: two calls in a row from one generator on each route: "
+        f"outputs equal {same}, rounds taken "
+        f"{[c[2] for c in calls[False]]}, generators in one state {state}")
+    if not (all(same) and state):
+        raise AssertionError(f"[graph-beam] {label}: calls in a row part")
+
+
+def push_to_eos(torch, model, eos: int, after: int):
+    """A hook raising ``eos``'s logit by 1e3 at every decoder position from
+    ``space_for_prompt + after`` on (a Python offset: a capture records
+    it), so every beam ends in EOS near there; returns its handle."""
+    def hook(module, args, kwargs, out):
+        if kwargs.get("pos_offset", 0) < model.space_for_prompt + after:
+            return out
+        # a comparison with a Python int: no host-to-device copy
+        ids = torch.arange(out[0].shape[-1], device=out[0].device)
+        return out[0] + (ids == eos) * 1e3, out[1]
+    return model.decoder.register_forward_hook(hook, with_kwargs=True)
+
+
+def phase_graph_beam(torch, model, args, path: str, bos: int, w8=None):
+    """[graph-beam] on ``model`` at BEAM_BATCH: the route and its reason,
+    E G G E greedy and sampled (``beam_against_eager``), two calls in a row
+    (``beam_in_a_row``), each kernel of the port in a replay's device
+    records as often as in an eager call of its key
+    (``replay_against_eager``), both routes' walls (median of 3), device
+    busy ms and share (the profiled calls), a replay's host calls, the
+    pool; with ``w8`` (the flagship's W8A8 copy) E G G in int8 cross-KV
+    and W8A8 + int8 cross-KV, and the early finish (``push_to_eos``): E G
+    G E, the eager loop stopping, and two calls in a row."""
+    from image2text_torch.models import graphs
+
+    dev, b = model.device, BEAM_BATCH
+    frames, prompt = serving_inputs(torch, model, b, SEED + 12, bos)
+    route, why = graphs.graph_plan(model, dev, prompt_len=1,
+                                   max_new_tokens=MAX_NEW_TOKENS, beam=True)
+    log(f"  {path}: route {route} ({why}); {CARD}")
+    if route != "graph":
+        raise AssertionError(f"[graph-beam] {path}: the plan sends it "
+                             f"{route}")
+    graphs.release(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    run = beam_runner(torch, model, frames, prompt)
+    firsts = beam_against_eager(torch, run, path)
+    beam_in_a_row(torch, run, path)
+    rec = {}
+    replay_against_eager(torch, f"{path}_beam", lambda seed: run(True)[:2],
+                         lambda seed: run(False)[:2], keep=rec,
+                         graph=lambda: graphs.last_graph(model))
+    held = graphs.held_graphs(model)
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - reserved
+    row = {"first_graphed_ms": {k: round(v[0] * 1e3, 2)
+                                for k, v in firsts.items()},
+           "rounds_taken": {k: v[1] for k, v in firsts.items()},
+           "graphs_held": held, "pool_gib": round(pool / 2 ** 30, 3)}
+    for use, name, r in ((False, "eager", rec["eager"]),
+                         (True, "graph", rec["replay"])):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(use)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls) * 1e3
+        row[name] = dict(wall_ms=round(wall, 2),
+                         walls_ms=[round(x * 1e3, 2) for x in walls],
+                         busy_ms=round(r["device_ms"], 3),
+                         share=round(r["device_ms"] / wall, 3),
+                         host_calls=r["host"],
+                         device_kernels=sum(r["kernels"].values()))
+        log(f"  {path} beam {name}: wall a call {row[name]['wall_ms']} ms "
+            f"(walls {row[name]['walls_ms']}), device busy "
+            f"{row[name]['busy_ms']} ms (share {row[name]['share']}; one "
+            f"profiled call), host calls {r['host']}")
+    if row["graph"]["host_calls"].get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"[graph-beam] {path}: a replay is not one "
+                             f"graph launch: {row['graph']['host_calls']}")
+    if w8 is not None:
+        for mode, m in (("int8_kv", model), ("w8a8", w8)):
+            mode_run = beam_runner(torch, m, frames, prompt,
+                                   cross_kv_quant="int8")
+            row[f"first_graphed_ms_{mode}"] = {
+                k: round(v[0] * 1e3, 2) for k, v in beam_against_eager(
+                    torch, mode_run, f"{path} {mode}", again=False).items()}
+        graphs.release(model)
+        graphs.release(w8)
+        handle = push_to_eos(torch, model, FLAGSHIP_EOS, BEAM_EOS_AFTER)
+        try:
+            early = beam_against_eager(torch, run, f"{path} early finish")
+            beam_in_a_row(torch, run, f"{path} early finish")
+        finally:
+            handle.remove()
+            graphs.release(model)
+        row["early_rounds_taken"] = {k: v[1] for k, v in early.items()}
+        if max(row["early_rounds_taken"].values()) >= MAX_NEW_TOKENS - 1:
+            raise AssertionError(f"[graph-beam] {path}: no early finish")
+    graphs.release(model)
+    log(f"  [graph-beam] {path} " + json.dumps(row))
+    return row
+
+
 def phase_parity(torch, model, phase: str, bos: int,
                  sensitivity: bool = False):
     """At batch 8: the first-step logits (the prefill's last row) and the
@@ -1950,15 +2291,30 @@ def phase_beam(torch, model, args, results, path: str = "flagship_beam",
     median of 3 warm windows.  ``kw`` goes to the generator (a serving
     mode: ``cross_kv_quant``).  Returns the ids (b, beams, T) and the
     captions/s."""
+    from image2text_torch.models import graphs
+
     dev, b = model.device, BEAM_BATCH
     frames, prompt = serving_inputs(torch, model, b, SEED + 12,
                                     FLAGSHIP_BOS)
     beam = beam_generator(model, **kw)
     bw = beam.beam_width
+    route, why = graphs.graph_plan(model, dev, prompt_len=1,
+                                   max_new_tokens=MAX_NEW_TOKENS, beam=True)
+    log(f"  route: {route} ({why})")
 
-    def run(seed):
+    def run(seed, use=True):
         return beam.caption(frames, prompt,
-                            torch.Generator(device=dev).manual_seed(seed))
+                            torch.Generator(device=dev).manual_seed(seed),
+                            graphs=use)
+
+    def eager(seed):
+        out = run(seed, False)
+        if beam.rounds != MAX_NEW_TOKENS - 1:
+            raise AssertionError(
+                f"{path}: the eager call stopped after {beam.rounds} rounds; "
+                f"a replay's device records are held to one that ran all "
+                f"{MAX_NEW_TOKENS - 1}")
+        return out
 
     rounds = []
 
@@ -1969,7 +2325,9 @@ def phase_beam(torch, model, args, results, path: str = "flagship_beam",
     (ids, scores), rate = drive_serving(
         torch, args, results, path, run, b, want,
         f"one beam-search call (width {bw} x expansion "
-        f"{beam.beam_expansion_factor}: {bw * b} decode rows)")
+        f"{beam.beam_expansion_factor}: {bw * b} decode rows)",
+        eager=eager if route == "graph" else None,
+        graph=lambda: graphs.last_graph(model))
     vocab = vocab_rows(model)
     if (tuple(ids.shape) != (b, bw, MAX_NEW_TOKENS)
             or tuple(scores.shape) != (b, bw)
@@ -1978,7 +2336,8 @@ def phase_beam(torch, model, args, results, path: str = "flagship_beam",
             or not bool(torch.isfinite(scores).all())):
         raise AssertionError(f"beam: ids {tuple(ids.shape)} or scores "
                              f"{tuple(scores.shape)} malformed")
-    log(f"  rounds in the counted call: {rounds[0]}; sample beams: "
+    log(f"  rounds in the counted call: {rounds[0]} (taken before every "
+        f"beam was done: {int(beam.rounds_taken)}); sample beams: "
         f"{ids[0, :, :10].tolist()}, scores "
         f"{[round(float(s), 4) for s in scores[0]]}")
     return ids, rate
@@ -2016,7 +2375,7 @@ def phase_beam_parity(torch, model):
         beam._candidates = record
         with plain_versions() if plain else contextlib.nullcontext():
             counts, (ids, scores) = launch_counts(
-                lambda: beam.caption(frames, prompt))
+                lambda: beam.caption(frames, prompt, graphs=False))
         runs.append((ids, scores, rounds, sum(counts.values())))
     (ik, sk, rk, nk), (ip, _, rp, npl) = runs
     bs, t0 = ik.shape[0], prompt.shape[-1]
@@ -2175,7 +2534,7 @@ def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
     ``approx`` must equal ``exact`` token for token under the same
     generator (the port takes approx top-k as exact)."""
     from image2text_torch.models.generation import caption, generate
-    from image2text_torch.models.graphs import graph_plan
+    from image2text_torch.models.graphs import graph_plan, last_graph
     from image2text_torch.ops.functions import int8_mm
     from image2text_torch.ops.preprocess import resize_normalize_on_device
 
@@ -2212,16 +2571,18 @@ def phase_serve_modes(torch, model, w8, args, results, modes=SERVE_MODES,
                                   b, lambda: serving_launches(model),
                                   f"one caption call ({mode})",
                                   eager=(lambda seed, run=run: run(
-                                      seed, use=False)) if graphed else None)
+                                      seed, use=False)) if graphed else None,
+                                  graph=lambda m=m: last_graph(m))
         peak = torch.cuda.max_memory_allocated()
         # drive_serving's calls (6; 4 on the eager route), the greedy call
         # below, the profiled one
         calls = (6 if graphed else 4) + 1 + bool(args.profile)
         per_call = (int8_mm.launches - products) / calls
         counted[mode] = ids
+        # one call of this key: eager, a capture would not be replayed
         greedy[mode] = generate(m, images, prompt,
                                 max_new_tokens=MAX_NEW_TOKENS,
-                                temperature=0.0, **kw)
+                                temperature=0.0, graphs=False, **kw)
         got = mode_logits(torch, m, m.encoder(images), greedy["exact"],
                           quant)
         exact_logits = exact_logits or got
@@ -2442,7 +2803,7 @@ def phase_beam_modes(torch, model, w8, args, results):
                                     path=f"beam_{mode}", **kw)
         greedy = beam_generator(m, temperature=0.0,
                                 consolidation_temperature=0.0, **kw)
-        beams[mode] = greedy.caption(frames, prompt)[0]
+        beams[mode] = greedy.caption(frames, prompt, graphs=False)[0]
     for mode in ("int8_kv", "w8a8"):
         same = (beams[mode] == beams["exact"]).all(-1).all(-1)
         agree = float((beams[mode] == beams["exact"]).float().mean())
@@ -2492,7 +2853,7 @@ def phase_reforward_flagship(torch, model, results, b: int = 16):
     record_launches(results, "flagship_reforward", counts)
     want = reforward_launches(model, 1, MAX_NEW_TOKENS)
     cached = generate(model, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                      temperature=0.0)
+                      temperature=0.0, graphs=False)   # one call: eager
     agree = float((ids[:, 1:] == cached[:, 1:]).float().mean())
     log(f"  force_no_cache, batch {b}: launches {counts} (want {want}); "
         f"{wall * 1e3:.1f} ms a call; greedy ids equal to the cached "
@@ -3594,7 +3955,12 @@ def phase_offline_beam(torch):
     recorded; the rounds each sample's ids stayed equal, and where they
     part the margin (how far the CPU's logits put its choice ahead of the
     card's, beside the two paths' logit differences there); the round-0
-    logits held to the f32 kernels' relative L2 limit."""
+    logits held to the f32 kernels' relative L2 limit.  The recorded calls
+    run eagerly (a patched scorer); on the card the graph route then runs
+    the same call twice (a capture, a replay), each equal to the recorded
+    eager call in ids, scores and the rounds taken, which are logged
+    against the window's."""
+    from image2text_torch.models import graphs
     from image2text_torch.models.generation_utils import (
         BeamSearchTokenGenerator)
     from image2text_torch.utils import kernel_check
@@ -3619,8 +3985,26 @@ def phase_offline_beam(torch):
         beam._candidates = record
         prompt = torch.ones(1, 1, dtype=torch.long)
         with torch.no_grad():
-            ids, scores = beam(images, prompt)
+            ids, scores = beam(images, prompt, graphs=False)
         runs.append((ids.cpu(), scores.cpu(), rounds))
+        if device == "cuda":
+            del beam._candidates
+            taken = int(beam.rounds_taken)
+            same = []
+            for _ in range(2):
+                gids, gscores = beam(images, prompt)
+                same.append(torch.equal(gids, ids)
+                            and torch.equal(gscores, scores)
+                            and int(beam.rounds_taken) == taken)
+            log(f"  quality2_ck.npz greedy beam: {taken} rounds taken of "
+                f"the window's {MAX_NEW_TOKENS - 1} (eager); the graph "
+                f"route ({beam.rounds} rounds run), a capture and a replay, "
+                f"equal to the eager call in ids, scores and rounds taken: "
+                f"{same} ({CARD})")
+            graphs.release(model)
+            if not all(same):
+                raise AssertionError("offline-beam: the graph route parts "
+                                     "from the eager call")
     (ik, sk, rk), (ip, sp, rp) = runs
     equal_rounds, partings = [], []
     for s in range(ik.shape[0]):
@@ -3895,7 +4279,7 @@ def phase_nano_cpu(torch):
         want = prefill(cpu, cenc, prompt.cpu(),
                        1 + MAX_NEW_TOKENS)[0][:, -1].float()
         ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                       temperature=0.0)
+                       temperature=0.0, graphs=False)   # one call: eager
         cids = generate(cpu, images.cpu(), prompt.cpu(),
                         max_new_tokens=MAX_NEW_TOKENS, temperature=0.0)
         flips, margin = 0, 0.0
@@ -3971,6 +4355,9 @@ def phase_nano(torch, args, results):
             log(f"[graph] nano-mini's caption call, graph against eager "
                 f"({CARD})")
             phase_graph(torch, model, args, "nano-mini", NANO_BOS)
+            log(f"[graph-beam] nano-mini's beam search, graph against eager "
+                f"({CARD})")
+            phase_graph_beam(torch, model, args, "nano-mini", NANO_BOS)
             log("[nano-mini-parity] kernel path vs plain-version path at "
                 "full width")
             phase_parity(torch, model, "nano-mini-parity", NANO_BOS)
@@ -4135,9 +4522,12 @@ def phase_hf(torch, args, results):
     precision, optimizer and accumulation) and its trained model then, in
     its precision's dtype, serving at batch 256: [llama13b], [falcon7b],
     [qwen], [llama7b], [gpt2xl] (the serving path as [main] with launches
-    held to serving_launches, peak memory; the kernel path against the
-    plain-version path where the model launches a kernel); then
-    [hf-cpu]."""
+    held to serving_launches, on the graph route with a replay held to an
+    eager call, the pool and an eager call's wall, peak memory; the kernel
+    path against the plain-version path where the model launches a
+    kernel); then [hf-cpu]."""
+    from image2text_torch.models import graphs
+
     for name in ("llama13b", "falcon7b", "qwen", "llama7b", "gpt2xl"):
         with torch.enable_grad():
             model = phase_train_family(torch, args, results, name)
@@ -4154,7 +4544,7 @@ def phase_hf(torch, args, results):
             f"depth ({CARD})")
         torch.cuda.reset_peak_memory_stats()
         phase_serve(torch, model, args, results, f"{name}_caption",
-                    HF_BOS[name])
+                    HF_BOS[name], eager_wall=True)
         log(f"  peak device memory over the serving calls "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
             f"(resident {resident / 2 ** 30:.2f} GiB)")
@@ -4163,6 +4553,7 @@ def phase_hf(torch, args, results):
                 "width")
             phase_parity(torch, model, f"{name}-parity", HF_BOS[name],
                          sensitivity=True)
+        graphs.release(model)   # before the next family builds
         del model
         torch.cuda.empty_cache()
     log(f"[hf-cpu] each family at depth {HF_CPU_DEPTH}, card against a CPU "
@@ -4201,7 +4592,8 @@ def card_against_cpu(torch, m, label: str, bos: int, tol: float,
     parting = None
     if ids_equal:
         ids = generate(m, images, prompt, max_new_tokens=MAX_NEW_TOKENS,
-                       temperature=0.0, encoder_output=enc)
+                       temperature=0.0, encoder_output=enc,
+                       graphs=False)   # one call of its key: eager
         cids = generate(cpu, images.cpu(), prompt.cpu(),
                         max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
                         encoder_output=cenc)
@@ -5244,7 +5636,7 @@ def phase_dist_tp(torch):
 # -- the int4 + LoRA model split, LoRA on the ViT and the scratch decoder,
 # MoE gates of other depths -------------------------------------------------
 
-INT4_TP_DEPTH = 4       # llama2-13b.yaml's 40 layers cut for time (PERF.md)
+INT4_TP_DEPTH = 3       # llama2-13b.yaml's 40 layers cut for time (PERF.md)
 INT4_TP_SHALLOW = 2     # the bf16 kernel run held to one device exactly
 INT4_TP_BATCH = 8       # its training batch (accumulation 2 cut to 1)
 INT4_TP_NEW = 8         # new tokens of the greedy and beam calls
@@ -5524,7 +5916,7 @@ def phase_lora(torch, args, results, phase: str):
         t0 = time.perf_counter()
         counts, ids = launch_counts(lambda: caption(
             model, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
-            temperature=0.0, top_k=None))
+            temperature=0.0, top_k=None, graphs=False))   # one call: eager
         ms = (time.perf_counter() - t0) * 1e3
     record_launches(results, f"{phase.replace('-', '_')}_caption", counts)
     want = serving_launches(model)
@@ -5655,7 +6047,7 @@ def phase_moe_gates(torch, results):
                                         FLAGSHIP_BOS)
         counts, ids = launch_counts(lambda: caption(
             m, frames, prompt, max_new_tokens=MAX_NEW_TOKENS,
-            temperature=0.0, top_k=None))
+            temperature=0.0, top_k=None, graphs=False))   # one call: eager
         vocab = vocab_rows(m)
         ok_ids = bool(((ids >= 0) & (ids < vocab)).all())
         log(f"  gates {gates} ({depth} + {depth} layers, bf16): caption "
@@ -5842,6 +6234,10 @@ def main() -> int:
             f"graph against the eager route, then the five serving modes "
             f"({CARD})")
         phase_graph(torch, model, args, "flagship", FLAGSHIP_BOS, w8)
+        log(f"[graph-beam] the flagship's beam search as one captured CUDA "
+            f"graph against the eager route, its int8 modes, an early "
+            f"finish ({CARD})")
+        phase_graph_beam(torch, model, args, "flagship", FLAGSHIP_BOS, w8)
         phase_encoder_w8a8(torch, w8, results)
         log("  the W8A8 product at the flagship's shapes, card against CPU")
         phase_int8_products(torch, w8)
@@ -5873,6 +6269,9 @@ def main() -> int:
         log(f"[graph] the dense twin's caption call, graph against eager "
             f"({CARD})")
         phase_graph(torch, model, args, "dense", FLAGSHIP_BOS)
+        log(f"[graph-beam] the dense twin's beam search, graph against "
+            f"eager ({CARD})")
+        phase_graph_beam(torch, model, args, "dense", FLAGSHIP_BOS)
         log("[dense-parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model, "dense-parity", FLAGSHIP_BOS)
     del model
@@ -5933,6 +6332,10 @@ def main() -> int:
         phase_serve(torch, model, args, results, "gpt2m_caption", GPT2M_EOS)
         log("[gpt2m-parity] kernel path vs plain-version path at full width")
         phase_parity(torch, model, "gpt2m-parity", GPT2M_EOS)
+        log(f"[graph] GPT-2-medium's caption call (int4 + LoRA, an HF "
+            f"decoder) as one captured CUDA graph against the eager route "
+            f"(its int8 mode: [gpt2m-int8]'s replay against eager) ({CARD})")
+        phase_graph(torch, model, args, "gpt2m", GPT2M_EOS)
         log("[gpt2m-int8] GPT-2-medium with int8 cross-KV and W8A8 float "
             "weights (the tied table and its lm_head, wpe, the cross "
             "q_attn and c_proj; the int4 Linears stay int4)")

@@ -29,6 +29,7 @@ class KVCache:
     def __init__(self, layers: List[Tuple[torch.Tensor, torch.Tensor]]):
         self.layers = layers
         self.index = [0] * len(layers)
+        self._spare: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 
     @staticmethod
     def create(layer_shapes, dtype=torch.float32, device=None) -> "KVCache":
@@ -39,11 +40,18 @@ class KVCache:
 
     def gather_batch(self, order: torch.Tensor) -> "KVCache":
         """Reorder the batch axis of every layer's buffers (beam-search
-        consolidation): new row i is old row ``order[i]``.  The buffers
-        are replaced by their gathered copies; fill indices are
-        unchanged."""
-        self.layers = [(k.index_select(0, order), v.index_select(0, order))
-                       for k, v in self.layers]
+        consolidation): new row i is old row ``order[i]``.  The rows are
+        gathered into a second set of buffers, made at the first gather
+        and kept, and the two sets swap, so a call's rounds allocate
+        nothing past their first (a captured beam call's pool does not
+        grow with its rounds); fill indices are unchanged."""
+        if self._spare is None:
+            self._spare = [(torch.empty_like(k), torch.empty_like(v))
+                           for k, v in self.layers]
+        for (k, v), (k2, v2) in zip(self.layers, self._spare):
+            torch.index_select(k, 0, order, out=k2)
+            torch.index_select(v, 0, order, out=v2)
+        self.layers, self._spare = self._spare, self.layers
         return self
 
 

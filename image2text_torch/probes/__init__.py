@@ -28,12 +28,18 @@ def time_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+PAD = 1000   # torch.cuda._sleep launches that open a profiler session
+
+
 def device_kernels(fn, iters: int = 20) -> dict:
     """``{kernel name: (ms, launches)}`` of one ``fn()``: the device time
     and the number of launches that torch.profiler records of each kernel
     over ``iters`` calls after warm-up, divided by ``iters``.  Free of the
     host's launch overhead, which :func:`time_ms` includes wherever it
-    exceeds the kernels' time."""
+    exceeds the kernels' time.  The session opens with :data:`PAD`
+    launches of torch's ``spin_kernel``, left out of the result: a session
+    on the H100's machine drops records at its start (every kernel of a
+    short call, in some sessions), and the pad takes those places."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -41,12 +47,15 @@ def device_kernels(fn, iters: int = 20) -> dict:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD):
+            torch.cuda._sleep(1)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     return {e.key: (e.device_time_total / iters / 1e3, e.count / iters)
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key}
 
 
 def device_kernel_ms(fn, iters: int = 20) -> dict:

@@ -32,7 +32,11 @@ CPU's exact one, and the serving modes' launch counts.  The caption call's
 graph route (``models/graphs.py``): a replayed call's ids bit for bit the
 eager route's, greedy and sampled, through a run of calls on one
 generator; a weight written in place captures anew; a replay adds the
-launch counts of one eager call.
+launch counts of one eager call.  Beam search's graph route: ids, scores
+and rounds taken bit for bit the eager route's, every beam finishing
+early included, a generator's state after calls in a row alike; the HF
+decoders' caption and beam calls (the tiny GPT-2-medium, the f32 tiny
+Llama-2-7B form) on the graph route.
 """
 import pytest
 import torch
@@ -302,6 +306,137 @@ def test_graphed_caption_call_holds_the_cached_operands_it_reads(dev):
     del junk
     assert torch.equal(call(True), want)
     assert graphs.held_graphs(model) == 1
+
+
+def _eos_hook(model, eos: int, after: int):
+    """A hook raising ``eos``'s logit far above the rest at every decoder
+    position from ``space_for_prompt + after`` on (a Python offset, so a
+    capture records it): every beam ends in EOS a few rounds in."""
+    def hook(module, args, kwargs, out):
+        if kwargs.get("pos_offset", 0) < model.space_for_prompt + after:
+            return out
+        # a comparison with a Python int: no host-to-device copy
+        ids = torch.arange(out[0].shape[-1], device=out[0].device)
+        return out[0] + (ids == eos) * 1e3, out[1]
+    return model.decoder.register_forward_hook(hook, with_kwargs=True)
+
+
+def _beam_routes(model, dev, images, prompt, wrappers, **kw):
+    """``call(use, gen)``: one synchronised beam call on the graph route
+    (``use``) or the eager one: (ids, scores, rounds taken, the counted
+    wrappers' launches over it)."""
+    from image2text_torch.models.generation_utils import (
+        BeamSearchTokenGenerator)
+
+    beam = BeamSearchTokenGenerator(
+        model, **(dict(beam_width=3, beam_expansion_factor=4, top_k=16,
+                       max_new_tokens=8, no_repeat_n_grams=(2, 3, 4, 5),
+                       eos_token_id=0) | kw))
+
+    def call(use, gen):
+        before = [w.launches for w in wrappers]
+        ids, scores = beam(images, prompt, generator=gen, graphs=use)
+        torch.cuda.synchronize()
+        return (ids, scores, int(beam.rounds_taken),
+                [w.launches - n for w, n in zip(wrappers, before)])
+    return beam, call
+
+
+@pytest.mark.cuda
+def test_graphed_beam_call_equals_eager_and_counts_launches(dev):
+    """The tiny flagship's beam search on the graph route: the capturing
+    call and a replay give the eager route's ids, scores and rounds taken
+    bit for bit (greedy, sampled, int8 cross-KV), and a replay adds what
+    an eager call that ran every round counts; every beam finishing early
+    (EOS pushed by a hook): the same outputs, the eager loop stopping;
+    two calls in a row from one generator on each route equal, the
+    generators left in one state."""
+    from image2text_torch.models import graphs
+
+    model = VisionEncoderDecoder(flagship_config(tiny=True), device=dev
+                                 ).init_weights(0).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.ones(4, 1, dtype=torch.long, device=dev)
+    assert graphs.graph_plan(model, dev, prompt_len=1, max_new_tokens=8,
+                             beam=True)[0] == "graph"
+    wrappers = graphs.counted_wrappers()
+    for kw in (dict(temperature=0.0, consolidation_temperature=0.0),
+               dict(temperature=0.7), dict(temperature=0.7,
+                                           cross_kv_quant="int8")):
+        beam, call = _beam_routes(model, dev, images, prompt, wrappers, **kw)
+        want = call(False, _gen(dev, 5))
+        assert beam.rounds == 7 and want[2] == 7 and sum(want[3]) > 0
+        for _ in range(2):     # the capturing call, then a replay
+            got = call(True, _gen(dev, 5))
+            assert beam.rounds == 7
+            assert (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]))
+            assert got[2:] == want[2:]
+    assert graphs.held_graphs(model) == 3
+    handle = _eos_hook(model, 0, 3)
+    try:
+        graphs.release(model)
+        beam, call = _beam_routes(model, dev, images, prompt, wrappers,
+                                  temperature=0.7, length_boost=1.5)
+        g_eager, g_graph = _gen(dev, 6), _gen(dev, 6)
+        for _ in range(3):     # capture, then replays
+            want = call(False, g_eager)
+            assert beam.rounds < 7 and want[2] == beam.rounds
+            got = call(True, g_graph)
+            assert (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]) and got[2] == want[2])
+        assert bool((want[0][:, :, -1] == 0).all())
+        assert torch.equal(g_eager.get_state(), g_graph.get_state())
+    finally:
+        handle.remove()
+        graphs.release(model)
+
+
+@pytest.mark.cuda
+def test_graphed_hf_calls_equal_eager(dev, monkeypatch):
+    """The tiny int4 + LoRA GPT-2-medium (bf16) on the graph route: a
+    caption call and a beam-search call, each captured then replayed,
+    equal to the eager route's bit for bit with the same launch counts;
+    the tiny f32 Llama-2-7B form's greedy caption too (cuBLAS products
+    under capture)."""
+    from image2text_torch.models import graphs
+
+    model = _tiny_gpt2m(dev, monkeypatch).to(torch.bfloat16).eval()
+    images = torch.randn(4, 3, 64, 64, device=dev, generator=_gen(dev, 4)
+                         ).to(torch.bfloat16)
+    prompt = torch.full((4, 1), 50256, dtype=torch.long, device=dev)
+    assert graphs.graph_plan(model, dev, prompt_len=1,
+                             max_new_tokens=8)[0] == "graph"
+    wrappers = graphs.counted_wrappers()
+
+    def caption(m, use, x, p, temperature=0.7):
+        before = [w.launches for w in wrappers]
+        ids = m.generate(x, p, max_new_tokens=8, temperature=temperature,
+                         top_k=16, generator=_gen(dev, 5), graphs=use)
+        torch.cuda.synchronize()
+        return ids, [w.launches - n for w, n in zip(wrappers, before)]
+
+    want = caption(model, False, images, prompt)
+    assert sum(want[1]) > 0
+    for _ in range(2):
+        got = caption(model, True, images, prompt)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    beam, call = _beam_routes(model, dev, images, prompt, wrappers,
+                              temperature=0.7, eos_token_id=None)
+    want = call(False, _gen(dev, 6))
+    for _ in range(2):
+        got = call(True, _gen(dev, 6))
+        assert (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and got[2:] == want[2:])
+    assert graphs.held_graphs(model) == 2
+    llama = _hf_tiny("llama", dev, monkeypatch, int4=False).init_weights(
+        0).eval()
+    x = torch.randn(2, 3, 32, 32, generator=_gen(dev), device=dev)
+    p = torch.ones(2, 1, dtype=torch.long, device=dev)
+    want = caption(llama, False, x, p, 0.0)[0]
+    assert torch.equal(caption(llama, True, x, p, 0.0)[0], want)
+    assert torch.equal(caption(llama, True, x, p, 0.0)[0], want)
 
 
 def _soft_prompt_bias(s, n_prefix, dev):

@@ -1,11 +1,13 @@
-"""The graph route of the port's caption call (``models/graphs.py``) on the
-CPU: the route plan as a table over the families, branches and serving
-modes; the key of a captured call; the generator hand-off; and the
-captured function (``generation.cached_call`` over one set of static
-buffers) run eagerly twice in a row, each call's greedy tokens those of
-the JAX package's ``generate`` at the tiny flagship and its dense twin
-(f32, JAX at full matmul precision, inputs from numpy seeds).  Capture
-and replay themselves need the card (``tests/test_torch_cuda.py``)."""
+"""The graph route of the port's caption and beam-search calls
+(``models/graphs.py``) on the CPU: the route plan as a table over the
+families, branches, serving modes and both kinds of call; the key of a
+captured call; the generator hand-off; and the captured function
+(``generation.cached_call`` over one set of static buffers) run eagerly
+twice in a row, each call's greedy tokens those of the JAX package's
+``generate`` at the tiny flagship and its dense twin (f32, JAX at full
+matmul precision, inputs from numpy seeds).  The beam function:
+``tests/test_torch_beam_graph.py``.  Capture and replay themselves need
+the card (``tests/test_torch_cuda.py``)."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -36,6 +38,7 @@ import torch_nano_pairs
 
 CUDA = torch.device("cuda")
 CALL = dict(prompt_len=1, max_new_tokens=8)
+BEAM = dict(beam=True)
 
 
 @pytest.fixture(autouse=True)
@@ -78,11 +81,10 @@ def _gpt2_medium():
                                     device="cpu")
 
 
-def _falcon():
+def _hf(name):
     with torch_hf_pairs.patched():
         cfg = torch_hf_pairs.cut(
-            load_training_config(torch_hf_pairs.CONFIGS["falcon7b"]),
-            "falcon7b")
+            load_training_config(torch_hf_pairs.CONFIGS[name]), name)
         return VisionEncoderDecoder(cfg, device="cpu")
 
 
@@ -103,7 +105,9 @@ BUILDERS = {
     "flagship": _flagship, "dense": lambda: VisionEncoderDecoder(
         tcm.flagship_dense_config(tiny=True), device="cpu"),
     "nano-mini": lambda: _nano("nano-mini"), "nano": lambda: _nano("nano"),
-    "gpt2-medium": _gpt2_medium, "falcon7b": _falcon, "split": _split,
+    "gpt2-medium": _gpt2_medium, "split": _split,
+    **{name: (lambda name=name: _hf(name)) for name in (
+        "falcon7b", "llama13b", "llama7b", "qwen", "gpt2xl")},
     "no-prefix": lambda: _flagship(_no_prefix),
     "bidirectional": lambda: _flagship(_bidirectional), "w8a8": _w8a8,
 }
@@ -113,8 +117,14 @@ PLAN = [
     ("flagship", "flagship", CUDA, {}, "graph", "scratch decoder"),
     ("dense", "dense", CUDA, {}, "graph", "scratch decoder"),
     ("nano-mini", "nano-mini", CUDA, {}, "graph", "scratch decoder"),
-    ("gpt2-medium", "gpt2-medium", CUDA, {}, "eager", "HF decoders"),
-    ("hf-falcon", "falcon7b", CUDA, {}, "eager", "HF decoders"),
+    # the HF decoders (prefix in the decode cache) since beam search and
+    # they became graphs; each family's form
+    ("gpt2-medium", "gpt2-medium", CUDA, {}, "graph", "HF decoder"),
+    ("hf-falcon", "falcon7b", CUDA, {}, "graph", "HF decoder"),
+    ("hf-llama13b", "llama13b", CUDA, {}, "graph", "HF decoder"),
+    ("hf-llama7b", "llama7b", CUDA, {}, "graph", "HF decoder"),
+    ("hf-qwen", "qwen", CUDA, {}, "graph", "HF decoder"),
+    ("hf-gpt2xl", "gpt2xl", CUDA, {}, "graph", "HF decoder"),
     ("nano", "nano", CUDA, {}, "eager", "multi-head"),
     ("model-split", "split", CUDA, {}, "eager", "model split"),
     ("fallback-window", "no-prefix", CUDA, {}, "eager", "bypass rule"),
@@ -132,6 +142,28 @@ PLAN = [
     ("mode-approx", "flagship", CUDA, {}, "graph", "scratch decoder"),
     ("mode-w8a8", "w8a8", CUDA, {}, "graph", "scratch decoder"),
     ("mode-all", "w8a8", CUDA, {}, "graph", "scratch decoder"),
+    # beam search: the same tests in the same order, its window one id
+    # shorter; its serving modes (exact, int8 cross-KV, W8A8 + int8
+    # cross-KV) as the sampler's
+    ("beam-flagship", "flagship", CUDA, BEAM, "graph", "scratch decoder"),
+    ("beam-dense", "dense", CUDA, BEAM, "graph", "scratch decoder"),
+    ("beam-nano-mini", "nano-mini", CUDA, BEAM, "graph", "scratch decoder"),
+    ("beam-w8a8", "w8a8", CUDA, BEAM, "graph", "scratch decoder"),
+    ("beam-gpt2-medium", "gpt2-medium", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-falcon", "falcon7b", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-llama13b", "llama13b", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-llama7b", "llama7b", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-qwen", "qwen", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-gpt2xl", "gpt2xl", CUDA, BEAM, "graph", "HF decoder"),
+    ("beam-nano", "nano", CUDA, BEAM, "eager", "multi-head"),
+    ("beam-model-split", "split", CUDA, BEAM, "eager", "model split"),
+    ("beam-fallback-window", "no-prefix", CUDA, BEAM, "eager",
+     "bypass rule"),
+    ("beam-bidirectional", "bidirectional", CUDA, BEAM, "eager",
+     "bidirectional"),
+    ("beam-cpu", "flagship", torch.device("cpu"), BEAM, "eager", "CPU"),
+    ("beam-graphs-false", "flagship", CUDA, dict(BEAM, graphs=False),
+     "eager", "graphs=False"),
 ]
 
 
